@@ -1,0 +1,75 @@
+"""Builds a CUDA source under `lushnerf_torch/csrc/` with nvcc and loads it
+with ctypes.
+
+`csrc/<name>.cu` becomes `build/lushnerf_torch/lib<name>-<digest>.so` at
+the repository root, compiled for Hopper (`sm_90a`) at first use; the
+digest covers the source and the flags, so an edited source is rebuilt.
+The sources have a plain C interface and include no PyTorch header, so a
+build takes seconds.  Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Tuple
+
+CSRC = Path(__file__).resolve().parents[2] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "lushnerf_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home and (Path(home) / "bin" / "nvcc").exists():
+        return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def _target(name: str) -> Tuple[Path, Path]:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return src, BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build(name: str) -> str:
+    """Compiles csrc/<name>.cu unless its current build exists.  Returns
+    nvcc's output (register and shared-memory use); raises with it if nvcc
+    fails."""
+    src, out = _target(name)
+    if out.exists():
+        return "(up to date)"
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                          capture_output=True, text=True)
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}:\n{log}")
+    os.replace(tmp, out)
+    return log
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for csrc/<name>.cu, built first if needed."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        build(name)
+        lib = ctypes.CDLL(str(_target(name)[1]))
+        _LIBS[name] = lib
+    return lib

@@ -6,25 +6,50 @@
 Phases, in order (any failure makes the exit code non-zero and suppresses
 the final result line):
   1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
-  2. build: the fused NeRF-MLP kernel's CUDA source with nvcc for sm_90a;
-  3. kernel: the fused NeRF-MLP kernel against its plain PyTorch version at
-     width 256 / depth 8, at the flagship point counts 5120x64 and 5120x128
-     (forward_kernel), 4096x64 and 4096x128 (a render_image chunk) and at
-     a ragged count; median kernel and plain times from CUDA events.
-     f32: rtol 1e-4, atol 1e-5.  bf16: rtol 1e-3, atol 1e-3 on each value
-     (the same bf16 roundings, but sums in another order move some
+  2. build: both CUDA sources (nerf_mlp_fwd.cu, nerf_mlp_bwd.cu) with nvcc
+     for sm_90a, side by side, printing registers and spills;
+  3. kernel: the fused NeRF-MLP forward kernel against its plain PyTorch
+     version at width 256 / depth 8, at the flagship point counts 5120x64
+     and 5120x128 (forward_kernel), 4096x64 and 4096x128 (a render_image
+     chunk) and at a ragged count; median kernel and plain times from CUDA
+     events.  f32: rtol 1e-4, atol 1e-5.  bf16: rtol 1e-3, atol 1e-3 on each
+     value (the same bf16 roundings, but sums in another order move some
      activations to the neighbouring bf16 value), and a mean error at most
      a tenth of the mean gap between the plain version in f32 and in bf16,
      so that a kernel that skipped the bf16 rounding would fail;
-  4. forward_kernel: the flagship config (29 images, 1024 rays x 5
+  4. kernel_bwd: the forward kernel with its activation stash (K1), the
+     stash backward (K2) and the remat backward (K3) against
+     nerf_mlp_fwd_plain / nerf_mlp_bwd_plain at the flagship P and a ragged
+     P, f32 and bf16: the stash launch's output as phase 3 holds it; its
+     stash block by block within STASH_TOL (in bf16 also a mean error at
+     most a tenth of the plain f32-vs-bf16 stash gap); d(xd) and the grads
+     of all 24 parameters from K2 on the kernel's stash and on the plain
+     forward's stash, each tensor's max error over its max magnitude within
+     BWD_TOL, in bf16 also each tensor's mean error at most a tenth of the
+     plain f32-vs-bf16 mean gap; a second run gives the same bits; K2 and
+     K3 agree to the bit;
+  5. forward_kernel: the flagship config (29 images, 1024 rays x 5
      sub-rays, 400x400, focal 320) -- finite outputs, exactly 2 kernel
      launches per call, agreement with the plain-torch backend on the
-     same random draws, and the time per call of both backends;
-  5. render_image: one 400x400 view at ray_chunk 4096 (40 chunks, 80
+     same random draws, and the time per call of both backends over a
+     window of back-to-back calls with one synchronize at its end (as every
+     host-clock metric here; the median, min and max of calls synchronised
+     one by one are printed beside it);
+  6. render_image: one 400x400 view at ray_chunk 4096 (40 chunks, 80
      launches), compared with and timed against the same render through
      mlp_backend='torch';
-  6. profile: a torch.profiler trace of forward_kernel and render_image:
-     device time by kernel and the device's busy share.
+  7. train_step: the flagship train step (Adam, lrate 5e-4) in stages
+     kernel (with fq_mask), allkernel and naive, one step each, with the
+     launches and parameter packings per step counted; 20 kernel steps on a
+     fixed batch and fixed draws, whose loss must fall; ms/step (a window
+     of 10), rays/s and peak memory for cuda bf16 stash, cuda bf16 remat and
+     torch f32; one step's grads through the kernels in bf16 and in f32
+     against the torch f32 backend (cosine of each parameter's grad >=
+     GRAD_COS_MIN), and the control that the bound rejects: the bf16 path
+     fed a stash with one block shifted by a column; after the steps the
+     forward kernel still matches its plain version (no stale weight pack);
+  8. profile: a torch.profiler trace of forward_kernel, render_image and one
+     train step: device time by kernel and the device's busy share.
 Then a `{"kernels": [...]}` line and, last, the `{"ok": true, ...}` line.
 It needs the repository checkout: run alone it exits non-zero.
 """
@@ -32,6 +57,7 @@ It needs the repository checkout: run alone it exits non-zero.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -53,6 +79,24 @@ PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 MLP_MACS = 593_408  # per point, unpadded scene MLP (PE excluded)
 KERNEL_TOL = {"float32": dict(rtol=1e-4, atol=1e-5), "bfloat16": dict(rtol=1e-3, atol=1e-3)}
 BF16_MEAN_ERR_SHARE = 0.1  # of the plain version's mean f32-vs-bf16 gap
+# backward kernels vs nerf_mlp_bwd_plain on the same stash: max |error| of
+# each grad tensor over its max |value|.  f32: the sums over P points run in
+# another order (per-tile mma/FMA sums, 32 point splits, then the splits);
+# bf16: besides, each d_z is rounded to bf16 after a sum in another order,
+# so some roundings land on the neighbouring bf16 value (2^-8 relative).
+BWD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+# the forward's stash vs the plain version's, max |error| of each block over
+# its max |value|.  f32: sums in another order; bf16: such a sum sends some
+# values to the neighbouring bf16 value, one step of at most 2^-7 of it
+STASH_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
+MLP_WIDTH = 256
+# train step grads against the torch f32 backend on the same draws, the
+# cosine of each parameter's grad: the kernel path in f32 repeats torch's
+# function with sums in another order; in bf16 the RBK's composite-weight
+# branch moves most, as its grad is built from differences between the
+# sub-rays' colours, which the bf16 rounding perturbs by a like amount
+GRAD_COS_MIN = {"float32": 0.9999, "bfloat16": 0.9}
+SHAPES_BWD = {"coarse": 5120 * 64, "fine": 5120 * 128, "ragged": 4096 * 64 + 37}
 
 
 def card_line() -> str:
@@ -79,19 +123,51 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return float(np.median(times))
 
 
-def wall_ms(fn, n: int) -> float:
-    """Host-clock ms per call over n synchronised calls of fn."""
+def window_ms(fn, n: int):
+    """Host-clock ms per call over a window of n calls of fn, back to back
+    with one synchronize() at the end, as a training loop runs them: (ms
+    per call, the last call's result).  The end-to-end metric."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(n):
-        fn()
+        out = fn()
     torch.cuda.synchronize()
-    return (time.perf_counter() - t0) * 1e3 / n
+    return (time.perf_counter() - t0) * 1e3 / n, out
 
 
-def bound_ms(P: int, w_bytes: int, bf16: bool) -> tuple:
-    flops = 2.0 * MLP_MACS * P
-    nbytes = P * (8 * 4 + 4 * 4) + w_bytes  # xd in, raw out, params once
+def per_call_ms(fn, n: int) -> dict:
+    """A diagnostic beside window_ms: host-clock ms of n more calls, each
+    ended by a synchronize(), as their median, min and max."""
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return {"median": float(np.median(times)), "min": min(times), "max": max(times)}
+
+
+# the launch counters of lushnerf_torch.ops.fused.nerf_mlp, by kernel
+COUNTERS = {"nerf_mlp_fwd": "launches", "nerf_mlp_bwd_stash": "launches_bwd_stash",
+            "nerf_mlp_bwd_remat": "launches_bwd_remat"}
+
+
+def zero_counts(fused) -> None:
+    for attr in (*COUNTERS.values(), "packs"):
+        setattr(fused, attr, 0)
+
+
+def read_counts(fused) -> dict:
+    return {name: getattr(fused, attr) for name, attr in COUNTERS.items()}
+
+
+def bound_ms(P: int, w_bytes: int, bf16: bool, passes: int = 1, point_bytes: int = 48) -> tuple:
+    """The least time for `passes` x 2 x MLP_MACS FLOP per point and
+    point_bytes per point + w_bytes of traffic (each input read once, each
+    output written once)."""
+    flops = 2.0 * MLP_MACS * P * passes
+    nbytes = P * point_bytes + w_bytes
     t_ops = flops / (PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS) * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
@@ -151,14 +227,163 @@ def kernel_phase(fused, NeRFMLP, MLPConfig):
                 row["within_tol"] &= (row["mean_abs_err"]
                                       <= BF16_MEAN_ERR_SHARE * row["plain_f32_vs_bf16_mean_gap"])
             if label != "ragged":
-                row["ms"] = time_ms(lambda: fused.nerf_mlp_fwd(mlp, xd, dtype), 20)
-                row["plain_ms"] = time_ms(lambda: fused.nerf_mlp_fwd_plain(mlp, xd, dtype), 5, 1)
+                row["ms"] = time_ms(lambda: fused.nerf_mlp_fwd(mlp, xd, dtype), 10)
+                row["plain_ms"] = time_ms(lambda: fused.nerf_mlp_fwd_plain(mlp, xd, dtype), 3, 1)
                 row["bound_ms"], row["bound_by"] = bound_ms(P, w_bytes, dtype == "bfloat16")
                 row["tflops"] = 2.0 * MLP_MACS * P / row["ms"] / 1e9
             print("  " + json.dumps(row), flush=True)
             rows.append(row)
             if not (row["finite"] and row["within_tol"]):
                 raise AssertionError(f"kernel disagrees with plain version: {row}")
+    return rows
+
+
+def flat_grads(res):
+    """(d_xd, [grads]) -> [d_xd, *grads]"""
+    return [res[0]] + list(res[1])
+
+
+def held_fwd(out_k, out_p, out_f, dtype) -> dict:
+    """The stash launch's raw output against the plain version's, as the
+    kernel phase holds it: KERNEL_TOL per value, and in bf16 the mean error
+    at most BF16_MEAN_ERR_SHARE of the plain f32-vs-bf16 mean gap (out_f is
+    the plain version in f32)."""
+    err = (out_k - out_p).abs()
+    tol = KERNEL_TOL[dtype]
+    r = {"fwd_out_max_abs_err": err.max().item(), "finite": bool(torch.isfinite(out_k).all())}
+    ok = (err - tol["atol"] - tol["rtol"] * out_p.abs()).max().item() <= 0
+    if out_f is not None:
+        r["fwd_out_mean_err_over_f32_gap"] = err.mean().item() / (out_f - out_p).abs().mean().item()
+        ok &= r["fwd_out_mean_err_over_f32_gap"] <= BF16_MEAN_ERR_SHARE
+    r["fwd_out_within_tol"] = ok
+    return r
+
+
+def held_stash(acts_k, acts_p, acts_f, dtype) -> dict:
+    """The kernel's stash against the plain version's, block by block
+    (a0..a7, feat, hv): max |error| over the block's max |value| within
+    STASH_TOL, and in bf16 the mean |error| at most BF16_MEAN_ERR_SHARE of
+    the mean gap between the plain stash in f32 (acts_f) and in bf16, so
+    that a store which skipped or truncated the bf16 rounding would fail."""
+    blocks = [(l * MLP_WIDTH, (l + 1) * MLP_WIDTH) for l in range(9)]
+    blocks.append((9 * MLP_WIDTH, acts_k.shape[1]))
+    rel, ratio = [], []
+    for b0, b1 in blocks:
+        k, p = acts_k[:, b0:b1].float(), acts_p[:, b0:b1].float()
+        err = (k - p).abs()
+        rel.append((err.max() / p.abs().max().clamp_min(1e-30)).item())
+        if acts_f is not None:
+            ratio.append((err.mean() / (acts_f[:, b0:b1] - p).abs().mean()).item())
+    r = {"stash_max_rel_err": max(rel), "stash_worst_block": int(np.argmax(rel))}
+    ok = max(rel) <= STASH_TOL[dtype] and bool(torch.isfinite(acts_k).all())
+    if ratio:
+        r["stash_mean_err_over_f32_gap_max"] = max(ratio)
+        ok &= max(ratio) <= BF16_MEAN_ERR_SHARE
+    r["stash_within_tol"] = ok
+    return r
+
+
+def held_bwd(got, want, f32, dtype, prefix) -> dict:
+    """A backward's d(xd) and 24 grads against the plain backward's: each
+    tensor's max |error| over its max |value| within BWD_TOL, and in bf16
+    each tensor's mean |error| at most BF16_MEAN_ERR_SHARE of the mean gap
+    to the plain backward in f32 (f32); the rgb and alpha bias grads (sums
+    of g alone) have no gap and are held by the max error only."""
+    abs_err = [(a - b).abs().max().item() for a, b in zip(got, want)]
+    rel_err = [e / max(b.abs().max().item(), 1e-30) for e, b in zip(abs_err, want)]
+    r = {f"{prefix}_max_abs_err": max(abs_err), f"{prefix}_max_rel_err": max(rel_err),
+         f"{prefix}_worst_tensor": int(np.argmax(rel_err))}
+    ok = max(rel_err) <= BWD_TOL[dtype]
+    if f32 is not None:
+        gaps = [(c - b).abs().mean().item() for b, c in zip(want, f32)]
+        ratios = [(a - b).abs().mean().item() / gap for a, b, gap in zip(got, want, gaps) if gap > 0]
+        r[f"{prefix}_mean_err_over_f32_gap_max"] = max(ratios)
+        r[f"{prefix}_tensors_without_gap"] = sum(gap == 0 for gap in gaps)
+        ok &= max(ratios) <= BF16_MEAN_ERR_SHARE
+    r[f"{prefix}_within_tol"] = ok
+    return r
+
+
+def kernel_bwd_phase(fused, NeRFMLP, MLPConfig):
+    """K1 with its stash, K2 and K3 against the plain versions on the same
+    inputs (the plain backward reads the kernel's stash), then the times."""
+    mlp = NeRFMLP(MLPConfig(), torch.Generator().manual_seed(0), torch.device("cpu"))
+    mlp = mlp.cuda().requires_grad_(False)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rows = []
+    for dtype in ("float32", "bfloat16"):
+        bf16 = dtype == "bfloat16"
+        esz = 2 if bf16 else 4
+        w_bytes = sum(t.numel() * t.element_size() for t in fused.pack_params(mlp, dtype))
+        grad_bytes = 4 * sum(p.numel() for p in mlp.parameters())
+        stash_b = fused.ACTS_LD * esz
+        for label, P in SHAPES_BWD.items():
+            xd = sample_points(P, gen)
+            g = torch.randn((P, 4), generator=gen, device="cuda")
+            out_k, acts_k = fused._launch_fwd(mlp, xd, dtype, 10, 4, stash=True)
+            out_p, acts_p = fused.nerf_mlp_fwd_plain(mlp, xd, dtype, with_acts=True)
+            # the control for bf16: the plain version without the bf16 rounding
+            out_f, acts_f = (fused.nerf_mlp_fwd_plain(mlp, xd, "float32", with_acts=True)
+                             if bf16 else (None, None))
+            row = dict(dtype=dtype, shape=label, P=P,
+                       **held_fwd(out_k, out_p, out_f, dtype),
+                       **held_stash(acts_k, acts_p, acts_f, dtype))
+            del out_f, acts_f
+            k2 = flat_grads(fused.nerf_mlp_bwd(mlp, xd, g, dtype, acts=acts_k))
+            torch.cuda.synchronize()
+            k2b = flat_grads(fused.nerf_mlp_bwd(mlp, xd, g, dtype, acts=acts_k))
+            torch.cuda.synchronize()
+            k3 = flat_grads(fused.nerf_mlp_bwd(mlp, xd, g, dtype))
+            torch.cuda.synchronize()
+            row.update(repeat_bitwise=all(torch.equal(a, b) for a, b in zip(k2, k2b)),
+                       remat_bitwise=all(torch.equal(a, b) for a, b in zip(k2, k3)),
+                       finite=row["finite"] and all(bool(torch.isfinite(t).all())
+                                                    for t in k2 + k3))
+            del k2b, k3
+            # the control for bf16: the plain backward in f32 (its own activations)
+            f32 = flat_grads(fused.nerf_mlp_bwd_plain(mlp, xd, g, "float32")) if bf16 else None
+            # K2 against the plain backward on the kernel's stash, and once more
+            # on the plain forward's own stash
+            row.update(held_bwd(k2, flat_grads(fused.nerf_mlp_bwd_plain(
+                mlp, xd, g, dtype, acts=acts_k)), f32, dtype, "bwd"))
+            k2p = flat_grads(fused.nerf_mlp_bwd(mlp, xd, g, dtype, acts=acts_p))
+            torch.cuda.synchronize()
+            row.update(held_bwd(k2p, flat_grads(fused.nerf_mlp_bwd_plain(
+                mlp, xd, g, dtype, acts=acts_p)), f32, dtype, "bwd_on_plain_stash"))
+            del f32, k2p
+            row["within_tol"] = all(v for k, v in row.items() if k.endswith("_within_tol"))
+            if label != "ragged":
+                row["fwd_stash_ms"] = time_ms(
+                    lambda: fused._launch_fwd(mlp, xd, dtype, 10, 4, stash=True), 5)
+                row["fwd_stash_plain_ms"] = time_ms(
+                    lambda: fused.nerf_mlp_fwd_plain(mlp, xd, dtype, with_acts=True), 3, 1)
+                row["stash_ms"] = time_ms(
+                    lambda: fused.nerf_mlp_bwd(mlp, xd, g, dtype, acts=acts_k), 5)
+                row["stash_plain_ms"] = time_ms(
+                    lambda: fused.nerf_mlp_bwd_plain(mlp, xd, g, dtype, acts=acts_k), 3, 1)
+                row["remat_ms"] = time_ms(lambda: fused.nerf_mlp_bwd(mlp, xd, g, dtype), 5)
+                row["remat_plain_ms"] = time_ms(
+                    lambda: fused.nerf_mlp_bwd_plain(mlp, xd, g, dtype), 3, 1)
+                # the functions' own traffic: xd 32 B, g 16 B, d(xd) 32 B, raw out
+                # 16 B per point, the stash, the weights once and the grads once
+                row["fwd_stash_bound_ms"], row["fwd_stash_bound_by"] = bound_ms(
+                    P, w_bytes, bf16, 1, 48 + stash_b)
+                row["stash_bound_ms"], row["stash_bound_by"] = bound_ms(
+                    P, w_bytes + grad_bytes, bf16, 2, 80 + stash_b)
+                row["remat_bound_ms"], row["remat_bound_by"] = bound_ms(
+                    P, w_bytes + grad_bytes, bf16, 3, 80)
+                # what this design moves besides: the dz scratch written and read
+                # again, the PE scratch, and in remat the activation scratch
+                pe_b = 96 * esz
+                row["design_scratch_bytes_per_point_stash"] = 2 * stash_b + 2 * pe_b
+                row["design_scratch_bytes_per_point_remat"] = 4 * stash_b + 2 * pe_b
+            print("  " + json.dumps(row), flush=True)
+            rows.append(row)
+            del k2, acts_k, acts_p
+            torch.cuda.empty_cache()
+            if not (row["finite"] and row["within_tol"] and row["repeat_bitwise"]
+                    and row["remat_bitwise"]):
+                raise AssertionError(f"backward kernels disagree with the plain version: {row}")
     return rows
 
 
@@ -171,14 +396,25 @@ def flagship(cfg_mod, backend=None, dtype=None):
     return lc
 
 
-def flagship_batch():
+def train_batch():
+    """The flagship step's batch, drawn as bench.py draws it (numpy, seed 0)."""
     rng = np.random.default_rng(0)
     rays_o = (0.1 * rng.standard_normal((N_RAYS, 3))).astype(np.float32)
     rays_d = rng.standard_normal((N_RAYS, 3)).astype(np.float32)
     rays_d[:, 2] = -np.abs(rays_d[:, 2]) - 0.5
-    rays = torch.from_numpy(np.stack([rays_o, rays_d], axis=-1)).cuda()
-    idx = torch.from_numpy(rng.integers(0, NUM_IMAGES, N_RAYS)).cuda()
-    return rays, idx
+    batch = {
+        "rays": np.stack([rays_o, rays_d], axis=-1),
+        "rgbs": rng.random((N_RAYS, 3), dtype=np.float32),
+        "images_idx": rng.integers(0, NUM_IMAGES, N_RAYS, dtype=np.int32),
+        "fq_mask": rng.integers(0, 2, N_RAYS).astype(bool),
+    }
+    return {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+
+
+def flagship_batch():
+    """(rays, image indices) of the train batch, for the forwards."""
+    batch = train_batch()
+    return batch["rays"], batch["images_idx"]
 
 
 def max_err(a, b):
@@ -205,19 +441,18 @@ def forward_phase(fused, lush, cfg_mod):
         for key in ("rgb_blur", "rgb0_blur", "depth", "acc"):
             res[f"{key}_err_f32_vs_torch"] = max_err(outs["f32"][key], outs["torch"][key])
             res[f"{key}_err_bf16_vs_torch"] = max_err(outs["bf16"][key], outs["torch"][key])
-        lush.forward_kernel(model, lc, H, W, FOCAL, rays, idx, gen)  # warm-up
-        torch.cuda.synchronize()
-        n_calls = 5
-        fused.launches = 0
-        t0 = time.perf_counter()
-        for _ in range(n_calls):
-            out = lush.forward_kernel(model, lc, H, W, FOCAL, rays, idx, gen)
-        torch.cuda.synchronize()
-        res["ms_per_call"] = (time.perf_counter() - t0) * 1e3 / n_calls
-        res["launches"] = fused.launches
+        def call():
+            return lush.forward_kernel(model, lc, H, W, FOCAL, rays, idx, gen)
+
+        call()  # warm-up
+        n_calls = 10
+        zero_counts(fused)
+        res["ms_per_call"], out = window_ms(call, n_calls)
+        res["launches"] = read_counts(fused)["nerf_mlp_fwd"]
+        res["per_call_ms"] = per_call_ms(call, 5)
         tcfg = flagship(cfg_mod, "torch", "float32")
-        res["torch_f32_ms_per_call"] = wall_ms(
-            lambda: lush.forward_kernel(model, tcfg, H, W, FOCAL, rays, idx, gen), n_calls)
+        res["torch_f32_ms_per_call"] = window_ms(
+            lambda: lush.forward_kernel(model, tcfg, H, W, FOCAL, rays, idx, gen), 5)[0]
     res["calls"] = n_calls
     res["rays_per_s"] = N_RAYS / res["ms_per_call"] * 1e3
     res["finite"] = all(bool(torch.isfinite(v).all()) for v in out.values())
@@ -240,12 +475,12 @@ def render_phase(fused, lush, cfg_mod):
     res = {}
     lush.render_image(model, lc, H, W, K, c2w, RAY_CHUNK)  # warm-up
     torch.cuda.synchronize()
-    fused.launches = 0
+    zero_counts(fused)
     t0 = time.perf_counter()
     rgb, noise, depth = lush.render_image(model, lc, H, W, K, c2w, RAY_CHUNK)
     torch.cuda.synchronize()
     res["ms_per_image"] = (time.perf_counter() - t0) * 1e3
-    res["launches"] = fused.launches
+    res["launches"] = read_counts(fused)["nerf_mlp_fwd"]
     t0 = time.perf_counter()
     ref = lush.render_image(model, flagship(cfg_mod, "torch", "float32"), H, W, K, c2w,
                             RAY_CHUNK)
@@ -266,10 +501,178 @@ def render_phase(fused, lush, cfg_mod):
     return res
 
 
-def profile_phase(lush, cfg_mod):
+TRAIN_VARIANTS = {"stash": ("cuda", "bfloat16", "stash"), "remat": ("cuda", "bfloat16", "remat"),
+                  "torch": ("torch", "float32", "remat")}
+GRAD_VARIANTS = dict(TRAIN_VARIANTS, stash_f32=("cuda", "float32", "stash"))
+# kernel launches per flagship train step (2 scene MLPs): one forward each,
+# four backward launches each (dgrad, wgrad, two reductions)
+STEP_LAUNCHES = {
+    "stash": {"nerf_mlp_fwd": 2, "nerf_mlp_bwd_stash": 8, "nerf_mlp_bwd_remat": 0},
+    "remat": {"nerf_mlp_fwd": 2, "nerf_mlp_bwd_stash": 0, "nerf_mlp_bwd_remat": 8},
+    "torch": {"nerf_mlp_fwd": 0, "nerf_mlp_bwd_stash": 0, "nerf_mlp_bwd_remat": 0},
+}
+STEP_PACKS = 4  # forward and backward blobs of both scene MLPs, once per step
+
+
+@contextlib.contextmanager
+def corrupted_stash(fused, on: bool, block: int = 3):
+    """While on, the forward kernel's stash has block `block` (a3) shifted
+    by one column, as a wrong column offset in its store would write it:
+    the control for GRAD_COS_MIN."""
+    launch = fused._launch_fwd
+
+    def shifted(*args, **kwargs):
+        out, acts = launch(*args, **kwargs)
+        if acts is not None:
+            cols = acts[:, block * MLP_WIDTH:(block + 1) * MLP_WIDTH]
+            cols.copy_(cols.roll(1, dims=1))
+        return out, acts
+
+    if on:
+        fused._launch_fwd = shifted
+    try:
+        yield
+    finally:
+        fused._launch_fwd = launch
+
+
+def train_cfg(cfg_mod, variant):
+    cfg = cfg_mod.flagship_cfg(num_images=NUM_IMAGES)
+    be, dt, bwd = GRAD_VARIANTS[variant]
+    cfg.mlp_backend, cfg.mlp_compute_dtype, cfg.mlp_bwd = be, dt, bwd
+    return cfg, cfg.lush_config()
+
+
+def train_phase(fused, lush, cfg_mod, trainer):
+    batch = train_batch()
+    res = {"launches_total": {k: 0 for k in COUNTERS}}
+
+    def count():
+        """The counts since they were set to 0, added to the phase's totals."""
+        counts = read_counts(fused)
+        for k, v in counts.items():
+            res["launches_total"][k] += v
+        return counts
+
+    def fresh(variant):
+        cfg, lc = train_cfg(cfg_mod, variant)
+        model = lush.LushNeRF(lc, seed=0, device="cuda")
+        opt, sched = trainer.make_optimizer(cfg, model)
+        return cfg, lc, model, opt, sched
+
+    # 1. one step in each stage, flagship config (stash), launches counted
+    cfg, lc, model, opt, sched = fresh("stash")
+    assert cfg.lrate == 5e-4 and lc.render.mlp_bwd == "stash"
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for stage in ("kernel", "allkernel", "naive"):
+        zero_counts(fused)
+        loss, mse = trainer.train_step(model, opt, sched, lc, H, W, FOCAL, batch, stage, gen)
+        torch.cuda.synchronize()
+        packs = fused.packs
+        r = dict(loss=loss.item(), mse=mse.item(), launches=count(), packs=packs)
+        res[f"stage_{stage}"] = r
+        print(f"  {stage}: " + json.dumps(r), flush=True)
+        assert np.isfinite(r["loss"]), stage
+        assert r["launches"] == STEP_LAUNCHES["stash"], (stage, r["launches"])
+        assert packs == STEP_PACKS, (stage, packs)
+    del model, opt, sched
+
+    # 2. twenty kernel steps on a fixed batch and fixed draws: the loss falls
+    cfg, lc, model, opt, sched = fresh("stash")
+    rnd = lush._train_randomness(torch.Generator(device="cuda").manual_seed(3), lc,
+                                 N_RAYS * lc.rbk.num_rays_out, torch.device("cuda"))
+    zero_counts(fused)
+    losses = [trainer.train_step(model, opt, sched, lc, H, W, FOCAL, batch, "kernel",
+                                 rand_override=rnd)[0] for _ in range(20)]
+    losses = [v.item() for v in losses]
+    count()
+    res["fixed_batch_losses"] = losses
+    print("  fixed batch losses: " + json.dumps(losses), flush=True)
+    assert all(np.isfinite(losses)) and np.mean(losses[-5:]) < np.mean(losses[:5]) \
+        and losses[-1] < losses[0], "the loss did not fall"
+    # the weights changed in place 20 times: the kernel must see the new ones
+    with torch.no_grad():
+        xd = sample_points(4096 * 16, torch.Generator(device="cuda").manual_seed(4))
+        got = fused.nerf_mlp_fwd(model.mlp_fine, xd, "bfloat16")
+        want = fused.nerf_mlp_fwd_plain(model.mlp_fine, xd, "bfloat16")
+    tol = KERNEL_TOL["bfloat16"]
+    excess = ((got - want).abs() - tol["atol"] - tol["rtol"] * want.abs()).max().item()
+    res["after_steps_fwd_max_abs_err"] = (got - want).abs().max().item()
+    assert excess <= 0, f"forward after training steps disagrees: {res['after_steps_fwd_max_abs_err']}"
+    del model, opt, sched
+    torch.cuda.empty_cache()
+
+    # 3. ms/step, rays/s and peak memory of the three backends
+    for variant in TRAIN_VARIANTS:
+        cfg, lc, model, opt, sched = fresh(variant)
+        gen = torch.Generator(device="cuda").manual_seed(1)
+
+        def step():
+            return trainer.train_step(model, opt, sched, lc, H, W, FOCAL, batch, "kernel", gen)
+
+        step()
+        step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(fused)
+        n = 10
+        ms, (loss, _) = window_ms(step, n)
+        counts = count()
+        r = dict(ms_per_step=ms, rays_per_s=N_RAYS / ms * 1e3, steps=n,
+                 per_step_ms=per_call_ms(step, 5),
+                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                 launches_per_step={k: v / n for k, v in counts.items()}, loss=loss.item())
+        res[variant] = r
+        print(f"  {variant}: " + json.dumps(r), flush=True)
+        assert r["launches_per_step"] == STEP_LAUNCHES[variant], variant
+        assert np.isfinite(r["loss"])
+        del model, opt, sched
+        torch.cuda.empty_cache()
+
+    # 4. one step's grads, the kernel path (bf16 and f32) vs torch f32, same
+    # draws; and the control: the bf16 kernel path fed a stash with one block
+    # shifted by a column, which the bound must reject
+    grads = {}
+    for variant in ("stash", "stash_f32", "torch", "stash_corrupt"):
+        cfg, lc, model, opt, sched = fresh(variant.replace("_corrupt", ""))
+        with corrupted_stash(fused, variant.endswith("_corrupt")):
+            loss, _ = trainer.loss_fn(model, lc, H, W, FOCAL, batch, "kernel", rand_override=rnd)
+            loss.backward()  # a comparison: its launches are not counted
+        grads[variant] = {n: p.grad.detach().clone() for n, p in model.named_parameters()
+                          if p.grad is not None}
+        del model, opt, sched, loss
+    for variant, dtype in (("stash", "bfloat16"), ("stash_f32", "float32"),
+                           ("stash_corrupt", "bfloat16")):
+        assert set(grads[variant]) == set(grads["torch"])
+        cos = {}
+        for name, gt in grads["torch"].items():
+            gk = grads[variant][name]
+            cos[name] = (torch.sum(gk * gt) / (gk.norm() * gt.norm()).clamp_min(1e-30)).item()
+        worst = sorted(cos.items(), key=lambda kv: kv[1])[:5]
+        flat_k = torch.cat([grads[variant][n].flatten() for n in cos])
+        flat_t = torch.cat([grads["torch"][n].flatten() for n in cos])
+        tag = variant if variant == "stash_corrupt" else dtype
+        res[f"grad_cos_min_{tag}"] = worst[0][1]
+        res[f"grad_cos_worst_{tag}"] = worst
+        res[f"grad_cos_all_params_{tag}"] = (
+            torch.sum(flat_k * flat_t) / (flat_k.norm() * flat_t.norm())).item()
+        print(f"  grad cosines vs torch f32, {variant} ({dtype}), worst 5 of {len(cos)}: "
+              + json.dumps(worst) + f"; all parameters as one vector: "
+              f"{res[f'grad_cos_all_params_{tag}']}", flush=True)
+        if variant == "stash_corrupt":
+            assert worst[0][1] < GRAD_COS_MIN[dtype], ("the control passed the bound", worst)
+        else:
+            assert worst[0][1] >= GRAD_COS_MIN[dtype], (dtype, worst)
+    del grads
+    torch.cuda.empty_cache()
+    return res
+
+
+def profile_phase(lush, cfg_mod, trainer, untraced_ms):
     """Device time by kernel and the device's busy share (the union of
-    kernel intervals over the span of the traced region), from
-    torch.profiler, over 3 forward_kernel calls and over one render_image."""
+    kernel intervals over the span of the traced region, and over the
+    untraced wall time), from torch.profiler, over 3 forward_kernel calls,
+    one render_image and one flagship train step (stash)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -279,21 +682,31 @@ def profile_phase(lush, cfg_mod):
     gen = torch.Generator(device="cuda").manual_seed(1)
     K = np.array([[FOCAL, 0, W / 2], [0, FOCAL, H / 2], [0, 0, 1]], np.float32)
     c2w = np.eye(3, 4, dtype=np.float32)
+    cfg, tlc = train_cfg(cfg_mod, "stash")
+    tmodel = lush.LushNeRF(tlc, seed=0, device="cuda")
+    opt, sched = trainer.make_optimizer(cfg, tmodel)
+    batch = train_batch()
     runs = {
-        "forward_kernel_x3": lambda: [lush.forward_kernel(model, lc, H, W, FOCAL, rays, idx, gen)
-                                      for _ in range(3)],
-        "render_image": lambda: lush.render_image(model, lc, H, W, K, c2w, RAY_CHUNK),
+        "forward_kernel_x3": (True, lambda: [lush.forward_kernel(model, lc, H, W, FOCAL, rays, idx, gen)
+                                             for _ in range(3)]),
+        "render_image": (True, lambda: lush.render_image(model, lc, H, W, K, c2w, RAY_CHUNK)),
+        "train_step": (False, lambda: trainer.train_step(tmodel, opt, sched, tlc, H, W, FOCAL,
+                                                         batch, "kernel", gen)),
     }
     res = {}
-    for name, fn in runs.items():
-        with torch.no_grad():
+    for name, (no_grad, fn) in runs.items():
+        with torch.set_grad_enabled(not no_grad):
             fn()
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 fn()
                 torch.cuda.synchronize()
         evs = prof.events()
-        dev = [e for e in evs if e.device_type == DeviceType.CUDA]
+        # device work only: the optimizer's user annotations (Optimizer.step#...)
+        # also land on the device timeline and would count twice
+        dev = [e for e in evs if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and not e.name.startswith("Optimizer.")]
         if not dev:
             res[name] = "not measured: the profiler recorded no device events"
             continue
@@ -306,10 +719,12 @@ def profile_phase(lush, cfg_mod):
                 end = t
         by_name = {}
         for e in dev:
-            key = "nerf_mlp_fwd_kernel" if "nerf_mlp_fwd_kernel" in e.name else e.name[:70]
+            key = next((k for k in ("nerf_mlp_fwd_kernel", "nerf_mlp_bwd_dgrad_kernel",
+                                    "nerf_mlp_bwd_wgrad", "nerf_mlp_bwd_reduce") if k in e.name),
+                       e.name[:70])
             ms, n = by_name.get(key, (0.0, 0))
             by_name[key] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
-        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
         res[name] = {
             "span_ms": span / 1e3,
             "device_busy_ms": busy / 1e3,
@@ -317,8 +732,56 @@ def profile_phase(lush, cfg_mod):
             "kernel_ms_total": sum(ms for ms, _ in by_name.values()),
             "top_kernels": [{"name": k, "ms": ms, "count": n} for k, (ms, n) in top],
         }
+        if untraced_ms.get(name):
+            res[name]["untraced_ms"] = untraced_ms[name]
+            res[name]["device_busy_share_of_untraced"] = busy / 1e3 / untraced_ms[name]
     print("  " + json.dumps(res), flush=True)
     return res
+
+
+def kernel_entries(results):
+    """The `kernels` line: each kernel with its main-path launches (the
+    forward_kernel, render_image and train_step phases), its largest error
+    against its plain version, and its times at the flagship fine P in bf16."""
+    fwd_rows = results.get("kernel") or []
+    bwd_rows = results.get("kernel_bwd") or []
+    fine = next((r for r in bwd_rows if r["dtype"] == "bfloat16" and r["shape"] == "fine"), None)
+    if fine is None:
+        return []
+    train = results.get("train_step") or {}
+    counts = train.get("launches_total", {})
+    fwd_launches = counts.get("nerf_mlp_fwd", 0) + sum(
+        results.get(p, {}).get("launches", 0) for p in ("forward_kernel", "render_image"))
+    timed = [r for r in bwd_rows if "stash_ms" in r]
+
+    def entry(name, source, replaces, launches, err, prefix, extra):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches, "max_abs_err": err, "ms": fine[f"{prefix}_ms"],
+                "plain_ms": fine[f"{prefix}_plain_ms"], "bound_ms": fine[f"{prefix}_bound_ms"],
+                "bound_by": fine[f"{prefix}_bound_by"], "library_ms": None, **extra}
+
+    shapes = lambda prefix: [  # noqa: E731
+        {"dtype": r["dtype"], "P": r["P"], "ms": r[f"{prefix}_ms"],
+         "plain_ms": r[f"{prefix}_plain_ms"], "bound_ms": r[f"{prefix}_bound_ms"]} for r in timed]
+    bwd_err = max(r[f"{p}_max_abs_err"] for r in bwd_rows for p in ("bwd", "bwd_on_plain_stash"))
+    bwd_rel = max(r[f"{p}_max_rel_err"] for r in bwd_rows for p in ("bwd", "bwd_on_plain_stash"))
+    return [
+        entry("nerf_mlp_fwd", "lushnerf_torch/csrc/nerf_mlp_fwd.cu",
+              "lushnerf_tpu/ops/fused/nerf_mlp.py:396", fwd_launches,
+              max([r["max_abs_err"] for r in fwd_rows] + [r["fwd_out_max_abs_err"] for r in bwd_rows]),
+              "fwd_stash",
+              {"shapes_stash": shapes("fwd_stash"),
+               "shapes_output_only": [{k: r[k] for k in ("dtype", "P", "ms", "plain_ms", "bound_ms",
+                                                         "max_abs_err") if k in r} for r in fwd_rows]}),
+        entry("nerf_mlp_bwd_stash", "lushnerf_torch/csrc/nerf_mlp_bwd.cu",
+              "lushnerf_tpu/ops/fused/nerf_mlp.py:608", counts.get("nerf_mlp_bwd_stash", 0),
+              bwd_err, "stash", {"max_rel_err": bwd_rel, "shapes": shapes("stash"),
+                                 "launches_are": "dgrad + wgrad + 2 reductions per backward"}),
+        entry("nerf_mlp_bwd_remat", "lushnerf_torch/csrc/nerf_mlp_bwd.cu",
+              "lushnerf_tpu/ops/fused/nerf_mlp.py:589", counts.get("nerf_mlp_bwd_remat", 0),
+              bwd_err, "remat", {"max_rel_err": bwd_rel, "shapes": shapes("remat"),
+                                 "launches_are": "dgrad + wgrad + 2 reductions per backward"}),
+    ]
 
 
 def main(argv=None) -> int:
@@ -335,6 +798,7 @@ def main(argv=None) -> int:
         from lushnerf_torch.models.mlp import MLPConfig, NeRFMLP
         from lushnerf_torch.ops.fused import build
         from lushnerf_torch.ops.fused import nerf_mlp as fused
+        from lushnerf_torch.train import trainer
     except ImportError as e:
         print(f"chip_smoke: the lushnerf_torch package is not here ({e})", file=sys.stderr)
         return 2
@@ -349,40 +813,40 @@ def main(argv=None) -> int:
           f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
 
     def do_build():
-        log = build.build("nerf_mlp_fwd")
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  nerf_mlp_fwd: {line.strip()}")
-        return log
+        logs = build.build_all(["nerf_mlp_fwd", "nerf_mlp_bwd"])
+        for name, log in logs.items():
+            for line in log.splitlines():
+                if "registers" in line or "spill" in line or "Compiling entry" in line:
+                    print(f"  {name}: {line.strip()}")
+        return logs
 
-    smoke.phase("build", do_build)
-    if "build" not in smoke.failed:
-        smoke.phase("kernel", lambda: kernel_phase(fused, NeRFMLP, MLPConfig))
-        smoke.phase("forward_kernel", lambda: forward_phase(fused, lush, cfg_mod))
-        smoke.phase("render_image", lambda: render_phase(fused, lush, cfg_mod))
-        smoke.phase("profile", lambda: profile_phase(lush, cfg_mod))
+    def untraced():
+        train = smoke.results.get("train_step") or {}
+        fk = smoke.results.get("forward_kernel") or {}
+        ri = smoke.results.get("render_image") or {}
+        return {"forward_kernel_x3": 3 * fk["ms_per_call"] if fk else None,
+                "render_image": ri.get("ms_per_image"),
+                "train_step": (train.get("stash") or {}).get("ms_per_step")}
 
-    kernels = []
-    rows = smoke.results.get("kernel") or []
-    fine = next((r for r in rows if r["dtype"] == "bfloat16" and r["shape"] == "fine"), None)
-    launches = sum(smoke.results.get(p, {}).get("launches", 0)
-                   for p in ("forward_kernel", "render_image"))
-    if fine is not None:
-        kernels.append({
-            "name": "nerf_mlp_fwd",
-            "route": "cuda",
-            "source": "lushnerf_torch/csrc/nerf_mlp_fwd.cu",
-            "replaces": "lushnerf_tpu/ops/fused/nerf_mlp.py:396",
-            "launches": launches,
-            "max_abs_err": max(r["max_abs_err"] for r in rows),
-            "ms": fine["ms"],
-            "plain_ms": fine["plain_ms"],
-            "bound_ms": fine["bound_ms"],
-            "bound_by": fine["bound_by"],
-            "library_ms": None,
-            "shapes": [{k: r[k] for k in ("dtype", "P", "ms", "plain_ms", "bound_ms",
-                                          "max_abs_err") if k in r} for r in rows],
-        })
+    runs = {
+        "build": do_build,
+        "kernel": lambda: kernel_phase(fused, NeRFMLP, MLPConfig),
+        "kernel_bwd": lambda: kernel_bwd_phase(fused, NeRFMLP, MLPConfig),
+        "forward_kernel": lambda: forward_phase(fused, lush, cfg_mod),
+        "render_image": lambda: render_phase(fused, lush, cfg_mod),
+        "train_step": lambda: train_phase(fused, lush, cfg_mod, trainer),
+        "profile": lambda: profile_phase(lush, cfg_mod, trainer, untraced()),
+    }
+    for name, run in runs.items():
+        if "build" not in smoke.failed:
+            smoke.phase(name, run)
+
+    kernels = kernel_entries(smoke.results)
+    if not smoke.failed:
+        idle = [k["name"] for k in kernels if k["launches"] <= 0]
+        if len(kernels) != 3 or idle:
+            print(f"chip_smoke: kernels not launched on the main path: {idle}", file=sys.stderr)
+            smoke.failed.append("kernels")
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,

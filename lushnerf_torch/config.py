@@ -309,6 +309,7 @@ class Config:
             multires_views=self.multires_views,
             mlp_backend=self.mlp_backend,
             mlp_compute_dtype=self.mlp_compute_dtype,
+            mlp_bwd=self.mlp_bwd,
         )
 
     def rbk_config(self) -> RBKConfig:

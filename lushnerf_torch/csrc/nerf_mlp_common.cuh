@@ -1,0 +1,415 @@
+// Shared device code of the fused NeRF-MLP kernels (nerf_mlp_fwd.cu,
+// nerf_mlp_bwd.cu): tile shapes, the bf16 tensor-core and f32 FMA matmul
+// loops over one tile of points, the positional encoding, and the forward
+// layer sequence that the forward kernel runs and the remat backward
+// re-runs.
+//
+// Weight blob (row-major [out][in], bf16 or f32, K padded with zero
+// columns; kx = round_up(pe_x channels, 32), kd = round_up(pe_d channels,
+// 32)):  W0 [256][kx] | W1..W4 [256][256] | W5 [256][kx + 256] (pe_x part,
+// then a4 part) | W6, W7 [256][256] | Wf [256][256] | Wv [128][256 + kd]
+// (feat part, then pe_d part).  The f32 blob `fp` holds biases and the two
+// small heads at the FP_* offsets below (head weights pre-rounded to bf16
+// in bf16 mode).
+//
+// Activation stash ([P][ACTS_LD] in the compute dtype, one row per point):
+// a0..a7 at columns l * 256, feat at 8 * 256, hv (128 wide) at 9 * 256.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace nerf_mlp {
+
+constexpr int W = 256;         // scene MLP width
+constexpr int WH = 128;        // views layer width
+constexpr int PE_MAX = 128;    // kx + kd
+constexpr int KC = 64;         // K-chunk of the weight ring (K is a multiple of 32)
+constexpr int NTHREADS = 256;  // 8 warps
+constexpr int NWARPS = NTHREADS / 32;
+constexpr int ACTS_LD = 9 * W + WH;  // stash row: a0..a7, feat, hv
+
+constexpr int FP_BF = 8 * W;         // b0..b7 at l * W
+constexpr int FP_BV = FP_BF + W;
+constexpr int FP_BA = FP_BV + WH;
+constexpr int FP_BR = FP_BA + 4;
+constexpr int FP_WA = FP_BR + 4;
+constexpr int FP_WR = FP_WA + W;     // [3][WH]
+constexpr int FP_NUMEL = FP_WR + 3 * WH;
+
+typedef __nv_bfloat16 bf16;
+
+template <bool BF16> struct Tile;
+template <> struct Tile<true> {
+  typedef bf16 T_act;
+  static constexpr int T = 128;
+  static constexpr int ACT_LD = W + 8;       // 132 words: conflict-free frags
+  static constexpr int PE_LD = PE_MAX + 8;   // 68 words
+  static constexpr int WST_LD = KC + 8;      // 36 words: conflict-free ldmatrix
+  static constexpr int WST_BYTES = 2 * W * WST_LD * 2;
+};
+template <> struct Tile<false> {
+  typedef float T_act;
+  static constexpr int T = 64;
+  static constexpr int ACT_LD = W + 4;
+  static constexpr int PE_LD = PE_MAX + 4;
+  static constexpr int WST_BYTES = 0;
+};
+
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+__device__ __forceinline__ void put(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
+__device__ __forceinline__ float get(const float* p) { return *p; }
+__device__ __forceinline__ float get(const bf16* p) { return __bfloat162float(*p); }
+
+// v rounded to the compute dtype (bf16 mode) or unchanged (f32 mode)
+template <bool BF16> __device__ __forceinline__ float rnd(float v) {
+  if constexpr (BF16) return __bfloat162float(__float2bfloat16_rn(v));
+  return v;
+}
+
+__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// ldmatrix: lane l gives the address of row l % 8 of matrix l / 8 (16 bytes
+// a row); .trans hands each thread the transposed fragment.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const bf16* p) {
+  uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(s));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ float warp_sum(float s) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  return s;
+}
+
+// ---------------------------------------------------------------------------
+// bf16 tensor-core path
+// ---------------------------------------------------------------------------
+
+// One K-chunk (N rows x kc columns, kc = 64 or 32) of a [N][ldw] bf16
+// weight into a stage.
+template <int N>
+__device__ __forceinline__ void load_wchunk(bf16* st, const bf16* Wg, int ldw, int col0, int kc) {
+  constexpr int LD = Tile<true>::WST_LD;
+  const int sh = kc == KC ? 3 : 2;  // 16-byte pieces a row: 8 or 4
+  for (int i = threadIdx.x; i < N << sh; i += NTHREADS) {
+    const int r = i >> sh, q = i & ((1 << sh) - 1);
+    cp_async16(st + r * LD + q * 8, Wg + (size_t)r * ldw + col0 + q * 8);
+  }
+}
+
+// acc += A[:, 0:K] . Wg[:, w_col0 : w_col0 + K]^T for this warp's
+// 64 rows x N/4 columns (8 warps: 2 along the points, 4 along N), K a
+// multiple of 32, in chunks of up to 64 through a two-stage cp.async ring;
+// fragments by ldmatrix.  Ends with a barrier: every read of A and of the
+// weight stages is done when it returns.
+template <int N>
+__device__ __forceinline__ void gemm_bf16(float (&acc)[4][N / 32][4], const bf16* A,
+                                          int lda, const bf16* Wg, int ldw,
+                                          int w_col0, int K, bf16* wst) {
+  constexpr int NT = N / 32;
+  constexpr int LD = Tile<true>::WST_LD;
+  constexpr int STAGE = W * LD;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm = warp >> 2, wn = warp & 3;
+  const int nch = (K + KC - 1) / KC;
+  // this lane's ldmatrix rows: A rows wm*64 + mt*16 + (lane & 15) at k + 0/8;
+  // weight rows n0 + (lane & 7) (+ 8 for the second n-tile) at k + 0/8
+  const bf16* a_lane = A + (wm * 64 + (lane & 15)) * lda + ((lane >> 4) << 3);
+  const int b_row = wn * (N / 4) + (lane & 7) + ((lane >> 4) << 3);
+  const int b_col = ((lane >> 3) & 1) << 3;
+
+  load_wchunk<N>(wst, Wg, ldw, w_col0, min(KC, K));
+  cp_async_commit();
+  for (int c = 0; c < nch; ++c) {
+    const bf16* cur = wst + (c & 1) * STAGE;
+    if (c + 1 < nch) {
+      load_wchunk<N>(wst + ((c + 1) & 1) * STAGE, Wg, ldw, w_col0 + (c + 1) * KC,
+                     min(KC, K - (c + 1) * KC));
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int kc = min(KC, K - c * KC);
+#pragma unroll
+    for (int ks = 0; ks < KC; ks += 16) {
+      if (ks < kc) {
+        uint32_t af[4][4];
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt) ldsm_x4(af[mt], a_lane + mt * 16 * lda + c * KC + ks);
+#pragma unroll
+        for (int np = 0; np < NT / 2; ++np) {
+          uint32_t bfr[4];
+          ldsm_x4(bfr, cur + (b_row + np * 16) * LD + ks + b_col);
+#pragma unroll
+          for (int mt = 0; mt < 4; ++mt) {
+            mma_bf16(acc[mt][2 * np], af[mt], bfr[0], bfr[1]);
+            mma_bf16(acc[mt][2 * np + 1], af[mt], bfr[2], bfr[3]);
+          }
+        }
+        if constexpr (NT & 1) {
+          uint32_t bfr[2];
+          ldsm_x2(bfr, cur + (b_row - ((lane >> 4) << 3) + (NT - 1) * 8) * LD + ks + b_col);
+#pragma unroll
+          for (int mt = 0; mt < 4; ++mt) mma_bf16(acc[mt][NT - 1], af[mt], bfr[0], bfr[1]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void epilogue_bf16(const float (&acc)[4][N / 32][4],
+                                              const float* bias, bool relu,
+                                              bf16* dst, int ldd) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm = warp >> 2, wn = warp & 3;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt) {
+#pragma unroll
+    for (int nt = 0; nt < N / 32; ++nt) {
+      const int r = wm * 64 + mt * 16 + g;
+      const int col = wn * (N / 4) + nt * 8 + 2 * t;
+      const float c0 = bias[col], c1 = bias[col + 1];
+      float v0 = acc[mt][nt][0] + c0, v1 = acc[mt][nt][1] + c1;
+      float v2 = acc[mt][nt][2] + c0, v3 = acc[mt][nt][3] + c1;
+      if (relu) {
+        v0 = fmaxf(v0, 0.f); v1 = fmaxf(v1, 0.f);
+        v2 = fmaxf(v2, 0.f); v3 = fmaxf(v3, 0.f);
+      }
+      *reinterpret_cast<__nv_bfloat162*>(dst + r * ldd + col) = __floats2bfloat162_rn(v0, v1);
+      *reinterpret_cast<__nv_bfloat162*>(dst + (r + 8) * ldd + col) = __floats2bfloat162_rn(v2, v3);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// f32 FMA path
+// ---------------------------------------------------------------------------
+
+// acc[i] += A[grp * PP + i, 0:K] . Wg[n, w_col0 : w_col0 + K] for this
+// thread's neuron n = tid % N; the warp reads one A row at a time
+// (a broadcast), the weights straight from L1/L2.
+template <int N>
+__device__ __forceinline__ void gemm_f32(float (&acc)[Tile<false>::T * N / NTHREADS],
+                                         const float* A, int lda, const float* Wg,
+                                         int ldw, int w_col0, int K) {
+  constexpr int PP = Tile<false>::T * N / NTHREADS;
+  const int n = threadIdx.x % N, grp = threadIdx.x / N;
+  const float* wrow = Wg + (size_t)n * ldw + w_col0;
+  const float* arow = A + grp * PP * lda;
+  for (int k = 0; k < K; k += 4) {
+    const float4 w4 = __ldg(reinterpret_cast<const float4*>(wrow + k));
+#pragma unroll
+    for (int i = 0; i < PP; ++i) {
+      const float4 a4 = *reinterpret_cast<const float4*>(arow + i * lda + k);
+      float s = acc[i];
+      s = fmaf(a4.x, w4.x, s);
+      s = fmaf(a4.y, w4.y, s);
+      s = fmaf(a4.z, w4.z, s);
+      s = fmaf(a4.w, w4.w, s);
+      acc[i] = s;
+    }
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void epilogue_f32(const float (&acc)[Tile<false>::T * N / NTHREADS],
+                                             const float* bias, bool relu,
+                                             float* dst, int ldd) {
+  constexpr int PP = Tile<false>::T * N / NTHREADS;
+  const int n = threadIdx.x % N, grp = threadIdx.x / N;
+  const float b = bias[n];
+#pragma unroll
+  for (int i = 0; i < PP; ++i) {
+    const float v = acc[i] + b;
+    dst[(grp * PP + i) * ldd + n] = relu ? fmaxf(v, 0.f) : v;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// shared pieces
+// ---------------------------------------------------------------------------
+
+// One dense layer: dst = act(A1 . W[:, :K1]^T + A2 . W[:, K1:]^T + bias),
+// written in place over the activation buffer (dst may alias A1).
+template <bool BF16, int N, typename WT>
+__device__ __forceinline__ void dense(const WT* Wg, int ldw,
+                                      const typename Tile<BF16>::T_act* A1, int lda1, int K1,
+                                      const typename Tile<BF16>::T_act* A2, int lda2, int K2,
+                                      const float* bias, bool relu,
+                                      typename Tile<BF16>::T_act* dst, WT* wst) {
+  if constexpr (BF16) {
+    float acc[4][N / 32][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < N / 32; ++j)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) acc[i][j][k] = 0.f;
+    gemm_bf16<N>(acc, A1, lda1, Wg, ldw, 0, K1, wst);
+    if (K2 > 0) gemm_bf16<N>(acc, A2, lda2, Wg, ldw, K1, K2, wst);
+    epilogue_bf16<N>(acc, bias, relu, dst, Tile<true>::ACT_LD);
+  } else {
+    float acc[Tile<false>::T * N / NTHREADS];
+#pragma unroll
+    for (int i = 0; i < Tile<false>::T * N / NTHREADS; ++i) acc[i] = 0.f;
+    gemm_f32<N>(acc, A1, lda1, Wg, ldw, 0, K1);
+    if (K2 > 0) gemm_f32<N>(acc, A2, lda2, Wg, ldw, K1, K2);
+    __syncthreads();
+    epilogue_f32<N>(acc, bias, relu, dst, Tile<false>::ACT_LD);
+  }
+  __syncthreads();
+}
+
+// Rows [p0, min(p0 + T, P)) of a [T][LD] shared-memory tile, N columns,
+// into a row-major global array at dst (row stride ldd), 16 bytes a thread.
+template <int T, int LD, int N, typename AT>
+__device__ __forceinline__ void store_rows(const AT* src, AT* dst, int ldd, int p0, int P) {
+  constexpr int V = 16 / sizeof(AT);
+  for (int i = threadIdx.x; i < T * (N / V); i += NTHREADS) {
+    const int p = i / (N / V), c = (i % (N / V)) * V;
+    if (p0 + p < P)
+      *reinterpret_cast<uint4*>(dst + (size_t)(p0 + p) * ldd + c) =
+          *reinterpret_cast<const uint4*>(src + p * LD + c);
+  }
+}
+
+// Positional encoding of the tile into pe[T][PE_LD]: columns [0, kx) hold
+// pe_x (zero past its 3 + 6 nfx channels), [kx, kx + kd) hold pe_d.  xs is
+// the tile's packed input [T][8].  sinf/cosf, never the fast intrinsics:
+// arguments reach |x| ~ 800 in NDC at nfx = 10.
+template <int T, int LD, typename AT>
+__device__ __forceinline__ void pe_tile(AT* pe, const float* xs, int kx, int kd,
+                                        int nfx, int nfd) {
+  const int ncol = kx + kd;
+  for (int idx = threadIdx.x; idx < T * ncol; idx += NTHREADS) {
+    const int p = idx / ncol, c = idx - p * ncol;
+    const bool is_x = c < kx;
+    const float* src = xs + p * 8 + (is_x ? 0 : 3);
+    const int L = is_x ? nfx : nfd;
+    const int local = is_x ? c : c - kx;
+    float v = 0.f;
+    if (local < 3) {
+      v = src[local];
+    } else if (local < 3 + 6 * L) {
+      const int j = (local - 3) / 6, r = (local - 3) % 6;
+      const float a = src[r % 3] * (float)(1 << j);  // exact power-of-two scale
+      v = (r < 3) ? sinf(a) : cosf(a);
+    }
+    put(pe + p * LD + c, v);
+  }
+}
+
+// The tile's packed input rows [p0, p0 + T) of xd [P][8] into xs[T][8]
+// (zeros past P).
+template <int T>
+__device__ __forceinline__ void load_xd(float* xs, const float* xd, int p0, int P) {
+  for (int i = threadIdx.x; i < T * 2; i += NTHREADS) {
+    const int p = i >> 1;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (p0 + p < P) v = __ldg(reinterpret_cast<const float4*>(xd + (size_t)(p0 + p) * 8) + (i & 1));
+    reinterpret_cast<float4*>(xs + p * 8)[i & 1] = v;
+  }
+}
+
+// The ten weight matrices inside the weight blob.
+template <typename WT>
+__host__ __device__ inline void fill_offsets(const WT* (&w)[10], const void* blob, int kx, int kd) {
+  const WT* base = static_cast<const WT*>(blob);
+  size_t off = 0;
+  const size_t sizes[10] = {
+      (size_t)W * kx, (size_t)W * W, (size_t)W * W, (size_t)W * W, (size_t)W * W,
+      (size_t)W * (kx + W), (size_t)W * W, (size_t)W * W, (size_t)W * W,
+      (size_t)WH * (W + kd)};
+  for (int i = 0; i < 10; ++i) {
+    w[i] = base + off;
+    off += sizes[i];
+  }
+}
+
+inline long long w_numel(int kx, int kd) {
+  return (long long)W * kx + 7LL * W * W + (long long)W * (kx + W) + (long long)WH * (W + kd);
+}
+
+// The scene MLP's layers on one tile whose PE is in `pe`: every activation
+// is written over `act` in turn (a7, then feat, then hv in its first 128
+// columns).  With `acts` non-null each activation (a0..a7, feat, hv) is
+// also stored to the stash rows [p0, min(p0 + T, P)).  `after_a7` runs
+// with a7 in `act`, before the feature layer overwrites it.
+template <bool BF16, typename WT, typename F>
+__device__ __forceinline__ void forward_tile(const WT* const (&w)[10], const float* fp,
+                                             int kx, int kd,
+                                             typename Tile<BF16>::T_act* act,
+                                             const typename Tile<BF16>::T_act* pe, WT* wst,
+                                             WT* acts, int p0, int P, F after_a7) {
+  typedef Tile<BF16> TL;
+  constexpr int T = TL::T, ALD = TL::ACT_LD, PLD = TL::PE_LD;
+  auto emit = [&](int col) {
+    if (acts != nullptr) store_rows<T, ALD, W>(act, acts + col, ACTS_LD, p0, P);
+  };
+  dense<BF16, W>(w[0], kx, pe, PLD, kx, pe, PLD, 0, fp, true, act, wst);
+  emit(0);
+#pragma unroll 1
+  for (int l = 1; l <= 4; ++l) {
+    dense<BF16, W>(w[l], W, act, ALD, W, act, ALD, 0, fp + l * W, true, act, wst);
+    emit(l * W);
+  }
+  dense<BF16, W>(w[5], kx + W, pe, PLD, kx, act, ALD, W, fp + 5 * W, true, act, wst);
+  emit(5 * W);
+  dense<BF16, W>(w[6], W, act, ALD, W, act, ALD, 0, fp + 6 * W, true, act, wst);
+  emit(6 * W);
+  dense<BF16, W>(w[7], W, act, ALD, W, act, ALD, 0, fp + 7 * W, true, act, wst);
+  emit(7 * W);
+  // reads of a7 here finish before the feature layer's epilogue overwrites
+  // it (that epilogue runs only after the feature gemm's barriers)
+  after_a7();
+  dense<BF16, W>(w[8], W, act, ALD, W, act, ALD, 0, fp + FP_BF, false, act, wst);
+  emit(8 * W);
+  dense<BF16, WH>(w[9], W + kd, act, ALD, W, pe + kx, PLD, kd, fp + FP_BV, true, act, wst);
+  if (acts != nullptr) store_rows<T, ALD, WH>(act, acts + 9 * W, ACTS_LD, p0, P);
+}
+
+}  // namespace nerf_mlp

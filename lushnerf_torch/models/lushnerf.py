@@ -4,6 +4,8 @@ RBK deformable blur kernel + tone mapping.
 Mirrors the mode dispatch of the reference NeRFAll.forward
 (models/lushnerf.py:619-677) as separate functions:
 
+  * forward_naive  -- warmup stage: the scene on the original rays, no blur
+    kernel (:657-662).
   * forward_kernel -- main DSK stage: RBK sub-ray bundles rendered through
     the field, composited with learned weights, SND noise added before tone
     mapping (:636-654); optional frequency-mask gradient gating (:641-643).
@@ -191,8 +193,48 @@ def _train_randomness(generator: Optional[torch.Generator], cfg: LushConfig, n_r
 
 
 # ---------------------------------------------------------------------------
-# Training forward
+# Training forwards
 # ---------------------------------------------------------------------------
+
+
+def forward_naive(
+    model: LushNeRF,
+    cfg: LushConfig,
+    H: int,
+    W: int,
+    focal,
+    rays: torch.Tensor,
+    generator: Optional[torch.Generator] = None,
+    rand_override: Optional[Dict[str, Any]] = None,
+) -> Dict[str, torch.Tensor]:
+    """Warmup / no-blur forward on the original rays (reference :657-662).
+
+    rays: [N, 3, 2].  Returns tonemapped rgb/rgb0 and the (unused in the
+    loss) noise prediction, as the reference's return tuple.  Randomness as
+    forward_kernel.
+    """
+    prepared = prepare_rays(
+        cfg.render, H, W, focal, rays[..., 0], rays[..., 1], cfg.near, cfg.far
+    )
+    if rand_override is not None:
+        rnd = rand_override
+    else:
+        rnd = _train_randomness(generator, cfg, rays.shape[0], rays.device)
+    out = render_rays_scene(
+        model.mlp_coarse, model.mlp_fine, cfg.mlp_cfg, cfg.render, prepared, **rnd
+    )
+    raw_noise = render_rays_noise(model.mlp_noise_coarse, cfg.noise_cfg, cfg.render, prepared)
+
+    def tmap(v):
+        return apply_tonemap(cfg.tone_mapping_type, v, cfg.tonemap_eps)
+
+    return {
+        "rgb_blur": tmap(out["rgb"]),
+        "rgb0_blur": tmap(out.get("rgb0", out["rgb"])),
+        "rgb_noise": NOISE_SCALE * torch.sigmoid(raw_noise),
+        "depth": out["depth"],
+        "acc": out["acc"],
+    }
 
 
 def forward_kernel(

@@ -14,8 +14,9 @@ Reference behavior (models/lushnerf.py):
 `mlp_backend` picks how the scene MLPs are evaluated: 'torch' runs the
 `NeRFMLP` modules in f32; 'cuda' sends the MLP family of
 `fused.supports` (the JAX package's) to the fused path
-(ops/fused/nerf_mlp.py), which on the card launches the kernel or raises,
-and the rest (the D=4, W=128 noise MLP) to the torch path.
+(ops/fused/nerf_mlp.py), which on the card launches the kernels or raises
+(forward, and under autograd the backward of `mlp_bwd`), and the rest (the
+D=4, W=128 noise MLP) to the torch path.
 """
 
 from __future__ import annotations
@@ -73,6 +74,9 @@ class RenderConfig:
     # matmul input precision inside the fused kernel ('float32' |
     # 'bfloat16'); accumulation is always f32.  The 'torch' backend is f32.
     mlp_compute_dtype: str = "float32"
+    # the fused path's backward: 'remat' recomputes the activations, 'stash'
+    # reads those the forward stored (more memory, less compute)
+    mlp_bwd: str = "remat"
 
     def __post_init__(self):
         if self.mlp_backend not in MLP_BACKENDS:
@@ -80,6 +84,8 @@ class RenderConfig:
         if self.mlp_compute_dtype not in fused.COMPUTE_DTYPES:
             raise ValueError(f"mlp_compute_dtype {self.mlp_compute_dtype!r} not in "
                              f"{fused.COMPUTE_DTYPES}")
+        if self.mlp_bwd not in fused.BWD_MODES:
+            raise ValueError(f"mlp_bwd {self.mlp_bwd!r} not in {fused.BWD_MODES}")
 
     @property
     def pe_x(self) -> PositionalEncoding:

@@ -38,3 +38,16 @@ def posenc(x: torch.Tensor, num_freqs: int) -> torch.Tensor:
     sc = torch.stack([torch.sin(xb), torch.cos(xb)], dim=-2)  # [..., L, 2, d]
     sc = sc.reshape(*x.shape[:-1], 2 * num_freqs * x.shape[-1])
     return torch.cat([x, sc], dim=-1)
+
+
+def posenc_backward(x: torch.Tensor, g: torch.Tensor, num_freqs: int) -> torch.Tensor:
+    """The gradient w.r.t. x [..., d] of <posenc(x, num_freqs), g>, written
+    out: d sin(f x) = f cos(f x) dx and d cos(f x) = -f sin(f x) dx."""
+    d = x.shape[-1]
+    if num_freqs == 0:
+        return g
+    freqs = torch.exp2(torch.arange(num_freqs, dtype=x.dtype, device=x.device))
+    xb = x[..., None, :] * freqs[:, None]  # [..., L, d]
+    sc = g[..., d:].reshape(*x.shape[:-1], num_freqs, 2, d)
+    trig = sc[..., 0, :] * torch.cos(xb) - sc[..., 1, :] * torch.sin(xb)
+    return g[..., :d] + torch.sum(trig * freqs[:, None], dim=-2)

@@ -3,7 +3,9 @@ with ctypes.
 
 `csrc/<name>.cu` becomes `build/lushnerf_torch/lib<name>-<digest>.so` at
 the repository root, compiled for Hopper (`sm_90a`) at first use; the
-digest covers the source and the flags, so an edited source is rebuilt.
+digest covers the source, the shared `csrc/*.cuh` headers and the flags, so
+an edited source is rebuilt.  `build_all` compiles several sources at once,
+one nvcc process each.
 The sources have a plain C interface and include no PyTorch header, so a
 build takes seconds.  Nothing here runs at import time.
 """
@@ -43,8 +45,10 @@ def nvcc() -> str:
 
 def _target(name: str) -> Tuple[Path, Path]:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return src, BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):  # the shared headers the sources include
+        h.update(header.read_bytes())
+    return src, BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(name: str) -> str:
@@ -63,6 +67,16 @@ def build(name: str) -> str:
         raise RuntimeError(f"nvcc failed for {name}:\n{log}")
     os.replace(tmp, out)
     return log
+
+
+def build_all(names) -> Dict[str, str]:
+    """build() for each name, the nvcc processes run side by side.  Returns
+    {name: nvcc output}; raises with the first failure's output."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        return dict(zip(names, pool.map(build, names)))
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,38 +1,56 @@
-"""Fused NeRF-MLP forward: the CUDA kernel's wrapper, its plain PyTorch
-version, and a launch counter.
+"""Fused NeRF-MLP: the CUDA kernels' wrappers, their plain PyTorch versions,
+the autograd Function that joins them, and launch counters.
 
-The kernel (`lushnerf_torch/csrc/nerf_mlp_fwd.cu`) computes, per point,
-positional encoding + the 8x256 scene MLP (skip at layer 4) + alpha /
-feature / views / rgb heads, and writes raw [rgb, alpha].  It replaces the
-Pallas TPU kernel `_fwd_kernel` of `lushnerf_tpu/ops/fused/nerf_mlp.py`
-(forward output only; the backward kernels come with training).
+The forward kernel (`lushnerf_torch/csrc/nerf_mlp_fwd.cu`) computes, per
+point, positional encoding + the 8x256 scene MLP (skip at layer 4) + alpha /
+feature / views / rgb heads, and writes raw [rgb, alpha]; for training it
+also writes the activation stash a0..a7, feat, hv.  It replaces the Pallas
+TPU kernel `_fwd_kernel` of `lushnerf_tpu/ops/fused/nerf_mlp.py`.  The
+backward kernels (`csrc/nerf_mlp_bwd.cu`) compute d(xd) and the grads of
+every parameter from the stash (replacing `_bwd_stash_kernel`, mode
+'stash') or from activations they recompute (replacing `_bwd_kernel`, mode
+'remat').
 
-`nerf_mlp_fwd` is the wrapper: on a CPU tensor it runs `nerf_mlp_fwd_plain`,
-on a CUDA tensor it launches the kernel or raises.  `launches` counts
-kernel launches and nothing else.
+`NerfMLPFn` is the gradient: on a CPU tensor it runs `nerf_mlp_fwd_plain`
+and `nerf_mlp_bwd_plain`; on a CUDA tensor it launches the kernels or
+raises.  `nerf_mlp_fwd` is the output-only wrapper (render, no_grad).
+
+Launch counters (plain integers, set them to 0 to start counting; each
+wrapper adds to its own where it launches, and nowhere else):
+`launches` counts forward kernel launches (with or without the stash),
+`launches_bwd_stash` / `launches_bwd_remat` the backward's kernel launches
+(four per backward: dgrad, wgrad and two fixed-order reductions).  `packs`
+counts parameter packings (each is cached per parameter version).
+
+The grads come in the order of `mlp.parameters()` of a `NeRFMLP`: (weight,
+bias) of pts_linears 0..7, feature, alpha, views, rgb -- 24 tensors.  The
+TPU kernel's 26 padded arrays are these with W5 and the views weight each
+split in two by input.
 
 compute_dtype:
   'float32'  -- IEEE f32 products and sums (no TF32).
-  'bfloat16' -- every matmul input (PE, activations, weights) rounded to
-                bf16, f32 accumulation, f32 bias and relu: the rounding
-                points of the TPU kernel's bfloat16 mode.
+  'bfloat16' -- every matmul input (PE, activations, weights, and in the
+                backward the cotangents) rounded to bf16, f32 accumulation,
+                f32 bias and relu: the rounding points of the TPU kernel's
+                bfloat16 mode.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from lushnerf_torch.ops.encoding import posenc
+from lushnerf_torch.ops.encoding import posenc, posenc_backward
 from lushnerf_torch.ops.fused import build
 
 WIDTH = 256  # the kernel's compiled width
 PE_MAX = 128  # kx + kd
 XD_CH = 8  # packed input lanes: 0:3 xyz, 3:6 viewdir, 6:8 zero
 OUT_CH = 4  # output lanes: 0:3 rgb, 3 alpha
+ACTS_LD = 9 * WIDTH + WIDTH // 2  # stash row: a0..a7, feat, hv
 # offsets into the f32 blob (mirrors FP_* in the CUDA source)
 FP_BF = 8 * WIDTH
 FP_BV = FP_BF + WIDTH
@@ -43,9 +61,13 @@ FP_WR = FP_WA + WIDTH
 FP_NUMEL = FP_WR + 3 * (WIDTH // 2)
 
 COMPUTE_DTYPES = ("float32", "bfloat16")
+BWD_MODES = ("remat", "stash")
 
-# Kernel launches since the last reset (set it to 0 to start counting).
+# Kernel launches since they were last set to 0.
 launches = 0
+launches_bwd_stash = 0
+launches_bwd_remat = 0
+packs = 0  # parameter packings built (forward and backward blobs)
 
 
 def _round32(n: int) -> int:
@@ -94,60 +116,158 @@ def check_kernel_family(mlp_cfg, compute_dtype: str, num_freqs_x: int,
 
 
 # ---------------------------------------------------------------------------
-# plain PyTorch version
+# plain PyTorch versions
 # ---------------------------------------------------------------------------
 
 
-def nerf_mlp_fwd_plain(mlp, xd: torch.Tensor, compute_dtype: str = "float32",
-                       num_freqs_x: int = 10, num_freqs_d: int = 4) -> torch.Tensor:
-    """The kernel's function in PyTorch ops, rounding where it rounds.
-
-    mlp: a `NeRFMLP` of the supported family; xd: [P, 8] float32.
-    Returns raw [P, 4] = [rgb, alpha].  On CUDA set
-    torch.backends.cuda.matmul.allow_tf32 = False, or the f32 products
-    lose precision.
-    """
+def _rounder(compute_dtype: str):
     if compute_dtype == "bfloat16":
-        def dot(a, w):
-            return a.bfloat16().float() @ w.bfloat16().float().T
-    else:
-        def dot(a, w):
-            return a @ w.T
+        return lambda t: t.bfloat16().float()
+    return lambda t: t
+
+
+def _plain_forward(mlp, xd, compute_dtype, num_freqs_x, num_freqs_d):
+    """All of the plain forward's values: x_pe, d_pe, acts (a0..a7), feat,
+    hv and the raw output."""
+    r = _rounder(compute_dtype)
+
+    def dot(a, w):
+        return r(a) @ r(w).T
+
     in_ch = mlp.cfg.input_ch
     W = mlp.cfg.width
     x_pe = posenc(xd[:, 0:3], num_freqs_x)
     d_pe = posenc(xd[:, 3:6], num_freqs_d)
     pts = mlp.pts_linears
+    acts = []
     h = x_pe
     for i in range(5):
         h = torch.relu(dot(h, pts[i].weight) + pts[i].bias)
+        acts.append(h)
     w5 = pts[5].weight
     h = torch.relu(dot(x_pe, w5[:, :in_ch]) + dot(h, w5[:, in_ch:]) + pts[5].bias)
+    acts.append(h)
     for i in (6, 7):
         h = torch.relu(dot(h, pts[i].weight) + pts[i].bias)
+        acts.append(h)
     alpha = dot(h, mlp.alpha_linear.weight) + mlp.alpha_linear.bias
     feat = dot(h, mlp.feature_linear.weight) + mlp.feature_linear.bias
     wv = mlp.views_linears[0].weight
     hv = torch.relu(dot(feat, wv[:, :W]) + dot(d_pe, wv[:, W:]) + mlp.views_linears[0].bias)
     rgb = dot(hv, mlp.rgb_linear.weight) + mlp.rgb_linear.bias
-    return torch.cat([rgb, alpha], dim=-1)
+    return dict(x_pe=x_pe, d_pe=d_pe, acts=acts, feat=feat, hv=hv,
+                out=torch.cat([rgb, alpha], dim=-1))
+
+
+def stash_dtype(compute_dtype: str) -> torch.dtype:
+    return torch.bfloat16 if compute_dtype == "bfloat16" else torch.float32
+
+
+def nerf_mlp_fwd_plain(mlp, xd: torch.Tensor, compute_dtype: str = "float32",
+                       num_freqs_x: int = 10, num_freqs_d: int = 4, with_acts: bool = False):
+    """The kernel's function in PyTorch ops, rounding where it rounds.
+
+    mlp: a `NeRFMLP` of the supported family; xd: [P, 8] float32.
+    Returns raw [P, 4] = [rgb, alpha]; with `with_acts`, also the stash
+    [P, 9 W + W/2] (a0..a7, feat, hv) in the compute dtype, as the kernel
+    writes it.  On CUDA set torch.backends.cuda.matmul.allow_tf32 = False,
+    or the f32 products lose precision.
+    """
+    f = _plain_forward(mlp, xd, compute_dtype, num_freqs_x, num_freqs_d)
+    if not with_acts:
+        return f["out"]
+    acts = torch.cat(f["acts"] + [f["feat"], f["hv"]], dim=1).to(stash_dtype(compute_dtype))
+    return f["out"], acts
+
+
+def nerf_mlp_bwd_plain(mlp, xd: torch.Tensor, g: torch.Tensor, compute_dtype: str = "float32",
+                       num_freqs_x: int = 10, num_freqs_d: int = 4,
+                       acts: Optional[torch.Tensor] = None):
+    """The backward kernels' function in PyTorch ops: `_bwd_math` of the TPU
+    kernel step by step, with its rounding points.
+
+    g: [P, 4] cotangent of the raw output.  acts: the forward's stash
+    (stash mode), or None to recompute the activations (remat mode); both
+    give the same values.  Returns (d_xd [P, 8], the grads of
+    `mlp.parameters()` in their shapes).  Every matmul input is rounded to
+    the compute dtype (cotangents included); bias grads sum the unrounded
+    f32 cotangents; relu masks test the stored activation.
+    """
+    r = _rounder(compute_dtype)
+
+    def dot(a, b):  # a @ b
+        return r(a) @ r(b)
+
+    def dot_t(a, b):  # a^T @ b
+        return r(a).T @ r(b)
+
+    def mask(a):
+        return (a > 0).float()
+
+    cfg = mlp.cfg
+    in_ch, W = cfg.input_ch, cfg.width
+    x_pe = posenc(xd[:, 0:3], num_freqs_x)
+    d_pe = posenc(xd[:, 3:6], num_freqs_d)
+    if acts is None:
+        f = _plain_forward(mlp, xd, compute_dtype, num_freqs_x, num_freqs_d)
+        a, feat, hv = f["acts"], f["feat"], f["hv"]
+    else:
+        s = acts.float()
+        a = [s[:, l * W:(l + 1) * W] for l in range(8)]
+        feat, hv = s[:, 8 * W:9 * W], s[:, 9 * W:9 * W + W // 2]
+    pts = [lin.weight for lin in mlp.pts_linears]
+    wf = mlp.feature_linear.weight
+    wa = mlp.alpha_linear.weight
+    wv = mlp.views_linears[0].weight
+    wr = mlp.rgb_linear.weight
+    g_rgb, g_a = g[:, :3], g[:, 3:4]
+
+    d_hv = dot(g_rgb, wr) * mask(hv)
+    d_feat = dot(d_hv, wv[:, :W])
+    d_z = [None] * 8
+    d_z[7] = (dot(d_feat, wf) + dot(g_a, wa)) * mask(a[7])
+    d_z[6] = dot(d_z[7], pts[7]) * mask(a[6])
+    d_z[5] = dot(d_z[6], pts[6]) * mask(a[5])
+    d_z[4] = dot(d_z[5], pts[5][:, in_ch:]) * mask(a[4])
+    for l in (3, 2, 1, 0):
+        d_z[l] = dot(d_z[l + 1], pts[l + 1]) * mask(a[l])
+    d_pe_x = dot(d_z[0], pts[0]) + dot(d_z[5], pts[5][:, :in_ch])
+    d_pe_d = dot(d_hv, wv[:, W:])
+
+    g_w = [dot_t(d_z[0], x_pe)] + [dot_t(d_z[l], a[l - 1]) for l in range(1, 5)]
+    g_w.append(torch.cat([dot_t(d_z[5], x_pe), dot_t(d_z[5], a[4])], dim=1))
+    g_w += [dot_t(d_z[6], a[5]), dot_t(d_z[7], a[6])]
+    grads = []
+    for l in range(8):
+        grads += [g_w[l], d_z[l].sum(0)]
+    grads += [dot_t(d_feat, a[7]), d_feat.sum(0)]
+    grads += [dot_t(g_a, a[7]), g_a.sum(0)]
+    grads += [torch.cat([dot_t(d_hv, feat), dot_t(d_hv, d_pe)], dim=1), d_hv.sum(0)]
+    grads += [dot_t(g_rgb, hv), g_rgb.sum(0)]
+    d_xd = torch.cat([posenc_backward(xd[:, 0:3], d_pe_x, num_freqs_x),
+                      posenc_backward(xd[:, 3:6], d_pe_d, num_freqs_d),
+                      xd.new_zeros(xd.shape[0], XD_CH - 6)], dim=1)
+    return d_xd, grads
 
 
 # ---------------------------------------------------------------------------
-# kernel
+# kernels
 # ---------------------------------------------------------------------------
+
+
+def _pack_key(mlp, compute_dtype: str):
+    return (compute_dtype, tuple((p.data_ptr(), p._version) for p in mlp.parameters()))
 
 
 @torch.no_grad()
 def pack_params(mlp, compute_dtype: str) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kernel's parameter blobs (layout in the CUDA source's header):
+    """The kernels' parameter blobs (layout in csrc/nerf_mlp_common.cuh):
     the weight blob in the compute dtype, the f32 blob of biases and heads.
 
     Packed once per parameter version: the result is cached on the module
     and rebuilt when a parameter is replaced or changed in place.
     """
-    params = list(mlp.parameters())
-    key = (compute_dtype, tuple((p.data_ptr(), p._version) for p in params))
+    key = _pack_key(mlp, compute_dtype)
     cached = getattr(mlp, "_nerf_mlp_fwd_pack", None)
     if cached is not None and cached[0] == key:
         return cached[1]
@@ -184,23 +304,101 @@ def pack_params(mlp, compute_dtype: str) -> Tuple[torch.Tensor, torch.Tensor]:
     fp[FP_WR:] = head(mlp.rgb_linear.weight).reshape(-1)
     packed = (w, fp)
     mlp._nerf_mlp_fwd_pack = (key, packed)
+    global packs
+    packs += 1
     return packed
+
+
+@torch.no_grad()
+def pack_params_bwd(mlp, compute_dtype: str) -> torch.Tensor:
+    """The backward's transposed weight blob ([in][out] blocks, layout in
+    csrc/nerf_mlp_bwd.cu), in the compute dtype; cached as pack_params."""
+    key = _pack_key(mlp, compute_dtype)
+    cached = getattr(mlp, "_nerf_mlp_bwd_pack", None)
+    if cached is not None and cached[0] == key:
+        return cached[1]
+    cfg = mlp.cfg
+    in_ch, W = cfg.input_ch, cfg.width
+    kx, kd = pe_widths(cfg)
+
+    def padk_t(w, k):  # [out][in] -> [k][out], rows past `in` zero
+        return F.pad(w, (0, k - w.shape[1])).T
+
+    pts = [lin.weight for lin in mlp.pts_linears]
+    wv = mlp.views_linears[0].weight
+    mats = [padk_t(pts[0], kx)] + [pts[i].T for i in range(1, 5)] + [
+        padk_t(pts[5][:, :in_ch], kx), pts[5][:, in_ch:].T, pts[6].T, pts[7].T,
+        mlp.feature_linear.weight.T, wv[:, :W].T, padk_t(wv[:, W:], kd),
+    ]
+    wdt = stash_dtype(compute_dtype)
+    wt = torch.cat([m.reshape(-1) for m in mats]).to(wdt).contiguous()
+    mlp._nerf_mlp_bwd_pack = (key, wt)
+    global packs
+    packs += 1
+    return wt
+
+
+def _unpack_grads(mlp, dw: torch.Tensor, dfp: torch.Tensor) -> List[torch.Tensor]:
+    """The backward's weight-blob and f32-blob grads -> the grads of
+    `mlp.parameters()`; the padding columns' grads are dropped."""
+    cfg = mlp.cfg
+    in_ch, in_d, W, Wh = cfg.input_ch, cfg.input_ch_views, cfg.width, cfg.width // 2
+    kx, kd = pe_widths(cfg)
+    shapes = [(W, kx)] + [(W, W)] * 4 + [(W, kx + W)] + [(W, W)] * 3 + [(Wh, W + kd)]
+    mats, off = [], 0
+    for o, i in shapes:
+        mats.append(dw[off:off + o * i].reshape(o, i))
+        off += o * i
+    g_w = [mats[0][:, :in_ch]] + mats[1:5] + [
+        torch.cat([mats[5][:, :in_ch], mats[5][:, kx:]], dim=1), mats[6], mats[7]]
+    grads = []
+    for l in range(8):
+        grads += [g_w[l], dfp[l * W:(l + 1) * W]]
+    grads += [mats[8], dfp[FP_BF:FP_BV]]
+    grads += [dfp[FP_WA:FP_WR].reshape(1, W), dfp[FP_BA:FP_BA + 1]]
+    grads += [torch.cat([mats[9][:, :W], mats[9][:, W:W + in_d]], dim=1), dfp[FP_BV:FP_BA]]
+    grads += [dfp[FP_WR:].reshape(3, Wh), dfp[FP_BR:FP_BR + 3]]
+    return grads
 
 
 def _lib() -> ctypes.CDLL:
     lib = build.load("nerf_mlp_fwd")
     if not getattr(lib, "_lushnerf_typed", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.nerf_mlp_fwd.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]
+        lib.nerf_mlp_fwd.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]
         lib.nerf_mlp_fwd.restype = ci
         lib.nerf_mlp_fwd_w_numel.argtypes = [ci, ci]
         lib.nerf_mlp_fwd_w_numel.restype = ctypes.c_longlong
         lib.nerf_mlp_fwd_fp_numel.argtypes = []
         lib.nerf_mlp_fwd_fp_numel.restype = ctypes.c_longlong
+        lib.nerf_mlp_fwd_acts_ld.argtypes = []
+        lib.nerf_mlp_fwd_acts_ld.restype = ctypes.c_longlong
         lib.nerf_mlp_fwd_error_string.argtypes = [ci]
         lib.nerf_mlp_fwd_error_string.restype = ctypes.c_char_p
-        if lib.nerf_mlp_fwd_fp_numel() != FP_NUMEL:
-            raise RuntimeError("nerf_mlp_fwd: f32 blob layout differs from the CUDA source")
+        if lib.nerf_mlp_fwd_fp_numel() != FP_NUMEL or lib.nerf_mlp_fwd_acts_ld() != ACTS_LD:
+            raise RuntimeError("nerf_mlp_fwd: f32 blob or stash layout differs from the CUDA source")
+        lib._lushnerf_typed = True
+    return lib
+
+
+def _bwd_lib() -> ctypes.CDLL:
+    lib = build.load("nerf_mlp_bwd")
+    if not getattr(lib, "_lushnerf_typed", False):
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.nerf_mlp_bwd.argtypes = [vp] * 13 + [ci] * 9 + [vp]
+        lib.nerf_mlp_bwd.restype = ci
+        lib.nerf_mlp_bwd_w_numel.argtypes = [ci, ci]
+        lib.nerf_mlp_bwd_w_numel.restype = ctypes.c_longlong
+        lib.nerf_mlp_bwd_fp_numel.argtypes = []
+        lib.nerf_mlp_bwd_fp_numel.restype = ctypes.c_longlong
+        lib.nerf_mlp_bwd_acts_ld.argtypes = []
+        lib.nerf_mlp_bwd_acts_ld.restype = ctypes.c_longlong
+        lib.nerf_mlp_bwd_tile.argtypes = [ci]
+        lib.nerf_mlp_bwd_tile.restype = ci
+        lib.nerf_mlp_bwd_error_string.argtypes = [ci]
+        lib.nerf_mlp_bwd_error_string.restype = ctypes.c_char_p
+        if lib.nerf_mlp_bwd_fp_numel() != FP_NUMEL or lib.nerf_mlp_bwd_acts_ld() != ACTS_LD:
+            raise RuntimeError("nerf_mlp_bwd: f32 blob or stash layout differs from the CUDA source")
         lib._lushnerf_typed = True
     return lib
 
@@ -211,26 +409,25 @@ def _needs_grad(mlp, xd: torch.Tensor) -> bool:
     )
 
 
-def nerf_mlp_fwd(mlp, xd: torch.Tensor, compute_dtype: str = "float32",
-                 num_freqs_x: int = 10, num_freqs_d: int = 4) -> torch.Tensor:
-    """Raw [P, 4] = [rgb, alpha] of the scene MLP at packed points xd [P, 8].
-
-    CPU tensor: the plain version.  CUDA tensor: the kernel, or an error
-    (no gradient yet: the backward kernel comes with training, so call it
-    under torch.no_grad() or with parameters that need no grad).
-    """
-    if xd.device.type == "cpu":
-        return nerf_mlp_fwd_plain(mlp, xd, compute_dtype, num_freqs_x, num_freqs_d)
+def _check_cuda_inputs(name, mlp, xd, compute_dtype, num_freqs_x, num_freqs_d):
     if xd.device.type != "cuda":
-        raise ValueError(f"nerf_mlp_fwd: unsupported device {xd.device}")
-    if _needs_grad(mlp, xd):
-        raise NotImplementedError(
-            "nerf_mlp_fwd: the CUDA kernel has no backward yet; run under torch.no_grad()"
-        )
+        raise ValueError(f"{name}: unsupported device {xd.device}")
     check_kernel_family(mlp.cfg, compute_dtype, num_freqs_x, num_freqs_d)
     if xd.dtype != torch.float32 or xd.dim() != 2 or xd.shape[1] != XD_CH:
-        raise ValueError(f"nerf_mlp_fwd: xd must be float32 [P, {XD_CH}], got "
+        raise ValueError(f"{name}: xd must be float32 [P, {XD_CH}], got "
                          f"{xd.dtype} {tuple(xd.shape)}")
+
+
+def _check_aligned(name, *tensors):
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: tensors must be 16-byte aligned")
+
+
+def _launch_fwd(mlp, xd: torch.Tensor, compute_dtype: str, num_freqs_x: int,
+                num_freqs_d: int, stash: bool):
+    """The forward kernel on a CUDA tensor: (raw [P, 4], stash or None)."""
+    _check_cuda_inputs("nerf_mlp_fwd", mlp, xd, compute_dtype, num_freqs_x, num_freqs_d)
     kx, kd = pe_widths(mlp.cfg)
     xd = xd.contiguous()
     w, fp = pack_params(mlp, compute_dtype)
@@ -238,18 +435,19 @@ def nerf_mlp_fwd(mlp, xd: torch.Tensor, compute_dtype: str = "float32",
         raise ValueError(f"nerf_mlp_fwd: params on {w.device}, points on {xd.device}")
     P = xd.shape[0]
     out = torch.empty((P, OUT_CH), dtype=torch.float32, device=xd.device)
+    acts = (torch.empty((P, ACTS_LD), dtype=stash_dtype(compute_dtype), device=xd.device)
+            if stash else None)
     if P == 0:
-        return out
+        return out, acts
     lib = _lib()
     if w.numel() != lib.nerf_mlp_fwd_w_numel(kx, kd):
         raise RuntimeError("nerf_mlp_fwd: weight blob layout differs from the CUDA source")
-    for t in (xd, w, fp, out):
-        if t.data_ptr() % 16:
-            raise ValueError("nerf_mlp_fwd: tensors must be 16-byte aligned")
+    _check_aligned("nerf_mlp_fwd", xd, w, fp, out, *([acts] if stash else []))
     stream = torch.cuda.current_stream(xd.device).cuda_stream
     with torch.cuda.device(xd.device):
         rc = lib.nerf_mlp_fwd(
-            xd.data_ptr(), w.data_ptr(), fp.data_ptr(), out.data_ptr(), P, kx, kd,
+            xd.data_ptr(), w.data_ptr(), fp.data_ptr(), out.data_ptr(),
+            acts.data_ptr() if stash else None, P, kx, kd,
             num_freqs_x, num_freqs_d, int(compute_dtype == "bfloat16"), stream,
         )
     if rc != 0:
@@ -258,7 +456,131 @@ def nerf_mlp_fwd(mlp, xd: torch.Tensor, compute_dtype: str = "float32",
         )
     global launches
     launches += 1
-    return out
+    return out, acts
+
+
+def nerf_mlp_fwd(mlp, xd: torch.Tensor, compute_dtype: str = "float32",
+                 num_freqs_x: int = 10, num_freqs_d: int = 4) -> torch.Tensor:
+    """Raw [P, 4] = [rgb, alpha] of the scene MLP at packed points xd [P, 8],
+    without a gradient (render, torch.no_grad()).
+
+    CPU tensor: the plain version.  CUDA tensor: the kernel, or an error;
+    for a gradient call `NerfMLPFn` (as `eval_points_fused` does).
+    """
+    if xd.device.type == "cpu":
+        return nerf_mlp_fwd_plain(mlp, xd, compute_dtype, num_freqs_x, num_freqs_d)
+    if xd.device.type == "cuda" and _needs_grad(mlp, xd):
+        raise NotImplementedError(
+            "nerf_mlp_fwd gives no gradient; use NerfMLPFn (eval_points_fused) or torch.no_grad()"
+        )
+    return _launch_fwd(mlp, xd, compute_dtype, num_freqs_x, num_freqs_d, stash=False)[0]
+
+
+def nerf_mlp_bwd(mlp, xd: torch.Tensor, g: torch.Tensor, compute_dtype: str = "float32",
+                 num_freqs_x: int = 10, num_freqs_d: int = 4,
+                 acts: Optional[torch.Tensor] = None):
+    """The backward kernels on CUDA tensors: (d_xd [P, 8], the grads of
+    `mlp.parameters()`), as `nerf_mlp_bwd_plain` returns them.  acts: the
+    forward's stash (K2, stash mode) or None (K3, remat mode: the dgrad
+    kernel recomputes the activations into scratch allocated here and freed
+    on return)."""
+    _check_cuda_inputs("nerf_mlp_bwd", mlp, xd, compute_dtype, num_freqs_x, num_freqs_d)
+    P = xd.shape[0]
+    if g.shape != (P, OUT_CH) or g.device != xd.device:
+        raise ValueError(f"nerf_mlp_bwd: g must be [P, {OUT_CH}] on {xd.device}")
+    cdt = stash_dtype(compute_dtype)
+    if acts is not None and (acts.shape != (P, ACTS_LD) or acts.dtype != cdt):
+        raise ValueError(f"nerf_mlp_bwd: stash must be {cdt} [P, {ACTS_LD}]")
+    remat = acts is None
+    kx, kd = pe_widths(mlp.cfg)
+    xd = xd.contiguous()
+    g = g.float().contiguous()
+    w, fp = pack_params(mlp, compute_dtype)
+    wt = pack_params_bwd(mlp, compute_dtype)
+    lib = _bwd_lib()
+    wn = lib.nerf_mlp_bwd_w_numel(kx, kd)
+    if w.numel() != wn or wt.numel() != wn:
+        raise RuntimeError("nerf_mlp_bwd: weight blob layout differs from the CUDA source")
+    dev = xd.device
+    if P == 0:
+        return torch.zeros_like(xd), _unpack_grads(
+            mlp, torch.zeros(wn, device=dev), torch.zeros(FP_NUMEL, device=dev))
+    if remat:
+        acts = torch.empty((P, ACTS_LD), dtype=cdt, device=dev)
+    dz = torch.empty((P, ACTS_LD), dtype=cdt, device=dev)
+    pe = torch.empty((P, kx + kd), dtype=cdt, device=dev)
+    dxd = torch.empty((P, XD_CH), dtype=torch.float32, device=dev)
+    n_tiles = -(-P // lib.nerf_mlp_bwd_tile(int(compute_dtype == "bfloat16")))
+    n_blocks = min(n_tiles, torch.cuda.get_device_properties(dev).multi_processor_count)
+    n_splits = max(1, min(32, -(-P // 16384)))
+    fp_part = torch.empty((n_blocks, FP_NUMEL), dtype=torch.float32, device=dev)
+    w_part = torch.empty((n_splits, wn), dtype=torch.float32, device=dev)
+    dw = torch.empty(wn, dtype=torch.float32, device=dev)
+    dfp = torch.empty(FP_NUMEL, dtype=torch.float32, device=dev)
+    _check_aligned("nerf_mlp_bwd", xd, g, w, wt, fp, acts, dz, pe, dxd, fp_part, w_part, dw, dfp)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = lib.nerf_mlp_bwd(
+            xd.data_ptr(), g.data_ptr(), w.data_ptr(), wt.data_ptr(), fp.data_ptr(),
+            acts.data_ptr(), dz.data_ptr(), pe.data_ptr(), dxd.data_ptr(), fp_part.data_ptr(),
+            w_part.data_ptr(), dw.data_ptr(), dfp.data_ptr(), P, kx, kd, num_freqs_x,
+            num_freqs_d, int(compute_dtype == "bfloat16"), int(remat), n_blocks, n_splits,
+            stream,
+        )
+    if rc != 0:
+        raise RuntimeError(
+            f"nerf_mlp_bwd: CUDA error {rc} ({lib.nerf_mlp_bwd_error_string(rc).decode()})"
+        )
+    global launches_bwd_stash, launches_bwd_remat
+    if remat:
+        launches_bwd_remat += 4
+    else:
+        launches_bwd_stash += 4
+    return dxd, _unpack_grads(mlp, dw, dfp)
+
+
+class NerfMLPFn(torch.autograd.Function):
+    """Raw [P, 4] of the scene MLP with a gradient for xd and every
+    parameter.
+
+    apply(mlp, xd, compute_dtype, num_freqs_x, num_freqs_d, bwd_mode,
+    *mlp.parameters()): the 24 parameters in the order of the module's
+    parameters(), which is the order of the grads it returns.  bwd_mode
+    'stash': the forward also writes the activation stash (held until the
+    backward) and the backward reads it; 'remat': the backward recomputes
+    the activations.  CPU tensors take the plain versions; CUDA tensors the
+    kernels.  The parameters are saved for the backward, so a parameter
+    changed in place in between raises autograd's version error.
+    """
+
+    @staticmethod
+    def forward(ctx, mlp, xd, compute_dtype, num_freqs_x, num_freqs_d, bwd_mode, *params):
+        if bwd_mode not in BWD_MODES:
+            raise ValueError(f"NerfMLPFn: bwd_mode {bwd_mode!r} not in {BWD_MODES}")
+        stash = bwd_mode == "stash"
+        if xd.device.type == "cpu":
+            if stash:
+                out, acts = nerf_mlp_fwd_plain(mlp, xd, compute_dtype, num_freqs_x, num_freqs_d,
+                                               with_acts=True)
+            else:
+                out, acts = nerf_mlp_fwd_plain(mlp, xd, compute_dtype, num_freqs_x,
+                                               num_freqs_d), None
+        else:
+            out, acts = _launch_fwd(mlp, xd, compute_dtype, num_freqs_x, num_freqs_d, stash)
+        ctx.mlp = mlp
+        ctx.args = (compute_dtype, num_freqs_x, num_freqs_d)
+        ctx.acts = acts
+        ctx.save_for_backward(xd, *params)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        xd = ctx.saved_tensors[0]  # reading them checks the params' versions
+        acts, ctx.acts = ctx.acts, None  # the stash is freed with the backward
+        g = g.float().contiguous()
+        bwd = nerf_mlp_bwd_plain if xd.device.type == "cpu" else nerf_mlp_bwd
+        d_xd, grads = bwd(ctx.mlp, xd, g, *ctx.args, acts=acts)
+        return (None, d_xd, None, None, None, None, *grads)
 
 
 def eval_points_fused(mlp, mlp_cfg, render_cfg, pts: torch.Tensor,
@@ -267,6 +589,8 @@ def eval_points_fused(mlp, mlp_cfg, render_cfg, pts: torch.Tensor,
 
     pts: [R, S, 3]; viewdirs: [R, 3].  Returns raw [R, S, 4].  Only the
     packed [P, 8] (xyz, dir) array goes in; the PE happens in the kernel.
+    Where a gradient is needed the call goes through `NerfMLPFn` with
+    render_cfg.mlp_bwd.
     """
     if not supports(mlp_cfg, render_cfg):
         raise NotImplementedError(
@@ -278,6 +602,9 @@ def eval_points_fused(mlp, mlp_cfg, render_cfg, pts: torch.Tensor,
     x = pts.reshape(P, 3)
     d = viewdirs[:, None, :].expand(R, S, 3).reshape(P, 3)
     xd = torch.cat([x, d, x.new_zeros(P, XD_CH - 6)], dim=-1).float()
-    raw = nerf_mlp_fwd(mlp, xd, render_cfg.mlp_compute_dtype,
-                       render_cfg.multires, render_cfg.multires_views)
+    args = (render_cfg.mlp_compute_dtype, render_cfg.multires, render_cfg.multires_views)
+    if _needs_grad(mlp, xd):
+        raw = NerfMLPFn.apply(mlp, xd, *args, render_cfg.mlp_bwd, *mlp.parameters())
+    else:
+        raw = nerf_mlp_fwd(mlp, xd, *args)
     return raw.reshape(R, S, OUT_CH)

@@ -6,8 +6,9 @@
 Phases, in order (any failure makes the exit code non-zero and suppresses
 the final result line):
   1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
-  2. build: both CUDA sources (nerf_mlp_fwd.cu, nerf_mlp_bwd.cu) with nvcc
-     for sm_90a, side by side, printing registers and spills;
+  2. build: the four CUDA sources (nerf_mlp_fwd.cu, nerf_mlp_bwd.cu,
+     nerf_pe_mm.cu, raymajor_probe.cu) with nvcc for sm_90a, side by side,
+     printing registers and spills;
   3. kernel: the fused NeRF-MLP forward kernel against its plain PyTorch
      version at width 256 / depth 8, at the flagship point counts 5120x64
      and 5120x128 (forward_kernel), 4096x64 and 4096x128 (a render_image
@@ -49,8 +50,31 @@ the final result line):
      fed a stash with one block shifted by a column; after the steps the
      forward kernel still matches its plain version (no stale weight pack);
   8. profile: a torch.profiler trace of forward_kernel, render_image and one
-     train step: device time by kernel and the device's busy share.
-Then a `{"kernels": [...]}` line and, last, the `{"ok": true, ...}` line.
+     train step: device time by kernel and the device's busy share;
+  9. tune_kernel: the kernel-cost path, `lushnerf_torch.scripts.tune_kernel`
+     at P = 983,040 (every time it prints is recorded, with the launches it
+     made; its two-length differences of K1, K4 and K5 are the forward's
+     time split); then on the script's xd and MLP: the forward kernel (K1)
+     against its plain version with phase 3's bf16 limits, and the remat
+     backward (K3) on g = 2 out (the script's sum(out^2)) against the plain
+     backward with phase 4's bf16 limits and mean-gap control; the PE-only
+     kernel (K4) against its plain version at that P and a ragged P (atol
+     1e-5, lanes 90:128 exactly 0); the matmul-only kernel (K5) against its
+     plain version with phase 3's bf16 limits and lanes 3:128 exactly 0;
+     K5(K4(xd)) against K1's output on the same xd and weights with the
+     same limits;
+ 10. probe_raymajor: the five per-ray probes of
+     `lushnerf_torch.scripts.probe_raymajor` at the JAX probe's shapes (any
+     failure fails the phase, launches counted); then at the renderer's
+     per-ray shapes (5120 rays x 64 and x 128 samples) each kernel against
+     its plain version, and the device times of the kernel, its plain
+     version and the one PyTorch call that computes the same function
+     (torch.cumsum, Tensor.clone, torch.searchsorted; none for the dists):
+     medians over 5 CUDA-event windows of back-to-back calls queued behind a
+     device sleep, so that the host's launch cost is not in them.
+Then a `{"kernels": [...]}` line (nine kernels, each with the path that
+launched it: main, tune_kernel or probe_raymajor) and, last, the
+`{"ok": true, ...}` line.
 It needs the repository checkout: run alone it exits non-zero.
 """
 
@@ -97,6 +121,15 @@ MLP_WIDTH = 256
 # sub-rays' colours, which the bf16 rounding perturbs by a like amount
 GRAD_COS_MIN = {"float32": 0.9999, "bfloat16": 0.9}
 SHAPES_BWD = {"coarse": 5120 * 64, "fine": 5120 * 128, "ragged": 4096 * 64 + 37}
+TUNE_P = 983_040  # the kernel-cost script's point count
+PE_TOL = 1e-5  # K4 vs its plain version: sinf against torch.sin, the same f32 arguments
+# K4's work per point: 84 trig lanes, a sinf with its range reduction
+# counted as 40 operations (generous), at the f32 rate
+PE_TRIG_OPS = 84 * 40
+RAY_SHAPES = {"coarse": (5120, 64), "fine": (5120, 128)}  # the renderer's rays x samples
+# excl_cumsum vs its plain version: sums of up to 128 pdf values in [0, 1]
+# in another order (a warp's shuffle tree, then a carry)
+CUMSUM_TOL = 1e-5
 
 
 def card_line() -> str:
@@ -148,18 +181,55 @@ def per_call_ms(fn, n: int) -> dict:
     return {"median": float(np.median(times)), "min": min(times), "max": max(times)}
 
 
+def device_ms(fn, n: int = 50, repeats: int = 5) -> float:
+    """Device ms per call of fn: n calls queued back to back behind a device
+    sleep longer than the host takes to enqueue them, timed with CUDA events
+    from the end of the sleep; the median over `repeats` windows.  For
+    kernels shorter than their launch cost on the host."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    cycles = int(max(host_s, 1e-3) * 2 * 2e9)  # twice the host's time at <= 2 GHz
+    times = []
+    for _ in range(repeats):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / n)
+    return float(np.median(times))
+
+
 # the launch counters of lushnerf_torch.ops.fused.nerf_mlp, by kernel
 COUNTERS = {"nerf_mlp_fwd": "launches", "nerf_mlp_bwd_stash": "launches_bwd_stash",
             "nerf_mlp_bwd_remat": "launches_bwd_remat"}
+# ... of lushnerf_torch.ops.fused.pe_mm and .raymajor
+PE_MM_COUNTERS = {"pe_only": "launches_pe_only", "mm_only": "launches_mm_only"}
+RAYMAJOR_COUNTERS = {"raymajor_excl_cumsum": "launches_excl_cumsum",
+                     "raymajor_transpose": "launches_transpose",
+                     "raymajor_searchsorted": "launches_searchsorted",
+                     "raymajor_masked_dists": "launches_masked_dists"}
 
 
-def zero_counts(fused) -> None:
-    for attr in (*COUNTERS.values(), "packs"):
-        setattr(fused, attr, 0)
+def zero_counts(mod, counters=COUNTERS) -> None:
+    """Sets a module's launch counters to 0, and its weight-pack count where
+    it keeps one (nerf_mlp's `packs`)."""
+    for attr in counters.values():
+        setattr(mod, attr, 0)
+    if hasattr(mod, "packs"):
+        mod.packs = 0
 
 
-def read_counts(fused) -> dict:
-    return {name: getattr(fused, attr) for name, attr in COUNTERS.items()}
+def read_counts(mod, counters=COUNTERS) -> dict:
+    return {name: getattr(mod, attr) for name, attr in counters.items()}
 
 
 def bound_ms(P: int, w_bytes: int, bf16: bool, passes: int = 1, point_bytes: int = 48) -> tuple:
@@ -739,6 +809,201 @@ def profile_phase(lush, cfg_mod, trainer, untraced_ms):
     return res
 
 
+def held_bf16(got, want, f32) -> dict:
+    """bf16 kernel output against its plain version as phase 3 holds it:
+    KERNEL_TOL per value, and the mean error at most BF16_MEAN_ERR_SHARE of
+    the mean gap between the plain version in f32 (f32) and in bf16."""
+    err = (got - want).abs()
+    tol = KERNEL_TOL["bfloat16"]
+    r = {"max_abs_err": err.max().item(),
+         "mean_err_over_f32_gap": err.mean().item() / (f32 - want).abs().mean().item(),
+         "finite": bool(torch.isfinite(got).all())}
+    r["within_tol"] = ((err - tol["atol"] - tol["rtol"] * want.abs()).max().item() <= 0
+                       and r["mean_err_over_f32_gap"] <= BF16_MEAN_ERR_SHARE and r["finite"])
+    return r
+
+
+def pe_bound_ms(P: int) -> tuple:
+    """K4: xd read (32 B) and the PE row written (512 B) per point, against
+    its trig work at the f32 rate."""
+    t_bytes = P * (32 + 512) / PEAK_BYTES * 1e3
+    t_ops = P * PE_TRIG_OPS / PEAK_F32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def tune_phase(fused, pe_mm, tune, NeRFMLP, MLPConfig):
+    """The kernel-cost path at TUNE_P (its times are the K1 split), then on
+    the script's xd and MLP: K1 and K3 (remat, on g = 2 out as the script's
+    sum(out^2) gives it) against their plain versions, K4 and K5 against
+    theirs, and K5(K4(xd)) against K1."""
+    zero_counts(fused)
+    zero_counts(pe_mm, PE_MM_COUNTERS)
+    printed = tune.main(device="cuda", P=TUNE_P)
+    torch.cuda.synchronize()
+    res = {"script_s_per_call": {k: v for k, v in printed.items() if k not in ("device", "P")},
+           "launches": {**read_counts(pe_mm, PE_MM_COUNTERS), **read_counts(fused)}}
+    print("  launches: " + json.dumps(res["launches"]), flush=True)
+
+    # the script's model and points
+    mlp = NeRFMLP(MLPConfig(), torch.Generator().manual_seed(0), torch.device("cpu"))
+    mlp = mlp.cuda().requires_grad_(False)
+    xd_all = torch.from_numpy(
+        np.random.default_rng(0).standard_normal((TUNE_P, fused.XD_CH)).astype(np.float32)).cuda()
+    with torch.no_grad():
+        # K1 and K3 at the script's P, as phases 3 and 4 hold them: the plain
+        # backward reads K1's stash (K3 recomputes the same bits), since on its
+        # own recomputed activations a few relu masks differ by a sum order,
+        # which moves d(xd) through the PE's 2^9 factor (a diagnostic below)
+        out = fused.nerf_mlp_fwd(mlp, xd_all, "bfloat16")
+        out_p, acts_p = fused.nerf_mlp_fwd_plain(mlp, xd_all, "bfloat16", with_acts=True)
+        k1 = {f"k1_{k}": v for k, v in held_bf16(
+            out, out_p, fused.nerf_mlp_fwd_plain(mlp, xd_all, "float32")).items()}
+        del out_p
+        acts_k = fused._launch_fwd(mlp, xd_all, "bfloat16", 10, 4, stash=True)[1]
+        g = 2 * out
+        k3 = flat_grads(fused.nerf_mlp_bwd(mlp, xd_all, g, "bfloat16"))
+        torch.cuda.synchronize()
+        f32 = flat_grads(fused.nerf_mlp_bwd_plain(mlp, xd_all, g, "float32"))
+        k3_row = held_bwd(k3, flat_grads(fused.nerf_mlp_bwd_plain(
+            mlp, xd_all, g, "bfloat16", acts=acts_k)), f32, "bfloat16", "k3")
+        k3_row["k3_finite"] = all(bool(torch.isfinite(t).all()) for t in k3)
+        own = held_bwd(k3, flat_grads(fused.nerf_mlp_bwd_plain(
+            mlp, xd_all, g, "bfloat16", acts=acts_p)), f32, "bfloat16", "own")
+        relu = slice(0, 8 * MLP_WIDTH)
+        k3_row["diag_relu_mask_flips_vs_own_recompute"] = int(
+            ((acts_k[:, relu] > 0) != (acts_p[:, relu] > 0)).sum())
+        k3_row["diag_vs_own_recompute"] = {k: v for k, v in own.items() if not k.endswith("tol")}
+        del out, g, k3, f32, acts_k, acts_p
+        torch.cuda.empty_cache()
+    res["k1_k3"] = {"P": TUNE_P, **k1, **k3_row}
+    print("  " + json.dumps(res["k1_k3"]), flush=True)
+    if not (k1["k1_within_tol"] and k3_row["k3_within_tol"] and k3_row["k3_finite"]):
+        raise AssertionError(f"K1 / K3 disagree with their plain versions: {res['k1_k3']}")
+
+    rows = []
+    with torch.no_grad():
+        for label, P in (("tune", TUNE_P), ("ragged", 4096 * 64 + 37)):
+            xd = xd_all[:P]
+            row = {"shape": label, "P": P}
+            pe = pe_mm.pe_only(xd)
+            pe_p = pe_mm.pe_only_plain(xd)
+            torch.cuda.synchronize()
+            row["pe_max_abs_err"] = (pe - pe_p).abs().max().item()
+            row["pe_lanes_90_128_zero"] = not bool(pe[:, 90:].any())
+            row["pe_within_tol"] = (row["pe_max_abs_err"] <= PE_TOL and row["pe_lanes_90_128_zero"]
+                                    and bool(torch.isfinite(pe).all()))
+            mm = pe_mm.mm_only(mlp, pe)
+            torch.cuda.synchronize()
+            want = pe_mm.mm_only_plain(mlp, pe, "bfloat16")
+            f32 = pe_mm.mm_only_plain(mlp, pe, "float32")
+            row.update({f"mm_{k}": v for k, v in held_bf16(mm[:, :3], want[:, :3], f32[:, :3]).items()})
+            row["mm_lanes_3_128_zero"] = not bool(mm[:, 3:].any())
+            del want, f32
+            # K5(K4(xd)) against K1: lane 0 = rgb0 + alpha, lanes 1, 2 = rgb1, rgb2
+            def lanes(raw):
+                return torch.stack([raw[:, 0] + raw[:, 3], raw[:, 1], raw[:, 2]], 1)
+            k1_out = lanes(fused.nerf_mlp_fwd(mlp, xd, "bfloat16"))
+            k1_f32 = lanes(fused.nerf_mlp_fwd_plain(mlp, xd, "float32"))
+            torch.cuda.synchronize()
+            row.update({f"split_vs_k1_{k}": v
+                        for k, v in held_bf16(mm[:, :3], k1_out, k1_f32).items()})
+            del k1_out, k1_f32
+            if label == "tune":
+                # the kernels' times are the script's two-length differences
+                row["pe_ms"] = printed["pe_only"][0] * 1e3
+                row["pe_plain_ms"] = time_ms(lambda: pe_mm.pe_only_plain(xd), 3, 1)
+                row["pe_bound_ms"], row["pe_bound_by"] = pe_bound_ms(P)
+                row["mm_ms"] = printed["mm_only"][0] * 1e3
+                row["mm_plain_ms"] = time_ms(lambda: pe_mm.mm_only_plain(mlp, pe, "bfloat16"), 3, 1)
+                w_bytes = sum(t.numel() * t.element_size() for t in fused.pack_params(mlp, "bfloat16"))
+                row["mm_bound_ms"], row["mm_bound_by"] = bound_ms(P, w_bytes, True, 1, 1024)
+                row["k1_ms"] = printed["fwd"][0] * 1e3
+                row["split_pe_share_of_k1"] = row["pe_ms"] / row["k1_ms"]
+                row["split_mm_share_of_k1"] = row["mm_ms"] / row["k1_ms"]
+                print(f"  K1 split at P = {P}: PE-only {row['pe_ms']:.3f} ms + matmul-only "
+                      f"{row['mm_ms']:.3f} ms = {row['pe_ms'] + row['mm_ms']:.3f} ms against K1 "
+                      f"{row['k1_ms']:.3f} ms", flush=True)
+            del pe, pe_p, mm
+            torch.cuda.empty_cache()
+            print("  " + json.dumps(row), flush=True)
+            rows.append(row)
+            ok = (row["pe_within_tol"] and row["mm_within_tol"] and row["mm_lanes_3_128_zero"]
+                  and row["split_vs_k1_within_tol"])
+            if not ok:
+                raise AssertionError(f"PE-only / matmul-only kernels disagree: {row}")
+    res["rows"] = rows
+    launched = res["launches"]
+    if launched["pe_only"] <= 0 or launched["mm_only"] <= 0 or launched["nerf_mlp_fwd"] <= 0 \
+            or launched["nerf_mlp_bwd_remat"] <= 0:
+        raise AssertionError(f"the tune path did not launch every kernel: {launched}")
+    return res
+
+
+def probe_phase(raymajor, probe):
+    """The five probes (launches counted), then each kernel at the
+    renderer's per-ray shapes against its plain version, with device times
+    of the kernel, the plain version and the PyTorch call."""
+    zero_counts(raymajor, RAYMAJOR_COUNTERS)
+    results = probe.main(device="cuda")
+    torch.cuda.synchronize()
+    res = {"probes": dict(results), "launches": read_counts(raymajor, RAYMAJOR_COUNTERS)}
+    print("  launches: " + json.dumps(res["launches"]), flush=True)
+    if not all(ok for _, ok in results):
+        raise AssertionError(f"probes failed: {[n for n, ok in results if not ok]}")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    f32_bytes = 4
+    rows = []
+    for label, (R, S) in RAY_SHAPES.items():
+        n = R * S
+        w = torch.rand((R, S), generator=gen, device="cuda")
+        pdf = (w / w.sum(-1, keepdim=True)).reshape(n, 1)  # sample_pdf's per-ray pdf
+        v = torch.rand((n, 1), generator=gen, device="cuda")
+        cdf = torch.cumsum(w / w.sum(-1, keepdim=True), -1)  # sorted per ray
+        u = torch.rand((n, 1), generator=gen, device="cuda")
+        z = torch.sort(torch.rand((R, S), generator=gen, device="cuda"), -1).values.reshape(n, 1)
+        cases = {
+            "raymajor_excl_cumsum": (
+                lambda: raymajor.excl_cumsum(pdf, S), lambda: raymajor.excl_cumsum_plain(pdf, S),
+                lambda: torch.cumsum(pdf.view(R, S), 1), CUMSUM_TOL, 2 * n * f32_bytes, n),
+            "raymajor_transpose": (
+                lambda: raymajor.ray_transpose(v, S), lambda: raymajor.ray_transpose_plain(v, S),
+                lambda: v.clone(), 0.0, 2 * n * f32_bytes, 0),
+            "raymajor_searchsorted": (
+                lambda: raymajor.searchsorted_count(cdf, u),
+                lambda: raymajor.searchsorted_count_plain(cdf, u),
+                lambda: torch.searchsorted(cdf, u.view(R, S), right=True), 0.0,
+                (n + 2 * n) * f32_bytes, n * S),
+            "raymajor_masked_dists": (
+                lambda: raymajor.masked_dists(z, S), lambda: raymajor.masked_dists_plain(z, S),
+                None, 0.0, 2 * n * f32_bytes, n),
+        }
+        for name, (kern, plain, library, tol, nbytes, ops) in cases.items():
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            row = {"kernel": name, "shape": label, "rays": R, "samples": S, "max_abs_err": err,
+                   "within_tol": err <= tol and bool(torch.isfinite(got).all())}
+            if library is not None:  # the PyTorch call gives the same values
+                lib = library()
+                if name == "raymajor_excl_cumsum":  # inclusive: shift to exclusive
+                    lib = torch.cat([torch.zeros_like(lib[:, :1]), lib[:, :-1]], 1)
+                row["library_max_abs_err"] = (got.reshape(lib.shape) - lib.float()).abs().max().item()
+                row["within_tol"] &= row["library_max_abs_err"] <= tol
+            row["ms"] = device_ms(kern)
+            row["plain_ms"] = device_ms(plain)
+            row["library_ms"] = device_ms(library) if library is not None else None
+            t_bytes = nbytes / PEAK_BYTES * 1e3
+            t_ops = ops / PEAK_F32_FLOPS * 1e3
+            row["bound_ms"] = max(t_bytes, t_ops)
+            row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+            print("  " + json.dumps(row), flush=True)
+            rows.append(row)
+            if not row["within_tol"]:
+                raise AssertionError(f"{name} disagrees with its plain version: {row}")
+    res["rows"] = rows
+    return res
+
+
 def kernel_entries(results):
     """The `kernels` line: each kernel with its main-path launches (the
     forward_kernel, render_image and train_step phases), its largest error
@@ -756,7 +1021,7 @@ def kernel_entries(results):
 
     def entry(name, source, replaces, launches, err, prefix, extra):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": launches, "max_abs_err": err, "ms": fine[f"{prefix}_ms"],
+                "path": "main", "launches": launches, "max_abs_err": err, "ms": fine[f"{prefix}_ms"],
                 "plain_ms": fine[f"{prefix}_plain_ms"], "bound_ms": fine[f"{prefix}_bound_ms"],
                 "bound_by": fine[f"{prefix}_bound_by"], "library_ms": None, **extra}
 
@@ -765,12 +1030,18 @@ def kernel_entries(results):
          "plain_ms": r[f"{prefix}_plain_ms"], "bound_ms": r[f"{prefix}_bound_ms"]} for r in timed]
     bwd_err = max(r[f"{p}_max_abs_err"] for r in bwd_rows for p in ("bwd", "bwd_on_plain_stash"))
     bwd_rel = max(r[f"{p}_max_rel_err"] for r in bwd_rows for p in ("bwd", "bwd_on_plain_stash"))
+    tune = (results.get("tune_kernel") or {}).get("k1_k3", {})
+
+    def at_tune_p(prefix):
+        """K1's or K3's errors against its plain version at the tune path's P."""
+        return {f"tune_path_{k}": tune[f"{prefix}_{k}"] for k in ("max_abs_err", "max_rel_err")
+                if f"{prefix}_{k}" in tune}
     return [
         entry("nerf_mlp_fwd", "lushnerf_torch/csrc/nerf_mlp_fwd.cu",
               "lushnerf_tpu/ops/fused/nerf_mlp.py:396", fwd_launches,
               max([r["max_abs_err"] for r in fwd_rows] + [r["fwd_out_max_abs_err"] for r in bwd_rows]),
               "fwd_stash",
-              {"shapes_stash": shapes("fwd_stash"),
+              {**at_tune_p("k1"), "shapes_stash": shapes("fwd_stash"),
                "shapes_output_only": [{k: r[k] for k in ("dtype", "P", "ms", "plain_ms", "bound_ms",
                                                          "max_abs_err") if k in r} for r in fwd_rows]}),
         entry("nerf_mlp_bwd_stash", "lushnerf_torch/csrc/nerf_mlp_bwd.cu",
@@ -779,9 +1050,66 @@ def kernel_entries(results):
                                  "launches_are": "dgrad + wgrad + 2 reductions per backward"}),
         entry("nerf_mlp_bwd_remat", "lushnerf_torch/csrc/nerf_mlp_bwd.cu",
               "lushnerf_tpu/ops/fused/nerf_mlp.py:589", counts.get("nerf_mlp_bwd_remat", 0),
-              bwd_err, "remat", {"max_rel_err": bwd_rel, "shapes": shapes("remat"),
+              bwd_err, "remat", {"max_rel_err": bwd_rel, **at_tune_p("k3"), "shapes": shapes("remat"),
                                  "launches_are": "dgrad + wgrad + 2 reductions per backward"}),
+    ] + tune_entries(results.get("tune_kernel")) + probe_entries(results.get("probe_raymajor"))
+
+
+def tune_entries(tune):
+    """K4 and K5 on the tune path: launches while it ran, errors over both
+    shapes, times at TUNE_P."""
+    if not tune:
+        return []
+    rows = tune["rows"]
+    t = next(r for r in rows if r["shape"] == "tune")
+
+    def entry(name, replaces, prefix, extra):
+        return {"name": name, "route": "cuda", "source": "lushnerf_torch/csrc/nerf_pe_mm.cu",
+                "replaces": replaces, "path": "tune_kernel",
+                "launches": tune["launches"][name],
+                "max_abs_err": max(r[f"{prefix}_max_abs_err"] for r in rows),
+                "ms": t[f"{prefix}_ms"], "plain_ms": t[f"{prefix}_plain_ms"],
+                "bound_ms": t[f"{prefix}_bound_ms"], "bound_by": t[f"{prefix}_bound_by"],
+                "library_ms": None, "P": t["P"], **extra}
+
+    return [
+        entry("pe_only", "scripts/tune_kernel.py:100", "pe", {}),
+        entry("mm_only", "scripts/tune_kernel.py:119", "mm", {
+            "mean_err_over_f32_gap": max(r["mm_mean_err_over_f32_gap"] for r in rows),
+            "split_vs_k1_max_abs_err": max(r["split_vs_k1_max_abs_err"] for r in rows),
+            "k1_ms": t["k1_ms"]}),
     ]
+
+
+PROBE_REPLACES = {  # kernel -> the JAX probe kernels it replaces
+    "raymajor_excl_cumsum": ["scripts/probe_raymajor_mosaic.py:56",
+                             "scripts/probe_raymajor_mosaic.py:87"],
+    "raymajor_transpose": ["scripts/probe_raymajor_mosaic.py:125"],
+    "raymajor_searchsorted": ["scripts/probe_raymajor_mosaic.py:153"],
+    "raymajor_masked_dists": ["scripts/probe_raymajor_mosaic.py:181"],
+}
+
+
+def probe_entries(probe):
+    """K6-K10 on the probe path: launches of the five probes, errors over
+    the renderer's shapes, times at 5120 x 64 (both shapes under `shapes`)."""
+    if not probe:
+        return []
+    out = []
+    for name, replaces in PROBE_REPLACES.items():
+        rows = [r for r in probe["rows"] if r["kernel"] == name]
+        r = next(r for r in rows if r["shape"] == "coarse")
+        out.append({
+            "name": name, "route": "cuda", "source": "lushnerf_torch/csrc/raymajor_probe.cu",
+            "replaces": replaces[0], "path": "probe_raymajor",
+            "launches": probe["launches"][name],
+            "max_abs_err": max(x["max_abs_err"] for x in rows),
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "also_replaces": replaces[1:],
+            "shapes": [{k: x[k] for k in ("rays", "samples", "ms", "plain_ms", "library_ms",
+                                         "bound_ms", "max_abs_err")} for x in rows]})
+    return out
 
 
 def main(argv=None) -> int:
@@ -798,6 +1126,8 @@ def main(argv=None) -> int:
         from lushnerf_torch.models.mlp import MLPConfig, NeRFMLP
         from lushnerf_torch.ops.fused import build
         from lushnerf_torch.ops.fused import nerf_mlp as fused
+        from lushnerf_torch.ops.fused import pe_mm, raymajor
+        from lushnerf_torch.scripts import probe_raymajor, tune_kernel
         from lushnerf_torch.train import trainer
     except ImportError as e:
         print(f"chip_smoke: the lushnerf_torch package is not here ({e})", file=sys.stderr)
@@ -813,10 +1143,10 @@ def main(argv=None) -> int:
           f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
 
     def do_build():
-        logs = build.build_all(["nerf_mlp_fwd", "nerf_mlp_bwd"])
+        logs = build.build_all(["nerf_mlp_fwd", "nerf_mlp_bwd", "nerf_pe_mm", "raymajor_probe"])
         for name, log in logs.items():
             for line in log.splitlines():
-                if "registers" in line or "spill" in line or "Compiling entry" in line:
+                if any(k in line for k in ("registers", "spill", "Compiling entry", "wall time")):
                     print(f"  {name}: {line.strip()}")
         return logs
 
@@ -836,6 +1166,8 @@ def main(argv=None) -> int:
         "render_image": lambda: render_phase(fused, lush, cfg_mod),
         "train_step": lambda: train_phase(fused, lush, cfg_mod, trainer),
         "profile": lambda: profile_phase(lush, cfg_mod, trainer, untraced()),
+        "tune_kernel": lambda: tune_phase(fused, pe_mm, tune_kernel, NeRFMLP, MLPConfig),
+        "probe_raymajor": lambda: probe_phase(raymajor, probe_raymajor),
     }
     for name, run in runs.items():
         if "build" not in smoke.failed:
@@ -844,8 +1176,9 @@ def main(argv=None) -> int:
     kernels = kernel_entries(smoke.results)
     if not smoke.failed:
         idle = [k["name"] for k in kernels if k["launches"] <= 0]
-        if len(kernels) != 3 or idle:
-            print(f"chip_smoke: kernels not launched on the main path: {idle}", file=sys.stderr)
+        if len(kernels) != 9 or idle:
+            print(f"chip_smoke: kernels not launched on their path: {idle} "
+                  f"({len(kernels)} of 9 listed)", file=sys.stderr)
             smoke.failed.append("kernels")
     if args.out:
         with open(args.out, "w") as f:

@@ -1,8 +1,9 @@
 // Shared device code of the fused NeRF-MLP kernels (nerf_mlp_fwd.cu,
-// nerf_mlp_bwd.cu): tile shapes, the bf16 tensor-core and f32 FMA matmul
-// loops over one tile of points, the positional encoding, and the forward
-// layer sequence that the forward kernel runs and the remat backward
-// re-runs.
+// nerf_mlp_bwd.cu, nerf_pe_mm.cu): tile shapes, the bf16 tensor-core and
+// f32 FMA matmul loops over one tile of points, the positional encoding,
+// the forward layer sequence that the forward kernel runs, the remat
+// backward re-runs and the matmul-only kernel runs on a pre-encoded PE,
+// and the alpha and rgb heads.
 //
 // Weight blob (row-major [out][in], bf16 or f32, K padded with zero
 // columns; kx = round_up(pe_x channels, 32), kd = round_up(pe_d channels,
@@ -410,6 +411,71 @@ __device__ __forceinline__ void forward_tile(const WT* const (&w)[10], const flo
   emit(8 * W);
   dense<BF16, WH>(w[9], W + kd, act, ALD, W, pe + kx, PLD, kd, fp + FP_BV, true, act, wst);
   if (acts != nullptr) store_rows<T, ALD, WH>(act, acts + 9 * W, ACTS_LD, p0, P);
+}
+
+__device__ __forceinline__ void load_row(const bf16* p, float (&v)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 f = __bfloat1622float2(h[j]);
+    v[2 * j] = f.x;
+    v[2 * j + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void load_row(const float* p, float (&v)[8]) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+
+// alpha = a7 . Wa + ba into out[p * 4 + 3] for the tile's points p < n,
+// one warp per point (K = 256: 8 values a lane).
+template <int T, int LD, typename AT>
+__device__ __forceinline__ void head_alpha(const AT* act, const float* fp, float* out, int n) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int p = warp; p < T; p += NWARPS) {
+    float v[8];
+    load_row(act + p * LD + lane * 8, v);
+    float s = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s = fmaf(v[j], fp[FP_WA + lane * 8 + j], s);
+    s = warp_sum(s);
+    if (lane == 0 && p < n) out[(size_t)p * 4 + 3] = s + fp[FP_BA];
+  }
+}
+
+// rgb = hv . Wr + br into out[p * 4 + 0..2] for the tile's points p < n,
+// one warp per point (K = 128: lanes 0..15 take 8 values).
+template <int T, int LD, typename AT>
+__device__ __forceinline__ void head_rgb(const AT* act, const float* fp, float* out, int n) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int p = warp; p < T; p += NWARPS) {
+    float s[3] = {0.f, 0.f, 0.f};
+    if (lane < WH / 8) {
+      float v[8];
+      load_row(act + p * LD + lane * 8, v);
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) s[c] = fmaf(v[j], fp[FP_WR + c * WH + lane * 8 + j], s[c]);
+    }
+#pragma unroll
+    for (int c = 0; c < 3; ++c) s[c] = warp_sum(s[c]);
+    if (lane == 0 && p < n) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) out[(size_t)p * 4 + c] = s[c] + fp[FP_BR + c];
+    }
+  }
+}
+
+// Shared memory of a forward tile: the activation and PE tiles, the packed
+// input rows (T x 8 floats) and the weight ring.
+template <bool BF16> constexpr int fwd_smem() {
+  typedef Tile<BF16> TL;
+  return (TL::T * TL::ACT_LD + TL::T * TL::PE_LD) * (int)sizeof(typename TL::T_act) +
+         TL::T * 8 * 4 + TL::WST_BYTES;
 }
 
 }  // namespace nerf_mlp

@@ -61,69 +61,6 @@ template <typename WT> struct Args {
   int P, kx, kd, nfx, nfd;
 };
 
-__device__ __forceinline__ void load_row(const bf16* p, float (&v)[8]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float2 f = __bfloat1622float2(h[j]);
-    v[2 * j] = f.x;
-    v[2 * j + 1] = f.y;
-  }
-}
-__device__ __forceinline__ void load_row(const float* p, float (&v)[8]) {
-  const float4 a = reinterpret_cast<const float4*>(p)[0];
-  const float4 b = reinterpret_cast<const float4*>(p)[1];
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-
-// alpha = a7 . Wa + ba, one warp per point (K = 256: 8 values a lane).
-template <int T, int LD, typename AT>
-__device__ __forceinline__ void head_alpha(const AT* act, const float* fp, float* out,
-                                           int p0, int P) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int p = warp; p < T; p += NWARPS) {
-    float v[8];
-    load_row(act + p * LD + lane * 8, v);
-    float s = 0.f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) s = fmaf(v[j], fp[FP_WA + lane * 8 + j], s);
-    s = warp_sum(s);
-    if (lane == 0 && p0 + p < P) out[(size_t)(p0 + p) * 4 + 3] = s + fp[FP_BA];
-  }
-}
-
-// rgb = hv . Wr + br, one warp per point (K = 128: lanes 0..15 take 8 values).
-template <int T, int LD, typename AT>
-__device__ __forceinline__ void head_rgb(const AT* act, const float* fp, float* out,
-                                         int p0, int P) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int p = warp; p < T; p += NWARPS) {
-    float s[3] = {0.f, 0.f, 0.f};
-    if (lane < WH / 8) {
-      float v[8];
-      load_row(act + p * LD + lane * 8, v);
-#pragma unroll
-      for (int c = 0; c < 3; ++c)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) s[c] = fmaf(v[j], fp[FP_WR + c * WH + lane * 8 + j], s[c]);
-    }
-#pragma unroll
-    for (int c = 0; c < 3; ++c) s[c] = warp_sum(s[c]);
-    if (lane == 0 && p0 + p < P) {
-#pragma unroll
-      for (int c = 0; c < 3; ++c) out[(size_t)(p0 + p) * 4 + c] = s[c] + fp[FP_BR + c];
-    }
-  }
-}
-
-template <bool BF16> constexpr int fwd_smem() {
-  typedef Tile<BF16> TL;
-  return (TL::T * TL::ACT_LD + TL::T * TL::PE_LD) * (int)sizeof(typename TL::T_act) +
-         TL::T * 8 * 4 + TL::WST_BYTES;
-}
-
 template <bool BF16, typename WT>
 __global__ void __launch_bounds__(NTHREADS, 1) nerf_mlp_fwd_kernel(Args<WT> args) {
   typedef Tile<BF16> TL;
@@ -143,9 +80,10 @@ __global__ void __launch_bounds__(NTHREADS, 1) nerf_mlp_fwd_kernel(Args<WT> args
   __syncthreads();
   pe_tile<T, PLD>(pe, xs, args.kx, args.kd, args.nfx, args.nfd);
   __syncthreads();
+  float* out = args.out + (size_t)p0 * 4;
   forward_tile<BF16, WT>(args.w, fp, args.kx, args.kd, act, pe, wst, args.acts, p0, P,
-                         [&] { head_alpha<T, ALD>(act, fp, args.out, p0, P); });
-  head_rgb<T, ALD>(act, fp, args.out, p0, P);
+                         [&] { head_alpha<T, ALD>(act, fp, out, P - p0); });
+  head_rgb<T, ALD>(act, fp, out, P - p0);
 }
 
 template <bool BF16, typename WT>

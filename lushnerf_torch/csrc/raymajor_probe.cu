@@ -1,0 +1,136 @@
+// Per-ray primitives of a ray-major fused renderer, for Hopper (sm_90a).
+// Each works on per-sample values laid out ray by ray: row t * S + s is
+// sample s of ray t.
+//
+// They replace the Pallas TPU probe kernels of
+// scripts/probe_raymajor_mosaic.py, which tested whether Mosaic could build
+// these primitives (two compiled to wrong values on the v5e):
+//   excl_cumsum   `probe_p1_batched_cumsum.kern` and `probe_p1b_batched_dot.kern`
+//                 (both an exclusive cumsum over S by a strictly lower
+//                 triangular [S, S] matmul): x [T*S, c] -> y[t, s, :] =
+//                 sum of x[t, k, :] over k < s.  One warp per ray: for each
+//                 channel a shuffle scan over chunks of 32 samples with a
+//                 running carry, so any S works.
+//   transpose     `probe_p2_vector_transpose.kern`: [T*S, 1] -> [T, S].  In a
+//                 row-major layout both are the same bytes: a copy, one
+//                 thread per value, 16 bytes a thread.
+//   searchsorted  `probe_p3_searchsorted.kern`: cdf [T, S], u [T*SI, 1] ->
+//                 the count of cdf[t, :] <= u, as float.  One block per ray
+//                 stages the cdf row in shared memory; one thread per u
+//                 counts all S entries (exact, and right for any cdf, sorted
+//                 or not).
+//   masked_dists  `probe_p4_masked_roll.kern`: z [T*S, 1] -> z[k+1] - z[k],
+//                 0 at each ray's last sample.  One thread per sample.
+// What bounds them: bytes (each reads and writes a few bytes per sample
+// and does one to S operations on it); at the renderer's shapes (5120 rays
+// x 64 or 128 samples) they move 1-4 MB, so a launch's fixed cost is most
+// of their time.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+__global__ void __launch_bounds__(256) excl_cumsum_kernel(const float* __restrict__ x,
+                                                          float* __restrict__ y, int T, int S,
+                                                          int c) {
+  const int t = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (t >= T) return;
+  const size_t base = (size_t)t * S * c;
+  for (int ch = 0; ch < c; ++ch) {
+    float carry = 0.f;
+    for (int s0 = 0; s0 < S; s0 += 32) {
+      const int s = s0 + lane;
+      const float v = s < S ? __ldg(x + base + (size_t)s * c + ch) : 0.f;
+      float incl = v;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const float n = __shfl_up_sync(0xffffffffu, incl, o);
+        if (lane >= o) incl += n;
+      }
+      float excl = __shfl_up_sync(0xffffffffu, incl, 1);
+      if (lane == 0) excl = 0.f;
+      if (s < S) y[base + (size_t)s * c + ch] = carry + excl;
+      carry += __shfl_sync(0xffffffffu, incl, 31);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(256) copy_kernel(const float4* __restrict__ x,
+                                                   float4* __restrict__ y, long long n4,
+                                                   const float* __restrict__ xt,
+                                                   float* __restrict__ yt, int tail) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n4) y[i] = __ldg(x + i);
+  if (i < tail) yt[i] = __ldg(xt + i);
+}
+
+__global__ void __launch_bounds__(128) searchsorted_kernel(const float* __restrict__ cdf,
+                                                           const float* __restrict__ u,
+                                                           float* __restrict__ out, int S,
+                                                           int SI) {
+  extern __shared__ float row[];
+  const int t = blockIdx.x;
+  for (int k = threadIdx.x; k < S; k += blockDim.x) row[k] = __ldg(cdf + (size_t)t * S + k);
+  __syncthreads();
+  for (int i = threadIdx.x; i < SI; i += blockDim.x) {
+    const float v = __ldg(u + (size_t)t * SI + i);
+    int n = 0;
+    for (int k = 0; k < S; ++k) n += row[k] <= v;
+    out[(size_t)t * SI + i] = (float)n;
+  }
+}
+
+__global__ void __launch_bounds__(256) masked_dists_kernel(const float* __restrict__ z,
+                                                           float* __restrict__ d, long long n,
+                                                           int S) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  d[i] = (i % S == S - 1) ? 0.f : __ldg(z + i + 1) - __ldg(z + i);
+}
+
+int blocks(long long threads, int per_block) {
+  return (int)((threads + per_block - 1) / per_block);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Each launches its kernel on `stream` and returns cudaGetLastError()
+// (0 = OK).  Arrays are contiguous float32, 16-byte aligned; T, S, c, SI,
+// n > 0.
+
+int raymajor_excl_cumsum(const float* x, float* y, int T, int S, int c, void* stream) {
+  excl_cumsum_kernel<<<blocks((long long)T * 32, 256), 256, 0,
+                       static_cast<cudaStream_t>(stream)>>>(x, y, T, S, c);
+  return (int)cudaGetLastError();
+}
+
+int raymajor_transpose(const float* x, float* y, long long n, void* stream) {
+  const long long n4 = n / 4;
+  const int tail = (int)(n - 4 * n4);
+  copy_kernel<<<blocks(n4 > tail ? n4 : tail, 256), 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const float4*>(x), reinterpret_cast<float4*>(y), n4, x + 4 * n4,
+      y + 4 * n4, tail);
+  return (int)cudaGetLastError();
+}
+
+// Requires S * 4 bytes <= 48 KB (the row in shared memory).
+int raymajor_searchsorted(const float* cdf, const float* u, float* out, int T, int S, int SI,
+                          void* stream) {
+  searchsorted_kernel<<<T, 128, S * sizeof(float), static_cast<cudaStream_t>(stream)>>>(
+      cdf, u, out, S, SI);
+  return (int)cudaGetLastError();
+}
+
+int raymajor_masked_dists(const float* z, float* d, long long n, int S, void* stream) {
+  masked_dists_kernel<<<blocks(n, 256), 256, 0, static_cast<cudaStream_t>(stream)>>>(z, d, n, S);
+  return (int)cudaGetLastError();
+}
+
+const char* raymajor_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

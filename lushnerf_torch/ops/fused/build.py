@@ -17,14 +17,17 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 from typing import Dict, Tuple
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "lushnerf_torch"
+# --split-compile=0: the device code's optimisation runs on all host cores,
+# as the backward's four dgrad instantiations otherwise compile one by one
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "--split-compile=0",
 )
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -53,20 +56,21 @@ def _target(name: str) -> Tuple[Path, Path]:
 
 def build(name: str) -> str:
     """Compiles csrc/<name>.cu unless its current build exists.  Returns
-    nvcc's output (register and shared-memory use); raises with it if nvcc
-    fails."""
+    nvcc's wall time and output (register and shared-memory use); raises
+    with the output if nvcc fails."""
     src, out = _target(name)
     if out.exists():
         return "(up to date)"
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    t0 = time.perf_counter()
     proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
                           capture_output=True, text=True)
     log = proc.stdout + proc.stderr
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}:\n{log}")
     os.replace(tmp, out)
-    return log
+    return f"nvcc wall time {time.perf_counter() - t0:.1f} s\n{log}"
 
 
 def build_all(names) -> Dict[str, str]:

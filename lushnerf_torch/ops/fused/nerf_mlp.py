@@ -129,6 +129,16 @@ def _rounder(compute_dtype: str):
 def _plain_forward(mlp, xd, compute_dtype, num_freqs_x, num_freqs_d):
     """All of the plain forward's values: x_pe, d_pe, acts (a0..a7), feat,
     hv and the raw output."""
+    x_pe = posenc(xd[:, 0:3], num_freqs_x)
+    d_pe = posenc(xd[:, 3:6], num_freqs_d)
+    return dict(x_pe=x_pe, d_pe=d_pe, **plain_mlp(mlp, x_pe, d_pe, compute_dtype))
+
+
+def plain_mlp(mlp, x_pe, d_pe, compute_dtype):
+    """The scene MLP on encoded inputs x_pe [P, input_ch], d_pe [P,
+    input_ch_views], rounding where the kernels round: acts (a0..a7), feat,
+    hv, rgb, alpha and the raw output [rgb, alpha].  The plain version of
+    the forward kernel after its PE stage, and of the matmul-only kernel."""
     r = _rounder(compute_dtype)
 
     def dot(a, w):
@@ -136,8 +146,6 @@ def _plain_forward(mlp, xd, compute_dtype, num_freqs_x, num_freqs_d):
 
     in_ch = mlp.cfg.input_ch
     W = mlp.cfg.width
-    x_pe = posenc(xd[:, 0:3], num_freqs_x)
-    d_pe = posenc(xd[:, 3:6], num_freqs_d)
     pts = mlp.pts_linears
     acts = []
     h = x_pe
@@ -155,7 +163,7 @@ def _plain_forward(mlp, xd, compute_dtype, num_freqs_x, num_freqs_d):
     wv = mlp.views_linears[0].weight
     hv = torch.relu(dot(feat, wv[:, :W]) + dot(d_pe, wv[:, W:]) + mlp.views_linears[0].bias)
     rgb = dot(hv, mlp.rgb_linear.weight) + mlp.rgb_linear.bias
-    return dict(x_pe=x_pe, d_pe=d_pe, acts=acts, feat=feat, hv=hv,
+    return dict(acts=acts, feat=feat, hv=hv, rgb=rgb, alpha=alpha,
                 out=torch.cat([rgb, alpha], dim=-1))
 
 

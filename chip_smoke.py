@@ -69,7 +69,7 @@ the final result line):
      per-ray shapes (5120 rays x 64 and x 128 samples) each kernel against
      its plain version, and the device times of the kernel, its plain
      version and the one PyTorch call that computes the same function
-     (torch.cumsum, Tensor.clone, torch.searchsorted; none for the dists):
+     (torch.cumsum, Tensor.clone, torch.searchsorted, torch.diff):
      medians over 5 CUDA-event windows of back-to-back calls queued behind a
      device sleep, so that the host's launch cost is not in them.
 Then a `{"kernels": [...]}` line (nine kernels, each with the path that
@@ -374,6 +374,58 @@ def held_bwd(got, want, f32, dtype, prefix) -> dict:
     return r
 
 
+def dgrad_breakdown(stages, stamps, dgrad_ms) -> dict:
+    """The dgrad's time by stage from block 0's stage stamps: each stage's
+    share of the stamped cycles over all of block 0's tiles, and that share
+    of the dgrad's measured ms; the stages grouped as load + PE, heads,
+    layer matmuls (mm_*), layer epilogues (ep_*), d_pe passes (dpe_*) and
+    d(xd)."""
+    st = stamps.cpu().numpy().astype(np.float64)
+    d = np.diff(st[(st > 0).all(1)], axis=1)
+    total = d.sum()
+    share = {name: float(d[:, i].sum() / total) for i, name in enumerate(stages)}
+    group_of = {"mm": "matmul", "ep": "epilogue", "dpe": "dpe_passes"}
+    groups = {}
+    for name, v in share.items():
+        key = group_of.get(name.split("_")[0], name)
+        groups[key] = groups.get(key, 0.0) + v
+    return {"tiles": int(d.shape[0]), "cycles_per_tile": float(total / d.shape[0]),
+            "group_share": groups, "group_ms": {k: v * dgrad_ms for k, v in groups.items()},
+            "stage_share": share}
+
+
+def bwd_parts(fused, mlp, xd, g, dtype, acts, breakdown: bool) -> dict:
+    """The dgrad alone and the wgrad with its reductions alone (on the
+    dgrad's scratch), median CUDA-event ms, with their bounds: operations
+    (one pass of 2 x MLP_MACS FLOP a point each) and this design's bytes
+    (dgrad: the stash columns it reads, xd, g, and the dz, PE and d(xd) it
+    writes; wgrad: dz, the stash columns and the PE it reads, and its
+    per-split partials written and read once); with `breakdown` also the
+    dgrad's stage breakdown."""
+    P = xd.shape[0]
+    run = fused.BwdLaunch(mlp, xd, g, dtype, 10, 4, acts)
+    run.run()
+    esz = 2
+    stash_b, pe_b = fused.ACTS_LD * esz, (run.kx + run.kd) * esz
+    read_b = stash_b - fused.WIDTH * esz  # a0..a7 and hv: not feat
+    r = {"dgrad_ms": time_ms(lambda: run.run(run.DGRAD), 5),
+         "wgrad_ms": time_ms(lambda: run.run(run.WGRAD), 5)}
+    t_ops = 2.0 * MLP_MACS * P / PEAK_BF16_FLOPS * 1e3
+    dgrad_bytes = P * (read_b + 48 + stash_b + pe_b + 32)
+    wgrad_bytes = P * (stash_b + (stash_b - fused.WIDTH // 2 * esz) + pe_b) \
+        + 2 * run.w_part.numel() * 4
+    r["dgrad_bound_ms"] = max(t_ops, dgrad_bytes / PEAK_BYTES * 1e3)
+    r["dgrad_bound_by"] = "operations" if t_ops * 1e-3 * PEAK_BYTES >= dgrad_bytes else "bytes"
+    r["wgrad_bound_ms"] = max(t_ops, wgrad_bytes / PEAK_BYTES * 1e3)
+    r["wgrad_bound_by"] = "operations" if t_ops * 1e-3 * PEAK_BYTES >= wgrad_bytes else "bytes"
+    if breakdown:
+        r["dgrad_stages"] = dgrad_breakdown(fused.DGRAD_STAGES, run.stage_stamps(), r["dgrad_ms"])
+        print(f"  dgrad stages at P = {P}: " + json.dumps(r["dgrad_stages"]["group_share"]),
+              flush=True)
+    del run
+    return r
+
+
 def kernel_bwd_phase(fused, NeRFMLP, MLPConfig):
     """K1 with its stash, K2 and K3 against the plain versions on the same
     inputs (the plain backward reads the kernel's stash), then the times."""
@@ -447,6 +499,8 @@ def kernel_bwd_phase(fused, NeRFMLP, MLPConfig):
                 pe_b = 96 * esz
                 row["design_scratch_bytes_per_point_stash"] = 2 * stash_b + 2 * pe_b
                 row["design_scratch_bytes_per_point_remat"] = 4 * stash_b + 2 * pe_b
+                if bf16:
+                    row.update(bwd_parts(fused, mlp, xd, g, dtype, acts_k, label == "fine"))
             print("  " + json.dumps(row), flush=True)
             rows.append(row)
             del k2, acts_k, acts_p
@@ -975,7 +1029,8 @@ def probe_phase(raymajor, probe):
                 (n + 2 * n) * f32_bytes, n * S),
             "raymajor_masked_dists": (
                 lambda: raymajor.masked_dists(z, S), lambda: raymajor.masked_dists_plain(z, S),
-                None, 0.0, 2 * n * f32_bytes, n),
+                lambda: torch.diff(z.view(R, S), dim=1, append=z.view(R, S)[:, -1:]), 0.0,
+                2 * n * f32_bytes, n),
         }
         for name, (kern, plain, library, tol, nbytes, ops) in cases.items():
             got, want = kern(), plain()
@@ -1001,6 +1056,24 @@ def probe_phase(raymajor, probe):
             if not row["within_tol"]:
                 raise AssertionError(f"{name} disagrees with its plain version: {row}")
     res["rows"] = rows
+    # K9 on rows torch.searchsorted does not take (unsorted, with ties), and
+    # on a ragged S and SI (sorted with ties: also against torch.searchsorted)
+    res["searchsorted_cases"] = []
+    for label, (R, S, SI) in (("unsorted_ties", (5120, 128, 128)), ("ragged", (517, 37, 45))):
+        cdf = torch.randint(0, 16, (R, S), generator=gen, device="cuda").float() / 16
+        if label == "ragged":
+            cdf = cdf.sort(-1).values
+        u = torch.randint(0, 17, (R * SI, 1), generator=gen, device="cuda").float() / 16
+        got = raymajor.searchsorted_count(cdf, u)
+        r = {"case": label, "rays": R, "samples": S, "si": SI,
+             "max_abs_err": (got - raymajor.searchsorted_count_plain(cdf, u)).abs().max().item()}
+        if label == "ragged":
+            lib = torch.searchsorted(cdf, u.view(R, SI), right=True).float().reshape(-1, 1)
+            r["library_max_abs_err"] = (got - lib).abs().max().item()
+        print("  searchsorted " + json.dumps(r), flush=True)
+        res["searchsorted_cases"].append(r)
+        if r["max_abs_err"] != 0 or r.get("library_max_abs_err", 0) != 0:
+            raise AssertionError(f"raymajor_searchsorted disagrees: {r}")
     return res
 
 

@@ -83,7 +83,25 @@ template <typename AT> struct BwdArgs {
   AT* pe;           // [P, kx + kd]
   float* dxd;       // [P, 8]
   float* fp_part;   // [gridDim.x, FP_NUMEL]
+  long long* stamps;  // [block 0's tiles][N_STAMPS] clock64() stamps, or null
   int P, kx, kd, nfx, nfd, ntiles;
+};
+
+// Stage boundaries of block 0's tiles (thread 0's clock64() after the
+// block's barrier that ends each stage), for the stage breakdown that
+// chip_smoke.py prints: tile start, load + PE, heads, d_pe_d, d_feat (matmul,
+// epilogue), d_z7 .. d_z5 (matmul, epilogue each), d_pe += d_z5 W5a,
+// d_z4 .. d_z0 (matmul, epilogue each), d_pe += d_z0 W0, d(xd).
+constexpr int N_STAMPS = 25;
+template <bool ON> struct Stamper {
+  long long* out;
+  int i;
+  __device__ __forceinline__ void mark() {
+    if constexpr (ON) {
+      if (out != nullptr) out[i] = clock64();
+    }
+    ++i;
+  }
 };
 
 constexpr int DPE_LD = PE_MAX + 4;
@@ -227,12 +245,12 @@ __device__ __forceinline__ void dgrad_epilogue_f32(const float (&acc)[Tile<false
 // [N][K]), then the epilogue above; dzs is rewritten in place and copied to
 // the dz scratch at column dz_col.  The mask's stash rows are prefetched
 // into L2 while the matmul runs.
-template <bool BF16, int N>
+template <bool BF16, int N, bool PROF>
 __device__ __forceinline__ void dgrad_layer(const typename Tile<BF16>::T_act* Wg, int K,
                                             BwdSmem<BF16>& s,
                                             const BwdArgs<typename Tile<BF16>::T_act>& a,
                                             int p0, int act_col, bool alpha, int dz_col,
-                                            int bias_off) {
+                                            int bias_off, Stamper<PROF>& st) {
   typedef Tile<BF16> TL;
   if (act_col >= 0) prefetch_rows<TL::T>(a.acts, act_col, N, p0, a.P);
   if constexpr (BF16) {
@@ -244,6 +262,7 @@ __device__ __forceinline__ void dgrad_layer(const typename Tile<BF16>::T_act* Wg
 #pragma unroll
         for (int k = 0; k < 4; ++k) acc[i][j][k] = 0.f;
     gemm_bf16<N>(acc, s.dzs, Tile<true>::ACT_LD, Wg, K, 0, K, s.wst);
+    st.mark();
     dgrad_epilogue_bf16<N>(acc, s, a, p0, act_col, alpha, bias_off);
   } else {
     float acc[Tile<false>::T * N / NTHREADS];
@@ -251,10 +270,12 @@ __device__ __forceinline__ void dgrad_layer(const typename Tile<BF16>::T_act* Wg
     for (int i = 0; i < Tile<false>::T * N / NTHREADS; ++i) acc[i] = 0.f;
     gemm_f32<N>(acc, s.dzs, Tile<false>::ACT_LD, Wg, K, 0, K);
     __syncthreads();
+    st.mark();
     dgrad_epilogue_f32<N>(acc, s, a, p0, act_col, alpha, bias_off);
   }
   // the epilogue ended with a barrier: dzs is complete
   store_rows<TL::T, TL::ACT_LD, N>(s.dzs, a.dz + dz_col, ACTS_LD, p0, a.P);
+  st.mark();
 }
 
 // d_pe[:, col : col + NC] (= or +=) dzs . Wc^T, Wc = [NC][K].
@@ -309,7 +330,7 @@ __device__ __forceinline__ void dpe_layer(const typename Tile<BF16>::T_act* Wg, 
   if (c0 < ncols) dpe_chunk<BF16, 32>(Wg + (size_t)c0 * K, K, s, dpe_col + c0, add);
 }
 
-template <bool BF16, bool REMAT>
+template <bool BF16, bool REMAT, bool PROF>
 __global__ void __launch_bounds__(NTHREADS, 1)
     nerf_mlp_bwd_dgrad_kernel(BwdArgs<typename Tile<BF16>::T_act> a) {
   typedef Tile<BF16> TL;
@@ -323,11 +344,14 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   for (int c = tid; c < FP_NUMEL; c += NTHREADS) s.facc[c] = 0.f;
   for (int tile = blockIdx.x; tile < a.ntiles; tile += gridDim.x) {
     const int p0 = tile * T;
+    Stamper<PROF> st{PROF && blockIdx.x == 0 && tid == 0
+                         ? a.stamps + (size_t)(tile / gridDim.x) * N_STAMPS : nullptr, 0};
     if constexpr (!REMAT) {  // the heads' stash rows, read after the PE
       prefetch_rows<T>(a.acts, 7 * W, W, p0, P);
       prefetch_rows<T>(a.acts, 9 * W, WH, p0, P);
     }
     __syncthreads();  // the previous tile's last reads of xs, gs and dpe are done
+    st.mark();
     load_xd<T>(s.xs, a.xd, p0, P);
     for (int i = tid; i < T; i += NTHREADS) {
       float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -349,6 +373,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     if constexpr (REMAT)
       forward_tile<BF16, AT>(a.w, a.fp, kx, kd, s.dzs, s.pe, s.wst, a.acts, p0, P, [] {});
     __syncthreads();
+    st.mark();
 
     // d_hv, its bias grad, and the grads of the two small heads (rgb: K = 3
     // from hv; alpha: K = 1 from a7), one thread per column
@@ -392,20 +417,24 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       }
     }
     __syncthreads();
+    st.mark();
 
     dpe_layer<BF16>(a.wt[T_WVD], WH, kd, s, kx, false);                   // d_pe_d
-    dgrad_layer<BF16, W>(a.wt[T_WVF], WH, s, a, p0, -1, false, 8 * W, FP_BF);  // d_feat
-    dgrad_layer<BF16, W>(a.wt[T_WF], W, s, a, p0, 7 * W, true, 7 * W, 7 * W);   // d_z7
-    dgrad_layer<BF16, W>(a.wt[T_W7], W, s, a, p0, 6 * W, false, 6 * W, 6 * W);  // d_z6
-    dgrad_layer<BF16, W>(a.wt[T_W6], W, s, a, p0, 5 * W, false, 5 * W, 5 * W);  // d_z5
+    st.mark();
+    dgrad_layer<BF16, W>(a.wt[T_WVF], WH, s, a, p0, -1, false, 8 * W, FP_BF, st);  // d_feat
+    dgrad_layer<BF16, W>(a.wt[T_WF], W, s, a, p0, 7 * W, true, 7 * W, 7 * W, st);   // d_z7
+    dgrad_layer<BF16, W>(a.wt[T_W7], W, s, a, p0, 6 * W, false, 6 * W, 6 * W, st);  // d_z6
+    dgrad_layer<BF16, W>(a.wt[T_W6], W, s, a, p0, 5 * W, false, 5 * W, 5 * W, st);  // d_z5
     dpe_layer<BF16>(a.wt[T_W5A], W, kx, s, 0, false);                     // d_z5 W5a
+    st.mark();
 #pragma unroll 1
     for (int l = 4; l >= 0; --l) {  // d_z4 from W5b, then d_z3..d_z0 from W4..W1
       const AT* Wt = a.wt[l == 4 ? T_W5B : T_W1 + l];
-      dgrad_layer<BF16, W>(Wt, W, s, a, p0, l * W, false, l * W, l * W);
+      dgrad_layer<BF16, W>(Wt, W, s, a, p0, l * W, false, l * W, l * W, st);
     }
     dpe_layer<BF16>(a.wt[T_W0], W, kx, s, 0, true);                       // + d_z0 W0
     __syncthreads();
+    st.mark();
 
     // d(xd) through the PE: one thread per (point, coordinate)
     for (int idx = tid; idx < T * 6; idx += NTHREADS) {
@@ -426,6 +455,10 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     }
     for (int i = tid; i < T * 2; i += NTHREADS)
       if (p0 + (i >> 1) < P) a.dxd[(size_t)(p0 + (i >> 1)) * 8 + 6 + (i & 1)] = 0.f;
+    if constexpr (PROF) {
+      __syncthreads();
+      st.mark();
+    }
   }
   __syncthreads();
   for (int c = tid; c < FP_NUMEL; c += NTHREADS)
@@ -672,17 +705,22 @@ template <bool BF16>
 int launch_bwd(const float* xd, const float* g, const void* w, const void* wt, const float* fp,
                void* acts, void* dz, void* pe, float* dxd, float* fp_part, float* w_part,
                float* dw, float* dfp, int P, int kx, int kd, int nfx, int nfd, int remat,
-               int n_blocks, int n_splits, cudaStream_t stream) {
+               int n_blocks, int n_splits, int parts, long long* stamps, cudaStream_t stream) {
   typedef Tile<BF16> TL;
   typedef typename TL::T_act AT;
   constexpr int SMEM = BwdSmem<BF16>::BYTES;
   static bool attr_set = false;
   if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(nerf_mlp_bwd_dgrad_kernel<BF16, false>,
+    cudaError_t e = cudaFuncSetAttribute(nerf_mlp_bwd_dgrad_kernel<BF16, false, false>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(nerf_mlp_bwd_dgrad_kernel<BF16, true>,
+      e = cudaFuncSetAttribute(nerf_mlp_bwd_dgrad_kernel<BF16, true, false>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+    if constexpr (BF16) {
+      if (e == cudaSuccess)
+        e = cudaFuncSetAttribute(nerf_mlp_bwd_dgrad_kernel<BF16, false, true>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+    }
     if (e != cudaSuccess) return (int)e;
     attr_set = true;
   }
@@ -697,18 +735,31 @@ int launch_bwd(const float* xd, const float* g, const void* w, const void* wt, c
   a.pe = static_cast<AT*>(pe);
   a.dxd = dxd;
   a.fp_part = fp_part;
+  a.stamps = stamps;
   a.P = P;
   a.kx = kx;
   a.kd = kd;
   a.nfx = nfx;
   a.nfd = nfd;
   a.ntiles = (P + TL::T - 1) / TL::T;
-  if (remat)
-    nerf_mlp_bwd_dgrad_kernel<BF16, true><<<n_blocks, NTHREADS, SMEM, stream>>>(a);
-  else
-    nerf_mlp_bwd_dgrad_kernel<BF16, false><<<n_blocks, NTHREADS, SMEM, stream>>>(a);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
+  cudaError_t e;
+  if (parts & 1) {
+    bool done = false;
+    if constexpr (BF16) {
+      if (stamps != nullptr && !remat) {
+        nerf_mlp_bwd_dgrad_kernel<BF16, false, true><<<n_blocks, NTHREADS, SMEM, stream>>>(a);
+        done = true;
+      }
+    }
+    if (done) {
+    } else if (remat)
+      nerf_mlp_bwd_dgrad_kernel<BF16, true, false><<<n_blocks, NTHREADS, SMEM, stream>>>(a);
+    else
+      nerf_mlp_bwd_dgrad_kernel<BF16, false, false><<<n_blocks, NTHREADS, SMEM, stream>>>(a);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  if (!(parts & 2)) return 0;
 
   WgradArgs<AT> wa;
   wa.dz = a.dz;
@@ -747,6 +798,8 @@ long long nerf_mlp_bwd_acts_ld() { return ACTS_LD; }
 // Points per dgrad tile (the block loops over tiles) for the mode.
 int nerf_mlp_bwd_tile(int bf16_mode) { return bf16_mode ? Tile<true>::T : Tile<false>::T; }
 
+int nerf_mlp_bwd_n_stamps() { return N_STAMPS; }
+
 // The backward of nerf_mlp_fwd on `stream`: four launches (dgrad, wgrad, and
 // the two reductions).  Returns the first cudaGetLastError() that is not 0,
 // else 0.
@@ -758,17 +811,23 @@ int nerf_mlp_bwd_tile(int bf16_mode) { return bf16_mode ? Tile<true>::T : Tile<f
 //   dxd [P, 8] out; fp_part [n_blocks, FP_NUMEL] and w_part [n_splits,
 //   w_numel] f32 scratch; dw [w_numel] and dfp [FP_NUMEL] f32 out.
 // n_blocks: dgrad blocks (each loops over tiles); n_splits: point splits of
-// the wgrad.  Requires what nerf_mlp_fwd requires.
+// the wgrad.  parts: 1 the dgrad alone, 2 the wgrad and the reductions alone
+// (on the dz and pe scratch of an earlier dgrad), 3 both.  stamps: null, or
+// [ceil(ntiles / n_blocks)][nerf_mlp_bwd_n_stamps()] int64 for block 0's
+// stage stamps (bf16 stash mode only).  Requires what nerf_mlp_fwd
+// requires.
 int nerf_mlp_bwd(const float* xd, const float* g, const void* w, const void* wt,
                  const float* fp, void* acts, void* dz, void* pe, float* dxd, float* fp_part,
                  float* w_part, float* dw, float* dfp, int P, int kx, int kd, int nfx, int nfd,
-                 int bf16_mode, int remat, int n_blocks, int n_splits, void* stream) {
+                 int bf16_mode, int remat, int n_blocks, int n_splits, int parts,
+                 long long* stamps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16_mode)
     return launch_bwd<true>(xd, g, w, wt, fp, acts, dz, pe, dxd, fp_part, w_part, dw, dfp, P, kx,
-                            kd, nfx, nfd, remat, n_blocks, n_splits, s);
+                            kd, nfx, nfd, remat, n_blocks, n_splits, parts, stamps, s);
+  if (stamps != nullptr) return (int)cudaErrorInvalidValue;
   return launch_bwd<false>(xd, g, w, wt, fp, acts, dz, pe, dxd, fp_part, w_part, dw, dfp, P, kx,
-                           kd, nfx, nfd, remat, n_blocks, n_splits, s);
+                           kd, nfx, nfd, remat, n_blocks, n_splits, parts, nullptr, s);
 }
 
 const char* nerf_mlp_bwd_error_string(int code) {

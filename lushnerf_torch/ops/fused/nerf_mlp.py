@@ -60,6 +60,14 @@ FP_WA = FP_BR + 4
 FP_WR = FP_WA + WIDTH
 FP_NUMEL = FP_WR + 3 * (WIDTH // 2)
 
+# The bf16 dgrad kernel's stages, in order (its stage stamps mark the end
+# of each; mirrors the stamps in csrc/nerf_mlp_bwd.cu)
+DGRAD_STAGES = (
+    ["load_pe", "heads", "dpe_wvd"]
+    + [f"{k}_{z}" for z in ("feat", "z7", "z6", "z5") for k in ("mm", "ep")] + ["dpe_w5a"]
+    + [f"{k}_z{l}" for l in (4, 3, 2, 1, 0) for k in ("mm", "ep")] + ["dpe_w0", "dxd"]
+)
+
 COMPUTE_DTYPES = ("float32", "bfloat16")
 BWD_MODES = ("remat", "stash")
 
@@ -393,8 +401,10 @@ def _bwd_lib() -> ctypes.CDLL:
     lib = build.load("nerf_mlp_bwd")
     if not getattr(lib, "_lushnerf_typed", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.nerf_mlp_bwd.argtypes = [vp] * 13 + [ci] * 9 + [vp]
+        lib.nerf_mlp_bwd.argtypes = [vp] * 13 + [ci] * 10 + [vp, vp]
         lib.nerf_mlp_bwd.restype = ci
+        lib.nerf_mlp_bwd_n_stamps.argtypes = []
+        lib.nerf_mlp_bwd_n_stamps.restype = ci
         lib.nerf_mlp_bwd_w_numel.argtypes = [ci, ci]
         lib.nerf_mlp_bwd_w_numel.restype = ctypes.c_longlong
         lib.nerf_mlp_bwd_fp_numel.argtypes = []
@@ -484,6 +494,94 @@ def nerf_mlp_fwd(mlp, xd: torch.Tensor, compute_dtype: str = "float32",
     return _launch_fwd(mlp, xd, compute_dtype, num_freqs_x, num_freqs_d, stash=False)[0]
 
 
+class BwdLaunch:
+    """The backward kernels' inputs, scratch and outputs for one call, and
+    their launches: `run()` launches them (counted), `result()` returns
+    (d_xd, grads) as `nerf_mlp_bwd_plain` does.  `nerf_mlp_bwd` is the one
+    caller on the main path; `chip_smoke.py` also times the dgrad
+    (`run(DGRAD)`) and the wgrad with its reductions (`run(WGRAD)`, on the
+    scratch of an earlier dgrad) apart, and reads the dgrad's stage stamps
+    (`stage_stamps()`)."""
+
+    DGRAD, WGRAD, ALL = 1, 2, 3
+
+    def __init__(self, mlp, xd, g, compute_dtype, num_freqs_x, num_freqs_d, acts):
+        _check_cuda_inputs("nerf_mlp_bwd", mlp, xd, compute_dtype, num_freqs_x, num_freqs_d)
+        P = xd.shape[0]
+        if g.shape != (P, OUT_CH) or g.device != xd.device:
+            raise ValueError(f"nerf_mlp_bwd: g must be [P, {OUT_CH}] on {xd.device}")
+        cdt = stash_dtype(compute_dtype)
+        if acts is not None and (acts.shape != (P, ACTS_LD) or acts.dtype != cdt):
+            raise ValueError(f"nerf_mlp_bwd: stash must be {cdt} [P, {ACTS_LD}]")
+        self.mlp, self.P, self.remat = mlp, P, acts is None
+        self.kx, self.kd = pe_widths(mlp.cfg)
+        self.nf = (num_freqs_x, num_freqs_d)
+        self.bf16 = compute_dtype == "bfloat16"
+        self.xd = xd.contiguous()
+        self.g = g.float().contiguous()
+        self.w, self.fp = pack_params(mlp, compute_dtype)
+        self.wt = pack_params_bwd(mlp, compute_dtype)
+        self.lib = _bwd_lib()
+        wn = self.lib.nerf_mlp_bwd_w_numel(self.kx, self.kd)
+        if self.w.numel() != wn or self.wt.numel() != wn:
+            raise RuntimeError("nerf_mlp_bwd: weight blob layout differs from the CUDA source")
+        dev = self.dev = xd.device
+        new = torch.empty if P else torch.zeros  # the kernels write every value
+        self.dxd = new((P, XD_CH), dtype=torch.float32, device=dev)
+        self.dw = new(wn, dtype=torch.float32, device=dev)
+        self.dfp = new(FP_NUMEL, dtype=torch.float32, device=dev)
+        if P == 0:
+            return
+        self.acts = torch.empty((P, ACTS_LD), dtype=cdt, device=dev) if self.remat else acts
+        self.dz = torch.empty((P, ACTS_LD), dtype=cdt, device=dev)
+        self.pe = torch.empty((P, self.kx + self.kd), dtype=cdt, device=dev)
+        self.n_tiles = -(-P // self.lib.nerf_mlp_bwd_tile(int(self.bf16)))
+        self.n_blocks = min(self.n_tiles, torch.cuda.get_device_properties(dev).multi_processor_count)
+        self.n_splits = max(1, min(32, -(-P // 16384)))
+        self.fp_part = torch.empty((self.n_blocks, FP_NUMEL), dtype=torch.float32, device=dev)
+        self.w_part = torch.empty((self.n_splits, wn), dtype=torch.float32, device=dev)
+        _check_aligned("nerf_mlp_bwd", self.xd, self.g, self.w, self.wt, self.fp, self.acts,
+                       self.dz, self.pe, self.dxd, self.fp_part, self.w_part, self.dw, self.dfp)
+
+    def run(self, parts: int = ALL, stamps: Optional[torch.Tensor] = None) -> None:
+        if self.P == 0:
+            return
+        stream = torch.cuda.current_stream(self.dev).cuda_stream
+        with torch.cuda.device(self.dev):
+            rc = self.lib.nerf_mlp_bwd(
+                self.xd.data_ptr(), self.g.data_ptr(), self.w.data_ptr(), self.wt.data_ptr(),
+                self.fp.data_ptr(), self.acts.data_ptr(), self.dz.data_ptr(), self.pe.data_ptr(),
+                self.dxd.data_ptr(), self.fp_part.data_ptr(), self.w_part.data_ptr(),
+                self.dw.data_ptr(), self.dfp.data_ptr(), self.P, self.kx, self.kd, *self.nf,
+                int(self.bf16), int(self.remat), self.n_blocks, self.n_splits, parts,
+                None if stamps is None else stamps.data_ptr(), stream,
+            )
+        if rc != 0:
+            raise RuntimeError(
+                f"nerf_mlp_bwd: CUDA error {rc} ({self.lib.nerf_mlp_bwd_error_string(rc).decode()})"
+            )
+        n = (1 if parts & self.DGRAD else 0) + (3 if parts & self.WGRAD else 0)
+        global launches_bwd_stash, launches_bwd_remat
+        if self.remat:
+            launches_bwd_remat += n
+        else:
+            launches_bwd_stash += n
+
+    def stage_stamps(self) -> torch.Tensor:
+        """Runs the dgrad once with its stage stamps on (bf16 stash mode):
+        [block 0's tiles, n_stamps] clock64() values, stamp i at the end of
+        stage i (stamp 0: the tile's start)."""
+        if not self.bf16 or self.remat:
+            raise ValueError("nerf_mlp_bwd: stage stamps exist for the bf16 stash dgrad only")
+        stamps = torch.zeros((-(-self.n_tiles // self.n_blocks), self.lib.nerf_mlp_bwd_n_stamps()),
+                             dtype=torch.int64, device=self.dev)
+        self.run(self.DGRAD, stamps)
+        return stamps
+
+    def result(self):
+        return self.dxd, _unpack_grads(self.mlp, self.dw, self.dfp)
+
+
 def nerf_mlp_bwd(mlp, xd: torch.Tensor, g: torch.Tensor, compute_dtype: str = "float32",
                  num_freqs_x: int = 10, num_freqs_d: int = 4,
                  acts: Optional[torch.Tensor] = None):
@@ -492,59 +590,9 @@ def nerf_mlp_bwd(mlp, xd: torch.Tensor, g: torch.Tensor, compute_dtype: str = "f
     forward's stash (K2, stash mode) or None (K3, remat mode: the dgrad
     kernel recomputes the activations into scratch allocated here and freed
     on return)."""
-    _check_cuda_inputs("nerf_mlp_bwd", mlp, xd, compute_dtype, num_freqs_x, num_freqs_d)
-    P = xd.shape[0]
-    if g.shape != (P, OUT_CH) or g.device != xd.device:
-        raise ValueError(f"nerf_mlp_bwd: g must be [P, {OUT_CH}] on {xd.device}")
-    cdt = stash_dtype(compute_dtype)
-    if acts is not None and (acts.shape != (P, ACTS_LD) or acts.dtype != cdt):
-        raise ValueError(f"nerf_mlp_bwd: stash must be {cdt} [P, {ACTS_LD}]")
-    remat = acts is None
-    kx, kd = pe_widths(mlp.cfg)
-    xd = xd.contiguous()
-    g = g.float().contiguous()
-    w, fp = pack_params(mlp, compute_dtype)
-    wt = pack_params_bwd(mlp, compute_dtype)
-    lib = _bwd_lib()
-    wn = lib.nerf_mlp_bwd_w_numel(kx, kd)
-    if w.numel() != wn or wt.numel() != wn:
-        raise RuntimeError("nerf_mlp_bwd: weight blob layout differs from the CUDA source")
-    dev = xd.device
-    if P == 0:
-        return torch.zeros_like(xd), _unpack_grads(
-            mlp, torch.zeros(wn, device=dev), torch.zeros(FP_NUMEL, device=dev))
-    if remat:
-        acts = torch.empty((P, ACTS_LD), dtype=cdt, device=dev)
-    dz = torch.empty((P, ACTS_LD), dtype=cdt, device=dev)
-    pe = torch.empty((P, kx + kd), dtype=cdt, device=dev)
-    dxd = torch.empty((P, XD_CH), dtype=torch.float32, device=dev)
-    n_tiles = -(-P // lib.nerf_mlp_bwd_tile(int(compute_dtype == "bfloat16")))
-    n_blocks = min(n_tiles, torch.cuda.get_device_properties(dev).multi_processor_count)
-    n_splits = max(1, min(32, -(-P // 16384)))
-    fp_part = torch.empty((n_blocks, FP_NUMEL), dtype=torch.float32, device=dev)
-    w_part = torch.empty((n_splits, wn), dtype=torch.float32, device=dev)
-    dw = torch.empty(wn, dtype=torch.float32, device=dev)
-    dfp = torch.empty(FP_NUMEL, dtype=torch.float32, device=dev)
-    _check_aligned("nerf_mlp_bwd", xd, g, w, wt, fp, acts, dz, pe, dxd, fp_part, w_part, dw, dfp)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        rc = lib.nerf_mlp_bwd(
-            xd.data_ptr(), g.data_ptr(), w.data_ptr(), wt.data_ptr(), fp.data_ptr(),
-            acts.data_ptr(), dz.data_ptr(), pe.data_ptr(), dxd.data_ptr(), fp_part.data_ptr(),
-            w_part.data_ptr(), dw.data_ptr(), dfp.data_ptr(), P, kx, kd, num_freqs_x,
-            num_freqs_d, int(compute_dtype == "bfloat16"), int(remat), n_blocks, n_splits,
-            stream,
-        )
-    if rc != 0:
-        raise RuntimeError(
-            f"nerf_mlp_bwd: CUDA error {rc} ({lib.nerf_mlp_bwd_error_string(rc).decode()})"
-        )
-    global launches_bwd_stash, launches_bwd_remat
-    if remat:
-        launches_bwd_remat += 4
-    else:
-        launches_bwd_stash += 4
-    return dxd, _unpack_grads(mlp, dw, dfp)
+    run = BwdLaunch(mlp, xd, g, compute_dtype, num_freqs_x, num_freqs_d, acts)
+    run.run()
+    return run.result()
 
 
 class NerfMLPFn(torch.autograd.Function):

@@ -28,7 +28,9 @@ the final result line):
      forward's stash, each tensor's max error over its max magnitude within
      BWD_TOL, in bf16 also each tensor's mean error at most a tenth of the
      plain f32-vs-bf16 mean gap; a second run gives the same bits; K2 and
-     K3 agree to the bit;
+     K3 agree to the bit; in bf16 the dgrad and the wgrad with its
+     reductions timed apart at both flagship P, and the dgrad's time by
+     stage from the clock64 stamps of an instrumented instantiation;
   5. forward_kernel: the flagship config (29 images, 1024 rays x 5
      sub-rays, 400x400, focal 320) -- finite outputs, exactly 2 kernel
      launches per call, agreement with the plain-torch backend on the
@@ -48,7 +50,8 @@ the final result line):
      against the torch f32 backend (cosine of each parameter's grad >=
      GRAD_COS_MIN), and the control that the bound rejects: the bf16 path
      fed a stash with one block shifted by a column; after the steps the
-     forward kernel still matches its plain version (no stale weight pack);
+     forward kernel gives the bits of a freshly packed copy of the weights
+     (no stale weight pack) and the mean-gap control of its plain version;
   8. profile: a torch.profiler trace of forward_kernel, render_image and one
      train step: device time by kernel and the device's busy share;
   9. tune_kernel: the kernel-cost path, `lushnerf_torch.scripts.tune_kernel`
@@ -71,7 +74,9 @@ the final result line):
      version and the one PyTorch call that computes the same function
      (torch.cumsum, Tensor.clone, torch.searchsorted, torch.diff):
      medians over 5 CUDA-event windows of back-to-back calls queued behind a
-     device sleep, so that the host's launch cost is not in them.
+     device sleep, so that the host's launch cost is not in them; the
+     searchsorted kernel also on unsorted rows with ties (exact, timed) and
+     on a ragged S and SI.
 Then a `{"kernels": [...]}` line (nine kernels, each with the path that
 launched it: main, tune_kernel or probe_raymajor) and, last, the
 `{"ok": true, ...}` line.
@@ -84,6 +89,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -377,14 +383,14 @@ def held_bwd(got, want, f32, dtype, prefix) -> dict:
 def dgrad_breakdown(stages, stamps, dgrad_ms) -> dict:
     """The dgrad's time by stage from block 0's stage stamps: each stage's
     share of the stamped cycles over all of block 0's tiles, and that share
-    of the dgrad's measured ms; the stages grouped as load + PE, heads,
-    layer matmuls (mm_*), layer epilogues (ep_*), d_pe passes (dpe_*) and
-    d(xd)."""
+    of the dgrad's measured ms; the stages grouped as the tile's load,
+    heads, layer matmuls (mm_*), the waits for each layer's mask (wait_*),
+    layer epilogues (ep_*), d_pe passes (dpe_*) and d(xd) (dxd_*)."""
     st = stamps.cpu().numpy().astype(np.float64)
     d = np.diff(st[(st > 0).all(1)], axis=1)
     total = d.sum()
     share = {name: float(d[:, i].sum() / total) for i, name in enumerate(stages)}
-    group_of = {"mm": "matmul", "ep": "epilogue", "dpe": "dpe_passes"}
+    group_of = {"mm": "matmul", "wait": "mask_wait", "ep": "epilogue", "dpe": "dpe_passes"}
     groups = {}
     for name, v in share.items():
         key = group_of.get(name.split("_")[0], name)
@@ -629,10 +635,11 @@ TRAIN_VARIANTS = {"stash": ("cuda", "bfloat16", "stash"), "remat": ("cuda", "bfl
                   "torch": ("torch", "float32", "remat")}
 GRAD_VARIANTS = dict(TRAIN_VARIANTS, stash_f32=("cuda", "float32", "stash"))
 # kernel launches per flagship train step (2 scene MLPs): one forward each,
-# four backward launches each (dgrad, wgrad, two reductions)
+# four backward launches each (dgrad, wgrad, two reductions); remat adds the
+# forward kernel that writes the stash its dgrad reads
 STEP_LAUNCHES = {
     "stash": {"nerf_mlp_fwd": 2, "nerf_mlp_bwd_stash": 8, "nerf_mlp_bwd_remat": 0},
-    "remat": {"nerf_mlp_fwd": 2, "nerf_mlp_bwd_stash": 0, "nerf_mlp_bwd_remat": 8},
+    "remat": {"nerf_mlp_fwd": 2, "nerf_mlp_bwd_stash": 0, "nerf_mlp_bwd_remat": 10},
     "torch": {"nerf_mlp_fwd": 0, "nerf_mlp_bwd_stash": 0, "nerf_mlp_bwd_remat": 0},
 }
 STEP_PACKS = 4  # forward and backward blobs of both scene MLPs, once per step
@@ -714,15 +721,28 @@ def train_phase(fused, lush, cfg_mod, trainer):
     print("  fixed batch losses: " + json.dumps(losses), flush=True)
     assert all(np.isfinite(losses)) and np.mean(losses[-5:]) < np.mean(losses[:5]) \
         and losses[-1] < losses[0], "the loss did not fall"
-    # the weights changed in place 20 times: the kernel must see the new ones
+    # the weights changed in place 20 times: the kernel must see the new ones,
+    # bit for bit as a fresh module holding them (its own packs) gives, and
+    # stay within the bf16 mean-gap control of the plain version.  Its
+    # per-value limit is phase 3's, on fresh weights: on these trained ones
+    # a few values sit near it, and a backward that sums in another order
+    # moves them across it (0.0021 and 0.0024 for two such backwards).
+    mlp = model.mlp_fine
     with torch.no_grad():
         xd = sample_points(4096 * 16, torch.Generator(device="cuda").manual_seed(4))
-        got = fused.nerf_mlp_fwd(model.mlp_fine, xd, "bfloat16")
-        want = fused.nerf_mlp_fwd_plain(model.mlp_fine, xd, "bfloat16")
-    tol = KERNEL_TOL["bfloat16"]
-    excess = ((got - want).abs() - tol["atol"] - tol["rtol"] * want.abs()).max().item()
+        got = fused.nerf_mlp_fwd(mlp, xd, "bfloat16")
+        repacked = type(mlp)(mlp.cfg, torch.Generator().manual_seed(0), torch.device("cpu")).cuda()
+        repacked.load_state_dict(mlp.state_dict())
+        again = fused.nerf_mlp_fwd(repacked, xd, "bfloat16")
+        want = fused.nerf_mlp_fwd_plain(mlp, xd, "bfloat16")
+        gap = (fused.nerf_mlp_fwd_plain(mlp, xd, "float32") - want).abs().mean().item()
+    res["after_steps_fwd_bitwise_vs_fresh_pack"] = bool(torch.equal(got, again))
     res["after_steps_fwd_max_abs_err"] = (got - want).abs().max().item()
-    assert excess <= 0, f"forward after training steps disagrees: {res['after_steps_fwd_max_abs_err']}"
+    res["after_steps_fwd_mean_err_over_f32_gap"] = (got - want).abs().mean().item() / gap
+    assert (res["after_steps_fwd_bitwise_vs_fresh_pack"] and bool(torch.isfinite(got).all())
+            and res["after_steps_fwd_mean_err_over_f32_gap"] <= BF16_MEAN_ERR_SHARE), \
+        f"forward after training steps disagrees: {res}"
+    del repacked
     del model, opt, sched
     torch.cuda.empty_cache()
 
@@ -843,8 +863,9 @@ def profile_phase(lush, cfg_mod, trainer, untraced_ms):
                 end = t
         by_name = {}
         for e in dev:
-            key = next((k for k in ("nerf_mlp_fwd_kernel", "nerf_mlp_bwd_dgrad_kernel",
-                                    "nerf_mlp_bwd_wgrad", "nerf_mlp_bwd_reduce") if k in e.name),
+            key = next((k for k in ("nerf_mlp_fwd_kernel", "nerf_mlp_dgrad_sm90",
+                                    "nerf_mlp_bwd_dgrad_f32", "nerf_mlp_bwd_wgrad",
+                                    "nerf_mlp_bwd_reduce") if k in e.name),
                        e.name[:70])
             ms, n = by_name.get(key, (0.0, 0))
             by_name[key] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
@@ -1056,10 +1077,14 @@ def probe_phase(raymajor, probe):
             if not row["within_tol"]:
                 raise AssertionError(f"{name} disagrees with its plain version: {row}")
     res["rows"] = rows
-    # K9 on rows torch.searchsorted does not take (unsorted, with ties), and
-    # on a ragged S and SI (sorted with ties: also against torch.searchsorted)
+    # K9 on rows torch.searchsorted does not take (unsorted, with ties: the
+    # kernel's count path, timed at the renderer's shapes), and on a ragged S
+    # and SI, unsorted and sorted with ties (its binary-search path; also
+    # against torch.searchsorted)
     res["searchsorted_cases"] = []
-    for label, (R, S, SI) in (("unsorted_ties", (5120, 128, 128)), ("ragged", (517, 37, 45))):
+    for label, (R, S, SI) in (("unsorted_ties", (5120, 128, 128)),
+                              ("unsorted_ties_coarse", (5120, 64, 64)),
+                              ("ragged_unsorted", (517, 37, 45)), ("ragged", (517, 37, 45))):
         cdf = torch.randint(0, 16, (R, S), generator=gen, device="cuda").float() / 16
         if label == "ragged":
             cdf = cdf.sort(-1).values
@@ -1070,6 +1095,8 @@ def probe_phase(raymajor, probe):
         if label == "ragged":
             lib = torch.searchsorted(cdf, u.view(R, SI), right=True).float().reshape(-1, 1)
             r["library_max_abs_err"] = (got - lib).abs().max().item()
+        elif R == 5120:
+            r["ms"] = device_ms(lambda: raymajor.searchsorted_count(cdf, u))
         print("  searchsorted " + json.dumps(r), flush=True)
         res["searchsorted_cases"].append(r)
         if r["max_abs_err"] != 0 or r.get("library_max_abs_err", 0) != 0:
@@ -1117,15 +1144,32 @@ def kernel_entries(results):
               {**at_tune_p("k1"), "shapes_stash": shapes("fwd_stash"),
                "shapes_output_only": [{k: r[k] for k in ("dtype", "P", "ms", "plain_ms", "bound_ms",
                                                          "max_abs_err") if k in r} for r in fwd_rows]}),
-        entry("nerf_mlp_bwd_stash", "lushnerf_torch/csrc/nerf_mlp_bwd.cu",
+        entry("nerf_mlp_bwd_stash", "lushnerf_torch/csrc/nerf_mlp_dgrad.cu",
               "lushnerf_tpu/ops/fused/nerf_mlp.py:608", counts.get("nerf_mlp_bwd_stash", 0),
               bwd_err, "stash", {"max_rel_err": bwd_rel, "shapes": shapes("stash"),
-                                 "launches_are": "dgrad + wgrad + 2 reductions per backward"}),
-        entry("nerf_mlp_bwd_remat", "lushnerf_torch/csrc/nerf_mlp_bwd.cu",
+                                 "also_source": "lushnerf_torch/csrc/nerf_mlp_bwd.cu",
+                                 "launches_are": "dgrad + wgrad + 2 reductions per backward",
+                                 **bwd_split(bwd_rows)}),
+        entry("nerf_mlp_bwd_remat", "lushnerf_torch/csrc/nerf_mlp_dgrad.cu",
               "lushnerf_tpu/ops/fused/nerf_mlp.py:589", counts.get("nerf_mlp_bwd_remat", 0),
               bwd_err, "remat", {"max_rel_err": bwd_rel, **at_tune_p("k3"), "shapes": shapes("remat"),
-                                 "launches_are": "dgrad + wgrad + 2 reductions per backward"}),
+                                 "also_source": "lushnerf_torch/csrc/nerf_mlp_fwd.cu, nerf_mlp_bwd.cu",
+                                 "launches_are": "K1 with its stash + dgrad + wgrad + 2 "
+                                                 "reductions per backward"}),
     ] + tune_entries(results.get("tune_kernel")) + probe_entries(results.get("probe_raymajor"))
+
+
+def bwd_split(bwd_rows) -> dict:
+    """K2's dgrad and its wgrad with the reductions, timed apart in bf16 at
+    both flagship P, and the dgrad's stage shares at the fine P."""
+    rows = [r for r in bwd_rows if "dgrad_ms" in r]
+    out = {"split": [{k: r[k] for k in ("P", "dgrad_ms", "dgrad_bound_ms", "dgrad_bound_by",
+                                        "wgrad_ms", "wgrad_bound_ms", "wgrad_bound_by")}
+                     for r in rows]}
+    stages = next((r["dgrad_stages"]["group_share"] for r in rows if "dgrad_stages" in r), None)
+    if stages is not None:
+        out["dgrad_stage_share"] = stages
+    return out
 
 
 def tune_entries(tune):
@@ -1188,6 +1232,9 @@ def probe_entries(probe):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="", help="also write all results to this JSON file")
+    ap.add_argument("--only", default="",
+                    help="comma-separated phases to run after the build (a partial run: it "
+                         "prints no kernels or result line)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test needs a GPU",
@@ -1216,11 +1263,20 @@ def main(argv=None) -> int:
           f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
 
     def do_build():
-        logs = build.build_all(["nerf_mlp_fwd", "nerf_mlp_bwd", "nerf_pe_mm", "raymajor_probe"])
+        logs = build.build_all(["nerf_mlp_fwd", "nerf_mlp_bwd", "nerf_mlp_dgrad", "nerf_pe_mm",
+                                "raymajor_probe"])
         for name, log in logs.items():
+            notes = {}  # ptxas performance notes (wgmma fences, serialisation) by code
             for line in log.splitlines():
-                if any(k in line for k in ("registers", "spill", "Compiling entry", "wall time")):
+                code = re.search(r"\((C7\d\d\d)\)", line)
+                if code:
+                    if code.group(1) not in notes:
+                        print(f"  {name}: {line.strip()[:240]}")
+                    notes[code.group(1)] = notes.get(code.group(1), 0) + 1
+                elif any(k in line for k in ("registers", "spill", "Compiling entry", "wall time")):
                     print(f"  {name}: {line.strip()}")
+            if notes:
+                print(f"  {name}: ptxas notes by code: {json.dumps(notes)}")
         return logs
 
     def untraced():
@@ -1242,9 +1298,17 @@ def main(argv=None) -> int:
         "tune_kernel": lambda: tune_phase(fused, pe_mm, tune_kernel, NeRFMLP, MLPConfig),
         "probe_raymajor": lambda: probe_phase(raymajor, probe_raymajor),
     }
+    only = set(filter(None, args.only.split(",")))
     for name, run in runs.items():
-        if "build" not in smoke.failed:
+        if "build" not in smoke.failed and (not only or name == "build" or name in only):
             smoke.phase(name, run)
+    if only:
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump({"card": card, "failed": smoke.failed, "results": smoke.results}, f,
+                          indent=1, default=str)
+        print(f"chip_smoke: partial run of {sorted(only)}; failed: {smoke.failed}", flush=True)
+        return 1 if smoke.failed else 0
 
     kernels = kernel_entries(smoke.results)
     if not smoke.failed:

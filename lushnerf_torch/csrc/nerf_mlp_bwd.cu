@@ -22,34 +22,34 @@
 // The TPU kernel summed the weight grads in VMEM across its sequential
 // grid.  Blocks on this card run in no order, so the backward is three
 // kernels, all with fixed summation orders (two runs give the same bits):
-//   1. dgrad: a loop over 128-point tiles (64 in f32), one block per SM.
-//      Per tile it recomputes the PE (stored to a scratch `pe`), and in
-//      remat mode (K3) first re-runs the forward layers, writing a0..hv to
-//      the scratch `acts` that the stash mode (K2) reads from the forward;
-//      then the dgrad chain above, each layer a tensor-core pass over the
-//      tile in shared memory (the forward's matmul loop, with the
-//      transposed weights; the mask's stash rows prefetched into L2 while
-//      it runs), writing every d_z (rounded) to the scratch `dz` in
-//      16-byte rows from the shared tile, summing bias grads and the two
-//      small heads' weight grads (K = 3 and 1) into per-block partials, and
-//      writing d(xd).
+//   1. dgrad: a loop over point tiles, one block per SM: the PE of the tile
+//      (stored to a scratch `pe`), then the dgrad chain above, writing
+//      every d_z (rounded) to the scratch `dz`, summing bias grads and the
+//      two small heads' weight grads (K = 3 and 1) into per-block partials,
+//      and writing d(xd).  bf16: nerf_mlp_dgrad.cu (wgmma, TMA).  f32: the
+//      kernel below, 64-point tiles in shared memory, FMA matmuls, the
+//      mask's stash rows prefetched into L2 while each matmul runs.
 //   2. wgrad: dW = dZ^T A for the 12 weight blocks of the weight blob in
 //      one launch: one block per 128 x 128 output tile and point split,
 //      A and dZ staged row-major with cp.async and read transposed by
 //      ldmatrix.trans; per-split f32 partials.
 //   3. reduce (twice): the partials summed in split / block order.
-// What bounds it: operations (2 x 1,186,816 FLOP per point; remat adds a
-// forward) against 4,864 B per point of stash in bf16.  The design also
-// moves the dz scratch (4,864 B per point written and read again) and the
-// wgrad partials; that traffic is not part of the bound.
+// The remat backward (K3) is the stash backward on a stash that the
+// forward kernel writes into scratch first (lushnerf_torch/ops/fused/
+// nerf_mlp.py), so the two give the same bits.
+// What bounds it: operations (2 x 1,186,816 FLOP per point) against 4,864 B
+// per point of stash in bf16.  The design also moves the dz scratch (4,864
+// B per point written and read again) and the wgrad partials; that traffic
+// is not part of the bound.
 //
 // Layouts of the weight blob, the f32 blob and the stash:
 // nerf_mlp_common.cuh.  The transposed blob `wt` holds, each [in][out]
-// row-major in the compute dtype:  W0^T [kx][256] | W1^T..W4^T [256][256] |
-// W5a^T [kx][256] | W5b^T [256][256] | W6^T, W7^T, Wf^T [256][256] |
-// Wvf^T [256][128] | Wvd^T [kd][128].  The weight grad `dw` has the weight
-// blob's layout in f32; the f32-blob grad `dfp` has the f32 blob's layout
-// (bias grads and the two heads' weight grads).
+// row-major:  W0^T [kx][256] | W1^T..W4^T [256][256] | W5a^T [kx][256] |
+// W5b^T [256][256] | W6^T, W7^T, Wf^T [256][256] | Wvf^T [256][128] |
+// Wvd^T [kd][128] (f32 here; the bf16 dgrad takes the same blocks
+// chunk-major and swizzled, nerf_mlp_dgrad.cu).  The weight grad `dw` has
+// the weight blob's layout in f32; the f32-blob grad `dfp` has the f32
+// blob's layout (bias grads and the two heads' weight grads).
 
 #include "nerf_mlp_common.cuh"
 
@@ -59,164 +59,71 @@ using namespace nerf_mlp;
 
 enum { T_W0, T_W1, T_W2, T_W3, T_W4, T_W5A, T_W5B, T_W6, T_W7, T_WF, T_WVF, T_WVD, N_WT };
 
-template <typename WT>
-void fill_t_offsets(const WT* (&t)[N_WT], const void* blob, int kx, int kd) {
-  const WT* base = static_cast<const WT*>(blob);
-  const size_t WW = (size_t)W * W;
-  const size_t sizes[N_WT] = {(size_t)kx * W, WW, WW, WW, WW, (size_t)kx * W, WW, WW, WW, WW,
-                              (size_t)W * WH, (size_t)kd * WH};
-  size_t off = 0;
-  for (int i = 0; i < N_WT; ++i) {
-    t[i] = base + off;
-    off += sizes[i];
-  }
-}
+// The f32 dgrad's tile: 64 points, rows of W + 4 (activations) floats.
+constexpr int FT = Tile<false>::T;
+constexpr int F_ALD = Tile<false>::ACT_LD;
+constexpr int F_PLD = Tile<false>::PE_LD;
+constexpr int DPE_LD = PE_MAX + 4;
 
-template <typename AT> struct BwdArgs {
+struct BwdArgs {
   const float* xd;  // [P, 8]
   const float* g;   // [P, 4] cotangent of [rgb, alpha]
   const float* fp;  // biases and heads
-  const AT* w[10];  // forward weights (remat)
-  const AT* wt[N_WT];
-  AT* acts;         // [P, ACTS_LD]: the stash, or remat scratch
-  AT* dz;           // [P, ACTS_LD]: d_z0..d_z7, d_feat, d_hv
-  AT* pe;           // [P, kx + kd]
-  float* dxd;       // [P, 8]
-  float* fp_part;   // [gridDim.x, FP_NUMEL]
-  long long* stamps;  // [block 0's tiles][N_STAMPS] clock64() stamps, or null
+  const float* wt[N_WT];
+  const float* acts;  // [P, ACTS_LD]: the stash
+  float* dz;          // [P, ACTS_LD]: d_z0..d_z7, d_feat, d_hv
+  float* pe;          // [P, kx + kd]
+  float* dxd;         // [P, 8]
+  float* fp_part;     // [gridDim.x, FP_NUMEL]
   int P, kx, kd, nfx, nfd, ntiles;
 };
 
-// Stage boundaries of block 0's tiles (thread 0's clock64() after the
-// block's barrier that ends each stage), for the stage breakdown that
-// chip_smoke.py prints: tile start, load + PE, heads, d_pe_d, d_feat (matmul,
-// epilogue), d_z7 .. d_z5 (matmul, epilogue each), d_pe += d_z5 W5a,
-// d_z4 .. d_z0 (matmul, epilogue each), d_pe += d_z0 W0, d(xd).
-constexpr int N_STAMPS = 25;
-template <bool ON> struct Stamper {
-  long long* out;
-  int i;
-  __device__ __forceinline__ void mark() {
-    if constexpr (ON) {
-      if (out != nullptr) out[i] = clock64();
-    }
-    ++i;
-  }
-};
-
-constexpr int DPE_LD = PE_MAX + 4;
-
-// Rows [p0, min(p0 + T, P)) of `ncols` stash columns at `col` into L2, one
+// Rows [p0, min(p0 + FT, P)) of `ncols` stash columns at `col` into L2, one
 // prefetch per 32-byte sector, so that the loads that follow a matmul find
 // them there.
-template <int T, typename AT>
-__device__ __forceinline__ void prefetch_rows(const AT* acts, int col, int ncols, int p0, int P) {
-  constexpr int E = 32 / sizeof(AT);  // elements per sector
+__device__ __forceinline__ void prefetch_rows(const float* acts, int col, int ncols, int p0, int P) {
+  constexpr int E = 8;  // floats per sector
   const int per_row = ncols / E;
-  for (int i = threadIdx.x; i < T * per_row; i += NTHREADS) {
+  for (int i = threadIdx.x; i < FT * per_row; i += NTHREADS) {
     const int p = i / per_row, c = (i % per_row) * E;
     if (p0 + p < P)
       asm volatile("prefetch.global.L2 [%0];" ::"l"(acts + (size_t)(p0 + p) * ACTS_LD + col + c));
   }
 }
 
-template <bool BF16> struct BwdSmem {
-  typedef Tile<BF16> TL;
-  typedef typename TL::T_act AT;
-  static constexpr int DZS = TL::T * TL::ACT_LD * (int)sizeof(AT);
-  static constexpr int PE_B = TL::T * TL::PE_LD * (int)sizeof(AT);
-  static constexpr int DPE_B = TL::T * DPE_LD * 4;
+struct BwdSmem {
+  static constexpr int DZS = FT * F_ALD * 4;
+  static constexpr int PE_B = FT * F_PLD * 4;
+  static constexpr int DPE_B = FT * DPE_LD * 4;
   static constexpr int UNION = PE_B > DPE_B ? PE_B : DPE_B;
-  static constexpr int BYTES = DZS + UNION + TL::WST_BYTES + TL::T * 8 * 4 + TL::T * 4 * 4 +
-                               2 * W * 4 + FP_NUMEL * 4;
-  AT* dzs;     // [T][ACT_LD]: the dgrad chain's current d_z (rounded)
-  AT* pe;      // [T][PE_LD]: the tile's PE (aliases dpe)
-  float* dpe;  // [T][DPE_LD]: d_pe
-  AT* wst;     // weight ring (bf16)
-  float* xs;   // [T][8]
-  float* gs;   // [T][4]
-  float* red;  // [2 * W]: column-sum staging
-  float* facc; // [FP_NUMEL]: this block's f32-blob grads
+  static constexpr int BYTES = DZS + UNION + FT * 8 * 4 + FT * 4 * 4 + 2 * W * 4 + FP_NUMEL * 4;
+  float* dzs;   // [FT][F_ALD]: the dgrad chain's current d_z
+  float* pe;    // [FT][F_PLD]: the tile's PE (aliases dpe)
+  float* dpe;   // [FT][DPE_LD]: d_pe
+  float* xs;    // [FT][8]
+  float* gs;    // [FT][4]
+  float* red;   // [2 * W]: column-sum staging
+  float* facc;  // [FP_NUMEL]: this block's f32-blob grads
   __device__ explicit BwdSmem(unsigned char* s) {
-    dzs = reinterpret_cast<AT*>(s);
-    pe = reinterpret_cast<AT*>(s + DZS);
+    dzs = reinterpret_cast<float*>(s);
+    pe = reinterpret_cast<float*>(s + DZS);
     dpe = reinterpret_cast<float*>(s + DZS);
-    wst = reinterpret_cast<AT*>(s + DZS + UNION);
-    xs = reinterpret_cast<float*>(s + DZS + UNION + TL::WST_BYTES);
-    gs = xs + TL::T * 8;
-    red = gs + TL::T * 4;
+    xs = reinterpret_cast<float*>(s + DZS + UNION);
+    gs = xs + FT * 8;
+    red = gs + FT * 4;
     facc = red + 2 * W;
   }
 };
 
-// The dgrad epilogue of one layer of width N: v = acc (+ r(g_alpha) Wa when
+// The dgrad epilogue of one layer of width N: v = acc (+ g_alpha Wa when
 // `alpha`), times the relu mask of the activation at stash column
-// `act_col` (no mask when act_col < 0).  r(v) goes to the shared tile, v's
+// `act_col` (no mask when act_col < 0).  v goes to the shared tile, its
 // column sums to facc[bias_off].
 template <int N>
-__device__ __forceinline__ void dgrad_epilogue_bf16(const float (&acc)[4][N / 32][4],
-                                                    BwdSmem<true>& s, const BwdArgs<bf16>& a,
-                                                    int p0, int act_col, bool alpha,
-                                                    int bias_off) {
-  constexpr int ALD = Tile<true>::ACT_LD;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int nt = 0; nt < N / 32; ++nt) {
-    const int col = wn * (N / 4) + nt * 8 + 2 * t;
-    float wa0 = 0.f, wa1 = 0.f;
-    if (alpha) {
-      wa0 = a.fp[FP_WA + col];
-      wa1 = a.fp[FP_WA + col + 1];
-    }
-    float cs0 = 0.f, cs1 = 0.f;
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = wm * 64 + mt * 16 + g + 8 * h;
-        const bool valid = p0 + r < a.P;
-        float v0 = acc[mt][nt][2 * h], v1 = acc[mt][nt][2 * h + 1];
-        if (alpha) {
-          const float ga = rnd<true>(s.gs[r * 4 + 3]);
-          v0 = fmaf(ga, wa0, v0);
-          v1 = fmaf(ga, wa1, v1);
-        }
-        if (act_col >= 0) {
-          float2 m = make_float2(0.f, 0.f);
-          if (valid)
-            m = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-                a.acts + (size_t)(p0 + r) * ACTS_LD + act_col + col));
-          v0 = m.x > 0.f ? v0 : 0.f;
-          v1 = m.y > 0.f ? v1 : 0.f;
-        }
-        *reinterpret_cast<__nv_bfloat162*>(s.dzs + r * ALD + col) = __floats2bfloat162_rn(v0, v1);
-        cs0 += v0;
-        cs1 += v1;
-      }
-    }
-#pragma unroll
-    for (int o = 4; o < 32; o <<= 1) {
-      cs0 += __shfl_xor_sync(0xffffffffu, cs0, o);
-      cs1 += __shfl_xor_sync(0xffffffffu, cs1, o);
-    }
-    if (g == 0) {
-      s.red[wm * N + col] = cs0;
-      s.red[wm * N + col + 1] = cs1;
-    }
-  }
-  __syncthreads();
-  for (int c = threadIdx.x; c < N; c += NTHREADS) s.facc[bias_off + c] += s.red[c] + s.red[N + c];
-}
-
-template <int N>
-__device__ __forceinline__ void dgrad_epilogue_f32(const float (&acc)[Tile<false>::T * N / NTHREADS],
-                                                   BwdSmem<false>& s, const BwdArgs<float>& a,
-                                                   int p0, int act_col, bool alpha,
-                                                   int bias_off) {
-  constexpr int PP = Tile<false>::T * N / NTHREADS;
-  constexpr int ALD = Tile<false>::ACT_LD;
+__device__ __forceinline__ void dgrad_epilogue(const float (&acc)[FT * N / NTHREADS], BwdSmem& s,
+                                               const BwdArgs& a, int p0, int act_col, bool alpha,
+                                               int bias_off) {
+  constexpr int PP = FT * N / NTHREADS;
   const int n = threadIdx.x % N, grp = threadIdx.x / N;
   const float wa = alpha ? a.fp[FP_WA + n] : 0.f;
   float cs = 0.f;
@@ -229,7 +136,7 @@ __device__ __forceinline__ void dgrad_epilogue_f32(const float (&acc)[Tile<false
       const float m = p0 + r < a.P ? a.acts[(size_t)(p0 + r) * ACTS_LD + act_col + n] : 0.f;
       v = m > 0.f ? v : 0.f;
     }
-    s.dzs[r * ALD + n] = v;
+    s.dzs[r * F_ALD + n] = v;
     cs += v;
   }
   s.red[threadIdx.x] = cs;  // = red[grp * N + n]
@@ -245,135 +152,74 @@ __device__ __forceinline__ void dgrad_epilogue_f32(const float (&acc)[Tile<false
 // [N][K]), then the epilogue above; dzs is rewritten in place and copied to
 // the dz scratch at column dz_col.  The mask's stash rows are prefetched
 // into L2 while the matmul runs.
-template <bool BF16, int N, bool PROF>
-__device__ __forceinline__ void dgrad_layer(const typename Tile<BF16>::T_act* Wg, int K,
-                                            BwdSmem<BF16>& s,
-                                            const BwdArgs<typename Tile<BF16>::T_act>& a,
+template <int N>
+__device__ __forceinline__ void dgrad_layer(const float* Wg, int K, BwdSmem& s, const BwdArgs& a,
                                             int p0, int act_col, bool alpha, int dz_col,
-                                            int bias_off, Stamper<PROF>& st) {
-  typedef Tile<BF16> TL;
-  if (act_col >= 0) prefetch_rows<TL::T>(a.acts, act_col, N, p0, a.P);
-  if constexpr (BF16) {
-    float acc[4][N / 32][4];
+                                            int bias_off) {
+  if (act_col >= 0) prefetch_rows(a.acts, act_col, N, p0, a.P);
+  float acc[FT * N / NTHREADS];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < N / 32; ++j)
-#pragma unroll
-        for (int k = 0; k < 4; ++k) acc[i][j][k] = 0.f;
-    gemm_bf16<N>(acc, s.dzs, Tile<true>::ACT_LD, Wg, K, 0, K, s.wst);
-    st.mark();
-    dgrad_epilogue_bf16<N>(acc, s, a, p0, act_col, alpha, bias_off);
-  } else {
-    float acc[Tile<false>::T * N / NTHREADS];
-#pragma unroll
-    for (int i = 0; i < Tile<false>::T * N / NTHREADS; ++i) acc[i] = 0.f;
-    gemm_f32<N>(acc, s.dzs, Tile<false>::ACT_LD, Wg, K, 0, K);
-    __syncthreads();
-    st.mark();
-    dgrad_epilogue_f32<N>(acc, s, a, p0, act_col, alpha, bias_off);
-  }
+  for (int i = 0; i < FT * N / NTHREADS; ++i) acc[i] = 0.f;
+  gemm_f32<N>(acc, s.dzs, F_ALD, Wg, K, 0, K);
+  __syncthreads();
+  dgrad_epilogue<N>(acc, s, a, p0, act_col, alpha, bias_off);
   // the epilogue ended with a barrier: dzs is complete
-  store_rows<TL::T, TL::ACT_LD, N>(s.dzs, a.dz + dz_col, ACTS_LD, p0, a.P);
-  st.mark();
+  store_rows<FT, F_ALD, N>(s.dzs, a.dz + dz_col, ACTS_LD, p0, a.P);
 }
 
 // d_pe[:, col : col + NC] (= or +=) dzs . Wc^T, Wc = [NC][K].
-template <bool BF16, int NC>
-__device__ __forceinline__ void dpe_chunk(const typename Tile<BF16>::T_act* Wc, int K,
-                                          BwdSmem<BF16>& s, int col, bool add) {
-  if constexpr (BF16) {
-    float acc[4][NC / 32][4];
+template <int NC>
+__device__ __forceinline__ void dpe_chunk(const float* Wc, int K, BwdSmem& s, int col, bool add) {
+  constexpr int PP = FT * NC / NTHREADS;
+  float acc[PP];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < PP; ++i) acc[i] = 0.f;
+  gemm_f32<NC>(acc, s.dzs, F_ALD, Wc, K, 0, K);
+  const int n = threadIdx.x % NC, grp = threadIdx.x / NC;
 #pragma unroll
-      for (int j = 0; j < NC / 32; ++j)
-#pragma unroll
-        for (int k = 0; k < 4; ++k) acc[i][j][k] = 0.f;
-    gemm_bf16<NC>(acc, s.dzs, Tile<true>::ACT_LD, Wc, K, 0, K, s.wst);
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int wm = warp >> 2, wn = warp & 3;
-    const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < NC / 32; ++nt)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int r = wm * 64 + mt * 16 + g + 8 * h;
-          float* d = s.dpe + r * DPE_LD + col + wn * (NC / 4) + nt * 8 + 2 * t;
-          d[0] = (add ? d[0] : 0.f) + acc[mt][nt][2 * h];
-          d[1] = (add ? d[1] : 0.f) + acc[mt][nt][2 * h + 1];
-        }
-  } else {
-    constexpr int PP = Tile<false>::T * NC / NTHREADS;
-    float acc[PP];
-#pragma unroll
-    for (int i = 0; i < PP; ++i) acc[i] = 0.f;
-    gemm_f32<NC>(acc, s.dzs, Tile<false>::ACT_LD, Wc, K, 0, K);
-    const int n = threadIdx.x % NC, grp = threadIdx.x / NC;
-#pragma unroll
-    for (int i = 0; i < PP; ++i) {
-      float* d = s.dpe + (grp * PP + i) * DPE_LD + col + n;
-      *d = (add ? *d : 0.f) + acc[i];
-    }
+  for (int i = 0; i < PP; ++i) {
+    float* d = s.dpe + (grp * PP + i) * DPE_LD + col + n;
+    *d = (add ? *d : 0.f) + acc[i];
   }
 }
 
 // d_pe[:, dpe_col : dpe_col + ncols] (= or +=) dzs . Wg^T, Wg = [ncols][K],
 // in column passes of 64 (and one of 32 for an odd multiple of 32).
-template <bool BF16>
-__device__ __forceinline__ void dpe_layer(const typename Tile<BF16>::T_act* Wg, int K,
-                                          int ncols, BwdSmem<BF16>& s, int dpe_col, bool add) {
+__device__ __forceinline__ void dpe_layer(const float* Wg, int K, int ncols, BwdSmem& s,
+                                          int dpe_col, bool add) {
   int c0 = 0;
-  for (; c0 + 64 <= ncols; c0 += 64) dpe_chunk<BF16, 64>(Wg + (size_t)c0 * K, K, s, dpe_col + c0, add);
-  if (c0 < ncols) dpe_chunk<BF16, 32>(Wg + (size_t)c0 * K, K, s, dpe_col + c0, add);
+  for (; c0 + 64 <= ncols; c0 += 64) dpe_chunk<64>(Wg + (size_t)c0 * K, K, s, dpe_col + c0, add);
+  if (c0 < ncols) dpe_chunk<32>(Wg + (size_t)c0 * K, K, s, dpe_col + c0, add);
 }
 
-template <bool BF16, bool REMAT, bool PROF>
-__global__ void __launch_bounds__(NTHREADS, 1)
-    nerf_mlp_bwd_dgrad_kernel(BwdArgs<typename Tile<BF16>::T_act> a) {
-  typedef Tile<BF16> TL;
-  typedef typename TL::T_act AT;
-  constexpr int T = TL::T, ALD = TL::ACT_LD, PLD = TL::PE_LD;
+__global__ void __launch_bounds__(NTHREADS, 1) nerf_mlp_bwd_dgrad_f32(BwdArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  BwdSmem<BF16> s(smem);
+  BwdSmem s(smem);
   const int P = a.P, kx = a.kx, kd = a.kd, ncol = kx + kd;
   const int tid = threadIdx.x;
 
   for (int c = tid; c < FP_NUMEL; c += NTHREADS) s.facc[c] = 0.f;
   for (int tile = blockIdx.x; tile < a.ntiles; tile += gridDim.x) {
-    const int p0 = tile * T;
-    Stamper<PROF> st{PROF && blockIdx.x == 0 && tid == 0
-                         ? a.stamps + (size_t)(tile / gridDim.x) * N_STAMPS : nullptr, 0};
-    if constexpr (!REMAT) {  // the heads' stash rows, read after the PE
-      prefetch_rows<T>(a.acts, 7 * W, W, p0, P);
-      prefetch_rows<T>(a.acts, 9 * W, WH, p0, P);
-    }
+    const int p0 = tile * FT;
+    prefetch_rows(a.acts, 7 * W, W, p0, P);  // the heads' stash rows, read after the PE
+    prefetch_rows(a.acts, 9 * W, WH, p0, P);
     __syncthreads();  // the previous tile's last reads of xs, gs and dpe are done
-    st.mark();
-    load_xd<T>(s.xs, a.xd, p0, P);
-    for (int i = tid; i < T; i += NTHREADS) {
+    load_xd<FT>(s.xs, a.xd, p0, P);
+    for (int i = tid; i < FT; i += NTHREADS) {
       float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
       if (p0 + i < P) v = __ldg(reinterpret_cast<const float4*>(a.g) + p0 + i);
       reinterpret_cast<float4*>(s.gs)[i] = v;
     }
     __syncthreads();
-    pe_tile<T, PLD>(s.pe, s.xs, kx, kd, a.nfx, a.nfd);
+    pe_tile<FT, F_PLD>(s.pe, s.xs, kx, kd, a.nfx, a.nfd);
     __syncthreads();
-    {
-      constexpr int V = 16 / sizeof(AT);
-      for (int i = tid; i < T * (ncol / V); i += NTHREADS) {
-        const int p = i / (ncol / V), c = (i % (ncol / V)) * V;
-        if (p0 + p < P)
-          *reinterpret_cast<uint4*>(a.pe + (size_t)(p0 + p) * ncol + c) =
-              *reinterpret_cast<const uint4*>(s.pe + p * PLD + c);
-      }
+    for (int i = tid; i < FT * (ncol / 4); i += NTHREADS) {
+      const int p = i / (ncol / 4), c = (i % (ncol / 4)) * 4;
+      if (p0 + p < P)
+        *reinterpret_cast<float4*>(a.pe + (size_t)(p0 + p) * ncol + c) =
+            *reinterpret_cast<const float4*>(s.pe + p * F_PLD + c);
     }
-    if constexpr (REMAT)
-      forward_tile<BF16, AT>(a.w, a.fp, kx, kd, s.dzs, s.pe, s.wst, a.acts, p0, P, [] {});
     __syncthreads();
-    st.mark();
 
     // d_hv, its bias grad, and the grads of the two small heads (rgb: K = 3
     // from hv; alpha: K = 1 from a7), one thread per column
@@ -384,15 +230,14 @@ __global__ void __launch_bounds__(NTHREADS, 1)
                     wr2 = a.fp[FP_WR + 2 * WH + j];
         float gbv = 0.f, gw0 = 0.f, gw1 = 0.f, gw2 = 0.f;
 #pragma unroll 8
-        for (int p = 0; p < T; ++p) {
+        for (int p = 0; p < FT; ++p) {
           const bool valid = p0 + p < P;
-          const float hv = valid ? get(a.acts + (size_t)(p0 + p) * ACTS_LD + 9 * W + j) : 0.f;
-          const float g0 = rnd<BF16>(s.gs[p * 4]), g1 = rnd<BF16>(s.gs[p * 4 + 1]),
-                      g2 = rnd<BF16>(s.gs[p * 4 + 2]);
+          const float hv = valid ? a.acts[(size_t)(p0 + p) * ACTS_LD + 9 * W + j] : 0.f;
+          const float g0 = s.gs[p * 4], g1 = s.gs[p * 4 + 1], g2 = s.gs[p * 4 + 2];
           float d = fmaf(g2, wr2, fmaf(g1, wr1, g0 * wr0));
           d = hv > 0.f ? d : 0.f;
-          put(s.dzs + p * ALD + j, d);
-          if (valid) put(a.dz + (size_t)(p0 + p) * ACTS_LD + 9 * W + j, d);
+          s.dzs[p * F_ALD + j] = d;
+          if (valid) a.dz[(size_t)(p0 + p) * ACTS_LD + 9 * W + j] = d;
           gbv += d;
           gw0 = fmaf(g0, hv, gw0);
           gw1 = fmaf(g1, hv, gw1);
@@ -405,39 +250,35 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       }
       float gwa = 0.f;  // NTHREADS == W: one a7 column a thread
 #pragma unroll 8
-      for (int p = 0; p < T; ++p) {
-        const float a7 = p0 + p < P ? get(a.acts + (size_t)(p0 + p) * ACTS_LD + 7 * W + j) : 0.f;
-        gwa = fmaf(rnd<BF16>(s.gs[p * 4 + 3]), a7, gwa);
+      for (int p = 0; p < FT; ++p) {
+        const float a7 = p0 + p < P ? a.acts[(size_t)(p0 + p) * ACTS_LD + 7 * W + j] : 0.f;
+        gwa = fmaf(s.gs[p * 4 + 3], a7, gwa);
       }
       s.facc[FP_WA + j] += gwa;
       if (j < 4) {
         float sum = 0.f;
-        for (int p = 0; p < T; ++p) sum += s.gs[p * 4 + j];
+        for (int p = 0; p < FT; ++p) sum += s.gs[p * 4 + j];
         s.facc[j < 3 ? FP_BR + j : FP_BA] += sum;
       }
     }
     __syncthreads();
-    st.mark();
 
-    dpe_layer<BF16>(a.wt[T_WVD], WH, kd, s, kx, false);                   // d_pe_d
-    st.mark();
-    dgrad_layer<BF16, W>(a.wt[T_WVF], WH, s, a, p0, -1, false, 8 * W, FP_BF, st);  // d_feat
-    dgrad_layer<BF16, W>(a.wt[T_WF], W, s, a, p0, 7 * W, true, 7 * W, 7 * W, st);   // d_z7
-    dgrad_layer<BF16, W>(a.wt[T_W7], W, s, a, p0, 6 * W, false, 6 * W, 6 * W, st);  // d_z6
-    dgrad_layer<BF16, W>(a.wt[T_W6], W, s, a, p0, 5 * W, false, 5 * W, 5 * W, st);  // d_z5
-    dpe_layer<BF16>(a.wt[T_W5A], W, kx, s, 0, false);                     // d_z5 W5a
-    st.mark();
+    dpe_layer(a.wt[T_WVD], WH, kd, s, kx, false);                      // d_pe_d
+    dgrad_layer<W>(a.wt[T_WVF], WH, s, a, p0, -1, false, 8 * W, FP_BF);  // d_feat
+    dgrad_layer<W>(a.wt[T_WF], W, s, a, p0, 7 * W, true, 7 * W, 7 * W);   // d_z7
+    dgrad_layer<W>(a.wt[T_W7], W, s, a, p0, 6 * W, false, 6 * W, 6 * W);  // d_z6
+    dgrad_layer<W>(a.wt[T_W6], W, s, a, p0, 5 * W, false, 5 * W, 5 * W);  // d_z5
+    dpe_layer(a.wt[T_W5A], W, kx, s, 0, false);                        // d_z5 W5a
 #pragma unroll 1
     for (int l = 4; l >= 0; --l) {  // d_z4 from W5b, then d_z3..d_z0 from W4..W1
-      const AT* Wt = a.wt[l == 4 ? T_W5B : T_W1 + l];
-      dgrad_layer<BF16, W>(Wt, W, s, a, p0, l * W, false, l * W, l * W, st);
+      const float* Wt = a.wt[l == 4 ? T_W5B : T_W1 + l];
+      dgrad_layer<W>(Wt, W, s, a, p0, l * W, false, l * W, l * W);
     }
-    dpe_layer<BF16>(a.wt[T_W0], W, kx, s, 0, true);                       // + d_z0 W0
+    dpe_layer(a.wt[T_W0], W, kx, s, 0, true);                          // + d_z0 W0
     __syncthreads();
-    st.mark();
 
     // d(xd) through the PE: one thread per (point, coordinate)
-    for (int idx = tid; idx < T * 6; idx += NTHREADS) {
+    for (int idx = tid; idx < FT * 6; idx += NTHREADS) {
       const int p = idx / 6, k = idx - p * 6;
       const bool is_x = k < 3;
       const int comp = is_x ? k : k - 3;
@@ -453,12 +294,8 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       }
       if (p0 + p < P) a.dxd[(size_t)(p0 + p) * 8 + k] = acc;
     }
-    for (int i = tid; i < T * 2; i += NTHREADS)
+    for (int i = tid; i < FT * 2; i += NTHREADS)
       if (p0 + (i >> 1) < P) a.dxd[(size_t)(p0 + (i >> 1)) * 8 + 6 + (i & 1)] = 0.f;
-    if constexpr (PROF) {
-      __syncthreads();
-      st.mark();
-    }
   }
   __syncthreads();
   for (int c = tid; c < FP_NUMEL; c += NTHREADS)
@@ -701,70 +538,63 @@ int fill_jobs(WgradArgs<AT>& a, int kx, int kd) {
   return n;
 }
 
+// The f32 dgrad (parts & 1) and the wgrad with the two reductions (parts &
+// 2) of the mode's backward.
 template <bool BF16>
-int launch_bwd(const float* xd, const float* g, const void* w, const void* wt, const float* fp,
-               void* acts, void* dz, void* pe, float* dxd, float* fp_part, float* w_part,
-               float* dw, float* dfp, int P, int kx, int kd, int nfx, int nfd, int remat,
-               int n_blocks, int n_splits, int parts, long long* stamps, cudaStream_t stream) {
-  typedef Tile<BF16> TL;
-  typedef typename TL::T_act AT;
-  constexpr int SMEM = BwdSmem<BF16>::BYTES;
-  static bool attr_set = false;
-  if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(nerf_mlp_bwd_dgrad_kernel<BF16, false, false>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(nerf_mlp_bwd_dgrad_kernel<BF16, true, false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-    if constexpr (BF16) {
-      if (e == cudaSuccess)
-        e = cudaFuncSetAttribute(nerf_mlp_bwd_dgrad_kernel<BF16, false, true>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-    }
-    if (e != cudaSuccess) return (int)e;
-    attr_set = true;
-  }
-  BwdArgs<AT> a;
-  a.xd = xd;
-  a.g = g;
-  a.fp = fp;
-  fill_offsets<AT>(a.w, w, kx, kd);
-  fill_t_offsets<AT>(a.wt, wt, kx, kd);
-  a.acts = static_cast<AT*>(acts);
-  a.dz = static_cast<AT*>(dz);
-  a.pe = static_cast<AT*>(pe);
-  a.dxd = dxd;
-  a.fp_part = fp_part;
-  a.stamps = stamps;
-  a.P = P;
-  a.kx = kx;
-  a.kd = kd;
-  a.nfx = nfx;
-  a.nfd = nfd;
-  a.ntiles = (P + TL::T - 1) / TL::T;
+int launch_bwd(const float* xd, const float* g, const void* wt, const float* fp, void* acts,
+               void* dz, void* pe, float* dxd, float* fp_part, float* w_part, float* dw,
+               float* dfp, int P, int kx, int kd, int nfx, int nfd, int n_blocks, int n_splits,
+               int parts, cudaStream_t stream) {
+  typedef typename Tile<BF16>::T_act AT;
   cudaError_t e;
   if (parts & 1) {
-    bool done = false;
     if constexpr (BF16) {
-      if (stamps != nullptr && !remat) {
-        nerf_mlp_bwd_dgrad_kernel<BF16, false, true><<<n_blocks, NTHREADS, SMEM, stream>>>(a);
-        done = true;
+      return (int)cudaErrorInvalidValue;  // the bf16 dgrad is nerf_mlp_dgrad.cu's
+    } else {
+      static bool attr_set = false;
+      if (!attr_set) {
+        e = cudaFuncSetAttribute(nerf_mlp_bwd_dgrad_f32,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, BwdSmem::BYTES);
+        if (e != cudaSuccess) return (int)e;
+        attr_set = true;
       }
+      BwdArgs a;
+      a.xd = xd;
+      a.g = g;
+      a.fp = fp;
+      {
+        const float* base = static_cast<const float*>(wt);
+        const size_t WW = (size_t)W * W;
+        const size_t sizes[N_WT] = {(size_t)kx * W, WW, WW, WW, WW, (size_t)kx * W, WW, WW, WW,
+                                    WW, (size_t)W * WH, (size_t)kd * WH};
+        size_t off = 0;
+        for (int i = 0; i < N_WT; ++i) {
+          a.wt[i] = base + off;
+          off += sizes[i];
+        }
+      }
+      a.acts = static_cast<const float*>(acts);
+      a.dz = static_cast<float*>(dz);
+      a.pe = static_cast<float*>(pe);
+      a.dxd = dxd;
+      a.fp_part = fp_part;
+      a.P = P;
+      a.kx = kx;
+      a.kd = kd;
+      a.nfx = nfx;
+      a.nfd = nfd;
+      a.ntiles = (P + FT - 1) / FT;
+      nerf_mlp_bwd_dgrad_f32<<<n_blocks, NTHREADS, BwdSmem::BYTES, stream>>>(a);
+      e = cudaGetLastError();
+      if (e != cudaSuccess) return (int)e;
     }
-    if (done) {
-    } else if (remat)
-      nerf_mlp_bwd_dgrad_kernel<BF16, true, false><<<n_blocks, NTHREADS, SMEM, stream>>>(a);
-    else
-      nerf_mlp_bwd_dgrad_kernel<BF16, false, false><<<n_blocks, NTHREADS, SMEM, stream>>>(a);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
   }
   if (!(parts & 2)) return 0;
 
   WgradArgs<AT> wa;
-  wa.dz = a.dz;
-  wa.acts = a.acts;
-  wa.pe = a.pe;
+  wa.dz = static_cast<const AT*>(dz);
+  wa.acts = static_cast<const AT*>(acts);
+  wa.pe = static_cast<const AT*>(pe);
   wa.part = w_part;
   wa.part_stride = w_numel(kx, kd);
   wa.P = P;
@@ -795,39 +625,31 @@ extern "C" {
 long long nerf_mlp_bwd_w_numel(int kx, int kd) { return w_numel(kx, kd); }
 long long nerf_mlp_bwd_fp_numel() { return FP_NUMEL; }
 long long nerf_mlp_bwd_acts_ld() { return ACTS_LD; }
-// Points per dgrad tile (the block loops over tiles) for the mode.
-int nerf_mlp_bwd_tile(int bf16_mode) { return bf16_mode ? Tile<true>::T : Tile<false>::T; }
+// Points per tile of the f32 dgrad (the block loops over tiles).
+int nerf_mlp_bwd_tile_f32() { return FT; }
 
-int nerf_mlp_bwd_n_stamps() { return N_STAMPS; }
-
-// The backward of nerf_mlp_fwd on `stream`: four launches (dgrad, wgrad, and
-// the two reductions).  Returns the first cudaGetLastError() that is not 0,
+// The backward of nerf_mlp_fwd on `stream`, from the forward's stash, but
+// for the bf16 dgrad (nerf_mlp_dgrad.cu): parts 1 the f32 dgrad, 2 the
+// wgrad and the two reductions (on the dz, pe and fp_part of a dgrad that
+// ran before), 3 both.  Returns the first cudaGetLastError() that is not 0,
 // else 0.
-//   xd [P, 8], g [P, 4] f32; w (weight blob), wt (transposed blob) in the
-//   compute dtype; fp the f32 blob.
-//   acts [P, ACTS_LD]: the forward's stash (remat = 0) or scratch that the
-//   dgrad kernel fills (remat = 1); dz [P, ACTS_LD] and pe [P, kx + kd]
-//   scratch, all in the compute dtype.
+//   xd [P, 8], g [P, 4] f32; wt the transposed blob (f32 mode); fp the f32
+//   blob; acts [P, ACTS_LD] the stash, dz [P, ACTS_LD] and pe [P, kx + kd]
+//   scratch, in the compute dtype.
 //   dxd [P, 8] out; fp_part [n_blocks, FP_NUMEL] and w_part [n_splits,
 //   w_numel] f32 scratch; dw [w_numel] and dfp [FP_NUMEL] f32 out.
 // n_blocks: dgrad blocks (each loops over tiles); n_splits: point splits of
-// the wgrad.  parts: 1 the dgrad alone, 2 the wgrad and the reductions alone
-// (on the dz and pe scratch of an earlier dgrad), 3 both.  stamps: null, or
-// [ceil(ntiles / n_blocks)][nerf_mlp_bwd_n_stamps()] int64 for block 0's
-// stage stamps (bf16 stash mode only).  Requires what nerf_mlp_fwd
-// requires.
-int nerf_mlp_bwd(const float* xd, const float* g, const void* w, const void* wt,
-                 const float* fp, void* acts, void* dz, void* pe, float* dxd, float* fp_part,
-                 float* w_part, float* dw, float* dfp, int P, int kx, int kd, int nfx, int nfd,
-                 int bf16_mode, int remat, int n_blocks, int n_splits, int parts,
-                 long long* stamps, void* stream) {
+// the wgrad.  Requires what nerf_mlp_fwd requires.
+int nerf_mlp_bwd(const float* xd, const float* g, const void* wt, const float* fp, void* acts,
+                 void* dz, void* pe, float* dxd, float* fp_part, float* w_part, float* dw,
+                 float* dfp, int P, int kx, int kd, int nfx, int nfd, int bf16_mode, int n_blocks,
+                 int n_splits, int parts, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16_mode)
-    return launch_bwd<true>(xd, g, w, wt, fp, acts, dz, pe, dxd, fp_part, w_part, dw, dfp, P, kx,
-                            kd, nfx, nfd, remat, n_blocks, n_splits, parts, stamps, s);
-  if (stamps != nullptr) return (int)cudaErrorInvalidValue;
-  return launch_bwd<false>(xd, g, w, wt, fp, acts, dz, pe, dxd, fp_part, w_part, dw, dfp, P, kx,
-                           kd, nfx, nfd, remat, n_blocks, n_splits, parts, nullptr, s);
+    return launch_bwd<true>(xd, g, wt, fp, acts, dz, pe, dxd, fp_part, w_part, dw, dfp, P, kx, kd,
+                            nfx, nfd, n_blocks, n_splits, parts, s);
+  return launch_bwd<false>(xd, g, wt, fp, acts, dz, pe, dxd, fp_part, w_part, dw, dfp, P, kx, kd,
+                           nfx, nfd, n_blocks, n_splits, parts, s);
 }
 
 const char* nerf_mlp_bwd_error_string(int code) {

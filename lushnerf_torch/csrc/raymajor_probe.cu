@@ -15,16 +15,25 @@
 //                 row-major layout both are the same bytes: a copy, one
 //                 thread per value, 16 bytes a thread.
 //   searchsorted  `probe_p3_searchsorted.kern`: cdf [T, S], u [T*SI, 1] ->
-//                 the count of cdf[t, :] <= u, as float.  One block per ray
-//                 stages the cdf row in shared memory; one thread per u
-//                 counts all S entries (exact, and right for any cdf, sorted
-//                 or not).
+//                 the count of cdf[t, :] <= u, as float, for any row,
+//                 sorted or not, with ties.  One warp per ray (8 rays a
+//                 block) stages the cdf row in shared memory with 16-byte
+//                 loads (NaN past S, which no compare counts) and checks
+//                 whether it is non-decreasing.  If it is, the count is
+//                 the row's upper bound of u, found by a branchless binary
+//                 search (log2 S steps; the same number exactly, as
+//                 [row[k] <= u] is then 1 up to that index and 0 after).
+//                 Otherwise each lane holds UPL of the ray's u in registers
+//                 and walks the row as float4 broadcasts, one 16-byte
+//                 shared load for 4 x UPL compares.
 //   masked_dists  `probe_p4_masked_roll.kern`: z [T*S, 1] -> z[k+1] - z[k],
 //                 0 at each ray's last sample.  One thread per sample.
 // What bounds them: bytes (each reads and writes a few bytes per sample
 // and does one to S operations on it); at the renderer's shapes (5120 rays
 // x 64 or 128 samples) they move 1-4 MB, so a launch's fixed cost is most
-// of their time.
+// of their time.  The searchsorted count's S compares per u (84 M at 5120
+// x 128, ~2.5 instructions each) take longer than its bytes, so a sorted
+// row, the renderer's case, takes the log2 S steps of the binary search.
 
 #include <cuda_runtime.h>
 
@@ -65,19 +74,64 @@ __global__ void __launch_bounds__(256) copy_kernel(const float4* __restrict__ x,
   if (i < tail) yt[i] = __ldg(xt + i);
 }
 
-__global__ void __launch_bounds__(128) searchsorted_kernel(const float* __restrict__ cdf,
-                                                           const float* __restrict__ u,
-                                                           float* __restrict__ out, int S,
-                                                           int SI) {
-  extern __shared__ float row[];
-  const int t = blockIdx.x;
-  for (int k = threadIdx.x; k < S; k += blockDim.x) row[k] = __ldg(cdf + (size_t)t * S + k);
-  __syncthreads();
-  for (int i = threadIdx.x; i < SI; i += blockDim.x) {
-    const float v = __ldg(u + (size_t)t * SI + i);
-    int n = 0;
-    for (int k = 0; k < S; ++k) n += row[k] <= v;
-    out[(size_t)t * SI + i] = (float)n;
+constexpr int SS_RAYS = 8;  // rays (warps) per searchsorted block
+
+template <int UPL>
+__global__ void __launch_bounds__(32 * SS_RAYS) searchsorted_kernel(const float* __restrict__ cdf,
+                                                                    const float* __restrict__ u,
+                                                                    float* __restrict__ out,
+                                                                    int T, int S, int SI) {
+  extern __shared__ float4 rows4[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int t = blockIdx.x * SS_RAYS + warp;
+  if (t >= T) return;
+  const int S4 = (S + 3) >> 2;
+  float4* row4 = rows4 + (size_t)warp * S4;
+  float* row = reinterpret_cast<float*>(row4);
+  const float* src = cdf + (size_t)t * S;
+  if ((S & 3) == 0) {  // the row starts 16-byte aligned
+    for (int k = lane; k < S4; k += 32) row4[k] = __ldg(reinterpret_cast<const float4*>(src) + k);
+  } else {
+    for (int k = lane; k < 4 * S4; k += 32) row[k] = k < S ? __ldg(src + k) : __int_as_float(0x7fffffff);
+  }
+  __syncwarp();
+  const float* ut = u + (size_t)t * SI;
+  float* ot = out + (size_t)t * SI;
+  bool sorted = true;  // false for a NaN too
+  for (int k = lane; k + 1 < S; k += 32) sorted &= row[k] <= row[k + 1];
+  if (__all_sync(0xffffffffu, sorted)) {
+    int top = 1;
+    while (top * 2 <= S) top *= 2;
+    for (int i = lane; i < SI; i += 32) {
+      const float v = __ldg(ut + i);
+      int n = 0;  // row[0 : n] <= v
+      for (int step = top; step > 0; step >>= 1)
+        if (n + step <= S && row[n + step - 1] <= v) n += step;
+      ot[i] = (float)n;
+    }
+    return;
+  }
+  for (int i0 = 0; i0 < SI; i0 += 32 * UPL) {
+    float v[UPL];
+    int n[UPL];
+#pragma unroll
+    for (int j = 0; j < UPL; ++j) {
+      const int i = i0 + 32 * j + lane;
+      v[j] = i < SI ? __ldg(ut + i) : 0.f;
+      n[j] = 0;
+    }
+#pragma unroll 4
+    for (int k = 0; k < S4; ++k) {
+      const float4 c = row4[k];  // one broadcast load for the warp
+#pragma unroll
+      for (int j = 0; j < UPL; ++j)
+        n[j] += (c.x <= v[j]) + (c.y <= v[j]) + (c.z <= v[j]) + (c.w <= v[j]);
+    }
+#pragma unroll
+    for (int j = 0; j < UPL; ++j) {
+      const int i = i0 + 32 * j + lane;
+      if (i < SI) ot[i] = (float)n[j];
+    }
   }
 }
 
@@ -116,11 +170,18 @@ int raymajor_transpose(const float* x, float* y, long long n, void* stream) {
   return (int)cudaGetLastError();
 }
 
-// Requires S * 4 bytes <= 48 KB (the row in shared memory).
+// Requires SS_RAYS rows of round_up(S, 4) floats <= 48 KB of shared memory.
 int raymajor_searchsorted(const float* cdf, const float* u, float* out, int T, int S, int SI,
                           void* stream) {
-  searchsorted_kernel<<<T, 128, S * sizeof(float), static_cast<cudaStream_t>(stream)>>>(
-      cdf, u, out, S, SI);
+  const size_t smem = (size_t)SS_RAYS * ((S + 3) / 4) * sizeof(float4);
+  const int grid = (T + SS_RAYS - 1) / SS_RAYS;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (SI > 64)
+    searchsorted_kernel<4><<<grid, 32 * SS_RAYS, smem, st>>>(cdf, u, out, T, S, SI);
+  else if (SI > 32)
+    searchsorted_kernel<2><<<grid, 32 * SS_RAYS, smem, st>>>(cdf, u, out, T, S, SI);
+  else
+    searchsorted_kernel<1><<<grid, 32 * SS_RAYS, smem, st>>>(cdf, u, out, T, S, SI);
   return (int)cudaGetLastError();
 }
 

@@ -24,7 +24,7 @@ from typing import Dict, Tuple
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "lushnerf_torch"
 # --split-compile=0: the device code's optimisation runs on all host cores,
-# as the backward's four dgrad instantiations otherwise compile one by one
+# as a source's kernel instantiations otherwise compile one by one
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "--split-compile=0",

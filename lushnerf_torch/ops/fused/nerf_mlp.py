@@ -6,10 +6,12 @@ point, positional encoding + the 8x256 scene MLP (skip at layer 4) + alpha /
 feature / views / rgb heads, and writes raw [rgb, alpha]; for training it
 also writes the activation stash a0..a7, feat, hv.  It replaces the Pallas
 TPU kernel `_fwd_kernel` of `lushnerf_tpu/ops/fused/nerf_mlp.py`.  The
-backward kernels (`csrc/nerf_mlp_bwd.cu`) compute d(xd) and the grads of
-every parameter from the stash (replacing `_bwd_stash_kernel`, mode
-'stash') or from activations they recompute (replacing `_bwd_kernel`, mode
-'remat').
+backward kernels compute d(xd) and the grads of every parameter from the
+stash (replacing `_bwd_stash_kernel`, mode 'stash') or, in mode 'remat'
+(replacing `_bwd_kernel`), from a stash the forward kernel writes into
+scratch first: a dgrad kernel (`csrc/nerf_mlp_dgrad.cu` in bf16, wgmma and
+TMA; `csrc/nerf_mlp_bwd.cu` in f32), then the wgrad and two fixed-order
+reductions (`csrc/nerf_mlp_bwd.cu`).
 
 `NerfMLPFn` is the gradient: on a CPU tensor it runs `nerf_mlp_fwd_plain`
 and `nerf_mlp_bwd_plain`; on a CUDA tensor it launches the kernels or
@@ -19,8 +21,9 @@ Launch counters (plain integers, set them to 0 to start counting; each
 wrapper adds to its own where it launches, and nowhere else):
 `launches` counts forward kernel launches (with or without the stash),
 `launches_bwd_stash` / `launches_bwd_remat` the backward's kernel launches
-(four per backward: dgrad, wgrad and two fixed-order reductions).  `packs`
-counts parameter packings (each is cached per parameter version).
+(four per backward: dgrad, wgrad and two fixed-order reductions; remat adds
+the forward kernel that writes its stash).  `packs` counts parameter
+packings (each is cached per parameter version).
 
 The grads come in the order of `mlp.parameters()` of a `NeRFMLP`: (weight,
 bias) of pts_linears 0..7, feature, alpha, views, rgb -- 24 tensors.  The
@@ -61,11 +64,12 @@ FP_WR = FP_WA + WIDTH
 FP_NUMEL = FP_WR + 3 * (WIDTH // 2)
 
 # The bf16 dgrad kernel's stages, in order (its stage stamps mark the end
-# of each; mirrors the stamps in csrc/nerf_mlp_bwd.cu)
+# of each; mirrors the stamps in csrc/nerf_mlp_dgrad.cu)
 DGRAD_STAGES = (
-    ["load_pe", "heads", "dpe_wvd"]
-    + [f"{k}_{z}" for z in ("feat", "z7", "z6", "z5") for k in ("mm", "ep")] + ["dpe_w5a"]
-    + [f"{k}_z{l}" for l in (4, 3, 2, 1, 0) for k in ("mm", "ep")] + ["dpe_w0", "dxd"]
+    ["load", "heads", "dpe_wvd", "dxd_views"]
+    + [f"{k}_{z}" for z in ["feat"] + [f"z{l}" for l in range(7, -1, -1)]
+       for k in ("mm", "wait", "ep")]
+    + ["dpe_x", "dxd_x"]
 )
 
 COMPUTE_DTYPES = ("float32", "bfloat16")
@@ -325,10 +329,26 @@ def pack_params(mlp, compute_dtype: str) -> Tuple[torch.Tensor, torch.Tensor]:
     return packed
 
 
+def swizzle128(m: torch.Tensor) -> torch.Tensor:
+    """A [N][K] block (N a multiple of 8, K of 64) as the bf16 dgrad's wgmma
+    reads its B operand (csrc/hopper.cuh): chunk-major over K in chunks of
+    64 columns, each chunk [N][64] row by row (128 bytes a row in bf16), and
+    within each group of 8 rows the 8-column piece q of row r stored at
+    piece position q ^ (r % 8).  Returns the flat chunk-major elements."""
+    N, K = m.shape
+    c = m.reshape(N // 8, 8, K // 64, 8, 8).permute(2, 0, 1, 3, 4)  # chunk, group, row, piece, e
+    r = torch.arange(8, device=m.device)
+    q = torch.arange(8, device=m.device)
+    # position q of row r holds piece q ^ r
+    return c[:, :, r[:, None], q[None, :] ^ r[:, None], :].reshape(-1)
+
+
 @torch.no_grad()
 def pack_params_bwd(mlp, compute_dtype: str) -> torch.Tensor:
-    """The backward's transposed weight blob ([in][out] blocks, layout in
-    csrc/nerf_mlp_bwd.cu), in the compute dtype; cached as pack_params."""
+    """The backward's transposed weight blob: the 12 blocks W0^T [kx][256]
+    .. Wvd^T [kd][128] ([in][out], layout in csrc/nerf_mlp_bwd.cu), in the
+    compute dtype; in bf16 each block is laid out by `swizzle128` for the
+    wgmma dgrad.  Cached as pack_params."""
     key = _pack_key(mlp, compute_dtype)
     cached = getattr(mlp, "_nerf_mlp_bwd_pack", None)
     if cached is not None and cached[0] == key:
@@ -347,7 +367,8 @@ def pack_params_bwd(mlp, compute_dtype: str) -> torch.Tensor:
         mlp.feature_linear.weight.T, wv[:, :W].T, padk_t(wv[:, W:], kd),
     ]
     wdt = stash_dtype(compute_dtype)
-    wt = torch.cat([m.reshape(-1) for m in mats]).to(wdt).contiguous()
+    lay = swizzle128 if compute_dtype == "bfloat16" else (lambda m: m.reshape(-1))
+    wt = torch.cat([lay(m) for m in mats]).to(wdt).contiguous()
     mlp._nerf_mlp_bwd_pack = (key, wt)
     global packs
     packs += 1
@@ -401,22 +422,36 @@ def _bwd_lib() -> ctypes.CDLL:
     lib = build.load("nerf_mlp_bwd")
     if not getattr(lib, "_lushnerf_typed", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.nerf_mlp_bwd.argtypes = [vp] * 13 + [ci] * 10 + [vp, vp]
+        lib.nerf_mlp_bwd.argtypes = [vp] * 12 + [ci] * 9 + [vp]
         lib.nerf_mlp_bwd.restype = ci
-        lib.nerf_mlp_bwd_n_stamps.argtypes = []
-        lib.nerf_mlp_bwd_n_stamps.restype = ci
         lib.nerf_mlp_bwd_w_numel.argtypes = [ci, ci]
         lib.nerf_mlp_bwd_w_numel.restype = ctypes.c_longlong
         lib.nerf_mlp_bwd_fp_numel.argtypes = []
         lib.nerf_mlp_bwd_fp_numel.restype = ctypes.c_longlong
         lib.nerf_mlp_bwd_acts_ld.argtypes = []
         lib.nerf_mlp_bwd_acts_ld.restype = ctypes.c_longlong
-        lib.nerf_mlp_bwd_tile.argtypes = [ci]
-        lib.nerf_mlp_bwd_tile.restype = ci
+        lib.nerf_mlp_bwd_tile_f32.argtypes = []
+        lib.nerf_mlp_bwd_tile_f32.restype = ci
         lib.nerf_mlp_bwd_error_string.argtypes = [ci]
         lib.nerf_mlp_bwd_error_string.restype = ctypes.c_char_p
         if lib.nerf_mlp_bwd_fp_numel() != FP_NUMEL or lib.nerf_mlp_bwd_acts_ld() != ACTS_LD:
             raise RuntimeError("nerf_mlp_bwd: f32 blob or stash layout differs from the CUDA source")
+        lib._lushnerf_typed = True
+    return lib
+
+
+def _dgrad_lib() -> ctypes.CDLL:
+    lib = build.load("nerf_mlp_dgrad")
+    if not getattr(lib, "_lushnerf_typed", False):
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.nerf_mlp_dgrad_bf16.argtypes = [vp] * 10 + [ci] * 6 + [vp]
+        lib.nerf_mlp_dgrad_bf16.restype = ci
+        lib.nerf_mlp_dgrad_n_stamps.argtypes = []
+        lib.nerf_mlp_dgrad_n_stamps.restype = ci
+        lib.nerf_mlp_dgrad_tile.argtypes = []
+        lib.nerf_mlp_dgrad_tile.restype = ci
+        lib.nerf_mlp_dgrad_error_string.argtypes = [ci]
+        lib.nerf_mlp_dgrad_error_string.restype = ctypes.c_char_p
         lib._lushnerf_typed = True
     return lib
 
@@ -442,36 +477,44 @@ def _check_aligned(name, *tensors):
             raise ValueError(f"{name}: tensors must be 16-byte aligned")
 
 
-def _launch_fwd(mlp, xd: torch.Tensor, compute_dtype: str, num_freqs_x: int,
-                num_freqs_d: int, stash: bool):
-    """The forward kernel on a CUDA tensor: (raw [P, 4], stash or None)."""
-    _check_cuda_inputs("nerf_mlp_fwd", mlp, xd, compute_dtype, num_freqs_x, num_freqs_d)
+def _fwd_into(mlp, xd: torch.Tensor, compute_dtype: str, num_freqs_x: int,
+              num_freqs_d: int, out: torch.Tensor, acts: Optional[torch.Tensor]) -> None:
+    """Launches the forward kernel on contiguous CUDA xd [P, 8] (P > 0) into
+    out [P, 4] and, if not None, the stash acts [P, ACTS_LD]; the caller
+    counts the launch."""
     kx, kd = pe_widths(mlp.cfg)
-    xd = xd.contiguous()
     w, fp = pack_params(mlp, compute_dtype)
     if w.device != xd.device:
         raise ValueError(f"nerf_mlp_fwd: params on {w.device}, points on {xd.device}")
-    P = xd.shape[0]
-    out = torch.empty((P, OUT_CH), dtype=torch.float32, device=xd.device)
-    acts = (torch.empty((P, ACTS_LD), dtype=stash_dtype(compute_dtype), device=xd.device)
-            if stash else None)
-    if P == 0:
-        return out, acts
     lib = _lib()
     if w.numel() != lib.nerf_mlp_fwd_w_numel(kx, kd):
         raise RuntimeError("nerf_mlp_fwd: weight blob layout differs from the CUDA source")
-    _check_aligned("nerf_mlp_fwd", xd, w, fp, out, *([acts] if stash else []))
+    _check_aligned("nerf_mlp_fwd", xd, w, fp, out, *([] if acts is None else [acts]))
     stream = torch.cuda.current_stream(xd.device).cuda_stream
     with torch.cuda.device(xd.device):
         rc = lib.nerf_mlp_fwd(
             xd.data_ptr(), w.data_ptr(), fp.data_ptr(), out.data_ptr(),
-            acts.data_ptr() if stash else None, P, kx, kd,
+            None if acts is None else acts.data_ptr(), xd.shape[0], kx, kd,
             num_freqs_x, num_freqs_d, int(compute_dtype == "bfloat16"), stream,
         )
     if rc != 0:
         raise RuntimeError(
             f"nerf_mlp_fwd: CUDA error {rc} ({lib.nerf_mlp_fwd_error_string(rc).decode()})"
         )
+
+
+def _launch_fwd(mlp, xd: torch.Tensor, compute_dtype: str, num_freqs_x: int,
+                num_freqs_d: int, stash: bool):
+    """The forward kernel on a CUDA tensor: (raw [P, 4], stash or None)."""
+    _check_cuda_inputs("nerf_mlp_fwd", mlp, xd, compute_dtype, num_freqs_x, num_freqs_d)
+    xd = xd.contiguous()
+    P = xd.shape[0]
+    out = torch.empty((P, OUT_CH), dtype=torch.float32, device=xd.device)
+    acts = (torch.empty((P, ACTS_LD), dtype=stash_dtype(compute_dtype), device=xd.device)
+            if stash else None)
+    if P == 0:
+        return out, acts
+    _fwd_into(mlp, xd, compute_dtype, num_freqs_x, num_freqs_d, out, acts)
     global launches
     launches += 1
     return out, acts
@@ -500,8 +543,14 @@ class BwdLaunch:
     (d_xd, grads) as `nerf_mlp_bwd_plain` does.  `nerf_mlp_bwd` is the one
     caller on the main path; `chip_smoke.py` also times the dgrad
     (`run(DGRAD)`) and the wgrad with its reductions (`run(WGRAD)`, on the
-    scratch of an earlier dgrad) apart, and reads the dgrad's stage stamps
-    (`stage_stamps()`)."""
+    scratch of an earlier dgrad) apart, and reads the bf16 dgrad's stage
+    stamps (`stage_stamps()`).
+
+    The dgrad is csrc/nerf_mlp_dgrad.cu in bf16 and the f32 kernel of
+    csrc/nerf_mlp_bwd.cu in f32; the wgrad and reductions are
+    csrc/nerf_mlp_bwd.cu's.  Without a stash (remat, K3) the DGRAD part
+    first runs the forward kernel into a scratch stash, so K3 is K1 with
+    its stash followed by the stash backward, and gives K2's bits."""
 
     DGRAD, WGRAD, ALL = 1, 2, 3
 
@@ -516,14 +565,16 @@ class BwdLaunch:
         self.mlp, self.P, self.remat = mlp, P, acts is None
         self.kx, self.kd = pe_widths(mlp.cfg)
         self.nf = (num_freqs_x, num_freqs_d)
+        self.dtype = compute_dtype
         self.bf16 = compute_dtype == "bfloat16"
         self.xd = xd.contiguous()
         self.g = g.float().contiguous()
-        self.w, self.fp = pack_params(mlp, compute_dtype)
+        self.fp = pack_params(mlp, compute_dtype)[1]
         self.wt = pack_params_bwd(mlp, compute_dtype)
         self.lib = _bwd_lib()
+        self.dlib = _dgrad_lib() if self.bf16 else None
         wn = self.lib.nerf_mlp_bwd_w_numel(self.kx, self.kd)
-        if self.w.numel() != wn or self.wt.numel() != wn:
+        if self.wt.numel() != wn:
             raise RuntimeError("nerf_mlp_bwd: weight blob layout differs from the CUDA source")
         dev = self.dev = xd.device
         new = torch.empty if P else torch.zeros  # the kernels write every value
@@ -533,47 +584,77 @@ class BwdLaunch:
         if P == 0:
             return
         self.acts = torch.empty((P, ACTS_LD), dtype=cdt, device=dev) if self.remat else acts
+        self.out = torch.empty((P, OUT_CH), dtype=torch.float32, device=dev) if self.remat else None
         self.dz = torch.empty((P, ACTS_LD), dtype=cdt, device=dev)
         self.pe = torch.empty((P, self.kx + self.kd), dtype=cdt, device=dev)
-        self.n_tiles = -(-P // self.lib.nerf_mlp_bwd_tile(int(self.bf16)))
+        tile = self.dlib.nerf_mlp_dgrad_tile() if self.bf16 else self.lib.nerf_mlp_bwd_tile_f32()
+        self.n_tiles = -(-P // tile)
         self.n_blocks = min(self.n_tiles, torch.cuda.get_device_properties(dev).multi_processor_count)
         self.n_splits = max(1, min(32, -(-P // 16384)))
         self.fp_part = torch.empty((self.n_blocks, FP_NUMEL), dtype=torch.float32, device=dev)
         self.w_part = torch.empty((self.n_splits, wn), dtype=torch.float32, device=dev)
-        _check_aligned("nerf_mlp_bwd", self.xd, self.g, self.w, self.wt, self.fp, self.acts,
-                       self.dz, self.pe, self.dxd, self.fp_part, self.w_part, self.dw, self.dfp)
+        _check_aligned("nerf_mlp_bwd", self.xd, self.g, self.wt, self.fp, self.acts, self.dz,
+                       self.pe, self.dxd, self.fp_part, self.w_part, self.dw, self.dfp)
 
-    def run(self, parts: int = ALL, stamps: Optional[torch.Tensor] = None) -> None:
-        if self.P == 0:
-            return
-        stream = torch.cuda.current_stream(self.dev).cuda_stream
-        with torch.cuda.device(self.dev):
-            rc = self.lib.nerf_mlp_bwd(
-                self.xd.data_ptr(), self.g.data_ptr(), self.w.data_ptr(), self.wt.data_ptr(),
-                self.fp.data_ptr(), self.acts.data_ptr(), self.dz.data_ptr(), self.pe.data_ptr(),
-                self.dxd.data_ptr(), self.fp_part.data_ptr(), self.w_part.data_ptr(),
-                self.dw.data_ptr(), self.dfp.data_ptr(), self.P, self.kx, self.kd, *self.nf,
-                int(self.bf16), int(self.remat), self.n_blocks, self.n_splits, parts,
-                None if stamps is None else stamps.data_ptr(), stream,
-            )
-        if rc != 0:
-            raise RuntimeError(
-                f"nerf_mlp_bwd: CUDA error {rc} ({self.lib.nerf_mlp_bwd_error_string(rc).decode()})"
-            )
-        n = (1 if parts & self.DGRAD else 0) + (3 if parts & self.WGRAD else 0)
+    def _count(self, n: int) -> None:
         global launches_bwd_stash, launches_bwd_remat
         if self.remat:
             launches_bwd_remat += n
         else:
             launches_bwd_stash += n
 
+    def _bwd(self, parts: int) -> None:
+        with torch.cuda.device(self.dev):
+            rc = self.lib.nerf_mlp_bwd(
+                self.xd.data_ptr(), self.g.data_ptr(), self.wt.data_ptr(), self.fp.data_ptr(),
+                self.acts.data_ptr(), self.dz.data_ptr(), self.pe.data_ptr(), self.dxd.data_ptr(),
+                self.fp_part.data_ptr(), self.w_part.data_ptr(), self.dw.data_ptr(),
+                self.dfp.data_ptr(), self.P, self.kx, self.kd, *self.nf, int(self.bf16),
+                self.n_blocks, self.n_splits, parts, torch.cuda.current_stream(self.dev).cuda_stream,
+            )
+        if rc != 0:
+            raise RuntimeError(
+                f"nerf_mlp_bwd: CUDA error {rc} ({self.lib.nerf_mlp_bwd_error_string(rc).decode()})"
+            )
+
+    def _dgrad_bf16(self, stamps: Optional[torch.Tensor]) -> None:
+        with torch.cuda.device(self.dev):
+            rc = self.dlib.nerf_mlp_dgrad_bf16(
+                self.xd.data_ptr(), self.g.data_ptr(), self.wt.data_ptr(), self.fp.data_ptr(),
+                self.acts.data_ptr(), self.dz.data_ptr(), self.pe.data_ptr(), self.dxd.data_ptr(),
+                self.fp_part.data_ptr(), None if stamps is None else stamps.data_ptr(),
+                self.P, self.kx, self.kd, *self.nf, self.n_blocks,
+                torch.cuda.current_stream(self.dev).cuda_stream,
+            )
+        if rc != 0:
+            raise RuntimeError(
+                f"nerf_mlp_dgrad: CUDA error {rc} "
+                f"({self.dlib.nerf_mlp_dgrad_error_string(rc).decode()})"
+            )
+
+    def run(self, parts: int = ALL, stamps: Optional[torch.Tensor] = None) -> None:
+        if self.P == 0:
+            return
+        if parts & self.DGRAD:
+            if self.remat:  # K1 writes the stash the dgrad reads
+                _fwd_into(self.mlp, self.xd, self.dtype, *self.nf, self.out, self.acts)
+                self._count(1)
+            if self.bf16:
+                self._dgrad_bf16(stamps)
+            else:
+                self._bwd(self.DGRAD)
+            self._count(1)
+        if parts & self.WGRAD:
+            self._bwd(self.WGRAD)
+            self._count(3)
+
     def stage_stamps(self) -> torch.Tensor:
-        """Runs the dgrad once with its stage stamps on (bf16 stash mode):
-        [block 0's tiles, n_stamps] clock64() values, stamp i at the end of
-        stage i (stamp 0: the tile's start)."""
-        if not self.bf16 or self.remat:
-            raise ValueError("nerf_mlp_bwd: stage stamps exist for the bf16 stash dgrad only")
-        stamps = torch.zeros((-(-self.n_tiles // self.n_blocks), self.lib.nerf_mlp_bwd_n_stamps()),
+        """Runs the bf16 dgrad once with its stage stamps on: [block 0's
+        tiles, n_stamps] clock64() values, stamp i at the end of stage i of
+        DGRAD_STAGES (stamp 0: the tile's start)."""
+        if not self.bf16:
+            raise ValueError("nerf_mlp_bwd: stage stamps exist for the bf16 dgrad only")
+        stamps = torch.zeros((-(-self.n_tiles // self.n_blocks), self.dlib.nerf_mlp_dgrad_n_stamps()),
                              dtype=torch.int64, device=self.dev)
         self.run(self.DGRAD, stamps)
         return stamps
@@ -587,9 +668,9 @@ def nerf_mlp_bwd(mlp, xd: torch.Tensor, g: torch.Tensor, compute_dtype: str = "f
                  acts: Optional[torch.Tensor] = None):
     """The backward kernels on CUDA tensors: (d_xd [P, 8], the grads of
     `mlp.parameters()`), as `nerf_mlp_bwd_plain` returns them.  acts: the
-    forward's stash (K2, stash mode) or None (K3, remat mode: the dgrad
-    kernel recomputes the activations into scratch allocated here and freed
-    on return)."""
+    forward's stash (K2, stash mode) or None (K3, remat mode: the forward
+    kernel recomputes the stash into scratch allocated here and freed on
+    return)."""
     run = BwdLaunch(mlp, xd, g, compute_dtype, num_freqs_x, num_freqs_d, acts)
     run.run()
     return run.result()

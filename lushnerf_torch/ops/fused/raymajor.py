@@ -29,7 +29,9 @@ import torch
 
 from lushnerf_torch.ops.fused import build
 
-SMEM_ROW_MAX = 48 * 1024 // 4  # cdf row length the searchsorted kernel stages
+# cdf row length the searchsorted kernel stages: 8 rows (one a warp, padded
+# to 4 floats) in 48 KB of shared memory
+SMEM_ROW_MAX = 48 * 1024 // 4 // 8
 
 # Kernel launches since they were last set to 0.
 launches_excl_cumsum = 0

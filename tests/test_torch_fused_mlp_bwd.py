@@ -185,6 +185,31 @@ def test_param_changed_in_place_before_backward_raises(setup, mode):
         raw.sum().backward()
 
 
+def _bwd_blocks(mlp, dtype):
+    """The 12 blocks of the backward's transposed blob ([in][out]) as the
+    kernels read them: row-major in f32; in bf16 undone from the dgrad's
+    layout by a plain index model of it (element (n, k) of a block of N rows
+    sits in 64-column chunk k // 64, row n, 16-byte piece (k % 64) // 8
+    moved to piece position ((k % 64) // 8) ^ (n % 8))."""
+    kx, kd = fused.pe_widths(mlp.cfg)
+    Wd, Wh = 256, 128
+    wt = fused.pack_params_bwd(mlp, dtype).float().numpy()
+    sizes = [(kx, Wd)] + [(Wd, Wd)] * 4 + [(kx, Wd)] + [(Wd, Wd)] * 4 + [(Wd, Wh), (kd, Wh)]
+    offs = np.concatenate([[0], np.cumsum([a * b for a, b in sizes])])
+    assert offs[-1] == wt.size
+    blocks = []
+    for (N, K), off in zip(sizes, offs):
+        flat = wt[off:off + N * K]
+        if dtype == "bfloat16":
+            n, k = np.meshgrid(np.arange(N), np.arange(K), indexing="ij")
+            piece = (k % 64) // 8
+            idx = (k // 64) * N * 64 + n * 64 + (piece ^ (n % 8)) * 8 + k % 8
+            blocks.append(torch.from_numpy(flat[idx]))
+        else:
+            blocks.append(torch.from_numpy(flat.reshape(N, K).copy()))
+    return blocks
+
+
 def _emulate_bwd_kernels(mlp, xd, g, acts, dtype):
     """The backward kernels' arithmetic read from the packed blobs exactly
     as the CUDA source lays them out: the dgrad chain on the transposed
@@ -194,12 +219,8 @@ def _emulate_bwd_kernels(mlp, xd, g, acts, dtype):
     r = (lambda t: t.bfloat16().float()) if dtype == "bfloat16" else (lambda t: t)
     kx, kd = fused.pe_widths(mlp.cfg)
     Wd, Wh = 256, 128
-    wt = fused.pack_params_bwd(mlp, dtype).float()
     fp = fused.pack_params(mlp, dtype)[1]
-    sizes = [(kx, Wd)] + [(Wd, Wd)] * 4 + [(kx, Wd)] + [(Wd, Wd)] * 4 + [(Wd, Wh), (kd, Wh)]
-    offs = np.concatenate([[0], np.cumsum([a * b for a, b in sizes])])
-    assert offs[-1] == wt.numel()
-    T = [wt[offs[i]:offs[i + 1]].reshape(sizes[i]) for i in range(12)]
+    T = _bwd_blocks(mlp, dtype)
     s = acts.float()
     a = [s[:, l * Wd:(l + 1) * Wd] for l in range(8)]
     feat, hv = s[:, 8 * Wd:9 * Wd], s[:, 9 * Wd:]
@@ -260,3 +281,54 @@ def test_packed_bwd_blobs_reproduce_plain(setup, dtype):
     for a, b in zip(got, want):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4, atol=1e-5)
     assert fused.pack_params_bwd(mlp, dtype) is fused.pack_params_bwd(mlp, dtype)  # cached
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bwd_blob_layout_gives_back_the_transposed_weights(setup, dtype):
+    """The blob read through the plain index model of its layout holds each
+    weight block transposed ([in][out], PE rows past the encoding zero),
+    and in bf16 no element sits where the row-major layout would put it for
+    more than the unswizzled pieces (a swizzle that did nothing would
+    fail)."""
+    _, params, _, _ = setup
+    mlp = _mlp(params).requires_grad_(False)
+    r = (lambda t: t.bfloat16().float()) if dtype == "bfloat16" else (lambda t: t)
+    kx, kd = fused.pe_widths(mlp.cfg)
+    in_ch, in_d, Wd = mlp.cfg.input_ch, mlp.cfg.input_ch_views, 256
+    pts = [lin.weight for lin in mlp.pts_linears]
+    wv = mlp.views_linears[0].weight
+
+    def padded_t(w, k):
+        return torch.cat([w.T, torch.zeros(k - w.shape[1], w.shape[0])], 0)
+
+    want = [padded_t(pts[0], kx)] + [pts[i].T for i in range(1, 5)] + [
+        padded_t(pts[5][:, :in_ch], kx), pts[5][:, in_ch:].T, pts[6].T, pts[7].T,
+        mlp.feature_linear.weight.T, wv[:, :Wd].T, padded_t(wv[:, Wd:], kd)]
+    got = _bwd_blocks(mlp, dtype)
+    assert len(got) == 12 and in_d <= kd
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.numpy(), r(b).numpy())
+    if dtype == "bfloat16":
+        flat = fused.pack_params_bwd(mlp, dtype)[:Wd * Wd + kx * Wd].float()
+        row_major = torch.cat([r(want[0]).reshape(-1), r(want[1]).reshape(-1)])
+        assert (flat != row_major).float().mean() > 0.5
+
+
+def test_plain_backward_on_the_unpacked_bf16_blob_matches_jax_kernel(setup):
+    """The backward emulated on the bf16 blob, undone by the index model,
+    gives the JAX Pallas kernel's parameter grads (jax.grad, interpret
+    mode) within the bounds the port's CPU path meets."""
+    jcfg, params, pts, dirs = setup
+    _, _, want = _jax_grads(params, jcfg, pts, dirs, "bfloat16", "stash")
+    mlp = _mlp(params).requires_grad_(False)
+    R, S = pts.shape[:2]
+    xd = torch.from_numpy(np.concatenate([pts, np.broadcast_to(dirs[:, None], (R, S, 3)),
+                                          np.zeros((R, S, 2), np.float32)], -1).reshape(R * S, 8))
+    raw, acts = fused.nerf_mlp_fwd_plain(mlp, xd, "bfloat16", with_acts=True)
+    g = torch.cos(raw) * _weights()  # the cotangent of sum(sin(raw) * [0, 1, 2, 3])
+    _, _, grads = _emulate_bwd_kernels(mlp, xd, g, acts, "bfloat16")
+    names = [n for n, _ in mlp.named_parameters()]
+    got = {n: t.numpy() for n, t in zip(names, grads)}
+    for n in names:
+        assert _rel_err(got[n], want[n]) <= MAX_REL["bfloat16"], (n, _rel_err(got[n], want[n]))
+    assert _median_mean_rel(got, want) <= BF16_MEDIAN_MEAN_REL, _median_mean_rel(got, want)

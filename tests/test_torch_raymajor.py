@@ -132,3 +132,33 @@ def test_probe_main_on_cpu():
     assert raymajor.launches_excl_cumsum == raymajor.launches_transpose == 0
     assert raymajor.launches_searchsorted == raymajor.launches_masked_dists == 0
     assert build._LIBS.get("raymajor_probe") is None
+
+
+@pytest.mark.parametrize("T,S_,SI", [(6, 128, 128), (5, 64, 64), (7, 37, 45)])
+def test_searchsorted_count_plain_is_searchsorted_right_or_the_count(T, S_, SI):
+    """The function the searchsorted kernel keeps: on sorted rows with ties
+    it is torch.searchsorted(..., right=True); on unsorted rows (with ties)
+    the count of entries <= u, which no binary search gives."""
+    rng = np.random.default_rng(T * 1000 + S_)
+    u = _t((rng.integers(0, 17, (T, SI)) / 16).astype(np.float32))
+    cdf = _t(np.sort(rng.integers(0, 16, (T, S_)) / 16, 1).astype(np.float32))
+    got = raymajor.searchsorted_count_plain(cdf, u.reshape(T * SI, 1)).reshape(T, SI)
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), torch.searchsorted(cdf, u, right=True).float().numpy())
+    unsorted = _t((rng.integers(0, 16, (T, S_)) / 16).astype(np.float32))
+    got = raymajor.searchsorted_count_plain(unsorted, u.reshape(T * SI, 1)).reshape(T, SI)
+    count = (unsorted.numpy()[:, None, :] <= u.numpy()[:, :, None]).sum(-1)
+    np.testing.assert_array_equal(got.numpy(), count.astype(np.float32))
+
+
+@pytest.mark.parametrize("T,S_", [(5, 64), (5, 128), (3, 37)])
+def test_masked_dists_plain_is_diff_with_append(T, S_):
+    """masked_dists_plain equals the one PyTorch call chip_smoke.py times
+    beside the kernel, torch.diff with the last sample appended, bit for
+    bit."""
+    rng = np.random.default_rng(S_)
+    z = _t(np.sort(rng.random((T, S_), np.float32) * 7, 1).reshape(T * S_, 1))
+    zz = z.view(T, S_)
+    want = torch.diff(zz, dim=1, append=zz[:, -1:])
+    np.testing.assert_array_equal(raymajor.masked_dists_plain(z, S_).reshape(T, S_).numpy(),
+                                  want.numpy())

@@ -400,6 +400,18 @@ def dgrad_breakdown(stages, stamps, dgrad_ms) -> dict:
             "stage_share": share}
 
 
+def fwd_breakdown(fused, mlp, xd, ms: float, stash: bool) -> dict:
+    """The bf16 forward kernel's time by stage from its instrumented
+    instantiation's per-tile stage cycles: each stage's share of the stamped
+    cycles, and that share of the kernel's measured ms."""
+    st = fused.fwd_stage_cycles(mlp, xd, stash).cpu().numpy().astype(np.float64)
+    st = st[st.sum(1) > 0]
+    total = st.sum()
+    share = {name: float(st[:, i].sum() / total) for i, name in enumerate(fused.FWD_STAGES)}
+    return {"tiles": int(st.shape[0]), "cycles_per_tile": float(total / st.shape[0]),
+            "stage_share": share, "stage_ms": {k: v * ms for k, v in share.items()}}
+
+
 def bwd_parts(fused, mlp, xd, g, dtype, acts, breakdown: bool) -> dict:
     """The dgrad alone and the wgrad with its reductions alone (on the
     dgrad's scratch), median CUDA-event ms, with their bounds: operations
@@ -507,6 +519,14 @@ def kernel_bwd_phase(fused, NeRFMLP, MLPConfig):
                 row["design_scratch_bytes_per_point_remat"] = 4 * stash_b + 2 * pe_b
                 if bf16:
                     row.update(bwd_parts(fused, mlp, xd, g, dtype, acts_k, label == "fine"))
+                if bf16 and label == "fine":
+                    row["fwd_stages"] = {}
+                    for form, stash in (("output_only", False), ("stash", True)):
+                        ms = time_ms(lambda: fused._launch_fwd(mlp, xd, dtype, 10, 4, stash), 5)
+                        r = row["fwd_stages"][form] = fwd_breakdown(fused, mlp, xd, ms, stash)
+                        print(f"  fwd stages at P = {P} ({form}, {ms:.3f} ms, "
+                              f"{r['cycles_per_tile']:.0f} cycles a tile): "
+                              + json.dumps(r["stage_share"]), flush=True)
             print("  " + json.dumps(row), flush=True)
             rows.append(row)
             del k2, acts_k, acts_p

@@ -42,6 +42,28 @@ constexpr int FP_NUMEL = FP_WR + 3 * WH;
 
 typedef __nv_bfloat16 bf16;
 
+// Stage clock of the instrumented forward (nerf_mlp_fwd.cu's PROF
+// instantiation): the thread that owns it adds the clock64() cycles since
+// its last mark to the stage it marks.  Stages: the tile's xd load, the PE,
+// weight waits (a chunk's cp.async wait and barrier), matmuls, epilogues,
+// stash stores, the alpha head and the rgb head.
+enum { FS_LOAD, FS_PE, FS_WAIT, FS_MM, FS_EPI, FS_STASH, FS_ALPHA, FS_RGB, N_FS };
+struct FwdClock {
+  long long t, sum[N_FS];
+  __device__ __forceinline__ void start() {
+    for (int i = 0; i < N_FS; ++i) sum[i] = 0;
+    t = clock64();
+  }
+  __device__ __forceinline__ void mark(int s) {
+    const long long n = clock64();
+    sum[s] += n - t;
+    t = n;
+  }
+};
+__device__ __forceinline__ void mark(FwdClock* c, int s) {
+  if (c != nullptr) c->mark(s);
+}
+
 template <bool BF16> struct Tile;
 template <> struct Tile<true> {
   typedef bf16 T_act;
@@ -145,7 +167,8 @@ __device__ __forceinline__ void load_wchunk(bf16* st, const bf16* Wg, int ldw, i
 template <int N>
 __device__ __forceinline__ void gemm_bf16(float (&acc)[4][N / 32][4], const bf16* A,
                                           int lda, const bf16* Wg, int ldw,
-                                          int w_col0, int K, bf16* wst) {
+                                          int w_col0, int K, bf16* wst,
+                                          FwdClock* clk = nullptr) {
   constexpr int NT = N / 32;
   constexpr int LD = Tile<true>::WST_LD;
   constexpr int STAGE = W * LD;
@@ -166,11 +189,14 @@ __device__ __forceinline__ void gemm_bf16(float (&acc)[4][N / 32][4], const bf16
       load_wchunk<N>(wst + ((c + 1) & 1) * STAGE, Wg, ldw, w_col0 + (c + 1) * KC,
                      min(KC, K - (c + 1) * KC));
       cp_async_commit();
+      mark(clk, FS_MM);
       cp_async_wait<1>();
     } else {
+      mark(clk, FS_MM);
       cp_async_wait<0>();
     }
     __syncthreads();
+    mark(clk, FS_WAIT);
     const int kc = min(KC, K - c * KC);
 #pragma unroll
     for (int ks = 0; ks < KC; ks += 16) {
@@ -281,7 +307,8 @@ __device__ __forceinline__ void dense(const WT* Wg, int ldw,
                                       const typename Tile<BF16>::T_act* A1, int lda1, int K1,
                                       const typename Tile<BF16>::T_act* A2, int lda2, int K2,
                                       const float* bias, bool relu,
-                                      typename Tile<BF16>::T_act* dst, WT* wst) {
+                                      typename Tile<BF16>::T_act* dst, WT* wst,
+                                      FwdClock* clk = nullptr) {
   if constexpr (BF16) {
     float acc[4][N / 32][4];
 #pragma unroll
@@ -290,8 +317,9 @@ __device__ __forceinline__ void dense(const WT* Wg, int ldw,
       for (int j = 0; j < N / 32; ++j)
 #pragma unroll
         for (int k = 0; k < 4; ++k) acc[i][j][k] = 0.f;
-    gemm_bf16<N>(acc, A1, lda1, Wg, ldw, 0, K1, wst);
-    if (K2 > 0) gemm_bf16<N>(acc, A2, lda2, Wg, ldw, K1, K2, wst);
+    gemm_bf16<N>(acc, A1, lda1, Wg, ldw, 0, K1, wst, clk);
+    if (K2 > 0) gemm_bf16<N>(acc, A2, lda2, Wg, ldw, K1, K2, wst, clk);
+    mark(clk, FS_MM);
     epilogue_bf16<N>(acc, bias, relu, dst, Tile<true>::ACT_LD);
   } else {
     float acc[Tile<false>::T * N / NTHREADS];
@@ -303,6 +331,7 @@ __device__ __forceinline__ void dense(const WT* Wg, int ldw,
     epilogue_f32<N>(acc, bias, relu, dst, Tile<false>::ACT_LD);
   }
   __syncthreads();
+  mark(clk, FS_EPI);
 }
 
 // Rows [p0, min(p0 + T, P)) of a [T][LD] shared-memory tile, N columns,
@@ -379,38 +408,47 @@ inline long long w_numel(int kx, int kd) {
 // is written over `act` in turn (a7, then feat, then hv in its first 128
 // columns).  With `acts` non-null each activation (a0..a7, feat, hv) is
 // also stored to the stash rows [p0, min(p0 + T, P)).  `after_a7` runs
-// with a7 in `act`, before the feature layer overwrites it.
+// with a7 in `act`, before the feature layer overwrites it.  `clk`, if not
+// null, takes the stage clock's marks.
 template <bool BF16, typename WT, typename F>
 __device__ __forceinline__ void forward_tile(const WT* const (&w)[10], const float* fp,
                                              int kx, int kd,
                                              typename Tile<BF16>::T_act* act,
                                              const typename Tile<BF16>::T_act* pe, WT* wst,
-                                             WT* acts, int p0, int P, F after_a7) {
+                                             WT* acts, int p0, int P, F after_a7,
+                                             FwdClock* clk = nullptr) {
   typedef Tile<BF16> TL;
   constexpr int T = TL::T, ALD = TL::ACT_LD, PLD = TL::PE_LD;
   auto emit = [&](int col) {
-    if (acts != nullptr) store_rows<T, ALD, W>(act, acts + col, ACTS_LD, p0, P);
+    if (acts != nullptr) {
+      store_rows<T, ALD, W>(act, acts + col, ACTS_LD, p0, P);
+      mark(clk, FS_STASH);
+    }
   };
-  dense<BF16, W>(w[0], kx, pe, PLD, kx, pe, PLD, 0, fp, true, act, wst);
+  dense<BF16, W>(w[0], kx, pe, PLD, kx, pe, PLD, 0, fp, true, act, wst, clk);
   emit(0);
 #pragma unroll 1
   for (int l = 1; l <= 4; ++l) {
-    dense<BF16, W>(w[l], W, act, ALD, W, act, ALD, 0, fp + l * W, true, act, wst);
+    dense<BF16, W>(w[l], W, act, ALD, W, act, ALD, 0, fp + l * W, true, act, wst, clk);
     emit(l * W);
   }
-  dense<BF16, W>(w[5], kx + W, pe, PLD, kx, act, ALD, W, fp + 5 * W, true, act, wst);
+  dense<BF16, W>(w[5], kx + W, pe, PLD, kx, act, ALD, W, fp + 5 * W, true, act, wst, clk);
   emit(5 * W);
-  dense<BF16, W>(w[6], W, act, ALD, W, act, ALD, 0, fp + 6 * W, true, act, wst);
+  dense<BF16, W>(w[6], W, act, ALD, W, act, ALD, 0, fp + 6 * W, true, act, wst, clk);
   emit(6 * W);
-  dense<BF16, W>(w[7], W, act, ALD, W, act, ALD, 0, fp + 7 * W, true, act, wst);
+  dense<BF16, W>(w[7], W, act, ALD, W, act, ALD, 0, fp + 7 * W, true, act, wst, clk);
   emit(7 * W);
   // reads of a7 here finish before the feature layer's epilogue overwrites
   // it (that epilogue runs only after the feature gemm's barriers)
   after_a7();
-  dense<BF16, W>(w[8], W, act, ALD, W, act, ALD, 0, fp + FP_BF, false, act, wst);
+  mark(clk, FS_ALPHA);
+  dense<BF16, W>(w[8], W, act, ALD, W, act, ALD, 0, fp + FP_BF, false, act, wst, clk);
   emit(8 * W);
-  dense<BF16, WH>(w[9], W + kd, act, ALD, W, pe + kx, PLD, kd, fp + FP_BV, true, act, wst);
-  if (acts != nullptr) store_rows<T, ALD, WH>(act, acts + 9 * W, ACTS_LD, p0, P);
+  dense<BF16, WH>(w[9], W + kd, act, ALD, W, pe + kx, PLD, kd, fp + FP_BV, true, act, wst, clk);
+  if (acts != nullptr) {
+    store_rows<T, ALD, WH>(act, acts + 9 * W, ACTS_LD, p0, P);
+    mark(clk, FS_STASH);
+  }
 }
 
 __device__ __forceinline__ void load_row(const bf16* p, float (&v)[8]) {

@@ -58,10 +58,15 @@ template <typename WT> struct Args {
   const WT* w[10];   // W0..W7, Wf, Wv inside the weight blob
   float* out;        // [P, 4]
   WT* acts;          // [P, ACTS_LD] stash, or null
+  long long* stamps; // [ceil(grid / STAMP_EVERY)][N_FS] stage cycles, or null
   int P, kx, kd, nfx, nfd;
 };
 
-template <bool BF16, typename WT>
+// The instrumented instantiation records the stage cycles of thread 0 of
+// every STAMP_EVERY-th block (one tile each).
+constexpr int STAMP_EVERY = 64;
+
+template <bool BF16, typename WT, bool PROF>
 __global__ void __launch_bounds__(NTHREADS, 1) nerf_mlp_fwd_kernel(Args<WT> args) {
   typedef Tile<BF16> TL;
   typedef typename TL::T_act AT;
@@ -76,25 +81,45 @@ __global__ void __launch_bounds__(NTHREADS, 1) nerf_mlp_fwd_kernel(Args<WT> args
   const int P = args.P;
   const float* fp = args.fp;
 
+  FwdClock c;
+  FwdClock* clk = nullptr;
+  if constexpr (PROF) {
+    if (threadIdx.x == 0 && blockIdx.x % STAMP_EVERY == 0) {
+      clk = &c;
+      c.start();
+    }
+  }
   load_xd<T>(xs, args.xd, p0, P);
   __syncthreads();
+  mark(clk, FS_LOAD);
   pe_tile<T, PLD>(pe, xs, args.kx, args.kd, args.nfx, args.nfd);
   __syncthreads();
+  mark(clk, FS_PE);
   float* out = args.out + (size_t)p0 * 4;
   forward_tile<BF16, WT>(args.w, fp, args.kx, args.kd, act, pe, wst, args.acts, p0, P,
-                         [&] { head_alpha<T, ALD>(act, fp, out, P - p0); });
+                         [&] { head_alpha<T, ALD>(act, fp, out, P - p0); }, clk);
   head_rgb<T, ALD>(act, fp, out, P - p0);
+  if constexpr (PROF) {
+    if (clk != nullptr) {
+      c.mark(FS_RGB);
+      for (int i = 0; i < N_FS; ++i)
+        args.stamps[(size_t)(blockIdx.x / STAMP_EVERY) * N_FS + i] = c.sum[i];
+    }
+  }
 }
 
 template <bool BF16, typename WT>
-int launch(const float* xd, const void* w, const float* fp, float* out, void* acts, int P,
-           int kx, int kd, int nfx, int nfd, cudaStream_t stream) {
+int launch(const float* xd, const void* w, const float* fp, float* out, void* acts,
+           long long* stamps, int P, int kx, int kd, int nfx, int nfd, cudaStream_t stream) {
   typedef Tile<BF16> TL;
   constexpr int SMEM = fwd_smem<BF16>();
   static bool attr_set = false;
   if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(nerf_mlp_fwd_kernel<BF16, WT>,
+    cudaError_t e = cudaFuncSetAttribute(nerf_mlp_fwd_kernel<BF16, WT, false>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(nerf_mlp_fwd_kernel<BF16, WT, BF16>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
     if (e != cudaSuccess) return (int)e;
     attr_set = true;
   }
@@ -103,6 +128,7 @@ int launch(const float* xd, const void* w, const float* fp, float* out, void* ac
   a.fp = fp;
   a.out = out;
   a.acts = static_cast<WT*>(acts);
+  a.stamps = stamps;
   a.P = P;
   a.kx = kx;
   a.kd = kd;
@@ -110,7 +136,10 @@ int launch(const float* xd, const void* w, const float* fp, float* out, void* ac
   a.nfd = nfd;
   fill_offsets<WT>(a.w, w, kx, kd);
   const int grid = (P + TL::T - 1) / TL::T;
-  nerf_mlp_fwd_kernel<BF16, WT><<<grid, NTHREADS, SMEM, stream>>>(a);
+  if (stamps != nullptr)
+    nerf_mlp_fwd_kernel<BF16, WT, BF16><<<grid, NTHREADS, SMEM, stream>>>(a);  // bf16 only
+  else
+    nerf_mlp_fwd_kernel<BF16, WT, false><<<grid, NTHREADS, SMEM, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -124,17 +153,23 @@ extern "C" {
 long long nerf_mlp_fwd_w_numel(int kx, int kd) { return w_numel(kx, kd); }
 long long nerf_mlp_fwd_fp_numel() { return FP_NUMEL; }
 long long nerf_mlp_fwd_acts_ld() { return ACTS_LD; }
+int nerf_mlp_fwd_n_stages() { return N_FS; }
+int nerf_mlp_fwd_stamp_every() { return STAMP_EVERY; }
 
 // Launches the kernel on `stream` and returns cudaGetLastError() (0 = OK).
-// `acts` is null, or a [P, ACTS_LD] stash in the compute dtype.
+// `acts` is null, or a [P, ACTS_LD] stash in the compute dtype; `stamps`
+// null, or [ceil(ceil(P / tile) / stamp_every)][n_stages] int64 for the
+// stage cycles of the instrumented instantiation (bf16 only).
 // Requires P > 0, kx and kd multiples of 32 with kx + kd <= 128,
 // 3 + 6 * nfx <= kx and 3 + 6 * nfd <= kd; all pointers 16-byte aligned.
 int nerf_mlp_fwd(const float* xd, const void* w, const float* fp, float* out, void* acts,
-                 int P, int kx, int kd, int nfx, int nfd, int bf16_mode, void* stream) {
+                 long long* stamps, int P, int kx, int kd, int nfx, int nfd, int bf16_mode,
+                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16_mode)
-    return launch<true, bf16>(xd, w, fp, out, acts, P, kx, kd, nfx, nfd, s);
-  return launch<false, float>(xd, w, fp, out, acts, P, kx, kd, nfx, nfd, s);
+    return launch<true, bf16>(xd, w, fp, out, acts, stamps, P, kx, kd, nfx, nfd, s);
+  if (stamps != nullptr) return (int)cudaErrorInvalidValue;
+  return launch<false, float>(xd, w, fp, out, acts, nullptr, P, kx, kd, nfx, nfd, s);
 }
 
 const char* nerf_mlp_fwd_error_string(int code) {

@@ -72,6 +72,10 @@ DGRAD_STAGES = (
     + ["dpe_x", "dxd_x"]
 )
 
+# The bf16 forward kernel's stages (its instrumented instantiation adds the
+# cycles of each; mirrors FS_* in csrc/nerf_mlp_common.cuh)
+FWD_STAGES = ("load", "pe", "wait", "mm", "epilogue", "stash", "alpha", "rgb")
+
 COMPUTE_DTYPES = ("float32", "bfloat16")
 BWD_MODES = ("remat", "stash")
 
@@ -402,7 +406,7 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("nerf_mlp_fwd")
     if not getattr(lib, "_lushnerf_typed", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.nerf_mlp_fwd.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]
+        lib.nerf_mlp_fwd.argtypes = [vp] * 6 + [ci] * 6 + [vp]
         lib.nerf_mlp_fwd.restype = ci
         lib.nerf_mlp_fwd_w_numel.argtypes = [ci, ci]
         lib.nerf_mlp_fwd_w_numel.restype = ctypes.c_longlong
@@ -410,9 +414,14 @@ def _lib() -> ctypes.CDLL:
         lib.nerf_mlp_fwd_fp_numel.restype = ctypes.c_longlong
         lib.nerf_mlp_fwd_acts_ld.argtypes = []
         lib.nerf_mlp_fwd_acts_ld.restype = ctypes.c_longlong
+        lib.nerf_mlp_fwd_n_stages.argtypes = []
+        lib.nerf_mlp_fwd_n_stages.restype = ci
+        lib.nerf_mlp_fwd_stamp_every.argtypes = []
+        lib.nerf_mlp_fwd_stamp_every.restype = ci
         lib.nerf_mlp_fwd_error_string.argtypes = [ci]
         lib.nerf_mlp_fwd_error_string.restype = ctypes.c_char_p
-        if lib.nerf_mlp_fwd_fp_numel() != FP_NUMEL or lib.nerf_mlp_fwd_acts_ld() != ACTS_LD:
+        if lib.nerf_mlp_fwd_fp_numel() != FP_NUMEL or lib.nerf_mlp_fwd_acts_ld() != ACTS_LD \
+                or lib.nerf_mlp_fwd_n_stages() != len(FWD_STAGES):
             raise RuntimeError("nerf_mlp_fwd: f32 blob or stash layout differs from the CUDA source")
         lib._lushnerf_typed = True
     return lib
@@ -478,10 +487,12 @@ def _check_aligned(name, *tensors):
 
 
 def _fwd_into(mlp, xd: torch.Tensor, compute_dtype: str, num_freqs_x: int,
-              num_freqs_d: int, out: torch.Tensor, acts: Optional[torch.Tensor]) -> None:
+              num_freqs_d: int, out: torch.Tensor, acts: Optional[torch.Tensor],
+              stamps: Optional[torch.Tensor] = None) -> None:
     """Launches the forward kernel on contiguous CUDA xd [P, 8] (P > 0) into
-    out [P, 4] and, if not None, the stash acts [P, ACTS_LD]; the caller
-    counts the launch."""
+    out [P, 4] and, if not None, the stash acts [P, ACTS_LD]; with `stamps`
+    (bf16 only) its instrumented instantiation, which writes its stage
+    cycles there.  The caller counts the launch."""
     kx, kd = pe_widths(mlp.cfg)
     w, fp = pack_params(mlp, compute_dtype)
     if w.device != xd.device:
@@ -494,7 +505,8 @@ def _fwd_into(mlp, xd: torch.Tensor, compute_dtype: str, num_freqs_x: int,
     with torch.cuda.device(xd.device):
         rc = lib.nerf_mlp_fwd(
             xd.data_ptr(), w.data_ptr(), fp.data_ptr(), out.data_ptr(),
-            None if acts is None else acts.data_ptr(), xd.shape[0], kx, kd,
+            None if acts is None else acts.data_ptr(),
+            None if stamps is None else stamps.data_ptr(), xd.shape[0], kx, kd,
             num_freqs_x, num_freqs_d, int(compute_dtype == "bfloat16"), stream,
         )
     if rc != 0:
@@ -518,6 +530,24 @@ def _launch_fwd(mlp, xd: torch.Tensor, compute_dtype: str, num_freqs_x: int,
     global launches
     launches += 1
     return out, acts
+
+
+def fwd_stage_cycles(mlp, xd: torch.Tensor, stash: bool) -> torch.Tensor:
+    """Runs the bf16 forward kernel's instrumented instantiation once on CUDA
+    xd: [stamped tiles, len(FWD_STAGES)] int64, the clock64() cycles of each
+    stage of FWD_STAGES in each stamped tile (not a launch of the main
+    path: not counted)."""
+    _check_cuda_inputs("nerf_mlp_fwd", mlp, xd, "bfloat16", 10, 4)
+    xd = xd.contiguous()
+    P = xd.shape[0]
+    lib = _lib()
+    n_tiles = -(-P // 128)
+    stamps = torch.zeros((-(-n_tiles // lib.nerf_mlp_fwd_stamp_every()), len(FWD_STAGES)),
+                         dtype=torch.int64, device=xd.device)
+    out = torch.empty((P, OUT_CH), dtype=torch.float32, device=xd.device)
+    acts = torch.empty((P, ACTS_LD), dtype=torch.bfloat16, device=xd.device) if stash else None
+    _fwd_into(mlp, xd, "bfloat16", 10, 4, out, acts, stamps)
+    return stamps
 
 
 def nerf_mlp_fwd(mlp, xd: torch.Tensor, compute_dtype: str = "float32",

@@ -279,8 +279,15 @@ def kernel_phase(fused, NeRFMLP, MLPConfig):
     mlp = NeRFMLP(MLPConfig(), torch.Generator().manual_seed(0), torch.device("cpu"))
     mlp = mlp.cuda().requires_grad_(False)
     gen = torch.Generator(device="cuda").manual_seed(0)
+    # ragged: 2049 tiles, odd_tiles: 2561 (odd tile counts leave the last
+    # cluster's second block a tile past the end); tiny: one point
     shapes = {"coarse": 5120 * 64, "fine": 5120 * 128, "render_coarse": 4096 * 64,
-              "render_fine": 4096 * 128, "ragged": 4096 * 64 + 37}
+              "render_fine": 4096 * 128, "ragged": 4096 * 64 + 37, "odd_tiles": 2561 * 128 - 5,
+              "tiny": 1}
+    timed = ("coarse", "fine", "render_coarse", "render_fine")
+    most = fused.max_clusters(fused._lib(), "nerf_mlp_fwd_max_clusters", torch.device("cuda", 0))
+    print(f"  bf16 grid: at most {most} resident clusters of {fused.FWD_CLUSTER} blocks on "
+          f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs", flush=True)
     rows = []
     for dtype in ("float32", "bfloat16"):
         w_bytes = sum(t.numel() * t.element_size() for t in fused.pack_params(mlp, dtype))
@@ -294,22 +301,25 @@ def kernel_phase(fused, NeRFMLP, MLPConfig):
             excess = (err - tol["atol"] - tol["rtol"] * want.abs()).max().item()
             row = dict(dtype=dtype, shape=label, P=P, max_abs_err=err.max().item(),
                        mean_abs_err=err.mean().item(),
-                       finite=bool(torch.isfinite(got).all()), within_tol=excess <= 0)
-            if dtype == "bfloat16":
+                       finite=bool(torch.isfinite(got).all()), within_tol=excess <= 0,
+                       repeat_bitwise=bool(torch.equal(got, fused.nerf_mlp_fwd(mlp, xd, dtype))))
+            if dtype == "bfloat16" and label != "tiny":
                 # the control: how far the plain version moves without bf16 rounding
                 gap = (fused.nerf_mlp_fwd_plain(mlp, xd, "float32") - want).abs()
                 row["plain_f32_vs_bf16_max_gap"] = gap.max().item()
                 row["plain_f32_vs_bf16_mean_gap"] = gap.mean().item()
                 row["within_tol"] &= (row["mean_abs_err"]
                                       <= BF16_MEAN_ERR_SHARE * row["plain_f32_vs_bf16_mean_gap"])
-            if label != "ragged":
+            if label in timed:
                 row["ms"] = time_ms(lambda: fused.nerf_mlp_fwd(mlp, xd, dtype), 10)
                 row["plain_ms"] = time_ms(lambda: fused.nerf_mlp_fwd_plain(mlp, xd, dtype), 3, 1)
                 row["bound_ms"], row["bound_by"] = bound_ms(P, w_bytes, dtype == "bfloat16")
                 row["tflops"] = 2.0 * MLP_MACS * P / row["ms"] / 1e9
+            if dtype == "bfloat16" and label == "fine":
+                row["torch_matmul_9_ms"] = torch_matmul_ms(P, gen)
             print("  " + json.dumps(row), flush=True)
             rows.append(row)
-            if not (row["finite"] and row["within_tol"]):
+            if not (row["finite"] and row["within_tol"] and row["repeat_bitwise"]):
                 raise AssertionError(f"kernel disagrees with plain version: {row}")
     return rows
 
@@ -402,14 +412,29 @@ def dgrad_breakdown(stages, stamps, dgrad_ms) -> dict:
 
 def fwd_breakdown(fused, mlp, xd, ms: float, stash: bool) -> dict:
     """The bf16 forward kernel's time by stage from its instrumented
-    instantiation's per-tile stage cycles: each stage's share of the stamped
-    cycles, and that share of the kernel's measured ms."""
+    instantiation: consumer thread 0's cycles by stage over block 0's
+    tiles, each stage's share of them and that share of the kernel's
+    measured ms; beside them, the PE warps' work a tile (off that path) as a
+    share of the tile's cycles."""
     st = fused.fwd_stage_cycles(mlp, xd, stash).cpu().numpy().astype(np.float64)
-    st = st[st.sum(1) > 0]
-    total = st.sum()
-    share = {name: float(st[:, i].sum() / total) for i, name in enumerate(fused.FWD_STAGES)}
+    n = len(fused.FWD_STAGES)
+    on_path, off_path = st[:, :n], st[:, n:]
+    total = on_path.sum()
+    share = {name: float(on_path[:, i].sum() / total) for i, name in enumerate(fused.FWD_STAGES)}
     return {"tiles": int(st.shape[0]), "cycles_per_tile": float(total / st.shape[0]),
-            "stage_share": share, "stage_ms": {k: v * ms for k, v in share.items()}}
+            "stage_share": share, "stage_ms": {k: v * ms for k, v in share.items()},
+            "off_path_share_of_tile": {name: float(off_path[:, i].sum() / total)
+                                       for i, name in enumerate(fused.FWD_OFF_PATH)}}
+
+
+def torch_matmul_ms(P: int, gen) -> float:
+    """A yardstick, not a library column (no one call computes K1): the
+    nine 256-wide products of K1's layers (K = 64, 256 x 4, 320, 256 x 3)
+    through torch.matmul in bf16 at P points, CUDA-event ms, median of 5."""
+    ks = [64] + [256] * 4 + [320] + [256] * 3
+    a = {k: torch.randn((P, k), generator=gen, device="cuda").bfloat16() for k in set(ks)}
+    w = [torch.randn((k, MLP_WIDTH), generator=gen, device="cuda").bfloat16() for k in ks]
+    return time_ms(lambda: [torch.matmul(a[k], m) for k, m in zip(ks, w)], 5)
 
 
 def bwd_parts(fused, mlp, xd, g, dtype, acts, breakdown: bool) -> dict:
@@ -526,7 +551,8 @@ def kernel_bwd_phase(fused, NeRFMLP, MLPConfig):
                         r = row["fwd_stages"][form] = fwd_breakdown(fused, mlp, xd, ms, stash)
                         print(f"  fwd stages at P = {P} ({form}, {ms:.3f} ms, "
                               f"{r['cycles_per_tile']:.0f} cycles a tile): "
-                              + json.dumps(r["stage_share"]), flush=True)
+                              + json.dumps(r["stage_share"]) + "; off the path: "
+                              + json.dumps(r["off_path_share_of_tile"]), flush=True)
             print("  " + json.dumps(row), flush=True)
             rows.append(row)
             del k2, acts_k, acts_p
@@ -883,7 +909,7 @@ def profile_phase(lush, cfg_mod, trainer, untraced_ms):
                 end = t
         by_name = {}
         for e in dev:
-            key = next((k for k in ("nerf_mlp_fwd_kernel", "nerf_mlp_dgrad_sm90",
+            key = next((k for k in ("fwd_sm90_kernel", "nerf_mlp_fwd_f32_kernel", "nerf_mlp_dgrad_sm90",
                                     "nerf_mlp_bwd_dgrad_f32", "nerf_mlp_bwd_wgrad",
                                     "nerf_mlp_bwd_reduce") if k in e.name),
                        e.name[:70])

@@ -1,15 +1,17 @@
 // Shared device code of the fused NeRF-MLP kernels (nerf_mlp_fwd.cu,
-// nerf_mlp_bwd.cu, nerf_pe_mm.cu): tile shapes, the bf16 tensor-core and
-// f32 FMA matmul loops over one tile of points, the positional encoding,
-// the forward layer sequence that the forward kernel runs, the remat
-// backward re-runs and the matmul-only kernel runs on a pre-encoded PE,
-// and the alpha and rgb heads.
+// nerf_mlp_bwd.cu, nerf_mlp_dgrad.cu, nerf_pe_mm.cu): tile shapes, the
+// bf16 mma.sync / ldmatrix helpers of the wgrad, the f32 FMA matmul loop
+// over one tile of points, the positional encoding, the f32 forward layer
+// sequence and its alpha and rgb heads.  The bf16 forward's layer sequence
+// is nerf_mlp_fwd_sm90.cuh.
 //
-// Weight blob (row-major [out][in], bf16 or f32, K padded with zero
-// columns; kx = round_up(pe_x channels, 32), kd = round_up(pe_d channels,
-// 32)):  W0 [256][kx] | W1..W4 [256][256] | W5 [256][kx + 256] (pe_x part,
-// then a4 part) | W6, W7 [256][256] | Wf [256][256] | Wv [128][256 + kd]
-// (feat part, then pe_d part).  The f32 blob `fp` holds biases and the two
+// f32 weight blob (row-major [out][in], K padded with zero columns; kx =
+// round_up(pe_x channels, 32), kd = round_up(pe_d channels, 32)):  W0
+// [256][kx] | W1..W4 [256][256] | W5 [256][kx + 256] (pe_x part, then a4
+// part) | W6, W7 [256][256] | Wf [256][256] | Wv [128][256 + kd] (feat
+// part, then pe_d part); w_numel() counts it, and the backward's weight
+// grads have its layout.  The bf16 blob is laid out for wgmma
+// (nerf_mlp_fwd_sm90.cuh).  The f32 blob `fp` holds biases and the two
 // small heads at the FP_* offsets below (head weights pre-rounded to bf16
 // in bf16 mode).
 //
@@ -27,7 +29,6 @@ namespace nerf_mlp {
 constexpr int W = 256;         // scene MLP width
 constexpr int WH = 128;        // views layer width
 constexpr int PE_MAX = 128;    // kx + kd
-constexpr int KC = 64;         // K-chunk of the weight ring (K is a multiple of 32)
 constexpr int NTHREADS = 256;  // 8 warps
 constexpr int NWARPS = NTHREADS / 32;
 constexpr int ACTS_LD = 9 * W + WH;  // stash row: a0..a7, feat, hv
@@ -42,58 +43,23 @@ constexpr int FP_NUMEL = FP_WR + 3 * WH;
 
 typedef __nv_bfloat16 bf16;
 
-// Stage clock of the instrumented forward (nerf_mlp_fwd.cu's PROF
-// instantiation): the thread that owns it adds the clock64() cycles since
-// its last mark to the stage it marks.  Stages: the tile's xd load, the PE,
-// weight waits (a chunk's cp.async wait and barrier), matmuls, epilogues,
-// stash stores, the alpha head and the rgb head.
-enum { FS_LOAD, FS_PE, FS_WAIT, FS_MM, FS_EPI, FS_STASH, FS_ALPHA, FS_RGB, N_FS };
-struct FwdClock {
-  long long t, sum[N_FS];
-  __device__ __forceinline__ void start() {
-    for (int i = 0; i < N_FS; ++i) sum[i] = 0;
-    t = clock64();
-  }
-  __device__ __forceinline__ void mark(int s) {
-    const long long n = clock64();
-    sum[s] += n - t;
-    t = n;
-  }
-};
-__device__ __forceinline__ void mark(FwdClock* c, int s) {
-  if (c != nullptr) c->mark(s);
-}
-
 template <bool BF16> struct Tile;
 template <> struct Tile<true> {
   typedef bf16 T_act;
-  static constexpr int T = 128;
-  static constexpr int ACT_LD = W + 8;       // 132 words: conflict-free frags
-  static constexpr int PE_LD = PE_MAX + 8;   // 68 words
-  static constexpr int WST_LD = KC + 8;      // 36 words: conflict-free ldmatrix
-  static constexpr int WST_BYTES = 2 * W * WST_LD * 2;
 };
 template <> struct Tile<false> {
   typedef float T_act;
   static constexpr int T = 64;
   static constexpr int ACT_LD = W + 4;
   static constexpr int PE_LD = PE_MAX + 4;
-  static constexpr int WST_BYTES = 0;
 };
 
 __device__ __forceinline__ void put(float* p, float v) { *p = v; }
-__device__ __forceinline__ void put(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
-__device__ __forceinline__ float get(const float* p) { return *p; }
-__device__ __forceinline__ float get(const bf16* p) { return __bfloat162float(*p); }
 
 // v rounded to the compute dtype (bf16 mode) or unchanged (f32 mode)
 template <bool BF16> __device__ __forceinline__ float rnd(float v) {
   if constexpr (BF16) return __bfloat162float(__float2bfloat16_rn(v));
   return v;
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
 }
 
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
@@ -105,20 +71,8 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// ldmatrix: lane l gives the address of row l % 8 of matrix l / 8 (16 bytes
-// a row); .trans hands each thread the transposed fragment.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const bf16* p) {
-  uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(s));
-}
+// ldmatrix.trans: lane l gives the address of row l % 8 of matrix l / 8
+// (16 bytes a row); each thread gets the transposed fragment.
 __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
   uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(p));
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
@@ -141,115 +95,6 @@ __device__ __forceinline__ float warp_sum(float s) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
   return s;
-}
-
-// ---------------------------------------------------------------------------
-// bf16 tensor-core path
-// ---------------------------------------------------------------------------
-
-// One K-chunk (N rows x kc columns, kc = 64 or 32) of a [N][ldw] bf16
-// weight into a stage.
-template <int N>
-__device__ __forceinline__ void load_wchunk(bf16* st, const bf16* Wg, int ldw, int col0, int kc) {
-  constexpr int LD = Tile<true>::WST_LD;
-  const int sh = kc == KC ? 3 : 2;  // 16-byte pieces a row: 8 or 4
-  for (int i = threadIdx.x; i < N << sh; i += NTHREADS) {
-    const int r = i >> sh, q = i & ((1 << sh) - 1);
-    cp_async16(st + r * LD + q * 8, Wg + (size_t)r * ldw + col0 + q * 8);
-  }
-}
-
-// acc += A[:, 0:K] . Wg[:, w_col0 : w_col0 + K]^T for this warp's
-// 64 rows x N/4 columns (8 warps: 2 along the points, 4 along N), K a
-// multiple of 32, in chunks of up to 64 through a two-stage cp.async ring;
-// fragments by ldmatrix.  Ends with a barrier: every read of A and of the
-// weight stages is done when it returns.
-template <int N>
-__device__ __forceinline__ void gemm_bf16(float (&acc)[4][N / 32][4], const bf16* A,
-                                          int lda, const bf16* Wg, int ldw,
-                                          int w_col0, int K, bf16* wst,
-                                          FwdClock* clk = nullptr) {
-  constexpr int NT = N / 32;
-  constexpr int LD = Tile<true>::WST_LD;
-  constexpr int STAGE = W * LD;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int nch = (K + KC - 1) / KC;
-  // this lane's ldmatrix rows: A rows wm*64 + mt*16 + (lane & 15) at k + 0/8;
-  // weight rows n0 + (lane & 7) (+ 8 for the second n-tile) at k + 0/8
-  const bf16* a_lane = A + (wm * 64 + (lane & 15)) * lda + ((lane >> 4) << 3);
-  const int b_row = wn * (N / 4) + (lane & 7) + ((lane >> 4) << 3);
-  const int b_col = ((lane >> 3) & 1) << 3;
-
-  load_wchunk<N>(wst, Wg, ldw, w_col0, min(KC, K));
-  cp_async_commit();
-  for (int c = 0; c < nch; ++c) {
-    const bf16* cur = wst + (c & 1) * STAGE;
-    if (c + 1 < nch) {
-      load_wchunk<N>(wst + ((c + 1) & 1) * STAGE, Wg, ldw, w_col0 + (c + 1) * KC,
-                     min(KC, K - (c + 1) * KC));
-      cp_async_commit();
-      mark(clk, FS_MM);
-      cp_async_wait<1>();
-    } else {
-      mark(clk, FS_MM);
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    mark(clk, FS_WAIT);
-    const int kc = min(KC, K - c * KC);
-#pragma unroll
-    for (int ks = 0; ks < KC; ks += 16) {
-      if (ks < kc) {
-        uint32_t af[4][4];
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt) ldsm_x4(af[mt], a_lane + mt * 16 * lda + c * KC + ks);
-#pragma unroll
-        for (int np = 0; np < NT / 2; ++np) {
-          uint32_t bfr[4];
-          ldsm_x4(bfr, cur + (b_row + np * 16) * LD + ks + b_col);
-#pragma unroll
-          for (int mt = 0; mt < 4; ++mt) {
-            mma_bf16(acc[mt][2 * np], af[mt], bfr[0], bfr[1]);
-            mma_bf16(acc[mt][2 * np + 1], af[mt], bfr[2], bfr[3]);
-          }
-        }
-        if constexpr (NT & 1) {
-          uint32_t bfr[2];
-          ldsm_x2(bfr, cur + (b_row - ((lane >> 4) << 3) + (NT - 1) * 8) * LD + ks + b_col);
-#pragma unroll
-          for (int mt = 0; mt < 4; ++mt) mma_bf16(acc[mt][NT - 1], af[mt], bfr[0], bfr[1]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void epilogue_bf16(const float (&acc)[4][N / 32][4],
-                                              const float* bias, bool relu,
-                                              bf16* dst, int ldd) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt) {
-#pragma unroll
-    for (int nt = 0; nt < N / 32; ++nt) {
-      const int r = wm * 64 + mt * 16 + g;
-      const int col = wn * (N / 4) + nt * 8 + 2 * t;
-      const float c0 = bias[col], c1 = bias[col + 1];
-      float v0 = acc[mt][nt][0] + c0, v1 = acc[mt][nt][1] + c1;
-      float v2 = acc[mt][nt][2] + c0, v3 = acc[mt][nt][3] + c1;
-      if (relu) {
-        v0 = fmaxf(v0, 0.f); v1 = fmaxf(v1, 0.f);
-        v2 = fmaxf(v2, 0.f); v3 = fmaxf(v3, 0.f);
-      }
-      *reinterpret_cast<__nv_bfloat162*>(dst + r * ldd + col) = __floats2bfloat162_rn(v0, v1);
-      *reinterpret_cast<__nv_bfloat162*>(dst + (r + 8) * ldd + col) = __floats2bfloat162_rn(v2, v3);
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -300,38 +145,20 @@ __device__ __forceinline__ void epilogue_f32(const float (&acc)[Tile<false>::T *
 // shared pieces
 // ---------------------------------------------------------------------------
 
-// One dense layer: dst = act(A1 . W[:, :K1]^T + A2 . W[:, K1:]^T + bias),
-// written in place over the activation buffer (dst may alias A1).
-template <bool BF16, int N, typename WT>
-__device__ __forceinline__ void dense(const WT* Wg, int ldw,
-                                      const typename Tile<BF16>::T_act* A1, int lda1, int K1,
-                                      const typename Tile<BF16>::T_act* A2, int lda2, int K2,
-                                      const float* bias, bool relu,
-                                      typename Tile<BF16>::T_act* dst, WT* wst,
-                                      FwdClock* clk = nullptr) {
-  if constexpr (BF16) {
-    float acc[4][N / 32][4];
+// One f32 dense layer: dst = act(A1 . W[:, :K1]^T + A2 . W[:, K1:]^T +
+// bias), written in place over the activation buffer (dst may alias A1).
+template <int N>
+__device__ __forceinline__ void dense(const float* Wg, int ldw, const float* A1, int lda1, int K1,
+                                      const float* A2, int lda2, int K2, const float* bias,
+                                      bool relu, float* dst) {
+  float acc[Tile<false>::T * N / NTHREADS];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < N / 32; ++j)
-#pragma unroll
-        for (int k = 0; k < 4; ++k) acc[i][j][k] = 0.f;
-    gemm_bf16<N>(acc, A1, lda1, Wg, ldw, 0, K1, wst, clk);
-    if (K2 > 0) gemm_bf16<N>(acc, A2, lda2, Wg, ldw, K1, K2, wst, clk);
-    mark(clk, FS_MM);
-    epilogue_bf16<N>(acc, bias, relu, dst, Tile<true>::ACT_LD);
-  } else {
-    float acc[Tile<false>::T * N / NTHREADS];
-#pragma unroll
-    for (int i = 0; i < Tile<false>::T * N / NTHREADS; ++i) acc[i] = 0.f;
-    gemm_f32<N>(acc, A1, lda1, Wg, ldw, 0, K1);
-    if (K2 > 0) gemm_f32<N>(acc, A2, lda2, Wg, ldw, K1, K2);
-    __syncthreads();
-    epilogue_f32<N>(acc, bias, relu, dst, Tile<false>::ACT_LD);
-  }
+  for (int i = 0; i < Tile<false>::T * N / NTHREADS; ++i) acc[i] = 0.f;
+  gemm_f32<N>(acc, A1, lda1, Wg, ldw, 0, K1);
+  if (K2 > 0) gemm_f32<N>(acc, A2, lda2, Wg, ldw, K1, K2);
   __syncthreads();
-  mark(clk, FS_EPI);
+  epilogue_f32<N>(acc, bias, relu, dst, Tile<false>::ACT_LD);
+  __syncthreads();
 }
 
 // Rows [p0, min(p0 + T, P)) of a [T][LD] shared-memory tile, N columns,
@@ -404,63 +231,42 @@ inline long long w_numel(int kx, int kd) {
   return (long long)W * kx + 7LL * W * W + (long long)W * (kx + W) + (long long)WH * (W + kd);
 }
 
-// The scene MLP's layers on one tile whose PE is in `pe`: every activation
-// is written over `act` in turn (a7, then feat, then hv in its first 128
-// columns).  With `acts` non-null each activation (a0..a7, feat, hv) is
-// also stored to the stash rows [p0, min(p0 + T, P)).  `after_a7` runs
-// with a7 in `act`, before the feature layer overwrites it.  `clk`, if not
-// null, takes the stage clock's marks.
-template <bool BF16, typename WT, typename F>
-__device__ __forceinline__ void forward_tile(const WT* const (&w)[10], const float* fp,
-                                             int kx, int kd,
-                                             typename Tile<BF16>::T_act* act,
-                                             const typename Tile<BF16>::T_act* pe, WT* wst,
-                                             WT* acts, int p0, int P, F after_a7,
-                                             FwdClock* clk = nullptr) {
-  typedef Tile<BF16> TL;
+// The scene MLP's layers in f32 on one tile whose PE is in `pe`: every
+// activation is written over `act` in turn (a7, then feat, then hv in its
+// first 128 columns).  With `acts` non-null each activation (a0..a7, feat,
+// hv) is also stored to the stash rows [p0, min(p0 + T, P)).  `after_a7`
+// runs with a7 in `act`, before the feature layer overwrites it.
+template <typename F>
+__device__ __forceinline__ void forward_tile(const float* const (&w)[10], const float* fp, int kx,
+                                             int kd, float* act, const float* pe, float* acts,
+                                             int p0, int P, F after_a7) {
+  typedef Tile<false> TL;
   constexpr int T = TL::T, ALD = TL::ACT_LD, PLD = TL::PE_LD;
   auto emit = [&](int col) {
-    if (acts != nullptr) {
-      store_rows<T, ALD, W>(act, acts + col, ACTS_LD, p0, P);
-      mark(clk, FS_STASH);
-    }
+    if (acts != nullptr) store_rows<T, ALD, W>(act, acts + col, ACTS_LD, p0, P);
   };
-  dense<BF16, W>(w[0], kx, pe, PLD, kx, pe, PLD, 0, fp, true, act, wst, clk);
+  dense<W>(w[0], kx, pe, PLD, kx, pe, PLD, 0, fp, true, act);
   emit(0);
 #pragma unroll 1
   for (int l = 1; l <= 4; ++l) {
-    dense<BF16, W>(w[l], W, act, ALD, W, act, ALD, 0, fp + l * W, true, act, wst, clk);
+    dense<W>(w[l], W, act, ALD, W, act, ALD, 0, fp + l * W, true, act);
     emit(l * W);
   }
-  dense<BF16, W>(w[5], kx + W, pe, PLD, kx, act, ALD, W, fp + 5 * W, true, act, wst, clk);
+  dense<W>(w[5], kx + W, pe, PLD, kx, act, ALD, W, fp + 5 * W, true, act);
   emit(5 * W);
-  dense<BF16, W>(w[6], W, act, ALD, W, act, ALD, 0, fp + 6 * W, true, act, wst, clk);
+  dense<W>(w[6], W, act, ALD, W, act, ALD, 0, fp + 6 * W, true, act);
   emit(6 * W);
-  dense<BF16, W>(w[7], W, act, ALD, W, act, ALD, 0, fp + 7 * W, true, act, wst, clk);
+  dense<W>(w[7], W, act, ALD, W, act, ALD, 0, fp + 7 * W, true, act);
   emit(7 * W);
   // reads of a7 here finish before the feature layer's epilogue overwrites
-  // it (that epilogue runs only after the feature gemm's barriers)
+  // it (that epilogue runs only after the feature gemm's barrier)
   after_a7();
-  mark(clk, FS_ALPHA);
-  dense<BF16, W>(w[8], W, act, ALD, W, act, ALD, 0, fp + FP_BF, false, act, wst, clk);
+  dense<W>(w[8], W, act, ALD, W, act, ALD, 0, fp + FP_BF, false, act);
   emit(8 * W);
-  dense<BF16, WH>(w[9], W + kd, act, ALD, W, pe + kx, PLD, kd, fp + FP_BV, true, act, wst, clk);
-  if (acts != nullptr) {
-    store_rows<T, ALD, WH>(act, acts + 9 * W, ACTS_LD, p0, P);
-    mark(clk, FS_STASH);
-  }
+  dense<WH>(w[9], W + kd, act, ALD, W, pe + kx, PLD, kd, fp + FP_BV, true, act);
+  if (acts != nullptr) store_rows<T, ALD, WH>(act, acts + 9 * W, ACTS_LD, p0, P);
 }
 
-__device__ __forceinline__ void load_row(const bf16* p, float (&v)[8]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float2 f = __bfloat1622float2(h[j]);
-    v[2 * j] = f.x;
-    v[2 * j + 1] = f.y;
-  }
-}
 __device__ __forceinline__ void load_row(const float* p, float (&v)[8]) {
   const float4 a = reinterpret_cast<const float4*>(p)[0];
   const float4 b = reinterpret_cast<const float4*>(p)[1];
@@ -508,12 +314,11 @@ __device__ __forceinline__ void head_rgb(const AT* act, const float* fp, float* 
   }
 }
 
-// Shared memory of a forward tile: the activation and PE tiles, the packed
-// input rows (T x 8 floats) and the weight ring.
-template <bool BF16> constexpr int fwd_smem() {
-  typedef Tile<BF16> TL;
-  return (TL::T * TL::ACT_LD + TL::T * TL::PE_LD) * (int)sizeof(typename TL::T_act) +
-         TL::T * 8 * 4 + TL::WST_BYTES;
+// Shared memory of an f32 forward tile: the activation and PE tiles and
+// the packed input rows (T x 8 floats).
+constexpr int fwd_smem_f32() {
+  typedef Tile<false> TL;
+  return (TL::T * TL::ACT_LD + TL::T * TL::PE_LD) * 4 + TL::T * 8 * 4;
 }
 
 }  // namespace nerf_mlp

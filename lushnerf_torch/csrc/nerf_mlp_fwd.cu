@@ -4,16 +4,16 @@
 // Replaces the Pallas TPU kernel `_fwd_kernel` in
 // lushnerf_tpu/ops/fused/nerf_mlp.py (launched by `_fwd_call`, entry
 // `eval_points_fused`), with its activation stash: given a stash pointer the
-// kernel also writes a0..a7, feat and hv for the backward kernel
-// (nerf_mlp_bwd.cu), as the TPU kernel does with emit_acts.  The PE is not
-// stashed (the TPU kernel's emit_pe): the backward recomputes it from xd.
+// kernel also writes a0..a7, feat and hv for the backward kernels, as the
+// TPU kernel does with emit_acts.  The PE is not stashed (the TPU kernel's
+// emit_pe): the backward recomputes it from xd.
 //
 // Per point (xd = [x, y, z, dx, dy, dz, 0, 0]):
 //   pe_x = posenc(xyz, nfx), pe_d = posenc(dir, nfd)   (identity, then
-//          [sin(2^j v), cos(2^j v)] blocks; sinf/cosf, never the fast
-//          intrinsics: arguments reach |x| ~ 800 in NDC at nfx = 10)
+//          [sin(2^j v), cos(2^j v)] blocks; full range reduction, never the
+//          fast intrinsics: arguments reach |x| ~ 800 in NDC at nfx = 10)
 //   a0 = relu(pe_x W0 + b0); a_l = relu(a_{l-1} W_l + b_l), l = 1..4
-//   a5 = relu(pe_x W5a + a4 W5b + b5)      (skip concat as one K = 64+256
+//   a5 = relu(pe_x W5a + a4 W5b + b5)      (skip concat as one K = 256+64
 //                                           accumulation; the plain version
 //                                           adds two partial products, so
 //                                           the sums differ in order only)
@@ -24,122 +24,85 @@
 // Two modes, chosen per launch:
 //   bf16: every matmul input (PE, activations, weights) is rounded to bf16,
 //         products accumulate in f32, bias and relu in f32 -- the rounding
-//         points of the TPU kernel's bfloat16 mode.  Tensor cores
-//         (mma.sync m16n8k16, bf16 in, f32 accumulate).  The stash holds the
-//         bf16 values the next layer reads.
-//   f32:  IEEE float32 FMAs throughout (no TF32); f32 stash.
+//         points of the TPU kernel's bfloat16 mode.  The stash holds the
+//         bf16 values the next layer reads.  The flagship path.  Its design
+//         (wgmma, a weight ring fed by bulk copies multicast across a
+//         two-block cluster, a persistent grid whose PE warps overlap the
+//         matmuls, the stash by TMA stores) is nerf_mlp_fwd_sm90.cuh's,
+//         shared with the matmul-only kernel of nerf_pe_mm.cu.
+//   f32:  IEEE float32 FMAs throughout (no TF32), f32 stash: one 64-point
+//         tile a block, 8 warps, weights read from L1/L2.
 //
-// What bounds it: compute without the stash.  1,186,816 FLOP per point
-// against 48 bytes of input and output, far above the card's ~295 FLOP/byte
-// ridge; the weights (1.19 MB in bf16) are re-read from L2 by every tile.
-// With the stash it writes 4,864 more bytes per point in bf16, which puts
-// the bound on the bytes.  The TPU kernel kept all weights resident in
-// VMEM; an SM has 227 KB of shared memory, so here a tile of 128 points
-// keeps its activations in shared memory (one bf16 buffer, rewritten in
-// place once a layer's accumulators are complete) and streams each layer's
-// weights through a two-stage cp.async ring in K-chunks of 32, so the next
-// chunk's load overlaps the current chunk's mma.  Eight warps split each
-// layer's output as 2 (points) x 4 (neurons).  The two heads with 1 and 3
-// outputs are warp-reduced dot products.  The stash rows are copied out of
-// shared memory after each layer, 16 bytes a thread.  wgmma/TMA and a
-// persistent schedule are later work.
+// What bounds it: compute without the stash, 1,186,816 FLOP per point
+// against 48 bytes of input and output, far above the card's ~295
+// FLOP/byte ridge.  With the stash it writes 4,864 more bytes per point in
+// bf16, which puts the bound on the bytes.  The TPU kernel kept all weights
+// resident in VMEM; an SM has 227 KB of shared memory, so here every tile
+// streams them from L2 (nerf_mlp_fwd_sm90.cuh).
 //
-// Layouts of the weight blob, the f32 blob and the stash: nerf_mlp_common.cuh.
+// Layouts of the f32 weight blob, the f32 blob and the stash:
+// nerf_mlp_common.cuh; of the bf16 weight blob: nerf_mlp_fwd_sm90.cuh.
 
-#include "nerf_mlp_common.cuh"
+#include "nerf_mlp_fwd_sm90.cuh"
 
 namespace {
 
 using namespace nerf_mlp;
 
-template <typename WT> struct Args {
-  const float* xd;   // [P, 8]
-  const float* fp;   // biases and heads
-  const WT* w[10];   // W0..W7, Wf, Wv inside the weight blob
-  float* out;        // [P, 4]
-  WT* acts;          // [P, ACTS_LD] stash, or null
-  long long* stamps; // [ceil(grid / STAMP_EVERY)][N_FS] stage cycles, or null
+struct ArgsF32 {
+  const float* xd;     // [P, 8]
+  const float* fp;     // biases and heads
+  const float* w[10];  // W0..W7, Wf, Wv inside the weight blob
+  float* out;          // [P, 4]
+  float* acts;         // [P, ACTS_LD] stash, or null
   int P, kx, kd, nfx, nfd;
 };
 
-// The instrumented instantiation records the stage cycles of thread 0 of
-// every STAMP_EVERY-th block (one tile each).
-constexpr int STAMP_EVERY = 64;
-
-template <bool BF16, typename WT, bool PROF>
-__global__ void __launch_bounds__(NTHREADS, 1) nerf_mlp_fwd_kernel(Args<WT> args) {
-  typedef Tile<BF16> TL;
-  typedef typename TL::T_act AT;
+__global__ void __launch_bounds__(NTHREADS, 1) nerf_mlp_fwd_f32_kernel(ArgsF32 args) {
+  typedef Tile<false> TL;
   constexpr int T = TL::T, ALD = TL::ACT_LD, PLD = TL::PE_LD;
   extern __shared__ __align__(16) unsigned char smem[];
-  AT* act = reinterpret_cast<AT*>(smem);
-  AT* pe = act + T * ALD;
-  float* xs = reinterpret_cast<float*>(pe + T * PLD);
-  WT* wst = reinterpret_cast<WT*>(xs + T * 8);  // weight ring (bf16 only)
+  float* act = reinterpret_cast<float*>(smem);
+  float* pe = act + T * ALD;
+  float* xs = pe + T * PLD;
 
   const int p0 = blockIdx.x * T;
   const int P = args.P;
   const float* fp = args.fp;
 
-  FwdClock c;
-  FwdClock* clk = nullptr;
-  if constexpr (PROF) {
-    if (threadIdx.x == 0 && blockIdx.x % STAMP_EVERY == 0) {
-      clk = &c;
-      c.start();
-    }
-  }
   load_xd<T>(xs, args.xd, p0, P);
   __syncthreads();
-  mark(clk, FS_LOAD);
   pe_tile<T, PLD>(pe, xs, args.kx, args.kd, args.nfx, args.nfd);
   __syncthreads();
-  mark(clk, FS_PE);
   float* out = args.out + (size_t)p0 * 4;
-  forward_tile<BF16, WT>(args.w, fp, args.kx, args.kd, act, pe, wst, args.acts, p0, P,
-                         [&] { head_alpha<T, ALD>(act, fp, out, P - p0); }, clk);
+  forward_tile(args.w, fp, args.kx, args.kd, act, pe, args.acts, p0, P,
+               [&] { head_alpha<T, ALD>(act, fp, out, P - p0); });
   head_rgb<T, ALD>(act, fp, out, P - p0);
-  if constexpr (PROF) {
-    if (clk != nullptr) {
-      c.mark(FS_RGB);
-      for (int i = 0; i < N_FS; ++i)
-        args.stamps[(size_t)(blockIdx.x / STAMP_EVERY) * N_FS + i] = c.sum[i];
-    }
-  }
 }
 
-template <bool BF16, typename WT>
-int launch(const float* xd, const void* w, const float* fp, float* out, void* acts,
-           long long* stamps, int P, int kx, int kd, int nfx, int nfd, cudaStream_t stream) {
-  typedef Tile<BF16> TL;
-  constexpr int SMEM = fwd_smem<BF16>();
+int launch_f32(const float* xd, const void* w, const float* fp, float* out, void* acts, int P,
+               int kx, int kd, int nfx, int nfd, cudaStream_t stream) {
+  constexpr int SMEM = fwd_smem_f32();
   static bool attr_set = false;
   if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(nerf_mlp_fwd_kernel<BF16, WT, false>,
+    cudaError_t e = cudaFuncSetAttribute(nerf_mlp_fwd_f32_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(nerf_mlp_fwd_kernel<BF16, WT, BF16>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
     if (e != cudaSuccess) return (int)e;
     attr_set = true;
   }
-  Args<WT> a;
+  ArgsF32 a;
   a.xd = xd;
   a.fp = fp;
   a.out = out;
-  a.acts = static_cast<WT*>(acts);
-  a.stamps = stamps;
+  a.acts = static_cast<float*>(acts);
   a.P = P;
   a.kx = kx;
   a.kd = kd;
   a.nfx = nfx;
   a.nfd = nfd;
-  fill_offsets<WT>(a.w, w, kx, kd);
-  const int grid = (P + TL::T - 1) / TL::T;
-  if (stamps != nullptr)
-    nerf_mlp_fwd_kernel<BF16, WT, BF16><<<grid, NTHREADS, SMEM, stream>>>(a);  // bf16 only
-  else
-    nerf_mlp_fwd_kernel<BF16, WT, false><<<grid, NTHREADS, SMEM, stream>>>(a);
+  fill_offsets<float>(a.w, w, kx, kd);
+  const int grid = (P + Tile<false>::T - 1) / Tile<false>::T;
+  nerf_mlp_fwd_f32_kernel<<<grid, NTHREADS, SMEM, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -147,29 +110,48 @@ int launch(const float* xd, const void* w, const float* fp, float* out, void* ac
 
 extern "C" {
 
-// Number of elements of the weight blob and of the f32 blob for (kx, kd),
-// and the stash's row length; the Python packer checks its layout against
-// these.
-long long nerf_mlp_fwd_w_numel(int kx, int kd) { return w_numel(kx, kd); }
+// Number of elements of the weight blob for (kx, kd) in the mode's layout,
+// of the f32 blob, the stash's row length, the bf16 kernel's points a tile
+// and blocks a cluster, and the stage stamps' columns; the Python side
+// checks its layouts and geometry against these.
+long long nerf_mlp_fwd_w_numel(int kx, int kd, int bf16_mode) {
+  return bf16_mode ? fwd90::blob_numel(kx, kd) : w_numel(kx, kd);
+}
 long long nerf_mlp_fwd_fp_numel() { return FP_NUMEL; }
 long long nerf_mlp_fwd_acts_ld() { return ACTS_LD; }
-int nerf_mlp_fwd_n_stages() { return N_FS; }
-int nerf_mlp_fwd_stamp_every() { return STAMP_EVERY; }
+int nerf_mlp_fwd_tile() { return fwd90::T; }
+int nerf_mlp_fwd_cluster() { return fwd90::CLUSTER; }
+int nerf_mlp_fwd_n_stages() { return fwd90::N_ST; }
 
-// Launches the kernel on `stream` and returns cudaGetLastError() (0 = OK).
-// `acts` is null, or a [P, ACTS_LD] stash in the compute dtype; `stamps`
-// null, or [ceil(ceil(P / tile) / stamp_every)][n_stages] int64 for the
-// stage cycles of the instrumented instantiation (bf16 only).
+// The most clusters of the bf16 kernel resident at once on the current
+// device into *n; returns 0 or a CUDA error code.
+int nerf_mlp_fwd_max_clusters(int* n) { return fwd90::max_clusters<fwd90::MODE_FWD>(n); }
+
+// Launches the kernel on `stream` and returns 0 or a CUDA error code.
+// `acts` is null, or a [P, ACTS_LD] stash in the compute dtype.  bf16:
+// `n_clusters` clusters (1 .. nerf_mlp_fwd_max_clusters), `stamps` null or
+// [tiles of block 0][n_stages] int64 for the stage cycles of the
+// instrumented instantiation.  f32: both ignored.
 // Requires P > 0, kx and kd multiples of 32 with kx + kd <= 128,
 // 3 + 6 * nfx <= kx and 3 + 6 * nfd <= kd; all pointers 16-byte aligned.
 int nerf_mlp_fwd(const float* xd, const void* w, const float* fp, float* out, void* acts,
                  long long* stamps, int P, int kx, int kd, int nfx, int nfd, int bf16_mode,
-                 void* stream) {
+                 int n_clusters, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16_mode)
-    return launch<true, bf16>(xd, w, fp, out, acts, stamps, P, kx, kd, nfx, nfd, s);
-  if (stamps != nullptr) return (int)cudaErrorInvalidValue;
-  return launch<false, float>(xd, w, fp, out, acts, nullptr, P, kx, kd, nfx, nfd, s);
+  if (!bf16_mode) return launch_f32(xd, w, fp, out, acts, P, kx, kd, nfx, nfd, s);
+  fwd90::Args a;
+  memset(&a, 0, sizeof(a));
+  a.in = xd;
+  a.fp = fp;
+  a.w = static_cast<const bf16*>(w);
+  a.out = out;
+  a.stamps = stamps;
+  a.P = P;
+  a.kx = kx;
+  a.kd = kd;
+  a.nfx = nfx;
+  a.nfd = nfd;
+  return fwd90::launch<fwd90::MODE_FWD>(a, acts, n_clusters, s);
 }
 
 const char* nerf_mlp_fwd_error_string(int code) {

@@ -24,17 +24,20 @@
 //   blob of nerf_mlp_fwd.cu -> out [P, 128] f32: lane 0 = rgb0 + alpha,
 //   lanes 1, 2 = rgb1, rgb2, all other lanes zero (the TPU kernel's
 //   `concat(rgb[:, :4], 0) + alpha`, whose padded lanes are zero).
-//   It is the forward kernel's tile loop with the PE stage replaced by a
-//   load of the pre-encoded tile: lanes [0, NX) go to columns [0, NX),
-//   lanes [NX, NX + ND) to columns [kx, kx + ND) (the port's separately
-//   padded layout), each rounded to bf16 as the forward kernel rounds its
-//   PE; then the shared layer sequence (forward_tile) and heads.
+//   It is the bf16 forward kernel's design (nerf_mlp_fwd_sm90.cuh: wgmma,
+//   the weight ring multicast across a two-block cluster, a persistent
+//   grid) with the PE warps loading the pre-encoded tile instead of
+//   computing it: lanes [0, NX) go to columns [0, NX), lanes [NX, NX + ND)
+//   to columns [kx, kx + ND) (the port's separately padded layout), each
+//   rounded to bf16 as the forward kernel rounds its PE; then the same
+//   layer sequence and heads, and 128-lane output rows.
 //   What bounds it: operations, 1,186,816 FLOP per point, as the forward
-//   kernel; its bytes (640 per point) are a quarter of that time.
+//   kernel; its bytes (1,024 per point) are a quarter of that time.
 //
-// Layouts of the weight blob and the f32 blob: nerf_mlp_common.cuh.
+// Layouts of the weight blob (bf16, the forward kernel's) and the f32 blob:
+// nerf_mlp_fwd_sm90.cuh and nerf_mlp_common.cuh.
 
-#include "nerf_mlp_common.cuh"
+#include "nerf_mlp_fwd_sm90.cuh"
 
 namespace {
 
@@ -76,63 +79,6 @@ __global__ void __launch_bounds__(256) pe_only_kernel(const float* __restrict__ 
   reinterpret_cast<float4*>(out + p * LANES)[lane] = v;
 }
 
-// ---------------------------------------------------------------------------
-// mm_only
-// ---------------------------------------------------------------------------
-
-struct MMArgs {
-  const float* pe;    // [P, 128]
-  const float* fp;    // biases and heads
-  const bf16* w[10];  // W0..W7, Wf, Wv inside the weight blob
-  float* out;         // [P, 128]
-  int P, kx, kd;
-};
-
-// Rows [p0, p0 + T) of the pre-encoded pe [P][128] into the PE tile
-// [T][LD] (bf16): column c < kx reads lane c (zero from NX on), column
-// kx + i reads lane NX + i (zero from ND on); rows past P are zero.
-template <int T, int LD>
-__device__ __forceinline__ void load_pe_rows(bf16* pe_s, const float* pe, int p0, int P, int kx,
-                                             int kd) {
-  const int ncol = kx + kd;
-  for (int idx = threadIdx.x; idx < T * ncol; idx += NTHREADS) {
-    const int p = idx / ncol, c = idx - p * ncol;
-    const int lane = c < kx ? (c < NX ? c : -1) : (c - kx < ND ? NX + c - kx : -1);
-    float v = 0.f;
-    if (lane >= 0 && p0 + p < P) v = __ldg(pe + (size_t)(p0 + p) * LANES + lane);
-    put(pe_s + p * LD + c, v);
-  }
-}
-
-__global__ void __launch_bounds__(NTHREADS, 1) mm_only_kernel(MMArgs args) {
-  typedef Tile<true> TL;
-  constexpr int T = TL::T, ALD = TL::ACT_LD, PLD = TL::PE_LD;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* act = reinterpret_cast<bf16*>(smem);
-  bf16* pe = act + T * ALD;
-  float* o4 = reinterpret_cast<float*>(pe + T * PLD);  // [T][4] rgb, alpha (the input-row slot)
-  bf16* wst = reinterpret_cast<bf16*>(o4 + T * 8);      // weight ring
-
-  const int p0 = blockIdx.x * T;
-  const int P = args.P;
-  const float* fp = args.fp;
-
-  load_pe_rows<T, PLD>(pe, args.pe, p0, P, args.kx, args.kd);
-  __syncthreads();
-  forward_tile<true, bf16>(args.w, fp, args.kx, args.kd, act, pe, wst, nullptr, p0, P,
-                           [&] { head_alpha<T, ALD>(act, fp, o4, T); });
-  head_rgb<T, ALD>(act, fp, o4, T);
-  __syncthreads();
-  // 128-lane rows, 16 bytes a thread: [rgb0 + alpha, rgb1, rgb2, 0], then zeros
-  for (int i = threadIdx.x; i < T * (LANES / 4); i += NTHREADS) {
-    const int p = i / (LANES / 4), q = i % (LANES / 4);
-    if (p0 + p >= P) continue;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (q == 0) v = make_float4(o4[p * 4] + o4[p * 4 + 3], o4[p * 4 + 1], o4[p * 4 + 2], 0.f);
-    reinterpret_cast<float4*>(args.out + (size_t)(p0 + p) * LANES)[q] = v;
-  }
-}
-
 }  // namespace
 
 extern "C" {
@@ -146,35 +92,32 @@ int nerf_pe_only(const float* xd, float* out, int P, void* stream) {
   return (int)cudaGetLastError();
 }
 
-// Launches mm_only (bf16) on `stream`; returns cudaGetLastError().
+// Launches mm_only (bf16) on `n_clusters` clusters (1 ..
+// nerf_mm_only_max_clusters) on `stream`; returns 0 or a CUDA error code.
 // w: the bf16 weight blob for (kx, kd), fp: the f32 blob
-// (nerf_mlp_fwd_w_numel / _fp_numel give their sizes).  Requires P > 0,
+// (nerf_pe_mm_w_numel / _fp_numel give their sizes).  Requires P > 0,
 // kx and kd multiples of 32 with kx + kd <= 128, NX <= kx, ND <= kd; all
 // pointers 16-byte aligned.
 int nerf_mm_only(const float* pe, const void* w, const float* fp, float* out, int P, int kx,
-                 int kd, void* stream) {
-  constexpr int SMEM = fwd_smem<true>();
-  static bool attr_set = false;
-  if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(mm_only_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-    if (e != cudaSuccess) return (int)e;
-    attr_set = true;
-  }
-  MMArgs a;
-  a.pe = pe;
+                 int kd, int n_clusters, void* stream) {
+  if (NX > kx || ND > kd) return (int)cudaErrorInvalidValue;
+  fwd90::Args a;
+  memset(&a, 0, sizeof(a));
+  a.in = pe;
   a.fp = fp;
+  a.w = static_cast<const bf16*>(w);
   a.out = out;
   a.P = P;
   a.kx = kx;
   a.kd = kd;
-  fill_offsets<bf16>(a.w, w, kx, kd);
-  const int grid = (P + Tile<true>::T - 1) / Tile<true>::T;
-  mm_only_kernel<<<grid, NTHREADS, SMEM, static_cast<cudaStream_t>(stream)>>>(a);
-  return (int)cudaGetLastError();
+  a.nfx = NX;
+  a.nfd = ND;
+  return fwd90::launch<fwd90::MODE_MM>(a, nullptr, n_clusters, static_cast<cudaStream_t>(stream));
 }
 
-long long nerf_pe_mm_w_numel(int kx, int kd) { return w_numel(kx, kd); }
+int nerf_mm_only_max_clusters(int* n) { return fwd90::max_clusters<fwd90::MODE_MM>(n); }
+
+long long nerf_pe_mm_w_numel(int kx, int kd) { return fwd90::blob_numel(kx, kd); }
 long long nerf_pe_mm_fp_numel() { return FP_NUMEL; }
 
 const char* nerf_pe_mm_error_string(int code) {

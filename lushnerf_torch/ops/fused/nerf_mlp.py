@@ -5,7 +5,10 @@ The forward kernel (`lushnerf_torch/csrc/nerf_mlp_fwd.cu`) computes, per
 point, positional encoding + the 8x256 scene MLP (skip at layer 4) + alpha /
 feature / views / rgb heads, and writes raw [rgb, alpha]; for training it
 also writes the activation stash a0..a7, feat, hv.  It replaces the Pallas
-TPU kernel `_fwd_kernel` of `lushnerf_tpu/ops/fused/nerf_mlp.py`.  The
+TPU kernel `_fwd_kernel` of `lushnerf_tpu/ops/fused/nerf_mlp.py`.  In bf16
+it runs `csrc/nerf_mlp_fwd_sm90.cuh` (wgmma, a persistent grid of two-block
+clusters that multicast the weights); `fwd_grid` and `fwd_tiles` are its
+geometry.  The
 backward kernels compute d(xd) and the grads of every parameter from the
 stash (replacing `_bwd_stash_kernel`, mode 'stash') or, in mode 'remat'
 (replacing `_bwd_kernel`), from a stash the forward kernel writes into
@@ -72,9 +75,14 @@ DGRAD_STAGES = (
     + ["dpe_x", "dxd_x"]
 )
 
-# The bf16 forward kernel's stages (its instrumented instantiation adds the
-# cycles of each; mirrors FS_* in csrc/nerf_mlp_common.cuh)
-FWD_STAGES = ("load", "pe", "wait", "mm", "epilogue", "stash", "alpha", "rgb")
+# The bf16 forward kernel's stages: consumer thread 0's cycles of each in
+# each tile of block 0 (its instrumented instantiation), then, off that
+# path, the PE warps' work (mirrors ST_* in csrc/nerf_mlp_fwd_sm90.cuh)
+FWD_STAGES = ("pe_wait", "weight_wait", "mm", "stash_wait", "epilogue", "stash", "out")
+FWD_OFF_PATH = ("pe_work",)
+FWD_TILE = 128  # points a tile of the bf16 forward kernel
+FWD_CLUSTER = 2  # blocks a cluster: each weight piece is multicast to both
+FWD_PIECE = 128 * 64  # elements of a weight piece of the bf16 blob
 
 COMPUTE_DTYPES = ("float32", "bfloat16")
 BWD_MODES = ("remat", "stash")
@@ -93,6 +101,39 @@ def _round32(n: int) -> int:
 def pe_widths(mlp_cfg) -> Tuple[int, int]:
     """(kx, kd): the PE channel counts padded to the kernel's K-chunk."""
     return _round32(mlp_cfg.input_ch), _round32(mlp_cfg.input_ch_views)
+
+
+def fwd_pe_chunks(kx: int, kd: int) -> Tuple[int, int, int]:
+    """(nx, d0, nd): the bf16 forward's PE tile is [P][128] with pe_x at
+    columns [0, kx) and pe_d at [kx, kx + kd), in chunks of 64 columns; W0
+    and W5's pe_x part read its first nx chunks, Wv's pe_d part its nd
+    chunks from chunk d0."""
+    d0 = kx // 64
+    return -(-kx // 64), d0, -(-(kx + kd) // 64) - d0
+
+
+def fwd_grid(P: int, max_clusters: int) -> int:
+    """Clusters of the bf16 forward kernel's persistent grid for P > 0
+    points: one a pair of tiles, at most `max_clusters` (the most that are
+    resident on the card at once)."""
+    n_pairs = -(-(-(-P // FWD_TILE)) // FWD_CLUSTER)
+    return max(1, min(max_clusters, n_pairs))
+
+
+def fwd_tiles(P: int, n_clusters: int) -> List[List[int]]:
+    """The tiles each block of that grid computes, in its loop's order:
+    block CLUSTER c + r takes tile CLUSTER q + r for the pairs q = c, c +
+    n_clusters, ... (both blocks of a cluster walk the same pairs; a tile
+    past the last, at an odd tile count, runs on zeros, writes nothing and
+    is not listed)."""
+    n_tiles = -(-P // FWD_TILE)
+    n_pairs = -(-n_tiles // FWD_CLUSTER)
+    out = []
+    for b in range(FWD_CLUSTER * n_clusters):
+        c, r = divmod(b, FWD_CLUSTER)
+        out.append([FWD_CLUSTER * q + r for q in range(c, n_pairs, n_clusters)
+                    if FWD_CLUSTER * q + r < n_tiles])
+    return out
 
 
 def supports(mlp_cfg, render_cfg) -> bool:
@@ -285,8 +326,11 @@ def _pack_key(mlp, compute_dtype: str):
 
 @torch.no_grad()
 def pack_params(mlp, compute_dtype: str) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kernels' parameter blobs (layout in csrc/nerf_mlp_common.cuh):
-    the weight blob in the compute dtype, the f32 blob of biases and heads.
+    """The kernels' parameter blobs: the weight blob in the compute dtype
+    (f32: row-major, layout in csrc/nerf_mlp_common.cuh; bf16: the pieces
+    the wgmma kernel reads, `fwd_mats_sm90` laid out by `swizzle128` and
+    padded with a zero piece to an even piece count, layout in
+    csrc/nerf_mlp_fwd_sm90.cuh), and the f32 blob of biases and heads.
 
     Packed once per parameter version: the result is cached on the module
     and rebuilt when a parameter is replaced or changed in place.
@@ -303,17 +347,22 @@ def pack_params(mlp, compute_dtype: str) -> Tuple[torch.Tensor, torch.Tensor]:
     def padk(w, k):
         return F.pad(w, (0, k - w.shape[1]))
 
-    pts = [lin.weight for lin in mlp.pts_linears]
-    w5 = pts[5]
-    wv = mlp.views_linears[0].weight
-    mats = [
-        padk(pts[0], kx), pts[1], pts[2], pts[3], pts[4],
-        torch.cat([padk(w5[:, :in_ch], kx), w5[:, in_ch:]], dim=1),
-        pts[6], pts[7], mlp.feature_linear.weight,
-        torch.cat([wv[:, :W], padk(wv[:, W:], kd)], dim=1),
-    ]
-    wdt = torch.bfloat16 if bf16 else torch.float32
-    w = torch.cat([m.reshape(-1) for m in mats]).to(wdt).contiguous()
+    if bf16:
+        w = torch.cat([swizzle128(m.bfloat16()) for m in fwd_mats_sm90(mlp)])
+        if (w.numel() // FWD_PIECE) % 2:  # a zero piece pads an odd piece count
+            w = torch.cat([w, w.new_zeros(FWD_PIECE)])
+        w = w.contiguous()
+    else:
+        pts = [lin.weight for lin in mlp.pts_linears]
+        w5 = pts[5]
+        wv = mlp.views_linears[0].weight
+        mats = [
+            padk(pts[0], kx), pts[1], pts[2], pts[3], pts[4],
+            torch.cat([padk(w5[:, :in_ch], kx), w5[:, in_ch:]], dim=1),
+            pts[6], pts[7], mlp.feature_linear.weight,
+            torch.cat([wv[:, :W], padk(wv[:, W:], kd)], dim=1),
+        ]
+        w = torch.cat([m.reshape(-1) for m in mats]).float().contiguous()
 
     def head(t):
         return t.bfloat16().float() if bf16 else t
@@ -333,8 +382,34 @@ def pack_params(mlp, compute_dtype: str) -> Tuple[torch.Tensor, torch.Tensor]:
     return packed
 
 
+def fwd_mats_sm90(mlp) -> List[torch.Tensor]:
+    """The ten [out][K] matrices of the bf16 forward kernel, K in the order
+    its layers read their chunks: W0 over the PE tile's first nx chunks;
+    W1..W4; W5 over a4, then the PE tile's first nx chunks; W6, W7, Wf; Wv
+    over feat, then the PE tile's nd chunks from chunk d0 (`fwd_pe_chunks`).
+    A PE column a layer does not read gets a zero weight."""
+    cfg = mlp.cfg
+    in_ch, W = cfg.input_ch, cfg.width
+    kx, kd = pe_widths(cfg)
+    nx, d0, nd = fwd_pe_chunks(kx, kd)
+
+    def place(w, n_chunks, col0):  # w's columns at [col0, ..) of n_chunks chunks
+        m = w.new_zeros((w.shape[0], 64 * n_chunks))
+        m[:, col0:col0 + w.shape[1]] = w
+        return m
+
+    pts = [lin.weight for lin in mlp.pts_linears]
+    wv = mlp.views_linears[0].weight
+    return [
+        place(pts[0], nx, 0), pts[1], pts[2], pts[3], pts[4],
+        torch.cat([pts[5][:, in_ch:], place(pts[5][:, :in_ch], nx, 0)], dim=1),
+        pts[6], pts[7], mlp.feature_linear.weight,
+        torch.cat([wv[:, :W], place(wv[:, W:], nd, kx - 64 * d0)], dim=1),
+    ]
+
+
 def swizzle128(m: torch.Tensor) -> torch.Tensor:
-    """A [N][K] block (N a multiple of 8, K of 64) as the bf16 dgrad's wgmma
+    """A [N][K] block (N a multiple of 8, K of 64) as the bf16 kernels' wgmma
     reads its B operand (csrc/hopper.cuh): chunk-major over K in chunks of
     64 columns, each chunk [N][64] row by row (128 bytes a row in bf16), and
     within each group of 8 rows the 8-column piece q of row r stored at
@@ -406,23 +481,29 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("nerf_mlp_fwd")
     if not getattr(lib, "_lushnerf_typed", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.nerf_mlp_fwd.argtypes = [vp] * 6 + [ci] * 6 + [vp]
+        lib.nerf_mlp_fwd.argtypes = [vp] * 6 + [ci] * 7 + [vp]
         lib.nerf_mlp_fwd.restype = ci
-        lib.nerf_mlp_fwd_w_numel.argtypes = [ci, ci]
+        lib.nerf_mlp_fwd_w_numel.argtypes = [ci, ci, ci]
         lib.nerf_mlp_fwd_w_numel.restype = ctypes.c_longlong
+        lib.nerf_mlp_fwd_max_clusters.argtypes = [ctypes.POINTER(ci)]
+        lib.nerf_mlp_fwd_max_clusters.restype = ci
+        lib.nerf_mlp_fwd_tile.argtypes = []
+        lib.nerf_mlp_fwd_tile.restype = ci
+        lib.nerf_mlp_fwd_cluster.argtypes = []
+        lib.nerf_mlp_fwd_cluster.restype = ci
         lib.nerf_mlp_fwd_fp_numel.argtypes = []
         lib.nerf_mlp_fwd_fp_numel.restype = ctypes.c_longlong
         lib.nerf_mlp_fwd_acts_ld.argtypes = []
         lib.nerf_mlp_fwd_acts_ld.restype = ctypes.c_longlong
         lib.nerf_mlp_fwd_n_stages.argtypes = []
         lib.nerf_mlp_fwd_n_stages.restype = ci
-        lib.nerf_mlp_fwd_stamp_every.argtypes = []
-        lib.nerf_mlp_fwd_stamp_every.restype = ci
         lib.nerf_mlp_fwd_error_string.argtypes = [ci]
         lib.nerf_mlp_fwd_error_string.restype = ctypes.c_char_p
         if lib.nerf_mlp_fwd_fp_numel() != FP_NUMEL or lib.nerf_mlp_fwd_acts_ld() != ACTS_LD \
-                or lib.nerf_mlp_fwd_n_stages() != len(FWD_STAGES):
-            raise RuntimeError("nerf_mlp_fwd: f32 blob or stash layout differs from the CUDA source")
+                or lib.nerf_mlp_fwd_n_stages() != len(FWD_STAGES) + len(FWD_OFF_PATH) \
+                or lib.nerf_mlp_fwd_tile() != FWD_TILE or lib.nerf_mlp_fwd_cluster() != FWD_CLUSTER:
+            raise RuntimeError("nerf_mlp_fwd: f32 blob, stash layout, stages or geometry differ "
+                               "from the CUDA source")
         lib._lushnerf_typed = True
     return lib
 
@@ -465,6 +546,24 @@ def _dgrad_lib() -> ctypes.CDLL:
     return lib
 
 
+_MAX_CLUSTERS = {}  # (entry point, device index) -> the most resident clusters
+
+
+def max_clusters(lib, fn_name: str, device: torch.device) -> int:
+    """The most clusters of a bf16 forward-design kernel (lib.<fn_name>)
+    resident at once on `device`; raises if none can be scheduled."""
+    key = (fn_name, device.index)
+    if key not in _MAX_CLUSTERS:
+        n = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            rc = getattr(lib, fn_name)(ctypes.byref(n))
+        if rc != 0 or n.value <= 0:
+            raise RuntimeError(f"{fn_name}: no cluster of the kernel can be scheduled "
+                               f"(CUDA error {rc}, {n.value} clusters)")
+        _MAX_CLUSTERS[key] = n.value
+    return _MAX_CLUSTERS[key]
+
+
 def _needs_grad(mlp, xd: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and (
         xd.requires_grad or any(p.requires_grad for p in mlp.parameters())
@@ -498,16 +597,19 @@ def _fwd_into(mlp, xd: torch.Tensor, compute_dtype: str, num_freqs_x: int,
     if w.device != xd.device:
         raise ValueError(f"nerf_mlp_fwd: params on {w.device}, points on {xd.device}")
     lib = _lib()
-    if w.numel() != lib.nerf_mlp_fwd_w_numel(kx, kd):
+    bf16 = compute_dtype == "bfloat16"
+    if w.numel() != lib.nerf_mlp_fwd_w_numel(kx, kd, int(bf16)):
         raise RuntimeError("nerf_mlp_fwd: weight blob layout differs from the CUDA source")
     _check_aligned("nerf_mlp_fwd", xd, w, fp, out, *([] if acts is None else [acts]))
+    n_clusters = fwd_grid(xd.shape[0], max_clusters(lib, "nerf_mlp_fwd_max_clusters", xd.device)) \
+        if bf16 else 0
     stream = torch.cuda.current_stream(xd.device).cuda_stream
     with torch.cuda.device(xd.device):
         rc = lib.nerf_mlp_fwd(
             xd.data_ptr(), w.data_ptr(), fp.data_ptr(), out.data_ptr(),
             None if acts is None else acts.data_ptr(),
             None if stamps is None else stamps.data_ptr(), xd.shape[0], kx, kd,
-            num_freqs_x, num_freqs_d, int(compute_dtype == "bfloat16"), stream,
+            num_freqs_x, num_freqs_d, int(bf16), n_clusters, stream,
         )
     if rc != 0:
         raise RuntimeError(
@@ -534,15 +636,14 @@ def _launch_fwd(mlp, xd: torch.Tensor, compute_dtype: str, num_freqs_x: int,
 
 def fwd_stage_cycles(mlp, xd: torch.Tensor, stash: bool) -> torch.Tensor:
     """Runs the bf16 forward kernel's instrumented instantiation once on CUDA
-    xd: [stamped tiles, len(FWD_STAGES)] int64, the clock64() cycles of each
-    stage of FWD_STAGES in each stamped tile (not a launch of the main
-    path: not counted)."""
+    xd (P > 0): [tiles of block 0, len(FWD_STAGES + FWD_OFF_PATH)] int64,
+    the clock64() cycles of each stage in each tile (not a launch of the
+    main path: not counted)."""
     _check_cuda_inputs("nerf_mlp_fwd", mlp, xd, "bfloat16", 10, 4)
     xd = xd.contiguous()
     P = xd.shape[0]
-    lib = _lib()
-    n_tiles = -(-P // 128)
-    stamps = torch.zeros((-(-n_tiles // lib.nerf_mlp_fwd_stamp_every()), len(FWD_STAGES)),
+    n_clusters = fwd_grid(P, max_clusters(_lib(), "nerf_mlp_fwd_max_clusters", xd.device))
+    stamps = torch.zeros((len(fwd_tiles(P, n_clusters)[0]), len(FWD_STAGES + FWD_OFF_PATH)),
                          dtype=torch.int64, device=xd.device)
     out = torch.empty((P, OUT_CH), dtype=torch.float32, device=xd.device)
     acts = torch.empty((P, ACTS_LD), dtype=torch.bfloat16, device=xd.device) if stash else None

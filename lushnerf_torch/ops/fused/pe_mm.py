@@ -6,7 +6,9 @@ with their plain PyTorch versions and launch counters.
 Both kernels live in `lushnerf_torch/csrc/nerf_pe_mm.cu`.  `pe_only`
 replaces the Pallas TPU kernel `pe_kernel` of `scripts/tune_kernel.py`
 (`_pe_forward` of `lushnerf_tpu/ops/fused/nerf_mlp.py`), `mm_only` its
-`mm_kernel` (`_fwd_activations` in bfloat16).
+`mm_kernel` (`_fwd_activations` in bfloat16); `mm_only` runs the bf16
+forward kernel's design (`csrc/nerf_mlp_fwd_sm90.cuh`) with its PE loaded,
+on the same weight blob and grid geometry.
 
 The packed PE layout is the JAX package's at the tuning script's fixed
 10 xyz and 4 viewdir frequencies: one 128-lane row per point, lanes [0, 63)
@@ -133,8 +135,10 @@ def _lib() -> ctypes.CDLL:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.nerf_pe_only.argtypes = [vp, vp, ci, vp]
         lib.nerf_pe_only.restype = ci
-        lib.nerf_mm_only.argtypes = [vp, vp, vp, vp, ci, ci, ci, vp]
+        lib.nerf_mm_only.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, vp]
         lib.nerf_mm_only.restype = ci
+        lib.nerf_mm_only_max_clusters.argtypes = [ctypes.POINTER(ci)]
+        lib.nerf_mm_only_max_clusters.restype = ci
         lib.nerf_pe_mm_w_numel.argtypes = [ci, ci]
         lib.nerf_pe_mm_w_numel.restype = ctypes.c_longlong
         lib.nerf_pe_mm_fp_numel.argtypes = []
@@ -206,9 +210,10 @@ def mm_only(mlp, pe: torch.Tensor) -> torch.Tensor:
     if w.numel() != lib.nerf_pe_mm_w_numel(kx, kd):
         raise RuntimeError("mm_only: weight blob layout differs from the CUDA source")
     fused._check_aligned("mm_only", pe, w, fp, out)
+    n_clusters = fused.fwd_grid(P, fused.max_clusters(lib, "nerf_mm_only_max_clusters", pe.device))
     with torch.cuda.device(pe.device):
         rc = lib.nerf_mm_only(pe.data_ptr(), w.data_ptr(), fp.data_ptr(), out.data_ptr(), P,
-                              kx, kd, torch.cuda.current_stream(pe.device).cuda_stream)
+                              kx, kd, n_clusters, torch.cuda.current_stream(pe.device).cuda_stream)
     _check("mm_only", lib, rc)
     global launches_mm_only
     launches_mm_only += 1

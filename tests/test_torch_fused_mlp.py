@@ -10,7 +10,9 @@ plain version there).  Here:
     values to the neighbouring bf16 value (a relative step of 2^-8; the
     observed gap is 5e-5 on outputs of magnitude 0.17);
   * the packed weight blobs the kernel reads reproduce the plain version
-    when evaluated the way the kernel evaluates them (layout and offsets);
+    when evaluated the way the kernel evaluates them (layout and offsets;
+    the bf16 blob read through a plain index model of its wgmma layout,
+    `sm90_mats`);
   * a CPU tensor takes the plain version and launches nothing;
   * the 'cuda' backend routes the JAX package's MLP family, and what the
     compiled kernel does not cover raises before a launch.
@@ -85,17 +87,63 @@ def test_plain_matches_jax_kernel(setup, dtype, S):
     np.testing.assert_allclose(got.numpy().reshape(want.shape), np.asarray(want), **tol)
 
 
+def sm90_pe_chunks(kx, kd):
+    """(nx, d0, nd): the PE tile's chunks of 64 columns (pe_x at [0, kx),
+    pe_d at [kx, kx + kd)) that W0 / W5 read (the first nx) and Wv reads
+    (nd from d0)."""
+    return -(-kx // 64), kx // 64, -(-(kx + kd) // 64) - kx // 64
+
+
+def sm90_mats(w, kx, kd):
+    """The bf16 forward blob undone by a plain index model of its layout:
+    ten [N][K] matrices one after another (N = 256, the last 128), each
+    chunk-major over K in chunks of 64 columns, element (n, k) of a chunk at
+    row n, 16-byte piece (k % 64) // 8 moved to piece position
+    ((k % 64) // 8) ^ (n % 8).  K of each: W0 [nx PE chunks], W1..W4 [256],
+    W5 [256 (a4) + nx PE chunks], W6, W7, Wf [256], Wv [256 (feat) + nd PE
+    chunks]; then, if the count of [128][64] pieces is odd, a zero piece."""
+    nx, _, nd = sm90_pe_chunks(kx, kd)
+    Wd, Wh = 256, 128
+    shapes = [(Wd, 64 * nx)] + [(Wd, Wd)] * 4 + [(Wd, Wd + 64 * nx)] + [(Wd, Wd)] * 3 + [
+        (Wh, Wd + 64 * nd)]
+    flat = w.float().numpy()
+    offs = np.concatenate([[0], np.cumsum([a * b for a, b in shapes])])
+    pad = 128 * 64 if (offs[-1] // (128 * 64)) % 2 else 0
+    assert offs[-1] + pad == flat.size and not flat[offs[-1]:].any()
+    mats = []
+    for (N, K), off in zip(shapes, offs):
+        n, k = np.meshgrid(np.arange(N), np.arange(K), indexing="ij")
+        idx = (k // 64) * N * 64 + n * 64 + (((k % 64) // 8) ^ (n % 8)) * 8 + k % 8
+        mats.append(torch.from_numpy(flat[off:off + N * K][idx]))
+    return mats
+
+
+def sm90_row_major(mats, kx, kd):
+    """The ten matrices of the f32 blob's row-major layout, from the bf16
+    blob's: W0 [256][kx], W5 [pe_x | a4], Wv [feat | pe_d] (kd columns)."""
+    _, d0, _ = sm90_pe_chunks(kx, kd)
+    Wd = 256
+    c = kx - 64 * d0  # pe_d's first column in Wv's PE chunks
+    return [mats[0][:, :kx]] + mats[1:5] + [
+        torch.cat([mats[5][:, Wd:Wd + kx], mats[5][:, :Wd]], 1)] + mats[6:9] + [
+        torch.cat([mats[9][:, :Wd], mats[9][:, Wd + c:Wd + c + kd]], 1)]
+
+
 def _emulate_kernel(w, fp, xd, kx, kd, nfx, nfd, bf16):
     """The CUDA kernel's arithmetic, read from the packed blobs exactly as
-    the kernel reads them (one accumulation over each padded K)."""
+    the kernel reads them (one accumulation over each padded K); the bf16
+    blob through the index model of its layout."""
     r = (lambda t: t.bfloat16().float()) if bf16 else (lambda t: t)
-    w = w.float()
     Wd, Wh = 256, 128
-    sizes = [Wd * kx] + [Wd * Wd] * 4 + [Wd * (kx + Wd)] + [Wd * Wd] * 3 + [Wh * (Wd + kd)]
-    shapes = [(Wd, kx)] + [(Wd, Wd)] * 4 + [(Wd, kx + Wd)] + [(Wd, Wd)] * 3 + [(Wh, Wd + kd)]
-    offs = np.concatenate([[0], np.cumsum(sizes)])
-    assert offs[-1] == w.numel()
-    mats = [w[offs[i]:offs[i + 1]].reshape(shapes[i]) for i in range(10)]
+    if bf16:
+        mats = sm90_row_major(sm90_mats(w, kx, kd), kx, kd)
+    else:
+        w = w.float()
+        sizes = [Wd * kx] + [Wd * Wd] * 4 + [Wd * (kx + Wd)] + [Wd * Wd] * 3 + [Wh * (Wd + kd)]
+        shapes = [(Wd, kx)] + [(Wd, Wd)] * 4 + [(Wd, kx + Wd)] + [(Wd, Wd)] * 3 + [(Wh, Wd + kd)]
+        offs = np.concatenate([[0], np.cumsum(sizes)])
+        assert offs[-1] == w.numel()
+        mats = [w[offs[i]:offs[i + 1]].reshape(shapes[i]) for i in range(10)]
     pad = lambda t, k: torch.nn.functional.pad(t, (0, k - t.shape[1]))  # noqa: E731
     pe_x = r(pad(posenc(xd[:, 0:3], nfx), kx))
     pe_d = r(pad(posenc(xd[:, 3:6], nfd), kd))

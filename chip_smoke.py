@@ -187,31 +187,46 @@ def per_call_ms(fn, n: int) -> dict:
     return {"median": float(np.median(times)), "min": min(times), "max": max(times)}
 
 
-def device_ms(fn, n: int = 50, repeats: int = 5) -> float:
-    """Device ms per call of fn: n calls queued back to back behind a device
-    sleep longer than the host takes to enqueue them, timed with CUDA events
-    from the end of the sleep; the median over `repeats` windows.  For
-    kernels shorter than their launch cost on the host."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(n):
+def device_windows(fns, n: int = 50, repeats: int = 5) -> list:
+    """Device ms per call of each of fns, one window per function in turn
+    for each of `repeats` rounds: n calls queued back to back behind a
+    device sleep longer than the host takes to enqueue them, timed with
+    CUDA events from the end of the sleep.  For kernels shorter than their
+    launch cost on the host.  Returns each function's list of windows."""
+    cycles = []
+    for fn in fns:
         fn()
-    host_s = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    cycles = int(max(host_s, 1e-3) * 2 * 2e9)  # twice the host's time at <= 2 GHz
-    times = []
-    for _ in range(repeats):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(cycles)
-        a.record()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         for _ in range(n):
             fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / n)
-    return float(np.median(times))
+        host_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        cycles.append(int(max(host_s, 1e-3) * 2 * 2e9))  # twice the host's time at <= 2 GHz
+    times = [[] for _ in fns]
+    for _ in range(repeats):
+        for i, fn in enumerate(fns):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(cycles[i])
+            a.record()
+            for _ in range(n):
+                fn()
+            b.record()
+            b.synchronize()
+            times[i].append(a.elapsed_time(b) / n)
+    return times
+
+
+def device_ms(fn, n: int = 50, repeats: int = 5) -> float:
+    """Device ms per call of fn: the median of device_windows."""
+    return float(np.median(device_windows([fn], n, repeats)[0]))
+
+
+def spread(ms: list) -> dict:
+    q = np.percentile(ms, [0, 25, 50, 75, 100])
+    return {"median": float(q[2]), "p25": float(q[1]), "p75": float(q[3]), "min": float(q[0]),
+            "max": float(q[4]), "windows": len(ms)}
 
 
 # the launch counters of lushnerf_torch.ops.fused.nerf_mlp, by kernel
@@ -279,15 +294,12 @@ def kernel_phase(fused, NeRFMLP, MLPConfig):
     mlp = NeRFMLP(MLPConfig(), torch.Generator().manual_seed(0), torch.device("cpu"))
     mlp = mlp.cuda().requires_grad_(False)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    # ragged: 2049 tiles, odd_tiles: 2561 (odd tile counts leave the last
-    # cluster's second block a tile past the end); tiny: one point
+    # ragged: 2049 tiles, odd_tiles: 2561 (the bf16 grid's 132 blocks take
+    # unequal tile counts); tiny: one point
     shapes = {"coarse": 5120 * 64, "fine": 5120 * 128, "render_coarse": 4096 * 64,
               "render_fine": 4096 * 128, "ragged": 4096 * 64 + 37, "odd_tiles": 2561 * 128 - 5,
               "tiny": 1}
     timed = ("coarse", "fine", "render_coarse", "render_fine")
-    most = fused.max_clusters(fused._lib(), "nerf_mlp_fwd_max_clusters", torch.device("cuda", 0))
-    print(f"  bf16 grid: at most {most} resident clusters of {fused.FWD_CLUSTER} blocks on "
-          f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs", flush=True)
     rows = []
     for dtype in ("float32", "bfloat16"):
         w_bytes = sum(t.numel() * t.element_size() for t in fused.pack_params(mlp, dtype))
@@ -1123,6 +1135,18 @@ def probe_phase(raymajor, probe):
             if not row["within_tol"]:
                 raise AssertionError(f"{name} disagrees with its plain version: {row}")
     res["rows"] = rows
+    # K8 against Tensor.clone over 21 windows each, taken in turns: whether
+    # the kernel is slower than the copy by more than the windows' spread
+    res["transpose_retime"] = []
+    for label, (R, S) in RAY_SHAPES.items():
+        v = torch.rand((R * S, 1), generator=gen, device="cuda")
+        k8, clone = device_windows([lambda: raymajor.ray_transpose(v, S), lambda: v.clone()],
+                                   repeats=21)
+        r = {"shape": label, "rays": R, "samples": S, "kernel": spread(k8), "clone": spread(clone)}
+        r["kernel_minus_clone_median_ms"] = r["kernel"]["median"] - r["clone"]["median"]
+        r["slower_than_clone_beyond_spread"] = r["kernel"]["p25"] > r["clone"]["p75"]
+        print("  transpose retime " + json.dumps(r), flush=True)
+        res["transpose_retime"].append(r)
     # K9 on rows torch.searchsorted does not take (unsorted, with ties: the
     # kernel's count path, timed at the renderer's shapes), and on a ragged S
     # and SI, unsorted and sorted with ties (its binary-search path; also

@@ -1,9 +1,7 @@
 // Hopper (sm_90a) building blocks for hand-written kernels: mbarriers,
 // the Tensor Memory Accelerator (2-D tensor maps, bulk copies and tensor
-// stores), thread block clusters (rank, barrier, remote mbarrier arrivals
-// and bulk copies multicast to every block of the cluster), wgmma
-// shared-memory descriptors, wgmma itself for the widths the kernels use,
-// proxy fences and named barriers.
+// stores), wgmma shared-memory descriptors, wgmma itself for the widths the
+// kernels use, proxy fences and named barriers.
 // Plain inline PTX, no CuTe, so that a source including it builds in
 // seconds.  Device code unless marked host.
 //
@@ -85,37 +83,6 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 }
 
 // ---------------------------------------------------------------------------
-// thread block clusters
-// ---------------------------------------------------------------------------
-
-// This block's rank in its cluster.
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
-  return r;
-}
-// Every thread of every block of the cluster arrives, then waits for all
-// (release / acquire at cluster scope; not .aligned, so divergent warps may
-// call it).
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
-}
-// The shared::cluster address of this block's shared `p` in block `rank`
-// of the cluster (every block has the same layout).
-__device__ __forceinline__ uint32_t cluster_addr(const void* p, uint32_t rank) {
-  uint32_t r;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(r) : "r"(smem_u32(p)), "r"(rank));
-  return r;
-}
-// One arrival on the mbarrier at shared::cluster address `a` (any block of
-// the cluster).  The default (CTA-scope) release, as for a local arrival: a
-// release at cluster scope costs a warp that issues one per weight piece
-// most of its time.
-__device__ __forceinline__ void mbar_arrive_cluster(uint32_t a) {
-  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(a) : "memory");
-}
-
-// ---------------------------------------------------------------------------
 // TMA and bulk copies
 // ---------------------------------------------------------------------------
 
@@ -127,18 +94,6 @@ __device__ __forceinline__ void bulk_g2s(void* dst, const void* src, uint32_t by
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
           "r"(smem_u32(dst)),
       "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-// `bytes` (a multiple of 16) from global `src` to shared `dst` in every
-// block of the cluster whose bit is set in `mask`, each at this block's
-// offset of `dst`, completing on the mbarrier at the offset of `bar` in
-// each of them.
-__device__ __forceinline__ void bulk_g2s_multicast(void* dst, const void* src, uint32_t bytes,
-                                                   uint64_t* bar, uint16_t mask) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster "
-      "[%0], [%1], %2, [%3], %4;\n" ::"r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar)), "h"(mask)
       : "memory");
 }
 // The box of `map` at (c0 innermost, c1) into shared `dst`, completing on `bar`.
@@ -181,6 +136,18 @@ __device__ __forceinline__ void fence_proxy_async() {
 // seen through an mbarrier) become visible to its async-proxy reads (TMA).
 __device__ __forceinline__ void fence_proxy_async_global() {
   asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+// Four 8x8 b16 matrices from a warp's registers to shared memory: thread
+// l holds, in r[i], the two values of row l / 4, columns 2 (l % 4) and
+// 2 (l % 4) + 1, of matrix i (a wgmma accumulator fragment's layout), and
+// gives the address of row l % 8 of matrix l / 8 (16 bytes a row).
+__device__ __forceinline__ void stsm_x4(void* p, uint32_t r0, uint32_t r1, uint32_t r2,
+                                        uint32_t r3) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                   smem_u32(p)),
+               "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+               : "memory");
 }
 
 // Named barrier `id` (1..15) over `count` threads (a multiple of 32).

@@ -26,10 +26,10 @@
 //         products accumulate in f32, bias and relu in f32 -- the rounding
 //         points of the TPU kernel's bfloat16 mode.  The stash holds the
 //         bf16 values the next layer reads.  The flagship path.  Its design
-//         (wgmma, a weight ring fed by bulk copies multicast across a
-//         two-block cluster, a persistent grid whose PE warps overlap the
-//         matmuls, the stash by TMA stores) is nerf_mlp_fwd_sm90.cuh's,
-//         shared with the matmul-only kernel of nerf_pe_mm.cu.
+//         (wgmma, a weight ring fed by bulk copies, a persistent grid whose
+//         PE warps overlap the matmuls, the stash by TMA stores) is
+//         nerf_mlp_fwd_sm90.cuh's, shared with the matmul-only kernel of
+//         nerf_pe_mm.cu.
 //   f32:  IEEE float32 FMAs throughout (no TF32), f32 stash: one 64-point
 //         tile a block, 8 warps, weights read from L1/L2.
 //
@@ -112,31 +112,26 @@ extern "C" {
 
 // Number of elements of the weight blob for (kx, kd) in the mode's layout,
 // of the f32 blob, the stash's row length, the bf16 kernel's points a tile
-// and blocks a cluster, and the stage stamps' columns; the Python side
-// checks its layouts and geometry against these.
+// and the stage stamps' columns; the Python side checks its layouts and
+// geometry against these.
 long long nerf_mlp_fwd_w_numel(int kx, int kd, int bf16_mode) {
   return bf16_mode ? fwd90::blob_numel(kx, kd) : w_numel(kx, kd);
 }
 long long nerf_mlp_fwd_fp_numel() { return FP_NUMEL; }
 long long nerf_mlp_fwd_acts_ld() { return ACTS_LD; }
 int nerf_mlp_fwd_tile() { return fwd90::T; }
-int nerf_mlp_fwd_cluster() { return fwd90::CLUSTER; }
 int nerf_mlp_fwd_n_stages() { return fwd90::N_ST; }
-
-// The most clusters of the bf16 kernel resident at once on the current
-// device into *n; returns 0 or a CUDA error code.
-int nerf_mlp_fwd_max_clusters(int* n) { return fwd90::max_clusters<fwd90::MODE_FWD>(n); }
 
 // Launches the kernel on `stream` and returns 0 or a CUDA error code.
 // `acts` is null, or a [P, ACTS_LD] stash in the compute dtype.  bf16:
-// `n_clusters` clusters (1 .. nerf_mlp_fwd_max_clusters), `stamps` null or
-// [tiles of block 0][n_stages] int64 for the stage cycles of the
-// instrumented instantiation.  f32: both ignored.
+// `n_blocks` blocks (1 .. the SM count), `stamps` null or [tiles of block
+// 0][n_stages] int64 for the stage cycles of the instrumented
+// instantiation.  f32: both ignored.
 // Requires P > 0, kx and kd multiples of 32 with kx + kd <= 128,
 // 3 + 6 * nfx <= kx and 3 + 6 * nfd <= kd; all pointers 16-byte aligned.
 int nerf_mlp_fwd(const float* xd, const void* w, const float* fp, float* out, void* acts,
                  long long* stamps, int P, int kx, int kd, int nfx, int nfd, int bf16_mode,
-                 int n_clusters, void* stream) {
+                 int n_blocks, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!bf16_mode) return launch_f32(xd, w, fp, out, acts, P, kx, kd, nfx, nfd, s);
   fwd90::Args a;
@@ -151,7 +146,7 @@ int nerf_mlp_fwd(const float* xd, const void* w, const float* fp, float* out, vo
   a.kd = kd;
   a.nfx = nfx;
   a.nfd = nfd;
-  return fwd90::launch<fwd90::MODE_FWD>(a, acts, n_clusters, s);
+  return fwd90::launch<fwd90::MODE_FWD>(a, acts, n_blocks, s);
 }
 
 const char* nerf_mlp_fwd_error_string(int code) {

@@ -13,12 +13,11 @@
 // ~29 bytes a cycle at the SM's share of the tensor rate, so every tile
 // streams them from L2.
 //
-// Design: a persistent grid of two-block clusters, one block an SM, each
-// block looping over 128-point tiles (the cluster's two blocks take
-// neighbouring tiles).  384 threads a block:
+// Design: a persistent grid, one block an SM, each block looping over
+// 128-point tiles.  384 threads a block:
 //   * two consumer warpgroups, each owning 64 points of the tile, run every
 //     matmul on wgmma (m64n128k16, both operands in shared memory, sums in
-//     registers: a 256-wide layer is two 128-column accumulators, 128
+//     registers: a 256-wide layer is one m64n256k16 accumulator, 128
 //     registers).  A is the tile's activation buffer ([128][256] bf16, four
 //     K-major 128-byte-swizzled chunks of 64 columns) or its PE tile; since
 //     the sums stay in registers until all of K is consumed, each layer's
@@ -29,13 +28,14 @@
 //     columns in order, then the 4 threads of a row by two shuffles), so two
 //     runs give the same bits;
 //   * one producer thread streams the weights through a ring of N_WST 16 KB
-//     stages on mbarriers.  pack_params lays the bf16 blob out as 16 KB
-//     pieces ([128 rows][64 columns] of W as [out][in], the swizzled layout
-//     wgmma reads) in the order the consumers take them, so the producer
-//     walks the blob piece by piece.  Each block of the cluster copies half
-//     of every piece with a bulk copy multicast to both blocks' rings, so
-//     each piece leaves L2 once for two tiles; a stage is refilled once all
-//     8 consumer warps of both blocks have released it;
+//     stages on mbarriers, one bulk copy a stage.  pack_params lays the
+//     bf16 blob out as 16 KB pieces ([128 rows][64 columns] of W as
+//     [out][in], the swizzled layout wgmma reads) in the order the consumers
+//     take them, so the producer walks the blob piece by piece; a stage is
+//     refilled once all 8 consumer warps have released it.  A two-block
+//     cluster that multicast each piece to both blocks halved the L2 reads
+//     but not the time: at this tile time the ring waits on L2's latency,
+//     not its bandwidth (PERF.md, PR 5);
 //   * three warps write the PE tile ([128][128] bf16: pe_x at columns [0,
 //     kx), pe_d at [kx, kx + kd), zeros after; sincosf with full range
 //     reduction, never the fast intrinsics) chunk by chunk: a chunk of the
@@ -84,7 +84,6 @@ constexpr int NTHR = NCONS + 128;   // and a producer warpgroup
 constexpr int PRODUCER = NCONS;     // the thread that issues the weight copies
 constexpr int PE0 = NCONS + 32;     // the PE warps: 9, 10 and 11
 constexpr int PE_THREADS = NTHR - PE0;
-constexpr int CLUSTER = 2;          // blocks a cluster: each piece is multicast to both
 constexpr int CHUNK_B = T * 128;    // [128 rows][64 bf16] of a tile buffer: 16 KB
 constexpr int BUF_B = 4 * CHUNK_B;  // the activation buffer: [128][256] bf16
 constexpr int PE_CHUNKS = 2;        // the PE tile: [128][128] bf16
@@ -100,7 +99,7 @@ constexpr int SM_PE = SM_ACT + BUF_B;
 constexpr int SM_RING = SM_PE + PE_CHUNKS * CHUNK_B;
 constexpr int SM_BARS = SM_RING + N_WST * PIECE_B;
 // mbarriers by index: a ring stage loaded (W_FULL + s) and released by the
-// 8 consumer warps of both blocks (W_EMPTY + s); PE chunk c written
+// 8 consumer warps (W_EMPTY + s); PE chunk c written
 // (PE_FULL + c) and read by both warpgroups' last layer reading it in the
 // tile (PE_FREE + c)
 enum { W_FULL = 0, W_EMPTY = W_FULL + N_WST, PE_FULL = W_EMPTY + N_WST,
@@ -150,22 +149,13 @@ __device__ __forceinline__ const unsigned char* a_chunk(const Layer& L, int c) {
   return c < L.n_act ? fsm + SM_ACT + c * CHUNK_B : fsm + SM_PE + (L.pe_c0 + c - L.n_act) * CHUNK_B;
 }
 
-// The tiles of this block: the cluster takes tile pairs q = cluster, cluster
-// + n_clusters, ..., and its block of rank r tile CLUSTER q + r.  Both
-// blocks walk the same number of pairs, so that each takes part in every
-// multicast and every release of a ring stage; a tile past the last (odd
-// tile counts) runs on zeros and writes nothing.
+// The tiles of this block: blockIdx.x, + gridDim.x, ...
 struct Sched {
-  int q, step, npairs, rank;
-  __device__ __forceinline__ Sched(const Args& a) {
-    q = blockIdx.x / CLUSTER;
-    step = gridDim.x / CLUSTER;
-    npairs = (a.ntiles + CLUSTER - 1) / CLUSTER;
-    rank = (int)cluster_rank();
-  }
-  __device__ __forceinline__ bool more() const { return q < npairs; }
-  __device__ __forceinline__ void next() { q += step; }
-  __device__ __forceinline__ int p0() const { return (q * CLUSTER + rank) * T; }
+  int tile, ntiles;
+  __device__ __forceinline__ Sched(const Args& a) : tile(blockIdx.x), ntiles(a.ntiles) {}
+  __device__ __forceinline__ bool more() const { return tile < ntiles; }
+  __device__ __forceinline__ void next() { tile += gridDim.x; }
+  __device__ __forceinline__ int p0() const { return tile * T; }
 };
 
 // Stage clock of the instrumented instantiation: thread `on` adds the
@@ -198,14 +188,8 @@ struct Ring {
     mbar_wait(bar(W_FULL + s), (piece / N_WST) & 1);
     return fsm + SM_RING + s * PIECE_B;
   }
-  // each warp's release goes to the stage's W_EMPTY in every block of the
-  // cluster, since every block's next copy into the stage lands in both
   __device__ __forceinline__ void release(int piece) const {
-    if ((threadIdx.x & 31) == 0) {
-      uint64_t* b = bar(W_EMPTY + piece % N_WST);
-#pragma unroll
-      for (int r = 0; r < CLUSTER; ++r) mbar_arrive_cluster(cluster_addr(b, r));
-    }
+    if ((threadIdx.x & 31) == 0) mbar_arrive(bar(W_EMPTY + piece % N_WST));
   }
 };
 
@@ -332,25 +316,30 @@ template <bool RELU, int N, int NH>
 __device__ __forceinline__ void epilogue(const float (&acc)[N], const float* fp, bool write,
                                          int head, float (&hs)[NH]) {
   const Frag f;
-  unsigned char* row0 = fsm + SM_ACT + f.r0 * 128 + 4 * f.q;
+  // stmatrix: lane l gives row l % 8 of matrix l / 8 = (rows +8 if l / 8 is
+  // odd, columns +8 if l >= 16) of the warp's 16 rows and 16 columns
+  const int lane = threadIdx.x & 31, rr = lane & 7, hi = lane >> 4;
+  const int row = f.r0 - (lane >> 2) + ((lane >> 3) & 1) * 8 + rr;
+  unsigned char* base = fsm + SM_ACT + row * 128;
 #pragma unroll
-  for (int j = 0; j < N / 4; ++j) {
-    const int col = 8 * j + 2 * f.q;
-    const uint32_t p0 = pack_bf16<RELU>(acc[4 * j], acc[4 * j + 1]);
-    const uint32_t p1 = pack_bf16<RELU>(acc[4 * j + 2], acc[4 * j + 3]);
-    if (write) {  // swz128(r, col & 63) in chunk col >> 6; rows r0 and r0 + 8 share r % 8
-      unsigned char* d = row0 + (j >> 3) * CHUNK_B + (((j & 7) ^ (f.r0 & 7)) << 4);
-      *reinterpret_cast<uint32_t*>(d) = p0;
-      *reinterpret_cast<uint32_t*>(d + 8 * 128) = p1;
-    }
+  for (int j = 0; j < N / 4; j += 2) {  // columns 8 j .. 8 j + 15
+    uint32_t p[4];  // rows r0 | r0 + 8 of columns 8 j + 2 q, then of 8 (j + 1) + 2 q
+#pragma unroll
+    for (int i = 0; i < 4; ++i) p[i] = pack_bf16<RELU>(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+    if (write)  // swz128(row, col & 63) in chunk col >> 6, col = 8 (j + hi); row % 8 = rr
+      stsm_x4(base + (j >> 3) * CHUNK_B + ((((j & 7) + hi) ^ rr) << 4), p[0], p[1], p[2], p[3]);
     if (head != 0) {
-      const float2 u0 = unpack_bf16(p0), u1 = unpack_bf16(p1);
 #pragma unroll
-      for (int k = 0; k < NH / 2; ++k) {
-        const int off = head == 1 ? FP_WA : FP_WR + k * WH;
-        const float2 w = __ldg(reinterpret_cast<const float2*>(fp + off + col));
-        hs[2 * k] = fmaf(u0.y, w.y, fmaf(u0.x, w.x, hs[2 * k]));
-        hs[2 * k + 1] = fmaf(u1.y, w.y, fmaf(u1.x, w.x, hs[2 * k + 1]));
+      for (int jj = 0; jj < 2; ++jj) {
+        const int col = 8 * (j + jj) + 2 * f.q;
+        const float2 u0 = unpack_bf16(p[2 * jj]), u1 = unpack_bf16(p[2 * jj + 1]);
+#pragma unroll
+        for (int k = 0; k < NH / 2; ++k) {
+          const int off = head == 1 ? FP_WA : FP_WR + k * WH;
+          const float2 w = __ldg(reinterpret_cast<const float2*>(fp + off + col));
+          hs[2 * k] = fmaf(u0.y, w.y, fmaf(u0.x, w.x, hs[2 * k]));
+          hs[2 * k + 1] = fmaf(u1.y, w.y, fmaf(u1.x, w.x, hs[2 * k + 1]));
+        }
       }
     }
   }
@@ -461,7 +450,7 @@ __device__ __forceinline__ void consumer(const Args& a, const CUtensorMap* tm) {
       fence_proxy_async();  // the writes, for the next wgmma and the TMA store
       named_bar(BAR_WG + wg, 128);
       clk.end(ST_EPI);
-      if (stash && t == 0 && p0 < a.P) {
+      if (stash && t == 0) {
         clk.begin();
         const int nch = l < 9 ? 4 : 2;
         for (int c = 0; c < nch; ++c)
@@ -493,9 +482,6 @@ __device__ __forceinline__ void consumer(const Args& a, const CUtensorMap* tm) {
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ void producer(const Args& a) {
-  const uint32_t rank = cluster_rank();
-  constexpr uint16_t mask = (1u << CLUSTER) - 1;
-  constexpr int HALF_B = PIECE_B / CLUSTER;
   int k = 0;  // pieces issued
 #pragma unroll 1
   for (Sched s(a); s.more(); s.next()) {
@@ -504,9 +490,8 @@ __device__ __forceinline__ void producer(const Args& a) {
       const int st = k % N_WST;
       mbar_wait(bar(W_EMPTY + st), ((k / N_WST) & 1) ^ 1);
       mbar_arrive_expect_tx(bar(W_FULL + st), PIECE_B);
-      bulk_g2s_multicast(fsm + SM_RING + st * PIECE_B + rank * HALF_B,
-                         a.w + (size_t)i * PIECE_ELEMS + rank * (PIECE_ELEMS / CLUSTER), HALF_B,
-                         bar(W_FULL + st), mask);
+      bulk_g2s(fsm + SM_RING + st * PIECE_B, a.w + (size_t)i * PIECE_ELEMS, PIECE_B,
+               bar(W_FULL + st));
     }
   }
 }
@@ -628,17 +613,14 @@ __global__ void __launch_bounds__(NTHR, 1)
   if (smem_u32(fsm) & 1023) __trap();  // the swizzled operands need 1024-byte alignment
   if (threadIdx.x == 0) {
     for (int i = 0; i < N_BARS; ++i)
-      mbar_init(bar(i), i >= W_EMPTY && i < PE_FULL ? CLUSTER * NCONS / 32
-                        : i >= PE_FREE ? 2 : 1);
+      mbar_init(bar(i), i >= W_EMPTY && i < PE_FULL ? NCONS / 32 : i >= PE_FREE ? 2 : 1);
     for (int i = 0; i < N_ST; ++i) clk_sums()[i] = 0;
     mbar_fence_init();
   }
-  cluster_sync();  // every block's barriers are ready before any copy or remote arrival
+  __syncthreads();
   if (threadIdx.x < NCONS) consumer<MODE, PROF>(a, &tm_acts);
   else if (threadIdx.x == PRODUCER) producer(a);
   else if (threadIdx.x >= PE0) pe_writer<MODE, PROF>(a);
-  __syncwarp();
-  cluster_sync();  // no block exits while the other may still arrive on its barriers
 }
 
 // ---------------------------------------------------------------------------
@@ -660,70 +642,38 @@ inline int n_pieces(int kx, int kd) {
 }
 inline long long blob_numel(int kx, int kd) { return (long long)n_pieces(kx, kd) * PIECE_ELEMS; }
 
-template <int MODE> inline cudaLaunchConfig_t launch_config(int n_clusters, cudaStream_t s,
-                                                            cudaLaunchAttribute* attr) {
-  cudaLaunchConfig_t cfg;
-  memset(&cfg, 0, sizeof(cfg));
-  cfg.gridDim = dim3(CLUSTER * n_clusters, 1, 1);
-  cfg.blockDim = dim3(NTHR, 1, 1);
-  cfg.dynamicSmemBytes = SMEM;
-  cfg.stream = s;
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = CLUSTER;
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cfg;
-}
-
-template <int MODE> inline int set_attributes() {
-  static int rc = -1;
-  if (rc < 0) {
+// Launches the kernel on n_blocks blocks (at most one an SM: n_blocks <=
+// the SM count); returns 0 or a CUDA error code.  `acts` (MODE_FWD) null or
+// the [P, ACTS_LD] bf16 stash.
+template <int MODE>
+inline int launch(Args a, void* acts, int n_blocks, cudaStream_t stream) {
+  if (a.P <= 0 || a.kx % 32 || a.kd % 32 || a.kx <= 0 || a.kd <= 0 || a.kx + a.kd > PE_MAX ||
+      n_blocks <= 0)
+    return (int)cudaErrorInvalidValue;
+  static int attr_rc = -1;
+  if (attr_rc < 0) {
     cudaError_t e = cudaFuncSetAttribute(fwd_sm90_kernel<MODE, false>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
     if (e == cudaSuccess)
       e = cudaFuncSetAttribute(fwd_sm90_kernel<MODE, true>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-    rc = (int)e;
+    attr_rc = (int)e;
   }
-  return rc;
-}
-
-// The most clusters of the kernel resident on the card at once, into *n
-// (0 if none can be scheduled).  Returns 0 or a CUDA error code.
-template <int MODE> inline int max_clusters(int* n) {
-  int rc = set_attributes<MODE>();
-  if (rc != 0) return rc;
-  cudaLaunchAttribute attr;
-  cudaLaunchConfig_t cfg = launch_config<MODE>(1, 0, &attr);
-  return (int)cudaOccupancyMaxActiveClusters(n, fwd_sm90_kernel<MODE, false>, &cfg);
-}
-
-// Launches the kernel on n_clusters clusters; returns 0 or a CUDA error
-// code.  `acts` (MODE_FWD) null or the [P, ACTS_LD] bf16 stash.
-template <int MODE>
-inline int launch(Args a, void* acts, int n_clusters, cudaStream_t stream) {
-  if (a.P <= 0 || a.kx % 32 || a.kd % 32 || a.kx <= 0 || a.kd <= 0 || a.kx + a.kd > PE_MAX ||
-      n_clusters <= 0)
-    return (int)cudaErrorInvalidValue;
-  int rc = set_attributes<MODE>();
-  if (rc != 0) return rc;
+  if (attr_rc != 0) return attr_rc;
   CUtensorMap tm;
   memset(&tm, 0, sizeof(tm));
   if (acts != nullptr) {
-    rc = make_map_2d_bf16(&tm, acts, a.P, ACTS_LD, ACTS_LD * 2, 64, 64);
+    const int rc = make_map_2d_bf16(&tm, acts, a.P, ACTS_LD, ACTS_LD * 2, 64, 64);
     if (rc != 0) return rc;
   }
   a.stash = acts != nullptr;
   a.ntiles = (a.P + T - 1) / T;
   a.n_pieces = n_pieces(a.kx, a.kd);
   pe_chunks(a.kx, a.kd, &a.nx, &a.d0, &a.nd);
-  cudaLaunchAttribute attr;
-  cudaLaunchConfig_t cfg = launch_config<MODE>(n_clusters, stream, &attr);
-  cudaError_t e = a.stamps != nullptr ? cudaLaunchKernelEx(&cfg, fwd_sm90_kernel<MODE, true>, tm, a)
-                                      : cudaLaunchKernelEx(&cfg, fwd_sm90_kernel<MODE, false>, tm, a);
-  if (e != cudaSuccess) return (int)e;
+  if (a.stamps != nullptr)
+    fwd_sm90_kernel<MODE, true><<<n_blocks, NTHR, SMEM, stream>>>(tm, a);
+  else
+    fwd_sm90_kernel<MODE, false><<<n_blocks, NTHR, SMEM, stream>>>(tm, a);
   return (int)cudaGetLastError();
 }
 

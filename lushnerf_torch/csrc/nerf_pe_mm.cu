@@ -25,10 +25,10 @@
 //   lanes 1, 2 = rgb1, rgb2, all other lanes zero (the TPU kernel's
 //   `concat(rgb[:, :4], 0) + alpha`, whose padded lanes are zero).
 //   It is the bf16 forward kernel's design (nerf_mlp_fwd_sm90.cuh: wgmma,
-//   the weight ring multicast across a two-block cluster, a persistent
-//   grid) with the PE warps loading the pre-encoded tile instead of
-//   computing it: lanes [0, NX) go to columns [0, NX), lanes [NX, NX + ND)
-//   to columns [kx, kx + ND) (the port's separately padded layout), each
+//   a weight ring fed by bulk copies, a persistent grid) with the PE warps
+//   loading the pre-encoded tile instead of computing it: lanes [0, NX) go
+//   to columns [0, NX), lanes [NX, NX + ND) to columns [kx, kx + ND) (the
+//   port's separately padded layout), each
 //   rounded to bf16 as the forward kernel rounds its PE; then the same
 //   layer sequence and heads, and 128-lane output rows.
 //   What bounds it: operations, 1,186,816 FLOP per point, as the forward
@@ -92,14 +92,14 @@ int nerf_pe_only(const float* xd, float* out, int P, void* stream) {
   return (int)cudaGetLastError();
 }
 
-// Launches mm_only (bf16) on `n_clusters` clusters (1 ..
-// nerf_mm_only_max_clusters) on `stream`; returns 0 or a CUDA error code.
+// Launches mm_only (bf16) on `n_blocks` blocks (1 .. the SM count) on
+// `stream`; returns 0 or a CUDA error code.
 // w: the bf16 weight blob for (kx, kd), fp: the f32 blob
 // (nerf_pe_mm_w_numel / _fp_numel give their sizes).  Requires P > 0,
 // kx and kd multiples of 32 with kx + kd <= 128, NX <= kx, ND <= kd; all
 // pointers 16-byte aligned.
 int nerf_mm_only(const float* pe, const void* w, const float* fp, float* out, int P, int kx,
-                 int kd, int n_clusters, void* stream) {
+                 int kd, int n_blocks, void* stream) {
   if (NX > kx || ND > kd) return (int)cudaErrorInvalidValue;
   fwd90::Args a;
   memset(&a, 0, sizeof(a));
@@ -112,10 +112,8 @@ int nerf_mm_only(const float* pe, const void* w, const float* fp, float* out, in
   a.kd = kd;
   a.nfx = NX;
   a.nfd = ND;
-  return fwd90::launch<fwd90::MODE_MM>(a, nullptr, n_clusters, static_cast<cudaStream_t>(stream));
+  return fwd90::launch<fwd90::MODE_MM>(a, nullptr, n_blocks, static_cast<cudaStream_t>(stream));
 }
-
-int nerf_mm_only_max_clusters(int* n) { return fwd90::max_clusters<fwd90::MODE_MM>(n); }
 
 long long nerf_pe_mm_w_numel(int kx, int kd) { return fwd90::blob_numel(kx, kd); }
 long long nerf_pe_mm_fp_numel() { return FP_NUMEL; }

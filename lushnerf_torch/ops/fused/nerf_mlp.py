@@ -6,9 +6,9 @@ point, positional encoding + the 8x256 scene MLP (skip at layer 4) + alpha /
 feature / views / rgb heads, and writes raw [rgb, alpha]; for training it
 also writes the activation stash a0..a7, feat, hv.  It replaces the Pallas
 TPU kernel `_fwd_kernel` of `lushnerf_tpu/ops/fused/nerf_mlp.py`.  In bf16
-it runs `csrc/nerf_mlp_fwd_sm90.cuh` (wgmma, a persistent grid of two-block
-clusters that multicast the weights); `fwd_grid` and `fwd_tiles` are its
-geometry.  The
+it runs `csrc/nerf_mlp_fwd_sm90.cuh` (wgmma, a persistent grid that streams
+the weights through a ring of bulk copies); `fwd_grid` and `fwd_tiles` are
+its geometry.  The
 backward kernels compute d(xd) and the grads of every parameter from the
 stash (replacing `_bwd_stash_kernel`, mode 'stash') or, in mode 'remat'
 (replacing `_bwd_kernel`), from a stash the forward kernel writes into
@@ -81,7 +81,6 @@ DGRAD_STAGES = (
 FWD_STAGES = ("pe_wait", "weight_wait", "mm", "stash_wait", "epilogue", "stash", "out")
 FWD_OFF_PATH = ("pe_work",)
 FWD_TILE = 128  # points a tile of the bf16 forward kernel
-FWD_CLUSTER = 2  # blocks a cluster: each weight piece is multicast to both
 FWD_PIECE = 128 * 64  # elements of a weight piece of the bf16 blob
 
 COMPUTE_DTYPES = ("float32", "bfloat16")
@@ -112,28 +111,16 @@ def fwd_pe_chunks(kx: int, kd: int) -> Tuple[int, int, int]:
     return -(-kx // 64), d0, -(-(kx + kd) // 64) - d0
 
 
-def fwd_grid(P: int, max_clusters: int) -> int:
-    """Clusters of the bf16 forward kernel's persistent grid for P > 0
-    points: one a pair of tiles, at most `max_clusters` (the most that are
-    resident on the card at once)."""
-    n_pairs = -(-(-(-P // FWD_TILE)) // FWD_CLUSTER)
-    return max(1, min(max_clusters, n_pairs))
+def fwd_grid(P: int, n_sm: int) -> int:
+    """Blocks of the bf16 forward kernel's persistent grid for P > 0 points:
+    one a tile, at most one an SM (its shared memory fills one)."""
+    return max(1, min(n_sm, -(-P // FWD_TILE)))
 
 
-def fwd_tiles(P: int, n_clusters: int) -> List[List[int]]:
+def fwd_tiles(P: int, n_blocks: int) -> List[List[int]]:
     """The tiles each block of that grid computes, in its loop's order:
-    block CLUSTER c + r takes tile CLUSTER q + r for the pairs q = c, c +
-    n_clusters, ... (both blocks of a cluster walk the same pairs; a tile
-    past the last, at an odd tile count, runs on zeros, writes nothing and
-    is not listed)."""
-    n_tiles = -(-P // FWD_TILE)
-    n_pairs = -(-n_tiles // FWD_CLUSTER)
-    out = []
-    for b in range(FWD_CLUSTER * n_clusters):
-        c, r = divmod(b, FWD_CLUSTER)
-        out.append([FWD_CLUSTER * q + r for q in range(c, n_pairs, n_clusters)
-                    if FWD_CLUSTER * q + r < n_tiles])
-    return out
+    block b takes tiles b, b + n_blocks, ..."""
+    return [list(range(b, -(-P // FWD_TILE), n_blocks)) for b in range(n_blocks)]
 
 
 def supports(mlp_cfg, render_cfg) -> bool:
@@ -485,12 +472,8 @@ def _lib() -> ctypes.CDLL:
         lib.nerf_mlp_fwd.restype = ci
         lib.nerf_mlp_fwd_w_numel.argtypes = [ci, ci, ci]
         lib.nerf_mlp_fwd_w_numel.restype = ctypes.c_longlong
-        lib.nerf_mlp_fwd_max_clusters.argtypes = [ctypes.POINTER(ci)]
-        lib.nerf_mlp_fwd_max_clusters.restype = ci
         lib.nerf_mlp_fwd_tile.argtypes = []
         lib.nerf_mlp_fwd_tile.restype = ci
-        lib.nerf_mlp_fwd_cluster.argtypes = []
-        lib.nerf_mlp_fwd_cluster.restype = ci
         lib.nerf_mlp_fwd_fp_numel.argtypes = []
         lib.nerf_mlp_fwd_fp_numel.restype = ctypes.c_longlong
         lib.nerf_mlp_fwd_acts_ld.argtypes = []
@@ -501,7 +484,7 @@ def _lib() -> ctypes.CDLL:
         lib.nerf_mlp_fwd_error_string.restype = ctypes.c_char_p
         if lib.nerf_mlp_fwd_fp_numel() != FP_NUMEL or lib.nerf_mlp_fwd_acts_ld() != ACTS_LD \
                 or lib.nerf_mlp_fwd_n_stages() != len(FWD_STAGES) + len(FWD_OFF_PATH) \
-                or lib.nerf_mlp_fwd_tile() != FWD_TILE or lib.nerf_mlp_fwd_cluster() != FWD_CLUSTER:
+                or lib.nerf_mlp_fwd_tile() != FWD_TILE:
             raise RuntimeError("nerf_mlp_fwd: f32 blob, stash layout, stages or geometry differ "
                                "from the CUDA source")
         lib._lushnerf_typed = True
@@ -546,22 +529,8 @@ def _dgrad_lib() -> ctypes.CDLL:
     return lib
 
 
-_MAX_CLUSTERS = {}  # (entry point, device index) -> the most resident clusters
-
-
-def max_clusters(lib, fn_name: str, device: torch.device) -> int:
-    """The most clusters of a bf16 forward-design kernel (lib.<fn_name>)
-    resident at once on `device`; raises if none can be scheduled."""
-    key = (fn_name, device.index)
-    if key not in _MAX_CLUSTERS:
-        n = ctypes.c_int(0)
-        with torch.cuda.device(device):
-            rc = getattr(lib, fn_name)(ctypes.byref(n))
-        if rc != 0 or n.value <= 0:
-            raise RuntimeError(f"{fn_name}: no cluster of the kernel can be scheduled "
-                               f"(CUDA error {rc}, {n.value} clusters)")
-        _MAX_CLUSTERS[key] = n.value
-    return _MAX_CLUSTERS[key]
+def sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _needs_grad(mlp, xd: torch.Tensor) -> bool:
@@ -601,15 +570,14 @@ def _fwd_into(mlp, xd: torch.Tensor, compute_dtype: str, num_freqs_x: int,
     if w.numel() != lib.nerf_mlp_fwd_w_numel(kx, kd, int(bf16)):
         raise RuntimeError("nerf_mlp_fwd: weight blob layout differs from the CUDA source")
     _check_aligned("nerf_mlp_fwd", xd, w, fp, out, *([] if acts is None else [acts]))
-    n_clusters = fwd_grid(xd.shape[0], max_clusters(lib, "nerf_mlp_fwd_max_clusters", xd.device)) \
-        if bf16 else 0
+    n_blocks = fwd_grid(xd.shape[0], sm_count(xd.device)) if bf16 else 0
     stream = torch.cuda.current_stream(xd.device).cuda_stream
     with torch.cuda.device(xd.device):
         rc = lib.nerf_mlp_fwd(
             xd.data_ptr(), w.data_ptr(), fp.data_ptr(), out.data_ptr(),
             None if acts is None else acts.data_ptr(),
             None if stamps is None else stamps.data_ptr(), xd.shape[0], kx, kd,
-            num_freqs_x, num_freqs_d, int(bf16), n_clusters, stream,
+            num_freqs_x, num_freqs_d, int(bf16), n_blocks, stream,
         )
     if rc != 0:
         raise RuntimeError(
@@ -642,8 +610,8 @@ def fwd_stage_cycles(mlp, xd: torch.Tensor, stash: bool) -> torch.Tensor:
     _check_cuda_inputs("nerf_mlp_fwd", mlp, xd, "bfloat16", 10, 4)
     xd = xd.contiguous()
     P = xd.shape[0]
-    n_clusters = fwd_grid(P, max_clusters(_lib(), "nerf_mlp_fwd_max_clusters", xd.device))
-    stamps = torch.zeros((len(fwd_tiles(P, n_clusters)[0]), len(FWD_STAGES + FWD_OFF_PATH)),
+    n_blocks = fwd_grid(P, sm_count(xd.device))
+    stamps = torch.zeros((len(fwd_tiles(P, n_blocks)[0]), len(FWD_STAGES + FWD_OFF_PATH)),
                          dtype=torch.int64, device=xd.device)
     out = torch.empty((P, OUT_CH), dtype=torch.float32, device=xd.device)
     acts = torch.empty((P, ACTS_LD), dtype=torch.bfloat16, device=xd.device) if stash else None
@@ -720,7 +688,7 @@ class BwdLaunch:
         self.pe = torch.empty((P, self.kx + self.kd), dtype=cdt, device=dev)
         tile = self.dlib.nerf_mlp_dgrad_tile() if self.bf16 else self.lib.nerf_mlp_bwd_tile_f32()
         self.n_tiles = -(-P // tile)
-        self.n_blocks = min(self.n_tiles, torch.cuda.get_device_properties(dev).multi_processor_count)
+        self.n_blocks = min(self.n_tiles, sm_count(dev))
         self.n_splits = max(1, min(32, -(-P // 16384)))
         self.fp_part = torch.empty((self.n_blocks, FP_NUMEL), dtype=torch.float32, device=dev)
         self.w_part = torch.empty((self.n_splits, wn), dtype=torch.float32, device=dev)

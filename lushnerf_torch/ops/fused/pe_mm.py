@@ -137,8 +137,6 @@ def _lib() -> ctypes.CDLL:
         lib.nerf_pe_only.restype = ci
         lib.nerf_mm_only.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, vp]
         lib.nerf_mm_only.restype = ci
-        lib.nerf_mm_only_max_clusters.argtypes = [ctypes.POINTER(ci)]
-        lib.nerf_mm_only_max_clusters.restype = ci
         lib.nerf_pe_mm_w_numel.argtypes = [ci, ci]
         lib.nerf_pe_mm_w_numel.restype = ctypes.c_longlong
         lib.nerf_pe_mm_fp_numel.argtypes = []
@@ -210,10 +208,10 @@ def mm_only(mlp, pe: torch.Tensor) -> torch.Tensor:
     if w.numel() != lib.nerf_pe_mm_w_numel(kx, kd):
         raise RuntimeError("mm_only: weight blob layout differs from the CUDA source")
     fused._check_aligned("mm_only", pe, w, fp, out)
-    n_clusters = fused.fwd_grid(P, fused.max_clusters(lib, "nerf_mm_only_max_clusters", pe.device))
+    n_blocks = fused.fwd_grid(P, fused.sm_count(pe.device))
     with torch.cuda.device(pe.device):
         rc = lib.nerf_mm_only(pe.data_ptr(), w.data_ptr(), fp.data_ptr(), out.data_ptr(), P,
-                              kx, kd, n_clusters, torch.cuda.current_stream(pe.device).cuda_stream)
+                              kx, kd, n_blocks, torch.cuda.current_stream(pe.device).cuda_stream)
     _check("mm_only", lib, rc)
     global launches_mm_only
     launches_mm_only += 1

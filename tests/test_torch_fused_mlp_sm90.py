@@ -11,7 +11,7 @@ plain version on the card).  Here:
     another order) and the JAX Pallas kernel in interpret mode (the bf16
     limits of tests/test_torch_fused_mlp.py, whose reason holds here too);
   * the persistent grid's tiles (`fwd_tiles`, the kernel's loop) cover each
-    point exactly once, both blocks of a cluster walking the same pairs.
+    point exactly once.
 """
 
 import numpy as np
@@ -158,21 +158,16 @@ def test_sm90_emulation_matches_jax_kernel():
                          ids=["1", "127", "128", "129", "odd-tiles", "ragged"])
 def test_fwd_tiles_cover_each_point_once(P):
     n_tiles = -(-P // fused.FWD_TILE)
-    n_pairs = -(-n_tiles // fused.FWD_CLUSTER)
-    for most in (1, 3, 66, 10_000):
-        n_clusters = fused.fwd_grid(P, most)
-        assert 1 <= n_clusters <= min(most, n_pairs)
-        tiles = fused.fwd_tiles(P, n_clusters)
-        assert len(tiles) == fused.FWD_CLUSTER * n_clusters
+    for n_sm in (1, 3, 132, 10_000):
+        n_blocks = fused.fwd_grid(P, n_sm)
+        assert 1 <= n_blocks <= min(n_sm, n_tiles)
+        tiles = fused.fwd_tiles(P, n_blocks)
+        assert len(tiles) == n_blocks and all(tiles)  # no block without a tile
         assert sorted(t for block in tiles for t in block) == list(range(n_tiles))
         covered = np.zeros(P, np.int64)
         for block in tiles:
             for t in block:
                 covered[t * fused.FWD_TILE:min(t * fused.FWD_TILE + fused.FWD_TILE, P)] += 1
         assert (covered == 1).all()
-        # the blocks of a cluster walk the same pairs: the second block's
-        # list is short by at most the one tile past the end
-        for c in range(n_clusters):
-            first, second = tiles[2 * c], tiles[2 * c + 1]
-            assert len(first) - len(second) in (0, 1)
-            assert [t + 1 for t in first[:len(second)]] == second
+        # block 0 takes the most tiles: its stage stamps have a row for each
+        assert len(tiles[0]) == max(len(b) for b in tiles)

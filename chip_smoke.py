@@ -6,18 +6,21 @@
 Phases, in order (any failure makes the exit code non-zero and suppresses
 the final result line):
   1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
-  2. build: the four CUDA sources (nerf_mlp_fwd.cu, nerf_mlp_bwd.cu,
-     nerf_pe_mm.cu, raymajor_probe.cu) with nvcc for sm_90a, side by side,
-     printing registers and spills;
+  2. build: the five CUDA sources (nerf_mlp_fwd.cu, nerf_mlp_bwd.cu,
+     nerf_mlp_dgrad.cu, nerf_pe_mm.cu, raymajor_probe.cu) with nvcc for
+     sm_90a, side by side, printing registers and spills;
   3. kernel: the fused NeRF-MLP forward kernel against its plain PyTorch
      version at width 256 / depth 8, at the flagship point counts 5120x64
      and 5120x128 (forward_kernel), 4096x64 and 4096x128 (a render_image
-     chunk) and at a ragged count; median kernel and plain times from CUDA
-     events.  f32: rtol 1e-4, atol 1e-5.  bf16: rtol 1e-3, atol 1e-3 on each
-     value (the same bf16 roundings, but sums in another order move some
-     activations to the neighbouring bf16 value), and a mean error at most
-     a tenth of the mean gap between the plain version in f32 and in bf16,
-     so that a kernel that skipped the bf16 rounding would fail;
+     chunk), at a ragged and an odd tile count and at one point, each launch
+     repeated and compared bit for bit; median kernel and plain times from
+     CUDA events.  f32: rtol 1e-4, atol 1e-5.  bf16: rtol 1e-3, atol 1e-3 on
+     each value (the same bf16 roundings, but sums in another order move
+     some activations to the neighbouring bf16 value), and (from two
+     points on) a mean error at most a tenth of the mean gap between the
+     plain version in f32 and in bf16, so that a kernel that skipped the
+     bf16 rounding would fail.  A yardstick beside it: K1's nine 256-wide
+     products through torch.matmul in bf16 at 5120x128;
   4. kernel_bwd: the forward kernel with its activation stash (K1), the
      stash backward (K2) and the remat backward (K3) against
      nerf_mlp_fwd_plain / nerf_mlp_bwd_plain at the flagship P and a ragged
@@ -30,7 +33,8 @@ the final result line):
      plain f32-vs-bf16 mean gap; a second run gives the same bits; K2 and
      K3 agree to the bit; in bf16 the dgrad and the wgrad with its
      reductions timed apart at both flagship P, and the dgrad's time by
-     stage from the clock64 stamps of an instrumented instantiation;
+     stage from the clock64 stamps of an instrumented instantiation; so the
+     bf16 forward's too, output only and with the stash;
   5. forward_kernel: the flagship config (29 images, 1024 rays x 5
      sub-rays, 400x400, focal 320) -- finite outputs, exactly 2 kernel
      launches per call, agreement with the plain-torch backend on the
@@ -76,7 +80,8 @@ the final result line):
      medians over 5 CUDA-event windows of back-to-back calls queued behind a
      device sleep, so that the host's launch cost is not in them; the
      searchsorted kernel also on unsorted rows with ties (exact, timed) and
-     on a ragged S and SI.
+     on a ragged S and SI; K8 against Tensor.clone over 21 windows each,
+     taken in turns, with their median and spread.
 Then a `{"kernels": [...]}` line (nine kernels, each with the path that
 launched it: main, tune_kernel or probe_raymajor) and, last, the
 `{"ok": true, ...}` line.

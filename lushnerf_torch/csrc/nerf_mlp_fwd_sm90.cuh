@@ -16,17 +16,19 @@
 // Design: a persistent grid, one block an SM, each block looping over
 // 128-point tiles.  384 threads a block:
 //   * two consumer warpgroups, each owning 64 points of the tile, run every
-//     matmul on wgmma (m64n128k16, both operands in shared memory, sums in
-//     registers: a 256-wide layer is one m64n256k16 accumulator, 128
-//     registers).  A is the tile's activation buffer ([128][256] bf16, four
-//     K-major 128-byte-swizzled chunks of 64 columns) or its PE tile; since
-//     the sums stay in registers until all of K is consumed, each layer's
-//     epilogue writes its output over its input in place, so one buffer
-//     holds every activation in turn.  The alpha head is summed in the
-//     epilogue of layer 7 (before the feature layer overwrites a7), the rgb
-//     head in the views layer's, each in a fixed order (the thread's
-//     columns in order, then the 4 threads of a row by two shuffles), so two
-//     runs give the same bits;
+//     matmul on wgmma, both operands in shared memory, the sums in
+//     registers from the bias on: m64n256k16 for the 256-wide layers (one
+//     128-register accumulator; a chunk's two weight pieces at once, so A
+//     is read once), m64n128k16 for the views layer.  A is the tile's
+//     activation buffer ([128][256] bf16, four K-major 128-byte-swizzled
+//     chunks of 64 columns) or its PE tile; since the sums stay in
+//     registers until all of K is consumed, each layer's epilogue (relu in
+//     the bf16 conversion, stmatrix stores) writes its output over its
+//     input in place, so one buffer holds every activation in turn.  The
+//     alpha head is summed in the epilogue of layer 7 (before the feature
+//     layer overwrites a7), the rgb head in the views layer's, each in a
+//     fixed order (the thread's columns in order, then the 4 threads of a
+//     row by two shuffles), so two runs give the same bits;
 //   * one producer thread streams the weights through a ring of N_WST 16 KB
 //     stages on mbarriers, one bulk copy a stage.  pack_params lays the
 //     bf16 blob out as 16 KB pieces ([128 rows][64 columns] of W as
@@ -34,8 +36,8 @@
 //     take them, so the producer walks the blob piece by piece; a stage is
 //     refilled once all 8 consumer warps have released it.  A two-block
 //     cluster that multicast each piece to both blocks halved the L2 reads
-//     but not the time: at this tile time the ring waits on L2's latency,
-//     not its bandwidth (PERF.md, PR 5);
+//     but not the time: at this tile time L2's bandwidth does not hold the
+//     ring (PERF.md);
 //   * three warps write the PE tile ([128][128] bf16: pe_x at columns [0,
 //     kx), pe_d at [kx, kx + kd), zeros after; sincosf with full range
 //     reduction, never the fast intrinsics) chunk by chunk: a chunk of the
@@ -52,7 +54,9 @@
 // constant (the buffer is at file scope), so it costs no registers: ptxas
 // fits each thread of a 384-thread block into 168 registers.
 //
-// Weight blob (bf16, pieces of 8192 elements in order): for each layer its
+// Weight blob (bf16, pieces of 8192 elements in order, padded with a zero
+// piece to an even count so that a chunk's two pieces sit in neighbouring
+// ring stages): for each layer its
 // matrix [N][K] (N = 256, or 128 for the views layer), K chunk-major in
 // chunks of 64 columns, each chunk [N][64] in the 128-byte swizzle (a chunk
 // of a 256-wide layer is two pieces: rows 0..127, then 128..255).  K
@@ -628,7 +632,9 @@ __global__ void __launch_bounds__(NTHR, 1)
 // ---------------------------------------------------------------------------
 
 // PE chunks of W0 / W5 (from chunk 0), the first PE chunk of Wv and their
-// number; weight pieces a tile; elements of the weight blob.
+// number; weight pieces a tile (two a chunk of the nine 256-wide layers --
+// W0 nx chunks, W1..W4 16, W5 4 + nx, W6, W7, Wf 12 -- and one a chunk of
+// Wv, 4 + nd); elements of the weight blob.
 inline void pe_chunks(int kx, int kd, int* nx, int* d0, int* nd) {
   *nx = (kx + 63) / 64;
   *d0 = kx / 64;
@@ -650,16 +656,19 @@ inline int launch(Args a, void* acts, int n_blocks, cudaStream_t stream) {
   if (a.P <= 0 || a.kx % 32 || a.kd % 32 || a.kx <= 0 || a.kd <= 0 || a.kx + a.kd > PE_MAX ||
       n_blocks <= 0)
     return (int)cudaErrorInvalidValue;
+  // the instrumented instantiation is K1's only (MODE_MM: PROF = false twice)
+  constexpr bool HAS_PROF = MODE == MODE_FWD;
   static int attr_rc = -1;
   if (attr_rc < 0) {
     cudaError_t e = cudaFuncSetAttribute(fwd_sm90_kernel<MODE, false>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(fwd_sm90_kernel<MODE, true>,
+      e = cudaFuncSetAttribute(fwd_sm90_kernel<MODE, HAS_PROF>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
     attr_rc = (int)e;
   }
   if (attr_rc != 0) return attr_rc;
+  if (a.stamps != nullptr && !HAS_PROF) return (int)cudaErrorInvalidValue;
   CUtensorMap tm;
   memset(&tm, 0, sizeof(tm));
   if (acts != nullptr) {
@@ -671,7 +680,7 @@ inline int launch(Args a, void* acts, int n_blocks, cudaStream_t stream) {
   a.n_pieces = n_pieces(a.kx, a.kd);
   pe_chunks(a.kx, a.kd, &a.nx, &a.d0, &a.nd);
   if (a.stamps != nullptr)
-    fwd_sm90_kernel<MODE, true><<<n_blocks, NTHR, SMEM, stream>>>(tm, a);
+    fwd_sm90_kernel<MODE, HAS_PROF><<<n_blocks, NTHR, SMEM, stream>>>(tm, a);
   else
     fwd_sm90_kernel<MODE, false><<<n_blocks, NTHR, SMEM, stream>>>(tm, a);
   return (int)cudaGetLastError();

@@ -326,20 +326,19 @@ def pack_params(mlp, compute_dtype: str) -> Tuple[torch.Tensor, torch.Tensor]:
     cached = getattr(mlp, "_nerf_mlp_fwd_pack", None)
     if cached is not None and cached[0] == key:
         return cached[1]
-    cfg = mlp.cfg
-    in_ch, W = cfg.input_ch, cfg.width
-    kx, kd = pe_widths(cfg)
     bf16 = compute_dtype == "bfloat16"
-
-    def padk(w, k):
-        return F.pad(w, (0, k - w.shape[1]))
-
     if bf16:
         w = torch.cat([swizzle128(m.bfloat16()) for m in fwd_mats_sm90(mlp)])
         if (w.numel() // FWD_PIECE) % 2:  # a zero piece pads an odd piece count
             w = torch.cat([w, w.new_zeros(FWD_PIECE)])
         w = w.contiguous()
     else:
+        in_ch, W = mlp.cfg.input_ch, mlp.cfg.width
+        kx, kd = pe_widths(mlp.cfg)
+
+        def padk(w, k):
+            return F.pad(w, (0, k - w.shape[1]))
+
         pts = [lin.weight for lin in mlp.pts_linears]
         w5 = pts[5]
         wv = mlp.views_linears[0].weight

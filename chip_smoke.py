@@ -646,6 +646,7 @@ def forward_phase(fused, lush, cfg_mod):
         tcfg = flagship(cfg_mod, "torch", "float32")
         res["torch_f32_ms_per_call"] = window_ms(
             lambda: lush.forward_kernel(model, tcfg, H, W, FOCAL, rays, idx, gen), 5)[0]
+    res["width128"] = width128_forward(fused, lush, cfg_mod, rays, idx, rnd)
     res["calls"] = n_calls
     res["rays_per_s"] = N_RAYS / res["ms_per_call"] * 1e3
     res["finite"] = all(bool(torch.isfinite(v).all()) for v in out.values())
@@ -657,6 +658,41 @@ def forward_phase(fused, lush, cfg_mod):
         assert res[f"{key}_err_f32_vs_torch"] < 1e-4, key
         assert res[f"{key}_err_bf16_vs_torch"] < 1e-2, key
     assert res["depth_err_f32_vs_torch"] < 1e-3 and res["depth_err_bf16_vs_torch"] < 5e-2
+    return res
+
+
+def width128_forward(fused, lush, cfg_mod, rays, idx, rnd) -> dict:
+    """The flagship at width 128 (netwidth = netwidth_fine = 128), a member
+    of the fused family the compiled kernel does not cover: under the 'cuda'
+    backend the renderer routes both scene MLPs to the plain torch path by
+    shape (no launch), and the forward equals the torch backend's on the
+    same draws; a direct kernel call still raises."""
+    cfg = cfg_mod.flagship_cfg(num_images=NUM_IMAGES)
+    cfg.netwidth = cfg.netwidth_fine = 128
+    lc = cfg.lush_config()
+    model = lush.LushNeRF(lc, seed=0, device="cuda")
+    tlc = dataclasses.replace(lc, render=dataclasses.replace(lc.render, mlp_backend="torch",
+                                                             mlp_compute_dtype="float32"))
+    with torch.no_grad():
+        zero_counts(fused)
+        got = lush.forward_kernel(model, lc, H, W, FOCAL, rays, idx, None, rand_override=rnd)
+        torch.cuda.synchronize()
+        res = {"backend": lc.render.mlp_backend, "dtype": lc.render.mlp_compute_dtype,
+               "launches": read_counts(fused)}
+        want = lush.forward_kernel(model, tlc, H, W, FOCAL, rays, idx, None, rand_override=rnd)
+        res.update({f"{key}_err_vs_torch": max_err(got[key], want[key])
+                    for key in ("rgb_blur", "rgb0_blur", "depth", "acc")})
+        try:
+            fused.nerf_mlp_fwd(model.mlp_fine, torch.zeros((128, fused.XD_CH), device="cuda"),
+                               lc.render.mlp_compute_dtype)
+            res["direct_call_raises"] = False
+        except ValueError:
+            res["direct_call_raises"] = True
+    print("  width 128: " + json.dumps(res), flush=True)
+    assert all(v == 0 for v in res["launches"].values()), res
+    assert res["direct_call_raises"], res
+    assert all(res[f"{key}_err_vs_torch"] <= 1e-6 for key in ("rgb_blur", "rgb0_blur", "acc")) \
+        and res["depth_err_vs_torch"] <= 1e-5, res
     return res
 
 
@@ -679,23 +715,34 @@ def render_phase(fused, lush, cfg_mod):
                             RAY_CHUNK)
     torch.cuda.synchronize()
     res["torch_f32_ms_per_image"] = (time.perf_counter() - t0) * 1e3
-    f32 = lush.render_image(model, flagship(cfg_mod, "cuda", "float32"), H, W, K, c2w,
-                            RAY_CHUNK)
+    f32_lc = flagship(cfg_mod, "cuda", "float32")
+    lush.render_image(model, f32_lc, H, W, K, c2w, RAY_CHUNK)  # warm-up (the f32 packs)
+    torch.cuda.synchronize()
+    zero_counts(fused)
+    t0 = time.perf_counter()
+    f32 = lush.render_image(model, f32_lc, H, W, K, c2w, RAY_CHUNK)
+    torch.cuda.synchronize()
+    res["f32_ms_per_image"] = (time.perf_counter() - t0) * 1e3
+    res["f32_launches"] = read_counts(fused)["nerf_mlp_fwd"]
     for i, key in enumerate(("rgb", "noise", "depth")):
         res[f"{key}_err_bf16_vs_torch"] = max_err((rgb, noise, depth)[i], ref[i])
         res[f"{key}_err_f32_vs_torch"] = max_err(f32[i], ref[i])
     res["finite"] = all(bool(torch.isfinite(t).all()) for t in (rgb, noise, depth))
     res["shape"] = list(rgb.shape)
     print("  " + json.dumps(res), flush=True)
-    assert res["launches"] == 80, "expected 80 launches (40 chunks x coarse + fine)"
+    assert res["launches"] == 80 and res["f32_launches"] == 80, \
+        "expected 80 launches (40 chunks x coarse + fine)"
     assert res["finite"] and res["shape"] == [H, W, 3]
     assert res["rgb_err_f32_vs_torch"] < 1e-4 and res["rgb_err_bf16_vs_torch"] < 1e-2
     assert res["depth_err_f32_vs_torch"] < 1e-3 and res["depth_err_bf16_vs_torch"] < 5e-2
     return res
 
 
+# the flagship's step (bf16 stash), bf16 remat, the shipped scene configs'
+# step (f32 remat: mlp_backend = pallas, the dtype and backward left at
+# their defaults) and plain torch
 TRAIN_VARIANTS = {"stash": ("cuda", "bfloat16", "stash"), "remat": ("cuda", "bfloat16", "remat"),
-                  "torch": ("torch", "float32", "remat")}
+                  "remat_f32": ("cuda", "float32", "remat"), "torch": ("torch", "float32", "remat")}
 GRAD_VARIANTS = dict(TRAIN_VARIANTS, stash_f32=("cuda", "float32", "stash"))
 # kernel launches per flagship train step (2 scene MLPs): one forward each,
 # four backward launches each (dgrad, wgrad, two reductions); remat adds the
@@ -703,6 +750,7 @@ GRAD_VARIANTS = dict(TRAIN_VARIANTS, stash_f32=("cuda", "float32", "stash"))
 STEP_LAUNCHES = {
     "stash": {"nerf_mlp_fwd": 2, "nerf_mlp_bwd_stash": 8, "nerf_mlp_bwd_remat": 0},
     "remat": {"nerf_mlp_fwd": 2, "nerf_mlp_bwd_stash": 0, "nerf_mlp_bwd_remat": 10},
+    "remat_f32": {"nerf_mlp_fwd": 2, "nerf_mlp_bwd_stash": 0, "nerf_mlp_bwd_remat": 10},
     "torch": {"nerf_mlp_fwd": 0, "nerf_mlp_bwd_stash": 0, "nerf_mlp_bwd_remat": 0},
 }
 STEP_PACKS = 4  # forward and backward blobs of both scene MLPs, once per step
@@ -879,7 +927,8 @@ def profile_phase(lush, cfg_mod, trainer, untraced_ms):
     """Device time by kernel and the device's busy share (the union of
     kernel intervals over the span of the traced region, and over the
     untraced wall time), from torch.profiler, over 3 forward_kernel calls,
-    one render_image and one flagship train step (stash)."""
+    one render_image, one flagship train step (stash), and one step of the
+    shipped scene configs (f32 remat) and of plain torch f32."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -889,16 +938,22 @@ def profile_phase(lush, cfg_mod, trainer, untraced_ms):
     gen = torch.Generator(device="cuda").manual_seed(1)
     K = np.array([[FOCAL, 0, W / 2], [0, FOCAL, H / 2], [0, 0, 1]], np.float32)
     c2w = np.eye(3, 4, dtype=np.float32)
-    cfg, tlc = train_cfg(cfg_mod, "stash")
-    tmodel = lush.LushNeRF(tlc, seed=0, device="cuda")
-    opt, sched = trainer.make_optimizer(cfg, tmodel)
     batch = train_batch()
+
+    def step_run(variant):
+        cfg, tlc = train_cfg(cfg_mod, variant)
+        tmodel = lush.LushNeRF(tlc, seed=0, device="cuda")
+        opt, sched = trainer.make_optimizer(cfg, tmodel)
+        return False, lambda: trainer.train_step(tmodel, opt, sched, tlc, H, W, FOCAL, batch,
+                                                 "kernel", gen)
+
     runs = {
         "forward_kernel_x3": (True, lambda: [lush.forward_kernel(model, lc, H, W, FOCAL, rays, idx, gen)
                                              for _ in range(3)]),
         "render_image": (True, lambda: lush.render_image(model, lc, H, W, K, c2w, RAY_CHUNK)),
-        "train_step": (False, lambda: trainer.train_step(tmodel, opt, sched, tlc, H, W, FOCAL,
-                                                         batch, "kernel", gen)),
+        "train_step": step_run("stash"),
+        "train_step_remat_f32": step_run("remat_f32"),
+        "train_step_torch_f32": step_run("torch"),
     }
     res = {}
     for name, (no_grad, fn) in runs.items():
@@ -1360,7 +1415,9 @@ def main(argv=None) -> int:
         ri = smoke.results.get("render_image") or {}
         return {"forward_kernel_x3": 3 * fk["ms_per_call"] if fk else None,
                 "render_image": ri.get("ms_per_image"),
-                "train_step": (train.get("stash") or {}).get("ms_per_step")}
+                "train_step": (train.get("stash") or {}).get("ms_per_step"),
+                "train_step_remat_f32": (train.get("remat_f32") or {}).get("ms_per_step"),
+                "train_step_torch_f32": (train.get("torch") or {}).get("ms_per_step")}
 
     runs = {
         "build": do_build,

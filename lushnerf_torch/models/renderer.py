@@ -130,7 +130,8 @@ def eval_points(
 
     Returns raw [R, S, out_ch].
     """
-    if cfg.mlp_backend == "cuda" and fused.supports(mlp_cfg, cfg):
+    if cfg.mlp_backend == "cuda" and fused.supports(mlp_cfg, cfg) \
+            and fused.kernel_covers(mlp_cfg, cfg):
         return fused.eval_points_fused(mlp, mlp_cfg, cfg, pts, viewdirs)
 
     R, S = pts.shape[0], pts.shape[1]

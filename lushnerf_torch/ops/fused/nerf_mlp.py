@@ -124,10 +124,10 @@ def fwd_tiles(P: int, n_blocks: int) -> List[List[int]]:
 
 
 def supports(mlp_cfg, render_cfg) -> bool:
-    """The MLP family the 'cuda' backend sends to the fused path, the same
-    as the JAX package's: depth 8, width a multiple of 128, skip at layer
-    4, viewdirs on, both PEs within 128 channels.  On the card, a member the
-    compiled kernel does not cover (any width but 256) raises."""
+    """The fused MLP family, the same as the JAX package's: depth 8, width a
+    multiple of 128, skip at layer 4, viewdirs on, both PEs within 128
+    channels.  The 'cuda' backend sends a member to the fused path only
+    where `kernel_covers` holds too."""
     return (
         mlp_cfg.depth == 8
         and mlp_cfg.width % 128 == 0
@@ -139,24 +139,43 @@ def supports(mlp_cfg, render_cfg) -> bool:
     )
 
 
+def kernel_gap(mlp_cfg, compute_dtype: str, num_freqs_x: int, num_freqs_d: int) -> Optional[str]:
+    """Why the compiled kernel does not cover this MLP, PE and compute dtype
+    (width 256, padded PEs within 128 channels), or None where it does."""
+    kx, kd = pe_widths(mlp_cfg)
+    if compute_dtype not in COMPUTE_DTYPES:
+        return f"compute_dtype {compute_dtype!r} not in {COMPUTE_DTYPES}"
+    if not (mlp_cfg.depth == 8 and tuple(mlp_cfg.skips) == (4,) and mlp_cfg.use_viewdirs
+            and not mlp_cfg.rgb_only):
+        return "the kernel covers depth 8, skip at 4, viewdirs on"
+    if mlp_cfg.width != WIDTH:
+        return f"the kernel is compiled for width {WIDTH}, not {mlp_cfg.width}"
+    if kx + kd > PE_MAX or 3 + 6 * num_freqs_x != mlp_cfg.input_ch \
+            or 3 + 6 * num_freqs_d != mlp_cfg.input_ch_views:
+        return (f"PE of {num_freqs_x}/{num_freqs_d} frequencies into "
+                f"{mlp_cfg.input_ch}/{mlp_cfg.input_ch_views} MLP inputs is outside the "
+                f"kernel's {PE_MAX} padded channels")
+    return None
+
+
+def kernel_covers(mlp_cfg, render_cfg) -> bool:
+    """Whether the compiled kernel covers this MLP at the render config's PE
+    and compute dtype.  Decided by shape alone, before any launch: the
+    renderer sends an MLP to the fused path only where `supports` and this
+    hold, and any other (a width of 128, 384 or 512) takes the plain torch
+    path on the same device, as the JAX renderer does for MLPs outside its
+    family."""
+    return kernel_gap(mlp_cfg, render_cfg.mlp_compute_dtype, render_cfg.multires,
+                      render_cfg.multires_views) is None
+
+
 def check_kernel_family(mlp_cfg, compute_dtype: str, num_freqs_x: int,
                         num_freqs_d: int) -> None:
     """Raises ValueError unless the compiled kernel covers this MLP, PE and
-    compute dtype (width 256, padded PEs within 128 channels)."""
-    kx, kd = pe_widths(mlp_cfg)
-    if compute_dtype not in COMPUTE_DTYPES:
-        raise ValueError(f"nerf_mlp_fwd: compute_dtype {compute_dtype!r} not in {COMPUTE_DTYPES}")
-    if not (mlp_cfg.depth == 8 and tuple(mlp_cfg.skips) == (4,) and mlp_cfg.use_viewdirs
-            and not mlp_cfg.rgb_only):
-        raise ValueError("nerf_mlp_fwd: the kernel covers depth 8, skip at 4, viewdirs on")
-    if mlp_cfg.width != WIDTH:
-        raise ValueError(f"nerf_mlp_fwd: the kernel is compiled for width {WIDTH}, "
-                         f"not {mlp_cfg.width}")
-    if kx + kd > PE_MAX or 3 + 6 * num_freqs_x != mlp_cfg.input_ch \
-            or 3 + 6 * num_freqs_d != mlp_cfg.input_ch_views:
-        raise ValueError(f"nerf_mlp_fwd: PE of {num_freqs_x}/{num_freqs_d} frequencies "
-                         f"into {mlp_cfg.input_ch}/{mlp_cfg.input_ch_views} MLP inputs "
-                         f"is outside the kernel's {PE_MAX} padded channels")
+    compute dtype (`kernel_gap`): a direct kernel call never falls back."""
+    gap = kernel_gap(mlp_cfg, compute_dtype, num_freqs_x, num_freqs_d)
+    if gap is not None:
+        raise ValueError(f"nerf_mlp_fwd: {gap}")
 
 
 # ---------------------------------------------------------------------------

@@ -1,19 +1,17 @@
 // Shared device code of the fused NeRF-MLP kernels (nerf_mlp_fwd.cu,
 // nerf_mlp_bwd.cu, nerf_mlp_dgrad.cu, nerf_pe_mm.cu): tile shapes, the
 // bf16 mma.sync / ldmatrix helpers of the wgrad, the f32 FMA matmul loop
-// over one tile of points, the positional encoding, the f32 forward layer
-// sequence and its alpha and rgb heads.  The bf16 forward's layer sequence
-// is nerf_mlp_fwd_sm90.cuh.
+// over one tile of points and the positional encoding of the f32 dgrad.
+// The forward's layer sequence (both modes) is nerf_mlp_fwd_sm90.cuh.
 //
-// f32 weight blob (row-major [out][in], K padded with zero columns; kx =
-// round_up(pe_x channels, 32), kd = round_up(pe_d channels, 32)):  W0
-// [256][kx] | W1..W4 [256][256] | W5 [256][kx + 256] (pe_x part, then a4
-// part) | W6, W7 [256][256] | Wf [256][256] | Wv [128][256 + kd] (feat
-// part, then pe_d part); w_numel() counts it, and the backward's weight
-// grads have its layout.  The bf16 blob is laid out for wgmma
-// (nerf_mlp_fwd_sm90.cuh).  The f32 blob `fp` holds biases and the two
-// small heads at the FP_* offsets below (head weights pre-rounded to bf16
-// in bf16 mode).
+// The weight grads' layout (row-major [out][in], K padded with zero
+// columns; kx = round_up(pe_x channels, 32), kd = round_up(pe_d channels,
+// 32)):  W0 [256][kx] | W1..W4 [256][256] | W5 [256][kx + 256] (pe_x part,
+// then a4 part) | W6, W7 [256][256] | Wf [256][256] | Wv [128][256 + kd]
+// (feat part, then pe_d part); w_numel() counts it.  The forward's weight
+// blobs are laid out for wgmma (nerf_mlp_fwd_sm90.cuh).  The f32 blob `fp`
+// holds biases and the two small heads at the FP_* offsets below (head
+// weights pre-rounded to bf16 in bf16 mode).
 //
 // Activation stash ([P][ACTS_LD] in the compute dtype, one row per point):
 // a0..a7 at columns l * 256, feat at 8 * 256, hv (128 wide) at 9 * 256.
@@ -30,7 +28,6 @@ constexpr int W = 256;         // scene MLP width
 constexpr int WH = 128;        // views layer width
 constexpr int PE_MAX = 128;    // kx + kd
 constexpr int NTHREADS = 256;  // 8 warps
-constexpr int NWARPS = NTHREADS / 32;
 constexpr int ACTS_LD = 9 * W + WH;  // stash row: a0..a7, feat, hv
 
 constexpr int FP_BF = 8 * W;         // b0..b7 at l * W
@@ -91,12 +88,6 @@ template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-__device__ __forceinline__ float warp_sum(float s) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-  return s;
-}
-
 // ---------------------------------------------------------------------------
 // f32 FMA path
 // ---------------------------------------------------------------------------
@@ -127,39 +118,9 @@ __device__ __forceinline__ void gemm_f32(float (&acc)[Tile<false>::T * N / NTHRE
   }
 }
 
-template <int N>
-__device__ __forceinline__ void epilogue_f32(const float (&acc)[Tile<false>::T * N / NTHREADS],
-                                             const float* bias, bool relu,
-                                             float* dst, int ldd) {
-  constexpr int PP = Tile<false>::T * N / NTHREADS;
-  const int n = threadIdx.x % N, grp = threadIdx.x / N;
-  const float b = bias[n];
-#pragma unroll
-  for (int i = 0; i < PP; ++i) {
-    const float v = acc[i] + b;
-    dst[(grp * PP + i) * ldd + n] = relu ? fmaxf(v, 0.f) : v;
-  }
-}
-
 // ---------------------------------------------------------------------------
 // shared pieces
 // ---------------------------------------------------------------------------
-
-// One f32 dense layer: dst = act(A1 . W[:, :K1]^T + A2 . W[:, K1:]^T +
-// bias), written in place over the activation buffer (dst may alias A1).
-template <int N>
-__device__ __forceinline__ void dense(const float* Wg, int ldw, const float* A1, int lda1, int K1,
-                                      const float* A2, int lda2, int K2, const float* bias,
-                                      bool relu, float* dst) {
-  float acc[Tile<false>::T * N / NTHREADS];
-#pragma unroll
-  for (int i = 0; i < Tile<false>::T * N / NTHREADS; ++i) acc[i] = 0.f;
-  gemm_f32<N>(acc, A1, lda1, Wg, ldw, 0, K1);
-  if (K2 > 0) gemm_f32<N>(acc, A2, lda2, Wg, ldw, K1, K2);
-  __syncthreads();
-  epilogue_f32<N>(acc, bias, relu, dst, Tile<false>::ACT_LD);
-  __syncthreads();
-}
 
 // Rows [p0, min(p0 + T, P)) of a [T][LD] shared-memory tile, N columns,
 // into a row-major global array at dst (row stride ldd), 16 bytes a thread.
@@ -212,113 +173,8 @@ __device__ __forceinline__ void load_xd(float* xs, const float* xd, int p0, int 
   }
 }
 
-// The ten weight matrices inside the weight blob.
-template <typename WT>
-__host__ __device__ inline void fill_offsets(const WT* (&w)[10], const void* blob, int kx, int kd) {
-  const WT* base = static_cast<const WT*>(blob);
-  size_t off = 0;
-  const size_t sizes[10] = {
-      (size_t)W * kx, (size_t)W * W, (size_t)W * W, (size_t)W * W, (size_t)W * W,
-      (size_t)W * (kx + W), (size_t)W * W, (size_t)W * W, (size_t)W * W,
-      (size_t)WH * (W + kd)};
-  for (int i = 0; i < 10; ++i) {
-    w[i] = base + off;
-    off += sizes[i];
-  }
-}
-
 inline long long w_numel(int kx, int kd) {
   return (long long)W * kx + 7LL * W * W + (long long)W * (kx + W) + (long long)WH * (W + kd);
-}
-
-// The scene MLP's layers in f32 on one tile whose PE is in `pe`: every
-// activation is written over `act` in turn (a7, then feat, then hv in its
-// first 128 columns).  With `acts` non-null each activation (a0..a7, feat,
-// hv) is also stored to the stash rows [p0, min(p0 + T, P)).  `after_a7`
-// runs with a7 in `act`, before the feature layer overwrites it.
-template <typename F>
-__device__ __forceinline__ void forward_tile(const float* const (&w)[10], const float* fp, int kx,
-                                             int kd, float* act, const float* pe, float* acts,
-                                             int p0, int P, F after_a7) {
-  typedef Tile<false> TL;
-  constexpr int T = TL::T, ALD = TL::ACT_LD, PLD = TL::PE_LD;
-  auto emit = [&](int col) {
-    if (acts != nullptr) store_rows<T, ALD, W>(act, acts + col, ACTS_LD, p0, P);
-  };
-  dense<W>(w[0], kx, pe, PLD, kx, pe, PLD, 0, fp, true, act);
-  emit(0);
-#pragma unroll 1
-  for (int l = 1; l <= 4; ++l) {
-    dense<W>(w[l], W, act, ALD, W, act, ALD, 0, fp + l * W, true, act);
-    emit(l * W);
-  }
-  dense<W>(w[5], kx + W, pe, PLD, kx, act, ALD, W, fp + 5 * W, true, act);
-  emit(5 * W);
-  dense<W>(w[6], W, act, ALD, W, act, ALD, 0, fp + 6 * W, true, act);
-  emit(6 * W);
-  dense<W>(w[7], W, act, ALD, W, act, ALD, 0, fp + 7 * W, true, act);
-  emit(7 * W);
-  // reads of a7 here finish before the feature layer's epilogue overwrites
-  // it (that epilogue runs only after the feature gemm's barrier)
-  after_a7();
-  dense<W>(w[8], W, act, ALD, W, act, ALD, 0, fp + FP_BF, false, act);
-  emit(8 * W);
-  dense<WH>(w[9], W + kd, act, ALD, W, pe + kx, PLD, kd, fp + FP_BV, true, act);
-  if (acts != nullptr) store_rows<T, ALD, WH>(act, acts + 9 * W, ACTS_LD, p0, P);
-}
-
-__device__ __forceinline__ void load_row(const float* p, float (&v)[8]) {
-  const float4 a = reinterpret_cast<const float4*>(p)[0];
-  const float4 b = reinterpret_cast<const float4*>(p)[1];
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-
-// alpha = a7 . Wa + ba into out[p * 4 + 3] for the tile's points p < n,
-// one warp per point (K = 256: 8 values a lane).
-template <int T, int LD, typename AT>
-__device__ __forceinline__ void head_alpha(const AT* act, const float* fp, float* out, int n) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int p = warp; p < T; p += NWARPS) {
-    float v[8];
-    load_row(act + p * LD + lane * 8, v);
-    float s = 0.f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) s = fmaf(v[j], fp[FP_WA + lane * 8 + j], s);
-    s = warp_sum(s);
-    if (lane == 0 && p < n) out[(size_t)p * 4 + 3] = s + fp[FP_BA];
-  }
-}
-
-// rgb = hv . Wr + br into out[p * 4 + 0..2] for the tile's points p < n,
-// one warp per point (K = 128: lanes 0..15 take 8 values).
-template <int T, int LD, typename AT>
-__device__ __forceinline__ void head_rgb(const AT* act, const float* fp, float* out, int n) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int p = warp; p < T; p += NWARPS) {
-    float s[3] = {0.f, 0.f, 0.f};
-    if (lane < WH / 8) {
-      float v[8];
-      load_row(act + p * LD + lane * 8, v);
-#pragma unroll
-      for (int c = 0; c < 3; ++c)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) s[c] = fmaf(v[j], fp[FP_WR + c * WH + lane * 8 + j], s[c]);
-    }
-#pragma unroll
-    for (int c = 0; c < 3; ++c) s[c] = warp_sum(s[c]);
-    if (lane == 0 && p < n) {
-#pragma unroll
-      for (int c = 0; c < 3; ++c) out[(size_t)p * 4 + c] = s[c] + fp[FP_BR + c];
-    }
-  }
-}
-
-// Shared memory of an f32 forward tile: the activation and PE tiles and
-// the packed input rows (T x 8 floats).
-constexpr int fwd_smem_f32() {
-  typedef Tile<false> TL;
-  return (TL::T * TL::ACT_LD + TL::T * TL::PE_LD) * 4 + TL::T * 8 * 4;
 }
 
 }  // namespace nerf_mlp

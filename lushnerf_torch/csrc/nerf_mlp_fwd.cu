@@ -21,124 +21,67 @@
 //   hv = relu(feat Wvf + pe_d Wvd + bv); rgb = hv Wr + br
 //   out[p] = [rgb, alpha]                  ([P, 4] float32)
 //
-// Two modes, chosen per launch:
+// Two modes, chosen per launch, one design (nerf_mlp_fwd_sm90.cuh: wgmma,
+// a weight ring fed by bulk copies, a persistent grid whose PE warps
+// overlap the matmuls, the heads in the epilogues), shared with the
+// matmul-only kernel of nerf_pe_mm.cu:
 //   bf16: every matmul input (PE, activations, weights) is rounded to bf16,
 //         products accumulate in f32, bias and relu in f32 -- the rounding
 //         points of the TPU kernel's bfloat16 mode.  The stash holds the
-//         bf16 values the next layer reads.  The flagship path.  Its design
-//         (wgmma, a weight ring fed by bulk copies, a persistent grid whose
-//         PE warps overlap the matmuls, the stash by TMA stores) is
-//         nerf_mlp_fwd_sm90.cuh's, shared with the matmul-only kernel of
-//         nerf_pe_mm.cu.
-//   f32:  IEEE float32 FMAs throughout (no TF32), f32 stash: one 64-point
-//         tile a block, 8 warps, weights read from L1/L2.
+//         bf16 values the next layer reads, written by TMA stores.  The
+//         flagship path.
+//   f32:  f32-grade products on the tensor cores, as the TPU kernel's f32
+//         mode runs the MXU at Precision.HIGHEST: each operand split in two
+//         scaled fp16 parts and each product taken as three fp16 products
+//         of the parts into one f32 accumulator (the split); bias, relu and
+//         the heads in f32;
+//         the f32 stash (relu of each accumulator) stored from registers.
+//         What the ten shipped scene configs run (mlp_backend = pallas,
+//         mlp_compute_dtype left at float32).
 //
 // What bounds it: compute without the stash, 1,186,816 FLOP per point
 // against 48 bytes of input and output, far above the card's ~295
-// FLOP/byte ridge.  With the stash it writes 4,864 more bytes per point in
-// bf16, which puts the bound on the bytes.  The TPU kernel kept all weights
+// FLOP/byte ridge (in f32 three fp16 passes of it, at the bf16 rate).  With the stash it
+// writes 4,864 more bytes per point in bf16, which puts the bound on the
+// bytes; 9,728 in f32, which does not.  The TPU kernel kept all weights
 // resident in VMEM; an SM has 227 KB of shared memory, so here every tile
 // streams them from L2 (nerf_mlp_fwd_sm90.cuh).
 //
-// Layouts of the f32 weight blob, the f32 blob and the stash:
-// nerf_mlp_common.cuh; of the bf16 weight blob: nerf_mlp_fwd_sm90.cuh.
+// Layouts of the f32 blob and the stash: nerf_mlp_common.cuh; of the two
+// weight blobs: nerf_mlp_fwd_sm90.cuh.
 
 #include "nerf_mlp_fwd_sm90.cuh"
 
-namespace {
-
-using namespace nerf_mlp;
-
-struct ArgsF32 {
-  const float* xd;     // [P, 8]
-  const float* fp;     // biases and heads
-  const float* w[10];  // W0..W7, Wf, Wv inside the weight blob
-  float* out;          // [P, 4]
-  float* acts;         // [P, ACTS_LD] stash, or null
-  int P, kx, kd, nfx, nfd;
-};
-
-__global__ void __launch_bounds__(NTHREADS, 1) nerf_mlp_fwd_f32_kernel(ArgsF32 args) {
-  typedef Tile<false> TL;
-  constexpr int T = TL::T, ALD = TL::ACT_LD, PLD = TL::PE_LD;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* act = reinterpret_cast<float*>(smem);
-  float* pe = act + T * ALD;
-  float* xs = pe + T * PLD;
-
-  const int p0 = blockIdx.x * T;
-  const int P = args.P;
-  const float* fp = args.fp;
-
-  load_xd<T>(xs, args.xd, p0, P);
-  __syncthreads();
-  pe_tile<T, PLD>(pe, xs, args.kx, args.kd, args.nfx, args.nfd);
-  __syncthreads();
-  float* out = args.out + (size_t)p0 * 4;
-  forward_tile(args.w, fp, args.kx, args.kd, act, pe, args.acts, p0, P,
-               [&] { head_alpha<T, ALD>(act, fp, out, P - p0); });
-  head_rgb<T, ALD>(act, fp, out, P - p0);
-}
-
-int launch_f32(const float* xd, const void* w, const float* fp, float* out, void* acts, int P,
-               int kx, int kd, int nfx, int nfd, cudaStream_t stream) {
-  constexpr int SMEM = fwd_smem_f32();
-  static bool attr_set = false;
-  if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(nerf_mlp_fwd_f32_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-    if (e != cudaSuccess) return (int)e;
-    attr_set = true;
-  }
-  ArgsF32 a;
-  a.xd = xd;
-  a.fp = fp;
-  a.out = out;
-  a.acts = static_cast<float*>(acts);
-  a.P = P;
-  a.kx = kx;
-  a.kd = kd;
-  a.nfx = nfx;
-  a.nfd = nfd;
-  fill_offsets<float>(a.w, w, kx, kd);
-  const int grid = (P + Tile<false>::T - 1) / Tile<false>::T;
-  nerf_mlp_fwd_f32_kernel<<<grid, NTHREADS, SMEM, stream>>>(a);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
-
 extern "C" {
 
-// Number of elements of the weight blob for (kx, kd) in the mode's layout,
-// of the f32 blob, the stash's row length, the bf16 kernel's points a tile
-// and the stage stamps' columns; the Python side checks its layouts and
-// geometry against these.
+// Number of bf16 elements of the weight blob for (kx, kd) in the mode's
+// layout, of the f32 blob, the stash's row length, the kernel's points a
+// tile and the stage stamps' columns; the Python side checks its layouts
+// and geometry against these.
 long long nerf_mlp_fwd_w_numel(int kx, int kd, int bf16_mode) {
-  return bf16_mode ? fwd90::blob_numel(kx, kd) : w_numel(kx, kd);
+  return bf16_mode ? fwd90::blob_numel(kx, kd) : fwd90::blob_numel_split(kx, kd);
 }
-long long nerf_mlp_fwd_fp_numel() { return FP_NUMEL; }
-long long nerf_mlp_fwd_acts_ld() { return ACTS_LD; }
+long long nerf_mlp_fwd_fp_numel() { return nerf_mlp::FP_NUMEL; }
+long long nerf_mlp_fwd_acts_ld() { return nerf_mlp::ACTS_LD; }
 int nerf_mlp_fwd_tile() { return fwd90::T; }
 int nerf_mlp_fwd_n_stages() { return fwd90::N_ST; }
 
 // Launches the kernel on `stream` and returns 0 or a CUDA error code.
-// `acts` is null, or a [P, ACTS_LD] stash in the compute dtype.  bf16:
-// `n_blocks` blocks (1 .. the SM count), `stamps` null or [tiles of block
-// 0][n_stages] int64 for the stage cycles of the instrumented
-// instantiation.  f32: both ignored.
+// `acts` is null, or a [P, ACTS_LD] stash in the compute dtype; `n_blocks`
+// blocks (1 .. the SM count), `stamps` null or [tiles of block 0][n_stages]
+// int64 for the stage cycles of the instrumented instantiation.
 // Requires P > 0, kx and kd multiples of 32 with kx + kd <= 128,
-// 3 + 6 * nfx <= kx and 3 + 6 * nfd <= kd; all pointers 16-byte aligned.
+// 3 + 6 * nfx <= kx and 3 + 6 * nfd <= kd (f32: kx <= 64 and pe_d within
+// one 64-column chunk); all pointers 16-byte aligned.
 int nerf_mlp_fwd(const float* xd, const void* w, const float* fp, float* out, void* acts,
                  long long* stamps, int P, int kx, int kd, int nfx, int nfd, int bf16_mode,
                  int n_blocks, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!bf16_mode) return launch_f32(xd, w, fp, out, acts, P, kx, kd, nfx, nfd, s);
   fwd90::Args a;
   memset(&a, 0, sizeof(a));
   a.in = xd;
   a.fp = fp;
-  a.w = static_cast<const bf16*>(w);
+  a.w = static_cast<const nerf_mlp::bf16*>(w);
   a.out = out;
   a.stamps = stamps;
   a.P = P;
@@ -146,7 +89,8 @@ int nerf_mlp_fwd(const float* xd, const void* w, const float* fp, float* out, vo
   a.kd = kd;
   a.nfx = nfx;
   a.nfd = nfd;
-  return fwd90::launch<fwd90::MODE_FWD>(a, acts, n_blocks, s);
+  return bf16_mode ? fwd90::launch<fwd90::MODE_FWD>(a, acts, n_blocks, s)
+                   : fwd90::launch<fwd90::MODE_F32>(a, acts, n_blocks, s);
 }
 
 const char* nerf_mlp_fwd_error_string(int code) {

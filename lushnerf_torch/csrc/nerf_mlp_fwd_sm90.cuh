@@ -1,11 +1,14 @@
-// The bf16 forward layer sequence of the fused NeRF-MLP for Hopper (sm_90a),
-// shared by two kernels: the forward kernel K1 (nerf_mlp_fwd.cu: the PE
-// from xd, [P, 4] out, optionally the activation stash) and the
+// The forward layer sequence of the fused NeRF-MLP for Hopper (sm_90a),
+// shared by the forward kernel K1 (nerf_mlp_fwd.cu: the PE from xd, [P, 4]
+// out, optionally the activation stash) in both its modes and the
 // matmul-only kernel K5 (nerf_pe_mm.cu: the PE loaded from a pre-encoded
-// [P, 128] array, [P, 128] out).  Both compute, per point, the scene MLP on
-// the bf16-rounded PE with f32 sums, f32 bias and relu, every activation
-// rounded to bf16 where the next layer reads it, and the alpha and rgb heads
-// (nerf_mlp_fwd.cu lists the function).
+// [P, 128] array, [P, 128] out).  In bf16 (MODE_FWD, MODE_MM) each
+// computes, per point, the scene MLP on the bf16-rounded PE with f32 sums,
+// f32 bias and relu, every activation rounded to bf16 where the next layer
+// reads it, and the alpha and rgb heads (nerf_mlp_fwd.cu lists the
+// function).  K1's f32 mode (MODE_F32, "the split", below the bf16
+// consumers) runs the same sequence with each operand in two fp16 parts
+// and three products for each, so that its products are f32-grade.
 //
 // What bounds it: operations output only, 1,186,816 FLOP a point at the
 // bf16 tensor rate; with the stash, bytes (4,864 more a point).  Inside an
@@ -54,6 +57,18 @@
 // constant (the buffer is at file scope), so it costs no registers: ptxas
 // fits each thread of a 384-thread block into 168 registers.
 //
+// The split differs in its shared memory and its blob: the activation
+// buffer holds both parts (128 KB), one PE slot of one chunk in both parts
+// (32 KB) takes the tile's pe_x chunk for layers 0 and 5 and then its pe_d
+// chunk for the views layer (which reads it first, so that the next tile's
+// pe_x can be written while the views layer's feat chunks run), and the
+// ring has 4 stages, one chunk of a 256-wide layer: 224.2 KB again.  Its
+// blob (fp16, `pack_params` in f32) holds the same matrices, the views
+// layer's PE chunks first, each chunk of 64 columns as its hi pieces, then
+// its lo pieces, padded with zero pieces to a multiple of 4; the epilogue
+// stores the f32 stash from registers.  The f32 path supports pe_x within
+// chunk 0 and pe_d within one chunk (kx <= 64).
+//
 // Weight blob (bf16, pieces of 8192 elements in order, padded with a zero
 // piece to an even count so that a chunk's two pieces sit in neighbouring
 // ring stages): for each layer its
@@ -68,6 +83,7 @@
 
 #pragma once
 
+#include <cuda_fp16.h>
 #include <string.h>
 
 #include "hopper.cuh"
@@ -118,13 +134,34 @@ enum { ST_PE_WAIT, ST_W_WAIT, ST_MM, ST_STASH_WAIT, ST_EPI, ST_STASH, ST_OUT, ST
 constexpr int SMEM = SM_CLK + N_ST * 8;
 static_assert(SMEM <= 232448, "shared memory over the 227 KB a block may use");
 
-enum { MODE_FWD, MODE_MM };  // K1: PE from xd, [P, 4] out; K5: PE loaded, [P, 128] out
+// The f32 mode's shared memory (the split): the activation buffer in two
+// bf16 parts (the hi chunks, then the lo chunks), one PE slot of one chunk
+// in two parts, a ring of S_N_WST stages; the barriers and the stage clock
+// where the bf16 layout has them.
+constexpr int S_ACT_LO = BUF_B;            // the lo parts of the activation buffer
+constexpr int S_SM_PE = SM_ACT + 2 * BUF_B;  // the PE slot: its hi chunk, then its lo chunk
+constexpr int S_PE_LO = CHUNK_B;
+constexpr int S_SM_RING = S_SM_PE + 2 * CHUNK_B;
+constexpr int S_N_WST = 4;                 // one chunk of a 256-wide layer: hi and lo pieces
+constexpr int SPLIT_SHIFT = 4;             // the parts are those of x 2^SPLIT_SHIFT
+constexpr float SPLIT_S = 1 << SPLIT_SHIFT;
+constexpr float SPLIT_ACC = SPLIT_S * SPLIT_S;  // the accumulator's scale
+static_assert(S_SM_RING + S_N_WST * PIECE_B == SM_BARS, "the split layout ends where the ring does");
+// mbarriers of the split: ring stages loaded / released as above; the PE
+// slot written (S_PE_FULL) and released by the 8 consumer warps (S_PE_FREE)
+enum { S_W_FULL = 0, S_W_EMPTY = S_N_WST, S_PE_FULL = 2 * S_N_WST, S_PE_FREE, S_N_BARS };
+static_assert(S_N_BARS <= N_BARS, "the split's barriers fit the bf16 layout's room");
+
+// K1 bf16: PE from xd, [P, 4] out; K5: PE loaded, [P, 128] out; K1 f32:
+// as K1 bf16, every product split in three fp16 products
+enum { MODE_FWD, MODE_MM, MODE_F32 };
 
 struct Args {
   const float* in;    // MODE_FWD: xd [P, 8]; MODE_MM: the packed PE [P, 128]
   const float* fp;    // the f32 blob (biases, heads)
   const bf16* w;      // the weight blob, pieces in order
-  float* out;         // [P, 4] (MODE_FWD) or [P, 128] (MODE_MM)
+  float* out;         // [P, 4] (MODE_FWD, MODE_F32) or [P, 128] (MODE_MM)
+  float* acts;        // MODE_F32: the f32 stash [P][ACTS_LD] or null
   long long* stamps;  // [tiles of block 0][N_ST] or null
   int P, kx, kd, nfx, nfd;  // MODE_MM: nfx / nfd are the packed PE's lanes of pe_x / pe_d
   int ntiles, n_pieces, nx, d0, nd;
@@ -184,18 +221,23 @@ template <bool PROF> struct Clock {
 // consumers
 // ---------------------------------------------------------------------------
 
-// The consumer side of the weight ring: piece k sits in stage k % N_WST.
-struct Ring {
+// The consumer side of a weight ring of NW stages (N_WST: bf16, S_N_WST:
+// the split): piece k sits in stage k % NW; barriers W_FULL + s (= s) and
+// W_EMPTY + s (= NW + s) in both layouts.
+template <int NW> struct RingT {
   int k;  // the next piece
   __device__ __forceinline__ const unsigned char* wait(int piece) const {
-    const int s = piece % N_WST;
-    mbar_wait(bar(W_FULL + s), (piece / N_WST) & 1);
-    return fsm + SM_RING + s * PIECE_B;
+    const int s = piece % NW;
+    mbar_wait(bar(s), (piece / NW) & 1);
+    return fsm + (NW == N_WST ? SM_RING : S_SM_RING) + s * PIECE_B;
   }
   __device__ __forceinline__ void release(int piece) const {
-    if ((threadIdx.x & 31) == 0) mbar_arrive(bar(W_EMPTY + piece % N_WST));
+    if ((threadIdx.x & 31) == 0) mbar_arrive(bar(NW + piece % NW));
   }
 };
+using Ring = RingT<N_WST>;
+static_assert(W_FULL == 0 && W_EMPTY == N_WST && S_W_FULL == 0 && S_W_EMPTY == S_N_WST,
+              "the rings' barriers");
 
 template <int R>
 __device__ __forceinline__ void mma_piece(float (&acc)[R], const unsigned char* A,
@@ -373,7 +415,7 @@ __device__ __forceinline__ void write_out(const Args& a, int p0, const float (&r
     if (p >= a.P) continue;
     const float r0 = rgb[rr] + fp[FP_BR], r1 = rgb[2 + rr] + fp[FP_BR + 1],
                 r2 = rgb[4 + rr] + fp[FP_BR + 2], al = alpha[rr] + fp[FP_BA];
-    if constexpr (MODE == MODE_FWD) {
+    if constexpr (MODE != MODE_MM) {
       if (f.q == 0) reinterpret_cast<float4*>(a.out)[p] = make_float4(r0, r1, r2, al);
     } else {
       float4* row = reinterpret_cast<float4*>(a.out + (size_t)p * 128) + 8 * f.q;
@@ -482,27 +524,304 @@ __device__ __forceinline__ void consumer(const Args& a, const CUtensorMap* tm) {
 }
 
 // ---------------------------------------------------------------------------
+// the f32 mode: each product as three fp16 products
+// ---------------------------------------------------------------------------
+//
+// Every f32 operand x is split in two fp16 parts, hi = fp16(x s) and lo =
+// fp16(x s - hi), s = 2^SPLIT_SHIFT (activations, PE and weights alike), so
+// that lo stays a normal number down to |x| = 2^-7: hi + lo is x s within
+// ~2^-22 of it, or 2^-25 absolute below that.  A product a . w is taken as
+// hi(a) hi(w) + lo(a) hi(w) + hi(a) lo(w), all three into the one f32
+// accumulator, which holds s^2 times the layer's sum from s^2 times its
+// bias on (exact scales); the epilogue takes it back.  lo . lo is ~2^-22 of
+// the product.  The parts hold |x| < 65504 / s = 4094.  Two bf16 parts (x
+// within ~2^-17) came within 0.80-0.84 of the stash's 1e-5 limit on the
+// card with three products and 0.73-0.80 with four (PERF.md).  The
+// activation buffer holds both parts of each activation, the PE slot both
+// parts of one PE chunk, and the weight blob both parts of each weight: a
+// chunk of a 256-wide layer is four pieces (hi rows 0..127, hi rows
+// 128..255, lo, lo), which sit in the four stages of the ring; a chunk of
+// the views layer two (hi, lo).  Bias, relu, the heads and the stash are
+// f32: the epilogue splits relu(acc) again for the next layer and stores
+// the f32 value itself to the stash.
+
+// A layer of the split: nk chunks of K, the PE slot at chunk pe_at (-1:
+// none) and the activation buffer's chunks in order around it; the PE slot
+// goes back to the PE warps once chunk pe_rel is read (-1: not in this
+// layer).  Layers 0 and 5 read pe_x (5 after a4), layer 9 pe_d before feat,
+// so that the slot is free for the next tile's pe_x while the views layer
+// runs.
+struct LayerS {
+  int nk, pe_at, pe_rel, bias;
+};
+__device__ __forceinline__ LayerS layer_split(int l) {
+  LayerS L;
+  L.nk = l == 0 ? 1 : l == 5 || l == 9 ? 5 : 4;
+  L.pe_at = l == 0 || l == 9 ? 0 : l == 5 ? 4 : -1;
+  L.pe_rel = l == 5 ? 4 : l == 9 ? 0 : -1;
+  L.bias = l < 8 ? l * W : l == 8 ? FP_BF : FP_BV;
+  return L;
+}
+// The hi part of chunk c's A (its lo part follows at S_PE_LO or S_ACT_LO).
+__device__ __forceinline__ const unsigned char* a_chunk_split(const LayerS& L, int c) {
+  if (c == L.pe_at) return fsm + S_SM_PE;
+  return fsm + SM_ACT + (L.pe_at == 0 ? c - 1 : c) * CHUNK_B;
+}
+
+// One 16-deep fp16 step: m64n256k16 over a chunk's two neighbouring
+// pieces (NP = 2) or m64n128k16 over one (NP = 1).
+template <int NP, int R>
+__device__ __forceinline__ void mma_step(float (&acc)[R], const unsigned char* A,
+                                         const unsigned char* B) {
+  if constexpr (NP == 2) wgmma_m64n256k16<R, true>(acc, wgmma_desc(A), wgmma_desc(B), 1);
+  else wgmma_m64n128k16<R, true>(acc, wgmma_desc(A), wgmma_desc(B), 1);
+}
+
+// Two f32 values as their fp16 parts' packed pair (the first in the low
+// half), and back.
+__device__ __forceinline__ uint32_t pack_f16(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.f16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+__device__ __forceinline__ float2 unpack_f16(uint32_t u) {
+  return __half22float2(*reinterpret_cast<const __half2*>(&u));
+}
+
+__device__ __forceinline__ void pe_release() {
+  if ((threadIdx.x & 31) == 0) mbar_arrive(bar(S_PE_FREE));
+}
+
+// acc = bias + A[wg rows] . W^T in the split, over the layer's chunks: per
+// chunk one wgmma group hi(A) hi(W) + lo(A) hi(W) on its hi pieces, then
+// one group hi(A) lo(W) on its lo pieces; each group's pieces go back to
+// the ring as soon as it is done, one group kept in flight.
+template <int NP, int R, bool PROF>
+__device__ __forceinline__ void matmul_split(float (&acc)[R], const LayerS& L, const float* fp,
+                                             RingT<S_N_WST>& ring, Clock<PROF>& clk) {
+  static_assert(R == 64 * NP, "an accumulator of 64 NP columns a thread");
+  const int wg_off = (threadIdx.x >> 7) * 64 * 128;
+  init_bias(acc, fp, L.bias);
+#pragma unroll
+  for (int i = 0; i < R; ++i) acc[i] *= SPLIT_ACC;
+#pragma unroll 1
+  for (int c = 0; c < L.nk; ++c) {
+    const unsigned char* Ah = a_chunk_split(L, c) + wg_off;
+    const unsigned char* Al = Ah + (c == L.pe_at ? S_PE_LO : S_ACT_LO);
+    clk.begin();
+    const unsigned char* Bh = ring.wait(ring.k);
+    if (NP == 2) ring.wait(ring.k + 1);
+    clk.end(ST_W_WAIT);
+    wgmma_fence();
+    wgmma_fence_regs(acc);
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) mma_step<NP>(acc, Ah + ks * 32, Bh + ks * 32);
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) mma_step<NP>(acc, Al + ks * 32, Bh + ks * 32);
+    wgmma_commit();
+    if (c > 0) {  // the chunk before: its lo group is done
+      wgmma_wait<1>();
+      for (int i = 0; i < NP; ++i) ring.release(ring.k - NP + i);
+      if (c - 1 == L.pe_rel) pe_release();
+    }
+    clk.begin();
+    const unsigned char* Bl = ring.wait(ring.k + NP);
+    if (NP == 2) ring.wait(ring.k + NP + 1);
+    clk.end(ST_W_WAIT);
+    wgmma_fence();
+    wgmma_fence_regs(acc);
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) mma_step<NP>(acc, Ah + ks * 32, Bl + ks * 32);
+    wgmma_commit();
+    wgmma_wait<1>();  // this chunk's hi group is done
+    for (int i = 0; i < NP; ++i) ring.release(ring.k + i);
+    ring.k += 2 * NP;
+  }
+  wgmma_wait<0>();
+  for (int i = 0; i < NP; ++i) ring.release(ring.k - NP + i);
+  if (L.nk - 1 == L.pe_rel) pe_release();
+  wgmma_fence_regs(acc);
+}
+
+// A layer's output in the split from its accumulator of N / 2 columns
+// (SPLIT_ACC times bias + the products): v = relu(acc / SPLIT_ACC) (relu)
+// or acc / SPLIT_ACC, in f32; with `write` its parts hi = fp16(v s) and lo
+// = fp16(v s - hi) written over the activation buffer's hi and lo chunks.  The heads sum v in f32 as `epilogue` sums
+// its rounded values (head 1: alpha, head 2: rgb).
+template <int N, int NH>
+__device__ __forceinline__ void epilogue_split(const float (&acc)[N], const float* fp, bool relu,
+                                               bool write, int head, float (&hs)[NH]) {
+  const Frag f;
+  const int lane = threadIdx.x & 31, rr = lane & 7, hi = lane >> 4;
+  const int row = f.r0 - (lane >> 2) + ((lane >> 3) & 1) * 8 + rr;
+  unsigned char* base = fsm + SM_ACT + row * 128;
+#pragma unroll
+  for (int j = 0; j < N / 4; j += 2) {  // columns 8 j .. 8 j + 15
+    float v[8];  // rows r0 | r0 + 8 of columns 8 j + 2 q, then of 8 (j + 1) + 2 q
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      v[i] = acc[4 * j + i] * (1.f / SPLIT_ACC);  // exact
+      if (relu) v[i] = fmaxf(v[i], 0.f);
+    }
+    if (write) {
+      uint32_t ph[4], pl[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float x0 = v[2 * i] * SPLIT_S, x1 = v[2 * i + 1] * SPLIT_S;  // exact
+        ph[i] = pack_f16(x0, x1);
+        const float2 h = unpack_f16(ph[i]);
+        pl[i] = pack_f16(x0 - h.x, x1 - h.y);
+      }
+      const int off = (j >> 3) * CHUNK_B + ((((j & 7) + hi) ^ rr) << 4);
+      stsm_x4(base + off, ph[0], ph[1], ph[2], ph[3]);
+      stsm_x4(base + S_ACT_LO + off, pl[0], pl[1], pl[2], pl[3]);
+    }
+    if (head != 0) {
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const int col = 8 * (j + jj) + 2 * f.q;
+#pragma unroll
+        for (int k = 0; k < NH / 2; ++k) {
+          const int off = head == 1 ? FP_WA : FP_WR + k * WH;
+          const float2 w = __ldg(reinterpret_cast<const float2*>(fp + off + col));
+          hs[2 * k] = fmaf(v[4 * jj + 1], w.y, fmaf(v[4 * jj], w.x, hs[2 * k]));
+          hs[2 * k + 1] = fmaf(v[4 * jj + 3], w.y, fmaf(v[4 * jj + 2], w.x, hs[2 * k + 1]));
+        }
+      }
+    }
+  }
+}
+
+// The f32 stash of this thread's two rows (those before P) from an
+// accumulator of N / 2 columns: the epilogue's v at columns col0 + 8 j +
+// 2 q, straight from the registers (no shared memory is left to stage it),
+// as streaming float2 stores: a warp instruction writes 8 rows x 32 bytes,
+// whole sectors, and the stash's 9,728 bytes a point do not push the
+// weights out of L2.
+template <int N>
+__device__ __forceinline__ void stash_split(const float (&acc)[N], const Args& a, int p0,
+                                            int col0, bool relu) {
+  const Frag f;
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int p = p0 + f.r0 + 8 * rr;
+    if (p >= a.P) continue;
+    float2* row = reinterpret_cast<float2*>(a.acts + (size_t)p * ACTS_LD + col0 + 2 * f.q);
+#pragma unroll
+    for (int j = 0; j < N / 4; ++j) {
+      float x = acc[4 * j + 2 * rr] * (1.f / SPLIT_ACC), y = acc[4 * j + 2 * rr + 1] * (1.f / SPLIT_ACC);
+      if (relu) {
+        x = fmaxf(x, 0.f);
+        y = fmaxf(y, 0.f);
+      }
+      __stcs(row + 4 * j, make_float2(x, y));
+    }
+  }
+}
+
+template <bool PROF>
+__device__ __forceinline__ void consumer_split(const Args& a) {
+  const int wg = threadIdx.x >> 7;
+  RingT<S_N_WST> ring{0};
+  Clock<PROF> clk{PROF && blockIdx.x == 0 && threadIdx.x == 0, 0};
+  int it = 0;
+#pragma unroll 1
+  for (Sched s(a); s.more(); s.next(), ++it) {
+    const int p0 = s.p0();
+    long long t_tile = 0;
+    if constexpr (PROF) t_tile = clock64();
+    float alpha[2] = {0.f, 0.f};
+#pragma unroll 1
+    for (int l = 0; l < 10; ++l) {
+      const LayerS L = layer_split(l);
+      if (l == 0 || l == 9) {  // the slot's pe_x (phase 0), then its pe_d (phase 1)
+        clk.begin();
+        mbar_wait(bar(S_PE_FULL), l == 9 ? 1 : 0);
+        clk.end(ST_PE_WAIT);
+      }
+      if (l < 9) {
+        float acc[128];
+        matmul_split<2>(acc, L, a.fp, ring, clk);
+        clk.begin();
+        named_bar(BAR_WG + wg, 128);  // every warp of the warpgroup has read its A
+        clk.end(ST_STASH_WAIT);
+        clk.begin();
+        epilogue_split(acc, a.fp, l != 8, true, l == 7 ? 1 : 0, alpha);  // 8: feat, no relu
+        if (l == 7) row_sum(alpha);
+        clk.end(ST_EPI);
+        if (a.acts != nullptr) {
+          clk.begin();
+          stash_split(acc, a, p0, l * W, l != 8);
+          clk.end(ST_STASH);
+        }
+      } else {
+        float acc[64];
+        matmul_split<1>(acc, L, a.fp, ring, clk);
+        while (ring.k % S_N_WST) {  // the tile's padding pieces
+          ring.wait(ring.k);
+          ring.release(ring.k);
+          ++ring.k;
+        }
+        clk.begin();
+        float rgb[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+        epilogue_split(acc, a.fp, true, false, 2, rgb);  // hv: the stash reads the registers
+        row_sum(rgb);
+        clk.end(ST_EPI);
+        clk.begin();
+        write_out<MODE_F32>(a, p0, rgb, alpha);
+        clk.end(ST_OUT);
+        if (a.acts != nullptr) {
+          clk.begin();
+          stash_split(acc, a, p0, 9 * W, true);
+          clk.end(ST_STASH);
+        }
+      }
+      clk.begin();
+      fence_proxy_async();  // the writes, for the next wgmma
+      named_bar(BAR_WG + wg, 128);
+      clk.end(ST_EPI);
+    }
+    if constexpr (PROF) {
+      if (clk.on) {
+        long long* sums = clk_sums();
+        const long long total = clock64() - t_tile;
+        long long rest = total;
+        for (int i = 0; i < ST_PE_WORK; ++i)
+          if (i != ST_MM) rest -= sums[i];
+        sums[ST_MM] = rest;
+        for (int i = 0; i < ST_PE_WORK; ++i) {
+          a.stamps[(size_t)it * N_ST + i] = sums[i];
+          sums[i] = 0;
+        }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // producer and PE warps
 // ---------------------------------------------------------------------------
 
+template <int NW>
 __device__ __forceinline__ void producer(const Args& a) {
+  unsigned char* ring = fsm + (NW == N_WST ? SM_RING : S_SM_RING);
   int k = 0;  // pieces issued
 #pragma unroll 1
   for (Sched s(a); s.more(); s.next()) {
 #pragma unroll 1
     for (int i = 0; i < a.n_pieces; ++i, ++k) {
-      const int st = k % N_WST;
-      mbar_wait(bar(W_EMPTY + st), ((k / N_WST) & 1) ^ 1);
-      mbar_arrive_expect_tx(bar(W_FULL + st), PIECE_B);
-      bulk_g2s(fsm + SM_RING + st * PIECE_B, a.w + (size_t)i * PIECE_ELEMS, PIECE_B,
-               bar(W_FULL + st));
+      const int st = k % NW;
+      mbar_wait(bar(NW + st), ((k / NW) & 1) ^ 1);
+      mbar_arrive_expect_tx(bar(st), PIECE_B);
+      bulk_g2s(ring + st * PIECE_B, a.w + (size_t)i * PIECE_ELEMS, PIECE_B, bar(st));
     }
   }
 }
 
 // Chunk c of the PE tile for the points from p0 (zeros past P): pe_x at
-// columns [0, kx), pe_d at [kx, kx + kd), zeros after.  MODE_FWD computes
-// it from xd: PE thread t < 64 owns points 2 t and 2 t + 1, loads their
+// columns [0, kx), pe_d at [kx, kx + kd), zeros after; MODE_F32 writes it
+// to the PE slot in two fp16 parts (those of the activations).
+// MODE_FWD and MODE_F32 compute it from xd: PE thread t < 64 owns points 2 t and 2 t + 1, loads their
 // coordinates at once and gives each (point, band, coordinate) of the chunk
 // one sincosf for its sin and its cos column, and the identity columns; all
 // PE threads write the zero columns.  MODE_MM reads it from the packed PE
@@ -510,12 +829,20 @@ __device__ __forceinline__ void producer(const Args& a) {
 template <int MODE>
 __device__ __forceinline__ void pe_chunk(const Args& a, int c, int p0) {
   const int t = threadIdx.x - PE0;
-  unsigned char* dst = fsm + SM_PE + c * CHUNK_B;
+  unsigned char* dst = MODE == MODE_F32 ? fsm + S_SM_PE : fsm + SM_PE + c * CHUNK_B;
   auto put = [&](int p, int col, float v) {  // col: the tile's column, in chunk c
-    *reinterpret_cast<bf16*>(dst + swz128(p, col & 63)) = __float2bfloat16_rn(v);
+    const uint32_t o = swz128(p, col & 63);
+    if constexpr (MODE == MODE_F32) {
+      const float x = v * SPLIT_S;  // exact
+      const __half h = __float2half_rn(x);
+      *reinterpret_cast<__half*>(dst + o) = h;
+      *reinterpret_cast<__half*>(dst + S_PE_LO + o) = __float2half_rn(x - __half2float(h));
+    } else {
+      *reinterpret_cast<bf16*>(dst + o) = __float2bfloat16_rn(v);
+    }
   };
   const int ncol = a.kx + a.kd;
-  if constexpr (MODE == MODE_FWD) {
+  if constexpr (MODE != MODE_MM) {
     static_assert(2 * 64 == T, "two points a PE thread");
     if (t < 64) {
       float x[2][6];
@@ -611,20 +938,61 @@ __device__ __forceinline__ void pe_writer(const Args& a) {
   }
 }
 
+// The split's PE warps: per tile the slot takes the pe_x chunk (chunk 0 of
+// the PE tile, for layers 0 and 5), then the pe_d chunk (chunk d0, for the
+// views layer), each once the consumers have released the slot's contents
+// before it.  The slot's barriers complete twice a tile, so phase 0 of
+// each pair is pe_x's and phase 1 pe_d's.
+template <bool PROF>
+__device__ __forceinline__ void pe_writer_split(const Args& a) {
+  const int t = threadIdx.x - PE0;
+  const bool on = PROF && blockIdx.x == 0 && t == 0;
+  int it = 0;
+#pragma unroll 1
+  for (Sched s(a); s.more(); s.next(), ++it) {
+    long long work = 0;
+#pragma unroll 1
+    for (int ph = 0; ph < 2; ++ph) {
+      mbar_wait(bar(S_PE_FREE), ph ^ 1);  // the slot's last contents have been read
+      const long long t0 = on ? clock64() : 0;
+      pe_chunk<MODE_F32>(a, ph == 0 ? 0 : a.d0, s.p0());
+      fence_proxy_async();  // for the consumers' wgmma reads
+      named_bar(BAR_PE, PE_THREADS);
+      if (t == 0) mbar_arrive(bar(S_PE_FULL));
+      if (on) work += clock64() - t0;
+    }
+    if constexpr (PROF) {
+      if (on) a.stamps[(size_t)it * N_ST + ST_PE_WORK] = work;
+    }
+  }
+}
+
 template <int MODE, bool PROF>
 __global__ void __launch_bounds__(NTHR, 1)
     fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_acts, const __grid_constant__ Args a) {
   if (smem_u32(fsm) & 1023) __trap();  // the swizzled operands need 1024-byte alignment
+  constexpr bool SPLIT = MODE == MODE_F32;
   if (threadIdx.x == 0) {
-    for (int i = 0; i < N_BARS; ++i)
-      mbar_init(bar(i), i >= W_EMPTY && i < PE_FULL ? NCONS / 32 : i >= PE_FREE ? 2 : 1);
+    if constexpr (SPLIT) {
+      for (int i = 0; i < S_N_BARS; ++i)
+        mbar_init(bar(i), (i >= S_W_EMPTY && i < S_PE_FULL) || i == S_PE_FREE ? NCONS / 32 : 1);
+    } else {
+      for (int i = 0; i < N_BARS; ++i)
+        mbar_init(bar(i), i >= W_EMPTY && i < PE_FULL ? NCONS / 32 : i >= PE_FREE ? 2 : 1);
+    }
     for (int i = 0; i < N_ST; ++i) clk_sums()[i] = 0;
     mbar_fence_init();
   }
   __syncthreads();
-  if (threadIdx.x < NCONS) consumer<MODE, PROF>(a, &tm_acts);
-  else if (threadIdx.x == PRODUCER) producer(a);
-  else if (threadIdx.x >= PE0) pe_writer<MODE, PROF>(a);
+  if constexpr (SPLIT) {
+    if (threadIdx.x < NCONS) consumer_split<PROF>(a);
+    else if (threadIdx.x == PRODUCER) producer<S_N_WST>(a);
+    else if (threadIdx.x >= PE0) pe_writer_split<PROF>(a);
+  } else {
+    if (threadIdx.x < NCONS) consumer<MODE, PROF>(a, &tm_acts);
+    else if (threadIdx.x == PRODUCER) producer<N_WST>(a);
+    else if (threadIdx.x >= PE0) pe_writer<MODE, PROF>(a);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -647,17 +1015,31 @@ inline int n_pieces(int kx, int kd) {
   return n + (n & 1);  // a zero piece pads an odd count
 }
 inline long long blob_numel(int kx, int kd) { return (long long)n_pieces(kx, kd) * PIECE_ELEMS; }
+// The split's pieces a tile: four a chunk of the 256-wide layers, two a
+// chunk of Wv, padded with zero pieces to a whole number of ring rounds (so
+// that each tile's first chunk starts at stage 0); elements of its blob.
+inline int n_pieces_split(int kx, int kd) {
+  int nx, d0, nd;
+  pe_chunks(kx, kd, &nx, &d0, &nd);
+  const int n = 4 * (nx + 4 * 4 + 4 + nx + 3 * 4) + 2 * (4 + nd);
+  return (n + S_N_WST - 1) / S_N_WST * S_N_WST;
+}
+inline long long blob_numel_split(int kx, int kd) {
+  return (long long)n_pieces_split(kx, kd) * PIECE_ELEMS;
+}
 
 // Launches the kernel on n_blocks blocks (at most one an SM: n_blocks <=
-// the SM count); returns 0 or a CUDA error code.  `acts` (MODE_FWD) null or
-// the [P, ACTS_LD] bf16 stash.
+// the SM count); returns 0 or a CUDA error code.  `acts` null or the
+// [P, ACTS_LD] stash: bf16 (MODE_FWD) or f32 (MODE_F32).  MODE_F32 holds
+// one PE chunk at a time, so it takes pe_x in chunk 0 (kx <= 64) and pe_d
+// in one chunk.
 template <int MODE>
 inline int launch(Args a, void* acts, int n_blocks, cudaStream_t stream) {
   if (a.P <= 0 || a.kx % 32 || a.kd % 32 || a.kx <= 0 || a.kd <= 0 || a.kx + a.kd > PE_MAX ||
       n_blocks <= 0)
     return (int)cudaErrorInvalidValue;
   // the instrumented instantiation is K1's only (MODE_MM: PROF = false twice)
-  constexpr bool HAS_PROF = MODE == MODE_FWD;
+  constexpr bool HAS_PROF = MODE != MODE_MM;
   static int attr_rc = -1;
   if (attr_rc < 0) {
     cudaError_t e = cudaFuncSetAttribute(fwd_sm90_kernel<MODE, false>,
@@ -669,16 +1051,18 @@ inline int launch(Args a, void* acts, int n_blocks, cudaStream_t stream) {
   }
   if (attr_rc != 0) return attr_rc;
   if (a.stamps != nullptr && !HAS_PROF) return (int)cudaErrorInvalidValue;
+  pe_chunks(a.kx, a.kd, &a.nx, &a.d0, &a.nd);
+  if (MODE == MODE_F32 && (a.nx != 1 || a.nd != 1)) return (int)cudaErrorInvalidValue;
   CUtensorMap tm;
   memset(&tm, 0, sizeof(tm));
-  if (acts != nullptr) {
+  if (acts != nullptr && MODE == MODE_FWD) {
     const int rc = make_map_2d_bf16(&tm, acts, a.P, ACTS_LD, ACTS_LD * 2, 64, 64);
     if (rc != 0) return rc;
   }
   a.stash = acts != nullptr;
+  a.acts = MODE == MODE_F32 ? static_cast<float*>(acts) : nullptr;
   a.ntiles = (a.P + T - 1) / T;
-  a.n_pieces = n_pieces(a.kx, a.kd);
-  pe_chunks(a.kx, a.kd, &a.nx, &a.d0, &a.nd);
+  a.n_pieces = MODE == MODE_F32 ? n_pieces_split(a.kx, a.kd) : n_pieces(a.kx, a.kd);
   if (a.stamps != nullptr)
     fwd_sm90_kernel<MODE, HAS_PROF><<<n_blocks, NTHR, SMEM, stream>>>(tm, a);
   else

@@ -5,10 +5,10 @@ The forward kernel (`lushnerf_torch/csrc/nerf_mlp_fwd.cu`) computes, per
 point, positional encoding + the 8x256 scene MLP (skip at layer 4) + alpha /
 feature / views / rgb heads, and writes raw [rgb, alpha]; for training it
 also writes the activation stash a0..a7, feat, hv.  It replaces the Pallas
-TPU kernel `_fwd_kernel` of `lushnerf_tpu/ops/fused/nerf_mlp.py`.  In bf16
-it runs `csrc/nerf_mlp_fwd_sm90.cuh` (wgmma, a persistent grid that streams
-the weights through a ring of bulk copies); `fwd_grid` and `fwd_tiles` are
-its geometry.  The
+TPU kernel `_fwd_kernel` of `lushnerf_tpu/ops/fused/nerf_mlp.py`.  Both
+modes run `csrc/nerf_mlp_fwd_sm90.cuh` (wgmma, a persistent grid that
+streams the weights through a ring of bulk copies); `fwd_grid` and
+`fwd_tiles` are its geometry.  The
 backward kernels compute d(xd) and the grads of every parameter from the
 stash (replacing `_bwd_stash_kernel`, mode 'stash') or, in mode 'remat'
 (replacing `_bwd_kernel`), from a stash the forward kernel writes into
@@ -34,7 +34,11 @@ TPU kernel's 26 padded arrays are these with W5 and the views weight each
 split in two by input.
 
 compute_dtype:
-  'float32'  -- IEEE f32 products and sums (no TF32).
+  'float32'  -- f32-grade products and f32 sums: the plain versions in IEEE
+                f32 (no TF32); the forward kernel splits each operand in two
+                scaled fp16 parts (`split_f16`) and takes each product as
+                three fp16 products of the parts into an f32 accumulator, as
+                the TPU kernel's f32 mode runs the MXU at Precision.HIGHEST.
   'bfloat16' -- every matmul input (PE, activations, weights, and in the
                 backward the cotangents) rounded to bf16, f32 accumulation,
                 f32 bias and relu: the rounding points of the TPU kernel's
@@ -75,13 +79,18 @@ DGRAD_STAGES = (
     + ["dpe_x", "dxd_x"]
 )
 
-# The bf16 forward kernel's stages: consumer thread 0's cycles of each in
-# each tile of block 0 (its instrumented instantiation), then, off that
-# path, the PE warps' work (mirrors ST_* in csrc/nerf_mlp_fwd_sm90.cuh)
+# The forward kernel's stages: consumer thread 0's cycles of each in each
+# tile of block 0 (its instrumented instantiation), then, off that path, the
+# PE warps' work (mirrors ST_* in csrc/nerf_mlp_fwd_sm90.cuh)
 FWD_STAGES = ("pe_wait", "weight_wait", "mm", "stash_wait", "epilogue", "stash", "out")
 FWD_OFF_PATH = ("pe_work",)
-FWD_TILE = 128  # points a tile of the bf16 forward kernel
-FWD_PIECE = 128 * 64  # elements of a weight piece of the bf16 blob
+FWD_TILE = 128  # points a tile of the forward kernel
+FWD_PIECE = 128 * 64  # elements of a weight piece of either weight blob
+SPLIT_RING = 4  # the f32 blob's pieces a tile: a multiple of the split's ring stages
+# the f32 kernel's fp16 parts are those of x 2^SPLIT_SHIFT (activations, PE
+# and weights alike; mirrors SPLIT_SHIFT in csrc/nerf_mlp_fwd_sm90.cuh)
+SPLIT_SHIFT = 4
+FP16_MAX = 65504.0
 
 COMPUTE_DTYPES = ("float32", "bfloat16")
 BWD_MODES = ("remat", "stash")
@@ -112,7 +121,7 @@ def fwd_pe_chunks(kx: int, kd: int) -> Tuple[int, int, int]:
 
 
 def fwd_grid(P: int, n_sm: int) -> int:
-    """Blocks of the bf16 forward kernel's persistent grid for P > 0 points:
+    """Blocks of the forward kernel's persistent grid for P > 0 points:
     one a tile, at most one an SM (its shared memory fills one)."""
     return max(1, min(n_sm, -(-P // FWD_TILE)))
 
@@ -155,6 +164,10 @@ def kernel_gap(mlp_cfg, compute_dtype: str, num_freqs_x: int, num_freqs_d: int) 
         return (f"PE of {num_freqs_x}/{num_freqs_d} frequencies into "
                 f"{mlp_cfg.input_ch}/{mlp_cfg.input_ch_views} MLP inputs is outside the "
                 f"kernel's {PE_MAX} padded channels")
+    nx, _, nd = fwd_pe_chunks(kx, kd)
+    if compute_dtype == "float32" and (nx != 1 or nd != 1):
+        return (f"the f32 kernel holds one 64-column PE chunk at a time: pe_x ({kx} padded "
+                f"channels) and pe_d (columns {kx}..{kx + kd}) must each lie in one")
     return None
 
 
@@ -330,13 +343,26 @@ def _pack_key(mlp, compute_dtype: str):
     return (compute_dtype, tuple((p.data_ptr(), p._version) for p in mlp.parameters()))
 
 
+def split_f16(m: torch.Tensor, shift: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The f32 kernel's two fp16 parts of x = m 2^shift: hi = fp16(x), lo =
+    fp16(x - hi) (x - hi is exact in f32; hi + lo is x within ~2^-22 of it,
+    or 2^-25 absolute where lo is subnormal)."""
+    x = m.float() * 2.0 ** shift
+    hi = x.half()
+    return hi, (x - hi.float()).half()
+
+
 @torch.no_grad()
 def pack_params(mlp, compute_dtype: str) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kernels' parameter blobs: the weight blob in the compute dtype
-    (f32: row-major, layout in csrc/nerf_mlp_common.cuh; bf16: the pieces
-    the wgmma kernel reads, `fwd_mats_sm90` laid out by `swizzle128` and
-    padded with a zero piece to an even piece count, layout in
+    """The kernels' parameter blobs: the forward kernel's weight blob, its
+    pieces in the order its ring takes them (layout in
     csrc/nerf_mlp_fwd_sm90.cuh), and the f32 blob of biases and heads.
+    bf16: `fwd_mats_sm90` laid out by `swizzle128`, padded with a zero piece
+    to an even piece count.  f32: the same matrices (the views layer's
+    pe_d chunk first) split by `split_f16` at SPLIT_SHIFT, each chunk of 64
+    columns as its hi pieces, then its lo pieces, padded with zero pieces to
+    a multiple of SPLIT_RING (fp16; raises for a weight beyond the parts'
+    range).
 
     Packed once per parameter version: the result is cached on the module
     and rebuilt when a parameter is replaced or changed in place.
@@ -350,24 +376,19 @@ def pack_params(mlp, compute_dtype: str) -> Tuple[torch.Tensor, torch.Tensor]:
         w = torch.cat([swizzle128(m.bfloat16()) for m in fwd_mats_sm90(mlp)])
         if (w.numel() // FWD_PIECE) % 2:  # a zero piece pads an odd piece count
             w = torch.cat([w, w.new_zeros(FWD_PIECE)])
-        w = w.contiguous()
     else:
-        in_ch, W = mlp.cfg.input_ch, mlp.cfg.width
-        kx, kd = pe_widths(mlp.cfg)
-
-        def padk(w, k):
-            return F.pad(w, (0, k - w.shape[1]))
-
-        pts = [lin.weight for lin in mlp.pts_linears]
-        w5 = pts[5]
-        wv = mlp.views_linears[0].weight
-        mats = [
-            padk(pts[0], kx), pts[1], pts[2], pts[3], pts[4],
-            torch.cat([padk(w5[:, :in_ch], kx), w5[:, in_ch:]], dim=1),
-            pts[6], pts[7], mlp.feature_linear.weight,
-            torch.cat([wv[:, :W], padk(wv[:, W:], kd)], dim=1),
-        ]
-        w = torch.cat([m.reshape(-1) for m in mats]).float().contiguous()
+        parts = []
+        for m in fwd_mats_sm90(mlp, views_pe_first=True):
+            if not bool((m.abs() * 2.0 ** SPLIT_SHIFT < FP16_MAX).all()):
+                raise ValueError("pack_params: a weight outside the f32 kernel's fp16 parts' "
+                                 f"range (|w| < {FP16_MAX / 2 ** SPLIT_SHIFT:g})")
+            n_chunks = m.shape[1] // 64
+            hi, lo = (swizzle128(t).reshape(n_chunks, -1) for t in split_f16(m, SPLIT_SHIFT))
+            parts.append(torch.stack([hi, lo], 1).reshape(-1))  # per chunk: hi, then lo
+        w = torch.cat(parts)
+        pad = -(w.numel() // FWD_PIECE) % SPLIT_RING
+        w = torch.cat([w, w.new_zeros(pad * FWD_PIECE)])
+    w = w.contiguous()
 
     def head(t):
         return t.bfloat16().float() if bf16 else t
@@ -387,12 +408,13 @@ def pack_params(mlp, compute_dtype: str) -> Tuple[torch.Tensor, torch.Tensor]:
     return packed
 
 
-def fwd_mats_sm90(mlp) -> List[torch.Tensor]:
-    """The ten [out][K] matrices of the bf16 forward kernel, K in the order
-    its layers read their chunks: W0 over the PE tile's first nx chunks;
-    W1..W4; W5 over a4, then the PE tile's first nx chunks; W6, W7, Wf; Wv
-    over feat, then the PE tile's nd chunks from chunk d0 (`fwd_pe_chunks`).
-    A PE column a layer does not read gets a zero weight."""
+def fwd_mats_sm90(mlp, views_pe_first: bool = False) -> List[torch.Tensor]:
+    """The ten [out][K] matrices of the forward kernel, K in the order its
+    layers read their chunks: W0 over the PE tile's first nx chunks; W1..W4;
+    W5 over a4, then the PE tile's first nx chunks; W6, W7, Wf; Wv over
+    feat, then the PE tile's nd chunks from chunk d0 (`fwd_pe_chunks`), or
+    with `views_pe_first` (the f32 kernel) the PE chunks first.  A PE column
+    a layer does not read gets a zero weight."""
     cfg = mlp.cfg
     in_ch, W = cfg.input_ch, cfg.width
     kx, kd = pe_widths(cfg)
@@ -405,11 +427,12 @@ def fwd_mats_sm90(mlp) -> List[torch.Tensor]:
 
     pts = [lin.weight for lin in mlp.pts_linears]
     wv = mlp.views_linears[0].weight
+    views = [wv[:, :W], place(wv[:, W:], nd, kx - 64 * d0)]
     return [
         place(pts[0], nx, 0), pts[1], pts[2], pts[3], pts[4],
         torch.cat([pts[5][:, in_ch:], place(pts[5][:, :in_ch], nx, 0)], dim=1),
         pts[6], pts[7], mlp.feature_linear.weight,
-        torch.cat([wv[:, :W], place(wv[:, W:], nd, kx - 64 * d0)], dim=1),
+        torch.cat(views[::-1] if views_pe_first else views, dim=1),
     ]
 
 
@@ -577,8 +600,8 @@ def _fwd_into(mlp, xd: torch.Tensor, compute_dtype: str, num_freqs_x: int,
               stamps: Optional[torch.Tensor] = None) -> None:
     """Launches the forward kernel on contiguous CUDA xd [P, 8] (P > 0) into
     out [P, 4] and, if not None, the stash acts [P, ACTS_LD]; with `stamps`
-    (bf16 only) its instrumented instantiation, which writes its stage
-    cycles there.  The caller counts the launch."""
+    its instrumented instantiation, which writes its stage cycles there.
+    The caller counts the launch."""
     kx, kd = pe_widths(mlp.cfg)
     w, fp = pack_params(mlp, compute_dtype)
     if w.device != xd.device:
@@ -588,7 +611,7 @@ def _fwd_into(mlp, xd: torch.Tensor, compute_dtype: str, num_freqs_x: int,
     if w.numel() != lib.nerf_mlp_fwd_w_numel(kx, kd, int(bf16)):
         raise RuntimeError("nerf_mlp_fwd: weight blob layout differs from the CUDA source")
     _check_aligned("nerf_mlp_fwd", xd, w, fp, out, *([] if acts is None else [acts]))
-    n_blocks = fwd_grid(xd.shape[0], sm_count(xd.device)) if bf16 else 0
+    n_blocks = fwd_grid(xd.shape[0], sm_count(xd.device))
     stream = torch.cuda.current_stream(xd.device).cuda_stream
     with torch.cuda.device(xd.device):
         rc = lib.nerf_mlp_fwd(
@@ -620,20 +643,22 @@ def _launch_fwd(mlp, xd: torch.Tensor, compute_dtype: str, num_freqs_x: int,
     return out, acts
 
 
-def fwd_stage_cycles(mlp, xd: torch.Tensor, stash: bool) -> torch.Tensor:
-    """Runs the bf16 forward kernel's instrumented instantiation once on CUDA
-    xd (P > 0): [tiles of block 0, len(FWD_STAGES + FWD_OFF_PATH)] int64,
-    the clock64() cycles of each stage in each tile (not a launch of the
-    main path: not counted)."""
-    _check_cuda_inputs("nerf_mlp_fwd", mlp, xd, "bfloat16", 10, 4)
+def fwd_stage_cycles(mlp, xd: torch.Tensor, stash: bool,
+                     compute_dtype: str = "bfloat16") -> torch.Tensor:
+    """Runs the forward kernel's instrumented instantiation once on CUDA xd
+    (P > 0): [tiles of block 0, len(FWD_STAGES + FWD_OFF_PATH)] int64, the
+    clock64() cycles of each stage in each tile (not a launch of the main
+    path: not counted)."""
+    _check_cuda_inputs("nerf_mlp_fwd", mlp, xd, compute_dtype, 10, 4)
     xd = xd.contiguous()
     P = xd.shape[0]
     n_blocks = fwd_grid(P, sm_count(xd.device))
     stamps = torch.zeros((len(fwd_tiles(P, n_blocks)[0]), len(FWD_STAGES + FWD_OFF_PATH)),
                          dtype=torch.int64, device=xd.device)
     out = torch.empty((P, OUT_CH), dtype=torch.float32, device=xd.device)
-    acts = torch.empty((P, ACTS_LD), dtype=torch.bfloat16, device=xd.device) if stash else None
-    _fwd_into(mlp, xd, "bfloat16", 10, 4, out, acts, stamps)
+    acts = (torch.empty((P, ACTS_LD), dtype=stash_dtype(compute_dtype), device=xd.device)
+            if stash else None)
+    _fwd_into(mlp, xd, compute_dtype, 10, 4, out, acts, stamps)
     return stamps
 
 

@@ -12,7 +12,8 @@ plain version there).  Here:
   * the packed weight blobs the kernel reads reproduce the plain version
     when evaluated the way the kernel evaluates them (layout and offsets;
     the bf16 blob read through a plain index model of its wgmma layout,
-    `sm90_mats`);
+    `sm90_mats`, the f32 blob through the model of its split layout,
+    `split_mats`, with each weight's two bf16 parts added back);
   * a CPU tensor takes the plain version and launches nothing;
   * the 'cuda' backend routes the JAX package's MLP family, and what the
     compiled kernel does not cover raises before a launch.
@@ -129,21 +130,48 @@ def sm90_row_major(mats, kx, kd):
         torch.cat([mats[9][:, :Wd], mats[9][:, Wd + c:Wd + c + kd]], 1)]
 
 
+def split_mats(w, kx, kd):
+    """The f32 forward blob undone by a plain index model of its layout:
+    the ten [N][K] matrices as lists of their hi and lo parts, K in the
+    kernel's order (as `sm90_mats`, but Wv's nd PE chunks before feat); each
+    chunk of 64 columns of a matrix is its [N][64] hi part in the layout of
+    `sm90_mats`, then its lo part; then zero pieces up to a multiple of 4
+    [128][64] pieces."""
+    nx, _, nd = sm90_pe_chunks(kx, kd)
+    Wd, Wh, piece = 256, 128, 128 * 64
+    shapes = [(Wd, 64 * nx)] + [(Wd, Wd)] * 4 + [(Wd, Wd + 64 * nx)] + [(Wd, Wd)] * 3 + [
+        (Wh, 64 * nd + Wd)]
+    flat = w.float().numpy()
+    offs = np.concatenate([[0], np.cumsum([2 * a * b for a, b in shapes])])
+    assert -(-offs[-1] // (4 * piece)) * 4 * piece == flat.size and not flat[offs[-1]:].any()
+    his, los = [], []
+    for (N, K), off in zip(shapes, offs):
+        n, k = np.meshgrid(np.arange(N), np.arange(K), indexing="ij")
+        base = off + (k // 64) * 2 * N * 64 + n * 64 + (((k % 64) // 8) ^ (n % 8)) * 8 + k % 8
+        his.append(torch.from_numpy(flat[base]))
+        los.append(torch.from_numpy(flat[base + N * 64]))
+    return his, los
+
+
+def split_unsplit(w, kx, kd):
+    """The ten matrices of the f32 blob in the row-major layout of
+    `sm90_row_major`, each weight as (hi + lo) 2^-SPLIT_SHIFT (its fp16
+    parts' scale taken back)."""
+    his, los = split_mats(w, kx, kd)
+    mats = [(h + lo) / 2.0 ** fused.SPLIT_SHIFT for h, lo in zip(his, los)]
+    nd = sm90_pe_chunks(kx, kd)[2]
+    mats[9] = torch.cat([mats[9][:, 64 * nd:], mats[9][:, :64 * nd]], 1)  # feat first
+    return sm90_row_major(mats, kx, kd)
+
+
 def _emulate_kernel(w, fp, xd, kx, kd, nfx, nfd, bf16):
     """The CUDA kernel's arithmetic, read from the packed blobs exactly as
     the kernel reads them (one accumulation over each padded K); the bf16
-    blob through the index model of its layout."""
+    blob through the index model of its layout, the f32 blob through the
+    model of its split layout with each weight's parts added back."""
     r = (lambda t: t.bfloat16().float()) if bf16 else (lambda t: t)
     Wd, Wh = 256, 128
-    if bf16:
-        mats = sm90_row_major(sm90_mats(w, kx, kd), kx, kd)
-    else:
-        w = w.float()
-        sizes = [Wd * kx] + [Wd * Wd] * 4 + [Wd * (kx + Wd)] + [Wd * Wd] * 3 + [Wh * (Wd + kd)]
-        shapes = [(Wd, kx)] + [(Wd, Wd)] * 4 + [(Wd, kx + Wd)] + [(Wd, Wd)] * 3 + [(Wh, Wd + kd)]
-        offs = np.concatenate([[0], np.cumsum(sizes)])
-        assert offs[-1] == w.numel()
-        mats = [w[offs[i]:offs[i + 1]].reshape(shapes[i]) for i in range(10)]
+    mats = (sm90_row_major(sm90_mats(w, kx, kd), kx, kd) if bf16 else split_unsplit(w, kx, kd))
     pad = lambda t, k: torch.nn.functional.pad(t, (0, k - t.shape[1]))  # noqa: E731
     pe_x = r(pad(posenc(xd[:, 0:3], nfx), kx))
     pe_d = r(pad(posenc(xd[:, 3:6], nfd), kd))
@@ -166,7 +194,7 @@ def test_packed_blobs_reproduce_plain(setup, dtype):
     _, _, mlp, pts, dirs = setup
     xd = _xd(pts, dirs)
     w, fp = fused.pack_params(mlp, dtype)
-    assert w.dtype == (torch.bfloat16 if dtype == "bfloat16" else torch.float32)
+    assert w.dtype == (torch.bfloat16 if dtype == "bfloat16" else torch.float16)  # f32: two parts
     assert fp.numel() == fused.FP_NUMEL
     kx, kd = fused.pe_widths(mlp.cfg)
     assert (kx, kd) == (64, 32)

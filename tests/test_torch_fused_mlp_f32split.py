@@ -60,12 +60,6 @@ def setup():
     return jcfg, params, mlp, pts, dirs
 
 
-def _kernel_order(mlp, kx, kd):
-    """The ten f32 matrices in the f32 kernel's K order (`fwd_mats_sm90`
-    with the views layer's PE chunks first)."""
-    return fused.fwd_mats_sm90(mlp, views_pe_first=True)
-
-
 def test_split_blob_gives_back_every_weight(setup):
     _, _, mlp, _, _ = setup
     kx, kd = fused.pe_widths(mlp.cfg)
@@ -73,7 +67,8 @@ def test_split_blob_gives_back_every_weight(setup):
     assert w.dtype == torch.float16 and (w.numel() // fused.FWD_PIECE) % fused.SPLIT_RING == 0
     his, los = split_mats(w, kx, kd)
     scale = 2.0 ** fused.SPLIT_SHIFT
-    for want, hi, lo in zip(_kernel_order(mlp, kx, kd), his, los):
+    # the ten f32 matrices in the f32 kernel's K order
+    for want, hi, lo in zip(fused.fwd_mats_sm90(mlp, views_pe_first=True), his, los):
         assert torch.equal(hi, (want * scale).half().float())
         back = (hi.double() + lo.double()) / scale
         assert (back - want.double()).abs().max() <= 2.0 ** -21 * want.abs().max()

@@ -88,7 +88,8 @@ the final result line):
      device sleep, so that the host's launch cost is not in them; the
      searchsorted kernel also on unsorted rows with ties (exact, timed) and
      on a ragged S and SI; K8 against Tensor.clone over 21 windows each,
-     taken in turns, with their median and spread.
+     taken in turns, with their median and spread, and bit for bit on
+     lengths with a tail and on one element.
 Then a `{"kernels": [...]}` line (nine kernels, each with the path that
 launched it: main, tune_kernel or probe_raymajor) and, last, the
 `{"ok": true, ...}` line.
@@ -1235,6 +1236,16 @@ def probe_phase(raymajor, probe):
         r["slower_than_clone_beyond_spread"] = r["kernel"]["p25"] > r["clone"]["p75"]
         print("  transpose retime " + json.dumps(r), flush=True)
         res["transpose_retime"].append(r)
+    # K8 exactly on lengths with a tail (n % 4 = 1, 3) and on one element
+    res["transpose_cases"] = []
+    for R, S in ((517, 37), (5, 7), (1, 1)):
+        v = torch.rand((R * S, 1), generator=gen, device="cuda")
+        r = {"rays": R, "samples": S, "bitwise": bool(torch.equal(
+            raymajor.ray_transpose(v, S), raymajor.ray_transpose_plain(v, S)))}
+        print("  transpose " + json.dumps(r), flush=True)
+        res["transpose_cases"].append(r)
+        if not r["bitwise"]:
+            raise AssertionError(f"raymajor_transpose disagrees: {r}")
     # K9 on rows torch.searchsorted does not take (unsorted, with ties: the
     # kernel's count path, timed at the renderer's shapes), and on a ragged S
     # and SI, unsorted and sorted with ties (its binary-search path; also

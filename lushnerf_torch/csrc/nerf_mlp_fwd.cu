@@ -32,9 +32,9 @@
 //         flagship path.
 //   f32:  f32-grade products on the tensor cores, as the TPU kernel's f32
 //         mode runs the MXU at Precision.HIGHEST: each operand split in two
-//         scaled fp16 parts and each product taken as three fp16 products
-//         of the parts into one f32 accumulator (the split); bias, relu and
-//         the heads in f32;
+//         fp16 parts (the weights' scaled by 2^4) and each product taken as
+//         three fp16 products of the parts into one f32 accumulator (the
+//         split); bias, relu and the heads in f32;
 //         the f32 stash (relu of each accumulator) stored from registers.
 //         What the ten shipped scene configs run (mlp_backend = pallas,
 //         mlp_compute_dtype left at float32).

@@ -143,9 +143,8 @@ constexpr int S_SM_PE = SM_ACT + 2 * BUF_B;  // the PE slot: its hi chunk, then 
 constexpr int S_PE_LO = CHUNK_B;
 constexpr int S_SM_RING = S_SM_PE + 2 * CHUNK_B;
 constexpr int S_N_WST = 4;                 // one chunk of a 256-wide layer: hi and lo pieces
-constexpr int SPLIT_SHIFT = 4;             // the parts are those of x 2^SPLIT_SHIFT
-constexpr float SPLIT_S = 1 << SPLIT_SHIFT;
-constexpr float SPLIT_ACC = SPLIT_S * SPLIT_S;  // the accumulator's scale
+constexpr int SPLIT_SHIFT = 4;             // the weights' parts are those of w 2^SPLIT_SHIFT
+constexpr float SPLIT_ACC = 1 << SPLIT_SHIFT;  // and so the accumulator's scale
 static_assert(S_SM_RING + S_N_WST * PIECE_B == SM_BARS, "the split layout ends where the ring does");
 // mbarriers of the split: ring stages loaded / released as above; the PE
 // slot written (S_PE_FULL) and released by the 8 consumer warps (S_PE_FREE)
@@ -528,15 +527,17 @@ __device__ __forceinline__ void consumer(const Args& a, const CUtensorMap* tm) {
 // ---------------------------------------------------------------------------
 //
 // Every f32 operand x is split in two fp16 parts, hi = fp16(x s) and lo =
-// fp16(x s - hi), s = 2^SPLIT_SHIFT (activations, PE and weights alike), so
-// that lo stays a normal number down to |x| = 2^-7: hi + lo is x s within
-// ~2^-22 of it, or 2^-25 absolute below that.  A product a . w is taken as
-// hi(a) hi(w) + lo(a) hi(w) + hi(a) lo(w), all three into the one f32
-// accumulator, which holds s^2 times the layer's sum from s^2 times its
-// bias on (exact scales); the epilogue takes it back.  lo . lo is ~2^-22 of
-// the product.  The parts hold |x| < 65504 / s = 4094.  Two bf16 parts (x
-// within ~2^-17) came within 0.80-0.84 of the stash's 1e-5 limit on the
-// card with three products and 0.73-0.80 with four (PERF.md).  The
+// fp16(x s - hi): s = 1 for the activations and the PE (their parts hold
+// |x| < 65504) and s = 2^SPLIT_SHIFT for the weights (|w| < 4094, checked
+// by pack_params), so that a weight's lo part stays a normal number down to
+// |w| = 2^-7 and an activation's down to 2^-3: hi + lo is x s within ~2^-22
+// of it, or 2^-25 absolute below that.  A product a . w is taken as hi(a)
+// hi(w) + lo(a) hi(w) + hi(a) lo(w), all three into the one f32
+// accumulator, which holds 2^SPLIT_SHIFT times the layer's sum from that
+// times its bias on (an exact scale); the epilogue takes it back.  lo . lo
+// is ~2^-22 of the product.  Two bf16 parts (x within ~2^-17) came within
+// 0.80-0.84 of the stash's 1e-5 limit on the card with three products and
+// 0.73-0.80 with four (PERF.md).  The
 // activation buffer holds both parts of each activation, the PE slot both
 // parts of one PE chunk, and the weight blob both parts of each weight: a
 // chunk of a 256-wide layer is four pieces (hi rows 0..127, hi rows
@@ -645,8 +646,8 @@ __device__ __forceinline__ void matmul_split(float (&acc)[R], const LayerS& L, c
 
 // A layer's output in the split from its accumulator of N / 2 columns
 // (SPLIT_ACC times bias + the products): v = relu(acc / SPLIT_ACC) (relu)
-// or acc / SPLIT_ACC, in f32; with `write` its parts hi = fp16(v s) and lo
-// = fp16(v s - hi) written over the activation buffer's hi and lo chunks.  The heads sum v in f32 as `epilogue` sums
+// or acc / SPLIT_ACC, in f32; with `write` its parts hi = fp16(v) and lo =
+// fp16(v - hi) written over the activation buffer's hi and lo chunks.  The heads sum v in f32 as `epilogue` sums
 // its rounded values (head 1: alpha, head 2: rgb).
 template <int N, int NH>
 __device__ __forceinline__ void epilogue_split(const float (&acc)[N], const float* fp, bool relu,
@@ -667,10 +668,9 @@ __device__ __forceinline__ void epilogue_split(const float (&acc)[N], const floa
       uint32_t ph[4], pl[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const float x0 = v[2 * i] * SPLIT_S, x1 = v[2 * i + 1] * SPLIT_S;  // exact
-        ph[i] = pack_f16(x0, x1);
+        ph[i] = pack_f16(v[2 * i], v[2 * i + 1]);
         const float2 h = unpack_f16(ph[i]);
-        pl[i] = pack_f16(x0 - h.x, x1 - h.y);
+        pl[i] = pack_f16(v[2 * i] - h.x, v[2 * i + 1] - h.y);
       }
       const int off = (j >> 3) * CHUNK_B + ((((j & 7) + hi) ^ rr) << 4);
       stsm_x4(base + off, ph[0], ph[1], ph[2], ph[3]);
@@ -833,10 +833,9 @@ __device__ __forceinline__ void pe_chunk(const Args& a, int c, int p0) {
   auto put = [&](int p, int col, float v) {  // col: the tile's column, in chunk c
     const uint32_t o = swz128(p, col & 63);
     if constexpr (MODE == MODE_F32) {
-      const float x = v * SPLIT_S;  // exact
-      const __half h = __float2half_rn(x);
+      const __half h = __float2half_rn(v);
       *reinterpret_cast<__half*>(dst + o) = h;
-      *reinterpret_cast<__half*>(dst + S_PE_LO + o) = __float2half_rn(x - __half2float(h));
+      *reinterpret_cast<__half*>(dst + S_PE_LO + o) = __float2half_rn(v - __half2float(h));
     } else {
       *reinterpret_cast<bf16*>(dst + o) = __float2bfloat16_rn(v);
     }

@@ -13,7 +13,12 @@
 //                 running carry, so any S works.
 //   transpose     `probe_p2_vector_transpose.kern`: [T*S, 1] -> [T, S].  In a
 //                 row-major layout both are the same bytes: a copy, one
-//                 thread per value, 16 bytes a thread.
+//                 thread per value, 16 bytes a thread.  The last n % 4
+//                 floats, where there are any, go to the thread after the
+//                 last 16-byte value, in an instantiation of their own: a
+//                 tail test in every thread cost ~2% of the copy, and
+//                 several loads in flight a thread on a grid sized to the
+//                 SMs cost more (PERF.md).
 //   searchsorted  `probe_p3_searchsorted.kern`: cdf [T, S], u [T*SI, 1] ->
 //                 the count of cdf[t, :] <= u, as float, for any row,
 //                 sorted or not, with ties.  One warp per ray (8 rays a
@@ -65,13 +70,17 @@ __global__ void __launch_bounds__(256) excl_cumsum_kernel(const float* __restric
   }
 }
 
+template <bool TAIL>
 __global__ void __launch_bounds__(256) copy_kernel(const float4* __restrict__ x,
                                                    float4* __restrict__ y, long long n4,
                                                    const float* __restrict__ xt,
                                                    float* __restrict__ yt, int tail) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n4) y[i] = __ldg(x + i);
-  if (i < tail) yt[i] = __ldg(xt + i);
+  if (i < n4) {
+    y[i] = __ldg(x + i);
+  } else if (TAIL && i == n4) {
+    for (int t = 0; t < tail; ++t) yt[t] = __ldg(xt + t);
+  }
 }
 
 constexpr int SS_RAYS = 8;  // rays (warps) per searchsorted block
@@ -164,9 +173,14 @@ int raymajor_excl_cumsum(const float* x, float* y, int T, int S, int c, void* st
 int raymajor_transpose(const float* x, float* y, long long n, void* stream) {
   const long long n4 = n / 4;
   const int tail = (int)(n - 4 * n4);
-  copy_kernel<<<blocks(n4 > tail ? n4 : tail, 256), 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      reinterpret_cast<const float4*>(x), reinterpret_cast<float4*>(y), n4, x + 4 * n4,
-      y + 4 * n4, tail);
+  const int grid = blocks(n4 + (tail > 0), 256);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float4* x4 = reinterpret_cast<const float4*>(x);
+  float4* y4 = reinterpret_cast<float4*>(y);
+  if (tail > 0)
+    copy_kernel<true><<<grid, 256, 0, st>>>(x4, y4, n4, x + 4 * n4, y + 4 * n4, tail);
+  else
+    copy_kernel<false><<<grid, 256, 0, st>>>(x4, y4, n4, x + 4 * n4, y + 4 * n4, tail);
   return (int)cudaGetLastError();
 }
 

@@ -36,9 +36,10 @@ split in two by input.
 compute_dtype:
   'float32'  -- f32-grade products and f32 sums: the plain versions in IEEE
                 f32 (no TF32); the forward kernel splits each operand in two
-                scaled fp16 parts (`split_f16`) and takes each product as
-                three fp16 products of the parts into an f32 accumulator, as
-                the TPU kernel's f32 mode runs the MXU at Precision.HIGHEST.
+                fp16 parts (`split_f16`; the weights' of w 2^SPLIT_SHIFT) and
+                takes each product as three fp16 products of the parts into
+                an f32 accumulator, as the TPU kernel's f32 mode runs the MXU
+                at Precision.HIGHEST.
   'bfloat16' -- every matmul input (PE, activations, weights, and in the
                 backward the cotangents) rounded to bf16, f32 accumulation,
                 f32 bias and relu: the rounding points of the TPU kernel's
@@ -87,8 +88,9 @@ FWD_OFF_PATH = ("pe_work",)
 FWD_TILE = 128  # points a tile of the forward kernel
 FWD_PIECE = 128 * 64  # elements of a weight piece of either weight blob
 SPLIT_RING = 4  # the f32 blob's pieces a tile: a multiple of the split's ring stages
-# the f32 kernel's fp16 parts are those of x 2^SPLIT_SHIFT (activations, PE
-# and weights alike; mirrors SPLIT_SHIFT in csrc/nerf_mlp_fwd_sm90.cuh)
+# the f32 kernel's fp16 parts of the weights are those of w 2^SPLIT_SHIFT
+# (the activations' are unscaled; mirrors SPLIT_SHIFT in
+# csrc/nerf_mlp_fwd_sm90.cuh)
 SPLIT_SHIFT = 4
 FP16_MAX = 65504.0
 

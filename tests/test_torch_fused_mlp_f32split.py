@@ -8,8 +8,8 @@ compiled kernel does not cover.  Here:
     of each block's largest weight, with the zero-padded PE columns zero in
     both parts;
   * the split arithmetic read from that blob as the kernel's layers read it
-    (each activation as the fp16 parts of a 2^4, each product as hi.hi +
-    lo.hi + hi.lo in f32 at 2^8 times its value,
+    (each activation as its fp16 parts, each product as hi.hi + lo.hi +
+    hi.lo in f32 at 2^4 times its value,
     bias, relu and the heads in f32) reproduces `nerf_mlp_fwd_plain` in f32
     (rtol 1e-4, atol 1e-5, the kernel's limit on the card) and its stash
     within 1e-5 of each block's largest value (the card's STASH_TOL), and
@@ -81,23 +81,23 @@ def test_split_blob_gives_back_every_weight(setup):
 def _emulate_split(w, fp, xd, kx, kd, nfx, nfd, drop_lo=False):
     """The f32 kernel's arithmetic read from its blob: each layer's K chunks
     in the kernel's order (W0: the pe_x chunk; W5: a4, then the pe_x chunk;
-    Wv: the pe_d chunk, then feat), every activation split in the fp16
-    parts of a 2^4 (the blob holds those of W 2^4), acc = 2^8 bias + hi(A)
-    hi(W) + lo(A) hi(W) + hi(A) lo(W) in f32, relu(acc 2^-8) in f32, the
-    heads on the f32 activations.  Returns (raw out, stash).  `drop_lo`: the lo parts as
+    Wv: the pe_d chunk, then feat), every activation split in its fp16
+    parts (the blob holds those of W 2^4), acc = 2^4 bias + hi(A) hi(W) +
+    lo(A) hi(W) + hi(A) lo(W) in f32, relu(acc 2^-4) in f32, the heads on
+    the f32 activations.  Returns (raw out, stash).  `drop_lo`: the lo parts as
     zeros (the control: fp16 products)."""
     his, los = split_mats(w, kx, kd)
     nx, d0, nd = sm90_pe_chunks(kx, kd)
     Wd, Wh = 256, 128
 
     def split(t):
-        hi, lo = fused.split_f16(t, fused.SPLIT_SHIFT)
+        hi, lo = fused.split_f16(t, 0)
         return hi.float(), lo.float() * (not drop_lo)
 
     def layer(i, a, bias, relu=True):
         ah, al = split(a)
         wh, wl = his[i], los[i] * (not drop_lo)
-        acc_scale = 2.0 ** (2 * fused.SPLIT_SHIFT)
+        acc_scale = 2.0 ** fused.SPLIT_SHIFT
         acc = (bias * acc_scale + ah @ wh.T + al @ wh.T + ah @ wl.T) / acc_scale
         return torch.relu(acc) if relu else acc
 

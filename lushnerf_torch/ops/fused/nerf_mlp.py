@@ -452,16 +452,11 @@ def swizzle128(m: torch.Tensor) -> torch.Tensor:
     return c[:, :, r[:, None], q[None, :] ^ r[:, None], :].reshape(-1)
 
 
-@torch.no_grad()
-def pack_params_bwd(mlp, compute_dtype: str) -> torch.Tensor:
-    """The backward's transposed weight blob: the 12 blocks W0^T [kx][256]
-    .. Wvd^T [kd][128] ([in][out], layout in csrc/nerf_mlp_bwd.cu), in the
-    compute dtype; in bf16 each block is laid out by `swizzle128` for the
-    wgmma dgrad.  Cached as pack_params."""
-    key = _pack_key(mlp, compute_dtype)
-    cached = getattr(mlp, "_nerf_mlp_bwd_pack", None)
-    if cached is not None and cached[0] == key:
-        return cached[1]
+def bwd_mats(mlp) -> List[torch.Tensor]:
+    """The backward's 12 transposed weight blocks in f32, [in][out] with the
+    PE rows past the encoding zero: W0^T [kx][256], W1^T..W4^T, W5a^T
+    [kx][256], W5b^T, W6^T, W7^T, Wf^T [256][256], Wvf^T [256][128], Wvd^T
+    [kd][128] (the order of csrc/nerf_mlp_bwd.cu and the dgrad's ring)."""
     cfg = mlp.cfg
     in_ch, W = cfg.input_ch, cfg.width
     kx, kd = pe_widths(cfg)
@@ -471,13 +466,39 @@ def pack_params_bwd(mlp, compute_dtype: str) -> torch.Tensor:
 
     pts = [lin.weight for lin in mlp.pts_linears]
     wv = mlp.views_linears[0].weight
-    mats = [padk_t(pts[0], kx)] + [pts[i].T for i in range(1, 5)] + [
+    return [padk_t(pts[0], kx)] + [pts[i].T for i in range(1, 5)] + [
         padk_t(pts[5][:, :in_ch], kx), pts[5][:, in_ch:].T, pts[6].T, pts[7].T,
         mlp.feature_linear.weight.T, wv[:, :W].T, padk_t(wv[:, W:], kd),
     ]
-    wdt = stash_dtype(compute_dtype)
-    lay = swizzle128 if compute_dtype == "bfloat16" else (lambda m: m.reshape(-1))
-    wt = torch.cat([lay(m) for m in mats]).to(wdt).contiguous()
+
+
+@torch.no_grad()
+def pack_params_bwd(mlp, compute_dtype: str) -> torch.Tensor:
+    """The dgrad kernel's transposed weight blob: the 12 blocks of
+    `bwd_mats`, each laid out by `swizzle128` (chunk-major over its out
+    columns, the layout csrc/nerf_mlp_dgrad.cu's wgmma reads).  bf16: the
+    blocks rounded to bf16.  f32: each chunk of 64 columns as the fp16 hi
+    part, then the lo part, of W^T 2^SPLIT_SHIFT (`split_f16`; raises for a
+    weight beyond the parts' range), the pieces the f32 dgrad's ring
+    streams.  Cached as pack_params."""
+    key = _pack_key(mlp, compute_dtype)
+    cached = getattr(mlp, "_nerf_mlp_bwd_pack", None)
+    if cached is not None and cached[0] == key:
+        return cached[1]
+    mats = bwd_mats(mlp)
+    if compute_dtype == "bfloat16":
+        wt = torch.cat([swizzle128(m.bfloat16()) for m in mats])
+    else:
+        parts = []
+        for m in mats:
+            if not bool((m.abs() * 2.0 ** SPLIT_SHIFT < FP16_MAX).all()):
+                raise ValueError("pack_params_bwd: a weight outside the f32 kernel's fp16 parts' "
+                                 f"range (|w| < {FP16_MAX / 2 ** SPLIT_SHIFT:g})")
+            n_chunks = m.shape[1] // 64
+            hi, lo = (swizzle128(t).reshape(n_chunks, -1) for t in split_f16(m, SPLIT_SHIFT))
+            parts.append(torch.stack([hi, lo], 1).reshape(-1))  # per chunk: hi, then lo
+        wt = torch.cat(parts)
+    wt = wt.contiguous()
     mlp._nerf_mlp_bwd_pack = (key, wt)
     global packs
     packs += 1

@@ -22,7 +22,8 @@ against nerf_mlp_bwd_plain there).  Here, at width 256 on 64 points:
     tensor launches nothing;
   * the backward's packed blobs (transposed weights, blob-shaped grads)
     reproduce the plain backward when evaluated the way the kernels read
-    and write them.
+    and write them (the f32 blob's split dgrad itself:
+    test_torch_fused_mlp_bwd_split.py).
 """
 
 import numpy as np
@@ -185,28 +186,57 @@ def test_param_changed_in_place_before_backward_raises(setup, mode):
         raw.sum().backward()
 
 
+def _bwd_sizes(kx, kd, Wd=256, Wh=128):
+    """(N, K) of the backward's 12 transposed blocks, [in][out]."""
+    return [(kx, Wd)] + [(Wd, Wd)] * 4 + [(kx, Wd)] + [(Wd, Wd)] * 4 + [(Wd, Wh), (kd, Wh)]
+
+
+def _swizzled_index(N, K):
+    """Where element (n, k) of a chunk-major [N][K] block sits: chunk k // 64
+    of N rows, row n, 16-byte piece (k % 64) // 8 moved to piece position
+    ((k % 64) // 8) ^ (n % 8); without the chunk's offset."""
+    n, k = np.meshgrid(np.arange(N), np.arange(K), indexing="ij")
+    return k // 64, n * 64 + (((k % 64) // 8) ^ (n % 8)) * 8 + k % 8
+
+
+def split_blocks(wt, kx, kd):
+    """The f32 transposed blob undone by a plain index model of its layout:
+    the 12 blocks one after another, each chunk-major over its K (out)
+    columns in chunks of 64; chunk c of a block of N rows is its [N][64] hi
+    part, then its lo part, each swizzled as `_swizzled_index` says.
+    Returns the lists of hi and lo blocks, [N][K] in float."""
+    flat = wt.float().numpy()
+    sizes = _bwd_sizes(kx, kd)
+    offs = np.concatenate([[0], np.cumsum([2 * n * k for n, k in sizes])])
+    assert offs[-1] == flat.size
+    his, los = [], []
+    for (N, K), off in zip(sizes, offs):
+        chunk, at = _swizzled_index(N, K)
+        idx = off + chunk * 2 * N * 64 + at
+        his.append(torch.from_numpy(flat[idx]))
+        los.append(torch.from_numpy(flat[idx + N * 64]))
+    return his, los
+
+
 def _bwd_blocks(mlp, dtype):
     """The 12 blocks of the backward's transposed blob ([in][out]) as the
-    kernels read them: row-major in f32; in bf16 undone from the dgrad's
-    layout by a plain index model of it (element (n, k) of a block of N rows
-    sits in 64-column chunk k // 64, row n, 16-byte piece (k % 64) // 8
-    moved to piece position ((k % 64) // 8) ^ (n % 8))."""
+    kernels read them, undone from the dgrad's layout by a plain index
+    model of it: in bf16 each block chunk-major and swizzled
+    (`_swizzled_index`); in f32 each chunk's fp16 hi and lo parts
+    (`split_blocks`), given back as (hi + lo) 2^-SPLIT_SHIFT."""
     kx, kd = fused.pe_widths(mlp.cfg)
-    Wd, Wh = 256, 128
-    wt = fused.pack_params_bwd(mlp, dtype).float().numpy()
-    sizes = [(kx, Wd)] + [(Wd, Wd)] * 4 + [(kx, Wd)] + [(Wd, Wd)] * 4 + [(Wd, Wh), (kd, Wh)]
+    wt = fused.pack_params_bwd(mlp, dtype)
+    if dtype == "float32":
+        his, los = split_blocks(wt, kx, kd)
+        return [(h + lo) / 2.0 ** fused.SPLIT_SHIFT for h, lo in zip(his, los)]
+    flat = wt.float().numpy()
+    sizes = _bwd_sizes(kx, kd)
     offs = np.concatenate([[0], np.cumsum([a * b for a, b in sizes])])
-    assert offs[-1] == wt.size
+    assert offs[-1] == flat.size
     blocks = []
     for (N, K), off in zip(sizes, offs):
-        flat = wt[off:off + N * K]
-        if dtype == "bfloat16":
-            n, k = np.meshgrid(np.arange(N), np.arange(K), indexing="ij")
-            piece = (k % 64) // 8
-            idx = (k // 64) * N * 64 + n * 64 + (piece ^ (n % 8)) * 8 + k % 8
-            blocks.append(torch.from_numpy(flat[idx]))
-        else:
-            blocks.append(torch.from_numpy(flat.reshape(N, K).copy()))
+        chunk, at = _swizzled_index(N, K)
+        blocks.append(torch.from_numpy(flat[off + chunk * N * 64 + at]))
     return blocks
 
 
@@ -286,8 +316,9 @@ def test_packed_bwd_blobs_reproduce_plain(setup, dtype):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_bwd_blob_layout_gives_back_the_transposed_weights(setup, dtype):
     """The blob read through the plain index model of its layout holds each
-    weight block transposed ([in][out], PE rows past the encoding zero),
-    and in bf16 no element sits where the row-major layout would put it for
+    weight block transposed ([in][out], PE rows past the encoding zero;
+    exactly in bf16, in f32 as its two fp16 parts within 2^-21 of the
+    block's largest weight), and in bf16 no element sits where the row-major layout would put it for
     more than the unswizzled pieces (a swizzle that did nothing would
     fail)."""
     _, params, _, _ = setup
@@ -307,7 +338,11 @@ def test_bwd_blob_layout_gives_back_the_transposed_weights(setup, dtype):
     got = _bwd_blocks(mlp, dtype)
     assert len(got) == 12 and in_d <= kd
     for a, b in zip(got, want):
-        np.testing.assert_array_equal(a.numpy(), r(b).numpy())
+        if dtype == "bfloat16":
+            np.testing.assert_array_equal(a.numpy(), r(b).numpy())
+        else:  # two fp16 parts hold each weight within 2^-21 of the block's largest
+            assert (a.double() - b.double()).abs().max() <= 2.0 ** -21 * b.abs().max()
+            assert torch.equal(a == 0, b == 0)
     if dtype == "bfloat16":
         flat = fused.pack_params_bwd(mlp, dtype)[:Wd * Wd + kx * Wd].float()
         row_major = torch.cat([r(want[0]).reshape(-1), r(want[1]).reshape(-1)])

@@ -472,33 +472,50 @@ def torch_matmul_ms(P: int, gen) -> float:
 def bwd_parts(fused, mlp, xd, g, dtype, acts, breakdown: bool) -> dict:
     """The dgrad alone and the wgrad with its reductions alone (on the
     dgrad's scratch), median CUDA-event ms, with their bounds: operations
-    (one pass of 2 x MLP_MACS FLOP a point each) and this design's bytes
-    (dgrad: the stash columns it reads, xd, g, and the dz, PE and d(xd) it
-    writes; wgrad: dz, the stash columns and the PE it reads, and its
-    per-split partials written and read once); with `breakdown` also the
-    dgrad's stage breakdown."""
+    (one pass of 2 x MLP_MACS FLOP a point each: in bf16 at the bf16 tensor
+    rate; in f32 the dgrad's as the split, three fp16 products at that
+    rate, the wgrad's on the f32 FMAs) and this design's bytes (dgrad: the
+    stash columns it reads, xd, g, and the dz, PE and d(xd) it writes;
+    wgrad: dz, the stash columns and the PE it reads, and its per-split
+    partials written and read once); with `breakdown` also the dgrad's
+    stage breakdown."""
     P = xd.shape[0]
+    bf16 = dtype == "bfloat16"
     run = fused.BwdLaunch(mlp, xd, g, dtype, 10, 4, acts)
     run.run()
-    esz = 2
+    esz = 2 if bf16 else 4
     stash_b, pe_b = fused.ACTS_LD * esz, (run.kx + run.kd) * esz
     read_b = stash_b - fused.WIDTH * esz  # a0..a7 and hv: not feat
-    r = {"dgrad_ms": time_ms(lambda: run.run(run.DGRAD), 5),
+    r = {"dtype": dtype, "P": P, "dgrad_ms": time_ms(lambda: run.run(run.DGRAD), 5),
          "wgrad_ms": time_ms(lambda: run.run(run.WGRAD), 5)}
-    t_ops = 2.0 * MLP_MACS * P / PEAK_BF16_FLOPS * 1e3
+    flops = 2.0 * MLP_MACS * P
+    t_ops_d = flops * (1 if bf16 else 3) / PEAK_BF16_FLOPS * 1e3
+    t_ops_w = flops / (PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS) * 1e3
     dgrad_bytes = P * (read_b + 48 + stash_b + pe_b + 32)
     wgrad_bytes = P * (stash_b + (stash_b - fused.WIDTH // 2 * esz) + pe_b) \
         + 2 * run.w_part.numel() * 4
-    r["dgrad_bound_ms"] = max(t_ops, dgrad_bytes / PEAK_BYTES * 1e3)
-    r["dgrad_bound_by"] = "operations" if t_ops * 1e-3 * PEAK_BYTES >= dgrad_bytes else "bytes"
-    r["wgrad_bound_ms"] = max(t_ops, wgrad_bytes / PEAK_BYTES * 1e3)
-    r["wgrad_bound_by"] = "operations" if t_ops * 1e-3 * PEAK_BYTES >= wgrad_bytes else "bytes"
+    for part, t_ops, nbytes in (("dgrad", t_ops_d, dgrad_bytes), ("wgrad", t_ops_w, wgrad_bytes)):
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        r[f"{part}_bytes_bound_ms"], r[f"{part}_ops_bound_ms"] = t_bytes, t_ops
+        r[f"{part}_bound_ms"] = max(t_ops, t_bytes)
+        r[f"{part}_bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+    print(f"  {dtype} dgrad / wgrad apart at P = {P}: "
+          + json.dumps({k: v for k, v in r.items() if k not in ("dtype", "P")}), flush=True)
     if breakdown:
-        r["dgrad_stages"] = dgrad_breakdown(fused.DGRAD_STAGES, run.stage_stamps(), r["dgrad_ms"])
-        print(f"  dgrad stages at P = {P}: " + json.dumps(r["dgrad_stages"]["group_share"]),
-              flush=True)
+        r["dgrad_stages"] = dgrad_breakdown(run.stages, run.stage_stamps(), r["dgrad_ms"])
+        print(f"  dgrad stages at P = {P} ({dtype}, {r['dgrad_ms']:.3f} ms, "
+              f"{r['dgrad_stages']['cycles_per_tile']:.0f} cycles a tile): "
+              + json.dumps(r["dgrad_stages"]["group_share"]), flush=True)
     del run
     return r
+
+
+def equivariant(fused, mlp, xd, g, dtype, acts, got, k: int = -20) -> bool:
+    """The backward at g 2^k against 2^k times its output at g (`got`), bit
+    for bit: every scale inside it is a power of two."""
+    small = flat_grads(fused.nerf_mlp_bwd(mlp, xd, g * 2.0 ** k, dtype, acts=acts))
+    torch.cuda.synchronize()
+    return all(torch.equal(a * 2.0 ** k, b) for a, b in zip(got, small))
 
 
 def kernel_bwd_phase(fused, NeRFMLP, MLPConfig):
@@ -537,6 +554,8 @@ def kernel_bwd_phase(fused, NeRFMLP, MLPConfig):
                        finite=row["finite"] and all(bool(torch.isfinite(t).all())
                                                     for t in k2 + k3))
             del k2b, k3
+            if not bf16:
+                row["equivariant_bitwise"] = equivariant(fused, mlp, xd, g, dtype, acts_k, k2)
             # the control for bf16: the plain backward in f32 (its own activations)
             f32 = flat_grads(fused.nerf_mlp_bwd_plain(mlp, xd, g, "float32")) if bf16 else None
             # K2 against the plain backward on the kernel's stash, and once more
@@ -563,20 +582,20 @@ def kernel_bwd_phase(fused, NeRFMLP, MLPConfig):
                     lambda: fused.nerf_mlp_bwd_plain(mlp, xd, g, dtype), 3, 1)
                 # the functions' own traffic: xd 32 B, g 16 B, d(xd) 32 B, raw out
                 # 16 B per point, the stash, the weights once and the grads once
-                # (f32: K1 is the split, K2 runs on the f32 FMAs)
+                # (f32: K1 and K2's dgrad are the split, K2's wgrad runs on the
+                # f32 FMAs)
                 row["fwd_stash_bound_ms"], row["fwd_stash_bound_by"] = bound_ms(
                     P, w_bytes, bf16, 1, 48 + stash_b, split_passes=int(not bf16))
                 row["stash_bound_ms"], row["stash_bound_by"] = bound_ms(
-                    P, w_bytes + grad_bytes, bf16, 2, 80 + stash_b)
+                    P, w_bytes + grad_bytes, bf16, 2, 80 + stash_b, split_passes=int(not bf16))
                 row["remat_bound_ms"], row["remat_bound_by"] = bound_ms(
-                    P, w_bytes + grad_bytes, bf16, 3, 80, split_passes=int(not bf16))
+                    P, w_bytes + grad_bytes, bf16, 3, 80, split_passes=2 * int(not bf16))
                 # what this design moves besides: the dz scratch written and read
                 # again, the PE scratch, and in remat the activation scratch
                 pe_b = 96 * esz
                 row["design_scratch_bytes_per_point_stash"] = 2 * stash_b + 2 * pe_b
                 row["design_scratch_bytes_per_point_remat"] = 4 * stash_b + 2 * pe_b
-                if bf16:
-                    row.update(bwd_parts(fused, mlp, xd, g, dtype, acts_k, label == "fine"))
+                row.update(bwd_parts(fused, mlp, xd, g, dtype, acts_k, label == "fine"))
                 if label == "fine":
                     row["fwd_stages"] = {}
                     for form, stash in (("output_only", False), ("stash", True)):
@@ -591,7 +610,7 @@ def kernel_bwd_phase(fused, NeRFMLP, MLPConfig):
             del k2, acts_k, acts_p
             torch.cuda.empty_cache()
             if not (row["finite"] and row["within_tol"] and row["repeat_bitwise"]
-                    and row["remat_bitwise"]):
+                    and row["remat_bitwise"] and row.get("equivariant_bitwise", True)):
                 raise AssertionError(f"backward kernels disagree with the plain version: {row}")
     return rows
 
@@ -794,6 +813,26 @@ def corrupted_stash(fused, on: bool, block: int = 3):
         fused._launch_fwd = launch
 
 
+@contextlib.contextmanager
+def cotangent_ranges(fused, out: list):
+    """While on, each backward kernel call records the range of the
+    cotangent reaching its scene MLP: P, max |g|, median |g| and the share
+    of |g| below fp16's smallest normal (2^-14)."""
+    bwd = fused.nerf_mlp_bwd
+
+    def recorded(mlp, xd, g, *args, **kwargs):
+        a = g.abs()
+        out.append({"P": g.shape[0], "max_abs_g": a.max().item(), "median_abs_g": a.median().item(),
+                    "share_below_fp16_normal": (a < 2.0 ** -14).float().mean().item()})
+        return bwd(mlp, xd, g, *args, **kwargs)
+
+    fused.nerf_mlp_bwd = recorded
+    try:
+        yield
+    finally:
+        fused.nerf_mlp_bwd = bwd
+
+
 def train_cfg(cfg_mod, variant):
     cfg = cfg_mod.flagship_cfg(num_images=NUM_IMAGES)
     be, dt, bwd = GRAD_VARIANTS[variant]
@@ -906,6 +945,13 @@ def train_phase(fused, lush, cfg_mod, trainer):
                  per_step_ms=per_call_ms(step, 5),
                  peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                  launches_per_step={k: v / n for k, v in counts.items()}, loss=loss.item())
+        if variant == "remat_f32":  # one more step: what reaches the scene MLPs' backward
+            ranges = r["cotangent_ranges"] = []
+            with cotangent_ranges(fused, ranges):
+                step()
+            print("  cotangent reaching each scene MLP (shipped configs' step): "
+                  + json.dumps(ranges), flush=True)
+            assert len(ranges) == 2 and all(np.isfinite(x["max_abs_g"]) for x in ranges), ranges
         res[variant] = r
         print(f"  {variant}: " + json.dumps(r), flush=True)
         assert r["launches_per_step"] == STEP_LAUNCHES[variant], variant
@@ -1329,15 +1375,15 @@ def kernel_entries(results):
 
 
 def bwd_split(bwd_rows) -> dict:
-    """K2's dgrad and its wgrad with the reductions, timed apart in bf16 at
-    both flagship P, and the dgrad's stage shares at the fine P."""
+    """K2's dgrad and its wgrad with the reductions, timed apart in both
+    dtypes at both flagship P, and the dgrad's stage shares at the fine P."""
     rows = [r for r in bwd_rows if "dgrad_ms" in r]
-    out = {"split": [{k: r[k] for k in ("P", "dgrad_ms", "dgrad_bound_ms", "dgrad_bound_by",
+    out = {"split": [{k: r[k] for k in ("dtype", "P", "dgrad_ms", "dgrad_bound_ms", "dgrad_bound_by",
                                         "wgrad_ms", "wgrad_bound_ms", "wgrad_bound_by")}
                      for r in rows]}
-    stages = next((r["dgrad_stages"]["group_share"] for r in rows if "dgrad_stages" in r), None)
-    if stages is not None:
-        out["dgrad_stage_share"] = stages
+    for r in rows:
+        if "dgrad_stages" in r:
+            out[f"dgrad_stage_share_{r['dtype']}"] = r["dgrad_stages"]["group_share"]
     return out
 
 

@@ -193,63 +193,72 @@ template <int R> __device__ __forceinline__ void wgmma_fence_regs(float (&d)[R])
 }
 
 // D[64 x 32] (+)= A[64 x 16] B[16 x 32], both from shared memory (descriptors),
-// bf16 in, f32 accumulate: d[0..15] of each thread.
-template <int R>
+// bf16 (F16: fp16) in, f32 accumulate: d[0..15] of each thread.
+#define HOPPER_WGMMA_N32(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\n" \
+      "setp.ne.b32 p, %18, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15" \
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]) \
+      : "l"(da), "l"(db), "r"(scale_d))
+template <int R, bool F16 = false>
 __device__ __forceinline__ void wgmma_m64n32k16(float (&d)[R], uint64_t da, uint64_t db,
                                                int scale_d) {
   static_assert(R >= 16, "accumulator too small");
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(da), "l"(db), "r"(scale_d));
+  if constexpr (F16) HOPPER_WGMMA_N32("f16");
+  else HOPPER_WGMMA_N32("bf16");
 }
 
 // D[64 x 64] (+)= A[64 x 16] B[16 x 64], both from shared memory (descriptors),
-// bf16 in, f32 accumulate: d[0..31] of each thread.
-template <int R>
+// bf16 (F16: fp16) in, f32 accumulate: d[0..31] of each thread.
+#define HOPPER_WGMMA_N64(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\n" \
+      "setp.ne.b32 p, %34, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15," \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31" \
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]) \
+      : "l"(da), "l"(db), "r"(scale_d))
+template <int R, bool F16 = false>
 __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[R], uint64_t da, uint64_t db,
                                                int scale_d) {
   static_assert(R >= 32, "accumulator too small");
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
+  if constexpr (F16) HOPPER_WGMMA_N64("f16");
+  else HOPPER_WGMMA_N64("bf16");
 }
 
 // D[64 x 96] (+)= A[64 x 16] B[16 x 96], both from shared memory (descriptors),
-// bf16 in, f32 accumulate: d[0..47] of each thread.
-template <int R>
+// bf16 (F16: fp16) in, f32 accumulate: d[0..47] of each thread.
+#define HOPPER_WGMMA_N96(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\n" \
+      "setp.ne.b32 p, %50, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32." TY "." TY " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15," \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31," \
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47" \
+      "}, %48, %49, p, 1, 1, 0, 0;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]) \
+      : "l"(da), "l"(db), "r"(scale_d))
+template <int R, bool F16 = false>
 __device__ __forceinline__ void wgmma_m64n96k16(float (&d)[R], uint64_t da, uint64_t db,
                                                int scale_d) {
   static_assert(R >= 48, "accumulator too small");
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %50, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
-      "}, %48, %49, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
-      : "l"(da), "l"(db), "r"(scale_d));
+  if constexpr (F16) HOPPER_WGMMA_N96("f16");
+  else HOPPER_WGMMA_N96("bf16");
 }
 
 // D[64 x 128] (+)= A[64 x 16] B[16 x 128], both from shared memory (descriptors),

@@ -1,11 +1,12 @@
-// Fused NeRF-MLP backward for Hopper (sm_90a): d(xd) and the grads of all
-// scene-MLP parameters, summed over the points, for the forward of
-// nerf_mlp_fwd.cu.
+// Fused NeRF-MLP backward for Hopper (sm_90a), its second half: the weight
+// grads of all scene-MLP parameters, summed over the points, and the two
+// fixed-order reductions, after the dgrad of nerf_mlp_dgrad.cu.
 //
-// Replaces the Pallas TPU kernels `_bwd_stash_kernel` (activations read
-// from the forward's stash) and `_bwd_kernel` (activations recomputed) of
-// lushnerf_tpu/ops/fused/nerf_mlp.py (one `pallas_call` in `_bwd_call`,
-// the custom VJP's `_fused_bwd`).  Both compute `_bwd_math`:
+// Replaces, with that dgrad, the Pallas TPU kernels `_bwd_stash_kernel`
+// (activations read from the forward's stash) and `_bwd_kernel`
+// (activations recomputed) of lushnerf_tpu/ops/fused/nerf_mlp.py (one
+// `pallas_call` in `_bwd_call`, the custom VJP's `_fused_bwd`).  Both
+// compute `_bwd_math`:
 //   d_hv  = (g_rgb Wr) * [hv > 0]
 //   d_feat = d_hv Wvf;   d_a7 = d_feat Wf + g_alpha Wa;  d_z7 = d_a7 * [a7 > 0]
 //   d_z6 = (d_z7 W7) * [a6 > 0] ... d_z4 = (d_z5 W5b) * [a4 > 0] ...
@@ -17,290 +18,38 @@
 // Rounding points of the bf16 mode, as the TPU kernel's: every matmul input
 // (g, each d_z, activations, PE, weights) is rounded to bf16, products
 // accumulate in f32; bias grads sum the unrounded f32 d_z; relu masks test
-// the stored activation (a > 0).  The f32 mode is IEEE f32 FMAs (no TF32).
+// the stored activation (a > 0).  In f32 the dgrad's products are the
+// split (three fp16 products of two parts each, nerf_mlp_dgrad.cu) and the
+// wgrad's IEEE f32 FMAs (no TF32).
 //
 // The TPU kernel summed the weight grads in VMEM across its sequential
 // grid.  Blocks on this card run in no order, so the backward is three
 // kernels, all with fixed summation orders (two runs give the same bits):
-//   1. dgrad: a loop over point tiles, one block per SM: the PE of the tile
-//      (stored to a scratch `pe`), then the dgrad chain above, writing
-//      every d_z (rounded) to the scratch `dz`, summing bias grads and the
-//      two small heads' weight grads (K = 3 and 1) into per-block partials,
-//      and writing d(xd).  bf16: nerf_mlp_dgrad.cu (wgmma, TMA).  f32: the
-//      kernel below, 64-point tiles in shared memory, FMA matmuls, the
-//      mask's stash rows prefetched into L2 while each matmul runs.
+//   1. dgrad (nerf_mlp_dgrad.cu, wgmma, both modes): a loop over point
+//      tiles, one block per SM, writing the PE to a scratch `pe`, every d_z
+//      to the scratch `dz`, the bias grads and the two small heads' weight
+//      grads (K = 3 and 1) into per-block partials, and d(xd);
 //   2. wgrad: dW = dZ^T A for the 12 weight blocks of the weight blob in
 //      one launch: one block per 128 x 128 output tile and point split,
 //      A and dZ staged row-major with cp.async and read transposed by
-//      ldmatrix.trans; per-split f32 partials.
+//      ldmatrix.trans (bf16) or as f32 FMAs (f32); per-split f32 partials;
 //   3. reduce (twice): the partials summed in split / block order.
 // The remat backward (K3) is the stash backward on a stash that the
 // forward kernel writes into scratch first (lushnerf_torch/ops/fused/
 // nerf_mlp.py), so the two give the same bits.
-// What bounds it: operations (2 x 1,186,816 FLOP per point) against 4,864 B
-// per point of stash in bf16.  The design also moves the dz scratch (4,864
-// B per point written and read again) and the wgrad partials; that traffic
-// is not part of the bound.
+// What bounds the wgrad: operations (1,186,816 FLOP per point; bf16 tensor
+// rate, or f32 FMAs) against its reads of dz, the stash and the PE.
 //
 // Layouts of the weight blob, the f32 blob and the stash:
-// nerf_mlp_common.cuh.  The transposed blob `wt` holds, each [in][out]
-// row-major:  W0^T [kx][256] | W1^T..W4^T [256][256] | W5a^T [kx][256] |
-// W5b^T [256][256] | W6^T, W7^T, Wf^T [256][256] | Wvf^T [256][128] |
-// Wvd^T [kd][128] (f32 here; the bf16 dgrad takes the same blocks
-// chunk-major and swizzled, nerf_mlp_dgrad.cu).  The weight grad `dw` has
-// the weight blob's layout in f32; the f32-blob grad `dfp` has the f32
-// blob's layout (bias grads and the two heads' weight grads).
+// nerf_mlp_common.cuh.  The weight grad `dw` has the weight blob's layout
+// in f32; the f32-blob grad `dfp` has the f32 blob's layout (bias grads and
+// the two heads' weight grads).
 
 #include "nerf_mlp_common.cuh"
 
 namespace {
 
 using namespace nerf_mlp;
-
-enum { T_W0, T_W1, T_W2, T_W3, T_W4, T_W5A, T_W5B, T_W6, T_W7, T_WF, T_WVF, T_WVD, N_WT };
-
-// The f32 dgrad's tile: 64 points, rows of W + 4 (activations) floats.
-constexpr int FT = Tile<false>::T;
-constexpr int F_ALD = Tile<false>::ACT_LD;
-constexpr int F_PLD = Tile<false>::PE_LD;
-constexpr int DPE_LD = PE_MAX + 4;
-
-struct BwdArgs {
-  const float* xd;  // [P, 8]
-  const float* g;   // [P, 4] cotangent of [rgb, alpha]
-  const float* fp;  // biases and heads
-  const float* wt[N_WT];
-  const float* acts;  // [P, ACTS_LD]: the stash
-  float* dz;          // [P, ACTS_LD]: d_z0..d_z7, d_feat, d_hv
-  float* pe;          // [P, kx + kd]
-  float* dxd;         // [P, 8]
-  float* fp_part;     // [gridDim.x, FP_NUMEL]
-  int P, kx, kd, nfx, nfd, ntiles;
-};
-
-// Rows [p0, min(p0 + FT, P)) of `ncols` stash columns at `col` into L2, one
-// prefetch per 32-byte sector, so that the loads that follow a matmul find
-// them there.
-__device__ __forceinline__ void prefetch_rows(const float* acts, int col, int ncols, int p0, int P) {
-  constexpr int E = 8;  // floats per sector
-  const int per_row = ncols / E;
-  for (int i = threadIdx.x; i < FT * per_row; i += NTHREADS) {
-    const int p = i / per_row, c = (i % per_row) * E;
-    if (p0 + p < P)
-      asm volatile("prefetch.global.L2 [%0];" ::"l"(acts + (size_t)(p0 + p) * ACTS_LD + col + c));
-  }
-}
-
-struct BwdSmem {
-  static constexpr int DZS = FT * F_ALD * 4;
-  static constexpr int PE_B = FT * F_PLD * 4;
-  static constexpr int DPE_B = FT * DPE_LD * 4;
-  static constexpr int UNION = PE_B > DPE_B ? PE_B : DPE_B;
-  static constexpr int BYTES = DZS + UNION + FT * 8 * 4 + FT * 4 * 4 + 2 * W * 4 + FP_NUMEL * 4;
-  float* dzs;   // [FT][F_ALD]: the dgrad chain's current d_z
-  float* pe;    // [FT][F_PLD]: the tile's PE (aliases dpe)
-  float* dpe;   // [FT][DPE_LD]: d_pe
-  float* xs;    // [FT][8]
-  float* gs;    // [FT][4]
-  float* red;   // [2 * W]: column-sum staging
-  float* facc;  // [FP_NUMEL]: this block's f32-blob grads
-  __device__ explicit BwdSmem(unsigned char* s) {
-    dzs = reinterpret_cast<float*>(s);
-    pe = reinterpret_cast<float*>(s + DZS);
-    dpe = reinterpret_cast<float*>(s + DZS);
-    xs = reinterpret_cast<float*>(s + DZS + UNION);
-    gs = xs + FT * 8;
-    red = gs + FT * 4;
-    facc = red + 2 * W;
-  }
-};
-
-// The dgrad epilogue of one layer of width N: v = acc (+ g_alpha Wa when
-// `alpha`), times the relu mask of the activation at stash column
-// `act_col` (no mask when act_col < 0).  v goes to the shared tile, its
-// column sums to facc[bias_off].
-template <int N>
-__device__ __forceinline__ void dgrad_epilogue(const float (&acc)[FT * N / NTHREADS], BwdSmem& s,
-                                               const BwdArgs& a, int p0, int act_col, bool alpha,
-                                               int bias_off) {
-  constexpr int PP = FT * N / NTHREADS;
-  const int n = threadIdx.x % N, grp = threadIdx.x / N;
-  const float wa = alpha ? a.fp[FP_WA + n] : 0.f;
-  float cs = 0.f;
-#pragma unroll
-  for (int i = 0; i < PP; ++i) {
-    const int r = grp * PP + i;
-    float v = acc[i];
-    if (alpha) v = fmaf(s.gs[r * 4 + 3], wa, v);
-    if (act_col >= 0) {
-      const float m = p0 + r < a.P ? a.acts[(size_t)(p0 + r) * ACTS_LD + act_col + n] : 0.f;
-      v = m > 0.f ? v : 0.f;
-    }
-    s.dzs[r * F_ALD + n] = v;
-    cs += v;
-  }
-  s.red[threadIdx.x] = cs;  // = red[grp * N + n]
-  __syncthreads();
-  for (int c = threadIdx.x; c < N; c += NTHREADS) {
-    float sum = 0.f;
-    for (int gi = 0; gi < NTHREADS / N; ++gi) sum += s.red[gi * N + c];
-    s.facc[bias_off + c] += sum;
-  }
-}
-
-// One layer of the dgrad chain: d_a = dzs . Wg^T (Wg = a transposed weight
-// [N][K]), then the epilogue above; dzs is rewritten in place and copied to
-// the dz scratch at column dz_col.  The mask's stash rows are prefetched
-// into L2 while the matmul runs.
-template <int N>
-__device__ __forceinline__ void dgrad_layer(const float* Wg, int K, BwdSmem& s, const BwdArgs& a,
-                                            int p0, int act_col, bool alpha, int dz_col,
-                                            int bias_off) {
-  if (act_col >= 0) prefetch_rows(a.acts, act_col, N, p0, a.P);
-  float acc[FT * N / NTHREADS];
-#pragma unroll
-  for (int i = 0; i < FT * N / NTHREADS; ++i) acc[i] = 0.f;
-  gemm_f32<N>(acc, s.dzs, F_ALD, Wg, K, 0, K);
-  __syncthreads();
-  dgrad_epilogue<N>(acc, s, a, p0, act_col, alpha, bias_off);
-  // the epilogue ended with a barrier: dzs is complete
-  store_rows<FT, F_ALD, N>(s.dzs, a.dz + dz_col, ACTS_LD, p0, a.P);
-}
-
-// d_pe[:, col : col + NC] (= or +=) dzs . Wc^T, Wc = [NC][K].
-template <int NC>
-__device__ __forceinline__ void dpe_chunk(const float* Wc, int K, BwdSmem& s, int col, bool add) {
-  constexpr int PP = FT * NC / NTHREADS;
-  float acc[PP];
-#pragma unroll
-  for (int i = 0; i < PP; ++i) acc[i] = 0.f;
-  gemm_f32<NC>(acc, s.dzs, F_ALD, Wc, K, 0, K);
-  const int n = threadIdx.x % NC, grp = threadIdx.x / NC;
-#pragma unroll
-  for (int i = 0; i < PP; ++i) {
-    float* d = s.dpe + (grp * PP + i) * DPE_LD + col + n;
-    *d = (add ? *d : 0.f) + acc[i];
-  }
-}
-
-// d_pe[:, dpe_col : dpe_col + ncols] (= or +=) dzs . Wg^T, Wg = [ncols][K],
-// in column passes of 64 (and one of 32 for an odd multiple of 32).
-__device__ __forceinline__ void dpe_layer(const float* Wg, int K, int ncols, BwdSmem& s,
-                                          int dpe_col, bool add) {
-  int c0 = 0;
-  for (; c0 + 64 <= ncols; c0 += 64) dpe_chunk<64>(Wg + (size_t)c0 * K, K, s, dpe_col + c0, add);
-  if (c0 < ncols) dpe_chunk<32>(Wg + (size_t)c0 * K, K, s, dpe_col + c0, add);
-}
-
-__global__ void __launch_bounds__(NTHREADS, 1) nerf_mlp_bwd_dgrad_f32(BwdArgs a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  BwdSmem s(smem);
-  const int P = a.P, kx = a.kx, kd = a.kd, ncol = kx + kd;
-  const int tid = threadIdx.x;
-
-  for (int c = tid; c < FP_NUMEL; c += NTHREADS) s.facc[c] = 0.f;
-  for (int tile = blockIdx.x; tile < a.ntiles; tile += gridDim.x) {
-    const int p0 = tile * FT;
-    prefetch_rows(a.acts, 7 * W, W, p0, P);  // the heads' stash rows, read after the PE
-    prefetch_rows(a.acts, 9 * W, WH, p0, P);
-    __syncthreads();  // the previous tile's last reads of xs, gs and dpe are done
-    load_xd<FT>(s.xs, a.xd, p0, P);
-    for (int i = tid; i < FT; i += NTHREADS) {
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (p0 + i < P) v = __ldg(reinterpret_cast<const float4*>(a.g) + p0 + i);
-      reinterpret_cast<float4*>(s.gs)[i] = v;
-    }
-    __syncthreads();
-    pe_tile<FT, F_PLD>(s.pe, s.xs, kx, kd, a.nfx, a.nfd);
-    __syncthreads();
-    for (int i = tid; i < FT * (ncol / 4); i += NTHREADS) {
-      const int p = i / (ncol / 4), c = (i % (ncol / 4)) * 4;
-      if (p0 + p < P)
-        *reinterpret_cast<float4*>(a.pe + (size_t)(p0 + p) * ncol + c) =
-            *reinterpret_cast<const float4*>(s.pe + p * F_PLD + c);
-    }
-    __syncthreads();
-
-    // d_hv, its bias grad, and the grads of the two small heads (rgb: K = 3
-    // from hv; alpha: K = 1 from a7), one thread per column
-    {
-      const int j = tid;
-      if (j < WH) {
-        const float wr0 = a.fp[FP_WR + j], wr1 = a.fp[FP_WR + WH + j],
-                    wr2 = a.fp[FP_WR + 2 * WH + j];
-        float gbv = 0.f, gw0 = 0.f, gw1 = 0.f, gw2 = 0.f;
-#pragma unroll 8
-        for (int p = 0; p < FT; ++p) {
-          const bool valid = p0 + p < P;
-          const float hv = valid ? a.acts[(size_t)(p0 + p) * ACTS_LD + 9 * W + j] : 0.f;
-          const float g0 = s.gs[p * 4], g1 = s.gs[p * 4 + 1], g2 = s.gs[p * 4 + 2];
-          float d = fmaf(g2, wr2, fmaf(g1, wr1, g0 * wr0));
-          d = hv > 0.f ? d : 0.f;
-          s.dzs[p * F_ALD + j] = d;
-          if (valid) a.dz[(size_t)(p0 + p) * ACTS_LD + 9 * W + j] = d;
-          gbv += d;
-          gw0 = fmaf(g0, hv, gw0);
-          gw1 = fmaf(g1, hv, gw1);
-          gw2 = fmaf(g2, hv, gw2);
-        }
-        s.facc[FP_BV + j] += gbv;
-        s.facc[FP_WR + j] += gw0;
-        s.facc[FP_WR + WH + j] += gw1;
-        s.facc[FP_WR + 2 * WH + j] += gw2;
-      }
-      float gwa = 0.f;  // NTHREADS == W: one a7 column a thread
-#pragma unroll 8
-      for (int p = 0; p < FT; ++p) {
-        const float a7 = p0 + p < P ? a.acts[(size_t)(p0 + p) * ACTS_LD + 7 * W + j] : 0.f;
-        gwa = fmaf(s.gs[p * 4 + 3], a7, gwa);
-      }
-      s.facc[FP_WA + j] += gwa;
-      if (j < 4) {
-        float sum = 0.f;
-        for (int p = 0; p < FT; ++p) sum += s.gs[p * 4 + j];
-        s.facc[j < 3 ? FP_BR + j : FP_BA] += sum;
-      }
-    }
-    __syncthreads();
-
-    dpe_layer(a.wt[T_WVD], WH, kd, s, kx, false);                      // d_pe_d
-    dgrad_layer<W>(a.wt[T_WVF], WH, s, a, p0, -1, false, 8 * W, FP_BF);  // d_feat
-    dgrad_layer<W>(a.wt[T_WF], W, s, a, p0, 7 * W, true, 7 * W, 7 * W);   // d_z7
-    dgrad_layer<W>(a.wt[T_W7], W, s, a, p0, 6 * W, false, 6 * W, 6 * W);  // d_z6
-    dgrad_layer<W>(a.wt[T_W6], W, s, a, p0, 5 * W, false, 5 * W, 5 * W);  // d_z5
-    dpe_layer(a.wt[T_W5A], W, kx, s, 0, false);                        // d_z5 W5a
-#pragma unroll 1
-    for (int l = 4; l >= 0; --l) {  // d_z4 from W5b, then d_z3..d_z0 from W4..W1
-      const float* Wt = a.wt[l == 4 ? T_W5B : T_W1 + l];
-      dgrad_layer<W>(Wt, W, s, a, p0, l * W, false, l * W, l * W);
-    }
-    dpe_layer(a.wt[T_W0], W, kx, s, 0, true);                          // + d_z0 W0
-    __syncthreads();
-
-    // d(xd) through the PE: one thread per (point, coordinate)
-    for (int idx = tid; idx < FT * 6; idx += NTHREADS) {
-      const int p = idx / 6, k = idx - p * 6;
-      const bool is_x = k < 3;
-      const int comp = is_x ? k : k - 3;
-      const int L = is_x ? a.nfx : a.nfd;
-      const float* dp = s.dpe + p * DPE_LD + (is_x ? 0 : kx);
-      const float v = s.xs[p * 8 + k];
-      float acc = dp[comp];
-      for (int j = 0; j < L; ++j) {
-        const float f = (float)(1 << j);
-        float sn, cs;
-        sincosf(v * f, &sn, &cs);
-        acc = fmaf(f, dp[3 + 6 * j + comp] * cs - dp[6 + 6 * j + comp] * sn, acc);
-      }
-      if (p0 + p < P) a.dxd[(size_t)(p0 + p) * 8 + k] = acc;
-    }
-    for (int i = tid; i < FT * 2; i += NTHREADS)
-      if (p0 + (i >> 1) < P) a.dxd[(size_t)(p0 + (i >> 1)) * 8 + 6 + (i & 1)] = 0.f;
-  }
-  __syncthreads();
-  for (int c = tid; c < FP_NUMEL; c += NTHREADS)
-    a.fp_part[(size_t)blockIdx.x * FP_NUMEL + c] = s.facc[c];
-}
 
 // ---------------------------------------------------------------------------
 // wgrad: dW[o][i] = sum_p dZ[p][o] A[p][i], split over the points
@@ -538,59 +287,14 @@ int fill_jobs(WgradArgs<AT>& a, int kx, int kd) {
   return n;
 }
 
-// The f32 dgrad (parts & 1) and the wgrad with the two reductions (parts &
-// 2) of the mode's backward.
+// The wgrad and the two reductions of the mode's backward, on the dz, pe
+// and fp_part of a dgrad (nerf_mlp_dgrad.cu) that ran before.
 template <bool BF16>
-int launch_bwd(const float* xd, const float* g, const void* wt, const float* fp, void* acts,
-               void* dz, void* pe, float* dxd, float* fp_part, float* w_part, float* dw,
-               float* dfp, int P, int kx, int kd, int nfx, int nfd, int n_blocks, int n_splits,
-               int parts, cudaStream_t stream) {
+int launch_bwd(const void* acts, const void* dz, const void* pe, float* fp_part, float* w_part,
+               float* dw, float* dfp, int P, int kx, int kd, int n_blocks, int n_splits,
+               cudaStream_t stream) {
   typedef typename Tile<BF16>::T_act AT;
   cudaError_t e;
-  if (parts & 1) {
-    if constexpr (BF16) {
-      return (int)cudaErrorInvalidValue;  // the bf16 dgrad is nerf_mlp_dgrad.cu's
-    } else {
-      static bool attr_set = false;
-      if (!attr_set) {
-        e = cudaFuncSetAttribute(nerf_mlp_bwd_dgrad_f32,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, BwdSmem::BYTES);
-        if (e != cudaSuccess) return (int)e;
-        attr_set = true;
-      }
-      BwdArgs a;
-      a.xd = xd;
-      a.g = g;
-      a.fp = fp;
-      {
-        const float* base = static_cast<const float*>(wt);
-        const size_t WW = (size_t)W * W;
-        const size_t sizes[N_WT] = {(size_t)kx * W, WW, WW, WW, WW, (size_t)kx * W, WW, WW, WW,
-                                    WW, (size_t)W * WH, (size_t)kd * WH};
-        size_t off = 0;
-        for (int i = 0; i < N_WT; ++i) {
-          a.wt[i] = base + off;
-          off += sizes[i];
-        }
-      }
-      a.acts = static_cast<const float*>(acts);
-      a.dz = static_cast<float*>(dz);
-      a.pe = static_cast<float*>(pe);
-      a.dxd = dxd;
-      a.fp_part = fp_part;
-      a.P = P;
-      a.kx = kx;
-      a.kd = kd;
-      a.nfx = nfx;
-      a.nfd = nfd;
-      a.ntiles = (P + FT - 1) / FT;
-      nerf_mlp_bwd_dgrad_f32<<<n_blocks, NTHREADS, BwdSmem::BYTES, stream>>>(a);
-      e = cudaGetLastError();
-      if (e != cudaSuccess) return (int)e;
-    }
-  }
-  if (!(parts & 2)) return 0;
-
   WgradArgs<AT> wa;
   wa.dz = static_cast<const AT*>(dz);
   wa.acts = static_cast<const AT*>(acts);
@@ -625,31 +329,22 @@ extern "C" {
 long long nerf_mlp_bwd_w_numel(int kx, int kd) { return w_numel(kx, kd); }
 long long nerf_mlp_bwd_fp_numel() { return FP_NUMEL; }
 long long nerf_mlp_bwd_acts_ld() { return ACTS_LD; }
-// Points per tile of the f32 dgrad (the block loops over tiles).
-int nerf_mlp_bwd_tile_f32() { return FT; }
-
-// The backward of nerf_mlp_fwd on `stream`, from the forward's stash, but
-// for the bf16 dgrad (nerf_mlp_dgrad.cu): parts 1 the f32 dgrad, 2 the
-// wgrad and the two reductions (on the dz, pe and fp_part of a dgrad that
-// ran before), 3 both.  Returns the first cudaGetLastError() that is not 0,
+// The backward of nerf_mlp_fwd on `stream` after its dgrad
+// (nerf_mlp_dgrad.cu): the wgrad and the two reductions on the dgrad's dz,
+// pe and fp_part.  Returns the first cudaGetLastError() that is not 0,
 // else 0.
-//   xd [P, 8], g [P, 4] f32; wt the transposed blob (f32 mode); fp the f32
-//   blob; acts [P, ACTS_LD] the stash, dz [P, ACTS_LD] and pe [P, kx + kd]
-//   scratch, in the compute dtype.
-//   dxd [P, 8] out; fp_part [n_blocks, FP_NUMEL] and w_part [n_splits,
-//   w_numel] f32 scratch; dw [w_numel] and dfp [FP_NUMEL] f32 out.
-// n_blocks: dgrad blocks (each loops over tiles); n_splits: point splits of
+//   acts [P, ACTS_LD] the stash, dz [P, ACTS_LD] and pe [P, kx + kd]
+//   scratch, in the compute dtype; fp_part [n_blocks, FP_NUMEL] and w_part
+//   [n_splits, w_numel] f32 scratch; dw [w_numel] and dfp [FP_NUMEL] f32 out.
+// n_blocks: the dgrad's blocks (rows of fp_part); n_splits: point splits of
 // the wgrad.  Requires what nerf_mlp_fwd requires.
-int nerf_mlp_bwd(const float* xd, const float* g, const void* wt, const float* fp, void* acts,
-                 void* dz, void* pe, float* dxd, float* fp_part, float* w_part, float* dw,
-                 float* dfp, int P, int kx, int kd, int nfx, int nfd, int bf16_mode, int n_blocks,
-                 int n_splits, int parts, void* stream) {
+int nerf_mlp_bwd(const void* acts, const void* dz, const void* pe, float* fp_part, float* w_part,
+                 float* dw, float* dfp, int P, int kx, int kd, int bf16_mode, int n_blocks,
+                 int n_splits, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16_mode)
-    return launch_bwd<true>(xd, g, wt, fp, acts, dz, pe, dxd, fp_part, w_part, dw, dfp, P, kx, kd,
-                            nfx, nfd, n_blocks, n_splits, parts, s);
-  return launch_bwd<false>(xd, g, wt, fp, acts, dz, pe, dxd, fp_part, w_part, dw, dfp, P, kx, kd,
-                           nfx, nfd, n_blocks, n_splits, parts, s);
+    return launch_bwd<true>(acts, dz, pe, fp_part, w_part, dw, dfp, P, kx, kd, n_blocks, n_splits, s);
+  return launch_bwd<false>(acts, dz, pe, fp_part, w_part, dw, dfp, P, kx, kd, n_blocks, n_splits, s);
 }
 
 const char* nerf_mlp_bwd_error_string(int code) {

@@ -58,6 +58,8 @@
 //     the 8 warps in order, per tile in tile order, per block into its own
 //     partial; nerf_mlp_bwd.cu sums the partials in block order.
 
+#include <cuda_fp16.h>
+
 #include "hopper.cuh"
 #include "nerf_mlp_common.cuh"
 
@@ -328,13 +330,13 @@ __device__ __forceinline__ void epilogue_half(const float (&acc)[HALF / 2], int 
 
 // The end of a 256-wide layer whose d_z is in a tile buffer: the
 // consumers' barrier, after which thread 0 hands the tile to the producer
-// (`ready`), which stores it to the dz scratch; and the column sums added
-// to facc[bias_off].
+// (`ready`, bf16), which stores it to the dz scratch; and the column sums
+// added to facc[bias_off].
 __device__ __forceinline__ void layer_end(const float* stage, float* facc, int bias_off,
                                           uint64_t* ready) {
   fence_proxy_async();
   named_bar(BAR_CONS, NCONS);
-  if (threadIdx.x == 0) mbar_arrive(ready);
+  if (ready != nullptr && threadIdx.x == 0) mbar_arrive(ready);
   const int c = threadIdx.x;
   float s = 0.f;
 #pragma unroll
@@ -370,7 +372,7 @@ __device__ __forceinline__ void dxd_views(const float (&acc)[R], int N, int L, c
     for (int it = 0; it < 2; ++it) {
       const int idx = threadIdx.x + it * NCONS, p = idx / 3, k = idx - 3 * p;
       if (idx >= T * 3) break;
-      const float x = xs[p * 8 + 3 + k];
+      const float x = p0 + p < P ? xs[p * 8 + 3 + k] : 0.f;
       auto col = [&](int c) { return sbuf[p * 32 + ((c - 32 * b) ^ (p & 31))]; };
       auto here = [&](int c) { return c >= 32 * b && c < 32 * b + 32; };
       if (here(k)) s[it] += col(k);
@@ -434,37 +436,49 @@ __device__ __forceinline__ void dxd_from_smem(const float* dpe, int kx, int L, c
   }
 }
 
-// The PE of the block's points into the pe scratch, by the producer
-// warpgroup's warps 1..3 while the consumers run (nothing in this kernel
-// reads it), as pe_tile computes each value: a warp per point, a lane per
-// (band, coordinate) whose sincosf gives both its sin and its cos lane,
-// then the identity lanes and the zero padding.
-__device__ __forceinline__ void pe_store(const DgradArgs& a) {
-  const int warp = ((threadIdx.x - NCONS) >> 5) - 1, lane = threadIdx.x & 31;
-  const int ncol = a.kx + a.kd, nb = a.nfx + a.nfd;
-  for (int tile = blockIdx.x; tile < a.ntiles; tile += gridDim.x) {
-    const int end = min(tile * T + T, a.P);
-    for (int p = tile * T + warp; p < end; p += 3) {
-      const float* x = a.xd + (size_t)p * 8;
-      bf16* row = a.pe + (size_t)p * ncol;
-      for (int r = lane; r < 3 * nb; r += 32) {
-        const int slot = r / 3, c = r - 3 * slot;
-        const bool is_x = slot < a.nfx;
-        const int band = is_x ? slot : slot - a.nfx;
-        float sn, cs;
-        sincosf(__ldg(x + (is_x ? 0 : 3) + c) * (float)(1 << band), &sn, &cs);
-        bf16* d = row + (is_x ? 0 : a.kx) + 3 + 6 * band + c;
-        d[0] = __float2bfloat16_rn(sn);
-        d[3] = __float2bfloat16_rn(cs);
-      }
-      for (int c = lane; c < ncol; c += 32) {
-        const bool is_x = c < a.kx;
-        const int local = is_x ? c : c - a.kx;
-        if (local < 3) row[c] = __float2bfloat16_rn(__ldg(x + (is_x ? 0 : 3) + local));
-        else if (local >= 3 + 6 * (is_x ? a.nfx : a.nfd)) row[c] = __float2bfloat16_rn(0.f);
-      }
+template <typename E> __device__ __forceinline__ E to_elem(float v);
+template <> __device__ __forceinline__ bf16 to_elem<bf16>(float v) { return __float2bfloat16_rn(v); }
+template <> __device__ __forceinline__ float to_elem<float>(float v) { return v; }
+
+// The PE of one tile's points into the pe scratch (nothing in the dgrad
+// reads it; the wgrad does), by three warps (`warp` 0..2) while the
+// consumers run, as pe_tile computes each value: a warp per point, a lane
+// per (band, coordinate) whose sincosf gives both its sin and its cos
+// lane, then the identity lanes and the zero padding.
+template <typename E>
+__device__ __forceinline__ void pe_tile_store(const float* xd, E* pe, int P, int kx, int kd,
+                                              int nfx, int nfd, int tile, int warp) {
+  const int lane = threadIdx.x & 31;
+  const int ncol = kx + kd, nb = nfx + nfd;
+  const int end = min(tile * T + T, P);
+  for (int p = tile * T + warp; p < end; p += 3) {
+    const float* x = xd + (size_t)p * 8;
+    E* row = pe + (size_t)p * ncol;
+    for (int r = lane; r < 3 * nb; r += 32) {
+      const int slot = r / 3, c = r - 3 * slot;
+      const bool is_x = slot < nfx;
+      const int band = is_x ? slot : slot - nfx;
+      float sn, cs;
+      sincosf(__ldg(x + (is_x ? 0 : 3) + c) * (float)(1 << band), &sn, &cs);
+      E* d = row + (is_x ? 0 : kx) + 3 + 6 * band + c;
+      d[0] = to_elem<E>(sn);
+      d[3] = to_elem<E>(cs);
+    }
+    for (int c = lane; c < ncol; c += 32) {
+      const bool is_x = c < kx;
+      const int local = is_x ? c : c - kx;
+      if (local < 3) row[c] = to_elem<E>(__ldg(x + (is_x ? 0 : 3) + local));
+      else if (local >= 3 + 6 * (is_x ? nfx : nfd)) row[c] = to_elem<E>(0.f);
     }
   }
+}
+
+// The bf16 dgrad's PE warps (the producer warpgroup's warps 1..3): every
+// tile of the block.
+__device__ __forceinline__ void pe_store(const DgradArgs& a) {
+  const int warp = ((threadIdx.x - NCONS) >> 5) - 1;
+  for (int tile = blockIdx.x; tile < a.ntiles; tile += gridDim.x)
+    pe_tile_store(a.xd, a.pe, a.P, a.kx, a.kd, a.nfx, a.nfd, tile, warp);
 }
 
 // d_hv = (g_rgb Wr) * [hv > 0] over hv in buffer X (written back in place),
@@ -791,13 +805,684 @@ __global__ void __launch_bounds__(NTHR, 1)
   }
 }
 
+// ---------------------------------------------------------------------------
+// the f32 dgrad: the split
+// ---------------------------------------------------------------------------
+//
+// The chain of d_z is linear in each point's g, with the relu masks fixed
+// by the stash, so each row of a d_z (a point) may carry its own power of
+// two.  The tile buffer holds every d_z row times 2^s (s per row, carried in
+// registers from layer to layer: `Rows`), split in two fp16 parts hi =
+// fp16(x) and lo = fp16(x - hi), with s chosen in each epilogue so that the
+// row's largest |x| lies in [2^14, 2^15): its parts hold x within ~2^-22 of
+// it down to 2^-17 of the row's largest value, whatever the range of g (the
+// loss's mean over rays sends most of the cotangent below fp16's smallest
+// normal).  The weights' parts are those of W^T 2^SPLIT_SHIFT
+// (pack_params_bwd, |w| < 4094).  A product is hi(A) hi(W) + lo(A) hi(W) +
+// hi(A) lo(W) in one f32 accumulator, which holds 2^(s + SPLIT_SHIFT) times
+// the layer's sum; the epilogue works on v = acc 2^-SPLIT_SHIFT (+ g_alpha
+// 2^s Wa), masks it, and writes dz, the bias sums, d_pe and d(xd) as true
+// values (v 2^-s, exact).  Every scale is a power of two, so the kernel is
+// equivariant: g 2^k gives 2^k times every output, bit for bit.
+//
+// Shared memory: one tile buffer, [128][256] in both parts (128 KB: the hi
+// chunks, then the lo chunks), each layer's d_z written over its input
+// once its warpgroup's wgmmas have read it (each warpgroup reads and writes
+// only its own 64 rows); a ring of four 16 KB stages, which holds one
+// 64-deep chunk of a 256-wide layer (hi rows 0..127, hi 128..255, lo, lo;
+// the hi pair in neighbouring stages for one m64n256k16) or two of a d_pe
+// pass (hi, lo); the column-sum staging; the relu masks as bits, two
+// layers' worth; the bias sums.  The mask bits come from the PE warps,
+// which read each stash column block once (float4 rows, ballot-free nibble
+// ORs), so that the consumers load nothing from the stash: a float2 mask
+// load a fragment pair would hold 16 more registers beside the 128 of the
+// accumulator, and its latency would sit in every epilogue.  The PE warps
+// also write d_hv (true values) to dz, the PE to its scratch, and sum the
+// heads' grads (hv, a7 and g read once) in their registers.  d_pe_x =
+// d_z0 W0 + d_z5 W5a: the W5a pass runs right after d_z5's epilogue and
+// its true f32 partial goes to a per-block global scratch, which the same
+// threads read back after the W0 pass and add in that order.
+
+constexpr int F_LO = 4 * CHUNK_B;               // the lo parts follow the hi parts
+constexpr int F_RING = 2 * F_LO;                // after the tile buffer (128 KB)
+constexpr int F_STAGE = F_RING + N_WST * WST_B;  // [2][8 warps][256] f32 column sums
+constexpr int F_MASK = F_STAGE + 2 * 8 * W * 4;  // [2][T][8] u32: relu mask bits
+constexpr int F_FACC = F_MASK + 2 * T * 8 * 4;   // [FP_BV] f32: the bias sums
+constexpr int F_BARS = F_FACC + FP_BV * 4;
+// mbarriers: a ring stage loaded (FW_FULL + s) and read by the 8 consumer
+// warps (FW_EMPTY + s); a mask slot written by the 96 PE threads (FM_FULL +
+// s) and read by the 8 consumer warps (FM_FREE + s)
+enum { FW_FULL = 0, FW_EMPTY = FW_FULL + N_WST, FM_FULL = FW_EMPTY + N_WST, FM_FREE = FM_FULL + 2,
+       F_N_BARS = FM_FREE + 2 };
+constexpr int SMEM_F32 = F_BARS + F_N_BARS * 8;
+static_assert(SMEM_F32 <= 232448, "shared memory over the 227 KB a block may use");
+constexpr int SPLIT_SHIFT = 4;                  // the weights' parts are those of W^T 2^4
+constexpr float SPLIT_ACC = 1 << SPLIT_SHIFT;
+constexpr int ROW_EXP = 15;                     // a row's largest |x| in [2^14, 2^15)
+constexpr int PE_THR = 96;                      // the PE warps: 9, 10 and 11
+constexpr int BAR_WG0 = 2;                      // named barriers 2, 3: consumer warpgroup 0, 1
+constexpr int BAR_PE = 4;                       // the PE warps
+constexpr int N_STAMPS_F32 = N_STAMPS + 1;      // and the W5a pass
+
+struct DgradArgsF {
+  const float* xd;     // [P, 8]
+  const float* g;      // [P, 4]
+  const float* fp;     // the f32 blob
+  const __half* wt;    // the split transposed blob
+  long long wt_off[N_WT];
+  const float* acts;   // [P, ACTS_LD] the f32 stash
+  float* dz;           // [P, ACTS_LD]
+  float* pe;           // [P, kx + kd]
+  float* dxd;          // [P, 8]
+  float* fp_part;      // [gridDim.x, FP_NUMEL]
+  float* dpe5;         // [gridDim.x, T, kx]: the W5a pass's partial
+  long long* stamps;   // [block 0's tiles][N_STAMPS_F32] or null
+  int P, kx, kd, nfx, nfd, ntiles;
+};
+
+__device__ __forceinline__ uint64_t* fbar(int i) {
+  return reinterpret_cast<uint64_t*>(dsmem + F_BARS) + i;
+}
+__device__ __forceinline__ uint32_t* mask_slot(int s) {
+  return reinterpret_cast<uint32_t*>(dsmem + F_MASK) + s * T * 8;
+}
+__device__ __forceinline__ float pow2(int r) { return __int_as_float((127 + r) << 23); }
+
+// The consumer side of the f32 ring (piece k in stage k % N_WST).
+struct RingF {
+  int k;
+  __device__ __forceinline__ const unsigned char* wait(int piece) const {
+    const int s = piece % N_WST;
+    mbar_wait(fbar(FW_FULL + s), (piece / N_WST) & 1);
+    return dsmem + F_RING + s * WST_B;
+  }
+  __device__ __forceinline__ void release(int piece) const {
+    if ((threadIdx.x & 31) == 0) mbar_arrive(fbar(FW_EMPTY + piece % N_WST));
+  }
+};
+
+// One 64-deep chunk, fp16: four m64nNk16 steps.
+template <int N, int R>
+__device__ __forceinline__ void mma_chunk(float (&acc)[R], const unsigned char* A,
+                                          const unsigned char* B) {
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+    const uint64_t da = wgmma_desc(A + ks * 32), db = wgmma_desc(B + ks * 32);
+    if constexpr (N == 256) wgmma_m64n256k16<R, true>(acc, da, db, 1);
+    else if constexpr (N == 96) wgmma_m64n96k16<R, true>(acc, da, db, 1);
+    else if constexpr (N == 64) wgmma_m64n64k16<R, true>(acc, da, db, 1);
+    else wgmma_m64n32k16<R, true>(acc, da, db, 1);
+  }
+}
+
+// acc = A[wg rows, 0 : 64 nk] . B^T in the split, A the tile buffer: per
+// chunk one wgmma group hi(A) hi(B) + lo(A) hi(B) on its hi piece(s), then
+// one group hi(A) lo(B) on its lo piece(s); each group's pieces go back to
+// the ring as soon as it is done, one group kept in flight.  N = 256: a
+// part of a chunk is two neighbouring pieces (rows 0..127, 128..255), read
+// by one m64n256k16; else one piece of N rows.
+template <int N, int R>
+__device__ __forceinline__ void matmul_split(float (&acc)[R], int nk, RingF& ring) {
+  constexpr int NP = N == 256 ? 2 : 1;
+  const int wg_off = (threadIdx.x >> 7) * 64 * 128;
+#pragma unroll
+  for (int i = 0; i < R; ++i) acc[i] = 0.f;
+#pragma unroll 1
+  for (int c = 0; c < nk; ++c) {
+    const unsigned char* Ah = dsmem + c * CHUNK_B + wg_off;
+    const unsigned char* Bh = ring.wait(ring.k);
+    if (NP == 2) ring.wait(ring.k + 1);
+    wgmma_fence();
+    wgmma_fence_regs(acc);
+    mma_chunk<N>(acc, Ah, Bh);
+    mma_chunk<N>(acc, Ah + F_LO, Bh);
+    wgmma_commit();
+    if (c > 0) {  // the chunk before: its lo group is done
+      wgmma_wait<1>();
+      for (int i = 0; i < NP; ++i) ring.release(ring.k - NP + i);
+    }
+    const unsigned char* Bl = ring.wait(ring.k + NP);
+    if (NP == 2) ring.wait(ring.k + NP + 1);
+    wgmma_fence();
+    wgmma_fence_regs(acc);
+    mma_chunk<N>(acc, Ah, Bl);
+    wgmma_commit();
+    wgmma_wait<1>();  // this chunk's hi group is done
+    for (int i = 0; i < NP; ++i) ring.release(ring.k + i);
+    ring.k += 2 * NP;
+  }
+  wgmma_wait<0>();
+  for (int i = 0; i < NP; ++i) ring.release(ring.k - NP + i);
+  wgmma_fence_regs(acc);
+}
+
+// A d_pe pass of N = kx or kd columns over nk chunks: acc[48].
+__device__ __forceinline__ void matmul_split_narrow(float (&acc)[48], int N, int nk, RingF& ring) {
+  if (N == 32) matmul_split<32>(acc, nk, ring);
+  else if (N == 64) matmul_split<64>(acc, nk, ring);
+  else matmul_split<96>(acc, nk, ring);
+}
+
+// This thread's two rows (r0, r0 + 8): the tile buffer holds each row's d_z
+// times sc, inv = 1 / sc (powers of two).
+struct Rows {
+  float sc[2], inv[2];
+};
+
+// The power of two r that puts a row's largest |value| mx in [2^14, 2^15)
+// (0 for a zero row), from mx's exponent bits.
+__device__ __forceinline__ int row_shift(float mx) {
+  if (!(mx > 0.f)) return 0;
+  const int e = ((__float_as_int(mx) >> 23) & 255) - 126;  // mx = m 2^e, m in [0.5, 1)
+  return min(max(ROW_EXP - e, -100), 100);
+}
+
+// The largest |value| of each of this thread's rows over the row's four
+// threads (lanes xor 1, 2), and the scale that follows from it: rs is
+// updated, `up` (2^r per row) returned for the split store.
+__device__ __forceinline__ void rescale(float (&mx)[2], Rows& rs, float (&up)[2]) {
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 1));
+    mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 2));
+    const int r = row_shift(mx[rr]);
+    up[rr] = pow2(r);
+    rs.sc[rr] *= up[rr];
+    rs.inv[rr] *= pow2(-r);
+  }
+}
+
+__device__ __forceinline__ uint32_t pack_f16(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.f16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+__device__ __forceinline__ float2 unpack_f16(uint32_t u) {
+  return __half22float2(*reinterpret_cast<const __half2*>(&u));
+}
+
+// The fragment v (R = N / 2 values: rows r0 | r0 + 8 of columns 8 j + 2 q,
+// + 1) times up[row], split in its fp16 parts over this thread's rows of
+// the tile buffer's hi and lo chunks (stmatrix, two 8x8 matrices of each
+// part a 16-column step).
+template <int R>
+__device__ __forceinline__ void split_store(const float (&v)[R], const float (&up)[2]) {
+  const Frag f;
+  const int lane = threadIdx.x & 31, rr = lane & 7, hi = lane >> 4;
+  const int row = f.r0 - (lane >> 2) + ((lane >> 3) & 1) * 8 + rr;
+  unsigned char* base = dsmem + row * 128;
+#pragma unroll
+  for (int j = 0; j < R / 4; j += 2) {  // columns 8 j .. 8 j + 15
+    uint32_t ph[4], pl[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {  // pair i: row r0 + 8 (i & 1) of column block j + (i >> 1)
+      const float x = v[4 * j + 2 * i] * up[i & 1], y = v[4 * j + 2 * i + 1] * up[i & 1];
+      ph[i] = pack_f16(x, y);
+      const float2 h = unpack_f16(ph[i]);
+      pl[i] = pack_f16(x - h.x, y - h.y);
+    }
+    const int off = (j >> 3) * CHUNK_B + ((((j & 7) + hi) ^ rr) << 4);
+    stsm_x4(base + off, ph[0], ph[1], ph[2], ph[3]);
+    stsm_x4(base + F_LO + off, pl[0], pl[1], pl[2], pl[3]);
+  }
+}
+
+// The column sums of 8 columns of the warp's 16 rows (cs: this thread's two
+// rows' sum of each of its 8 columns, 2 jj + h for column 8 (4 g + jj) +
+// 2 q + h) into the staging row of the warp, as epilogue_half sums them.
+__device__ __forceinline__ void stage_colsums(float (&cs)[8], int g, float* stage) {
+  const Frag f;
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int o = 16, n = 4; o >= 4; o >>= 1, n >>= 1) {
+    const bool upper = lane & o;
+#pragma unroll
+    for (int k = 0; k < n; ++k) {
+      const float send = upper ? cs[k] : cs[n + k];
+      const float keep = upper ? cs[n + k] : cs[k];
+      cs[k] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+    }
+  }
+  const int i = (lane >> 2) & 7;
+  stage[f.warp8 * W + 8 * (4 * g + (i >> 1)) + 2 * f.q + (i & 1)] = cs[0];
+}
+
+// d_hv = (g_rgb Wr) * [hv > 0] in the fragment of a 128-wide layer, its
+// rows' scale chosen, split into chunks 0 and 1 of the tile buffer.  (The
+// PE warps write its true values to dz and sum its grads.)
+__device__ __forceinline__ void d_hv_split(const DgradArgsF& a, int p0, const uint32_t* bits,
+                                           Rows& rs) {
+  const Frag f;
+  float4 gg[2];
+  float mx[2] = {0.f, 0.f};
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int p = p0 + f.r0 + 8 * rr;
+    gg[rr] = p < a.P ? __ldg(reinterpret_cast<const float4*>(a.g) + p) : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  float v[64];
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int col = 8 * j + 2 * f.q;
+    const float2 w0 = __ldg(reinterpret_cast<const float2*>(a.fp + FP_WR + col));
+    const float2 w1 = __ldg(reinterpret_cast<const float2*>(a.fp + FP_WR + WH + col));
+    const float2 w2 = __ldg(reinterpret_cast<const float2*>(a.fp + FP_WR + 2 * WH + col));
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const uint32_t word = bits[(f.r0 + 8 * rr) * 8 + (j >> 2)] >> (8 * (j & 3) + 2 * f.q);
+      const float4 q = gg[rr];
+      const float d0 = fmaf(q.z, w2.x, fmaf(q.y, w1.x, q.x * w0.x));
+      const float d1 = fmaf(q.z, w2.y, fmaf(q.y, w1.y, q.x * w0.y));
+      v[4 * j + 2 * rr] = (word & 1u) ? d0 : 0.f;
+      v[4 * j + 2 * rr + 1] = (word & 2u) ? d1 : 0.f;
+      mx[rr] = fmaxf(mx[rr], fmaxf(fabsf(v[4 * j + 2 * rr]), fabsf(v[4 * j + 2 * rr + 1])));
+    }
+  }
+  rs.sc[0] = rs.sc[1] = rs.inv[0] = rs.inv[1] = 1.f;
+  float up[2];
+  rescale(mx, rs, up);
+  split_store(v, up);
+}
+
+// The epilogue of a 256-wide layer from its accumulator (2^(s +
+// SPLIT_SHIFT) times d_a): v = acc 2^-SHIFT (+ g_alpha 2^s Wa), times the
+// mask bits (none for d_feat); its true values (v / 2^s) to dz at column
+// col and their column sums into `stage`; then the rows' new scale, and v
+// at it split over the tile buffer.
+__device__ __forceinline__ void epilogue_wide(float (&acc)[128], Rows& rs, const DgradArgsF& a,
+                                              int p0, const uint32_t* bits, bool alpha, int col0,
+                                              float* stage) {
+  const Frag f;
+  float ga[2] = {0.f, 0.f};  // g_alpha 2^s of the two rows
+  bool in[2];
+  float mx[2] = {0.f, 0.f};
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int p = p0 + f.r0 + 8 * rr;
+    in[rr] = p < a.P;
+    if (alpha && in[rr]) ga[rr] = __ldg(a.g + (size_t)p * 4 + 3) * rs.sc[rr];
+  }
+#pragma unroll
+  for (int g = 0; g < 8; ++g) {  // 32 columns: one mask word a row
+    uint32_t word[2] = {0xffffffffu, 0xffffffffu};
+    if (bits != nullptr) {
+      word[0] = bits[f.r0 * 8 + g];
+      word[1] = bits[(f.r0 + 8) * 8 + g];
+    }
+    float cs[8];
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int j = 4 * g + jj, col = 8 * j + 2 * f.q;
+      float2 wa = make_float2(0.f, 0.f);
+      if (alpha) wa = __ldg(reinterpret_cast<const float2*>(a.fp + FP_WA + col));
+      float t[2][2];
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const uint32_t m = word[rr] >> (8 * jj + 2 * f.q);
+        float x = acc[4 * j + 2 * rr] * (1.f / SPLIT_ACC), y = acc[4 * j + 2 * rr + 1] * (1.f / SPLIT_ACC);
+        if (alpha) {
+          x = fmaf(ga[rr], wa.x, x);
+          y = fmaf(ga[rr], wa.y, y);
+        }
+        x = (m & 1u) ? x : 0.f;
+        y = (m & 2u) ? y : 0.f;
+        acc[4 * j + 2 * rr] = x;
+        acc[4 * j + 2 * rr + 1] = y;
+        mx[rr] = fmaxf(mx[rr], fmaxf(fabsf(x), fabsf(y)));
+        t[rr][0] = x * rs.inv[rr];
+        t[rr][1] = y * rs.inv[rr];
+        if (in[rr])
+          __stcs(reinterpret_cast<float2*>(a.dz + (size_t)(p0 + f.r0 + 8 * rr) * ACTS_LD + col0 + col),
+                 make_float2(t[rr][0], t[rr][1]));
+      }
+      cs[2 * jj] = t[0][0] + t[1][0];
+      cs[2 * jj + 1] = t[0][1] + t[1][1];
+    }
+    stage_colsums(cs, g, stage);
+  }
+  float up[2];
+  rescale(mx, rs, up);
+  split_store(acc, up);
+}
+
+// A d_pe pass's fragment to true values: acc 2^-(s + SHIFT) per row.
+__device__ __forceinline__ void to_true(float (&acc)[48], const Rows& rs) {
+#pragma unroll
+  for (int i = 0; i < 48; ++i) acc[i] *= rs.inv[(i >> 1) & 1] * (1.f / SPLIT_ACC);
+}
+
+// This thread's W5a partial of d_pe_x (N columns) to or from the block's
+// scratch rows, at its fragment positions: the same thread reads back what
+// it wrote.
+template <bool LOAD>
+__device__ __forceinline__ void dpe5_io(float (&acc)[48], int N, float* dpe5) {
+  const Frag f;
+  float* base = dpe5 + (size_t)blockIdx.x * T * N;
+#pragma unroll
+  for (int j = 0; j < 12; ++j) {
+    if (8 * j >= N) break;
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      float2* p = reinterpret_cast<float2*>(base + (size_t)(f.r0 + 8 * rr) * N + 8 * j + 2 * f.q);
+      if (LOAD) {
+        const float2 v = *p;
+        acc[4 * j + 2 * rr] += v.x;
+        acc[4 * j + 2 * rr + 1] += v.y;
+      } else {
+        *p = make_float2(acc[4 * j + 2 * rr], acc[4 * j + 2 * rr + 1]);
+      }
+    }
+  }
+}
+
+template <bool PROF>
+__device__ __forceinline__ void consumer_f32(const DgradArgsF& a) {
+  const int tid = threadIdx.x, wg = tid >> 7;
+  float* stage = reinterpret_cast<float*>(dsmem + F_STAGE);
+  float* facc = reinterpret_cast<float*>(dsmem + F_FACC);
+  const int P = a.P;
+  RingF ring{0};
+  int mk = 0;  // mask slots taken
+  int sb = 0;  // staging buffer of the next layer
+  auto take_mask = [&]() -> const uint32_t* {
+    mbar_wait(fbar(FM_FULL + (mk & 1)), (mk >> 1) & 1);
+    return mask_slot(mk & 1);
+  };
+  auto give_mask = [&]() {
+    if ((tid & 31) == 0) mbar_arrive(fbar(FM_FREE + (mk & 1)));
+    ++mk;
+  };
+  for (int c = tid; c < FP_BV; c += NCONS) facc[c] = 0.f;
+#pragma unroll 1
+  for (int tile = blockIdx.x; tile < a.ntiles; tile += gridDim.x) {
+    const int p0 = tile * T;
+    Stamper<PROF> st{PROF && blockIdx.x == 0 && tid == 0
+                         ? a.stamps + (size_t)(tile / gridDim.x) * N_STAMPS_F32 : nullptr, 0};
+    const float* xs = a.xd + (size_t)p0 * 8;
+    Rows rs;
+    named_bar(BAR_CONS, NCONS);  // the previous tile's reads of the buffer are done
+    st.mark();
+    st.mark();  // (no loads: the "load" stage is empty)
+
+    d_hv_split(a, p0, take_mask(), rs);
+    give_mask();
+    fence_proxy_async();
+    named_bar(BAR_WG0 + wg, 128);
+    st.mark();
+
+    // d_pe_d = d_hv Wvd, and the view lanes of d(xd)
+    {
+      float acc_d[48];
+      matmul_split_narrow(acc_d, a.kd, 2, ring);
+      st.mark();
+      to_true(acc_d, rs);
+      dxd_views(acc_d, a.kd, a.nfd, xs, stage, a.dxd, p0, P);
+    }
+    st.mark();
+
+    // the nine 256-wide layers through one copy of the code: l = 8 is d_feat
+    // = d_hv Wvf (no mask), l = 7 d_z7 (plus g_alpha Wa), then d_z6 .. d_z0;
+    // after d_z5 its W5a pass
+#pragma unroll 1
+    for (int l = 8; l >= 0; --l) {
+      {
+        float acc[128];
+        matmul_split<256>(acc, l == 8 ? 2 : 4, ring);
+        st.mark();
+        named_bar(BAR_WG0 + wg, 128);  // every warp of the warpgroup has read its A
+        const uint32_t* bits = l < 8 ? take_mask() : nullptr;
+        st.mark();
+        epilogue_wide(acc, rs, a, p0, bits, l == 7, l * W, stage + sb * 8 * W);
+        if (l < 8) give_mask();
+      }
+      layer_end(stage + sb * 8 * W, facc, l * W, nullptr);
+      sb ^= 1;
+      st.mark();
+      if (l == 5) {
+        float acc5[48];
+        matmul_split_narrow(acc5, a.kx, 4, ring);
+        to_true(acc5, rs);
+        dpe5_io<false>(acc5, a.kx, a.dpe5);
+        st.mark();
+      }
+    }
+
+    // d_pe_x = d_z0 W0 + d_z5 W5a, then d(xd) through the buffer
+    {
+      float acc_x[48];
+      matmul_split_narrow(acc_x, a.kx, 4, ring);
+      to_true(acc_x, rs);
+      dpe5_io<true>(acc_x, a.kx, a.dpe5);
+      named_bar(BAR_CONS, NCONS);  // both warpgroups' wgmmas have read the buffer
+      dpe_to_smem(acc_x, a.kx, reinterpret_cast<float*>(dsmem));
+    }
+    named_bar(BAR_CONS, NCONS);
+    st.mark();
+    dxd_from_smem(reinterpret_cast<const float*>(dsmem), a.kx, a.nfx, xs, a.dxd, p0, P);
+    st.mark();
+  }
+  __syncthreads();  // every thread of the block: the PE warps' sums may use the buffer
+  for (int c = tid; c < FP_BV; c += NCONS) a.fp_part[(size_t)blockIdx.x * FP_NUMEL + c] = facc[c];
+}
+
+// The PE warps of the f32 dgrad: per tile the relu masks as bits in the
+// consumers' order (hv, a7, a6, .., a0) into the two mask slots, each stash
+// row read once as float4s (a lane's 4 columns as a nibble, ORed over 8
+// lanes into a 32-column word); with hv, d_hv (true values) to dz, its bias
+// grad and the rgb head's weight grads, and the sums of g; with a7, the
+// alpha head's weight grad; after a7, the tile's PE to its scratch.  Warp w
+// takes rows w, w + 3, ..; each thread sums its columns over its rows in
+// order, tile after tile, and the three warps' sums meet at the end in
+// warp order.
+__device__ __forceinline__ void pe_warps_f32(const DgradArgsF& a) {
+  const int u = threadIdx.x - (NCONS + 32), warp = u >> 5, lane = u & 31;
+  const int P = a.P;
+  float gbv[4] = {0.f, 0.f, 0.f, 0.f}, gw[3][4], gwa[8], gsum[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 8; ++i) gwa[i] = 0.f;
+  float4 wr[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    wr[k] = __ldg(reinterpret_cast<const float4*>(a.fp + FP_WR + k * WH) + lane);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) gw[k][c] = 0.f;
+  }
+  // one row's 4 columns as 4 bits, ORed with the 7 lanes beside: lane 8 i
+  // then holds the word of columns 32 i .. 32 i + 31
+  auto word_of = [&](float4 v) {
+    uint32_t w = ((v.x > 0.f) | ((v.y > 0.f) << 1) | ((v.z > 0.f) << 2) | ((v.w > 0.f) << 3))
+                 << (4 * (lane & 7));
+    w |= __shfl_xor_sync(0xffffffffu, w, 1);
+    w |= __shfl_xor_sync(0xffffffffu, w, 2);
+    w |= __shfl_xor_sync(0xffffffffu, w, 4);
+    return w;
+  };
+  int mk = 0;
+#pragma unroll 1
+  for (int tile = blockIdx.x; tile < a.ntiles; tile += gridDim.x) {
+    const int p0 = tile * T;
+#pragma unroll 1
+    for (int m = 0; m < 9; ++m, ++mk) {
+      const int s = mk & 1;
+      mbar_wait(fbar(FM_FREE + s), ((mk >> 1) & 1) ^ 1);  // the consumers have read the slot
+      uint32_t* bits = mask_slot(s);
+      if (m == 0) {  // hv: 128 columns, a float4 a lane
+#pragma unroll 1
+        for (int i0 = warp; i0 < T; i0 += 12) {
+          float4 hv[4], g4[4];
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const int p = i0 + 3 * r;
+            const bool ok = p < T && p0 + p < P;
+            const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+            hv[r] = ok ? __ldg(reinterpret_cast<const float4*>(a.acts + (size_t)(p0 + p) * ACTS_LD + 9 * W) + lane) : z;
+            g4[r] = ok ? __ldg(reinterpret_cast<const float4*>(a.g) + p0 + p) : z;
+          }
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const int p = i0 + 3 * r;
+            if (p >= T) break;
+            const float4 q = g4[r], h = hv[r];
+            const float hs[4] = {h.x, h.y, h.z, h.w};
+            const float w0[4] = {wr[0].x, wr[0].y, wr[0].z, wr[0].w};
+            const float w1[4] = {wr[1].x, wr[1].y, wr[1].z, wr[1].w};
+            const float w2[4] = {wr[2].x, wr[2].y, wr[2].z, wr[2].w};
+            float d[4];
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              d[c] = fmaf(q.z, w2[c], fmaf(q.y, w1[c], q.x * w0[c]));
+              d[c] = hs[c] > 0.f ? d[c] : 0.f;
+              gbv[c] += d[c];
+              gw[0][c] = fmaf(q.x, hs[c], gw[0][c]);
+              gw[1][c] = fmaf(q.y, hs[c], gw[1][c]);
+              gw[2][c] = fmaf(q.z, hs[c], gw[2][c]);
+            }
+            gsum[0] += q.x;
+            gsum[1] += q.y;
+            gsum[2] += q.z;
+            gsum[3] += q.w;
+            if (p0 + p < P)
+              reinterpret_cast<float4*>(a.dz + (size_t)(p0 + p) * ACTS_LD + 9 * W)[lane] =
+                  make_float4(d[0], d[1], d[2], d[3]);
+            const uint32_t w = word_of(h);
+            if ((lane & 7) == 0) bits[p * 8 + (lane >> 3)] = w;
+          }
+        }
+      } else {  // a_l, l = 8 - m: 256 columns, two float4 a lane
+        const int col = (8 - m) * W;
+#pragma unroll 1
+        for (int i0 = warp; i0 < T; i0 += 12) {
+          float4 v[4][2];
+          float ga[4];
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const int p = i0 + 3 * r;
+            const bool ok = p < T && p0 + p < P;
+            const float4* row = reinterpret_cast<const float4*>(a.acts + (size_t)(p0 + p) * ACTS_LD + col);
+            const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+            v[r][0] = ok ? __ldg(row + lane) : z;
+            v[r][1] = ok ? __ldg(row + 32 + lane) : z;
+            ga[r] = ok && m == 1 ? __ldg(a.g + (size_t)(p0 + p) * 4 + 3) : 0.f;
+          }
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const int p = i0 + 3 * r;
+            if (p >= T) break;
+            if (m == 1) {
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                gwa[4 * h] = fmaf(ga[r], v[r][h].x, gwa[4 * h]);
+                gwa[4 * h + 1] = fmaf(ga[r], v[r][h].y, gwa[4 * h + 1]);
+                gwa[4 * h + 2] = fmaf(ga[r], v[r][h].z, gwa[4 * h + 2]);
+                gwa[4 * h + 3] = fmaf(ga[r], v[r][h].w, gwa[4 * h + 3]);
+              }
+            }
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const uint32_t w = word_of(v[r][h]);
+              if ((lane & 7) == 0) bits[p * 8 + 4 * h + (lane >> 3)] = w;
+            }
+          }
+        }
+      }
+      mbar_arrive(fbar(FM_FULL + s));  // each PE thread: its writes are done
+      if (m == 1) pe_tile_store(a.xd, a.pe, P, a.kx, a.kd, a.nfx, a.nfd, tile, warp);
+    }
+  }
+  __syncthreads();  // the consumers are done with the buffer
+  // the three warps' sums through the buffer: [3][FP_NUMEL - FP_BV], zero
+  // where a lane writes nothing (the padding lanes of ba and br)
+  constexpr int NH = FP_NUMEL - FP_BV;
+  float* hp = reinterpret_cast<float*>(dsmem);
+  for (int i = u; i < 3 * NH; i += PE_THR) hp[i] = 0.f;
+  named_bar(BAR_PE, PE_THR);
+  float* mine = hp + warp * NH - FP_BV;  // indexed by f32-blob offset
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    mine[FP_BV + 4 * lane + c] = gbv[c];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) mine[FP_WR + k * WH + 4 * lane + c] = gw[k][c];
+    mine[FP_WA + 4 * lane + c] = gwa[c];
+    mine[FP_WA + 128 + 4 * lane + c] = gwa[4 + c];
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) mine[FP_BR + k] = gsum[k];
+    mine[FP_BA] = gsum[3];
+  }
+  named_bar(BAR_PE, PE_THR);
+  for (int i = u; i < NH; i += PE_THR)
+    a.fp_part[(size_t)blockIdx.x * FP_NUMEL + FP_BV + i] = (hp[i] + hp[NH + i]) + hp[2 * NH + i];
+}
+
+// The f32 producer: one thread streams the split blob's pieces in the
+// consumers' order.
+__device__ __forceinline__ void producer_f32(const DgradArgsF& a) {
+  unsigned char* ring = dsmem + F_RING;
+  int k = 0;
+  // part (0 hi, 1 lo) rows [row0, row0 + rows) of chunk c of block blk (N rows)
+  auto piece = [&](int blk, int c, int N, int part, int row0, int rows) {
+    const int s = k % N_WST;
+    mbar_wait(fbar(FW_EMPTY + s), ((k / N_WST) & 1) ^ 1);
+    mbar_arrive_expect_tx(fbar(FW_FULL + s), rows * 128);
+    bulk_g2s(ring + s * WST_B, a.wt + a.wt_off[blk] + ((size_t)c * 2 * N + (size_t)part * N + row0) * 64,
+             rows * 128, fbar(FW_FULL + s));
+    ++k;
+  };
+  auto wide = [&](int blk, int nk) {
+    for (int c = 0; c < nk; ++c)
+      for (int part = 0; part < 2; ++part) {
+        piece(blk, c, W, part, 0, HALF);
+        piece(blk, c, W, part, HALF, HALF);
+      }
+  };
+  auto narrow = [&](int blk, int nk, int N) {
+    for (int c = 0; c < nk; ++c) {
+      piece(blk, c, N, 0, 0, N);
+      piece(blk, c, N, 1, 0, N);
+    }
+  };
+#pragma unroll 1
+  for (int tile = blockIdx.x; tile < a.ntiles; tile += gridDim.x) {
+    narrow(T_WVD, 2, a.kd);
+    wide(T_WVF, 2);
+#pragma unroll 1
+    for (int l = 7; l >= 0; --l) {  // d_z_l from the block after it: Wf, W7, W6, W5b, W4 .. W1
+      wide(l == 7 ? T_WF : l >= 4 ? T_W5B + (l - 4) : T_W1 + l, 4);
+      if (l == 5) narrow(T_W5A, 4, a.kx);
+    }
+    narrow(T_W0, 4, a.kx);
+  }
+}
+
+template <bool PROF>
+__global__ void __launch_bounds__(NTHR, 1)
+    nerf_mlp_dgrad_f32_sm90(const __grid_constant__ DgradArgsF a) {
+  if (smem_u32(dsmem) & 1023) __trap();  // the swizzled operands need 1024-byte alignment
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < F_N_BARS; ++i)
+      mbar_init(fbar(i), i == FM_FULL || i == FM_FULL + 1 ? PE_THR
+                         : (i >= FW_EMPTY && i < FM_FULL) || i >= FM_FREE ? NCONS / 32 : 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x < NCONS) {
+    consumer_f32<PROF>(a);
+  } else if (threadIdx.x < NCONS + 32) {
+    if (threadIdx.x == NCONS) producer_f32(a);
+    __syncthreads();
+  } else {
+    pe_warps_f32(a);
+  }
+}
+
 bool valid_pe_width(int k) { return k == 32 || k == 64 || k == 96; }
 
 }  // namespace
 
 extern "C" {
 
-int nerf_mlp_dgrad_n_stamps() { return N_STAMPS; }
+int nerf_mlp_dgrad_n_stamps(int f32) { return f32 ? N_STAMPS_F32 : N_STAMPS; }
 int nerf_mlp_dgrad_tile() { return T; }
 
 // The bf16 dgrad on `stream`; returns 0 or the first CUDA error code.
@@ -858,6 +1543,63 @@ int nerf_mlp_dgrad_bf16(const float* xd, const float* g, const void* wt, const f
     nerf_mlp_dgrad_sm90<true><<<n_blocks, NTHR, SMEM, s>>>(tm_acts, tm_dz, a);
   else
     nerf_mlp_dgrad_sm90<false><<<n_blocks, NTHR, SMEM, s>>>(tm_acts, tm_dz, a);
+  return (int)cudaGetLastError();
+}
+
+// The f32 dgrad (the split) on `stream`; returns 0 or the first CUDA error
+// code.  As nerf_mlp_dgrad_bf16, but: wt the split transposed blob
+// (pack_params_bwd in f32: fp16 parts of W^T 2^4), acts the f32 stash, dz
+// and pe f32 scratch; dpe5 [n_blocks, 128, kx] f32 scratch; stamps null or
+// [ceil(ntiles / n_blocks)][N_STAMPS_F32] int64.
+int nerf_mlp_dgrad_f32(const float* xd, const float* g, const void* wt, const float* fp,
+                       const float* acts, float* dz, float* pe, float* dxd, float* fp_part,
+                       float* dpe5, long long* stamps, int P, int kx, int kd, int nfx, int nfd,
+                       int n_blocks, void* stream) {
+  if (!valid_pe_width(kx) || !valid_pe_width(kd) || kx + kd > PE_MAX || P <= 0)
+    return (int)cudaErrorInvalidValue;
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaError_t e = cudaFuncSetAttribute(nerf_mlp_dgrad_f32_sm90<false>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_F32);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(nerf_mlp_dgrad_f32_sm90<true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_F32);
+    if (e != cudaSuccess) return (int)e;
+    attr_set = true;
+  }
+  DgradArgsF a;
+  a.xd = xd;
+  a.g = g;
+  a.fp = fp;
+  a.wt = static_cast<const __half*>(wt);
+  {
+    const long long WW = (long long)W * W;
+    const long long sizes[N_WT] = {(long long)kx * W, WW, WW, WW, WW, (long long)kx * W, WW, WW,
+                                   WW, WW, (long long)W * WH, (long long)kd * WH};
+    long long off = 0;
+    for (int i = 0; i < N_WT; ++i) {
+      a.wt_off[i] = off;
+      off += 2 * sizes[i];  // each block's hi and lo parts
+    }
+  }
+  a.acts = acts;
+  a.dz = dz;
+  a.pe = pe;
+  a.dxd = dxd;
+  a.fp_part = fp_part;
+  a.dpe5 = dpe5;
+  a.stamps = stamps;
+  a.P = P;
+  a.kx = kx;
+  a.kd = kd;
+  a.nfx = nfx;
+  a.nfd = nfd;
+  a.ntiles = (P + T - 1) / T;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (stamps != nullptr)
+    nerf_mlp_dgrad_f32_sm90<true><<<n_blocks, NTHR, SMEM_F32, s>>>(a);
+  else
+    nerf_mlp_dgrad_f32_sm90<false><<<n_blocks, NTHR, SMEM_F32, s>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -12,9 +12,9 @@ streams the weights through a ring of bulk copies); `fwd_grid` and
 backward kernels compute d(xd) and the grads of every parameter from the
 stash (replacing `_bwd_stash_kernel`, mode 'stash') or, in mode 'remat'
 (replacing `_bwd_kernel`), from a stash the forward kernel writes into
-scratch first: a dgrad kernel (`csrc/nerf_mlp_dgrad.cu` in bf16, wgmma and
-TMA; `csrc/nerf_mlp_bwd.cu` in f32), then the wgrad and two fixed-order
-reductions (`csrc/nerf_mlp_bwd.cu`).
+scratch first: a dgrad kernel (`csrc/nerf_mlp_dgrad.cu`, wgmma; in f32
+the split with a power-of-two scale per point), then the wgrad and two
+fixed-order reductions (`csrc/nerf_mlp_bwd.cu`).
 
 `NerfMLPFn` is the gradient: on a CPU tensor it runs `nerf_mlp_fwd_plain`
 and `nerf_mlp_bwd_plain`; on a CUDA tensor it launches the kernels or
@@ -71,14 +71,19 @@ FP_WA = FP_BR + 4
 FP_WR = FP_WA + WIDTH
 FP_NUMEL = FP_WR + 3 * (WIDTH // 2)
 
-# The bf16 dgrad kernel's stages, in order (its stage stamps mark the end
-# of each; mirrors the stamps in csrc/nerf_mlp_dgrad.cu)
+# The dgrad kernel's stages, in order (its stage stamps mark the end of
+# each; mirrors the stamps in csrc/nerf_mlp_dgrad.cu): bf16, and f32, which
+# runs the W5a pass of d_pe_x right after d_z5's epilogue (in f32 "wait" is
+# the mask bits' wait, "load" is empty)
 DGRAD_STAGES = (
     ["load", "heads", "dpe_wvd", "dxd_views"]
     + [f"{k}_{z}" for z in ["feat"] + [f"z{l}" for l in range(7, -1, -1)]
        for k in ("mm", "wait", "ep")]
     + ["dpe_x", "dxd_x"]
 )
+_EP_Z5 = DGRAD_STAGES.index("ep_z5") + 1
+DGRAD_STAGES_F32 = DGRAD_STAGES[:_EP_Z5] + ["dpe_w5a"] + DGRAD_STAGES[_EP_Z5:]
+DGRAD_TILE = 128  # points a tile of the dgrad kernel, both modes
 
 # The forward kernel's stages: consumer thread 0's cycles of each in each
 # tile of block 0 (its instrumented instantiation), then, off that path, the
@@ -559,7 +564,7 @@ def _bwd_lib() -> ctypes.CDLL:
     lib = build.load("nerf_mlp_bwd")
     if not getattr(lib, "_lushnerf_typed", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.nerf_mlp_bwd.argtypes = [vp] * 12 + [ci] * 9 + [vp]
+        lib.nerf_mlp_bwd.argtypes = [vp] * 7 + [ci] * 6 + [vp]
         lib.nerf_mlp_bwd.restype = ci
         lib.nerf_mlp_bwd_w_numel.argtypes = [ci, ci]
         lib.nerf_mlp_bwd_w_numel.restype = ctypes.c_longlong
@@ -567,8 +572,6 @@ def _bwd_lib() -> ctypes.CDLL:
         lib.nerf_mlp_bwd_fp_numel.restype = ctypes.c_longlong
         lib.nerf_mlp_bwd_acts_ld.argtypes = []
         lib.nerf_mlp_bwd_acts_ld.restype = ctypes.c_longlong
-        lib.nerf_mlp_bwd_tile_f32.argtypes = []
-        lib.nerf_mlp_bwd_tile_f32.restype = ci
         lib.nerf_mlp_bwd_error_string.argtypes = [ci]
         lib.nerf_mlp_bwd_error_string.restype = ctypes.c_char_p
         if lib.nerf_mlp_bwd_fp_numel() != FP_NUMEL or lib.nerf_mlp_bwd_acts_ld() != ACTS_LD:
@@ -583,12 +586,18 @@ def _dgrad_lib() -> ctypes.CDLL:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.nerf_mlp_dgrad_bf16.argtypes = [vp] * 10 + [ci] * 6 + [vp]
         lib.nerf_mlp_dgrad_bf16.restype = ci
-        lib.nerf_mlp_dgrad_n_stamps.argtypes = []
+        lib.nerf_mlp_dgrad_f32.argtypes = [vp] * 11 + [ci] * 6 + [vp]
+        lib.nerf_mlp_dgrad_f32.restype = ci
+        lib.nerf_mlp_dgrad_n_stamps.argtypes = [ci]
         lib.nerf_mlp_dgrad_n_stamps.restype = ci
         lib.nerf_mlp_dgrad_tile.argtypes = []
         lib.nerf_mlp_dgrad_tile.restype = ci
         lib.nerf_mlp_dgrad_error_string.argtypes = [ci]
         lib.nerf_mlp_dgrad_error_string.restype = ctypes.c_char_p
+        if lib.nerf_mlp_dgrad_tile() != DGRAD_TILE \
+                or lib.nerf_mlp_dgrad_n_stamps(0) != len(DGRAD_STAGES) + 1 \
+                or lib.nerf_mlp_dgrad_n_stamps(1) != len(DGRAD_STAGES_F32) + 1:
+            raise RuntimeError("nerf_mlp_dgrad: tile or stage stamps differ from the CUDA source")
         lib._lushnerf_typed = True
     return lib
 
@@ -708,12 +717,11 @@ class BwdLaunch:
     (d_xd, grads) as `nerf_mlp_bwd_plain` does.  `nerf_mlp_bwd` is the one
     caller on the main path; `chip_smoke.py` also times the dgrad
     (`run(DGRAD)`) and the wgrad with its reductions (`run(WGRAD)`, on the
-    scratch of an earlier dgrad) apart, and reads the bf16 dgrad's stage
-    stamps (`stage_stamps()`).
+    scratch of an earlier dgrad) apart, and reads the dgrad's stage stamps
+    (`stage_stamps()`, labelled by `stages`).
 
-    The dgrad is csrc/nerf_mlp_dgrad.cu in bf16 and the f32 kernel of
-    csrc/nerf_mlp_bwd.cu in f32; the wgrad and reductions are
-    csrc/nerf_mlp_bwd.cu's.  Without a stash (remat, K3) the DGRAD part
+    The dgrad is csrc/nerf_mlp_dgrad.cu in both modes; the wgrad and
+    reductions are csrc/nerf_mlp_bwd.cu's.  Without a stash (remat, K3) the DGRAD part
     first runs the forward kernel into a scratch stash, so K3 is K1 with
     its stash followed by the stash backward, and gives K2's bits."""
 
@@ -737,9 +745,9 @@ class BwdLaunch:
         self.fp = pack_params(mlp, compute_dtype)[1]
         self.wt = pack_params_bwd(mlp, compute_dtype)
         self.lib = _bwd_lib()
-        self.dlib = _dgrad_lib() if self.bf16 else None
+        self.dlib = _dgrad_lib()
         wn = self.lib.nerf_mlp_bwd_w_numel(self.kx, self.kd)
-        if self.wt.numel() != wn:
+        if self.wt.numel() != wn * (1 if self.bf16 else 2):  # f32: hi and lo parts
             raise RuntimeError("nerf_mlp_bwd: weight blob layout differs from the CUDA source")
         dev = self.dev = xd.device
         new = torch.empty if P else torch.zeros  # the kernels write every value
@@ -752,14 +760,17 @@ class BwdLaunch:
         self.out = torch.empty((P, OUT_CH), dtype=torch.float32, device=dev) if self.remat else None
         self.dz = torch.empty((P, ACTS_LD), dtype=cdt, device=dev)
         self.pe = torch.empty((P, self.kx + self.kd), dtype=cdt, device=dev)
-        tile = self.dlib.nerf_mlp_dgrad_tile() if self.bf16 else self.lib.nerf_mlp_bwd_tile_f32()
-        self.n_tiles = -(-P // tile)
+        self.n_tiles = -(-P // DGRAD_TILE)
         self.n_blocks = min(self.n_tiles, sm_count(dev))
         self.n_splits = max(1, min(32, -(-P // 16384)))
         self.fp_part = torch.empty((self.n_blocks, FP_NUMEL), dtype=torch.float32, device=dev)
         self.w_part = torch.empty((self.n_splits, wn), dtype=torch.float32, device=dev)
+        # the f32 dgrad's W5a partial of d_pe_x, per block
+        self.dpe5 = (None if self.bf16 else
+                     torch.empty((self.n_blocks, DGRAD_TILE, self.kx), dtype=torch.float32, device=dev))
         _check_aligned("nerf_mlp_bwd", self.xd, self.g, self.wt, self.fp, self.acts, self.dz,
-                       self.pe, self.dxd, self.fp_part, self.w_part, self.dw, self.dfp)
+                       self.pe, self.dxd, self.fp_part, self.w_part, self.dw, self.dfp,
+                       *([] if self.bf16 else [self.dpe5]))
 
     def _count(self, n: int) -> None:
         global launches_bwd_stash, launches_bwd_remat
@@ -768,29 +779,30 @@ class BwdLaunch:
         else:
             launches_bwd_stash += n
 
-    def _bwd(self, parts: int) -> None:
+    def _wgrad(self) -> None:
         with torch.cuda.device(self.dev):
             rc = self.lib.nerf_mlp_bwd(
-                self.xd.data_ptr(), self.g.data_ptr(), self.wt.data_ptr(), self.fp.data_ptr(),
-                self.acts.data_ptr(), self.dz.data_ptr(), self.pe.data_ptr(), self.dxd.data_ptr(),
+                self.acts.data_ptr(), self.dz.data_ptr(), self.pe.data_ptr(),
                 self.fp_part.data_ptr(), self.w_part.data_ptr(), self.dw.data_ptr(),
-                self.dfp.data_ptr(), self.P, self.kx, self.kd, *self.nf, int(self.bf16),
-                self.n_blocks, self.n_splits, parts, torch.cuda.current_stream(self.dev).cuda_stream,
+                self.dfp.data_ptr(), self.P, self.kx, self.kd, int(self.bf16), self.n_blocks,
+                self.n_splits, torch.cuda.current_stream(self.dev).cuda_stream,
             )
         if rc != 0:
             raise RuntimeError(
                 f"nerf_mlp_bwd: CUDA error {rc} ({self.lib.nerf_mlp_bwd_error_string(rc).decode()})"
             )
 
-    def _dgrad_bf16(self, stamps: Optional[torch.Tensor]) -> None:
+    def _dgrad(self, stamps: Optional[torch.Tensor]) -> None:
+        common = (self.xd.data_ptr(), self.g.data_ptr(), self.wt.data_ptr(), self.fp.data_ptr(),
+                  self.acts.data_ptr(), self.dz.data_ptr(), self.pe.data_ptr(), self.dxd.data_ptr(),
+                  self.fp_part.data_ptr())
+        tail = (None if stamps is None else stamps.data_ptr(), self.P, self.kx, self.kd, *self.nf,
+                self.n_blocks, torch.cuda.current_stream(self.dev).cuda_stream)
         with torch.cuda.device(self.dev):
-            rc = self.dlib.nerf_mlp_dgrad_bf16(
-                self.xd.data_ptr(), self.g.data_ptr(), self.wt.data_ptr(), self.fp.data_ptr(),
-                self.acts.data_ptr(), self.dz.data_ptr(), self.pe.data_ptr(), self.dxd.data_ptr(),
-                self.fp_part.data_ptr(), None if stamps is None else stamps.data_ptr(),
-                self.P, self.kx, self.kd, *self.nf, self.n_blocks,
-                torch.cuda.current_stream(self.dev).cuda_stream,
-            )
+            if self.bf16:
+                rc = self.dlib.nerf_mlp_dgrad_bf16(*common, *tail)
+            else:
+                rc = self.dlib.nerf_mlp_dgrad_f32(*common, self.dpe5.data_ptr(), *tail)
         if rc != 0:
             raise RuntimeError(
                 f"nerf_mlp_dgrad: CUDA error {rc} "
@@ -804,25 +816,25 @@ class BwdLaunch:
             if self.remat:  # K1 writes the stash the dgrad reads
                 _fwd_into(self.mlp, self.xd, self.dtype, *self.nf, self.out, self.acts)
                 self._count(1)
-            if self.bf16:
-                self._dgrad_bf16(stamps)
-            else:
-                self._bwd(self.DGRAD)
+            self._dgrad(stamps)
             self._count(1)
         if parts & self.WGRAD:
-            self._bwd(self.WGRAD)
+            self._wgrad()
             self._count(3)
 
     def stage_stamps(self) -> torch.Tensor:
-        """Runs the bf16 dgrad once with its stage stamps on: [block 0's
-        tiles, n_stamps] clock64() values, stamp i at the end of stage i of
-        DGRAD_STAGES (stamp 0: the tile's start)."""
-        if not self.bf16:
-            raise ValueError("nerf_mlp_bwd: stage stamps exist for the bf16 dgrad only")
-        stamps = torch.zeros((-(-self.n_tiles // self.n_blocks), self.dlib.nerf_mlp_dgrad_n_stamps()),
+        """Runs the dgrad once with its stage stamps on: [block 0's tiles,
+        n_stamps] clock64() values, stamp i at the end of stage i of
+        `stages` (stamp 0: the tile's start)."""
+        stamps = torch.zeros((-(-self.n_tiles // self.n_blocks),
+                              self.dlib.nerf_mlp_dgrad_n_stamps(int(not self.bf16))),
                              dtype=torch.int64, device=self.dev)
         self.run(self.DGRAD, stamps)
         return stamps
+
+    @property
+    def stages(self) -> List[str]:
+        return DGRAD_STAGES if self.bf16 else DGRAD_STAGES_F32
 
     def result(self):
         return self.dxd, _unpack_grads(self.mlp, self.dw, self.dfp)

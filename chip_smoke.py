@@ -139,7 +139,7 @@ MLP_WIDTH = 256
 # branch moves most, as its grad is built from differences between the
 # sub-rays' colours, which the bf16 rounding perturbs by a like amount
 GRAD_COS_MIN = {"float32": 0.9999, "bfloat16": 0.9}
-SHAPES_BWD = {"coarse": 5120 * 64, "fine": 5120 * 128, "ragged": 4096 * 64 + 37}
+SHAPES_BWD = {"coarse": 5120 * 64, "fine": 5120 * 128, "ragged": 4096 * 64 + 37, "tiny": 1}
 TUNE_P = 983_040  # the kernel-cost script's point count
 PE_TOL = 1e-5  # K4 vs its plain version: sinf against torch.sin, the same f32 arguments
 # K4's work per point: 84 trig lanes, a sinf with its range reduction
@@ -422,14 +422,19 @@ def held_bwd(got, want, f32, dtype, prefix) -> dict:
     return r
 
 
-def dgrad_breakdown(stages, stamps, dgrad_ms) -> dict:
+def dgrad_breakdown(stages, stamps, dgrad_ms, off_path=()) -> dict:
     """The dgrad's time by stage from block 0's stage stamps: each stage's
     share of the stamped cycles over all of block 0's tiles, and that share
     of the dgrad's measured ms; the stages grouped as the tile's load,
     heads, layer matmuls (mm_*), the waits for each layer's mask (wait_*),
-    layer epilogues (ep_*), d_pe passes (dpe_*) and d(xd) (dxd_*)."""
+    layer epilogues (ep_*), d_pe passes (dpe_*) and d(xd) (dxd_*); beside
+    them the off-path columns (the f32 PE warps' cycles by task) as shares
+    of the tile's cycles."""
     st = stamps.cpu().numpy().astype(np.float64)
-    d = np.diff(st[(st > 0).all(1)], axis=1)
+    n = len(stages) + 1
+    on, off = st[:, :n], st[:, n:]
+    keep = (on > 0).all(1)
+    d = np.diff(on[keep], axis=1)
     total = d.sum()
     share = {name: float(d[:, i].sum() / total) for i, name in enumerate(stages)}
     group_of = {"mm": "matmul", "wait": "mask_wait", "ep": "epilogue", "dpe": "dpe_passes"}
@@ -439,7 +444,9 @@ def dgrad_breakdown(stages, stamps, dgrad_ms) -> dict:
         groups[key] = groups.get(key, 0.0) + v
     return {"tiles": int(d.shape[0]), "cycles_per_tile": float(total / d.shape[0]),
             "group_share": groups, "group_ms": {k: v * dgrad_ms for k, v in groups.items()},
-            "stage_share": share}
+            "stage_share": share,
+            "off_path_share_of_tile": {name: float(off[keep][:, i].sum() / total)
+                                       for i, name in enumerate(off_path)}}
 
 
 def fwd_breakdown(fused, mlp, xd, ms: float, stash: bool, dtype: str) -> dict:
@@ -502,10 +509,12 @@ def bwd_parts(fused, mlp, xd, g, dtype, acts, breakdown: bool) -> dict:
     print(f"  {dtype} dgrad / wgrad apart at P = {P}: "
           + json.dumps({k: v for k, v in r.items() if k not in ("dtype", "P")}), flush=True)
     if breakdown:
-        r["dgrad_stages"] = dgrad_breakdown(run.stages, run.stage_stamps(), r["dgrad_ms"])
+        r["dgrad_stages"] = dgrad_breakdown(run.stages, run.stage_stamps(), r["dgrad_ms"],
+                                            () if bf16 else fused.DGRAD_OFF_PATH_F32)
         print(f"  dgrad stages at P = {P} ({dtype}, {r['dgrad_ms']:.3f} ms, "
               f"{r['dgrad_stages']['cycles_per_tile']:.0f} cycles a tile): "
-              + json.dumps(r["dgrad_stages"]["group_share"]), flush=True)
+              + json.dumps(r["dgrad_stages"]["group_share"]) + "; off the path: "
+              + json.dumps(r["dgrad_stages"]["off_path_share_of_tile"]), flush=True)
     del run
     return r
 
@@ -537,8 +546,10 @@ def kernel_bwd_phase(fused, NeRFMLP, MLPConfig):
             out_k, acts_k = fused._launch_fwd(mlp, xd, dtype, 10, 4, stash=True)
             out_p, acts_p = fused.nerf_mlp_fwd_plain(mlp, xd, dtype, with_acts=True)
             # the control for bf16: the plain version without the bf16 rounding
+            # (a mean over one point is no control: not at the tiny P)
+            control = bf16 and label != "tiny"
             out_f, acts_f = (fused.nerf_mlp_fwd_plain(mlp, xd, "float32", with_acts=True)
-                             if bf16 else (None, None))
+                             if control else (None, None))
             row = dict(dtype=dtype, shape=label, P=P,
                        **held_fwd(out_k, out_p, out_f, dtype),
                        **held_stash(acts_k, acts_p, acts_f, dtype))
@@ -557,7 +568,7 @@ def kernel_bwd_phase(fused, NeRFMLP, MLPConfig):
             if not bf16:
                 row["equivariant_bitwise"] = equivariant(fused, mlp, xd, g, dtype, acts_k, k2)
             # the control for bf16: the plain backward in f32 (its own activations)
-            f32 = flat_grads(fused.nerf_mlp_bwd_plain(mlp, xd, g, "float32")) if bf16 else None
+            f32 = flat_grads(fused.nerf_mlp_bwd_plain(mlp, xd, g, "float32")) if control else None
             # K2 against the plain backward on the kernel's stash, and once more
             # on the plain forward's own stash
             row.update(held_bwd(k2, flat_grads(fused.nerf_mlp_bwd_plain(
@@ -568,7 +579,7 @@ def kernel_bwd_phase(fused, NeRFMLP, MLPConfig):
                 mlp, xd, g, dtype, acts=acts_p)), f32, dtype, "bwd_on_plain_stash"))
             del f32, k2p
             row["within_tol"] = all(v for k, v in row.items() if k.endswith("_within_tol"))
-            if label != "ragged":
+            if label in ("coarse", "fine"):
                 row["fwd_stash_ms"] = time_ms(
                     lambda: fused._launch_fwd(mlp, xd, dtype, 10, 4, stash=True), 5)
                 row["fwd_stash_plain_ms"] = time_ms(

@@ -1,8 +1,10 @@
-// The bf16 dgrad of the fused NeRF-MLP backward for Hopper (sm_90a): d(xd),
-// every d_z (rounded to bf16, into the `dz` scratch the wgrad reads), the
-// PE (into the `pe` scratch), and per-block partials of the bias grads and
-// of the two small heads' weight grads.  The wgrad and the two fixed-order
-// reductions that finish the backward are in nerf_mlp_bwd.cu.
+// The dgrad of the fused NeRF-MLP backward for Hopper (sm_90a): d(xd),
+// every d_z (into the `dz` scratch the wgrad reads), the PE (into the `pe`
+// scratch), and per-block partials of the bias grads and of the two small
+// heads' weight grads.  The wgrad and the two fixed-order reductions that
+// finish the backward are in nerf_mlp_bwd.cu.  Two kernels: the bf16 dgrad
+// (this header), and the f32 dgrad, "the split" (its own section below),
+// which shares the layer helpers, the d(xd) stages and the PE store.
 //
 // Replaces, in bf16 mode, the Pallas TPU kernels `_bwd_stash_kernel` and
 // `_bwd_kernel` of lushnerf_tpu/ops/fused/nerf_mlp.py (`_bwd_math`): the
@@ -809,51 +811,74 @@ __global__ void __launch_bounds__(NTHR, 1)
 // the f32 dgrad: the split
 // ---------------------------------------------------------------------------
 //
-// The chain of d_z is linear in each point's g, with the relu masks fixed
-// by the stash, so each row of a d_z (a point) may carry its own power of
-// two.  The tile buffer holds every d_z row times 2^s (s per row, carried in
-// registers from layer to layer: `Rows`), split in two fp16 parts hi =
-// fp16(x) and lo = fp16(x - hi), with s chosen in each epilogue so that the
-// row's largest |x| lies in [2^14, 2^15): its parts hold x within ~2^-22 of
-// it down to 2^-17 of the row's largest value, whatever the range of g (the
-// loss's mean over rays sends most of the cotangent below fp16's smallest
-// normal).  The weights' parts are those of W^T 2^SPLIT_SHIFT
-// (pack_params_bwd, |w| < 4094).  A product is hi(A) hi(W) + lo(A) hi(W) +
-// hi(A) lo(W) in one f32 accumulator, which holds 2^(s + SPLIT_SHIFT) times
-// the layer's sum; the epilogue works on v = acc 2^-SPLIT_SHIFT (+ g_alpha
-// 2^s Wa), masks it, and writes dz, the bias sums, d_pe and d(xd) as true
-// values (v 2^-s, exact).  Every scale is a power of two, so the kernel is
-// equivariant: g 2^k gives 2^k times every output, bit for bit.
+// Replaces, in f32 mode, the same Pallas kernels as the bf16 dgrad above
+// (`_bwd_math` of `_bwd_stash_kernel`, lushnerf_tpu/ops/fused/
+// nerf_mlp.py:608, run in f32 at Precision.HIGHEST).
 //
-// Shared memory: one tile buffer, [128][256] in both parts (128 KB: the hi
-// chunks, then the lo chunks), each layer's d_z written over its input
-// once its warpgroup's wgmmas have read it (each warpgroup reads and writes
-// only its own 64 rows); a ring of four 16 KB stages, which holds one
-// 64-deep chunk of a 256-wide layer (hi rows 0..127, hi 128..255, lo, lo;
-// the hi pair in neighbouring stages for one m64n256k16) or two of a d_pe
-// pass (hi, lo); the column-sum staging; the relu masks as bits, two
-// layers' worth; the bias sums.  The mask bits come from the PE warps,
-// which read each stash column block once (float4 rows, ballot-free nibble
-// ORs), so that the consumers load nothing from the stash: a float2 mask
-// load a fragment pair would hold 16 more registers beside the 128 of the
-// accumulator, and its latency would sit in every epilogue.  The PE warps
-// also write d_hv (true values) to dz, the PE to its scratch, and sum the
-// heads' grads (hv, a7 and g read once) in their registers.  d_pe_x =
-// d_z0 W0 + d_z5 W5a: the W5a pass runs right after d_z5's epilogue and
-// its true f32 partial goes to a per-block global scratch, which the same
-// threads read back after the W0 pass and add in that order.
+// What bounds it: bytes.  Per point it reads 8,704 B of f32 stash (a0..a7
+// and hv) and 48 B of xd and g, and writes 9,728 B of dz, 384 B of PE and
+// 32 B of d(xd): 3.7 ms at P = 655,360, against 2.4 ms for one pass of the
+// split's three fp16 products at the tensor rate.
+//
+// The split: the chain of d_z is linear in each point's g, with the relu
+// masks fixed by the stash, so each row of a d_z (a point) may carry its
+// own power of two.  The tile buffer holds every d_z row times 2^s (s per
+// row, carried in registers from layer to layer: `Rows`), split in two
+// fp16 parts hi = fp16(x) and lo = fp16(x - hi), with s chosen in each
+// epilogue so that the row's largest |x| lies in [2^14, 2^15): its parts
+// hold x within ~2^-22 of it down to 2^-17 of the row's largest value,
+// whatever the range of g (the loss's mean over rays sends much of the
+// cotangent below fp16's smallest normal).  The weights' parts are those of
+// W^T 2^SPLIT_SHIFT (pack_params_bwd, |w| < 4094).  A product is hi(A)
+// hi(W) + lo(A) hi(W) + hi(A) lo(W) in one f32 accumulator, which holds
+// 2^(s + SPLIT_SHIFT) times the layer's sum; the epilogue masks v = acc
+// 2^-SPLIT_SHIFT (d_z7's g_alpha term added first), sums its true values
+// (v 2^-s, exact) into the bias grads, and splits v at the row's new scale
+// over the buffer.  d_pe and d(xd) are true values too; dz holds (hi + lo)
+// 2^-s, the split's value of each d_z.  Every scale is a power of two, so
+// the kernel is equivariant: g 2^k gives 2^k times every output, bit for
+// bit.
+//
+// Design: one block per SM loops over 128-point tiles; two consumer
+// warpgroups, 64 points each, run every product on wgmma (m64n256k16 for
+// the 256-wide layers, m64nNk16 for the d_pe passes); one producer thread
+// streams the split blob's pieces through the ring; three PE warps do the
+// rest off the consumers' path.  Shared memory: one tile buffer,
+// [128][256] in both parts (128 KB: the hi chunks, then the lo chunks),
+// each layer's d_z written over its input once its warpgroup's wgmmas have
+// read it (each warpgroup reads and writes only its own 64 rows); a ring of
+// four 16 KB stages, which holds one 64-deep chunk of a 256-wide layer (hi
+// rows 0..127, hi 128..255, lo, lo; the hi pair in neighbouring stages for
+// one m64n256k16) or two of a d_pe pass (hi, lo); the column-sum staging;
+// the relu masks as bits, two layers' worth; the bias sums.  The PE warps
+// read each stash column block once and make its mask bits, so that the
+// consumers load nothing from the stash (a float2 mask load a fragment
+// pair would hold 16 more registers beside the 128 of the accumulator, and
+// its latency would sit in every epilogue); they store each layer's d_z to
+// dz out of the buffer while the next layer's matmul runs (the consumers'
+// own stores, 64 float2 stores a thread a layer, cost 2.6 of 9.8 ms,
+// PERF.md), write d_hv to dz and the PE to its scratch, and sum the heads'
+// grads in their registers.  d_pe_x = d_z0 W0 + d_z5 W5a: the W5a pass runs
+// right after d_z5's epilogue and its true f32 partial goes to a per-block
+// global scratch, which the same threads read back after the W0 pass and
+// add in that order.  The PE warps' work is most of a tile's time (their
+// cycle counts, DGRAD_OFF_PATH_F32): they, and the one-chunk ring, hold
+// the kernel.
 
 constexpr int F_LO = 4 * CHUNK_B;               // the lo parts follow the hi parts
 constexpr int F_RING = 2 * F_LO;                // after the tile buffer (128 KB)
 constexpr int F_STAGE = F_RING + N_WST * WST_B;  // [2][8 warps][256] f32 column sums
 constexpr int F_MASK = F_STAGE + 2 * 8 * W * 4;  // [2][T][8] u32: relu mask bits
 constexpr int F_FACC = F_MASK + 2 * T * 8 * 4;   // [FP_BV] f32: the bias sums
-constexpr int F_BARS = F_FACC + FP_BV * 4;
+constexpr int F_INV = F_FACC + FP_BV * 4;        // [T] f32: each row's 1 / 2^s
+constexpr int F_BARS = F_INV + T * 4;
 // mbarriers: a ring stage loaded (FW_FULL + s) and read by the 8 consumer
 // warps (FW_EMPTY + s); a mask slot written by the 96 PE threads (FM_FULL +
-// s) and read by the 8 consumer warps (FM_FREE + s)
+// s) and read by the 8 consumer warps (FM_FREE + s); a layer's d_z split
+// into the tile buffer (FD_READY, consumer thread 0) and stored from it to
+// dz by the 96 PE threads (FD_READ)
 enum { FW_FULL = 0, FW_EMPTY = FW_FULL + N_WST, FM_FULL = FW_EMPTY + N_WST, FM_FREE = FM_FULL + 2,
-       F_N_BARS = FM_FREE + 2 };
+       FD_READY = FM_FREE + 2, FD_READ, F_N_BARS };
 constexpr int SMEM_F32 = F_BARS + F_N_BARS * 8;
 static_assert(SMEM_F32 <= 232448, "shared memory over the 227 KB a block may use");
 constexpr int SPLIT_SHIFT = 4;                  // the weights' parts are those of W^T 2^4
@@ -863,6 +888,11 @@ constexpr int PE_THR = 96;                      // the PE warps: 9, 10 and 11
 constexpr int BAR_WG0 = 2;                      // named barriers 2, 3: consumer warpgroup 0, 1
 constexpr int BAR_PE = 4;                       // the PE warps
 constexpr int N_STAMPS_F32 = N_STAMPS + 1;      // and the W5a pass
+// then, off the consumers' path, PE thread 0's cycles a tile: waiting for
+// a free mask slot, waiting for a d_z to store, making masks, storing d_z,
+// encoding the PE (nerf_mlp.DGRAD_OFF_PATH_F32)
+enum { PW_FREE, PW_READY, PW_MASKS, PW_DZ, PW_PE, N_PW };
+constexpr int STAMP_ROW_F32 = N_STAMPS_F32 + N_PW;
 
 struct DgradArgsF {
   const float* xd;     // [P, 8]
@@ -876,7 +906,7 @@ struct DgradArgsF {
   float* dxd;          // [P, 8]
   float* fp_part;      // [gridDim.x, FP_NUMEL]
   float* dpe5;         // [gridDim.x, T, kx]: the W5a pass's partial
-  long long* stamps;   // [block 0's tiles][N_STAMPS_F32] or null
+  long long* stamps;   // [block 0's tiles][STAMP_ROW_F32] or null
   int P, kx, kd, nfx, nfd, ntiles;
 };
 
@@ -1084,46 +1114,50 @@ __device__ __forceinline__ void d_hv_split(const DgradArgsF& a, int p0, const ui
   split_store(v, up);
 }
 
-// The epilogue of a 256-wide layer from its accumulator (2^(s +
-// SPLIT_SHIFT) times d_a): v = acc 2^-SHIFT (+ g_alpha 2^s Wa), times the
-// mask bits (none for d_feat); its true values (v / 2^s) to dz at column
-// col and their column sums into `stage`; then the rows' new scale, and v
-// at it split over the tile buffer.
-__device__ __forceinline__ void epilogue_wide(float (&acc)[128], Rows& rs, const DgradArgsF& a,
-                                              int p0, const uint32_t* bits, bool alpha, int col0,
-                                              float* stage) {
+// d_z7's g_alpha term in its accumulator: acc += 2^(s + SHIFT) g_alpha Wa
+// (as exact as adding g_alpha 2^s Wa to acc 2^-SHIFT: a power-of-two scale).
+__device__ __forceinline__ void add_alpha(float (&acc)[128], const Rows& rs, const DgradArgsF& a,
+                                          int p0) {
   const Frag f;
-  float ga[2] = {0.f, 0.f};  // g_alpha 2^s of the two rows
-  bool in[2];
-  float mx[2] = {0.f, 0.f};
+  float ga[2];
 #pragma unroll
   for (int rr = 0; rr < 2; ++rr) {
     const int p = p0 + f.r0 + 8 * rr;
-    in[rr] = p < a.P;
-    if (alpha && in[rr]) ga[rr] = __ldg(a.g + (size_t)p * 4 + 3) * rs.sc[rr];
+    ga[rr] = p < a.P ? __ldg(a.g + (size_t)p * 4 + 3) * rs.sc[rr] * SPLIT_ACC : 0.f;
   }
 #pragma unroll
-  for (int g = 0; g < 8; ++g) {  // 32 columns: one mask word a row
-    uint32_t word[2] = {0xffffffffu, 0xffffffffu};
-    if (bits != nullptr) {
-      word[0] = bits[f.r0 * 8 + g];
-      word[1] = bits[(f.r0 + 8) * 8 + g];
+  for (int j = 0; j < 32; ++j) {
+    const float2 wa = __ldg(reinterpret_cast<const float2*>(a.fp + FP_WA + 8 * j + 2 * f.q));
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      acc[4 * j + 2 * rr] = fmaf(ga[rr], wa.x, acc[4 * j + 2 * rr]);
+      acc[4 * j + 2 * rr + 1] = fmaf(ga[rr], wa.y, acc[4 * j + 2 * rr + 1]);
     }
+  }
+}
+
+// The epilogue of a 256-wide layer from its accumulator (2^(s +
+// SPLIT_SHIFT) times d_a), up to its split store: v = acc 2^-SHIFT times
+// the mask bits, ORed with `ones` (all ones for d_feat, which has no
+// mask), in place; the column sums of its true values (v / 2^s) into
+// `stage`; the rows' new scale (rs), and `up`, the factor that takes v to
+// it.  No branch on the layer, so that one copy serves all nine.
+__device__ __forceinline__ void epilogue_wide(float (&acc)[128], Rows& rs, const uint32_t* bits,
+                                              uint32_t ones, float* stage, float (&up)[2]) {
+  const Frag f;
+  float mx[2] = {0.f, 0.f};
+#pragma unroll
+  for (int g = 0; g < 8; ++g) {  // 32 columns: one mask word a row
+    const uint32_t word[2] = {bits[f.r0 * 8 + g] | ones, bits[(f.r0 + 8) * 8 + g] | ones};
     float cs[8];
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj) {
-      const int j = 4 * g + jj, col = 8 * j + 2 * f.q;
-      float2 wa = make_float2(0.f, 0.f);
-      if (alpha) wa = __ldg(reinterpret_cast<const float2*>(a.fp + FP_WA + col));
+      const int j = 4 * g + jj;
       float t[2][2];
 #pragma unroll
       for (int rr = 0; rr < 2; ++rr) {
         const uint32_t m = word[rr] >> (8 * jj + 2 * f.q);
         float x = acc[4 * j + 2 * rr] * (1.f / SPLIT_ACC), y = acc[4 * j + 2 * rr + 1] * (1.f / SPLIT_ACC);
-        if (alpha) {
-          x = fmaf(ga[rr], wa.x, x);
-          y = fmaf(ga[rr], wa.y, y);
-        }
         x = (m & 1u) ? x : 0.f;
         y = (m & 2u) ? y : 0.f;
         acc[4 * j + 2 * rr] = x;
@@ -1131,18 +1165,13 @@ __device__ __forceinline__ void epilogue_wide(float (&acc)[128], Rows& rs, const
         mx[rr] = fmaxf(mx[rr], fmaxf(fabsf(x), fabsf(y)));
         t[rr][0] = x * rs.inv[rr];
         t[rr][1] = y * rs.inv[rr];
-        if (in[rr])
-          __stcs(reinterpret_cast<float2*>(a.dz + (size_t)(p0 + f.r0 + 8 * rr) * ACTS_LD + col0 + col),
-                 make_float2(t[rr][0], t[rr][1]));
       }
       cs[2 * jj] = t[0][0] + t[1][0];
       cs[2 * jj + 1] = t[0][1] + t[1][1];
     }
     stage_colsums(cs, g, stage);
   }
-  float up[2];
   rescale(mx, rs, up);
-  split_store(acc, up);
 }
 
 // A d_pe pass's fragment to true values: acc 2^-(s + SHIFT) per row.
@@ -1192,12 +1221,18 @@ __device__ __forceinline__ void consumer_f32(const DgradArgsF& a) {
     if ((tid & 31) == 0) mbar_arrive(fbar(FM_FREE + (mk & 1)));
     ++mk;
   };
+  int dr = 0;  // d_z stores of the PE warps waited for
+  auto wait_dz_read = [&]() {  // the PE warps have read the last d_z out of the buffer
+    mbar_wait(fbar(FD_READ), dr & 1);
+    ++dr;
+  };
+  float* inv_rows = reinterpret_cast<float*>(dsmem + F_INV);
   for (int c = tid; c < FP_BV; c += NCONS) facc[c] = 0.f;
 #pragma unroll 1
   for (int tile = blockIdx.x; tile < a.ntiles; tile += gridDim.x) {
     const int p0 = tile * T;
     Stamper<PROF> st{PROF && blockIdx.x == 0 && tid == 0
-                         ? a.stamps + (size_t)(tile / gridDim.x) * N_STAMPS_F32 : nullptr, 0};
+                         ? a.stamps + (size_t)(tile / gridDim.x) * STAMP_ROW_F32 : nullptr, 0};
     const float* xs = a.xd + (size_t)p0 * 8;
     Rows rs;
     named_bar(BAR_CONS, NCONS);  // the previous tile's reads of the buffer are done
@@ -1230,12 +1265,26 @@ __device__ __forceinline__ void consumer_f32(const DgradArgsF& a) {
         matmul_split<256>(acc, l == 8 ? 2 : 4, ring);
         st.mark();
         named_bar(BAR_WG0 + wg, 128);  // every warp of the warpgroup has read its A
-        const uint32_t* bits = l < 8 ? take_mask() : nullptr;
+        // d_feat has no mask: any slot's bits, ORed with all ones
+        const uint32_t* bits = l < 8 ? take_mask() : mask_slot(0);
         st.mark();
-        epilogue_wide(acc, rs, a, p0, bits, l == 7, l * W, stage + sb * 8 * W);
-        if (l < 8) give_mask();
+        if (l == 7) add_alpha(acc, rs, a, p0);
+        float up[2];
+        epilogue_wide(acc, rs, bits, l < 8 ? 0u : 0xffffffffu, stage + sb * 8 * W, up);
+        if (l < 8) {
+          give_mask();
+          wait_dz_read();  // before the split store overwrites d_z_(l + 1)
+        }
+        split_store(acc, up);
+        if ((tid & 3) == 0) {  // the rows' 1 / 2^s, for the PE warps' dz stores
+          const Frag f;
+          inv_rows[f.r0] = rs.inv[0];
+          inv_rows[f.r0 + 8] = rs.inv[1];
+        }
       }
-      layer_end(stage + sb * 8 * W, facc, l * W, nullptr);
+      // the split store is complete: it goes to the next wgmma and, as dz,
+      // to the PE warps (FD_READY)
+      layer_end(stage + sb * 8 * W, facc, l * W, fbar(FD_READY));
       sb ^= 1;
       st.mark();
       if (l == 5) {
@@ -1253,6 +1302,7 @@ __device__ __forceinline__ void consumer_f32(const DgradArgsF& a) {
       matmul_split_narrow(acc_x, a.kx, 4, ring);
       to_true(acc_x, rs);
       dpe5_io<true>(acc_x, a.kx, a.dpe5);
+      wait_dz_read();              // the PE warps have stored d_z0
       named_bar(BAR_CONS, NCONS);  // both warpgroups' wgmmas have read the buffer
       dpe_to_smem(acc_x, a.kx, reinterpret_cast<float*>(dsmem));
     }
@@ -1265,17 +1315,33 @@ __device__ __forceinline__ void consumer_f32(const DgradArgsF& a) {
   for (int c = tid; c < FP_BV; c += NCONS) a.fp_part[(size_t)blockIdx.x * FP_NUMEL + c] = facc[c];
 }
 
-// The PE warps of the f32 dgrad: per tile the relu masks as bits in the
+// The PE warps of the f32 dgrad, per tile: the relu masks as bits in the
 // consumers' order (hv, a7, a6, .., a0) into the two mask slots, each stash
 // row read once as float4s (a lane's 4 columns as a nibble, ORed over 8
 // lanes into a 32-column word); with hv, d_hv (true values) to dz, its bias
 // grad and the rgb head's weight grads, and the sums of g; with a7, the
-// alpha head's weight grad; after a7, the tile's PE to its scratch.  Warp w
-// takes rows w, w + 3, ..; each thread sums its columns over its rows in
-// order, tile after tile, and the three warps' sums meet at the end in
-// warp order.
+// alpha head's weight grad; the tile's PE to its scratch; and each 256-wide
+// layer's d_z to dz, read out of the tile buffer ((hi + lo) / 2^s of each
+// value, whole 1 KB rows) while the next layer's matmul runs.  The order
+// (masks 0, 1, the PE, then each d_z followed by the mask two layers on)
+// keeps one mask ahead of the consumers.  Warp w takes rows w, w + 3, ..;
+// each thread sums its columns over its rows in order, tile after tile,
+// and the three warps' sums meet at the end in warp order.
+template <bool PROF>
 __device__ __forceinline__ void pe_warps_f32(const DgradArgsF& a) {
   const int u = threadIdx.x - (NCONS + 32), warp = u >> 5, lane = u & 31;
+  const bool on = PROF && blockIdx.x == 0 && u == 0;
+  long long pw[N_PW], t0 = 0;  // thread 0's cycles by PW_* in this tile
+  auto clk_begin = [&]() {
+    if constexpr (PROF) {
+      if (on) t0 = clock64();
+    }
+  };
+  auto clk_end = [&](int i) {
+    if constexpr (PROF) {
+      if (on) pw[i] += clock64() - t0;
+    }
+  };
   const int P = a.P;
   float gbv[4] = {0.f, 0.f, 0.f, 0.f}, gw[3][4], gwa[8], gsum[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
@@ -1297,96 +1363,152 @@ __device__ __forceinline__ void pe_warps_f32(const DgradArgsF& a) {
     w |= __shfl_xor_sync(0xffffffffu, w, 4);
     return w;
   };
-  int mk = 0;
+  int mk = 0;  // masks made
+  int dn = 0;  // d_z stored
+  // mask m of the tile at p0 (0: hv, with d_hv and the heads' sums; m: a_(8
+  // - m))
+  auto make_mask = [&](int m, int p0) {
+    const int s = mk & 1;
+    clk_begin();
+    mbar_wait(fbar(FM_FREE + s), ((mk >> 1) & 1) ^ 1);  // the consumers have read the slot
+    clk_end(PW_FREE);
+    clk_begin();
+    uint32_t* bits = mask_slot(s);
+    if (m == 0) {  // hv: 128 columns, a float4 a lane
 #pragma unroll 1
-  for (int tile = blockIdx.x; tile < a.ntiles; tile += gridDim.x) {
-    const int p0 = tile * T;
-#pragma unroll 1
-    for (int m = 0; m < 9; ++m, ++mk) {
-      const int s = mk & 1;
-      mbar_wait(fbar(FM_FREE + s), ((mk >> 1) & 1) ^ 1);  // the consumers have read the slot
-      uint32_t* bits = mask_slot(s);
-      if (m == 0) {  // hv: 128 columns, a float4 a lane
-#pragma unroll 1
-        for (int i0 = warp; i0 < T; i0 += 12) {
-          float4 hv[4], g4[4];
+      for (int i0 = warp; i0 < T; i0 += 12) {
+        float4 hv[4], g4[4];
 #pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            const int p = i0 + 3 * r;
-            const bool ok = p < T && p0 + p < P;
-            const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
-            hv[r] = ok ? __ldg(reinterpret_cast<const float4*>(a.acts + (size_t)(p0 + p) * ACTS_LD + 9 * W) + lane) : z;
-            g4[r] = ok ? __ldg(reinterpret_cast<const float4*>(a.g) + p0 + p) : z;
-          }
-#pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            const int p = i0 + 3 * r;
-            if (p >= T) break;
-            const float4 q = g4[r], h = hv[r];
-            const float hs[4] = {h.x, h.y, h.z, h.w};
-            const float w0[4] = {wr[0].x, wr[0].y, wr[0].z, wr[0].w};
-            const float w1[4] = {wr[1].x, wr[1].y, wr[1].z, wr[1].w};
-            const float w2[4] = {wr[2].x, wr[2].y, wr[2].z, wr[2].w};
-            float d[4];
-#pragma unroll
-            for (int c = 0; c < 4; ++c) {
-              d[c] = fmaf(q.z, w2[c], fmaf(q.y, w1[c], q.x * w0[c]));
-              d[c] = hs[c] > 0.f ? d[c] : 0.f;
-              gbv[c] += d[c];
-              gw[0][c] = fmaf(q.x, hs[c], gw[0][c]);
-              gw[1][c] = fmaf(q.y, hs[c], gw[1][c]);
-              gw[2][c] = fmaf(q.z, hs[c], gw[2][c]);
-            }
-            gsum[0] += q.x;
-            gsum[1] += q.y;
-            gsum[2] += q.z;
-            gsum[3] += q.w;
-            if (p0 + p < P)
-              reinterpret_cast<float4*>(a.dz + (size_t)(p0 + p) * ACTS_LD + 9 * W)[lane] =
-                  make_float4(d[0], d[1], d[2], d[3]);
-            const uint32_t w = word_of(h);
-            if ((lane & 7) == 0) bits[p * 8 + (lane >> 3)] = w;
-          }
+        for (int r = 0; r < 4; ++r) {
+          const int p = i0 + 3 * r;
+          const bool ok = p < T && p0 + p < P;
+          const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+          hv[r] = ok ? __ldg(reinterpret_cast<const float4*>(a.acts + (size_t)(p0 + p) * ACTS_LD + 9 * W) + lane) : z;
+          g4[r] = ok ? __ldg(reinterpret_cast<const float4*>(a.g) + p0 + p) : z;
         }
-      } else {  // a_l, l = 8 - m: 256 columns, two float4 a lane
-        const int col = (8 - m) * W;
-#pragma unroll 1
-        for (int i0 = warp; i0 < T; i0 += 12) {
-          float4 v[4][2];
-          float ga[4];
 #pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            const int p = i0 + 3 * r;
-            const bool ok = p < T && p0 + p < P;
-            const float4* row = reinterpret_cast<const float4*>(a.acts + (size_t)(p0 + p) * ACTS_LD + col);
-            const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
-            v[r][0] = ok ? __ldg(row + lane) : z;
-            v[r][1] = ok ? __ldg(row + 32 + lane) : z;
-            ga[r] = ok && m == 1 ? __ldg(a.g + (size_t)(p0 + p) * 4 + 3) : 0.f;
+        for (int r = 0; r < 4; ++r) {
+          const int p = i0 + 3 * r;
+          if (p >= T) break;
+          const float4 q = g4[r], h = hv[r];
+          const float hs[4] = {h.x, h.y, h.z, h.w};
+          const float w0[4] = {wr[0].x, wr[0].y, wr[0].z, wr[0].w};
+          const float w1[4] = {wr[1].x, wr[1].y, wr[1].z, wr[1].w};
+          const float w2[4] = {wr[2].x, wr[2].y, wr[2].z, wr[2].w};
+          float d[4];
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            d[c] = fmaf(q.z, w2[c], fmaf(q.y, w1[c], q.x * w0[c]));
+            d[c] = hs[c] > 0.f ? d[c] : 0.f;
+            gbv[c] += d[c];
+            gw[0][c] = fmaf(q.x, hs[c], gw[0][c]);
+            gw[1][c] = fmaf(q.y, hs[c], gw[1][c]);
+            gw[2][c] = fmaf(q.z, hs[c], gw[2][c]);
           }
+          gsum[0] += q.x;
+          gsum[1] += q.y;
+          gsum[2] += q.z;
+          gsum[3] += q.w;
+          if (p0 + p < P)
+            reinterpret_cast<float4*>(a.dz + (size_t)(p0 + p) * ACTS_LD + 9 * W)[lane] =
+                make_float4(d[0], d[1], d[2], d[3]);
+          const uint32_t w = word_of(h);
+          if ((lane & 7) == 0) bits[p * 8 + (lane >> 3)] = w;
+        }
+      }
+    } else {  // a_l, l = 8 - m: 256 columns, two float4 a lane, 8 rows in flight
+      const int col = (8 - m) * W;
+#pragma unroll 1
+      for (int i0 = warp; i0 < T; i0 += 24) {
+        float4 v[8][2];
+        float ga[8];
 #pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            const int p = i0 + 3 * r;
-            if (p >= T) break;
-            if (m == 1) {
+        for (int r = 0; r < 8; ++r) {
+          const int p = i0 + 3 * r;
+          const bool ok = p < T && p0 + p < P;
+          const float4* row = reinterpret_cast<const float4*>(a.acts + (size_t)(p0 + p) * ACTS_LD + col);
+          const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+          v[r][0] = ok ? __ldg(row + lane) : z;
+          v[r][1] = ok ? __ldg(row + 32 + lane) : z;
+          ga[r] = ok && m == 1 ? __ldg(a.g + (size_t)(p0 + p) * 4 + 3) : 0.f;
+        }
 #pragma unroll
-              for (int h = 0; h < 2; ++h) {
-                gwa[4 * h] = fmaf(ga[r], v[r][h].x, gwa[4 * h]);
-                gwa[4 * h + 1] = fmaf(ga[r], v[r][h].y, gwa[4 * h + 1]);
-                gwa[4 * h + 2] = fmaf(ga[r], v[r][h].z, gwa[4 * h + 2]);
-                gwa[4 * h + 3] = fmaf(ga[r], v[r][h].w, gwa[4 * h + 3]);
-              }
-            }
+        for (int r = 0; r < 8; ++r) {
+          const int p = i0 + 3 * r;
+          if (p >= T) break;
+          if (m == 1) {
 #pragma unroll
             for (int h = 0; h < 2; ++h) {
-              const uint32_t w = word_of(v[r][h]);
-              if ((lane & 7) == 0) bits[p * 8 + 4 * h + (lane >> 3)] = w;
+              gwa[4 * h] = fmaf(ga[r], v[r][h].x, gwa[4 * h]);
+              gwa[4 * h + 1] = fmaf(ga[r], v[r][h].y, gwa[4 * h + 1]);
+              gwa[4 * h + 2] = fmaf(ga[r], v[r][h].z, gwa[4 * h + 2]);
+              gwa[4 * h + 3] = fmaf(ga[r], v[r][h].w, gwa[4 * h + 3]);
             }
+          }
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const uint32_t w = word_of(v[r][h]);
+            if ((lane & 7) == 0) bits[p * 8 + 4 * h + (lane >> 3)] = w;
           }
         }
       }
-      mbar_arrive(fbar(FM_FULL + s));  // each PE thread: its writes are done
-      if (m == 1) pe_tile_store(a.xd, a.pe, P, a.kx, a.kd, a.nfx, a.nfd, tile, warp);
+    }
+    mbar_arrive(fbar(FM_FULL + s));  // each PE thread: its writes are done
+    ++mk;
+    clk_end(PW_MASKS);
+  };
+  // the d_z in the tile buffer to dz at column col0, once the consumers have
+  // split it there: a warp a row, lane l the 8 columns of 16-byte piece
+  // l % 8 of chunk l / 8
+  const float* inv_rows = reinterpret_cast<const float*>(dsmem + F_INV);
+  auto store_dz = [&](int col0, int p0) {
+    clk_begin();
+    mbar_wait(fbar(FD_READY), dn & 1);
+    clk_end(PW_READY);
+    clk_begin();
+    const int c = lane >> 3, k = lane & 7;
+#pragma unroll 4
+    for (int p = warp; p < T; p += 3) {
+      if (p0 + p >= P) break;
+      const int off = c * CHUNK_B + p * 128 + ((k ^ (p & 7)) << 4);
+      const uint4 h = *reinterpret_cast<const uint4*>(dsmem + off);
+      const uint4 l = *reinterpret_cast<const uint4*>(dsmem + F_LO + off);
+      const float sc = inv_rows[p];
+      const uint32_t hw[4] = {h.x, h.y, h.z, h.w}, lw[4] = {l.x, l.y, l.z, l.w};
+      float o[8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 x = unpack_f16(hw[i]), y = unpack_f16(lw[i]);
+        o[2 * i] = (x.x + y.x) * sc;
+        o[2 * i + 1] = (x.y + y.y) * sc;
+      }
+      float4* dst = reinterpret_cast<float4*>(a.dz + (size_t)(p0 + p) * ACTS_LD + col0 + 64 * c + 8 * k);
+      __stcs(dst, make_float4(o[0], o[1], o[2], o[3]));
+      __stcs(dst + 1, make_float4(o[4], o[5], o[6], o[7]));
+    }
+    mbar_arrive(fbar(FD_READ));
+    ++dn;
+    clk_end(PW_DZ);
+  };
+#pragma unroll 1
+  for (int tile = blockIdx.x; tile < a.ntiles; tile += gridDim.x) {
+    const int p0 = tile * T;
+#pragma unroll
+    for (int i = 0; i < N_PW; ++i) pw[i] = 0;
+    make_mask(0, p0);
+    make_mask(1, p0);
+    clk_begin();
+    pe_tile_store(a.xd, a.pe, P, a.kx, a.kd, a.nfx, a.nfd, tile, warp);
+    clk_end(PW_PE);
+#pragma unroll 1
+    for (int e = 0; e < 9; ++e) {  // d_feat, d_z7 .. d_z0
+      store_dz((8 - e) * W, p0);
+      if (e + 2 <= 8) make_mask(e + 2, p0);
+    }
+    if constexpr (PROF) {
+      if (on)
+        for (int i = 0; i < N_PW; ++i)
+          a.stamps[(size_t)(tile / gridDim.x) * STAMP_ROW_F32 + N_STAMPS_F32 + i] = pw[i];
     }
   }
   __syncthreads();  // the consumers are done with the buffer
@@ -1461,8 +1583,9 @@ __global__ void __launch_bounds__(NTHR, 1)
   if (smem_u32(dsmem) & 1023) __trap();  // the swizzled operands need 1024-byte alignment
   if (threadIdx.x == 0) {
     for (int i = 0; i < F_N_BARS; ++i)
-      mbar_init(fbar(i), i == FM_FULL || i == FM_FULL + 1 ? PE_THR
-                         : (i >= FW_EMPTY && i < FM_FULL) || i >= FM_FREE ? NCONS / 32 : 1);
+      mbar_init(fbar(i), i == FM_FULL || i == FM_FULL + 1 || i == FD_READ ? PE_THR
+                         : (i >= FW_EMPTY && i < FM_FULL) || i == FM_FREE || i == FM_FREE + 1
+                             ? NCONS / 32 : 1);
     mbar_fence_init();
   }
   __syncthreads();
@@ -1472,7 +1595,7 @@ __global__ void __launch_bounds__(NTHR, 1)
     if (threadIdx.x == NCONS) producer_f32(a);
     __syncthreads();
   } else {
-    pe_warps_f32(a);
+    pe_warps_f32<PROF>(a);
   }
 }
 
@@ -1482,7 +1605,9 @@ bool valid_pe_width(int k) { return k == 32 || k == 64 || k == 96; }
 
 extern "C" {
 
-int nerf_mlp_dgrad_n_stamps(int f32) { return f32 ? N_STAMPS_F32 : N_STAMPS; }
+// The columns of a row of stage stamps (the f32 dgrad's ends with its PE
+// warps' N_PW cycle counts).
+int nerf_mlp_dgrad_n_stamps(int f32) { return f32 ? STAMP_ROW_F32 : N_STAMPS; }
 int nerf_mlp_dgrad_tile() { return T; }
 
 // The bf16 dgrad on `stream`; returns 0 or the first CUDA error code.
@@ -1550,7 +1675,7 @@ int nerf_mlp_dgrad_bf16(const float* xd, const float* g, const void* wt, const f
 // code.  As nerf_mlp_dgrad_bf16, but: wt the split transposed blob
 // (pack_params_bwd in f32: fp16 parts of W^T 2^4), acts the f32 stash, dz
 // and pe f32 scratch; dpe5 [n_blocks, 128, kx] f32 scratch; stamps null or
-// [ceil(ntiles / n_blocks)][N_STAMPS_F32] int64.
+// [ceil(ntiles / n_blocks)][STAMP_ROW_F32] int64.
 int nerf_mlp_dgrad_f32(const float* xd, const float* g, const void* wt, const float* fp,
                        const float* acts, float* dz, float* pe, float* dxd, float* fp_part,
                        float* dpe5, long long* stamps, int P, int kx, int kd, int nfx, int nfd,

@@ -83,6 +83,9 @@ DGRAD_STAGES = (
 )
 _EP_Z5 = DGRAD_STAGES.index("ep_z5") + 1
 DGRAD_STAGES_F32 = DGRAD_STAGES[:_EP_Z5] + ["dpe_w5a"] + DGRAD_STAGES[_EP_Z5:]
+# then, off the consumers' path, the f32 dgrad's PE thread 0's cycles a
+# tile by task (mirrors PW_* in csrc/nerf_mlp_dgrad.cu)
+DGRAD_OFF_PATH_F32 = ("pe_free_wait", "pe_ready_wait", "pe_masks", "pe_dz", "pe_encode")
 DGRAD_TILE = 128  # points a tile of the dgrad kernel, both modes
 
 # The forward kernel's stages: consumer thread 0's cycles of each in each
@@ -596,7 +599,8 @@ def _dgrad_lib() -> ctypes.CDLL:
         lib.nerf_mlp_dgrad_error_string.restype = ctypes.c_char_p
         if lib.nerf_mlp_dgrad_tile() != DGRAD_TILE \
                 or lib.nerf_mlp_dgrad_n_stamps(0) != len(DGRAD_STAGES) + 1 \
-                or lib.nerf_mlp_dgrad_n_stamps(1) != len(DGRAD_STAGES_F32) + 1:
+                or lib.nerf_mlp_dgrad_n_stamps(1) != len(DGRAD_STAGES_F32) + 1 \
+                + len(DGRAD_OFF_PATH_F32):
             raise RuntimeError("nerf_mlp_dgrad: tile or stage stamps differ from the CUDA source")
         lib._lushnerf_typed = True
     return lib
@@ -825,7 +829,8 @@ class BwdLaunch:
     def stage_stamps(self) -> torch.Tensor:
         """Runs the dgrad once with its stage stamps on: [block 0's tiles,
         n_stamps] clock64() values, stamp i at the end of stage i of
-        `stages` (stamp 0: the tile's start)."""
+        `stages` (stamp 0: the tile's start); in f32 then the PE warps'
+        cycles by DGRAD_OFF_PATH_F32."""
         stamps = torch.zeros((-(-self.n_tiles // self.n_blocks),
                               self.dlib.nerf_mlp_dgrad_n_stamps(int(not self.bf16))),
                              dtype=torch.int64, device=self.dev)

@@ -25,18 +25,24 @@ the final result line):
      products through torch.matmul in bf16 at 5120x128;
   4. kernel_bwd: the forward kernel with its activation stash (K1), the
      stash backward (K2) and the remat backward (K3) against
-     nerf_mlp_fwd_plain / nerf_mlp_bwd_plain at the flagship P and a ragged
-     P, f32 and bf16: the stash launch's output as phase 3 holds it; its
-     stash block by block within STASH_TOL (in bf16 also a mean error at
-     most a tenth of the plain f32-vs-bf16 stash gap); d(xd) and the grads
+     nerf_mlp_fwd_plain / nerf_mlp_bwd_plain at the flagship P, a ragged
+     P and one point, f32 and bf16: the stash launch's output as phase 3
+     holds it; its stash block by block within STASH_TOL (in bf16 also a
+     mean error at most a tenth of the plain f32-vs-bf16 stash gap); d(xd)
+     and the grads
      of all 24 parameters from K2 on the kernel's stash and on the plain
      forward's stash, each tensor's max error over its max magnitude within
      BWD_TOL, in bf16 also each tensor's mean error at most a tenth of the
-     plain f32-vs-bf16 mean gap; a second run gives the same bits; K2 and
-     K3 agree to the bit; in bf16 the dgrad and the wgrad with its
-     reductions timed apart at both flagship P, and the dgrad's time by
-     stage from the clock64 stamps of an instrumented instantiation; so the
-     forward's too, f32 and bf16, output only and with the stash;
+     plain f32-vs-bf16 mean gap (not at one point); a second run gives the
+     same bits; K2 and K3 agree to the bit; in f32 the backward at g 2^-20
+     gives 2^-20 times its grads at g, bit for bit (the f32 dgrad's split
+     carries a power-of-two scale per point); in both dtypes the dgrad and
+     the wgrad with its reductions timed apart at both flagship P, each
+     with its byte and operations bounds (f32: the dgrad's operations as
+     the split, the wgrad's on the f32 FMAs), and the dgrad's time by stage
+     from the clock64 stamps of an instrumented instantiation (f32: also
+     its PE warps' cycles by task); so the forward's too, f32 and bf16,
+     output only and with the stash;
   5. forward_kernel: the flagship config (29 images, 1024 rays x 5
      sub-rays, 400x400, focal 320) -- finite outputs, exactly 2 kernel
      launches per call, agreement with the plain-torch backend on the
@@ -55,8 +61,11 @@ the final result line):
      launches and parameter packings per step counted; 20 kernel steps on a
      fixed batch and fixed draws, whose loss must fall; ms/step (a window
      of 10), rays/s and peak memory for cuda bf16 stash, cuda bf16 remat,
-     cuda f32 remat (the shipped scene configs' step) and torch f32; one step's grads through the kernels in bf16 and in f32
-     against the torch f32 backend (cosine of each parameter's grad >=
+     cuda f32 remat (the shipped scene configs' step, with the range of the
+     cotangent reaching each scene MLP: max, median |g| and the share below
+     fp16's smallest normal) and torch f32; one step's grads through the
+     kernels in bf16 and in f32 against the torch f32 backend (cosine of
+     each parameter's grad >=
      GRAD_COS_MIN), and the control that the bound rejects: the bf16 path
      fed a stash with one block shifted by a column; after the steps the
      forward kernel, bf16 and f32 (packed before the steps), gives the bits
@@ -827,13 +836,17 @@ def corrupted_stash(fused, on: bool, block: int = 3):
 @contextlib.contextmanager
 def cotangent_ranges(fused, out: list):
     """While on, each backward kernel call records the range of the
-    cotangent reaching its scene MLP: P, max |g|, median |g| and the share
-    of |g| below fp16's smallest normal (2^-14)."""
+    cotangent reaching its scene MLP: P, max |g|, median |g|, the share of
+    exact zeros and the median of the other |g|, and the share of |g|
+    below fp16's smallest normal (2^-14)."""
     bwd = fused.nerf_mlp_bwd
 
     def recorded(mlp, xd, g, *args, **kwargs):
         a = g.abs()
+        nz = a[a > 0]
         out.append({"P": g.shape[0], "max_abs_g": a.max().item(), "median_abs_g": a.median().item(),
+                    "share_zero": 1.0 - nz.numel() / a.numel(),
+                    "median_abs_nonzero_g": nz.median().item() if nz.numel() else 0.0,
                     "share_below_fp16_normal": (a < 2.0 ** -14).float().mean().item()})
         return bwd(mlp, xd, g, *args, **kwargs)
 

@@ -353,6 +353,19 @@ def _pack_key(mlp, compute_dtype: str):
     return (compute_dtype, tuple((p.data_ptr(), p._version) for p in mlp.parameters()))
 
 
+def split_pieces(m: torch.Tensor, who: str) -> torch.Tensor:
+    """A [N][K] block as the f32 kernels' rings stream it: chunk-major over
+    K in chunks of 64 columns, each chunk as the `swizzle128` layout of its
+    fp16 hi part, then its lo part, of m 2^SPLIT_SHIFT (`split_f16`).
+    Raises for a value beyond the parts' range."""
+    if not bool((m.abs() * 2.0 ** SPLIT_SHIFT < FP16_MAX).all()):
+        raise ValueError(f"{who}: a weight outside the f32 kernel's fp16 parts' "
+                         f"range (|w| < {FP16_MAX / 2 ** SPLIT_SHIFT:g})")
+    n_chunks = m.shape[1] // 64
+    hi, lo = (swizzle128(t).reshape(n_chunks, -1) for t in split_f16(m, SPLIT_SHIFT))
+    return torch.stack([hi, lo], 1).reshape(-1)  # per chunk: hi, then lo
+
+
 def split_f16(m: torch.Tensor, shift: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """The f32 kernel's two fp16 parts of x = m 2^shift: hi = fp16(x), lo =
     fp16(x - hi) (x - hi is exact in f32; hi + lo is x within ~2^-22 of it,
@@ -387,15 +400,8 @@ def pack_params(mlp, compute_dtype: str) -> Tuple[torch.Tensor, torch.Tensor]:
         if (w.numel() // FWD_PIECE) % 2:  # a zero piece pads an odd piece count
             w = torch.cat([w, w.new_zeros(FWD_PIECE)])
     else:
-        parts = []
-        for m in fwd_mats_sm90(mlp, views_pe_first=True):
-            if not bool((m.abs() * 2.0 ** SPLIT_SHIFT < FP16_MAX).all()):
-                raise ValueError("pack_params: a weight outside the f32 kernel's fp16 parts' "
-                                 f"range (|w| < {FP16_MAX / 2 ** SPLIT_SHIFT:g})")
-            n_chunks = m.shape[1] // 64
-            hi, lo = (swizzle128(t).reshape(n_chunks, -1) for t in split_f16(m, SPLIT_SHIFT))
-            parts.append(torch.stack([hi, lo], 1).reshape(-1))  # per chunk: hi, then lo
-        w = torch.cat(parts)
+        w = torch.cat([split_pieces(m, "pack_params")
+                       for m in fwd_mats_sm90(mlp, views_pe_first=True)])
         pad = -(w.numel() // FWD_PIECE) % SPLIT_RING
         w = torch.cat([w, w.new_zeros(pad * FWD_PIECE)])
     w = w.contiguous()
@@ -464,7 +470,7 @@ def bwd_mats(mlp) -> List[torch.Tensor]:
     """The backward's 12 transposed weight blocks in f32, [in][out] with the
     PE rows past the encoding zero: W0^T [kx][256], W1^T..W4^T, W5a^T
     [kx][256], W5b^T, W6^T, W7^T, Wf^T [256][256], Wvf^T [256][128], Wvd^T
-    [kd][128] (the order of csrc/nerf_mlp_bwd.cu and the dgrad's ring)."""
+    [kd][128] (the order of the dgrad's ring, csrc/nerf_mlp_dgrad.cu)."""
     cfg = mlp.cfg
     in_ch, W = cfg.input_ch, cfg.width
     kx, kd = pe_widths(cfg)
@@ -487,25 +493,16 @@ def pack_params_bwd(mlp, compute_dtype: str) -> torch.Tensor:
     columns, the layout csrc/nerf_mlp_dgrad.cu's wgmma reads).  bf16: the
     blocks rounded to bf16.  f32: each chunk of 64 columns as the fp16 hi
     part, then the lo part, of W^T 2^SPLIT_SHIFT (`split_f16`; raises for a
-    weight beyond the parts' range), the pieces the f32 dgrad's ring
-    streams.  Cached as pack_params."""
+    weight beyond the parts' range; `split_pieces`), the pieces the f32
+    dgrad's ring streams.  Cached as pack_params."""
     key = _pack_key(mlp, compute_dtype)
     cached = getattr(mlp, "_nerf_mlp_bwd_pack", None)
     if cached is not None and cached[0] == key:
         return cached[1]
-    mats = bwd_mats(mlp)
     if compute_dtype == "bfloat16":
-        wt = torch.cat([swizzle128(m.bfloat16()) for m in mats])
+        wt = torch.cat([swizzle128(m.bfloat16()) for m in bwd_mats(mlp)])
     else:
-        parts = []
-        for m in mats:
-            if not bool((m.abs() * 2.0 ** SPLIT_SHIFT < FP16_MAX).all()):
-                raise ValueError("pack_params_bwd: a weight outside the f32 kernel's fp16 parts' "
-                                 f"range (|w| < {FP16_MAX / 2 ** SPLIT_SHIFT:g})")
-            n_chunks = m.shape[1] // 64
-            hi, lo = (swizzle128(t).reshape(n_chunks, -1) for t in split_f16(m, SPLIT_SHIFT))
-            parts.append(torch.stack([hi, lo], 1).reshape(-1))  # per chunk: hi, then lo
-        wt = torch.cat(parts)
+        wt = torch.cat([split_pieces(m, "pack_params_bwd") for m in bwd_mats(mlp)])
     wt = wt.contiguous()
     mlp._nerf_mlp_bwd_pack = (key, wt)
     global packs
@@ -725,9 +722,10 @@ class BwdLaunch:
     (`stage_stamps()`, labelled by `stages`).
 
     The dgrad is csrc/nerf_mlp_dgrad.cu in both modes; the wgrad and
-    reductions are csrc/nerf_mlp_bwd.cu's.  Without a stash (remat, K3) the DGRAD part
-    first runs the forward kernel into a scratch stash, so K3 is K1 with
-    its stash followed by the stash backward, and gives K2's bits."""
+    reductions are csrc/nerf_mlp_bwd.cu's.  Without a stash (remat, K3)
+    the DGRAD part first runs the forward kernel into a scratch stash, so
+    K3 is K1 with its stash followed by the stash backward, and gives K2's
+    bits."""
 
     DGRAD, WGRAD, ALL = 1, 2, 3
 

@@ -16,6 +16,7 @@
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: no libcuda link)
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -148,6 +149,17 @@ __device__ __forceinline__ void stsm_x4(void* p, uint32_t r0, uint32_t r1, uint3
                    smem_u32(p)),
                "r"(r0), "r"(r1), "r"(r2), "r"(r3)
                : "memory");
+}
+
+// Two f32 values rounded to fp16 and packed (the first in the low half),
+// and such a pair back to f32.
+__device__ __forceinline__ uint32_t pack_f16(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.f16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+__device__ __forceinline__ float2 unpack_f16(uint32_t u) {
+  return __half22float2(*reinterpret_cast<const __half2*>(&u));
 }
 
 // Named barrier `id` (1..15) over `count` threads (a multiple of 32).

@@ -60,8 +60,6 @@
 //     the 8 warps in order, per tile in tile order, per block into its own
 //     partial; nerf_mlp_bwd.cu sums the partials in block order.
 
-#include <cuda_fp16.h>
-
 #include "hopper.cuh"
 #include "nerf_mlp_common.cuh"
 
@@ -147,18 +145,25 @@ template <typename E> __device__ __forceinline__ E* at(int off) {
 // consumers
 // ---------------------------------------------------------------------------
 
-// The consumer side of the weight ring: piece k sits in stage k % N_WST.
-struct Ring {
+// The consumer side of a weight ring at byte RING whose barriers are at
+// BARS (full: 0 .. N_WST - 1, empty: N_WST ..): piece k sits in stage k %
+// N_WST.
+template <int BARS, int RING> struct RingT {
   int k;  // the next piece
+  __device__ __forceinline__ uint64_t* ring_bar(int i) const {
+    return reinterpret_cast<uint64_t*>(dsmem + BARS) + i;
+  }
   __device__ __forceinline__ const unsigned char* wait(int piece) const {
     const int s = piece % N_WST;
-    mbar_wait(bar(W_FULL + s), (piece / N_WST) & 1);
-    return dsmem + SM_RING + s * WST_B;
+    mbar_wait(ring_bar(s), (piece / N_WST) & 1);
+    return dsmem + RING + s * WST_B;
   }
   __device__ __forceinline__ void release(int piece) const {
-    if ((threadIdx.x & 31) == 0) mbar_arrive(bar(W_EMPTY + piece % N_WST));
+    if ((threadIdx.x & 31) == 0) mbar_arrive(ring_bar(N_WST + piece % N_WST));
   }
 };
+static_assert(W_FULL == 0 && W_EMPTY == N_WST, "the ring's barriers");
+using Ring = RingT<SM_BARS, SM_RING>;
 
 // The producer, before chunk c of a tile buffer is loaded again: its store
 // of that chunk, bulk group c of the last four it committed (one a chunk,
@@ -918,18 +923,8 @@ __device__ __forceinline__ uint32_t* mask_slot(int s) {
 }
 __device__ __forceinline__ float pow2(int r) { return __int_as_float((127 + r) << 23); }
 
-// The consumer side of the f32 ring (piece k in stage k % N_WST).
-struct RingF {
-  int k;
-  __device__ __forceinline__ const unsigned char* wait(int piece) const {
-    const int s = piece % N_WST;
-    mbar_wait(fbar(FW_FULL + s), (piece / N_WST) & 1);
-    return dsmem + F_RING + s * WST_B;
-  }
-  __device__ __forceinline__ void release(int piece) const {
-    if ((threadIdx.x & 31) == 0) mbar_arrive(fbar(FW_EMPTY + piece % N_WST));
-  }
-};
+static_assert(FW_FULL == 0 && FW_EMPTY == N_WST, "the f32 ring's barriers");
+using RingF = RingT<F_BARS, F_RING>;
 
 // One 64-deep chunk, fp16: four m64nNk16 steps.
 template <int N, int R>
@@ -1022,14 +1017,6 @@ __device__ __forceinline__ void rescale(float (&mx)[2], Rows& rs, float (&up)[2]
   }
 }
 
-__device__ __forceinline__ uint32_t pack_f16(float lo, float hi) {
-  uint32_t r;
-  asm("cvt.rn.f16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(hi), "f"(lo));
-  return r;
-}
-__device__ __forceinline__ float2 unpack_f16(uint32_t u) {
-  return __half22float2(*reinterpret_cast<const __half2*>(&u));
-}
 
 // The fragment v (R = N / 2 values: rows r0 | r0 + 8 of columns 8 j + 2 q,
 // + 1) times up[row], split in its fp16 parts over this thread's rows of

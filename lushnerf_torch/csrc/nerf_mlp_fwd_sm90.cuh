@@ -578,16 +578,6 @@ __device__ __forceinline__ void mma_step(float (&acc)[R], const unsigned char* A
   else wgmma_m64n128k16<R, true>(acc, wgmma_desc(A), wgmma_desc(B), 1);
 }
 
-// Two f32 values as their fp16 parts' packed pair (the first in the low
-// half), and back.
-__device__ __forceinline__ uint32_t pack_f16(float lo, float hi) {
-  uint32_t r;
-  asm("cvt.rn.f16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(hi), "f"(lo));
-  return r;
-}
-__device__ __forceinline__ float2 unpack_f16(uint32_t u) {
-  return __half22float2(*reinterpret_cast<const __half2*>(&u));
-}
 
 __device__ __forceinline__ void pe_release() {
   if ((threadIdx.x & 31) == 0) mbar_arrive(bar(S_PE_FREE));

@@ -449,33 +449,62 @@ template <> __device__ __forceinline__ float to_elem<float>(float v) { return v;
 
 // The PE of one tile's points into the pe scratch (nothing in the dgrad
 // reads it; the wgrad does), by three warps (`warp` 0..2) while the
-// consumers run, as pe_tile computes each value: a warp per point, a lane
-// per (band, coordinate) whose sincosf gives both its sin and its cos
-// lane, then the identity lanes and the zero padding.
+// consumers run, as pe_tile computes each value.  Warp w takes the tile's
+// points w, w + 3, .. in batches of 32: lane l loads point l's coordinates
+// once, and the shuffles hand them to the lanes that need them; the
+// batch's (point, band, coordinate) items run 32 at a time, one sincosf
+// each for its sin and its cos lane, then its identity lanes and zero
+// padding.  Every shuffle runs on all 32 lanes: the loops are uniform.
 template <typename E>
 __device__ __forceinline__ void pe_tile_store(const float* xd, E* pe, int P, int kx, int kd,
                                               int nfx, int nfd, int tile, int warp) {
   const int lane = threadIdx.x & 31;
-  const int ncol = kx + kd, nb = nfx + nfd;
-  const int end = min(tile * T + T, P);
-  for (int p = tile * T + warp; p < end; p += 3) {
-    const float* x = xd + (size_t)p * 8;
-    E* row = pe + (size_t)p * ncol;
-    for (int r = lane; r < 3 * nb; r += 32) {
+  const int ncol = kx + kd, n = 3 * (nfx + nfd);
+  const int first = tile * T + warp, np_all = max(0, (min(tile * T + T, P) - first + 2) / 3);
+  for (int b0 = 0; b0 < np_all; b0 += 32) {
+    const int np = min(32, np_all - b0);
+    float x[6];  // this lane's point's coordinates
+    {
+      const int p = first + 3 * (b0 + lane);
+      const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+      const float4 u = lane < np ? __ldg(reinterpret_cast<const float4*>(xd + (size_t)p * 8)) : z;
+      const float2 v = lane < np ? __ldg(reinterpret_cast<const float2*>(xd + (size_t)p * 8 + 4)) : make_float2(0.f, 0.f);
+      x[0] = u.x, x[1] = u.y, x[2] = u.z, x[3] = u.w, x[4] = v.x, x[5] = v.y;
+    }
+    // coordinate ci of the batch's point q, from its lane
+    auto coord = [&](int q, int ci) {
+      float r = 0.f;
+#pragma unroll
+      for (int k = 0; k < 6; ++k) {
+        const float t = __shfl_sync(0xffffffffu, x[k], q);
+        r = k == ci ? t : r;
+      }
+      return r;
+    };
+    for (int r0 = 0; r0 < np * n; r0 += 32) {
+      const int it = r0 + lane, q = min(it / n, np - 1), r = it - (it / n) * n;
       const int slot = r / 3, c = r - 3 * slot;
       const bool is_x = slot < nfx;
       const int band = is_x ? slot : slot - nfx;
-      float sn, cs;
-      sincosf(__ldg(x + (is_x ? 0 : 3) + c) * (float)(1 << band), &sn, &cs);
-      E* d = row + (is_x ? 0 : kx) + 3 + 6 * band + c;
-      d[0] = to_elem<E>(sn);
-      d[3] = to_elem<E>(cs);
+      const float v = coord(q, (is_x ? 0 : 3) + c);
+      if (it < np * n) {
+        float sn, cs;
+        sincosf(v * (float)(1 << band), &sn, &cs);
+        E* d = pe + (size_t)(first + 3 * (b0 + q)) * ncol + (is_x ? 0 : kx) + 3 + 6 * band + c;
+        d[0] = to_elem<E>(sn);
+        d[3] = to_elem<E>(cs);
+      }
     }
-    for (int c = lane; c < ncol; c += 32) {
-      const bool is_x = c < kx;
-      const int local = is_x ? c : c - kx;
-      if (local < 3) row[c] = to_elem<E>(__ldg(x + (is_x ? 0 : 3) + local));
-      else if (local >= 3 + 6 * (is_x ? nfx : nfd)) row[c] = to_elem<E>(0.f);
+    // a point's other lanes: pe_x's identity lanes and zero padding, then
+    // pe_d's
+    const int zx = kx - 3 - 6 * nfx, nfix = 6 + zx + kd - 3 - 6 * nfd;
+    for (int r0 = 0; r0 < np * nfix; r0 += 32) {
+      const int it = r0 + lane, q = min(it / nfix, np - 1), j = it - (it / nfix) * nfix;
+      const bool is_x = j < 3 + zx;
+      const int local = is_x ? (j < 3 ? j : 3 + 6 * nfx + j - 3) : (j < 6 + zx ? j - 3 - zx : 3 + 6 * nfd + j - 6 - zx);
+      const float v = coord(q, (is_x ? 0 : 3) + min(local, 2));
+      if (it < np * nfix)
+        pe[(size_t)(first + 3 * (b0 + q)) * ncol + (is_x ? 0 : kx) + local] = to_elem<E>(local < 3 ? v : 0.f);
     }
   }
 }

@@ -36,13 +36,19 @@ the final result line):
      plain f32-vs-bf16 mean gap (not at one point); a second run gives the
      same bits; K2 and K3 agree to the bit; in f32 the backward at g 2^-20
      gives 2^-20 times its grads at g, bit for bit (the f32 dgrad's split
-     carries a power-of-two scale per point); in both dtypes the dgrad and
-     the wgrad with its reductions timed apart at both flagship P, each
-     with its byte and operations bounds (f32: the dgrad's operations as
-     the split, the wgrad's on the f32 FMAs), and the dgrad's time by stage
-     from the clock64 stamps of an instrumented instantiation (f32: also
-     its PE warps' cycles by task); so the forward's too, f32 and bf16,
-     output only and with the stash;
+     carries a power-of-two scale per point, the f32 wgrad's one per point
+     split and d_z block), and the dgrad's scale units of dz equal
+     `dz_scale_units` of its dz bit for bit; in f32 also a row at the
+     flagship coarse P with a cotangent shaped like the shipped step's
+     (half the points 0, |g| log-uniform over 2^-28..2^-17); in both dtypes
+     the dgrad and the wgrad with its reductions timed apart at both
+     flagship P, each with its byte and operations bounds (f32: both as the
+     split), beside the wgrad its 12 weight blocks through torch.mm (12
+     calls, a yardstick), and the dgrad's time by stage from the clock64
+     stamps of an instrumented instantiation (f32: also its PE warps'
+     cycles by task, and the wgrad's cycles in its consumers and its
+     converters, `wgrad stages at P = ...`); so the forward's too, f32 and
+     bf16, output only and with the stash;
   5. forward_kernel: the flagship config (29 images, 1024 rays x 5
      sub-rays, 400x400, focal 320) -- finite outputs, exactly 2 kernel
      launches per call, agreement with the plain-torch backend on the
@@ -133,7 +139,8 @@ KERNEL_TOL = {"float32": dict(rtol=1e-4, atol=1e-5), "bfloat16": dict(rtol=1e-3,
 BF16_MEAN_ERR_SHARE = 0.1  # of the plain version's mean f32-vs-bf16 gap
 # backward kernels vs nerf_mlp_bwd_plain on the same stash: max |error| of
 # each grad tensor over its max |value|.  f32: the sums over P points run in
-# another order (per-tile mma/FMA sums, 32 point splits, then the splits);
+# another order (per-tile wgmma sums, up to 132 point splits, then the
+# splits), of the split's parts (x within ~2^-22 of it);
 # bf16: besides, each d_z is rounded to bf16 after a sum in another order,
 # so some roundings land on the neighbouring bf16 value (2^-8 relative).
 BWD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
@@ -419,7 +426,8 @@ def held_bwd(got, want, f32, dtype, prefix) -> dict:
     abs_err = [(a - b).abs().max().item() for a, b in zip(got, want)]
     rel_err = [e / max(b.abs().max().item(), 1e-30) for e, b in zip(abs_err, want)]
     r = {f"{prefix}_max_abs_err": max(abs_err), f"{prefix}_max_rel_err": max(rel_err),
-         f"{prefix}_worst_tensor": int(np.argmax(rel_err))}
+         f"{prefix}_worst_tensor": int(np.argmax(rel_err)),
+         f"{prefix}_tol_share": max(rel_err) / BWD_TOL[dtype]}
     ok = max(rel_err) <= BWD_TOL[dtype]
     if f32 is not None:
         gaps = [(c - b).abs().mean().item() for b, c in zip(want, f32)]
@@ -485,16 +493,52 @@ def torch_matmul_ms(P: int, gen) -> float:
     return time_ms(lambda: [torch.matmul(a[k], m) for k, m in zip(ks, w)], 5)
 
 
+# the wgrad's 12 weight blocks dW = dZ^T A: (dz column, rows O, A from the
+# PE scratch?, A column, columns I) with kx, kd the padded PE widths
+def wgrad_jobs(kx: int, kd: int) -> list:
+    W = MLP_WIDTH
+    return ([(0, W, True, 0, kx)] + [(l * W, W, False, (l - 1) * W, W) for l in range(1, 5)]
+            + [(5 * W, W, True, 0, kx), (5 * W, W, False, 4 * W, W)]
+            + [(l * W, W, False, (l - 1) * W, W) for l in range(6, 9)]
+            + [(9 * W, W // 2, False, 8 * W, W), (9 * W, W // 2, True, kx, kd)])
+
+
+def torch_wgrad_mm_ms(run) -> float:
+    """A yardstick beside the wgrad, not one library call (none computes it):
+    the 12 weight blocks dW = dZ^T A as 12 torch.mm calls on the backward's
+    own dz, stash and PE scratch (f32 with TF32 off, or bf16), CUDA-event
+    ms of the 12, median of 5."""
+    def mm12():
+        for zc, o, from_pe, ac, i in wgrad_jobs(run.kx, run.kd):
+            src = run.pe if from_pe else run.acts
+            torch.mm(run.dz[:, zc:zc + o].T, src[:, ac:ac + i])
+    return time_ms(mm12, 5)
+
+
+def wgrad_clock_shares(fused, clk, wgrad_ms: float) -> dict:
+    """The f32 wgrad's block-0 cycles (fused.WGRAD_F32_CLOCKS) as shares of
+    its consumers' and its converters' totals, and those shares of the
+    wgrad's measured ms."""
+    c = dict(zip(fused.WGRAD_F32_CLOCKS, clk.cpu().tolist()))
+    mm = {k: c[k] / c["mm_all"] for k in ("mm_full_wait", "mm", "mm_epilogue")}
+    conv = {k: c[k] / c["conv_all"]
+            for k in ("conv_load_issue", "conv_empty_wait", "conv_scale", "conv_work")}
+    return {"cycles": c, "consumer_share": mm, "converter_share": conv,
+            "consumer_ms": {k: v * wgrad_ms for k, v in mm.items()}}
+
+
 def bwd_parts(fused, mlp, xd, g, dtype, acts, breakdown: bool) -> dict:
     """The dgrad alone and the wgrad with its reductions alone (on the
     dgrad's scratch), median CUDA-event ms, with their bounds: operations
     (one pass of 2 x MLP_MACS FLOP a point each: in bf16 at the bf16 tensor
-    rate; in f32 the dgrad's as the split, three fp16 products at that
-    rate, the wgrad's on the f32 FMAs) and this design's bytes (dgrad: the
-    stash columns it reads, xd, g, and the dz, PE and d(xd) it writes;
-    wgrad: dz, the stash columns and the PE it reads, and its per-split
-    partials written and read once); with `breakdown` also the dgrad's
-    stage breakdown."""
+    rate; in f32 both as the split, three fp16 products at that rate) and
+    bytes (dgrad: this design's, the stash columns it reads, xd, g, and the
+    dz, PE and d(xd) it writes; wgrad: dz, the stash columns and the PE
+    read once and the weight grads written once, with beside it this
+    design's per-split partials written and read once); beside the wgrad a
+    yardstick, its 12 blocks through torch.mm; with `breakdown` also the
+    dgrad's stage breakdown and, in f32, the wgrad's cycles in its
+    consumers and its converters."""
     P = xd.shape[0]
     bf16 = dtype == "bfloat16"
     run = fused.BwdLaunch(mlp, xd, g, dtype, 10, 4, acts)
@@ -503,13 +547,14 @@ def bwd_parts(fused, mlp, xd, g, dtype, acts, breakdown: bool) -> dict:
     stash_b, pe_b = fused.ACTS_LD * esz, (run.kx + run.kd) * esz
     read_b = stash_b - fused.WIDTH * esz  # a0..a7 and hv: not feat
     r = {"dtype": dtype, "P": P, "dgrad_ms": time_ms(lambda: run.run(run.DGRAD), 5),
-         "wgrad_ms": time_ms(lambda: run.run(run.WGRAD), 5)}
+         "wgrad_ms": time_ms(lambda: run.run(run.WGRAD), 5),
+         "wgrad_torch_mm_12_calls_ms": torch_wgrad_mm_ms(run), "wgrad_splits": run.n_splits}
     flops = 2.0 * MLP_MACS * P
     t_ops_d = flops * (1 if bf16 else 3) / PEAK_BF16_FLOPS * 1e3
-    t_ops_w = flops / (PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS) * 1e3
+    t_ops_w = t_ops_d
     dgrad_bytes = P * (read_b + 48 + stash_b + pe_b + 32)
-    wgrad_bytes = P * (stash_b + (stash_b - fused.WIDTH // 2 * esz) + pe_b) \
-        + 2 * run.w_part.numel() * 4
+    wgrad_bytes = P * (stash_b + (stash_b - fused.WIDTH // 2 * esz) + pe_b) + run.dw.numel() * 4
+    r["wgrad_partials_bytes_ms"] = 2 * run.w_part.numel() * 4 / PEAK_BYTES * 1e3
     for part, t_ops, nbytes in (("dgrad", t_ops_d, dgrad_bytes), ("wgrad", t_ops_w, wgrad_bytes)):
         t_bytes = nbytes / PEAK_BYTES * 1e3
         r[f"{part}_bytes_bound_ms"], r[f"{part}_ops_bound_ms"] = t_bytes, t_ops
@@ -524,8 +569,32 @@ def bwd_parts(fused, mlp, xd, g, dtype, acts, breakdown: bool) -> dict:
               f"{r['dgrad_stages']['cycles_per_tile']:.0f} cycles a tile): "
               + json.dumps(r["dgrad_stages"]["group_share"]) + "; off the path: "
               + json.dumps(r["dgrad_stages"]["off_path_share_of_tile"]), flush=True)
+        if not bf16:
+            w = r["wgrad_stages"] = wgrad_clock_shares(fused, run.wgrad_clocks(), r["wgrad_ms"])
+            print(f"  wgrad stages at P = {P} ({dtype}, {r['wgrad_ms']:.3f} ms, block 0: "
+                  f"consumers {w['cycles']['mm_all']} cycles, converters "
+                  f"{w['cycles']['conv_all']}): consumers " + json.dumps(w["consumer_share"])
+                  + "; converters " + json.dumps(w["converter_share"]), flush=True)
     del run
     return r
+
+
+def zs_bitwise(fused, mlp, xd, g, acts) -> bool:
+    """The f32 dgrad's scale units of dz, bit for bit those of
+    `fused.dz_scale_units` on the dz it wrote."""
+    run = fused.BwdLaunch(mlp, xd, g, "float32", 10, 4, acts)
+    run.run(run.DGRAD)
+    return torch.equal(run.zs, fused.dz_scale_units(run.dz))
+
+
+def shipped_cotangent(P: int, gen) -> torch.Tensor:
+    """A cotangent [P, 4] shaped like the one reaching a scene MLP in the
+    shipped configs' step (phase 7): half the points exactly 0, the rest
+    |g| log-uniform over 2^-28 .. 2^-17 with random signs."""
+    mag = torch.exp2(torch.rand((P, 4), generator=gen, device="cuda") * 11 - 28)
+    sign = torch.where(torch.rand((P, 4), generator=gen, device="cuda") < 0.5, -1.0, 1.0)
+    live = torch.rand((P, 1), generator=gen, device="cuda") < 0.5
+    return mag * sign * live
 
 
 def equivariant(fused, mlp, xd, g, dtype, acts, got, k: int = -20) -> bool:
@@ -549,9 +618,11 @@ def kernel_bwd_phase(fused, NeRFMLP, MLPConfig):
         w_bytes = sum(t.numel() * t.element_size() for t in fused.pack_params(mlp, dtype))
         grad_bytes = 4 * sum(p.numel() for p in mlp.parameters())
         stash_b = fused.ACTS_LD * esz
-        for label, P in SHAPES_BWD.items():
+        shapes = SHAPES_BWD if bf16 else {**SHAPES_BWD, "shipped": SHAPES_BWD["coarse"]}
+        for label, P in shapes.items():
             xd = sample_points(P, gen)
-            g = torch.randn((P, 4), generator=gen, device="cuda")
+            g = (shipped_cotangent(P, gen) if label == "shipped"
+                 else torch.randn((P, 4), generator=gen, device="cuda"))
             out_k, acts_k = fused._launch_fwd(mlp, xd, dtype, 10, 4, stash=True)
             out_p, acts_p = fused.nerf_mlp_fwd_plain(mlp, xd, dtype, with_acts=True)
             # the control for bf16: the plain version without the bf16 rounding
@@ -576,6 +647,7 @@ def kernel_bwd_phase(fused, NeRFMLP, MLPConfig):
             del k2b, k3
             if not bf16:
                 row["equivariant_bitwise"] = equivariant(fused, mlp, xd, g, dtype, acts_k, k2)
+                row["zs_bitwise"] = zs_bitwise(fused, mlp, xd, g, acts_k)
             # the control for bf16: the plain backward in f32 (its own activations)
             f32 = flat_grads(fused.nerf_mlp_bwd_plain(mlp, xd, g, "float32")) if control else None
             # K2 against the plain backward on the kernel's stash, and once more
@@ -602,14 +674,13 @@ def kernel_bwd_phase(fused, NeRFMLP, MLPConfig):
                     lambda: fused.nerf_mlp_bwd_plain(mlp, xd, g, dtype), 3, 1)
                 # the functions' own traffic: xd 32 B, g 16 B, d(xd) 32 B, raw out
                 # 16 B per point, the stash, the weights once and the grads once
-                # (f32: K1 and K2's dgrad are the split, K2's wgrad runs on the
-                # f32 FMAs)
+                # (f32: every pass is the split)
                 row["fwd_stash_bound_ms"], row["fwd_stash_bound_by"] = bound_ms(
                     P, w_bytes, bf16, 1, 48 + stash_b, split_passes=int(not bf16))
                 row["stash_bound_ms"], row["stash_bound_by"] = bound_ms(
-                    P, w_bytes + grad_bytes, bf16, 2, 80 + stash_b, split_passes=int(not bf16))
+                    P, w_bytes + grad_bytes, bf16, 2, 80 + stash_b, split_passes=2 * int(not bf16))
                 row["remat_bound_ms"], row["remat_bound_by"] = bound_ms(
-                    P, w_bytes + grad_bytes, bf16, 3, 80, split_passes=2 * int(not bf16))
+                    P, w_bytes + grad_bytes, bf16, 3, 80, split_passes=3 * int(not bf16))
                 # what this design moves besides: the dz scratch written and read
                 # again, the PE scratch, and in remat the activation scratch
                 pe_b = 96 * esz
@@ -630,7 +701,8 @@ def kernel_bwd_phase(fused, NeRFMLP, MLPConfig):
             del k2, acts_k, acts_p
             torch.cuda.empty_cache()
             if not (row["finite"] and row["within_tol"] and row["repeat_bitwise"]
-                    and row["remat_bitwise"] and row.get("equivariant_bitwise", True)):
+                    and row["remat_bitwise"] and row.get("equivariant_bitwise", True)
+                    and row.get("zs_bitwise", True)):
                 raise AssertionError(f"backward kernels disagree with the plain version: {row}")
     return rows
 
@@ -1403,11 +1475,14 @@ def bwd_split(bwd_rows) -> dict:
     dtypes at both flagship P, and the dgrad's stage shares at the fine P."""
     rows = [r for r in bwd_rows if "dgrad_ms" in r]
     out = {"split": [{k: r[k] for k in ("dtype", "P", "dgrad_ms", "dgrad_bound_ms", "dgrad_bound_by",
-                                        "wgrad_ms", "wgrad_bound_ms", "wgrad_bound_by")}
+                                        "wgrad_ms", "wgrad_bound_ms", "wgrad_bound_by",
+                                        "wgrad_torch_mm_12_calls_ms")}
                      for r in rows]}
     for r in rows:
         if "dgrad_stages" in r:
             out[f"dgrad_stage_share_{r['dtype']}"] = r["dgrad_stages"]["group_share"]
+        if "wgrad_stages" in r:
+            out[f"wgrad_consumer_share_{r['dtype']}"] = r["wgrad_stages"]["consumer_share"]
     return out
 
 

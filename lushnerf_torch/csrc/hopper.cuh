@@ -5,13 +5,14 @@
 // Plain inline PTX, no CuTe, so that a source including it builds in
 // seconds.  Device code unless marked host.
 //
-// Shared-memory operand layout of every wgmma here: "K-major, 128-byte
-// swizzle".  A matrix of R rows and 64 bf16 columns (one "chunk", 128 bytes
-// a row) is stored row after row, and within each group of 8 rows (1024
-// bytes, 1024-aligned) the 16-byte piece q of row r sits at piece position
-// q ^ (r % 8).  A TMA map with CU_TENSOR_MAP_SWIZZLE_128B and a 64-column
-// box writes exactly this layout; swz128() gives the byte offset of an
-// element for code that reads or writes it by hand.
+// Shared-memory operand layout of the wgmma here: "K-major, 128-byte
+// swizzle" (with MN = true, fp16 only, its MN-major counterpart:
+// wgmma_desc_mn).  A matrix of R rows and 64 bf16 columns (one "chunk", 128
+// bytes a row) is stored row after row, and within each group of 8 rows
+// (1024 bytes, 1024-aligned) the 16-byte piece q of row r sits at piece
+// position q ^ (r % 8).  A TMA map with CU_TENSOR_MAP_SWIZZLE_128B and a
+// 64-column box writes exactly this layout; swz128() gives the byte offset
+// of an element for code that reads or writes it by hand.
 
 #pragma once
 
@@ -188,6 +189,18 @@ __device__ __forceinline__ uint64_t wgmma_desc(const void* p) {
   return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
 }
 
+// Descriptor of an MN-major ("transposed") 128-byte-swizzled fp16 operand:
+// atoms of 8 K rows x 64 MN columns, each K row's 64 columns (128 bytes)
+// contiguous and swizzled as a K-major chunk's row (swz128(k % 8, mn % 64)),
+// each atom 1024 bytes and 1024-aligned; atoms `lbo` bytes apart along MN
+// and `sbo` bytes apart along K, from `p` (the atom of MN 0 and the first K
+// row; a 16-deep K step is two atoms along K).
+__device__ __forceinline__ uint64_t wgmma_desc_mn(const void* p, uint32_t lbo, uint32_t sbo) {
+  const uint64_t addr = smem_u32(p);
+  return ((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32) |
+         (1ull << 62);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -204,52 +217,56 @@ template <int R> __device__ __forceinline__ void wgmma_fence_regs(float (&d)[R])
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// D[64 x 32] (+)= A[64 x 16] B[16 x 32], both from shared memory (descriptors),
-// bf16 (F16: fp16) in, f32 accumulate: d[0..15] of each thread.
-#define HOPPER_WGMMA_N32(TY) \
+// D[64 x 32] (+)= A[64 x 16] B[16 x 32], both from shared memory (descriptors;
+// MN: both MN-major), bf16 (F16: fp16) in, f32 accumulate: d[0..15] of each thread.
+#define HOPPER_WGMMA_N32(TY, TR) \
   asm volatile( \
       "{\n.reg .pred p;\n" \
       "setp.ne.b32 p, %18, 0;\n" \
       "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " {" \
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15" \
-      "}, %16, %17, p, 1, 1, 0, 0;\n}\n" \
+      "}, %16, %17, p, 1, 1, " TR ";\n}\n" \
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]) \
       : "l"(da), "l"(db), "r"(scale_d))
-template <int R, bool F16 = false>
+template <int R, bool F16 = false, bool MN = false>
 __device__ __forceinline__ void wgmma_m64n32k16(float (&d)[R], uint64_t da, uint64_t db,
                                                int scale_d) {
   static_assert(R >= 16, "accumulator too small");
-  if constexpr (F16) HOPPER_WGMMA_N32("f16");
-  else HOPPER_WGMMA_N32("bf16");
+  static_assert(!MN || F16, "MN-major operands: fp16 here");
+  if constexpr (MN) HOPPER_WGMMA_N32("f16", "1, 1");
+  else if constexpr (F16) HOPPER_WGMMA_N32("f16", "0, 0");
+  else HOPPER_WGMMA_N32("bf16", "0, 0");
 }
 
-// D[64 x 64] (+)= A[64 x 16] B[16 x 64], both from shared memory (descriptors),
-// bf16 (F16: fp16) in, f32 accumulate: d[0..31] of each thread.
-#define HOPPER_WGMMA_N64(TY) \
+// D[64 x 64] (+)= A[64 x 16] B[16 x 64], both from shared memory (descriptors;
+// MN: both MN-major), bf16 (F16: fp16) in, f32 accumulate: d[0..31] of each thread.
+#define HOPPER_WGMMA_N64(TY, TR) \
   asm volatile( \
       "{\n.reg .pred p;\n" \
       "setp.ne.b32 p, %34, 0;\n" \
       "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {" \
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15," \
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31" \
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n" \
+      "}, %32, %33, p, 1, 1, " TR ";\n}\n" \
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]) \
       : "l"(da), "l"(db), "r"(scale_d))
-template <int R, bool F16 = false>
+template <int R, bool F16 = false, bool MN = false>
 __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[R], uint64_t da, uint64_t db,
                                                int scale_d) {
   static_assert(R >= 32, "accumulator too small");
-  if constexpr (F16) HOPPER_WGMMA_N64("f16");
-  else HOPPER_WGMMA_N64("bf16");
+  static_assert(!MN || F16, "MN-major operands: fp16 here");
+  if constexpr (MN) HOPPER_WGMMA_N64("f16", "1, 1");
+  else if constexpr (F16) HOPPER_WGMMA_N64("f16", "0, 0");
+  else HOPPER_WGMMA_N64("bf16", "0, 0");
 }
 
-// D[64 x 96] (+)= A[64 x 16] B[16 x 96], both from shared memory (descriptors),
-// bf16 (F16: fp16) in, f32 accumulate: d[0..47] of each thread.
-#define HOPPER_WGMMA_N96(TY) \
+// D[64 x 96] (+)= A[64 x 16] B[16 x 96], both from shared memory (descriptors;
+// MN: both MN-major), bf16 (F16: fp16) in, f32 accumulate: d[0..47] of each thread.
+#define HOPPER_WGMMA_N96(TY, TR) \
   asm volatile( \
       "{\n.reg .pred p;\n" \
       "setp.ne.b32 p, %50, 0;\n" \
@@ -257,7 +274,7 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[R], uint64_t da, uint
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15," \
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31," \
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47" \
-      "}, %48, %49, p, 1, 1, 0, 0;\n}\n" \
+      "}, %48, %49, p, 1, 1, " TR ";\n}\n" \
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
@@ -265,17 +282,19 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[R], uint64_t da, uint
         "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]) \
       : "l"(da), "l"(db), "r"(scale_d))
-template <int R, bool F16 = false>
+template <int R, bool F16 = false, bool MN = false>
 __device__ __forceinline__ void wgmma_m64n96k16(float (&d)[R], uint64_t da, uint64_t db,
                                                int scale_d) {
   static_assert(R >= 48, "accumulator too small");
-  if constexpr (F16) HOPPER_WGMMA_N96("f16");
-  else HOPPER_WGMMA_N96("bf16");
+  static_assert(!MN || F16, "MN-major operands: fp16 here");
+  if constexpr (MN) HOPPER_WGMMA_N96("f16", "1, 1");
+  else if constexpr (F16) HOPPER_WGMMA_N96("f16", "0, 0");
+  else HOPPER_WGMMA_N96("bf16", "0, 0");
 }
 
-// D[64 x 128] (+)= A[64 x 16] B[16 x 128], both from shared memory (descriptors),
-// bf16 (F16: fp16) in, f32 accumulate: d[0..63] of each thread.
-#define HOPPER_WGMMA_N128(TY) \
+// D[64 x 128] (+)= A[64 x 16] B[16 x 128], both from shared memory (descriptors;
+// MN: both MN-major), bf16 (F16: fp16) in, f32 accumulate: d[0..63] of each thread.
+#define HOPPER_WGMMA_N128(TY, TR) \
   asm volatile( \
       "{\n.reg .pred p;\n" \
       "setp.ne.b32 p, %66, 0;\n" \
@@ -284,7 +303,7 @@ __device__ __forceinline__ void wgmma_m64n96k16(float (&d)[R], uint64_t da, uint
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31," \
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47," \
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63" \
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n" \
+      "}, %64, %65, p, 1, 1, " TR ";\n}\n" \
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
@@ -294,17 +313,19 @@ __device__ __forceinline__ void wgmma_m64n96k16(float (&d)[R], uint64_t da, uint
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]) \
       : "l"(da), "l"(db), "r"(scale_d))
-template <int R, bool F16 = false>
+template <int R, bool F16 = false, bool MN = false>
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[R], uint64_t da, uint64_t db,
                                                int scale_d) {
   static_assert(R >= 64, "accumulator too small");
-  if constexpr (F16) HOPPER_WGMMA_N128("f16");
-  else HOPPER_WGMMA_N128("bf16");
+  static_assert(!MN || F16, "MN-major operands: fp16 here");
+  if constexpr (MN) HOPPER_WGMMA_N128("f16", "1, 1");
+  else if constexpr (F16) HOPPER_WGMMA_N128("f16", "0, 0");
+  else HOPPER_WGMMA_N128("bf16", "0, 0");
 }
 
-// D[64 x 256] (+)= A[64 x 16] B[16 x 256], both from shared memory (descriptors),
-// bf16 (F16: fp16) in, f32 accumulate: d[0..127] of each thread.
-#define HOPPER_WGMMA_N256(TY) \
+// D[64 x 256] (+)= A[64 x 16] B[16 x 256], both from shared memory (descriptors;
+// MN: both MN-major), bf16 (F16: fp16) in, f32 accumulate: d[0..127] of each thread.
+#define HOPPER_WGMMA_N256(TY, TR) \
   asm volatile( \
       "{\n.reg .pred p;\n" \
       "setp.ne.b32 p, %130, 0;\n" \
@@ -317,7 +338,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[R], uint64_t da, uin
       "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95," \
       "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111," \
       "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127" \
-      "}, %128, %129, p, 1, 1, 0, 0;\n}\n" \
+      "}, %128, %129, p, 1, 1, " TR ";\n}\n" \
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
@@ -335,12 +356,14 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[R], uint64_t da, uin
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), \
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127]) \
       : "l"(da), "l"(db), "r"(scale_d))
-template <int R, bool F16 = false>
+template <int R, bool F16 = false, bool MN = false>
 __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[R], uint64_t da, uint64_t db,
                                                 int scale_d) {
   static_assert(R >= 128, "accumulator too small");
-  if constexpr (F16) HOPPER_WGMMA_N256("f16");
-  else HOPPER_WGMMA_N256("bf16");
+  static_assert(!MN || F16, "MN-major operands: fp16 here");
+  if constexpr (MN) HOPPER_WGMMA_N256("f16", "1, 1");
+  else if constexpr (F16) HOPPER_WGMMA_N256("f16", "0, 0");
+  else HOPPER_WGMMA_N256("bf16", "0, 0");
 }
 
 // ---------------------------------------------------------------------------

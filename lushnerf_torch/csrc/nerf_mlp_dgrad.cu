@@ -892,10 +892,13 @@ __global__ void __launch_bounds__(NTHR, 1)
 // dz out of the buffer while the next layer's matmul runs (the consumers'
 // own stores, 64 float2 stores a thread a layer, cost 2.6 of 9.8 ms,
 // PERF.md), write d_hv to dz and the PE to its scratch, and sum the heads'
-// grads in their registers.  d_pe_x = d_z0 W0 + d_z5 W5a: the W5a pass runs
-// right after d_z5's epilogue and its true f32 partial goes to a per-block
-// global scratch, which the same threads read back after the W0 pass and
-// add in that order.  The PE warps' work is most of a tile's time (their
+// grads in their registers; beside each block of dz they write its scale
+// units for the f32 wgrad (`zs`: per tile and PE warp, the largest 1 / 2^s
+// of the rows stored, which the consumers set to 0 for a zero row; for d_hv
+// the unit of its largest |value|).  d_pe_x = d_z0 W0 + d_z5 W5a: the W5a
+// pass runs right after d_z5's epilogue and its true f32 partial goes to a
+// per-block global scratch, which the same threads read back after the W0
+// pass and add in that order.  The PE warps' work is most of a tile's time (their
 // cycle counts, DGRAD_OFF_PATH_F32): they, and the one-chunk ring, hold
 // the kernel.
 
@@ -918,6 +921,7 @@ static_assert(SMEM_F32 <= 232448, "shared memory over the 227 KB a block may use
 constexpr int SPLIT_SHIFT = 4;                  // the weights' parts are those of W^T 2^4
 constexpr float SPLIT_ACC = 1 << SPLIT_SHIFT;
 constexpr int ROW_EXP = 15;                     // a row's largest |x| in [2^14, 2^15)
+constexpr int ZS_BLOCKS = 10;                   // dz blocks with scale units: d_z0..d_z7, d_feat, d_hv
 constexpr int PE_THR = 96;                      // the PE warps: 9, 10 and 11
 constexpr int BAR_WG0 = 2;                      // named barriers 2, 3: consumer warpgroup 0, 1
 constexpr int BAR_PE = 4;                       // the PE warps
@@ -940,6 +944,7 @@ struct DgradArgsF {
   float* dxd;          // [P, 8]
   float* fp_part;      // [gridDim.x, FP_NUMEL]
   float* dpe5;         // [gridDim.x, T, kx]: the W5a pass's partial
+  float* zs;           // [ntiles][ZS_BLOCKS][3]: dz's scale units (the wgrad's)
   long long* stamps;   // [block 0's tiles][STAMP_ROW_F32] or null
   int P, kx, kd, nfx, nfd, ntiles;
 };
@@ -951,6 +956,11 @@ __device__ __forceinline__ uint32_t* mask_slot(int s) {
   return reinterpret_cast<uint32_t*>(dsmem + F_MASK) + s * T * 8;
 }
 __device__ __forceinline__ float pow2(int r) { return __int_as_float((127 + r) << 23); }
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
 
 static_assert(FW_FULL == 0 && FW_EMPTY == N_WST, "the f32 ring's barriers");
 using RingF = RingT<F_BARS, F_RING>;
@@ -1033,15 +1043,17 @@ __device__ __forceinline__ int row_shift(float mx) {
 
 // The largest |value| of each of this thread's rows over the row's four
 // threads (lanes xor 1, 2), and the scale that follows from it: rs is
-// updated, `up` (2^r per row) returned for the split store.
+// updated, `up` (2^r per row) returned for the split store, 0 for a row
+// that is all zeros (its parts are zeros either way), which marks it.
 __device__ __forceinline__ void rescale(float (&mx)[2], Rows& rs, float (&up)[2]) {
 #pragma unroll
   for (int rr = 0; rr < 2; ++rr) {
     mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 1));
     mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 2));
     const int r = row_shift(mx[rr]);
-    up[rr] = pow2(r);
-    rs.sc[rr] *= up[rr];
+    const float f = pow2(r);
+    up[rr] = mx[rr] > 0.f ? f : 0.f;
+    rs.sc[rr] *= f;
     rs.inv[rr] *= pow2(-r);
   }
 }
@@ -1292,10 +1304,10 @@ __device__ __forceinline__ void consumer_f32(const DgradArgsF& a) {
           wait_dz_read();  // before the split store overwrites d_z_(l + 1)
         }
         split_store(acc, up);
-        if ((tid & 3) == 0) {  // the rows' 1 / 2^s, for the PE warps' dz stores
+        if ((tid & 3) == 0) {  // the rows' 1 / 2^s (0: a zero row), for the PE warps' dz stores
           const Frag f;
-          inv_rows[f.r0] = rs.inv[0];
-          inv_rows[f.r0 + 8] = rs.inv[1];
+          inv_rows[f.r0] = up[0] != 0.f ? rs.inv[0] : 0.f;
+          inv_rows[f.r0 + 8] = up[1] != 0.f ? rs.inv[1] : 0.f;
         }
       }
       // the split store is complete: it goes to the next wgmma and, as dz,
@@ -1391,6 +1403,7 @@ __device__ __forceinline__ void pe_warps_f32(const DgradArgsF& a) {
     clk_begin();
     uint32_t* bits = mask_slot(s);
     if (m == 0) {  // hv: 128 columns, a float4 a lane
+      float mz = 0.f;  // the largest |d_hv| of the warp's rows
 #pragma unroll 1
       for (int i0 = warp; i0 < T; i0 += 12) {
         float4 hv[4], g4[4];
@@ -1416,6 +1429,7 @@ __device__ __forceinline__ void pe_warps_f32(const DgradArgsF& a) {
           for (int c = 0; c < 4; ++c) {
             d[c] = fmaf(q.z, w2[c], fmaf(q.y, w1[c], q.x * w0[c]));
             d[c] = hs[c] > 0.f ? d[c] : 0.f;
+            mz = fmaxf(mz, fabsf(d[c]));
             gbv[c] += d[c];
             gw[0][c] = fmaf(q.x, hs[c], gw[0][c]);
             gw[1][c] = fmaf(q.y, hs[c], gw[1][c]);
@@ -1432,6 +1446,9 @@ __device__ __forceinline__ void pe_warps_f32(const DgradArgsF& a) {
           if ((lane & 7) == 0) bits[p * 8 + (lane >> 3)] = w;
         }
       }
+      mz = warp_max(mz);
+      if (lane == 0)  // d_hv's rows carry no scale here: the unit of its largest value
+        a.zs[((size_t)(p0 / T) * ZS_BLOCKS + 9) * 3 + warp] = mz > 0.f ? pow2(-row_shift(mz)) : 0.f;
     } else {  // a_l, l = 8 - m: 256 columns, two float4 a lane, 8 rows in flight
       const int col = (8 - m) * W;
 #pragma unroll 1
@@ -1483,6 +1500,7 @@ __device__ __forceinline__ void pe_warps_f32(const DgradArgsF& a) {
     clk_end(PW_READY);
     clk_begin();
     const int c = lane >> 3, k = lane & 7;
+    float um = 0.f;  // the largest 1 / 2^s of the warp's nonzero rows
 #pragma unroll 4
     for (int p = warp; p < T; p += 3) {
       if (p0 + p >= P) break;
@@ -1490,6 +1508,7 @@ __device__ __forceinline__ void pe_warps_f32(const DgradArgsF& a) {
       const uint4 h = *reinterpret_cast<const uint4*>(dsmem + off);
       const uint4 l = *reinterpret_cast<const uint4*>(dsmem + F_LO + off);
       const float sc = inv_rows[p];
+      um = fmaxf(um, sc);
       const uint32_t hw[4] = {h.x, h.y, h.z, h.w}, lw[4] = {l.x, l.y, l.z, l.w};
       float o[8];
 #pragma unroll
@@ -1502,6 +1521,8 @@ __device__ __forceinline__ void pe_warps_f32(const DgradArgsF& a) {
       __stcs(dst, make_float4(o[0], o[1], o[2], o[3]));
       __stcs(dst + 1, make_float4(o[4], o[5], o[6], o[7]));
     }
+    um = warp_max(um);
+    if (lane == 0) a.zs[((size_t)(p0 / T) * ZS_BLOCKS + col0 / W) * 3 + warp] = um;
     mbar_arrive(fbar(FD_READ));
     ++dn;
     clk_end(PW_DZ);
@@ -1690,12 +1711,16 @@ int nerf_mlp_dgrad_bf16(const float* xd, const float* g, const void* wt, const f
 // The f32 dgrad (the split) on `stream`; returns 0 or the first CUDA error
 // code.  As nerf_mlp_dgrad_bf16, but: wt the split transposed blob
 // (pack_params_bwd in f32: fp16 parts of W^T 2^4), acts the f32 stash, dz
-// and pe f32 scratch; dpe5 [n_blocks, 128, kx] f32 scratch; stamps null or
-// [ceil(ntiles / n_blocks)][STAMP_ROW_F32] int64.
+// and pe f32 scratch; dpe5 [n_blocks, 128, kx] f32 scratch; zs
+// [ntiles][ZS_BLOCKS][3] f32 out, dz's scale units (the f32 wgrad's: entry
+// (t, b, w) the largest 1 / 2^s over the nonzero rows that PE warp w stored
+// of block b in tile t, 0 if none; 2^s puts a row's largest |value| in
+// [2^14, 2^15)); stamps null or [ceil(ntiles / n_blocks)][STAMP_ROW_F32]
+// int64.
 int nerf_mlp_dgrad_f32(const float* xd, const float* g, const void* wt, const float* fp,
                        const float* acts, float* dz, float* pe, float* dxd, float* fp_part,
-                       float* dpe5, long long* stamps, int P, int kx, int kd, int nfx, int nfd,
-                       int n_blocks, void* stream) {
+                       float* dpe5, float* zs, long long* stamps, int P, int kx, int kd, int nfx,
+                       int nfd, int n_blocks, void* stream) {
   if (!valid_pe_width(kx) || !valid_pe_width(kd) || kx + kd > PE_MAX || P <= 0)
     return (int)cudaErrorInvalidValue;
   static bool attr_set = false;
@@ -1729,6 +1754,7 @@ int nerf_mlp_dgrad_f32(const float* xd, const float* g, const void* wt, const fl
   a.dxd = dxd;
   a.fp_part = fp_part;
   a.dpe5 = dpe5;
+  a.zs = zs;
   a.stamps = stamps;
   a.P = P;
   a.kx = kx;

@@ -13,7 +13,9 @@ backward kernels compute d(xd) and the grads of every parameter from the
 stash (replacing `_bwd_stash_kernel`, mode 'stash') or, in mode 'remat'
 (replacing `_bwd_kernel`), from a stash the forward kernel writes into
 scratch first: a dgrad kernel (`csrc/nerf_mlp_dgrad.cu`, wgmma; in f32
-the split with a power-of-two scale per point), then the wgrad and two
+the split with a power-of-two scale per point), then the wgrad (in f32 the
+split on wgmma with a power-of-two scale per point split and d_z block,
+from the scale units the dgrad writes: `dz_scale_units`) and two
 fixed-order reductions (`csrc/nerf_mlp_bwd.cu`).
 
 `NerfMLPFn` is the gradient: on a CPU tensor it runs `nerf_mlp_fwd_plain`
@@ -87,6 +89,20 @@ DGRAD_STAGES_F32 = DGRAD_STAGES[:_EP_Z5] + ["dpe_w5a"] + DGRAD_STAGES[_EP_Z5:]
 # tile by task (mirrors PW_* in csrc/nerf_mlp_dgrad.cu)
 DGRAD_OFF_PATH_F32 = ("pe_free_wait", "pe_ready_wait", "pe_masks", "pe_dz", "pe_encode")
 DGRAD_TILE = 128  # points a tile of the dgrad kernel, both modes
+# The f32 dgrad's scale units of dz for the f32 wgrad (`dz_scale_units`):
+# [tiles, ZS_BLOCKS, ZS_WARPS], the blocks d_z0..d_z7, d_feat, d_hv and the
+# dgrad's three PE warps (warp w stores the rows p % 3 == w of a tile)
+ZS_BLOCKS, ZS_WARPS = 10, 3
+# The f32 wgrad's point splits (a partial of the weight grads each): at most
+# one per SM of an H100 (132), at least WGRAD_F32_SPLIT_POINTS points each
+WGRAD_F32_SPLITS, WGRAD_F32_SPLIT_POINTS = 132, 2048
+# its instrumented instantiation's cycle counts, block 0: consumer thread 0
+# (waiting for a full stage, issuing and waiting for the matmuls, storing
+# partials, all), then converter thread 0 (issuing a stage's loads, waiting
+# for a free stage, the items' scales, splitting and storing a stage with
+# the wait for its loads, all); mirrors N_CLK in csrc/nerf_mlp_bwd.cu
+WGRAD_F32_CLOCKS = ("mm_full_wait", "mm", "mm_epilogue", "mm_all", "conv_load_issue",
+                    "conv_empty_wait", "conv_scale", "conv_work", "conv_all")
 
 # The forward kernel's stages: consumer thread 0's cycles of each in each
 # tile of block 0 (its instrumented instantiation), then, off that path, the
@@ -344,6 +360,40 @@ def nerf_mlp_bwd_plain(mlp, xd: torch.Tensor, g: torch.Tensor, compute_dtype: st
     return d_xd, grads
 
 
+def wgrad_splits(P: int, compute_dtype: str) -> int:
+    """The wgrad's point splits for P > 0 points (a partial of the weight
+    grads each): bf16 one per 16,384 points, at most 32; f32 one per
+    WGRAD_F32_SPLIT_POINTS, at most WGRAD_F32_SPLITS."""
+    if compute_dtype == "bfloat16":
+        return max(1, min(32, -(-P // 16384)))
+    return max(1, min(WGRAD_F32_SPLITS, -(-P // WGRAD_F32_SPLIT_POINTS)))
+
+
+def wgrad_pts_per_split(P: int, n_splits: int) -> int:
+    """Points of each wgrad split but the last (which takes the rest): P /
+    n_splits rounded up to the wgrad's 32-point stage (mirrors
+    csrc/nerf_mlp_bwd.cu)."""
+    return -(-(-(-P // n_splits)) // 32) * 32
+
+
+def dz_scale_units(dz: torch.Tensor) -> torch.Tensor:
+    """The f32 dgrad's scale units of its dz [P, ACTS_LD] (the plain version
+    of what it writes for the f32 wgrad): [ceil(P / DGRAD_TILE), ZS_BLOCKS,
+    ZS_WARPS] float32, entry (t, b, w) the largest 2^-r over the rows p of
+    tile t with p % 3 == w whose block b (d_z0..d_z7, d_feat at 8, d_hv at
+    9) is not all zero, r the power of two that puts the row's largest
+    |value| in [2^14, 2^15) (clamped to +-100, as the kernel's); 0 where no
+    such row.  Every |value| of those rows is below 2^15 times it."""
+    P = dz.shape[0]
+    a = dz.float().abs()
+    m = torch.stack([a[:, b * WIDTH:(b + 1) * WIDTH].amax(1) for b in range(ZS_BLOCKS)], 1)
+    r = (15 - torch.frexp(m).exponent).clamp(-100, 100)
+    unit = torch.where(m > 0, torch.exp2(-r.float()), torch.zeros_like(m))
+    n_tiles = -(-P // DGRAD_TILE)
+    unit = F.pad(unit, (0, 0, 0, n_tiles * DGRAD_TILE - P)).reshape(n_tiles, DGRAD_TILE, ZS_BLOCKS)
+    return torch.stack([unit[:, w::ZS_WARPS].amax(1) for w in range(ZS_WARPS)], 2)
+
+
 # ---------------------------------------------------------------------------
 # kernels
 # ---------------------------------------------------------------------------
@@ -564,8 +614,10 @@ def _bwd_lib() -> ctypes.CDLL:
     lib = build.load("nerf_mlp_bwd")
     if not getattr(lib, "_lushnerf_typed", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.nerf_mlp_bwd.argtypes = [vp] * 7 + [ci] * 6 + [vp]
+        lib.nerf_mlp_bwd.argtypes = [vp] * 9 + [ci] * 7 + [vp]
         lib.nerf_mlp_bwd.restype = ci
+        lib.nerf_mlp_bwd_zs_shape.argtypes = [ci]
+        lib.nerf_mlp_bwd_zs_shape.restype = ci
         lib.nerf_mlp_bwd_w_numel.argtypes = [ci, ci]
         lib.nerf_mlp_bwd_w_numel.restype = ctypes.c_longlong
         lib.nerf_mlp_bwd_fp_numel.argtypes = []
@@ -574,8 +626,11 @@ def _bwd_lib() -> ctypes.CDLL:
         lib.nerf_mlp_bwd_acts_ld.restype = ctypes.c_longlong
         lib.nerf_mlp_bwd_error_string.argtypes = [ci]
         lib.nerf_mlp_bwd_error_string.restype = ctypes.c_char_p
-        if lib.nerf_mlp_bwd_fp_numel() != FP_NUMEL or lib.nerf_mlp_bwd_acts_ld() != ACTS_LD:
-            raise RuntimeError("nerf_mlp_bwd: f32 blob or stash layout differs from the CUDA source")
+        if lib.nerf_mlp_bwd_fp_numel() != FP_NUMEL or lib.nerf_mlp_bwd_acts_ld() != ACTS_LD \
+                or [lib.nerf_mlp_bwd_zs_shape(i) for i in range(4)] != [
+                    DGRAD_TILE, ZS_BLOCKS, ZS_WARPS, len(WGRAD_F32_CLOCKS)]:
+            raise RuntimeError("nerf_mlp_bwd: f32 blob, stash layout, scale units or clocks differ "
+                               "from the CUDA source")
         lib._lushnerf_typed = True
     return lib
 
@@ -586,7 +641,7 @@ def _dgrad_lib() -> ctypes.CDLL:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.nerf_mlp_dgrad_bf16.argtypes = [vp] * 10 + [ci] * 6 + [vp]
         lib.nerf_mlp_dgrad_bf16.restype = ci
-        lib.nerf_mlp_dgrad_f32.argtypes = [vp] * 11 + [ci] * 6 + [vp]
+        lib.nerf_mlp_dgrad_f32.argtypes = [vp] * 12 + [ci] * 6 + [vp]
         lib.nerf_mlp_dgrad_f32.restype = ci
         lib.nerf_mlp_dgrad_n_stamps.argtypes = [ci]
         lib.nerf_mlp_dgrad_n_stamps.restype = ci
@@ -719,7 +774,8 @@ class BwdLaunch:
     caller on the main path; `chip_smoke.py` also times the dgrad
     (`run(DGRAD)`) and the wgrad with its reductions (`run(WGRAD)`, on the
     scratch of an earlier dgrad) apart, and reads the dgrad's stage stamps
-    (`stage_stamps()`, labelled by `stages`).
+    (`stage_stamps()`, labelled by `stages`) and the f32 wgrad's cycles
+    (`wgrad_clocks()`, labelled by WGRAD_F32_CLOCKS).
 
     The dgrad is csrc/nerf_mlp_dgrad.cu in both modes; the wgrad and
     reductions are csrc/nerf_mlp_bwd.cu's.  Without a stash (remat, K3)
@@ -763,16 +819,22 @@ class BwdLaunch:
         self.dz = torch.empty((P, ACTS_LD), dtype=cdt, device=dev)
         self.pe = torch.empty((P, self.kx + self.kd), dtype=cdt, device=dev)
         self.n_tiles = -(-P // DGRAD_TILE)
-        self.n_blocks = min(self.n_tiles, sm_count(dev))
-        self.n_splits = max(1, min(32, -(-P // 16384)))
+        self.n_sm = sm_count(dev)
+        self.n_blocks = min(self.n_tiles, self.n_sm)
+        self.n_splits = wgrad_splits(P, compute_dtype)
         self.fp_part = torch.empty((self.n_blocks, FP_NUMEL), dtype=torch.float32, device=dev)
         self.w_part = torch.empty((self.n_splits, wn), dtype=torch.float32, device=dev)
-        # the f32 dgrad's W5a partial of d_pe_x, per block
-        self.dpe5 = (None if self.bf16 else
-                     torch.empty((self.n_blocks, DGRAD_TILE, self.kx), dtype=torch.float32, device=dev))
+        # f32: the dgrad's W5a partial of d_pe_x, per block, and its scale
+        # units of dz, which the wgrad reads
+        self.dpe5 = self.zs = None
+        if not self.bf16:
+            self.dpe5 = torch.empty((self.n_blocks, DGRAD_TILE, self.kx), dtype=torch.float32,
+                                    device=dev)
+            self.zs = torch.empty((self.n_tiles, ZS_BLOCKS, ZS_WARPS), dtype=torch.float32,
+                                  device=dev)
         _check_aligned("nerf_mlp_bwd", self.xd, self.g, self.wt, self.fp, self.acts, self.dz,
                        self.pe, self.dxd, self.fp_part, self.w_part, self.dw, self.dfp,
-                       *([] if self.bf16 else [self.dpe5]))
+                       *([] if self.bf16 else [self.dpe5, self.zs]))
 
     def _count(self, n: int) -> None:
         global launches_bwd_stash, launches_bwd_remat
@@ -781,13 +843,15 @@ class BwdLaunch:
         else:
             launches_bwd_stash += n
 
-    def _wgrad(self) -> None:
+    def _wgrad(self, clk: Optional[torch.Tensor] = None) -> None:
         with torch.cuda.device(self.dev):
             rc = self.lib.nerf_mlp_bwd(
                 self.acts.data_ptr(), self.dz.data_ptr(), self.pe.data_ptr(),
+                None if self.zs is None else self.zs.data_ptr(),
                 self.fp_part.data_ptr(), self.w_part.data_ptr(), self.dw.data_ptr(),
-                self.dfp.data_ptr(), self.P, self.kx, self.kd, int(self.bf16), self.n_blocks,
-                self.n_splits, torch.cuda.current_stream(self.dev).cuda_stream,
+                self.dfp.data_ptr(), None if clk is None else clk.data_ptr(), self.P, self.kx,
+                self.kd, int(self.bf16), self.n_blocks, self.n_splits, self.n_sm,
+                torch.cuda.current_stream(self.dev).cuda_stream,
             )
         if rc != 0:
             raise RuntimeError(
@@ -804,7 +868,8 @@ class BwdLaunch:
             if self.bf16:
                 rc = self.dlib.nerf_mlp_dgrad_bf16(*common, *tail)
             else:
-                rc = self.dlib.nerf_mlp_dgrad_f32(*common, self.dpe5.data_ptr(), *tail)
+                rc = self.dlib.nerf_mlp_dgrad_f32(*common, self.dpe5.data_ptr(), self.zs.data_ptr(),
+                                                  *tail)
         if rc != 0:
             raise RuntimeError(
                 f"nerf_mlp_dgrad: CUDA error {rc} "
@@ -834,6 +899,16 @@ class BwdLaunch:
                              dtype=torch.int64, device=self.dev)
         self.run(self.DGRAD, stamps)
         return stamps
+
+    def wgrad_clocks(self) -> torch.Tensor:
+        """Runs the f32 wgrad's instrumented instantiation once, with its
+        reductions, on the scratch of an earlier dgrad (not counted):
+        [len(WGRAD_F32_CLOCKS)] int64 clock64() cycles of block 0."""
+        if self.bf16:
+            raise ValueError("wgrad_clocks: the f32 wgrad's")
+        clk = torch.zeros(len(WGRAD_F32_CLOCKS), dtype=torch.int64, device=self.dev)
+        self._wgrad(clk)
+        return clk
 
     @property
     def stages(self) -> List[str]:

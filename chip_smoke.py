@@ -46,9 +46,12 @@ the final result line):
      split), beside the wgrad its 12 weight blocks through torch.mm (12
      calls, a yardstick), and the dgrad's time by stage from the clock64
      stamps of an instrumented instantiation (f32: also its PE warps'
-     cycles by task, and the wgrad's cycles in its consumers and its
-     converters, `wgrad stages at P = ...`); so the forward's too, f32 and
-     bf16, output only and with the stash;
+     cycles by task), and the wgrad's cycles in its consumers and its
+     converters (f32) or its TMA producer (bf16), `wgrad stages at P =
+     ...`; so the forward's too, f32 and bf16, output only and with the
+     stash; in bf16 at every P also the wgrad's weight grads against the
+     plain f32 products of its own dz, stash and PE scratch, tile by tile
+     within WGRAD_ALONE_TOL;
   5. forward_kernel: the flagship config (29 images, 1024 rays x 5
      sub-rays, 400x400, focal 320) -- finite outputs, exactly 2 kernel
      launches per call, agreement with the plain-torch backend on the
@@ -144,6 +147,11 @@ BF16_MEAN_ERR_SHARE = 0.1  # of the plain version's mean f32-vs-bf16 gap
 # bf16: besides, each d_z is rounded to bf16 after a sum in another order,
 # so some roundings land on the neighbouring bf16 value (2^-8 relative).
 BWD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+# the bf16 wgrad's weight grads against the plain f32 products dZ^T A of its
+# own dz, stash and PE scratch, max |error| of each tile over its max
+# |value|: the bf16 products are exact in f32, so only the order of the f32
+# sums differs (the tensor core's within a split, then the splits)
+WGRAD_ALONE_TOL = 1e-4
 # the forward's stash vs the plain version's, max |error| of each block over
 # its max |value|.  f32: sums in another order; bf16: such a sum sends some
 # values to the neighbouring bf16 value, one step of at most 2^-7 of it
@@ -515,16 +523,34 @@ def torch_wgrad_mm_ms(run) -> float:
     return time_ms(mm12, 5)
 
 
-def wgrad_clock_shares(fused, clk, wgrad_ms: float) -> dict:
-    """The f32 wgrad's block-0 cycles (fused.WGRAD_F32_CLOCKS) as shares of
-    its consumers' and its converters' totals, and those shares of the
-    wgrad's measured ms."""
-    c = dict(zip(fused.WGRAD_F32_CLOCKS, clk.cpu().tolist()))
+def wgrad_clock_shares(run, wgrad_ms: float) -> dict:
+    """A wgrad's block-0 cycles from its instrumented instantiation (labelled
+    by run.wgrad_clock_names) as shares of its consumers' total and of its
+    loaders' (f32: the converters; bf16: the TMA producer thread), and the
+    consumers' shares of the wgrad's measured ms."""
+    c = dict(zip(run.wgrad_clock_names, run.wgrad_clocks().cpu().tolist()))
     mm = {k: c[k] / c["mm_all"] for k in ("mm_full_wait", "mm", "mm_epilogue")}
-    conv = {k: c[k] / c["conv_all"]
-            for k in ("conv_load_issue", "conv_empty_wait", "conv_scale", "conv_work")}
-    return {"cycles": c, "consumer_share": mm, "converter_share": conv,
-            "consumer_ms": {k: v * wgrad_ms for k, v in mm.items()}}
+    loader, total = ("converter", "conv_all") if "conv_all" in c else ("producer", "load_all")
+    side = {k: v / c[total] for k, v in c.items() if k.startswith(total[:4]) and k != total}
+    return {"cycles": c, "consumer_share": mm, f"{loader}_share": side, "loader": loader,
+            "loader_cycles": c[total], "consumer_ms": {k: v * wgrad_ms for k, v in mm.items()}}
+
+
+def wgrad_alone(fused, run) -> dict:
+    """The wgrad's weight grads (run.dw after run.run()) against the plain
+    f32 products dZ^T A of its own dz, stash and PE scratch, tile by tile
+    of fused.wgrad_items: each tile's max |error| over its max |value|,
+    within WGRAD_ALONE_TOL."""
+    worst = 0.0
+    for _, _, rows, I, off, ldw, zc, from_pe, ac in fused.wgrad_items(1, run.kx, run.kd):
+        got = torch.as_strided(run.dw, (rows, I), (ldw, 1), off)
+        src = run.pe if from_pe else run.acts
+        want = run.dz[:, zc:zc + rows].float().T @ src[:, ac:ac + I].float()
+        err = (got - want).abs().max() / want.abs().max().clamp_min(1e-30)
+        worst = max(worst, err.item())
+        del want
+    return {"wgrad_alone_max_rel_err": worst, "wgrad_alone_tol_share": worst / WGRAD_ALONE_TOL,
+            "wgrad_alone_within_tol": worst <= WGRAD_ALONE_TOL}
 
 
 def bwd_parts(fused, mlp, xd, g, dtype, acts, breakdown: bool) -> dict:
@@ -537,8 +563,8 @@ def bwd_parts(fused, mlp, xd, g, dtype, acts, breakdown: bool) -> dict:
     read once and the weight grads written once, with beside it this
     design's per-split partials written and read once); beside the wgrad a
     yardstick, its 12 blocks through torch.mm; with `breakdown` also the
-    dgrad's stage breakdown and, in f32, the wgrad's cycles in its
-    consumers and its converters."""
+    dgrad's stage breakdown and the wgrad's cycles in its consumers and its
+    converters (f32) or its producer (bf16)."""
     P = xd.shape[0]
     bf16 = dtype == "bfloat16"
     run = fused.BwdLaunch(mlp, xd, g, dtype, 10, 4, acts)
@@ -569,12 +595,11 @@ def bwd_parts(fused, mlp, xd, g, dtype, acts, breakdown: bool) -> dict:
               f"{r['dgrad_stages']['cycles_per_tile']:.0f} cycles a tile): "
               + json.dumps(r["dgrad_stages"]["group_share"]) + "; off the path: "
               + json.dumps(r["dgrad_stages"]["off_path_share_of_tile"]), flush=True)
-        if not bf16:
-            w = r["wgrad_stages"] = wgrad_clock_shares(fused, run.wgrad_clocks(), r["wgrad_ms"])
-            print(f"  wgrad stages at P = {P} ({dtype}, {r['wgrad_ms']:.3f} ms, block 0: "
-                  f"consumers {w['cycles']['mm_all']} cycles, converters "
-                  f"{w['cycles']['conv_all']}): consumers " + json.dumps(w["consumer_share"])
-                  + "; converters " + json.dumps(w["converter_share"]), flush=True)
+        w = r["wgrad_stages"] = wgrad_clock_shares(run, r["wgrad_ms"])
+        print(f"  wgrad stages at P = {P} ({dtype}, {r['wgrad_ms']:.3f} ms, block 0: "
+              f"consumers {w['cycles']['mm_all']} cycles, {w['loader']} {w['loader_cycles']}): "
+              f"consumers " + json.dumps(w["consumer_share"]) + f"; {w['loader']} "
+              + json.dumps(w[f"{w['loader']}_share"]), flush=True)
     del run
     return r
 
@@ -634,8 +659,13 @@ def kernel_bwd_phase(fused, NeRFMLP, MLPConfig):
                        **held_fwd(out_k, out_p, out_f, dtype),
                        **held_stash(acts_k, acts_p, acts_f, dtype))
             del out_f, acts_f
-            k2 = flat_grads(fused.nerf_mlp_bwd(mlp, xd, g, dtype, acts=acts_k))
+            run = fused.BwdLaunch(mlp, xd, g, dtype, 10, 4, acts_k)
+            run.run()
+            k2 = flat_grads(run.result())
             torch.cuda.synchronize()
+            if bf16:
+                row.update(wgrad_alone(fused, run))
+            del run
             k2b = flat_grads(fused.nerf_mlp_bwd(mlp, xd, g, dtype, acts=acts_k))
             torch.cuda.synchronize()
             k3 = flat_grads(fused.nerf_mlp_bwd(mlp, xd, g, dtype))
@@ -1472,7 +1502,8 @@ def kernel_entries(results):
 
 def bwd_split(bwd_rows) -> dict:
     """K2's dgrad and its wgrad with the reductions, timed apart in both
-    dtypes at both flagship P, and the dgrad's stage shares at the fine P."""
+    dtypes at both flagship P, the dgrad's and the wgrad's stage shares at
+    the fine P, and the bf16 wgrad's error on its own scratch at every P."""
     rows = [r for r in bwd_rows if "dgrad_ms" in r]
     out = {"split": [{k: r[k] for k in ("dtype", "P", "dgrad_ms", "dgrad_bound_ms", "dgrad_bound_by",
                                         "wgrad_ms", "wgrad_bound_ms", "wgrad_bound_by",
@@ -1483,6 +1514,8 @@ def bwd_split(bwd_rows) -> dict:
             out[f"dgrad_stage_share_{r['dtype']}"] = r["dgrad_stages"]["group_share"]
         if "wgrad_stages" in r:
             out[f"wgrad_consumer_share_{r['dtype']}"] = r["wgrad_stages"]["consumer_share"]
+    out["bf16_wgrad_alone_max_rel_err"] = {r["P"]: r["wgrad_alone_max_rel_err"]
+                                            for r in bwd_rows if "wgrad_alone_max_rel_err" in r}
     return out
 
 

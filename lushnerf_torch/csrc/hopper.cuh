@@ -1,14 +1,15 @@
 // Hopper (sm_90a) building blocks for hand-written kernels: mbarriers,
-// the Tensor Memory Accelerator (2-D tensor maps, bulk copies and tensor
-// stores), wgmma shared-memory descriptors, wgmma itself for the widths the
-// kernels use, proxy fences and named barriers.
+// the Tensor Memory Accelerator (2-D tensor maps, bulk copies, multicast
+// loads and tensor stores), wgmma shared-memory descriptors, wgmma itself
+// for the widths the kernels use, proxy fences, named barriers and
+// thread block clusters.
 // Plain inline PTX, no CuTe, so that a source including it builds in
 // seconds.  Device code unless marked host.
 //
 // Shared-memory operand layout of the wgmma here: "K-major, 128-byte
-// swizzle" (with MN = true, fp16 only, its MN-major counterpart:
-// wgmma_desc_mn).  A matrix of R rows and 64 bf16 columns (one "chunk", 128
-// bytes a row) is stored row after row, and within each group of 8 rows
+// swizzle" (with MN = true, its MN-major counterpart: wgmma_desc_mn).  A
+// matrix of R rows and 64 bf16 columns (one "chunk", 128 bytes a row) is
+// stored row after row, and within each group of 8 rows
 // (1024 bytes, 1024-aligned) the 16-byte piece q of row r sits at piece
 // position q ^ (r % 8).  A TMA map with CU_TENSOR_MAP_SWIZZLE_128B and a
 // 64-column box writes exactly this layout; swz128() gives the byte offset
@@ -107,6 +108,17 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, i
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
       : "memory");
 }
+// The box of `map` at (c0, c1) into the same offset of the shared memory
+// of each block of the cluster in `mask` (bit r: rank r), completing on the
+// mbarrier at `bar`'s offset in each.
+__device__ __forceinline__ void tma_load_2d_multicast(void* dst, const CUtensorMap* map, int c0,
+                                                      int c1, uint64_t* bar, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "h"(mask)
+      : "memory");
+}
 // Shared `src` to the box of `map` at (c0, c1); rows past the map's extent
 // are dropped.  Tracked by the issuing thread's bulk groups.
 __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0,
@@ -163,6 +175,41 @@ __device__ __forceinline__ float2 unpack_f16(uint32_t u) {
   return __half22float2(*reinterpret_cast<const __half2*>(&u));
 }
 
+// ---------------------------------------------------------------------------
+// thread block clusters
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ uint32_t cluster_index() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%clusterid.x;" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ uint32_t cluster_count() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%nclusterid.x;" : "=r"(r));
+  return r;
+}
+// One arrival on the mbarrier at `bar`'s offset in the shared memory of the
+// cluster's block `rank`.
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar, uint32_t rank) {
+  asm volatile(
+      "{\n.reg .b32 a;\n"
+      "mapa.shared::cluster.u32 a, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [a];\n}\n" ::"r"(smem_u32(bar)),
+      "r"(rank)
+      : "memory");
+}
+// Every thread of the cluster's blocks: their writes before it (mbarrier
+// inits included) are seen by all after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
 // Named barrier `id` (1..15) over `count` threads (a multiple of 32).
 __device__ __forceinline__ void named_bar(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
@@ -189,7 +236,7 @@ __device__ __forceinline__ uint64_t wgmma_desc(const void* p) {
   return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
 }
 
-// Descriptor of an MN-major ("transposed") 128-byte-swizzled fp16 operand:
+// Descriptor of an MN-major ("transposed") 128-byte-swizzled 16-bit operand:
 // atoms of 8 K rows x 64 MN columns, each K row's 64 columns (128 bytes)
 // contiguous and swizzled as a K-major chunk's row (swz128(k % 8, mn % 64)),
 // each atom 1024 bytes and 1024-aligned; atoms `lbo` bytes apart along MN
@@ -233,8 +280,8 @@ template <int R, bool F16 = false, bool MN = false>
 __device__ __forceinline__ void wgmma_m64n32k16(float (&d)[R], uint64_t da, uint64_t db,
                                                int scale_d) {
   static_assert(R >= 16, "accumulator too small");
-  static_assert(!MN || F16, "MN-major operands: fp16 here");
-  if constexpr (MN) HOPPER_WGMMA_N32("f16", "1, 1");
+  if constexpr (MN && F16) HOPPER_WGMMA_N32("f16", "1, 1");
+  else if constexpr (MN) HOPPER_WGMMA_N32("bf16", "1, 1");
   else if constexpr (F16) HOPPER_WGMMA_N32("f16", "0, 0");
   else HOPPER_WGMMA_N32("bf16", "0, 0");
 }
@@ -258,8 +305,8 @@ template <int R, bool F16 = false, bool MN = false>
 __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[R], uint64_t da, uint64_t db,
                                                int scale_d) {
   static_assert(R >= 32, "accumulator too small");
-  static_assert(!MN || F16, "MN-major operands: fp16 here");
-  if constexpr (MN) HOPPER_WGMMA_N64("f16", "1, 1");
+  if constexpr (MN && F16) HOPPER_WGMMA_N64("f16", "1, 1");
+  else if constexpr (MN) HOPPER_WGMMA_N64("bf16", "1, 1");
   else if constexpr (F16) HOPPER_WGMMA_N64("f16", "0, 0");
   else HOPPER_WGMMA_N64("bf16", "0, 0");
 }
@@ -286,8 +333,8 @@ template <int R, bool F16 = false, bool MN = false>
 __device__ __forceinline__ void wgmma_m64n96k16(float (&d)[R], uint64_t da, uint64_t db,
                                                int scale_d) {
   static_assert(R >= 48, "accumulator too small");
-  static_assert(!MN || F16, "MN-major operands: fp16 here");
-  if constexpr (MN) HOPPER_WGMMA_N96("f16", "1, 1");
+  if constexpr (MN && F16) HOPPER_WGMMA_N96("f16", "1, 1");
+  else if constexpr (MN) HOPPER_WGMMA_N96("bf16", "1, 1");
   else if constexpr (F16) HOPPER_WGMMA_N96("f16", "0, 0");
   else HOPPER_WGMMA_N96("bf16", "0, 0");
 }
@@ -317,8 +364,8 @@ template <int R, bool F16 = false, bool MN = false>
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[R], uint64_t da, uint64_t db,
                                                int scale_d) {
   static_assert(R >= 64, "accumulator too small");
-  static_assert(!MN || F16, "MN-major operands: fp16 here");
-  if constexpr (MN) HOPPER_WGMMA_N128("f16", "1, 1");
+  if constexpr (MN && F16) HOPPER_WGMMA_N128("f16", "1, 1");
+  else if constexpr (MN) HOPPER_WGMMA_N128("bf16", "1, 1");
   else if constexpr (F16) HOPPER_WGMMA_N128("f16", "0, 0");
   else HOPPER_WGMMA_N128("bf16", "0, 0");
 }
@@ -360,8 +407,8 @@ template <int R, bool F16 = false, bool MN = false>
 __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[R], uint64_t da, uint64_t db,
                                                 int scale_d) {
   static_assert(R >= 128, "accumulator too small");
-  static_assert(!MN || F16, "MN-major operands: fp16 here");
-  if constexpr (MN) HOPPER_WGMMA_N256("f16", "1, 1");
+  if constexpr (MN && F16) HOPPER_WGMMA_N256("f16", "1, 1");
+  else if constexpr (MN) HOPPER_WGMMA_N256("bf16", "1, 1");
   else if constexpr (F16) HOPPER_WGMMA_N256("f16", "0, 0");
   else HOPPER_WGMMA_N256("bf16", "0, 0");
 }

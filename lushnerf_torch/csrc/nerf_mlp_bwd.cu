@@ -31,27 +31,27 @@
 //      grads (K = 3 and 1) into per-block partials, and d(xd); in f32 also
 //      the scale units of dz (`zs`, below);
 //   2. wgrad: dW = dZ^T A for the 12 weight blocks of the weight blob in
-//      one launch, per point split into f32 partials: bf16 one block per
-//      128 x 128 output tile and split, A and dZ staged row-major with
-//      cp.async and read transposed by ldmatrix.trans into mma.sync; f32 on
-//      wgmma (below);
+//      one launch, per point split into f32 partials, on wgmma with dZ and
+//      A read as they lie (MN-major): bf16 from TMA-loaded stages, f32
+//      from the split (below);
 //   3. reduce (twice): the partials summed in split / block order.
 // The remat backward (K3) is the stash backward on a stash that the
 // forward kernel writes into scratch first (lushnerf_torch/ops/fused/
 // nerf_mlp.py), so the two give the same bits.
-// What bounds the wgrad: in bf16 operations (1,186,816 FLOP per point at
-// the bf16 tensor rate) against its reads of dz, the stash and the PE; in
-// f32 bytes (below).
+// What bounds the wgrad: in both modes its reads of dz, the stash and the
+// PE (below).
 //
 // Layouts of the weight blob, the f32 blob and the stash:
 // nerf_mlp_common.cuh.  The weight grad `dw` has the weight blob's layout
 // in f32; the f32-blob grad `dfp` has the f32 blob's layout (bias grads and
 // the two heads' weight grads).
 
+#include <algorithm>
+
 #include "hopper.cuh"
 #include "nerf_mlp_common.cuh"
 
-// The f32 wgrad's shared memory: at file scope, so that every address in it
+// The wgrads' shared memory: at file scope, so that every address in it
 // is a constant.
 extern __shared__ __align__(1024) unsigned char wsmem[];
 
@@ -63,11 +63,22 @@ using namespace hopper;
 // ---------------------------------------------------------------------------
 // wgrad: dW[o][i] = sum_p dZ[p][o] A[p][i], split over the points
 // ---------------------------------------------------------------------------
+//
+// Both modes share the output tiles: 128 rows o (a layer's outputs) by all
+// of a block's I <= 256 columns i (its inputs), the 17 tiles of width 256
+// first, then the 5 narrow ones (W0, W5a: I = kx, Wvd: I = kd).  A
+// persistent grid takes (tile, point split) work in split-major order, the
+// wide tiles of every split first: the f32 wgrad item by item (`item_of`),
+// block b taking items b, b + grid, ..., so that both o-halves of a
+// weight block's A columns are read close in time; the bf16 wgrad a
+// weight block's two halves at once on the two blocks of a cluster
+// (`bf16w::unit_of`).  Each tile sums its split's points in one fixed
+// order into f32 registers and stores its partial; the reductions sum the
+// partials in split order.
 
 constexpr int N_JOBS = 12;
-constexpr int MAX_TILES = 48;
-constexpr int WG_KT = 32;            // points per stage
-constexpr int WG_LD_B = 128 + 8;     // bf16 stage row: 68 words, ldmatrix conflict-free
+constexpr int N_TILES = 22;  // 17 of width 256, then 5 narrow
+constexpr int N_WIDE = 17;
 
 struct WJob {
   long long out_off;  // the block's first element in the weight blob
@@ -78,124 +89,319 @@ struct WJob {
   int ldw;            // row length of the matrix in the blob
 };
 
-template <typename AT> struct WgradArgs {
-  const AT* dz;
-  const AT* acts;
-  const AT* pe;
-  float* part;        // [n_splits][w_numel]
-  long long part_stride;
-  int P, pts_per_split, pe_ld;
-  WJob jobs[N_JOBS];
-  unsigned char tile_job[MAX_TILES];
-  short tile_o0[MAX_TILES], tile_i0[MAX_TILES];
+struct WTile {
+  long long out_off;  // element (o0, 0) of the tile's block in the weight layout
+  int ldw;            // the block's row length there
+  int z_col;          // dz column of the tile's row o0
+  int zb;             // dz block (f32: its scale units in zs)
+  int a_pe, a_col;    // A from the PE scratch (1) or the stash (0), from column a_col
 };
 
-__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem, bool fill) {
-  uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  const int n = fill ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
+// Item `it` of the f32 wgrad (or of another `a` with n_splits, kx, kd):
+// every split's wide tiles, then every split's narrow ones.  Returns the
+// tile's columns I.
+template <typename Args>
+__host__ __device__ __forceinline__ int item_of(const Args& a, int it, int& tile, int& split) {
+  constexpr int NN = N_TILES - N_WIDE;
+  if (it < N_WIDE * a.n_splits) {
+    split = it / N_WIDE;
+    tile = it % N_WIDE;
+    return W;
+  }
+  it -= N_WIDE * a.n_splits;
+  split = it / NN;
+  tile = N_WIDE + it % NN;
+  return tile < N_TILES - 1 ? a.kx : a.kd;
 }
 
-// One stage: WG_KT points x 128 columns of dZ (at o0) and of A (at i0; zero
-// past the block's I columns and past k_end) into row-major [WG_KT][LD].
-template <typename AT, int LD>
-__device__ __forceinline__ void wgrad_stage(AT* sz, AT* sa, const WgradArgs<AT>& a,
-                                            const WJob& job, const AT* asrc, int a_ld,
-                                            int o0, int i0, int k0, int k_end) {
-  constexpr int V = 16 / sizeof(AT);
-  constexpr int CH = WG_KT * (128 / V);
-  for (int c = threadIdx.x; c < 2 * CH; c += NTHREADS) {
-    const bool is_a = c >= CH;
-    const int cc = is_a ? c - CH : c;
-    const int p = cc / (128 / V), q = (cc % (128 / V)) * V;
-    const bool in_k = k0 + p < k_end;
-    if (!is_a) {
-      const AT* src = in_k ? a.dz + (size_t)(k0 + p) * ACTS_LD + job.z_col + o0 + q : a.dz;
-      cp_async16_zfill(sz + p * LD + q, src, in_k);
-    } else {
-      const bool ok = in_k && i0 + q < job.I;
-      const AT* src = ok ? asrc + (size_t)(k0 + p) * a_ld + job.a_col + i0 + q : asrc;
-      cp_async16_zfill(sa + p * LD + q, src, ok);
+// The points [k0, k1) of a split and its stages of KS points (every split
+// but the last is a whole number of them).
+template <int KS, typename Args>
+__device__ __forceinline__ int split_stages(const Args& a, int split, int& k0, int& k1) {
+  k0 = split * a.pts_per_split;
+  k1 = min(a.P, k0 + a.pts_per_split);
+  return k1 > k0 ? (k1 - k0 + KS - 1) / KS : 0;
+}
+
+// N cycle counts of block 0 in an instrumented instantiation (PROF).
+template <bool PROF, int N> struct Clocks {
+  long long c[N];
+  long long t;
+  bool on;
+  __device__ __forceinline__ explicit Clocks(const long long* clk)
+      : t(0), on(PROF && blockIdx.x == 0 && clk) {
+    for (int i = 0; i < N; ++i) c[i] = 0;
+  }
+  __device__ __forceinline__ void start() {
+    if constexpr (PROF) t = clock64();
+  }
+  __device__ __forceinline__ void stop(int i) {
+    if constexpr (PROF) c[i] += clock64() - t;
+  }
+};
+
+// A consumer warpgroup's 64 rows of an item's f32 partial (times `down`),
+// from row `row0` of the tile: acc[4 j + 2 rr + c] is row 16 warp + lane /
+// 4 + 8 rr, column 8 j + 2 (lane % 4) + c of the accumulator of an m64nNk16.
+template <int N>
+__device__ __forceinline__ void store_partial(float* part, const WTile& t, int I, int row0,
+                                              const float (&acc)[N / 2], float down) {
+  const int lane = threadIdx.x & 31, col0 = 2 * (lane & 3);
+  const int row = row0 + 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);
+  float* out = part + t.out_off + (size_t)row * t.ldw;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    if (8 * j >= I) break;  // (I is a multiple of 32: the warp takes the branch as one)
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr)
+      __stcs(reinterpret_cast<float2*>(out + (size_t)(8 * rr) * t.ldw + 8 * j + col0),
+             make_float2(acc[4 * j + 2 * rr] * down, acc[4 * j + 2 * rr + 1] * down));
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the bf16 wgrad: TMA-fed wgmma on MN-major bf16 stages, two-block clusters
+// ---------------------------------------------------------------------------
+//
+// Replaces, in bf16 mode, the weight-grad half of `_bwd_math` (`dotT(a,
+// d_z)` on bf16 inputs with f32 accumulation, lushnerf_tpu/ops/fused/
+// nerf_mlp.py:554-568, summed over the point tiles by `_acc_grads` :576).
+//
+// What bounds it: bytes.  Per point it reads 4,864 B of dz, 4,608 B of
+// stash (a0..a7, feat) and 2 (kx + kd) B of PE: 1.89 ms at P = 655,360,
+// against 0.79 ms for its 778 GFLOP at the bf16 tensor rate.  The design
+// also writes and reads back one f32 partial of the weight grads per point
+// split (2.4 MB each).
+//
+// Design: dz, the stash and the PE lie [points][columns] in bf16, which is
+// wgmma's MN-major layout of a 16-bit operand with the points as K, so no
+// thread touches an operand.  Each block's producer thread loads its
+// stages by TMA (2-D maps over dz, the stash and the PE; boxes of 64 points
+// x 64 columns in the 128-byte swizzle, zeros past P and past the PE's
+// columns) into a ring of four 48 KB stages on mbarriers; two consumer
+// warpgroups, 64 rows o each, run m64nNk16 (N = I rounded up to 64) with
+// dZ^T and A read from the stage through `wgmma_desc_mn` and the transpose
+// flags, and store the partial.  The grid is persistent, in clusters of two
+// blocks (one an SM) that take the same unit of work at once: the two
+// 128-row o-halves of a weight block (or the two 64-row halves of Wvf's and
+// Wvd's 128 rows) over one point split.  Each block loads its own dz boxes;
+// the A boxes, which both halves read, are loaded once and multicast into
+// both blocks' stages (each producer issues half of them), so that A leaves
+// device memory once: two blocks that each loaded A drifted apart and read
+// much of it twice (PERF.md).  A stage is free when the consumers of both
+// blocks have read it.  Units go split by split, the 9 wide ones (I = 256)
+// of every split first, then the 3 narrow ones (W0, W5a: I = kx; Wvd: I =
+// kd).  Every split but the last is a whole number of stages, so a box
+// never reaches into the next split.
+
+namespace bf16w {
+constexpr int KS = 64;                    // points a stage: one box deep
+constexpr int ATOM = 1024;                // [8 points][64 columns] bf16, 128-byte swizzle
+constexpr int BOX_B = KS / 8 * ATOM;      // a box, [64 points][64 columns] (8 KB)
+constexpr int S_Z = 0, S_A = 2 * BOX_B;   // dz's 128 columns, then up to 256 of A
+constexpr int STAGE_B = S_A + 4 * BOX_B;  // 48 KB
+constexpr int NST = 4;                    // ring stages
+constexpr int NCONS = 256;                // two consumer warpgroups
+constexpr int NTHR = NCONS + 128;         // and a producer warpgroup (one thread issues)
+constexpr int CLUSTER = 2;                // blocks a cluster
+constexpr int N_UNITS_WIDE = 9, N_UNITS_NARROW = 3;  // units a split
+constexpr int SM_BARS = NST * STAGE_B;    // mbarriers: FULL + s, EMPTY + s
+enum { FULL = 0, EMPTY = NST, N_BARS = 2 * NST };
+constexpr int SMEM = SM_BARS + N_BARS * 8;
+static_assert(SMEM <= 232448, "shared memory over the 227 KB a block may use");
+// block 0's cycles (nerf_mlp.WGRAD_BF16_CLOCKS): consumer thread 0 waiting
+// for a full stage, issuing and waiting for the matmuls, storing partials,
+// all; the producer thread waiting for a free stage, all
+enum { C_FULL, C_MM, C_EPI, C_ALL, L_EMPTY, L_ALL, N_CLK };
+
+struct Args {
+  float* part;     // [n_splits][w_numel]
+  long long* clk;  // [N_CLK] or null
+  long long part_stride;
+  int P, pts_per_split, n_splits, n_units, kx, kd;
+  WTile tiles[N_TILES];
+};
+
+// Unit `u` of a cluster's loop, as block `rank` of the cluster takes it:
+// its tile, the split, and whether the two blocks share the tile's 128
+// rows (half = 1: block r takes rows 64 r.., with its first warpgroup)
+// rather than each take a tile of the pair.  Returns the tile's columns I.
+template <typename A>
+__host__ __device__ __forceinline__ int unit_of(const A& a, int u, int rank, int& tile,
+                                                int& split, int& half) {
+  int pair;
+  if (u < N_UNITS_WIDE * a.n_splits) {
+    split = u / N_UNITS_WIDE;
+    pair = u % N_UNITS_WIDE;  // W1..W4, W5b, W6, W7, Wf; then Wvf (tile 16)
+  } else {
+    u -= N_UNITS_WIDE * a.n_splits;
+    split = u / N_UNITS_NARROW;
+    pair = N_UNITS_WIDE + u % N_UNITS_NARROW;  // W0, W5a; then Wvd (tile 21)
+  }
+  half = pair == N_UNITS_WIDE - 1 || pair == N_UNITS_WIDE + N_UNITS_NARROW - 1;
+  tile = 2 * pair - (pair < N_UNITS_WIDE ? 0 : 1) + (half ? 0 : rank);
+  return pair < N_UNITS_WIDE ? W : half ? a.kd : a.kx;
+}
+
+__device__ __forceinline__ uint64_t* wbar(int i) {
+  return reinterpret_cast<uint64_t*>(wsmem + SM_BARS) + i;
+}
+
+template <int N>
+__device__ __forceinline__ void mma_mn(float (&acc)[N / 2], uint64_t da, uint64_t db) {
+  if constexpr (N == 256) wgmma_m64n256k16<N / 2, false, true>(acc, da, db, 1);
+  else if constexpr (N == 128) wgmma_m64n128k16<N / 2, false, true>(acc, da, db, 1);
+  else wgmma_m64n64k16<N / 2, false, true>(acc, da, db, 1);
+}
+
+// Stage k read by this warp: one arrival on its free barrier in each
+// block of the cluster.
+__device__ __forceinline__ void release(int k, uint32_t rank) {
+  if ((threadIdx.x & 31) == 0) {
+    mbar_arrive(wbar(EMPTY + k % NST));
+    mbar_arrive_cluster(wbar(EMPTY + k % NST), rank ^ 1);
+  }
+}
+
+// A consumer warpgroup's part of one unit: its 64 rows o (at dz box `zb`
+// of the stage) by N columns over the split's stages, then its partial from
+// row `row0` of the tile; or, with `idle` (the other warpgroup of a shared
+// tile), only each stage's release.
+template <int N, bool PROF>
+__device__ __forceinline__ void consume(const Args& a, const WTile& t, int I, int split, int zb,
+                                        int row0, bool idle, uint32_t rank, int& kst,
+                                        Clocks<PROF, N_CLK>& ck) {
+  constexpr int R = N / 2;
+  int k0, k1;
+  const int nst = split_stages<KS>(a, split, k0, k1);
+  if (idle) {
+#pragma unroll 1
+    for (int st = 0; st < nst; ++st, ++kst) {
+      mbar_wait(wbar(FULL + kst % NST), (kst / NST) & 1);
+      release(kst, rank);
+    }
+    return;
+  }
+  float acc[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) acc[i] = 0.f;
+#pragma unroll 1
+  for (int st = 0; st < nst; ++st) {
+    const int k = kst + st, s = k % NST;
+    ck.start();
+    mbar_wait(wbar(FULL + s), (k / NST) & 1);
+    ck.stop(C_FULL);
+    ck.start();
+    const unsigned char* base = wsmem + s * STAGE_B;
+    wgmma_fence();
+    wgmma_fence_regs(acc);
+#pragma unroll
+    for (int ks = 0; ks < KS / 16; ++ks) {  // a 16-point step is two atoms along K
+      const int off = ks * 2 * ATOM;
+      mma_mn<N>(acc, wgmma_desc_mn(base + S_Z + zb * BOX_B + off, BOX_B, ATOM),
+                wgmma_desc_mn(base + S_A + off, BOX_B, ATOM));
+    }
+    wgmma_commit();
+    if (st > 0) {  // the stage before is read
+      wgmma_wait<1>();
+      release(k - 1, rank);
+    }
+    ck.stop(C_MM);
+  }
+  ck.start();
+  wgmma_wait<0>();
+  if (nst > 0) release(kst + nst - 1, rank);
+  wgmma_fence_regs(acc);
+  kst += nst;
+  store_partial<N>(a.part + (size_t)split * a.part_stride, t, I, row0, acc, 1.f);
+  ck.stop(C_EPI);
+}
+
+// The producer thread: each unit's stages into the ring as the consumers of
+// both blocks free it, its own dz boxes (two, or one of a shared tile) and
+// its half of the A boxes, multicast to both blocks.
+template <bool PROF>
+__device__ __forceinline__ void produce(const CUtensorMap* tm_dz, const CUtensorMap* tm_acts,
+                                        const CUtensorMap* tm_pe, const Args& a, uint32_t rank,
+                                        Clocks<PROF, N_CLK>& ck) {
+  int kst = 0;  // stages of the ring filled so far
+#pragma unroll 1
+  for (int u = cluster_index(); u < a.n_units; u += cluster_count()) {
+    int tile, split, half, k0, k1;
+    const int nb = (unit_of(a, u, rank, tile, split, half) + 63) / 64;
+    const WTile& t = a.tiles[tile];
+    const CUtensorMap* tm_a = t.a_pe ? tm_pe : tm_acts;
+    const int nz = half ? 1 : 2, z_col = t.z_col + (half ? 64 * rank : 0);
+    const int nst = split_stages<KS>(a, split, k0, k1);
+#pragma unroll 1
+    for (int st = 0; st < nst; ++st, ++kst) {
+      const int s = kst % NST, p0 = k0 + st * KS;
+      ck.start();
+      mbar_wait(wbar(EMPTY + s), ((kst / NST) & 1) ^ 1);
+      ck.stop(L_EMPTY);
+      uint64_t* full = wbar(FULL + s);
+      unsigned char* base = wsmem + s * STAGE_B;
+      mbar_arrive_expect_tx(full, (nz + nb) * BOX_B);
+      for (int b = 0; b < nz; ++b)
+        tma_load_2d(base + S_Z + b * BOX_B, tm_dz, z_col + 64 * b, p0, full);
+      for (int b = rank; b < nb; b += CLUSTER)
+        tma_load_2d_multicast(base + S_A + b * BOX_B, tm_a, t.a_col + 64 * b, p0, full, 3);
     }
   }
-  cp_async_commit();
 }
 
-__global__ void __launch_bounds__(NTHREADS, 2) nerf_mlp_bwd_wgrad_bf16(WgradArgs<bf16> a) {
-  __shared__ __align__(16) bf16 sz[2][WG_KT * WG_LD_B];
-  __shared__ __align__(16) bf16 sa[2][WG_KT * WG_LD_B];
-  const WJob job = a.jobs[a.tile_job[blockIdx.x]];
-  const int o0 = a.tile_o0[blockIdx.x], i0 = a.tile_i0[blockIdx.x];
-  const int k_begin = blockIdx.y * a.pts_per_split;
-  const int k_end = min(a.P, k_begin + a.pts_per_split);
-  const bf16* asrc = job.a_pe ? a.pe : a.acts;
-  const int a_ld = job.a_pe ? a.pe_ld : ACTS_LD;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp >> 2, wn = warp & 3;  // warp tile: 64 o x 32 i
-  const int g = lane >> 2, t = lane & 3;
-  const int mi = lane >> 3, rr = lane & 7;
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int k = 0; k < 4; ++k) acc[i][j][k] = 0.f;
-
-  const int nk = k_end > k_begin ? (k_end - k_begin + WG_KT - 1) / WG_KT : 0;
-  if (nk > 0)
-    wgrad_stage<bf16, WG_LD_B>(sz[0], sa[0], a, job, asrc, a_ld, o0, i0, k_begin, k_end);
-  for (int it = 0; it < nk; ++it) {
-    if (it + 1 < nk) {
-      wgrad_stage<bf16, WG_LD_B>(sz[(it + 1) & 1], sa[(it + 1) & 1], a, job, asrc, a_ld, o0, i0,
-                                 k_begin + (it + 1) * WG_KT, k_end);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+template <bool PROF>
+__global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(NTHR, 1)
+    nerf_mlp_bwd_wgrad_bf16_sm90(const __grid_constant__ CUtensorMap tm_dz,
+                                 const __grid_constant__ CUtensorMap tm_acts,
+                                 const __grid_constant__ CUtensorMap tm_pe,
+                                 const __grid_constant__ Args a) {
+  if (smem_u32(wsmem) & 1023) __trap();  // the swizzled operands need 1024-byte alignment
+  const uint32_t rank = cluster_rank();
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NST; ++s) {
+      mbar_init(wbar(FULL + s), 1);
+      mbar_init(wbar(EMPTY + s), CLUSTER * NCONS / 32);
     }
-    __syncthreads();
-    const bf16* z = sz[it & 1];
-    const bf16* x = sa[it & 1];
-#pragma unroll
-    for (int ks = 0; ks < WG_KT; ks += 16) {
-      // A fragments (rows o, k = points) from dZ stored [k][o]; B fragments
-      // (k = points, columns i) from A stored [k][i]: both transposed by
-      // ldmatrix.trans
-      uint32_t af[4][4];
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-        ldsm_x4_t(af[mt], z + (ks + rr + ((mi >> 1) << 3)) * WG_LD_B + wm * 64 + mt * 16 +
-                              ((mi & 1) << 3));
-#pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        uint32_t bfr[4];
-        ldsm_x4_t(bfr, x + (ks + rr + ((mi & 1) << 3)) * WG_LD_B + wn * 32 + np * 16 +
-                           ((mi >> 1) << 3));
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt) {
-          mma_bf16(acc[mt][2 * np], af[mt], bfr[0], bfr[1]);
-          mma_bf16(acc[mt][2 * np + 1], af[mt], bfr[2], bfr[3]);
-        }
-      }
-    }
-    __syncthreads();
+    mbar_fence_init();
   }
-  float* out = a.part + (size_t)blockIdx.y * a.part_stride + job.out_off;
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int o = o0 + wm * 64 + mt * 16 + g + 8 * h;
-        const int i = i0 + wn * 32 + nt * 8 + 2 * t;
-        if (i < job.I) {
-          out[(size_t)o * job.ldw + i] = acc[mt][nt][2 * h];
-          out[(size_t)o * job.ldw + i + 1] = acc[mt][nt][2 * h + 1];
-        }
+  cluster_sync();  // both blocks' barriers are set up before either signals the other's
+  Clocks<PROF, N_CLK> ck(a.clk);
+  const long long t_all = PROF ? clock64() : 0;
+  if (threadIdx.x < NCONS) {
+    const int wg = threadIdx.x >> 7;
+    int kst = 0;  // stages of the ring taken so far
+#pragma unroll 1
+    for (int u = cluster_index(); u < a.n_units; u += cluster_count()) {
+      int tile, split, half;
+      const int I = unit_of(a, u, rank, tile, split, half);
+      const WTile t = a.tiles[tile];
+      // a tile of its own: warpgroup wg takes rows 64 wg.. (dz box wg); a
+      // shared tile: warpgroup 0 takes the block's 64 rows (its one box)
+      const int zb = half ? 0 : wg, row0 = half ? 64 * rank : 64 * wg;
+      const bool idle = half && wg == 1;
+      if (I > 128) consume<256>(a, t, I, split, zb, row0, idle, rank, kst, ck);
+      else if (I > 64) consume<128>(a, t, I, split, zb, row0, idle, rank, kst, ck);
+      else consume<64>(a, t, I, split, zb, row0, idle, rank, kst, ck);
+    }
+    if constexpr (PROF) {
+      if (ck.on && threadIdx.x == 0) {
+        ck.c[C_ALL] = clock64() - t_all;
+        for (int i = C_FULL; i <= C_ALL; ++i) a.clk[i] = ck.c[i];
       }
+    }
+  } else if (threadIdx.x == NCONS) {
+    produce(&tm_dz, &tm_acts, &tm_pe, a, rank, ck);
+    if constexpr (PROF) {
+      if (ck.on) {
+        ck.c[L_ALL] = clock64() - t_all;
+        for (int i = L_EMPTY; i <= L_ALL; ++i) a.clk[i] = ck.c[i];
+      }
+    }
+  }
+  cluster_sync();  // no block leaves while the other may still signal its barriers
 }
+}  // namespace bf16w
 
 // ---------------------------------------------------------------------------
 // the f32 wgrad: the split on wgmma
@@ -269,7 +475,6 @@ enum { FULL = 0, EMPTY = NST, N_BARS = 2 * NST };
 constexpr int SMEM = SM_BARS + N_BARS * 8;
 static_assert(SMEM <= 232448, "shared memory over the 227 KB a block may use");
 constexpr int BAR_CONV = 1;   // named barrier of the converters
-constexpr int N_TILES = 22;   // 17 of width 256, then 5 narrow
 constexpr int ZT = 128;       // points a tile of the dgrad, whose scale units zs holds
 constexpr int ZB = 10;        // dz blocks in zs: d_z0..d_z7, d_feat, d_hv
 constexpr int ZW = 3;         // entries a tile and block: the dgrad's PE warps
@@ -279,14 +484,6 @@ constexpr int ZW = 3;         // entries a tile and block: the dgrad's PE warps
 // waiting for a free stage, the items' scales, splitting and storing a
 // stage (with the wait for its loads), all
 enum { C_FULL, C_MM, C_EPI, C_ALL, V_LOAD, V_EMPTY, V_SCALE, V_WORK, V_ALL, N_CLK };
-
-struct WTile {
-  long long out_off;  // element (o0, 0) of the tile's block in the weight layout
-  int ldw;            // the block's row length there
-  int z_col;          // dz column of the tile's row o0
-  int zb;             // dz block (its scale units in zs)
-  int a_pe, a_col;    // A from the PE scratch (1) or the stash (0), from column a_col
-};
 
 struct Args {
   const float* dz;     // [P, ACTS_LD]
@@ -306,41 +503,7 @@ __device__ __forceinline__ uint64_t* wbar(int i) {
 __device__ __forceinline__ float* wf32(int off) { return reinterpret_cast<float*>(wsmem + off); }
 __device__ __forceinline__ float pow2(int r) { return __int_as_float((127 + r) << 23); }
 
-// Item `it`: every split's wide tiles, then every split's narrow ones (W0,
-// W5a: kx columns, Wvd: kd).  Returns the tile's columns I.
-__device__ __forceinline__ int item_of(const Args& a, int it, int& tile, int& split) {
-  constexpr int NW = 17, NN = N_TILES - NW;
-  if (it < NW * a.n_splits) {
-    split = it / NW;
-    tile = it % NW;
-    return W;
-  }
-  it -= NW * a.n_splits;
-  split = it / NN;
-  tile = NW + it % NN;
-  return tile < N_TILES - 1 ? a.kx : a.kd;
-}
-
-__device__ __forceinline__ int split_stages(const Args& a, int split, int& k0, int& k1) {
-  k0 = split * a.pts_per_split;
-  k1 = min(a.P, k0 + a.pts_per_split);
-  return k1 > k0 ? (k1 - k0 + KS - 1) / KS : 0;
-}
-
-template <bool PROF> struct Clock {
-  long long c[N_CLK];
-  long long t;
-  bool on;
-  __device__ __forceinline__ Clock(const Args& a) : t(0), on(PROF && blockIdx.x == 0 && a.clk) {
-    for (int i = 0; i < N_CLK; ++i) c[i] = 0;
-  }
-  __device__ __forceinline__ void start() {
-    if constexpr (PROF) t = clock64();
-  }
-  __device__ __forceinline__ void stop(int i) {
-    if constexpr (PROF) c[i] += clock64() - t;
-  }
-};
+template <bool PROF> using Clock = Clocks<PROF, N_CLK>;
 
 template <int N>
 __device__ __forceinline__ void mma_mn(float (&acc)[N / 2], uint64_t da, uint64_t db) {
@@ -357,7 +520,7 @@ __device__ __forceinline__ void consume(const Args& a, const WTile& t, int I, in
   constexpr int R = N / 2;
   const int wg = threadIdx.x >> 7;
   int k0, k1;
-  const int nst = split_stages(a, split, k0, k1);
+  const int nst = split_stages<KS>(a, split, k0, k1);
   float acc[R];
 #pragma unroll
   for (int i = 0; i < R; ++i) acc[i] = 0.f;
@@ -400,18 +563,7 @@ __device__ __forceinline__ void consume(const Args& a, const WTile& t, int I, in
   if (nst > 0) release(kst + nst - 1);
   wgmma_fence_regs(acc);
   kst += nst;
-  // acc[4 j + 2 rr + c]: row 16 warp + lane / 4 + 8 rr, column 8 j + 2 (lane % 4) + c
-  const int lane = threadIdx.x & 31, col0 = 2 * (lane & 3);
-  float* out = a.part + (size_t)split * a.part_stride + t.out_off +
-               (size_t)(64 * wg + 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2)) * t.ldw;
-#pragma unroll
-  for (int j = 0; j < N / 8; ++j) {
-    if (8 * j >= I) break;  // (I is a multiple of 32: the warp takes the branch as one)
-#pragma unroll
-    for (int rr = 0; rr < 2; ++rr)
-      __stcs(reinterpret_cast<float2*>(out + (size_t)(8 * rr) * t.ldw + 8 * j + col0),
-             make_float2(acc[4 * j + 2 * rr] * down, acc[4 * j + 2 * rr + 1] * down));
-  }
+  store_partial<N>(a.part + (size_t)split * a.part_stride, t, I, 64 * wg, acc, down);
   ck.stop(C_EPI);
 }
 
@@ -445,7 +597,7 @@ __device__ __forceinline__ void convert(const Args& a, const WTile& t, int I, in
   constexpr int NA = KS * (N / 8) / NCONV;  // and of A
   const int u = threadIdx.x - NCONS;
   int k0, k1;
-  const int nst = split_stages(a, split, k0, k1);
+  const int nst = split_stages<KS>(a, split, k0, k1);
   if (nst == 0) return;
   ck.start();
   // U: the largest scale unit over the dgrad tiles the split touches
@@ -523,7 +675,7 @@ __global__ void __launch_bounds__(NTHR, 1)
     mbar_fence_init();
   }
   __syncthreads();
-  Clock<PROF> ck(a);
+  Clock<PROF> ck(a.clk);
   const long long t_all = PROF ? clock64() : 0;
   int kst = 0;  // stages of the ring taken so far
   if (threadIdx.x < NCONS) {
@@ -602,25 +754,9 @@ void make_jobs(WJob (&jobs)[N_JOBS], int kx, int kd) {
   for (int j = 0; j < N_JOBS; ++j) jobs[j] = all[j];
 }
 
-// The bf16 wgrad's 128 x 128 tiles of those blocks.
-int fill_jobs(WgradArgs<bf16>& a, int kx, int kd) {
-  make_jobs(a.jobs, kx, kd);
-  int n = 0;
-  for (int j = 0; j < N_JOBS; ++j)
-    for (int o0 = 0; o0 < a.jobs[j].O; o0 += 128)
-      for (int i0 = 0; i0 < a.jobs[j].I; i0 += 128) {
-        if (n >= MAX_TILES) return -1;
-        a.tile_job[n] = (unsigned char)j;
-        a.tile_o0[n] = (short)o0;
-        a.tile_i0[n] = (short)i0;
-        ++n;
-      }
-  return n;
-}
-
-// The f32 wgrad's tiles: 128 rows of a block by all of its columns, the
-// blocks of width 256 first.
-int fill_tiles_f32(f32w::Args& a, int kx, int kd) {
+// The wgrad's tiles (both modes): 128 rows of a block by all of its
+// columns, the blocks of width 256 first.
+int fill_tiles(WTile (&tiles)[N_TILES], int kx, int kd) {
   WJob jobs[N_JOBS];
   make_jobs(jobs, kx, kd);
   int n = 0;
@@ -628,8 +764,8 @@ int fill_tiles_f32(f32w::Args& a, int kx, int kd) {
     for (int j = 0; j < N_JOBS; ++j) {
       if ((jobs[j].I == W) != (wide == 1)) continue;
       for (int o0 = 0; o0 < jobs[j].O; o0 += 128) {
-        if (n >= f32w::N_TILES) return -1;
-        f32w::WTile& t = a.tiles[n++];
+        if (n >= N_TILES) return -1;
+        WTile& t = tiles[n++];
         t.out_off = jobs[j].out_off + (long long)o0 * jobs[j].ldw;
         t.ldw = jobs[j].ldw;
         t.z_col = jobs[j].z_col + o0;
@@ -638,27 +774,58 @@ int fill_tiles_f32(f32w::Args& a, int kx, int kd) {
         t.a_col = jobs[j].a_col;
       }
     }
-  return n == f32w::N_TILES ? n : -1;
+  return n == N_TILES ? n : -1;
 }
 
-int pts_per_split(int P, int n_splits) {
-  return ((P + n_splits - 1) / n_splits + WG_KT - 1) / WG_KT * WG_KT;
+// Points of each split but the last: P / n_splits rounded up to whole
+// stages of `ks` points.
+int pts_per_split(int P, int n_splits, int ks) {
+  return ((P + n_splits - 1) / n_splits + ks - 1) / ks * ks;
 }
 
-int launch_wgrad_bf16(const void* acts, const void* dz, const void* pe, float* w_part, int P,
-                      int kx, int kd, int n_splits, cudaStream_t stream) {
-  WgradArgs<bf16> wa;
-  wa.dz = static_cast<const bf16*>(dz);
-  wa.acts = static_cast<const bf16*>(acts);
-  wa.pe = static_cast<const bf16*>(pe);
+int launch_wgrad_bf16(const void* acts, const void* dz, const void* pe, float* w_part,
+                      long long* clk, int P, int kx, int kd, int n_splits, int n_wblocks,
+                      cudaStream_t stream) {
+  using namespace bf16w;
+  if (n_wblocks < CLUSTER || n_splits <= 0) return (int)cudaErrorInvalidValue;
+  static int max_clusters = 0;  // clusters that fit on the card at once
+  if (max_clusters == 0) {
+    cudaError_t e = cudaFuncSetAttribute(nerf_mlp_bwd_wgrad_bf16_sm90<false>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(nerf_mlp_bwd_wgrad_bf16_sm90<true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(n_wblocks / CLUSTER * CLUSTER);
+    cfg.blockDim = dim3(NTHR);
+    cfg.dynamicSmemBytes = SMEM;
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveClusters(&max_clusters, nerf_mlp_bwd_wgrad_bf16_sm90<false>, &cfg);
+    if (e != cudaSuccess) return (int)e;
+    if (max_clusters <= 0) return (int)cudaErrorInvalidConfiguration;
+  }
+  CUtensorMap tm_dz, tm_acts, tm_pe;
+  int rc = make_map_2d_bf16(&tm_dz, dz, P, ACTS_LD, ACTS_LD * 2, KS, 64);
+  if (rc == 0) rc = make_map_2d_bf16(&tm_acts, acts, P, ACTS_LD, ACTS_LD * 2, KS, 64);
+  if (rc == 0) rc = make_map_2d_bf16(&tm_pe, pe, P, kx + kd, (kx + kd) * 2, KS, 64);
+  if (rc != 0) return rc;
+  Args wa;
   wa.part = w_part;
+  wa.clk = clk;
   wa.part_stride = w_numel(kx, kd);
   wa.P = P;
-  wa.pts_per_split = pts_per_split(P, n_splits);
-  wa.pe_ld = kx + kd;
-  const int ntiles = fill_jobs(wa, kx, kd);
-  if (ntiles < 0) return (int)cudaErrorInvalidValue;
-  nerf_mlp_bwd_wgrad_bf16<<<dim3(ntiles, n_splits), NTHREADS, 0, stream>>>(wa);
+  wa.pts_per_split = pts_per_split(P, n_splits, KS);
+  wa.n_splits = n_splits;
+  wa.n_units = (N_UNITS_WIDE + N_UNITS_NARROW) * n_splits;
+  wa.kx = kx;
+  wa.kd = kd;
+  if (fill_tiles(wa.tiles, kx, kd) < 0) return (int)cudaErrorInvalidValue;
+  const int clusters = std::min(std::min(max_clusters, n_wblocks / CLUSTER), wa.n_units);
+  const int grid = CLUSTER * clusters;
+  if (clk != nullptr)
+    nerf_mlp_bwd_wgrad_bf16_sm90<true><<<grid, NTHR, SMEM, stream>>>(tm_dz, tm_acts, tm_pe, wa);
+  else
+    nerf_mlp_bwd_wgrad_bf16_sm90<false><<<grid, NTHR, SMEM, stream>>>(tm_dz, tm_acts, tm_pe, wa);
   return (int)cudaGetLastError();
 }
 
@@ -685,11 +852,11 @@ int launch_wgrad_f32(const void* acts, const void* dz, const void* pe, const flo
   wa.clk = clk;
   wa.part_stride = w_numel(kx, kd);
   wa.P = P;
-  wa.pts_per_split = pts_per_split(P, n_splits);
+  wa.pts_per_split = pts_per_split(P, n_splits, f32w::KS);
   wa.pe_ld = kx + kd;
   wa.n_splits = n_splits;
-  if (fill_tiles_f32(wa, kx, kd) < 0) return (int)cudaErrorInvalidValue;
-  wa.n_items = f32w::N_TILES * n_splits;
+  if (fill_tiles(wa.tiles, kx, kd) < 0) return (int)cudaErrorInvalidValue;
+  wa.n_items = N_TILES * n_splits;
   wa.kx = kx;
   wa.kd = kd;
   const int grid = n_wblocks < wa.n_items ? n_wblocks : wa.n_items;
@@ -707,11 +874,39 @@ extern "C" {
 long long nerf_mlp_bwd_w_numel(int kx, int kd) { return w_numel(kx, kd); }
 long long nerf_mlp_bwd_fp_numel() { return FP_NUMEL; }
 long long nerf_mlp_bwd_acts_ld() { return ACTS_LD; }
-// The f32 wgrad's scale units: points a tile, dz blocks, entries a tile and
-// block; and the cycle counts of its instrumented instantiation.
-int nerf_mlp_bwd_zs_shape(int i) {
-  const int shape[4] = {f32w::ZT, f32w::ZB, f32w::ZW, f32w::N_CLK};
-  return i >= 0 && i < 4 ? shape[i] : -1;
+// The wgrads' constants: the f32 wgrad's scale units (points a tile, dz
+// blocks, entries a tile and block), the cycle counts of the f32 and the
+// bf16 instantiations, and their points a stage.
+int nerf_mlp_bwd_consts(int i) {
+  const int c[7] = {f32w::ZT, f32w::ZB, f32w::ZW, f32w::N_CLK, bf16w::N_CLK, f32w::KS, bf16w::KS};
+  return i >= 0 && i < 7 ? c[i] : -1;
+}
+// A wgrad's work in the order of its persistent grid (bf16: each unit as
+// block 0 of the cluster takes it, then as block 1), 9 values an entry into
+// out: tile, split, rows o, columns I, the offset of the entry's first row
+// in the weight grad, its row length, the dz column of that row, A from the
+// PE (1) or the stash (0), A's first column.  Returns the entry count, or
+// -1.
+int nerf_mlp_bwd_wgrad_items(int bf16_mode, int n_splits, int kx, int kd, long long* out) {
+  WTile tiles[N_TILES];
+  if (n_splits <= 0 || fill_tiles(tiles, kx, kd) < 0) return -1;
+  const struct { int n_splits, kx, kd; } a = {n_splits, kx, kd};
+  const int per = bf16_mode ? bf16w::N_UNITS_WIDE + bf16w::N_UNITS_NARROW : N_TILES;
+  const int ranks = bf16_mode ? bf16w::CLUSTER : 1;
+  int n = 0;
+  for (int it = 0; it < per * n_splits; ++it)
+    for (int r = 0; r < ranks; ++r) {
+      int tile, split, half = 0;
+      const int I = bf16_mode ? bf16w::unit_of(a, it, r, tile, split, half)
+                              : item_of(a, it, tile, split);
+      const WTile& t = tiles[tile];
+      const int row0 = half ? 64 * r : 0;
+      const long long e[9] = {tile, split, half ? 64 : 128, I, t.out_off + (long long)row0 * t.ldw,
+                              t.ldw, t.z_col + row0, t.a_pe, t.a_col};
+      for (int k = 0; k < 9; ++k) out[9 * n + k] = e[k];
+      ++n;
+    }
+  return n;
 }
 // The backward of nerf_mlp_fwd on `stream` after its dgrad
 // (nerf_mlp_dgrad.cu): the wgrad and the two reductions on the dgrad's dz,
@@ -721,15 +916,16 @@ int nerf_mlp_bwd_zs_shape(int i) {
 //   scratch, in the compute dtype; zs (f32 only) the dgrad's scale units
 //   [ceil(P / 128)][10][3]; fp_part [n_blocks, FP_NUMEL] and w_part
 //   [n_splits, w_numel] f32 scratch; dw [w_numel] and dfp [FP_NUMEL] f32
-//   out; clk (f32 only) null or [N_CLK] int64 (the instrumented wgrad).
+//   out; clk null or [N_CLK] int64 of the mode (the instrumented wgrad).
 // n_blocks: the dgrad's blocks (rows of fp_part); n_splits: point splits of
-// the wgrad; n_wblocks: the f32 wgrad's persistent grid (at most one block
-// an SM).  Requires what nerf_mlp_fwd requires.
+// the wgrad; n_wblocks: the wgrad's persistent grid (at most one block an
+// SM).  Requires what nerf_mlp_fwd requires.
 int nerf_mlp_bwd(const void* acts, const void* dz, const void* pe, const float* zs, float* fp_part,
                  float* w_part, float* dw, float* dfp, long long* clk, int P, int kx, int kd,
                  int bf16_mode, int n_blocks, int n_splits, int n_wblocks, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int rc = bf16_mode ? launch_wgrad_bf16(acts, dz, pe, w_part, P, kx, kd, n_splits, s)
+  int rc = bf16_mode ? launch_wgrad_bf16(acts, dz, pe, w_part, clk, P, kx, kd, n_splits,
+                                         n_wblocks, s)
                      : launch_wgrad_f32(acts, dz, pe, zs, w_part, clk, P, kx, kd, n_splits,
                                         n_wblocks, s);
   if (rc != 0) return rc;

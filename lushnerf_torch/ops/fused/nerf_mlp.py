@@ -13,10 +13,11 @@ backward kernels compute d(xd) and the grads of every parameter from the
 stash (replacing `_bwd_stash_kernel`, mode 'stash') or, in mode 'remat'
 (replacing `_bwd_kernel`), from a stash the forward kernel writes into
 scratch first: a dgrad kernel (`csrc/nerf_mlp_dgrad.cu`, wgmma; in f32
-the split with a power-of-two scale per point), then the wgrad (in f32 the
-split on wgmma with a power-of-two scale per point split and d_z block,
-from the scale units the dgrad writes: `dz_scale_units`) and two
-fixed-order reductions (`csrc/nerf_mlp_bwd.cu`).
+the split with a power-of-two scale per point), then the wgrad on wgmma
+over the work items of `wgrad_items` (bf16: TMA-loaded bf16 stages; f32:
+the split with a power-of-two scale per point split and d_z block, from
+the scale units the dgrad writes: `dz_scale_units`) and two fixed-order
+reductions (`csrc/nerf_mlp_bwd.cu`).
 
 `NerfMLPFn` is the gradient: on a CPU tensor it runs `nerf_mlp_fwd_plain`
 and `nerf_mlp_bwd_plain`; on a CUDA tensor it launches the kernels or
@@ -96,6 +97,15 @@ ZS_BLOCKS, ZS_WARPS = 10, 3
 # The f32 wgrad's point splits (a partial of the weight grads each): at most
 # one per SM of an H100 (132), at least WGRAD_F32_SPLIT_POINTS points each
 WGRAD_F32_SPLITS, WGRAD_F32_SPLIT_POINTS = 132, 2048
+# The bf16 wgrad's: at most WGRAD_BF16_SPLITS (its 22 x 12 units fall 4 a
+# cluster on the 132 SMs: 3 wide, 1 narrow), at least WGRAD_BF16_SPLIT_POINTS
+# points each.  Its partials' bytes cost more than spreading its units
+# evenly (scripts/wgrad_splits.py times 11 to 132 splits; PERF.md)
+WGRAD_BF16_SPLITS, WGRAD_BF16_SPLIT_POINTS = 22, 4096
+# points a stage of each wgrad (every split but the last is a whole number
+# of stages; mirrors KS in csrc/nerf_mlp_bwd.cu)
+WGRAD_STAGE = {"float32": 32, "bfloat16": 64}
+WGRAD_TILE_ROWS = 128  # rows o of a wgrad work item's output tile
 # its instrumented instantiation's cycle counts, block 0: consumer thread 0
 # (waiting for a full stage, issuing and waiting for the matmuls, storing
 # partials, all), then converter thread 0 (issuing a stage's loads, waiting
@@ -103,6 +113,9 @@ WGRAD_F32_SPLITS, WGRAD_F32_SPLIT_POINTS = 132, 2048
 # the wait for its loads, all); mirrors N_CLK in csrc/nerf_mlp_bwd.cu
 WGRAD_F32_CLOCKS = ("mm_full_wait", "mm", "mm_epilogue", "mm_all", "conv_load_issue",
                     "conv_empty_wait", "conv_scale", "conv_work", "conv_all")
+# the bf16 wgrad's: consumer thread 0 as above, then the producer thread
+# (waiting for a free stage, all)
+WGRAD_BF16_CLOCKS = ("mm_full_wait", "mm", "mm_epilogue", "mm_all", "load_empty_wait", "load_all")
 
 # The forward kernel's stages: consumer thread 0's cycles of each in each
 # tile of block 0 (its instrumented instantiation), then, off that path, the
@@ -362,18 +375,78 @@ def nerf_mlp_bwd_plain(mlp, xd: torch.Tensor, g: torch.Tensor, compute_dtype: st
 
 def wgrad_splits(P: int, compute_dtype: str) -> int:
     """The wgrad's point splits for P > 0 points (a partial of the weight
-    grads each): bf16 one per 16,384 points, at most 32; f32 one per
-    WGRAD_F32_SPLIT_POINTS, at most WGRAD_F32_SPLITS."""
-    if compute_dtype == "bfloat16":
-        return max(1, min(32, -(-P // 16384)))
-    return max(1, min(WGRAD_F32_SPLITS, -(-P // WGRAD_F32_SPLIT_POINTS)))
+    grads each).  f32: one per WGRAD_F32_SPLIT_POINTS, at most
+    WGRAD_F32_SPLITS.  bf16: one per WGRAD_BF16_SPLIT_POINTS, at most
+    WGRAD_BF16_SPLITS, then as many as the splits of whole stages need
+    (`bf16_splits_of`)."""
+    if compute_dtype != "bfloat16":
+        return max(1, min(WGRAD_F32_SPLITS, -(-P // WGRAD_F32_SPLIT_POINTS)))
+    return bf16_splits_of(P, max(1, min(WGRAD_BF16_SPLITS, -(-P // WGRAD_BF16_SPLIT_POINTS))))
 
 
-def wgrad_pts_per_split(P: int, n_splits: int) -> int:
+def bf16_splits_of(P: int, n: int) -> int:
+    """The bf16 wgrad's splits when P points are cut into n: as many as
+    splits of wgrad_pts_per_split(P, n) points need, so that none is
+    empty."""
+    return -(-P // wgrad_pts_per_split(P, n, "bfloat16"))
+
+
+def wgrad_pts_per_split(P: int, n_splits: int, compute_dtype: str = "float32") -> int:
     """Points of each wgrad split but the last (which takes the rest): P /
-    n_splits rounded up to the wgrad's 32-point stage (mirrors
+    n_splits rounded up to the wgrad's stage (WGRAD_STAGE; mirrors
     csrc/nerf_mlp_bwd.cu)."""
-    return -(-(-(-P // n_splits)) // 32) * 32
+    ks = WGRAD_STAGE[compute_dtype]
+    return -(-(-(-P // n_splits)) // ks) * ks
+
+
+def wgrad_items(n_splits: int, kx: int, kd: int,
+                compute_dtype: str = "float32") -> List[Tuple[int, ...]]:
+    """A wgrad's work in the order of its persistent grid (mirrors
+    `fill_tiles`, `item_of` and `bf16w::unit_of` in csrc/nerf_mlp_bwd.cu):
+    (tile, split, rows o, columns I, offset of the entry's first row in the
+    weight grad, its row length, the dz column of that row, A from the PE
+    scratch (1) or the stash (0), A's first column).
+
+    A tile is WGRAD_TILE_ROWS rows o of a weight block by all its I
+    columns, the 17 blocks' tiles of width 256 first.  f32: one entry an
+    item, block b taking items b, b + grid, ...: every split's wide tiles,
+    split by split, then every split's narrow ones.  bf16: the unit that a
+    cluster of two blocks takes at once, cluster c taking units c, c +
+    clusters, ..., as block 0 then block 1 take it: the two o-halves of a
+    256-row block (one tile each) or the two 64-row halves of a 128-row
+    block's tile (Wvf, Wvd); every split's 9 wide units, then every split's
+    3 narrow ones."""
+    W, T = WIDTH, WGRAD_TILE_ROWS
+    sizes = [W * kx] + [W * W] * 4 + [W * (kx + W)] + [W * W] * 3 + [W // 2 * (W + kd)]
+    off = [sum(sizes[:i]) for i in range(10)]
+    # the 12 blocks: (offset, rows O, columns I, dz column, A from PE, A column, row length)
+    jobs = ([(off[0], W, kx, 0, 1, 0, kx)]
+            + [(off[l], W, W, l * W, 0, (l - 1) * W, W) for l in range(1, 5)]
+            + [(off[5], W, kx, 5 * W, 1, 0, kx + W), (off[5] + kx, W, W, 5 * W, 0, 4 * W, kx + W)]
+            + [(off[l], W, W, l * W, 0, (l - 1) * W, W) for l in range(6, 9)]
+            + [(off[9], W // 2, W, 9 * W, 0, 8 * W, W + kd),
+               (off[9] + W, W // 2, kd, 9 * W, 1, kx, W + kd)])
+    # tiles (I, offset of row o0, row length, dz column of row o0, A from PE, A
+    # column), and each block's tiles (a unit of the bf16 wgrad), wide first
+    tiles, units = [], [[], []]
+    for wide in (True, False):
+        for o, O, I, zc, pe, ac, ldw in jobs:
+            if (I == W) == wide:
+                units[not wide].append(list(range(len(tiles), len(tiles) + O // T)))
+                tiles += [(I, o + o0 * ldw, ldw, zc + o0, pe, ac) for o0 in range(0, O, T)]
+
+    def entry(t, s, row0, rows):
+        I, o, ldw, zc, pe, ac = tiles[t]
+        return (t, s, rows, I, o + row0 * ldw, ldw, zc + row0, pe, ac)
+
+    if compute_dtype != "bfloat16":
+        return [entry(t, s, 0, T) for group in units for s in range(n_splits)
+                for unit in group for t in unit]
+    # a 256-row block's two tiles, one a block of the cluster; a 128-row
+    # block's one tile in halves
+    return [e for group in units for s in range(n_splits) for unit in group
+            for e in ([entry(t, s, 0, T) for t in unit] if len(unit) == 2
+                      else [entry(unit[0], s, 0, T // 2), entry(unit[0], s, T // 2, T // 2)])]
 
 
 def dz_scale_units(dz: torch.Tensor) -> torch.Tensor:
@@ -616,8 +689,10 @@ def _bwd_lib() -> ctypes.CDLL:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.nerf_mlp_bwd.argtypes = [vp] * 9 + [ci] * 7 + [vp]
         lib.nerf_mlp_bwd.restype = ci
-        lib.nerf_mlp_bwd_zs_shape.argtypes = [ci]
-        lib.nerf_mlp_bwd_zs_shape.restype = ci
+        lib.nerf_mlp_bwd_consts.argtypes = [ci]
+        lib.nerf_mlp_bwd_consts.restype = ci
+        lib.nerf_mlp_bwd_wgrad_items.argtypes = [ci, ci, ci, ci, vp]
+        lib.nerf_mlp_bwd_wgrad_items.restype = ci
         lib.nerf_mlp_bwd_w_numel.argtypes = [ci, ci]
         lib.nerf_mlp_bwd_w_numel.restype = ctypes.c_longlong
         lib.nerf_mlp_bwd_fp_numel.argtypes = []
@@ -626,11 +701,18 @@ def _bwd_lib() -> ctypes.CDLL:
         lib.nerf_mlp_bwd_acts_ld.restype = ctypes.c_longlong
         lib.nerf_mlp_bwd_error_string.argtypes = [ci]
         lib.nerf_mlp_bwd_error_string.restype = ctypes.c_char_p
+        def items(dtype):  # the wgrad's work for a flagship-shaped MLP in 3 splits
+            out = (ctypes.c_longlong * (9 * 24 * 3))()
+            n = lib.nerf_mlp_bwd_wgrad_items(int(dtype == "bfloat16"), 3, 64, 32, out)
+            return [tuple(out[9 * i:9 * i + 9]) for i in range(max(n, 0))]
+
         if lib.nerf_mlp_bwd_fp_numel() != FP_NUMEL or lib.nerf_mlp_bwd_acts_ld() != ACTS_LD \
-                or [lib.nerf_mlp_bwd_zs_shape(i) for i in range(4)] != [
-                    DGRAD_TILE, ZS_BLOCKS, ZS_WARPS, len(WGRAD_F32_CLOCKS)]:
-            raise RuntimeError("nerf_mlp_bwd: f32 blob, stash layout, scale units or clocks differ "
-                               "from the CUDA source")
+                or [lib.nerf_mlp_bwd_consts(i) for i in range(7)] != [
+                    DGRAD_TILE, ZS_BLOCKS, ZS_WARPS, len(WGRAD_F32_CLOCKS),
+                    len(WGRAD_BF16_CLOCKS), WGRAD_STAGE["float32"], WGRAD_STAGE["bfloat16"]] \
+                or any(items(d) != wgrad_items(3, 64, 32, d) for d in COMPUTE_DTYPES):
+            raise RuntimeError("nerf_mlp_bwd: f32 blob, stash layout, scale units, clocks, stages "
+                               "or wgrad items differ from the CUDA source")
         lib._lushnerf_typed = True
     return lib
 
@@ -774,8 +856,8 @@ class BwdLaunch:
     caller on the main path; `chip_smoke.py` also times the dgrad
     (`run(DGRAD)`) and the wgrad with its reductions (`run(WGRAD)`, on the
     scratch of an earlier dgrad) apart, and reads the dgrad's stage stamps
-    (`stage_stamps()`, labelled by `stages`) and the f32 wgrad's cycles
-    (`wgrad_clocks()`, labelled by WGRAD_F32_CLOCKS).
+    (`stage_stamps()`, labelled by `stages`) and the wgrad's cycles
+    (`wgrad_clocks()`, labelled by `wgrad_clock_names`).
 
     The dgrad is csrc/nerf_mlp_dgrad.cu in both modes; the wgrad and
     reductions are csrc/nerf_mlp_bwd.cu's.  Without a stash (remat, K3)
@@ -901,18 +983,20 @@ class BwdLaunch:
         return stamps
 
     def wgrad_clocks(self) -> torch.Tensor:
-        """Runs the f32 wgrad's instrumented instantiation once, with its
+        """Runs the wgrad's instrumented instantiation once, with its
         reductions, on the scratch of an earlier dgrad (not counted):
-        [len(WGRAD_F32_CLOCKS)] int64 clock64() cycles of block 0."""
-        if self.bf16:
-            raise ValueError("wgrad_clocks: the f32 wgrad's")
-        clk = torch.zeros(len(WGRAD_F32_CLOCKS), dtype=torch.int64, device=self.dev)
+        [len(wgrad_clock_names)] int64 clock64() cycles of block 0."""
+        clk = torch.zeros(len(self.wgrad_clock_names), dtype=torch.int64, device=self.dev)
         self._wgrad(clk)
         return clk
 
     @property
     def stages(self) -> List[str]:
         return DGRAD_STAGES if self.bf16 else DGRAD_STAGES_F32
+
+    @property
+    def wgrad_clock_names(self) -> Tuple[str, ...]:
+        return WGRAD_BF16_CLOCKS if self.bf16 else WGRAD_F32_CLOCKS
 
     def result(self):
         return self.dxd, _unpack_grads(self.mlp, self.dw, self.dfp)

@@ -1,18 +1,22 @@
-"""Where the f32 wgrad's time goes: it built with parts of its work compiled
-out, each timed on the same dgrad scratch.
+"""Where a wgrad's time goes: it built with parts of its work compiled out
+or changed, each timed on the same dgrad scratch.
 
-    python -m lushnerf_torch.scripts.wgrad_ablate [--P 655360]
+    python -m lushnerf_torch.scripts.wgrad_ablate [--P 655360] [--dtype float32]
 
-Builds csrc/nerf_mlp_bwd.cu as it is ("full") and with one or two parts
-removed from its f32 wgrad -- the matmuls ("no_mma"), the converters'
-global loads ("no_load": they split made-up values), the split and the
-shared-memory stores ("no_split": the loads are kept alive by a sum) -- and
-prints, for each, one JSON line: its CUDA-event ms (median of 5, with its
-reductions) and block 0's cycle shares (nerf_mlp.WGRAD_F32_CLOCKS).  Only
-"full" computes the weight grads; the others time a part of the work.
-Needs a card and nvcc; the builds go to build/lushnerf_torch/ablate_*.so.
+Builds csrc/nerf_mlp_bwd.cu as it is ("full") and with parts of one
+wgrad's work removed or changed.  The f32 wgrad: the matmuls ("no_mma"),
+the converters' global loads ("no_load": they split made-up values), the
+split and the shared-memory stores ("no_split": the loads are kept alive by
+a sum).  The bf16 wgrad: the matmuls ("no_mma"), the TMA loads ("no_load":
+the matmuls read stale stages), and the multicast of A ("own_a": each
+block of a cluster loads all of A itself, as if the two o-halves of a
+weight block did not share it).  Prints, for each, one JSON line: its
+CUDA-event ms (median of 5, with its reductions), block 0's cycle shares
+(the dtype's `wgrad_clock_names`), and whether its weight grads are the
+bits of "full" ("full" and "own_a" compute them; the others time a part
+of the work).  Needs a card and nvcc; the builds go to
+build/lushnerf_torch/ablate_*.so.
 """
-
 from __future__ import annotations
 
 import argparse
@@ -49,6 +53,19 @@ _SPLIT = """#pragma unroll
       put_parts(base + S_AH, base + S_AL, q / (N / 8), (q % (N / 8)) * 8, av[i], 1.f);
     }
 """
+# the bf16 wgrad's matmuls and its producer's loads of a stage
+_B_MMA = """      mma_mn<N>(acc, wgmma_desc_mn(base + S_Z + zb * BOX_B + off, BOX_B, ATOM),
+                wgmma_desc_mn(base + S_A + off, BOX_B, ATOM));
+"""
+_B_LOADS = """      mbar_arrive_expect_tx(full, (nz + nb) * BOX_B);
+      for (int b = 0; b < nz; ++b)
+        tma_load_2d(base + S_Z + b * BOX_B, tm_dz, z_col + 64 * b, p0, full);
+      for (int b = rank; b < nb; b += CLUSTER)
+        tma_load_2d_multicast(base + S_A + b * BOX_B, tm_a, t.a_col + 64 * b, p0, full, 3);
+"""
+_B_OWN_A = """      for (int b = 0; b < nb; ++b)
+        tma_load_2d(base + S_A + b * BOX_B, tm_a, t.a_col + 64 * b, p0, full);
+"""
 PATCHES = {
     "no_mma": [(_MMA, "")],
     "no_load": [(t, t.replace("ok ? __ldg(src) : zero", "make_float4(u, i, k, c)")
@@ -58,28 +75,35 @@ PATCHES = {
     for (int i = 0; i < NA; ++i) sum += av[i][0].x + av[i][1].w;
     if (sum == 12345.f) wf32(SM_RED)[7] = sum;  // keeps the loads
 """)],
+    "bf16_no_mma": [(_B_MMA, "")],
+    "bf16_no_load": [(_B_LOADS, "      mbar_arrive(full);\n")],
+    "bf16_own_a": [(_B_LOADS.split("\n", 3)[3], _B_OWN_A)],
 }
-VARIANTS = {"full": [], "no_mma": ["no_mma"], "no_load": ["no_load"], "no_split": ["no_split"],
-            "loads_only": ["no_mma", "no_split"], "split_only": ["no_mma", "no_load"],
-            "mma_only": ["no_load", "no_split"]}
+VARIANTS = {
+    "float32": {"full": [], "no_mma": ["no_mma"], "no_load": ["no_load"], "no_split": ["no_split"],
+                "loads_only": ["no_mma", "no_split"], "split_only": ["no_mma", "no_load"],
+                "mma_only": ["no_load", "no_split"]},
+    "bfloat16": {"full": [], "no_mma": ["bf16_no_mma"], "no_load": ["bf16_no_load"],
+                 "own_a": ["bf16_own_a"]},
+}
 
 
-def _build(name: str) -> str:
+def _build(dtype: str, name: str) -> str:
     src = (build.CSRC / "nerf_mlp_bwd.cu").read_text()
-    for part in VARIANTS[name]:
+    for part in VARIANTS[dtype][name]:
         for old, new in PATCHES[part]:
             if old not in src:
                 raise RuntimeError(f"wgrad_ablate: {part}: its text is not in nerf_mlp_bwd.cu")
             src = src.replace(old, new)
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = build.BUILD_DIR / f"ablate_{name}.cu"
+    cu = build.BUILD_DIR / f"ablate_{dtype}_{name}.cu"
     cu.write_text(src)
-    out = build.BUILD_DIR / f"ablate_{name}.so"
+    out = build.BUILD_DIR / f"ablate_{dtype}_{name}.so"
     proc = subprocess.run([build.nvcc(), *build.NVCC_FLAGS, f"-I{build.CSRC}", "-o", str(out),
                            str(cu)], capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}:\n{proc.stdout}{proc.stderr}")
-    return str(out)
+    return str(out), (proc.stdout + proc.stderr).count("(C7518)")
 
 
 def _ms(fn, iters: int = 5) -> float:
@@ -95,12 +119,13 @@ def _ms(fn, iters: int = 5) -> float:
     return float(np.median(times))
 
 
-def main(P: int = 655_360) -> list:
+def main(P: int = 655_360, dtype: str = "float32") -> list:
     if not torch.cuda.is_available():
         raise RuntimeError("wgrad_ablate: needs a card")
     torch.backends.cuda.matmul.allow_tf32 = False
-    with ThreadPoolExecutor(len(VARIANTS)) as pool:
-        libs = dict(zip(VARIANTS, pool.map(_build, VARIANTS)))
+    names = list(VARIANTS[dtype])
+    with ThreadPoolExecutor(len(names)) as pool:
+        libs = dict(zip(names, pool.map(lambda n: _build(dtype, n), names)))
     mlp = NeRFMLP(MLPConfig(), torch.Generator().manual_seed(0), torch.device("cpu"))
     mlp = mlp.cuda().requires_grad_(False)
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -109,21 +134,25 @@ def main(P: int = 655_360) -> list:
     d = torch.randn((P, 3), generator=gen, device="cuda")
     xd[:, 3:6] = d / d.norm(dim=-1, keepdim=True)
     g = torch.randn((P, 4), generator=gen, device="cuda")
-    acts = fused._launch_fwd(mlp, xd, "float32", 10, 4, stash=True)[1]
-    run = fused.BwdLaunch(mlp, xd, g, "float32", 10, 4, acts)
+    acts = fused._launch_fwd(mlp, xd, dtype, 10, 4, stash=True)[1]
+    run = fused.BwdLaunch(mlp, xd, g, dtype, 10, 4, acts)
     run.run()
+    full = run.dw.clone()
     argtypes = run.lib.nerf_mlp_bwd.argtypes
     rows = []
-    for name, path in libs.items():
+    for name, (path, serialised) in libs.items():
         lib = ctypes.CDLL(path)
         lib.nerf_mlp_bwd.argtypes, lib.nerf_mlp_bwd.restype = argtypes, ctypes.c_int
         run.lib = lib
         ms = _ms(lambda: run.run(run.WGRAD))
-        c = dict(zip(fused.WGRAD_F32_CLOCKS, run.wgrad_clocks().cpu().tolist()))
-        row = {"variant": name, "P": P, "ms": ms,
+        c = dict(zip(run.wgrad_clock_names, run.wgrad_clocks().cpu().tolist()))
+        loader = "conv_all" if "conv_all" in c else "load_all"
+        row = {"variant": name, "dtype": dtype, "P": P, "ms": ms,
+               "same_bits_as_full": torch.equal(run.dw, full),
+               "ptxas_wgmma_serialised_notes": serialised,
                "consumer_share": {k: c[k] / c["mm_all"] for k in ("mm_full_wait", "mm", "mm_epilogue")},
-               "converter_share": {k: c[k] / c["conv_all"] for k in (
-                   "conv_load_issue", "conv_empty_wait", "conv_scale", "conv_work")}}
+               "loader_share": {k: v / c[loader] for k, v in c.items()
+                                if k.startswith(loader[:4]) and k != loader}}
         print(json.dumps(row), flush=True)
         rows.append(row)
     return rows
@@ -132,4 +161,6 @@ def main(P: int = 655_360) -> list:
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--P", type=int, default=655_360, help="points")
-    main(ap.parse_args().P)
+    ap.add_argument("--dtype", default="float32", choices=sorted(VARIANTS))
+    a = ap.parse_args()
+    main(a.P, a.dtype)

@@ -240,12 +240,15 @@ def _bwd_blocks(mlp, dtype):
     return blocks
 
 
-def _emulate_bwd_kernels(mlp, xd, g, acts, dtype):
+def _emulate_bwd_kernels(mlp, xd, g, acts, dtype, wgrad=None):
     """The backward kernels' arithmetic read from the packed blobs exactly
     as the CUDA source lays them out: the dgrad chain on the transposed
     blob, d_pe in kx + kd padded columns, the wgrad of the 12 weight-blob
     blocks (the same job table) written into a weight-blob-shaped grad, the
-    bias and head grads into an f32-blob-shaped grad; then _unpack_grads."""
+    bias and head grads into an f32-blob-shaped grad; then _unpack_grads.
+    `wgrad(dz, stash, pe)`, if given, makes the weight-blob-shaped grad
+    from the dgrad's dz scratch [P, ACTS_LD] (each d_z rounded as the
+    kernel stores it), the stash and the PE, all in float."""
     r = (lambda t: t.bfloat16().float()) if dtype == "bfloat16" else (lambda t: t)
     kx, kd = fused.pe_widths(mlp.cfg)
     Wd, Wh = 256, 128
@@ -282,6 +285,8 @@ def _emulate_bwd_kernels(mlp, xd, g, acts, dtype):
         blockgrad = r(z).T @ A
         view = dw[int(woff[blk]):int(woff[blk + 1])].reshape(-1, ldw)
         view[:, col0:col0 + A.shape[1]] = blockgrad
+    if wgrad is not None:
+        dw = wgrad(r(torch.cat([dz[l] for l in range(8)] + [dz["feat"], d_hv], 1)), s, pe)
     dfp = torch.zeros(fused.FP_NUMEL)
     for l in range(8):
         dfp[l * Wd:(l + 1) * Wd] = dz[l].sum(0)

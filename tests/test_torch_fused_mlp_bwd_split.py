@@ -345,7 +345,7 @@ def test_split_wgrad_is_equivariant_and_the_unscaled_control_fails(setup):
 
 
 def test_wgrad_ablate_patches_match_the_source():
-    """The f32 wgrad's ablation tool patches csrc/nerf_mlp_bwd.cu by text:
+    """The wgrads' ablation tool patches csrc/nerf_mlp_bwd.cu by text:
     every text it replaces is in the source, once."""
     from lushnerf_torch.ops.fused import build
     from lushnerf_torch.scripts import wgrad_ablate
@@ -353,4 +353,5 @@ def test_wgrad_ablate_patches_match_the_source():
     for part, patches in wgrad_ablate.PATCHES.items():
         for old, _ in patches:
             assert src.count(old) == 1, part
-    assert set(p for v in wgrad_ablate.VARIANTS.values() for p in v) == set(wgrad_ablate.PATCHES)
+    assert set(p for variants in wgrad_ablate.VARIANTS.values() for v in variants.values()
+               for p in v) == set(wgrad_ablate.PATCHES)

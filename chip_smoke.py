@@ -37,10 +37,21 @@ the final result line):
      same bits; K2 and K3 agree to the bit; in f32 the backward at g 2^-20
      gives 2^-20 times its grads at g, bit for bit (the f32 dgrad's split
      carries a power-of-two scale per point, the f32 wgrad's one per point
-     split and d_z block), and the dgrad's scale units of dz equal
-     `dz_scale_units` of its dz bit for bit; in f32 also a row at the
-     flagship coarse P with a cotangent shaped like the shipped step's
-     (half the points 0, |g| log-uniform over 2^-28..2^-17); in both dtypes
+     split and d_z block), the dgrad's scale units of dz equal
+     `dz_scale_units` of its dz bit for bit, and K1's scale units of its
+     stash equal `stash_scale_units` of the stash bit for bit; in f32 also
+     a row at the flagship coarse P with a cotangent shaped like the
+     shipped step's (half the points 0, |g| log-uniform over
+     2^-28..2^-17); at the coarse P in both dtypes K2 and K3 at point_chunk
+     POINT_CHUNK (scratch one chunk in size) against K2 in one chunk and
+     against the plain backward within BWD_TOL, repeated and stash against
+     remat bit for bit; last, K1 f32 (output only and with the stash), K2
+     and K3 f32 at the coarse P on an MLP whose biases put activations past
+     fp16's 65504 (`large_activation_mlp`): finite, within KERNEL_TOL /
+     STASH_TOL of the plain forward and BWD_TOL of the plain backward in
+     f64 (at a cotangent |N(0, 1)|; the random-sign cotangent's errors of
+     the kernel and of the plain f32 backward against f64 printed beside),
+     K3 the bits of K2, the units those of `stash_scale_units`; in both dtypes
      the dgrad and the wgrad with its reductions timed apart at both
      flagship P, each with its byte and operations bounds (f32: both as the
      split), beside the wgrad its 12 weight blocks through torch.mm (12
@@ -69,10 +80,14 @@ the final result line):
      kernel (with fq_mask), allkernel and naive, one step each, with the
      launches and parameter packings per step counted; 20 kernel steps on a
      fixed batch and fixed draws, whose loss must fall; ms/step (a window
-     of 10), rays/s and peak memory for cuda bf16 stash, cuda bf16 remat,
-     cuda f32 remat (the shipped scene configs' step, with the range of the
-     cotangent reaching each scene MLP: max, median |g| and the share below
-     fp16's smallest normal) and torch f32; one step's grads through the
+     of 10), rays/s, launches per step (from the point chunks: a
+     backward's dgrad, wgrad and two reductions per chunk, remat's K1
+     besides) and peak memory for cuda bf16 stash, cuda bf16 remat, cuda
+     f32 remat (the shipped scene configs' step, at their point_chunk
+     POINT_CHUNK, with the range of the cotangent reaching each scene MLP:
+     max, median |g| and the share below fp16's smallest normal) and torch
+     f32, each also at the other point_chunk (0 or POINT_CHUNK); the f32
+     remat step must peak below torch f32 at point_chunk 0; one step's grads through the
      kernels in bf16 and in f32 against the torch f32 backend (cosine of
      each parameter's grad >=
      GRAD_COS_MIN), and the control that the bound rejects: the bf16 path
@@ -81,8 +96,9 @@ the final result line):
      of a freshly packed copy of the weights (no stale weight pack), bf16
      within the mean-gap control of its plain version, f32 within its limit;
   8. profile: a torch.profiler trace of forward_kernel, render_image and one
-     train step each of cuda bf16 stash, cuda f32 remat and torch f32:
-     device time by kernel and the device's busy share;
+     train step each of cuda bf16 stash, cuda f32 remat (at point_chunk
+     POINT_CHUNK and at 0) and torch f32: device time by kernel and the
+     device's busy share;
   9. tune_kernel: the kernel-cost path, `lushnerf_torch.scripts.tune_kernel`
      at P = 983,040 (every time it prints is recorded, with the launches it
      made; its two-length differences of K1, K4 and K5 are the forward's
@@ -90,8 +106,11 @@ the final result line):
      against its plain version with phase 3's bf16 limits, and the remat
      backward (K3) on g = 2 out (the script's sum(out^2)) against the plain
      backward with phase 4's bf16 limits and mean-gap control; the PE-only
-     kernel (K4) against its plain version at that P and a ragged P (atol
-     1e-5, lanes 90:128 exactly 0); the matmul-only kernel (K5) against its
+     kernel (K4) against its plain version at that P, a ragged P, one
+     point, a P off its 64-point tiles and points with |x| up to 1e3 (atol
+     1e-5, lanes 90:128 exactly 0), and its time with its sines or its
+     stores compiled out (`scripts/pe_ablate.py`) beside its byte bound;
+     the matmul-only kernel (K5) against its
      plain version with phase 3's bf16 limits and lanes 3:128 exactly 0;
      K5(K4(xd)) against K1's output on the same xd and weights with the
      same limits;
@@ -118,6 +137,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import dataclasses
 import json
 import re
@@ -164,6 +184,10 @@ MLP_WIDTH = 256
 # sub-rays' colours, which the bf16 rounding perturbs by a like amount
 GRAD_COS_MIN = {"float32": 0.9999, "bfloat16": 0.9}
 SHAPES_BWD = {"coarse": 5120 * 64, "fine": 5120 * 128, "ragged": 4096 * 64 + 37, "tiny": 1}
+POINT_CHUNK = 65_536  # the shipped scene configs' point_chunk (configs/*)
+# a bias that puts activation columns past fp16's 65504: bias column 0 of
+# layers 0, 4 and 7 and of the feature layer (`large_activation_mlp`)
+LARGE_BIAS = 1e5
 TUNE_P = 983_040  # the kernel-cost script's point count
 PE_TOL = 1e-5  # K4 vs its plain version: sinf against torch.sin, the same f32 arguments
 # K4's work per point: 84 trig lanes, a sinf with its range reduction
@@ -553,7 +577,7 @@ def wgrad_alone(fused, run) -> dict:
             "wgrad_alone_within_tol": worst <= WGRAD_ALONE_TOL}
 
 
-def bwd_parts(fused, mlp, xd, g, dtype, acts, breakdown: bool) -> dict:
+def bwd_parts(fused, mlp, xd, g, dtype, acts, units, breakdown: bool) -> dict:
     """The dgrad alone and the wgrad with its reductions alone (on the
     dgrad's scratch), median CUDA-event ms, with their bounds: operations
     (one pass of 2 x MLP_MACS FLOP a point each: in bf16 at the bf16 tensor
@@ -567,7 +591,7 @@ def bwd_parts(fused, mlp, xd, g, dtype, acts, breakdown: bool) -> dict:
     converters (f32) or its producer (bf16)."""
     P = xd.shape[0]
     bf16 = dtype == "bfloat16"
-    run = fused.BwdLaunch(mlp, xd, g, dtype, 10, 4, acts)
+    run = fused.BwdLaunch(mlp, xd, g, dtype, 10, 4, acts, units)
     run.run()
     esz = 2 if bf16 else 4
     stash_b, pe_b = fused.ACTS_LD * esz, (run.kx + run.kd) * esz
@@ -648,7 +672,7 @@ def kernel_bwd_phase(fused, NeRFMLP, MLPConfig):
             xd = sample_points(P, gen)
             g = (shipped_cotangent(P, gen) if label == "shipped"
                  else torch.randn((P, 4), generator=gen, device="cuda"))
-            out_k, acts_k = fused._launch_fwd(mlp, xd, dtype, 10, 4, stash=True)
+            out_k, acts_k, units_k = fused._launch_fwd(mlp, xd, dtype, 10, 4, stash=True)
             out_p, acts_p = fused.nerf_mlp_fwd_plain(mlp, xd, dtype, with_acts=True)
             # the control for bf16: the plain version without the bf16 rounding
             # (a mean over one point is no control: not at the tiny P)
@@ -659,14 +683,14 @@ def kernel_bwd_phase(fused, NeRFMLP, MLPConfig):
                        **held_fwd(out_k, out_p, out_f, dtype),
                        **held_stash(acts_k, acts_p, acts_f, dtype))
             del out_f, acts_f
-            run = fused.BwdLaunch(mlp, xd, g, dtype, 10, 4, acts_k)
+            run = fused.BwdLaunch(mlp, xd, g, dtype, 10, 4, acts_k, units_k)
             run.run()
             k2 = flat_grads(run.result())
             torch.cuda.synchronize()
             if bf16:
                 row.update(wgrad_alone(fused, run))
             del run
-            k2b = flat_grads(fused.nerf_mlp_bwd(mlp, xd, g, dtype, acts=acts_k))
+            k2b = flat_grads(fused.nerf_mlp_bwd(mlp, xd, g, dtype, acts=acts_k, acts_units=units_k))
             torch.cuda.synchronize()
             k3 = flat_grads(fused.nerf_mlp_bwd(mlp, xd, g, dtype))
             torch.cuda.synchronize()
@@ -678,12 +702,17 @@ def kernel_bwd_phase(fused, NeRFMLP, MLPConfig):
             if not bf16:
                 row["equivariant_bitwise"] = equivariant(fused, mlp, xd, g, dtype, acts_k, k2)
                 row["zs_bitwise"] = zs_bitwise(fused, mlp, xd, g, acts_k)
+                row["units_bitwise"] = torch.equal(units_k, fused.stash_scale_units(acts_k))
             # the control for bf16: the plain backward in f32 (its own activations)
             f32 = flat_grads(fused.nerf_mlp_bwd_plain(mlp, xd, g, "float32")) if control else None
             # K2 against the plain backward on the kernel's stash, and once more
             # on the plain forward's own stash
-            row.update(held_bwd(k2, flat_grads(fused.nerf_mlp_bwd_plain(
-                mlp, xd, g, dtype, acts=acts_k)), f32, dtype, "bwd"))
+            want = flat_grads(fused.nerf_mlp_bwd_plain(mlp, xd, g, dtype, acts=acts_k))
+            row.update(held_bwd(k2, want, f32, dtype, "bwd"))
+            if label == "coarse":
+                row["chunked"] = chunked_bwd(fused, mlp, xd, g, dtype, acts_k, units_k, k2,
+                                             want, f32)
+            del want
             k2p = flat_grads(fused.nerf_mlp_bwd(mlp, xd, g, dtype, acts=acts_p))
             torch.cuda.synchronize()
             row.update(held_bwd(k2p, flat_grads(fused.nerf_mlp_bwd_plain(
@@ -696,7 +725,8 @@ def kernel_bwd_phase(fused, NeRFMLP, MLPConfig):
                 row["fwd_stash_plain_ms"] = time_ms(
                     lambda: fused.nerf_mlp_fwd_plain(mlp, xd, dtype, with_acts=True), 3, 1)
                 row["stash_ms"] = time_ms(
-                    lambda: fused.nerf_mlp_bwd(mlp, xd, g, dtype, acts=acts_k), 5)
+                    lambda: fused.nerf_mlp_bwd(mlp, xd, g, dtype, acts=acts_k, acts_units=units_k),
+                    5)
                 row["stash_plain_ms"] = time_ms(
                     lambda: fused.nerf_mlp_bwd_plain(mlp, xd, g, dtype, acts=acts_k), 3, 1)
                 row["remat_ms"] = time_ms(lambda: fused.nerf_mlp_bwd(mlp, xd, g, dtype), 5)
@@ -716,7 +746,7 @@ def kernel_bwd_phase(fused, NeRFMLP, MLPConfig):
                 pe_b = 96 * esz
                 row["design_scratch_bytes_per_point_stash"] = 2 * stash_b + 2 * pe_b
                 row["design_scratch_bytes_per_point_remat"] = 4 * stash_b + 2 * pe_b
-                row.update(bwd_parts(fused, mlp, xd, g, dtype, acts_k, label == "fine"))
+                row.update(bwd_parts(fused, mlp, xd, g, dtype, acts_k, units_k, label == "fine"))
                 if label == "fine":
                     row["fwd_stages"] = {}
                     for form, stash in (("output_only", False), ("stash", True)):
@@ -728,13 +758,117 @@ def kernel_bwd_phase(fused, NeRFMLP, MLPConfig):
                               + json.dumps(r["off_path_share_of_tile"]), flush=True)
             print("  " + json.dumps(row), flush=True)
             rows.append(row)
-            del k2, acts_k, acts_p
+            del k2, acts_k, acts_p, units_k
             torch.cuda.empty_cache()
             if not (row["finite"] and row["within_tol"] and row["repeat_bitwise"]
                     and row["remat_bitwise"] and row.get("equivariant_bitwise", True)
-                    and row.get("zs_bitwise", True)):
+                    and row.get("zs_bitwise", True) and row.get("units_bitwise", True)
+                    and row.get("chunked", {}).get("ok", True)):
                 raise AssertionError(f"backward kernels disagree with the plain version: {row}")
+    row = large_activation_row(fused, mlp, sample_points(SHAPES_BWD["coarse"], gen), gen)
+    rows.append(row)
+    if not row["ok"]:
+        raise AssertionError(f"the f32 kernels disagree at large activations: {row}")
     return rows
+
+
+def chunked_bwd(fused, mlp, xd, g, dtype, acts, units, k2, want, f32) -> dict:
+    """K2 and K3 at point_chunk POINT_CHUNK (their scratch one chunk in
+    size, each chunk's grads added to the chunks' before) against K2 in one
+    chunk (k2): each tensor's max |error| over its max |value| within
+    BWD_TOL (the weight and bias grads' sums run in another order; d(xd)
+    is per point, so its bits); against the plain backward (want, with the
+    bf16 control f32) as `held_bwd` holds K2; a second run gives the same
+    bits; stash and remat agree to the bit."""
+    n_chunks = len(fused.point_chunks(xd.shape[0], POINT_CHUNK))
+    c2 = flat_grads(fused.nerf_mlp_bwd(mlp, xd, g, dtype, acts=acts, acts_units=units,
+                                       point_chunk=POINT_CHUNK))
+    c2b = flat_grads(fused.nerf_mlp_bwd(mlp, xd, g, dtype, acts=acts, acts_units=units,
+                                        point_chunk=POINT_CHUNK))
+    c3 = flat_grads(fused.nerf_mlp_bwd(mlp, xd, g, dtype, point_chunk=POINT_CHUNK))
+    torch.cuda.synchronize()
+    rel = [((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item() for a, b in zip(c2, k2)]
+    r = {"point_chunk": POINT_CHUNK, "chunks": n_chunks, "max_rel_err_vs_one_chunk": max(rel),
+         "tol_share": max(rel) / BWD_TOL[dtype],
+         "dxd_bitwise_vs_one_chunk": torch.equal(c2[0], k2[0]),
+         "repeat_bitwise": all(torch.equal(a, b) for a, b in zip(c2, c2b)),
+         "remat_bitwise": all(torch.equal(a, b) for a, b in zip(c2, c3)),
+         "finite": all(bool(torch.isfinite(t).all()) for t in c2 + c3),
+         **held_bwd(c2, want, f32, dtype, "vs_plain")}
+    r["ok"] = (n_chunks > 1 and max(rel) <= BWD_TOL[dtype] and r["repeat_bitwise"]
+               and r["remat_bitwise"] and r["finite"] and r["vs_plain_within_tol"])
+    print(f"  {dtype} chunked backward at P = {xd.shape[0]}: " + json.dumps(r), flush=True)
+    return r
+
+
+def large_activation_mlp(NeRFMLP, MLPConfig):
+    """The phase's MLP with bias column 0 of layers 0, 4 and 7 and of the
+    feature layer at LARGE_BIAS: a0, a4, a7 and feat hold a column past
+    fp16's 65504 on every point, every weight stays as it was."""
+    mlp = NeRFMLP(MLPConfig(), torch.Generator().manual_seed(0), torch.device("cpu"))
+    with torch.no_grad():
+        for lin in (mlp.pts_linears[0], mlp.pts_linears[4], mlp.pts_linears[7],
+                    mlp.feature_linear):
+            lin.bias[0] = LARGE_BIAS
+    return mlp.cuda().requires_grad_(False)
+
+
+def large_activation_row(fused, mlp, xd, gen) -> dict:
+    """K1 f32 (output only and with its stash), K2 and K3 f32 at the coarse
+    P on `large_activation_mlp`: every value finite, the output within
+    KERNEL_TOL and the stash within STASH_TOL of the plain f32 forward, d(xd)
+    and the 24 grads within BWD_TOL of the plain backward on the kernel's
+    stash, K3 the bits of K2, the stash's scale units those of
+    `stash_scale_units`.  The plain backward runs in f64 here, and the
+    cotangent is |N(0, 1)|: with random signs the grads sum 327,680 terms of
+    up to 1e5 that cancel to a few parts in 1e4 of their size, which f32
+    sums in any order (the plain f32 backward's too) miss BWD_TOL of; that
+    case's errors against f64, the kernel's and the plain f32 backward's,
+    are printed beside as a diagnostic."""
+    big = large_activation_mlp(type(mlp), type(mlp.cfg))
+    P = xd.shape[0]
+    g_signed = torch.randn((P, 4), generator=gen, device="cuda")
+    g = g_signed.abs()
+    out = fused.nerf_mlp_fwd(big, xd, "float32")
+    out_k, acts_k, units_k = fused._launch_fwd(big, xd, "float32", 10, 4, stash=True)
+    out_p, acts_p = fused.nerf_mlp_fwd_plain(big, xd, "float32", with_acts=True)
+    k2 = flat_grads(fused.nerf_mlp_bwd(big, xd, g, "float32", acts=acts_k, acts_units=units_k))
+    k3 = flat_grads(fused.nerf_mlp_bwd(big, xd, g, "float32"))
+    torch.cuda.synchronize()
+    big64 = copy.deepcopy(big).double()
+
+    def plain64(cot):
+        return flat_grads(fused.nerf_mlp_bwd_plain(big64, xd.double(), cot.double(), "float32",
+                                                   acts=acts_k.double()))
+
+    def rel_errs(got, want):
+        return max(((a - b).abs().max() / b.abs().max()).item() for a, b in zip(got, want))
+
+    want64 = plain64(g)
+    s64 = plain64(g_signed)
+    signed = {"kernel": rel_errs(flat_grads(fused.nerf_mlp_bwd(
+        big, xd, g_signed, "float32", acts=acts_k, acts_units=units_k)), s64),
+        "plain_f32": rel_errs(flat_grads(fused.nerf_mlp_bwd_plain(
+            big, xd, g_signed, "float32", acts=acts_k)), s64)}
+    del s64
+    r = {"shape": "large_activation", "dtype": "float32", "P": P,
+         "largest_activation": acts_p.abs().max().item(),
+         "rows_scaled_share": (units_k > 1).float().mean().item(),
+         **held_fwd(out, out_p, None, "float32"),
+         **{f"stash_launch_{k}": v for k, v in held_fwd(out_k, out_p, None, "float32").items()},
+         **held_stash(acts_k, acts_p, None, "float32"),
+         **held_bwd(k2, want64, None, "float32", "bwd"),
+         "diag_signed_cotangent_max_rel_err_vs_f64": signed,
+         "remat_bitwise": all(torch.equal(a, b) for a, b in zip(k2, k3)),
+         "units_bitwise": torch.equal(units_k, fused.stash_scale_units(acts_k))}
+    r["finite"] = all(bool(torch.isfinite(t).all()) for t in [out, out_k, acts_k] + k2 + k3)
+    r["ok"] = (r["largest_activation"] >= 65520 and r["finite"] and r["fwd_out_within_tol"]
+               and r["stash_launch_fwd_out_within_tol"] and r["stash_within_tol"]
+               and r["bwd_within_tol"] and r["remat_bitwise"] and r["units_bitwise"])
+    print("  " + json.dumps(r), flush=True)
+    del big, big64, acts_k, acts_p, k2, k3, want64
+    torch.cuda.empty_cache()
+    return r
 
 
 def flagship(cfg_mod, backend=None, dtype=None):
@@ -897,19 +1031,28 @@ def render_phase(fused, lush, cfg_mod):
 
 # the flagship's step (bf16 stash), bf16 remat, the shipped scene configs'
 # step (f32 remat: mlp_backend = pallas, the dtype and backward left at
-# their defaults) and plain torch
+# their defaults) and plain torch, each with its point_chunk: the
+# flagship's 0, the shipped configs' POINT_CHUNK (each is measured at the
+# other too)
 TRAIN_VARIANTS = {"stash": ("cuda", "bfloat16", "stash"), "remat": ("cuda", "bfloat16", "remat"),
                   "remat_f32": ("cuda", "float32", "remat"), "torch": ("torch", "float32", "remat")}
 GRAD_VARIANTS = dict(TRAIN_VARIANTS, stash_f32=("cuda", "float32", "stash"))
-# kernel launches per flagship train step (2 scene MLPs): one forward each,
-# four backward launches each (dgrad, wgrad, two reductions); remat adds the
-# forward kernel that writes the stash its dgrad reads
-STEP_LAUNCHES = {
-    "stash": {"nerf_mlp_fwd": 2, "nerf_mlp_bwd_stash": 8, "nerf_mlp_bwd_remat": 0},
-    "remat": {"nerf_mlp_fwd": 2, "nerf_mlp_bwd_stash": 0, "nerf_mlp_bwd_remat": 10},
-    "remat_f32": {"nerf_mlp_fwd": 2, "nerf_mlp_bwd_stash": 0, "nerf_mlp_bwd_remat": 10},
-    "torch": {"nerf_mlp_fwd": 0, "nerf_mlp_bwd_stash": 0, "nerf_mlp_bwd_remat": 0},
-}
+VARIANT_CHUNK = {"remat_f32": POINT_CHUNK}  # the others run the flagship's 0
+STEP_POINTS = (N_RAYS * 5 * 64, N_RAYS * 5 * 128)  # the coarse and fine MLPs' points a step
+
+
+def step_launches(fused, variant: str, point_chunk: int) -> dict:
+    """Kernel launches per flagship train step (2 scene MLPs): one forward
+    each; a backward runs, for each of its point chunks (`point_chunks`),
+    the dgrad, the wgrad and two reductions (remat: first K1 writing the
+    chunk's stash)."""
+    be, _, bwd = TRAIN_VARIANTS[variant]
+    if be == "torch":
+        return {"nerf_mlp_fwd": 0, "nerf_mlp_bwd_stash": 0, "nerf_mlp_bwd_remat": 0}
+    per_chunk = 5 if bwd == "remat" else 4
+    n = sum(per_chunk * len(fused.point_chunks(P, point_chunk)) for P in STEP_POINTS)
+    return {"nerf_mlp_fwd": 2, "nerf_mlp_bwd_stash": n * (bwd == "stash"),
+            "nerf_mlp_bwd_remat": n * (bwd == "remat")}
 STEP_PACKS = 4  # forward and backward blobs of both scene MLPs, once per step
 
 
@@ -921,11 +1064,11 @@ def corrupted_stash(fused, on: bool, block: int = 3):
     launch = fused._launch_fwd
 
     def shifted(*args, **kwargs):
-        out, acts = launch(*args, **kwargs)
+        out, acts, units = launch(*args, **kwargs)
         if acts is not None:
             cols = acts[:, block * MLP_WIDTH:(block + 1) * MLP_WIDTH]
             cols.copy_(cols.roll(1, dims=1))
-        return out, acts
+        return out, acts, units
 
     if on:
         fused._launch_fwd = shifted
@@ -959,10 +1102,13 @@ def cotangent_ranges(fused, out: list):
         fused.nerf_mlp_bwd = bwd
 
 
-def train_cfg(cfg_mod, variant):
+def train_cfg(cfg_mod, variant, point_chunk=None):
+    """The flagship config under a variant's backend, dtype, backward and
+    point_chunk (None: the variant's own, VARIANT_CHUNK or 0)."""
     cfg = cfg_mod.flagship_cfg(num_images=NUM_IMAGES)
     be, dt, bwd = GRAD_VARIANTS[variant]
     cfg.mlp_backend, cfg.mlp_compute_dtype, cfg.mlp_bwd = be, dt, bwd
+    cfg.point_chunk = VARIANT_CHUNK.get(variant, 0) if point_chunk is None else point_chunk
     return cfg, cfg.lush_config()
 
 
@@ -977,8 +1123,8 @@ def train_phase(fused, lush, cfg_mod, trainer):
             res["launches_total"][k] += v
         return counts
 
-    def fresh(variant):
-        cfg, lc = train_cfg(cfg_mod, variant)
+    def fresh(variant, point_chunk=None):
+        cfg, lc = train_cfg(cfg_mod, variant, point_chunk)
         model = lush.LushNeRF(lc, seed=0, device="cuda")
         opt, sched = trainer.make_optimizer(cfg, model)
         return cfg, lc, model, opt, sched
@@ -996,7 +1142,7 @@ def train_phase(fused, lush, cfg_mod, trainer):
         res[f"stage_{stage}"] = r
         print(f"  {stage}: " + json.dumps(r), flush=True)
         assert np.isfinite(r["loss"]), stage
-        assert r["launches"] == STEP_LAUNCHES["stash"], (stage, r["launches"])
+        assert r["launches"] == step_launches(fused, "stash", 0), (stage, r["launches"])
         assert packs == STEP_PACKS, (stage, packs)
     del model, opt, sched
 
@@ -1051,9 +1197,14 @@ def train_phase(fused, lush, cfg_mod, trainer):
     del model, opt, sched
     torch.cuda.empty_cache()
 
-    # 3. ms/step, rays/s and peak memory of the three backends
-    for variant in TRAIN_VARIANTS:
-        cfg, lc, model, opt, sched = fresh(variant)
+    # 3. ms/step, rays/s and peak memory of the three backends, each at its
+    # own point_chunk (res[variant]) and at the other (res[variant@chunk])
+    for variant, chunk in [(v, c) for v in TRAIN_VARIANTS
+                           for c in sorted({VARIANT_CHUNK.get(v, 0), 0, POINT_CHUNK},
+                                           key=lambda c: c != VARIANT_CHUNK.get(v, 0))]:
+        own = chunk == VARIANT_CHUNK.get(variant, 0)
+        cfg, lc, model, opt, sched = fresh(variant, chunk)
+        assert lc.render.point_chunk == chunk
         gen = torch.Generator(device="cuda").manual_seed(1)
 
         def step():
@@ -1067,23 +1218,31 @@ def train_phase(fused, lush, cfg_mod, trainer):
         n = 10
         ms, (loss, _) = window_ms(step, n)
         counts = count()
-        r = dict(ms_per_step=ms, rays_per_s=N_RAYS / ms * 1e3, steps=n,
+        r = dict(point_chunk=chunk, ms_per_step=ms, rays_per_s=N_RAYS / ms * 1e3, steps=n,
                  per_step_ms=per_call_ms(step, 5),
                  peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                  launches_per_step={k: v / n for k, v in counts.items()}, loss=loss.item())
-        if variant == "remat_f32":  # one more step: what reaches the scene MLPs' backward
+        if variant == "remat_f32" and own:  # one more step: what reaches the scene MLPs' backward
             ranges = r["cotangent_ranges"] = []
             with cotangent_ranges(fused, ranges):
                 step()
             print("  cotangent reaching each scene MLP (shipped configs' step): "
                   + json.dumps(ranges), flush=True)
             assert len(ranges) == 2 and all(np.isfinite(x["max_abs_g"]) for x in ranges), ranges
-        res[variant] = r
-        print(f"  {variant}: " + json.dumps(r), flush=True)
-        assert r["launches_per_step"] == STEP_LAUNCHES[variant], variant
+        key = variant if own else f"{variant}@{chunk}"
+        res[key] = r
+        print(f"  {key}: " + json.dumps(r), flush=True)
+        assert r["launches_per_step"] == step_launches(fused, variant, chunk), key
         assert np.isfinite(r["loss"])
         del model, opt, sched
         torch.cuda.empty_cache()
+    res["peak_mem_gb"] = {k: v["peak_mem_gb"] for k, v in res.items()
+                          if isinstance(v, dict) and "peak_mem_gb" in v}
+    print("  peak memory (GB) by variant and point_chunk: " + json.dumps(res["peak_mem_gb"]),
+          flush=True)
+    # the shipped configs' step must need less memory than plain torch f32
+    # does at the flagship's setting, the mode's purpose
+    assert res["remat_f32"]["peak_mem_gb"] < res["torch"]["peak_mem_gb"], res["peak_mem_gb"]
 
     # 4. one step's grads, the kernel path (bf16 and f32) vs torch f32, same
     # draws; and the control: the bf16 kernel path fed a stash with one block
@@ -1129,7 +1288,8 @@ def profile_phase(lush, cfg_mod, trainer, untraced_ms):
     kernel intervals over the span of the traced region, and over the
     untraced wall time), from torch.profiler, over 3 forward_kernel calls,
     one render_image, one flagship train step (stash), and one step of the
-    shipped scene configs (f32 remat) and of plain torch f32."""
+    shipped scene configs (f32 remat, at their point_chunk and at 0) and of
+    plain torch f32."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1141,8 +1301,8 @@ def profile_phase(lush, cfg_mod, trainer, untraced_ms):
     c2w = np.eye(3, 4, dtype=np.float32)
     batch = train_batch()
 
-    def step_run(variant):
-        cfg, tlc = train_cfg(cfg_mod, variant)
+    def step_run(variant, point_chunk=None):
+        cfg, tlc = train_cfg(cfg_mod, variant, point_chunk)
         tmodel = lush.LushNeRF(tlc, seed=0, device="cuda")
         opt, sched = trainer.make_optimizer(cfg, tmodel)
         return False, lambda: trainer.train_step(tmodel, opt, sched, tlc, H, W, FOCAL, batch,
@@ -1154,6 +1314,7 @@ def profile_phase(lush, cfg_mod, trainer, untraced_ms):
         "render_image": (True, lambda: lush.render_image(model, lc, H, W, K, c2w, RAY_CHUNK)),
         "train_step": step_run("stash"),
         "train_step_remat_f32": step_run("remat_f32"),
+        "train_step_remat_f32@0": step_run("remat_f32", 0),
         "train_step_torch_f32": step_run("torch"),
     }
     res = {}
@@ -1326,11 +1487,44 @@ def tune_phase(fused, pe_mm, tune, NeRFMLP, MLPConfig):
             if not ok:
                 raise AssertionError(f"PE-only / matmul-only kernels disagree: {row}")
     res["rows"] = rows
+    res["pe_rows"] = pe_rows(pe_mm, xd_all)
+    from lushnerf_torch.scripts import pe_ablate  # builds K4 with parts compiled out
+    res["pe_ablation"] = {r["variant"]: r["ms"] for r in pe_ablate.main(TUNE_P)}
+    print(f"  K4 at P = {TUNE_P}: " + json.dumps(res["pe_ablation"])
+          + f" ms (full, sines replaced by their arguments, stores removed); bound "
+          f"{pe_bound_ms(TUNE_P)[0]:.4f} ms ({pe_bound_ms(TUNE_P)[1]})", flush=True)
     launched = res["launches"]
     if launched["pe_only"] <= 0 or launched["mm_only"] <= 0 or launched["nerf_mlp_fwd"] <= 0 \
             or launched["nerf_mlp_bwd_remat"] <= 0:
         raise AssertionError(f"the tune path did not launch every kernel: {launched}")
     return res
+
+
+def pe_rows(pe_mm, xd_all) -> list:
+    """K4 alone against its plain version at one point, at a P that is not
+    a whole number of its 64-point tiles, and on points with |x| up to 1e3
+    in all six lanes (angles 2^9 x past sinf's fast range reduction, which
+    the tune path's standard-normal points never reach): PE_TOL, lanes
+    90:128 exactly 0."""
+    rows = []
+    big = torch.from_numpy(np.random.default_rng(5).uniform(-1e3, 1e3, (65_536, 8))
+                           .astype(np.float32)).cuda()
+    big[:, 6:] = 0
+    for label, xd in (("one", xd_all[:1]), ("odd_tile", xd_all[:100_003]), ("large_x", big)):
+        with torch.no_grad():
+            pe = pe_mm.pe_only(xd)
+            pe_p = pe_mm.pe_only_plain(xd)
+        torch.cuda.synchronize()
+        row = {"shape": label, "P": xd.shape[0], "pe_max_abs_err": (pe - pe_p).abs().max().item(),
+               "pe_lanes_90_128_zero": not bool(pe[:, 90:].any()),
+               "largest_angle": xd[:, :6].abs().max().item() * 2 ** 9}
+        row["pe_within_tol"] = (row["pe_max_abs_err"] <= PE_TOL and row["pe_lanes_90_128_zero"]
+                                and bool(torch.isfinite(pe).all()))
+        print("  K4 " + json.dumps(row), flush=True)
+        rows.append(row)
+        if not row["pe_within_tol"]:
+            raise AssertionError(f"the PE-only kernel disagrees with its plain version: {row}")
+    return rows
 
 
 def probe_phase(raymajor, probe):
@@ -1450,7 +1644,7 @@ def kernel_entries(results):
     forward_kernel, render_image and train_step phases), its largest error
     against its plain version, and its times at the flagship fine P in bf16."""
     fwd_rows = results.get("kernel") or []
-    bwd_rows = results.get("kernel_bwd") or []
+    bwd_rows = [r for r in results.get("kernel_bwd") or [] if r["shape"] != "large_activation"]
     fine = next((r for r in bwd_rows if r["dtype"] == "bfloat16" and r["shape"] == "fine"), None)
     if fine is None:
         return []
@@ -1489,14 +1683,14 @@ def kernel_entries(results):
               "lushnerf_tpu/ops/fused/nerf_mlp.py:608", counts.get("nerf_mlp_bwd_stash", 0),
               bwd_err, "stash", {"max_rel_err": bwd_rel, "shapes": shapes("stash"),
                                  "also_source": "lushnerf_torch/csrc/nerf_mlp_bwd.cu",
-                                 "launches_are": "dgrad + wgrad + 2 reductions per backward",
+                                 "launches_are": "dgrad + wgrad + 2 reductions per point chunk",
                                  **bwd_split(bwd_rows)}),
         entry("nerf_mlp_bwd_remat", "lushnerf_torch/csrc/nerf_mlp_dgrad.cu",
               "lushnerf_tpu/ops/fused/nerf_mlp.py:589", counts.get("nerf_mlp_bwd_remat", 0),
               bwd_err, "remat", {"max_rel_err": bwd_rel, **at_tune_p("k3"), "shapes": shapes("remat"),
                                  "also_source": "lushnerf_torch/csrc/nerf_mlp_fwd.cu, nerf_mlp_bwd.cu",
                                  "launches_are": "K1 with its stash + dgrad + wgrad + 2 "
-                                                 "reductions per backward"}),
+                                                 "reductions per point chunk"}),
     ] + tune_entries(results.get("tune_kernel")) + probe_entries(results.get("probe_raymajor"))
 
 
@@ -1537,7 +1731,9 @@ def tune_entries(tune):
                 "library_ms": None, "P": t["P"], **extra}
 
     return [
-        entry("pe_only", "scripts/tune_kernel.py:100", "pe", {}),
+        entry("pe_only", "scripts/tune_kernel.py:100", "pe", {
+            "max_abs_err_all_rows": max(r["pe_max_abs_err"] for r in rows + tune["pe_rows"]),
+            "ablation_ms": tune["pe_ablation"]}),
         entry("mm_only", "scripts/tune_kernel.py:119", "mm", {
             "mean_err_over_f32_gap": max(r["mm_mean_err_over_f32_gap"] for r in rows),
             "split_vs_k1_max_abs_err": max(r["split_vs_k1_max_abs_err"] for r in rows),
@@ -1634,6 +1830,7 @@ def main(argv=None) -> int:
                 "render_image": ri.get("ms_per_image"),
                 "train_step": (train.get("stash") or {}).get("ms_per_step"),
                 "train_step_remat_f32": (train.get("remat_f32") or {}).get("ms_per_step"),
+                "train_step_remat_f32@0": (train.get("remat_f32@0") or {}).get("ms_per_step"),
                 "train_step_torch_f32": (train.get("torch") or {}).get("ms_per_step")}
 
     runs = {

@@ -174,7 +174,8 @@ class Config:
     dkm_ckpt_path: str = ""  # gim_dkm_100h.ckpt (or LUSHNERF_DKM_CKPT env)
 
     # ---- runtime additions of the JAX package (accepted keys; the port
-    # reads mlp_backend, mlp_compute_dtype, ray_chunk_eval and seed) ----
+    # reads point_chunk, mlp_backend, mlp_compute_dtype, ray_chunk_eval and
+    # seed) ----
     mesh_shape: str = ""  # e.g. "8" or "4,2"; empty = all local devices, 1D
     mesh_axes: str = "data"
     coordinator_address: str = ""
@@ -307,6 +308,7 @@ class Config:
             sigma_activate=self.sigma_activate,
             multires=self.multires,
             multires_views=self.multires_views,
+            point_chunk=self.point_chunk,
             mlp_backend=self.mlp_backend,
             mlp_compute_dtype=self.mlp_compute_dtype,
             mlp_bwd=self.mlp_bwd,

@@ -128,6 +128,13 @@ __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void*
                "r"(smem_u32(src)), "r"(c0), "r"(c1)
                : "memory");
 }
+// `bytes` (a multiple of 16) of shared `src` to global `dst`, both 16-byte
+// aligned.  Tracked by the issuing thread's bulk groups.
+__device__ __forceinline__ void bulk_s2g(void* dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+               "r"(smem_u32(src)), "r"(bytes)
+               : "memory");
+}
 __device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }

@@ -419,8 +419,16 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(NTHR, 1)
 //
 // The split: each product dZ^T A is hi(Z) hi(A) + lo(Z) hi(A) + hi(Z)
 // lo(A) in one f32 accumulator, hi = fp16(x) and lo = fp16(x - hi).  The
-// activations and the PE are split as they are (|a| < 65504, as K1 f32
-// splits them).  dz is not: the cotangents reaching a scene MLP lie below
+// PE is split as it is (|pe| <= max(1, |x|)).  The activations take a scale
+// per point split and stash block like dz's below, from the units K1 f32
+// writes beside its stash (`au` [tiles][9][8]: per 128-point tile, block
+// a0..a7 / feat and consumer warp of K1, the largest 2^k over its rows, k
+// the least k >= 0 that puts the row's largest |a| below 2^15, as K1's
+// own split takes it): the item splits A / U_A, U_A the largest unit over
+// the tiles its split touches, so that no fp16 part overflows, and its
+// partial takes U_A back.  Every unit is 1 where |a| < 2^15, and then the
+// bits are those without the scale.  dz is not split as it is: the
+// cotangents reaching a scene MLP lie below
 // fp16's smallest normal, and the accumulator sums over the points, whose
 // rows the dgrad scaled one by one.  So the dgrad writes, for each 128-point
 // tile, each dz block (d_z0..d_z7, d_feat, d_hv) and each of its three PE
@@ -431,7 +439,7 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(NTHR, 1)
 // the tiles its split touches and splits dz / U: its largest value lies in
 // [2^14, 2^15), and a value 2^k below it keeps ~22 bits down to k = 17 and
 // an absolute error of 2^-25 U beneath.  Its partial is the accumulator
-// times U (exact).  The scales are powers of two taken from the data, so g
+// times U U_A (exact).  The scales are powers of two taken from the data, so g
 // 2^k gives 2^k times every grad, bit for bit.
 //
 // Design: a persistent grid (one block an SM) over work items, each an
@@ -468,9 +476,9 @@ constexpr int NST = 4;                  // ring stages
 constexpr int NCONS = 256;              // two consumer warpgroups
 constexpr int NCONV = 128;              // and a warpgroup of converters
 constexpr int NTHR = NCONS + NCONV;
-constexpr int SM_SCALE = NST * STAGE_B;    // [NST] f32: the U of the item a stage belongs to
-constexpr int SM_RED = SM_SCALE + NST * 4;  // [2][4] f32: the converter warps' largest U
-constexpr int SM_BARS = SM_RED + 8 * 4;    // mbarriers: FULL + s, EMPTY + s
+constexpr int SM_SCALE = NST * STAGE_B;    // [NST] f32: U U_A of the item a stage belongs to
+constexpr int SM_RED = SM_SCALE + NST * 4;  // [2][2][4] f32: the converter warps' largest U, U_A
+constexpr int SM_BARS = SM_RED + 16 * 4;   // mbarriers: FULL + s, EMPTY + s
 enum { FULL = 0, EMPTY = NST, N_BARS = 2 * NST };
 constexpr int SMEM = SM_BARS + N_BARS * 8;
 static_assert(SMEM <= 232448, "shared memory over the 227 KB a block may use");
@@ -478,6 +486,8 @@ constexpr int BAR_CONV = 1;   // named barrier of the converters
 constexpr int ZT = 128;       // points a tile of the dgrad, whose scale units zs holds
 constexpr int ZB = 10;        // dz blocks in zs: d_z0..d_z7, d_feat, d_hv
 constexpr int ZW = 3;         // entries a tile and block: the dgrad's PE warps
+constexpr int AT = 128;       // points a tile of K1, whose scale units au holds
+constexpr int AB = UNIT_BLOCKS, AW = UNIT_WARPS;  // au's stash blocks and entries a block
 // block 0's cycles, by thread 0 of the consumers and of the converters
 // (nerf_mlp.WGRAD_F32_CLOCKS): waiting for a full stage, issuing and
 // waiting for the matmuls, storing partials, all; issuing a stage's loads,
@@ -490,6 +500,7 @@ struct Args {
   const float* acts;   // [P, ACTS_LD] the f32 stash
   const float* pe;     // [P, pe_ld]
   const float* zs;     // [ceil(P / ZT)][ZB][ZW] the dgrad's scale units
+  const float* au;     // [ceil(P / AT)][AB][AW] K1's scale units of the stash
   float* part;         // [n_splits][w_numel]
   long long* clk;      // [N_CLK] or null
   long long part_stride;
@@ -513,7 +524,7 @@ __device__ __forceinline__ void mma_mn(float (&acc)[N / 2], uint64_t da, uint64_
 }
 
 // A consumer warpgroup's part of one item: its 64 rows o of the tile by N
-// columns over the split's stages, then its partial times U.
+// columns over the split's stages, then its partial times U U_A.
 template <int N, bool PROF>
 __device__ __forceinline__ void consume(const Args& a, const WTile& t, int I, int split, int& kst,
                                         Clock<PROF>& ck) {
@@ -585,9 +596,9 @@ __device__ __forceinline__ void put_parts(unsigned char* hi, unsigned char* lo, 
   *reinterpret_cast<uint4*>(lo + off) = make_uint4(pl[0], pl[1], pl[2], pl[3]);
 }
 
-// The converters' part of one item: the split's scale, then each stage of
+// The converters' part of one item: the split's scales, then each stage of
 // 32 points: dz's 128 columns of the tile (times 1 / U) and A's N columns
-// (zero past I and past the split), split into the ring.  A thread's share
+// (times 1 / U_A; zero past I and past the split), split into the ring.  A thread's share
 // of a stage is NZ + NA pieces of 8 columns of a row (two float4 each); it
 // issues all of their loads before it waits for the stage to be free.
 template <int N, bool PROF>
@@ -600,21 +611,36 @@ __device__ __forceinline__ void convert(const Args& a, const WTile& t, int I, in
   const int nst = split_stages<KS>(a, split, k0, k1);
   if (nst == 0) return;
   ck.start();
-  // U: the largest scale unit over the dgrad tiles the split touches
+  // U: the largest scale unit over the dgrad tiles the split touches; U_A
+  // (1 for the PE): K1's over its tiles, of A's stash block
   const int t0 = k0 / ZT, n = ((k1 - 1) / ZT - t0 + 1) * ZW;
-  float m = 0.f;
+  float m = 0.f, ma = 1.f;
   for (int e = u; e < n; e += NCONV)
     m = fmaxf(m, __ldg(a.zs + ((size_t)(t0 + e / ZW) * ZB + t.zb) * ZW + e % ZW));
+  if (!t.a_pe) {
+    const int ta = k0 / AT, na = ((k1 - 1) / AT - ta + 1) * AW, ab = t.a_col / W;
+    for (int e = u; e < na; e += NCONV)
+      ma = fmaxf(ma, __ldg(a.au + ((size_t)(ta + e / AW) * AB + ab) * AW + e % AW));
+  }
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-  float* red = wf32(SM_RED) + (nit & 1) * 4;
-  if ((u & 31) == 0) red[u >> 5] = m;
+  for (int o = 16; o > 0; o >>= 1) {
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    ma = fmaxf(ma, __shfl_xor_sync(0xffffffffu, ma, o));
+  }
+  float* red = wf32(SM_RED) + (nit & 1) * 8;
+  if ((u & 31) == 0) {
+    red[u >> 5] = m;
+    red[4 + (u >> 5)] = ma;
+  }
   named_bar(BAR_CONV, NCONV);
   m = fmaxf(fmaxf(red[0], red[1]), fmaxf(red[2], red[3]));
+  ma = fmaxf(fmaxf(red[4], red[5]), fmaxf(red[6], red[7]));
   ++nit;
-  // U = 2^e (or 0: every d_z of the split is zero, any scale will do)
+  // U = 2^e (or 0: every d_z of the split is zero, any scale will do); U_A
+  // = 2^ea >= 1
   const int e = m > 0.f ? ((__float_as_int(m) >> 23) & 255) - 127 : 0;
-  const float up = pow2(-e), down = pow2(e);
+  const int ea = ((__float_as_int(ma) >> 23) & 255) - 127;
+  const float up = pow2(-e), aup = pow2(-ea), down = pow2(e) * pow2(ea);
   ck.stop(V_SCALE);
   const float* asrc = t.a_pe ? a.pe : a.acts;
   const int a_ld = t.a_pe ? a.pe_ld : ACTS_LD;
@@ -651,10 +677,18 @@ __device__ __forceinline__ void convert(const Args& a, const WTile& t, int I, in
       const int q = u + NCONV * i;
       put_parts(base + S_ZH, base + S_ZL, q >> 4, (q & 15) * 8, zv[i], up);
     }
+    if (ea == 0) {  // (the warp group takes the branch as one: no multiply on ordinary input)
 #pragma unroll
-    for (int i = 0; i < NA; ++i) {
-      const int q = u + NCONV * i;
-      put_parts(base + S_AH, base + S_AL, q / (N / 8), (q % (N / 8)) * 8, av[i], 1.f);
+      for (int i = 0; i < NA; ++i) {
+        const int q = u + NCONV * i;
+        put_parts(base + S_AH, base + S_AL, q / (N / 8), (q % (N / 8)) * 8, av[i], 1.f);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < NA; ++i) {
+        const int q = u + NCONV * i;
+        put_parts(base + S_AH, base + S_AL, q / (N / 8), (q % (N / 8)) * 8, av[i], aup);
+      }
     }
     if (u == 0) wf32(SM_SCALE)[s] = down;
     fence_proxy_async();
@@ -715,11 +749,12 @@ __global__ void __launch_bounds__(NTHR, 1)
 }
 }  // namespace f32w
 
-// out[n] = sum over r of in[r][n], in order of r
-__global__ void nerf_mlp_bwd_reduce(const float* in, int R, long long N, float* out) {
+// out[n] = sum over r of in[r][n], in order of r; with `add`, out[n] plus
+// that sum (the sums of the earlier point chunks first)
+__global__ void nerf_mlp_bwd_reduce(const float* in, int R, long long N, float* out, int add) {
   const long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= N) return;
-  float s = 0.f;
+  float s = add ? out[n] : 0.f;
   for (int r = 0; r < R; ++r) s += in[(size_t)r * N + n];
   out[n] = s;
 }
@@ -830,9 +865,9 @@ int launch_wgrad_bf16(const void* acts, const void* dz, const void* pe, float* w
 }
 
 int launch_wgrad_f32(const void* acts, const void* dz, const void* pe, const float* zs,
-                     float* w_part, long long* clk, int P, int kx, int kd, int n_splits,
-                     int n_wblocks, cudaStream_t stream) {
-  if (zs == nullptr || n_wblocks <= 0) return (int)cudaErrorInvalidValue;
+                     const float* au, float* w_part, long long* clk, int P, int kx, int kd,
+                     int n_splits, int n_wblocks, cudaStream_t stream) {
+  if (zs == nullptr || au == nullptr || n_wblocks <= 0) return (int)cudaErrorInvalidValue;
   static bool attr_set = false;
   if (!attr_set) {
     cudaError_t e = cudaFuncSetAttribute(f32w::nerf_mlp_bwd_wgrad_f32_sm90<false>,
@@ -848,6 +883,7 @@ int launch_wgrad_f32(const void* acts, const void* dz, const void* pe, const flo
   wa.acts = static_cast<const float*>(acts);
   wa.pe = static_cast<const float*>(pe);
   wa.zs = zs;
+  wa.au = au;
   wa.part = w_part;
   wa.clk = clk;
   wa.part_stride = w_numel(kx, kd);
@@ -874,12 +910,14 @@ extern "C" {
 long long nerf_mlp_bwd_w_numel(int kx, int kd) { return w_numel(kx, kd); }
 long long nerf_mlp_bwd_fp_numel() { return FP_NUMEL; }
 long long nerf_mlp_bwd_acts_ld() { return ACTS_LD; }
-// The wgrads' constants: the f32 wgrad's scale units (points a tile, dz
-// blocks, entries a tile and block), the cycle counts of the f32 and the
-// bf16 instantiations, and their points a stage.
+// The wgrads' constants: the f32 wgrad's scale units of dz (points a tile,
+// dz blocks, entries a tile and block), the cycle counts of the f32 and the
+// bf16 instantiations, their points a stage, and the stash's scale units
+// (blocks, entries a tile and block).
 int nerf_mlp_bwd_consts(int i) {
-  const int c[7] = {f32w::ZT, f32w::ZB, f32w::ZW, f32w::N_CLK, bf16w::N_CLK, f32w::KS, bf16w::KS};
-  return i >= 0 && i < 7 ? c[i] : -1;
+  const int c[9] = {f32w::ZT, f32w::ZB, f32w::ZW, f32w::N_CLK, bf16w::N_CLK, f32w::KS, bf16w::KS,
+                    f32w::AB, f32w::AW};
+  return i >= 0 && i < 9 ? c[i] : -1;
 }
 // A wgrad's work in the order of its persistent grid (bf16: each unit as
 // block 0 of the cluster takes it, then as block 1), 9 values an entry into
@@ -908,32 +946,40 @@ int nerf_mlp_bwd_wgrad_items(int bf16_mode, int n_splits, int kx, int kd, long l
     }
   return n;
 }
-// The backward of nerf_mlp_fwd on `stream` after its dgrad
-// (nerf_mlp_dgrad.cu): the wgrad and the two reductions on the dgrad's dz,
-// pe and fp_part.  Returns the first cudaGetLastError() that is not 0,
-// else 0.
+// The wgrad of nerf_mlp_fwd's backward on `stream`, for P points (a point
+// chunk) after their dgrad (nerf_mlp_dgrad.cu), on its dz and pe: each
+// point split's partial of the weight grads into its row of w_part.
+// Returns cudaGetLastError().
 //   acts [P, ACTS_LD] the stash, dz [P, ACTS_LD] and pe [P, kx + kd]
 //   scratch, in the compute dtype; zs (f32 only) the dgrad's scale units
-//   [ceil(P / 128)][10][3]; fp_part [n_blocks, FP_NUMEL] and w_part
-//   [n_splits, w_numel] f32 scratch; dw [w_numel] and dfp [FP_NUMEL] f32
-//   out; clk null or [N_CLK] int64 of the mode (the instrumented wgrad).
-// n_blocks: the dgrad's blocks (rows of fp_part); n_splits: point splits of
-// the wgrad; n_wblocks: the wgrad's persistent grid (at most one block an
-// SM).  Requires what nerf_mlp_fwd requires.
-int nerf_mlp_bwd(const void* acts, const void* dz, const void* pe, const float* zs, float* fp_part,
-                 float* w_part, float* dw, float* dfp, long long* clk, int P, int kx, int kd,
-                 int bf16_mode, int n_blocks, int n_splits, int n_wblocks, void* stream) {
+//   [ceil(P / 128)][10][3], au (f32 only) K1's scale units of the stash
+//   [ceil(P / 128)][9][8]; w_part [n_splits, w_numel] f32 scratch; clk null
+//   or [N_CLK] int64 of the mode (the instrumented wgrad).
+// n_splits: point splits of the wgrad; n_wblocks: its persistent grid (at
+// most one block an SM).  Requires what nerf_mlp_fwd requires.
+int nerf_mlp_bwd_wgrad(const void* acts, const void* dz, const void* pe, const float* zs,
+                       const float* au, float* w_part, long long* clk, int P, int kx, int kd,
+                       int bf16_mode, int n_splits, int n_wblocks, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int rc = bf16_mode ? launch_wgrad_bf16(acts, dz, pe, w_part, clk, P, kx, kd, n_splits,
-                                         n_wblocks, s)
-                     : launch_wgrad_f32(acts, dz, pe, zs, w_part, clk, P, kx, kd, n_splits,
-                                        n_wblocks, s);
-  if (rc != 0) return rc;
+  return bf16_mode ? launch_wgrad_bf16(acts, dz, pe, w_part, clk, P, kx, kd, n_splits, n_wblocks,
+                                       s)
+                   : launch_wgrad_f32(acts, dz, pe, zs, au, w_part, clk, P, kx, kd, n_splits,
+                                      n_wblocks, s);
+}
+
+// The two fixed-order reductions that end a point chunk's backward, on
+// `stream`: dw [w_numel] = the w_rows rows of w_part summed in order, dfp
+// [FP_NUMEL] = the fp_rows rows of the dgrad's fp_part [fp_rows, FP_NUMEL]
+// likewise; with `add` (a later chunk) each added to what dw and dfp hold.
+// Returns the first cudaGetLastError() that is not 0, else 0.
+int nerf_mlp_bwd_reduce_all(const float* fp_part, int fp_rows, const float* w_part, int w_rows,
+                            float* dw, float* dfp, int kx, int kd, int add, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long wn = w_numel(kx, kd);
-  nerf_mlp_bwd_reduce<<<(unsigned)((wn + 255) / 256), 256, 0, s>>>(w_part, n_splits, wn, dw);
+  nerf_mlp_bwd_reduce<<<(unsigned)((wn + 255) / 256), 256, 0, s>>>(w_part, w_rows, wn, dw, add);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  nerf_mlp_bwd_reduce<<<(FP_NUMEL + 255) / 256, 256, 0, s>>>(fp_part, n_blocks, FP_NUMEL, dfp);
+  nerf_mlp_bwd_reduce<<<(FP_NUMEL + 255) / 256, 256, 0, s>>>(fp_part, fp_rows, FP_NUMEL, dfp, add);
   return (int)cudaGetLastError();
 }
 

@@ -14,6 +14,12 @@
 //
 // Activation stash ([P][ACTS_LD] in the compute dtype, one row per point):
 // a0..a7 at columns l * 256, feat at 8 * 256, hv (128 wide) at 9 * 256.
+// Beside the f32 stash K1 writes its scale units ([ceil(P / 128)]
+// [UNIT_BLOCKS][UNIT_WARPS] f32): per 128-point tile, block (a0..a7, feat)
+// and consumer warp (rows 16 w .. 16 w + 15 of the tile) the largest 2^k
+// over its rows before P, k the least k >= 0 that puts the row's largest
+// |value| of the block below 2^ROW_SCALE_BITS, the scale at which K1 f32
+// splits the row into fp16 parts; the f32 wgrad splits its A with them.
 
 #pragma once
 
@@ -27,6 +33,9 @@ constexpr int W = 256;         // scene MLP width
 constexpr int WH = 128;        // views layer width
 constexpr int PE_MAX = 128;    // kx + kd
 constexpr int ACTS_LD = 9 * W + WH;  // stash row: a0..a7, feat, hv
+constexpr int UNIT_BLOCKS = 9;       // the f32 stash's scale units: a0..a7, feat
+constexpr int UNIT_WARPS = 8;        // and K1's consumer warps
+constexpr int ROW_SCALE_BITS = 15;   // a row's fp16 parts hold values below 2^15
 
 constexpr int FP_BF = 8 * W;         // b0..b7 at l * W
 constexpr int FP_BV = FP_BF + W;

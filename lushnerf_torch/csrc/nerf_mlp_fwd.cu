@@ -32,7 +32,9 @@
 //         flagship path.
 //   f32:  f32-grade products on the tensor cores, as the TPU kernel's f32
 //         mode runs the MXU at Precision.HIGHEST: each operand split in two
-//         fp16 parts (the weights' scaled by 2^4) and each product taken as
+//         fp16 parts (the weights' scaled by 2^4, an activation row's by the
+//         power of two that keeps its largest value below 2^15, so that any
+//         activation the f32 sums reach has parts) and each product taken as
 //         three fp16 products of the parts into one f32 accumulator (the
 //         split); bias, relu and the heads in f32;
 //         the f32 stash (relu of each accumulator) stored from registers.
@@ -65,17 +67,25 @@ long long nerf_mlp_fwd_fp_numel() { return nerf_mlp::FP_NUMEL; }
 long long nerf_mlp_fwd_acts_ld() { return nerf_mlp::ACTS_LD; }
 int nerf_mlp_fwd_tile() { return fwd90::T; }
 int nerf_mlp_fwd_n_stages() { return fwd90::N_ST; }
+// The f32 stash's scale units: blocks, entries a tile and block, and the
+// bits below which a row's fp16 parts hold its values (i = 0, 1, 2).
+int nerf_mlp_fwd_units(int i) {
+  const int c[3] = {nerf_mlp::UNIT_BLOCKS, nerf_mlp::UNIT_WARPS, nerf_mlp::ROW_SCALE_BITS};
+  return i >= 0 && i < 3 ? c[i] : -1;
+}
 
 // Launches the kernel on `stream` and returns 0 or a CUDA error code.
-// `acts` is null, or a [P, ACTS_LD] stash in the compute dtype; `n_blocks`
+// `acts` is null, or a [P, ACTS_LD] stash in the compute dtype; `units`
+// (f32 with a stash, else null) its scale units [ceil(P / 128)]
+// [UNIT_BLOCKS][UNIT_WARPS] f32 (nerf_mlp_common.cuh); `n_blocks`
 // blocks (1 .. the SM count), `stamps` null or [tiles of block 0][n_stages]
 // int64 for the stage cycles of the instrumented instantiation.
 // Requires P > 0, kx and kd multiples of 32 with kx + kd <= 128,
 // 3 + 6 * nfx <= kx and 3 + 6 * nfd <= kd (f32: kx <= 64 and pe_d within
 // one 64-column chunk); all pointers 16-byte aligned.
 int nerf_mlp_fwd(const float* xd, const void* w, const float* fp, float* out, void* acts,
-                 long long* stamps, int P, int kx, int kd, int nfx, int nfd, int bf16_mode,
-                 int n_blocks, void* stream) {
+                 float* units, long long* stamps, int P, int kx, int kd, int nfx, int nfd,
+                 int bf16_mode, int n_blocks, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   fwd90::Args a;
   memset(&a, 0, sizeof(a));
@@ -83,6 +93,7 @@ int nerf_mlp_fwd(const float* xd, const void* w, const float* fp, float* out, vo
   a.fp = fp;
   a.w = static_cast<const nerf_mlp::bf16*>(w);
   a.out = out;
+  a.units = bf16_mode ? nullptr : units;
   a.stamps = stamps;
   a.P = P;
   a.kx = kx;

@@ -161,6 +161,7 @@ struct Args {
   const bf16* w;      // the weight blob, pieces in order
   float* out;         // [P, 4] (MODE_FWD, MODE_F32) or [P, 128] (MODE_MM)
   float* acts;        // MODE_F32: the f32 stash [P][ACTS_LD] or null
+  float* units;       // MODE_F32 with the stash: its scale units [ntiles][UNIT_BLOCKS][UNIT_WARPS]
   long long* stamps;  // [tiles of block 0][N_ST] or null
   int P, kx, kd, nfx, nfd;  // MODE_MM: nfx / nfd are the packed PE's lanes of pe_x / pe_d
   int ntiles, n_pieces, nx, d0, nd;
@@ -527,11 +528,26 @@ __device__ __forceinline__ void consumer(const Args& a, const CUtensorMap* tm) {
 // ---------------------------------------------------------------------------
 //
 // Every f32 operand x is split in two fp16 parts, hi = fp16(x s) and lo =
-// fp16(x s - hi): s = 1 for the activations and the PE (their parts hold
-// |x| < 65504) and s = 2^SPLIT_SHIFT for the weights (|w| < 4094, checked
-// by pack_params), so that a weight's lo part stays a normal number down to
-// |w| = 2^-7 and an activation's down to 2^-3: hi + lo is x s within ~2^-22
-// of it, or 2^-25 absolute below that.  A product a . w is taken as hi(a)
+// fp16(x s - hi): s = 1 for the PE (|pe| <= max(1, |x|)), s = 2^SPLIT_SHIFT
+// for the weights (|w| < 4094, checked by pack_params), so that a weight's
+// lo part stays a normal number down to |w| = 2^-7, and for an activation
+// row s = 2^-k, k the least k >= 0 that puts the row's largest |value|
+// below 2^15 (ROW_SCALE_BITS), so that no part overflows fp16's 65504
+// whatever the activations reach (k = 0, as is every row of an ordinary
+// input, gives the bits without the scale): hi + lo is x s within ~2^-22 of
+// it, or 2^-25 absolute below that.  The f32 accumulator has the range the
+// parts lack: a layer's accumulator rows that sum a scaled row's products
+// hold 2^-k times their sum, from their bias on (init_bias's value times
+// 2^-k), and the epilogue takes them back by 2^k; layer 5 (a4, then the
+// unscaled PE chunk) takes them back before its PE chunk, and the views
+// layer (the PE chunk, then feat) scales its accumulator by 2^-k after its
+// PE chunk, each only where some row of the warpgroup is scaled (one
+// branch a warpgroup: ordinary tiles wait for no wgmma there).  All these
+// scales are powers of two, so exact.  The epilogue finds a row's largest
+// value over its quad of threads (two shuffles); beside the stash it writes
+// each tile's, block's and warp's largest 2^k (`units`), from which the
+// f32 wgrad scales its A (nerf_mlp_bwd.cu); the stash holds the unscaled
+// values.  A product a . w is taken as hi(a)
 // hi(w) + lo(a) hi(w) + hi(a) lo(w), all three into the one f32
 // accumulator, which holds 2^SPLIT_SHIFT times the layer's sum from that
 // times its bias on (an exact scale); the epilogue takes it back.  lo . lo
@@ -552,16 +568,49 @@ __device__ __forceinline__ void consumer(const Args& a, const CUtensorMap* tm) {
 // layer).  Layers 0 and 5 read pe_x (5 after a4), layer 9 pe_d before feat,
 // so that the slot is free for the next tile's pe_x while the views layer
 // runs.
+// Where the accumulator's scale changes between the activation chunks and
+// the PE chunk (scale_at: the first chunk of the new scale; -1: nowhere).
 struct LayerS {
-  int nk, pe_at, pe_rel, bias;
+  int nk, pe_at, pe_rel, scale_at, bias;
 };
 __device__ __forceinline__ LayerS layer_split(int l) {
   LayerS L;
   L.nk = l == 0 ? 1 : l == 5 || l == 9 ? 5 : 4;
   L.pe_at = l == 0 || l == 9 ? 0 : l == 5 ? 4 : -1;
   L.pe_rel = l == 5 ? 4 : l == 9 ? 0 : -1;
+  L.scale_at = l == 5 ? 4 : l == 9 ? 1 : -1;
   L.bias = l < 8 ? l * W : l == 8 ? FP_BF : FP_BV;
   return L;
+}
+
+// The accumulator's rows r0 (entries 4 j, 4 j + 1) and r0 + 8 (4 j + 2, 4 j
+// + 3) times f.x and f.y.
+template <int R>
+__device__ __forceinline__ void scale_rows(float (&acc)[R], float2 f) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) acc[i] *= (i & 2) ? f.y : f.x;
+}
+
+// 2^-k for a row whose largest |value| is m: k the least k >= 0 that puts
+// m 2^-k below 2^ROW_SCALE_BITS (nerf_mlp.row_scale_exponents).
+__device__ __forceinline__ float row_down(float m) {
+  const int e = ((__float_as_int(m) >> 23) & 255) - 127;  // floor(log2 m), m normal
+  return e >= ROW_SCALE_BITS ? __int_as_float((127 + ROW_SCALE_BITS - 1 - e) << 23) : 1.f;
+}
+
+// bar.sync on named barrier `id` over `count` threads, returning whether p
+// holds for any of them.
+__device__ __forceinline__ bool named_bar_any(int id, int count, bool p) {
+  uint32_t r;
+  asm volatile(
+      "{\n.reg .pred q, o;\n"
+      "setp.ne.u32 q, %1, 0;\n"
+      "bar.red.or.pred o, %2, %3, q;\n"
+      "selp.u32 %0, 1, 0, o;\n}\n"
+      : "=r"(r)
+      : "r"((uint32_t)p), "r"(id), "r"(count)
+      : "memory");
+  return r != 0;
 }
 // The hi part of chunk c's A (its lo part follows at S_PE_LO or S_ACT_LO).
 __device__ __forceinline__ const unsigned char* a_chunk_split(const LayerS& L, int c) {
@@ -586,17 +635,28 @@ __device__ __forceinline__ void pe_release() {
 // acc = bias + A[wg rows] . W^T in the split, over the layer's chunks: per
 // chunk one wgmma group hi(A) hi(W) + lo(A) hi(W) on its hi pieces, then
 // one group hi(A) lo(W) on its lo pieces; each group's pieces go back to
-// the ring as soon as it is done, one group kept in flight.
+// the ring as soon as it is done, one group kept in flight.  rs: the row
+// scales 2^-k of the layer's input activations.  The rows start at
+// SPLIT_ACC times the bias, times rs where the layer's first chunk is an
+// activation chunk; with `rescale`, before chunk L.scale_at, once the
+// groups before are done, they are multiplied by 1 / rs (layer 5, before
+// its PE chunk) or rs (the views layer, after its own).
 template <int NP, int R, bool PROF>
 __device__ __forceinline__ void matmul_split(float (&acc)[R], const LayerS& L, const float* fp,
-                                             RingT<S_N_WST>& ring, Clock<PROF>& clk) {
+                                             RingT<S_N_WST>& ring, Clock<PROF>& clk, float2 rs,
+                                             bool rescale) {
   static_assert(R == 64 * NP, "an accumulator of 64 NP columns a thread");
   const int wg_off = (threadIdx.x >> 7) * 64 * 128;
   init_bias(acc, fp, L.bias);
-#pragma unroll
-  for (int i = 0; i < R; ++i) acc[i] *= SPLIT_ACC;
+  scale_rows(acc, L.pe_at == 0 ? make_float2(SPLIT_ACC, SPLIT_ACC)
+                               : make_float2(SPLIT_ACC * rs.x, SPLIT_ACC * rs.y));
 #pragma unroll 1
   for (int c = 0; c < L.nk; ++c) {
+    if (rescale && c == L.scale_at) {  // (a warpgroup takes the branch as one)
+      wgmma_wait<0>();
+      wgmma_fence_regs(acc);
+      scale_rows(acc, L.pe_at == 0 ? rs : make_float2(1.f / rs.x, 1.f / rs.y));
+    }
     const unsigned char* Ah = a_chunk_split(L, c) + wg_off;
     const unsigned char* Al = Ah + (c == L.pe_at ? S_PE_LO : S_ACT_LO);
     clk.begin();
@@ -634,39 +694,107 @@ __device__ __forceinline__ void matmul_split(float (&acc)[R], const LayerS& L, c
   wgmma_fence_regs(acc);
 }
 
-// A layer's output in the split from its accumulator of N / 2 columns
-// (SPLIT_ACC times bias + the products): v = relu(acc / SPLIT_ACC) (relu)
-// or acc / SPLIT_ACC, in f32; with `write` its parts hi = fp16(v) and lo =
-// fp16(v - hi) written over the activation buffer's hi and lo chunks.  The heads sum v in f32 as `epilogue` sums
-// its rounded values (head 1: alpha, head 2: rgb).
-template <int N, int NH>
-__device__ __forceinline__ void epilogue_split(const float (&acc)[N], const float* fp, bool relu,
-                                               bool write, int head, float (&hs)[NH]) {
+// Columns 8 j .. 8 j + 15 of this thread's rows of a layer's output v[8]
+// (rows r0 | r0 + 8 of columns 8 j + 2 q, then of 8 (j + 1) + 2 q) as their
+// fp16 parts hi = fp16(v) and lo = fp16(v - hi) over the activation
+// buffer's hi and lo chunks (stmatrix: lane l gives row l % 8 of matrix l /
+// 8 = rows +8 if l / 8 is odd, columns +8 if l >= 16, of the warp's 16 rows
+// and 16 columns).
+__device__ __forceinline__ void put_split(const float (&v)[8], int j) {
   const Frag f;
   const int lane = threadIdx.x & 31, rr = lane & 7, hi = lane >> 4;
   const int row = f.r0 - (lane >> 2) + ((lane >> 3) & 1) * 8 + rr;
-  unsigned char* base = fsm + SM_ACT + row * 128;
+  uint32_t ph[4], pl[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    ph[i] = pack_f16(v[2 * i], v[2 * i + 1]);
+    const float2 h = unpack_f16(ph[i]);
+    pl[i] = pack_f16(v[2 * i] - h.x, v[2 * i + 1] - h.y);
+  }
+  unsigned char* base = fsm + SM_ACT + row * 128 + (j >> 3) * CHUNK_B + ((((j & 7) + hi) ^ rr) << 4);
+  stsm_x4(base, ph[0], ph[1], ph[2], ph[3]);
+  stsm_x4(base + S_ACT_LO, pl[0], pl[1], pl[2], pl[3]);
+}
+
+// The largest of x over each of this thread's rows' quad of threads.
+__device__ __forceinline__ float2 quad_max(float2 x) {
+#pragma unroll
+  for (int o = 1; o <= 2; o <<= 1) {
+    x.x = fmaxf(x.x, __shfl_xor_sync(0xffffffffu, x.x, o));
+    x.y = fmaxf(x.y, __shfl_xor_sync(0xffffffffu, x.y, o));
+  }
+  return x;
+}
+
+// The largest acc (relu layers: a row's largest relu(acc)) or |acc| of each
+// of this thread's rows (r0: entries 4 j, 4 j + 1; r0 + 8: 4 j + 2, 4 j +
+// 3), in four chains a row; the warp takes the branch as one.  A relu
+// layer's is taken on the floats' bits as signed integers, two values a
+// three-way max (a DPX instruction): the bits order the non-negative
+// floats, and every negative one lies below the chains' start, 0 (+0.f).
+// The feature layer's takes one max a value (|x| is free in it).
+template <int N>
+__device__ __forceinline__ float2 row_max(const float (&acc)[N], bool relu) {
+  if (relu) {
+    int m[8] = {0, 0, 0, 0, 0, 0, 0, 0};  // chain c of row r at 4 r + c
+#pragma unroll
+    for (int j = 0; j < N / 4; ++j) {
+      m[j & 3] = __vimax3_s32(m[j & 3], __float_as_int(acc[4 * j]), __float_as_int(acc[4 * j + 1]));
+      m[4 + (j & 3)] = __vimax3_s32(m[4 + (j & 3)], __float_as_int(acc[4 * j + 2]),
+                                    __float_as_int(acc[4 * j + 3]));
+    }
+    return quad_max(make_float2(__int_as_float(max(max(m[0], m[1]), max(m[2], m[3]))),
+                                __int_as_float(max(max(m[4], m[5]), max(m[6], m[7])))));
+  }
+  float m[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const int c = ((i >> 1) & 1) * 4 + ((i >> 2) & 3);
+    m[c] = fmaxf(m[c], fabsf(acc[i]));
+  }
+  return quad_max(make_float2(fmaxf(fmaxf(m[0], m[1]), fmaxf(m[2], m[3])),
+                              fmaxf(fmaxf(m[4], m[5]), fmaxf(m[6], m[7]))));
+}
+
+// A layer's output in the split from its accumulator of N / 2 columns
+// (SPLIT_ACC times bias + the products, times 2^-k of its rows' input
+// scale, whose 2^k is `up`): v = relu(acc up / SPLIT_ACC) (relu) or acc up
+// / SPLIT_ACC, in f32; with `write` its rows' scales dn = 2^-k (row_down of
+// the row's largest |v|) and the parts hi = fp16(v dn) and lo = fp16(v dn
+// - hi) written over the activation buffer's hi and lo chunks.  The heads
+// sum v in f32 as `epilogue` sums its rounded values (head 1: alpha, head
+// 2: rgb).
+template <int N, int NH>
+__device__ __forceinline__ void epilogue_split(const float (&acc)[N], const float* fp, bool relu,
+                                               bool write, int head, float (&hs)[NH], float2 up,
+                                               float2& dn) {
+  const Frag f;
+  const float2 u = make_float2(up.x * (1.f / SPLIT_ACC), up.y * (1.f / SPLIT_ACC));  // exact
+  dn = make_float2(1.f, 1.f);
+  if (write) {  // u is a positive power of two: the largest |v| is the largest |acc| times u
+    const float2 m = row_max(acc, relu);
+    dn = make_float2(row_down(m.x * u.x), row_down(m.y * u.y));
+  }
+  const float2 sc = make_float2(u.x * dn.x, u.y * dn.y);  // exact
+  // the heads read v itself: again from acc where a row of the warp is scaled
+  const bool again = head != 0 && __any_sync(0xffffffffu, dn.x < 1.f || dn.y < 1.f);
 #pragma unroll
   for (int j = 0; j < N / 4; j += 2) {  // columns 8 j .. 8 j + 15
     float v[8];  // rows r0 | r0 + 8 of columns 8 j + 2 q, then of 8 (j + 1) + 2 q
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
-      v[i] = acc[4 * j + i] * (1.f / SPLIT_ACC);  // exact
+      v[i] = acc[4 * j + i] * ((i & 2) ? sc.y : sc.x);  // v dn, exactly
       if (relu) v[i] = fmaxf(v[i], 0.f);
     }
-    if (write) {
-      uint32_t ph[4], pl[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        ph[i] = pack_f16(v[2 * i], v[2 * i + 1]);
-        const float2 h = unpack_f16(ph[i]);
-        pl[i] = pack_f16(v[2 * i] - h.x, v[2 * i + 1] - h.y);
-      }
-      const int off = (j >> 3) * CHUNK_B + ((((j & 7) + hi) ^ rr) << 4);
-      stsm_x4(base + off, ph[0], ph[1], ph[2], ph[3]);
-      stsm_x4(base + S_ACT_LO + off, pl[0], pl[1], pl[2], pl[3]);
-    }
+    if (write) put_split(v, j);
     if (head != 0) {
+      if (again) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          v[i] = acc[4 * j + i] * ((i & 2) ? u.y : u.x);
+          if (relu) v[i] = fmaxf(v[i], 0.f);
+        }
+      }
 #pragma unroll
       for (int jj = 0; jj < 2; ++jj) {
         const int col = 8 * (j + jj) + 2 * f.q;
@@ -682,6 +810,21 @@ __device__ __forceinline__ void epilogue_split(const float (&acc)[N], const floa
   }
 }
 
+// The scale units of the tile's block l (a0..a7, feat) for this warp's 16
+// rows: the largest 2^k = 1 / dn over its rows before P (1 where none); a
+// warp none of whose rows is scaled (every ordinary one) only votes.
+__device__ __forceinline__ void put_units(const Args& a, int p0, int l, float2 dn) {
+  const Frag f;
+  float u = 1.f;
+  if (__any_sync(0xffffffffu, dn.x < 1.f || dn.y < 1.f)) {
+    u = fmaxf(p0 + f.r0 < a.P ? 1.f / dn.x : 1.f, p0 + f.r0 + 8 < a.P ? 1.f / dn.y : 1.f);
+#pragma unroll
+    for (int o = 4; o <= 16; o <<= 1) u = fmaxf(u, __shfl_xor_sync(0xffffffffu, u, o));
+  }
+  if ((threadIdx.x & 31) == 0)
+    a.units[((size_t)(p0 / T) * UNIT_BLOCKS + l) * UNIT_WARPS + (threadIdx.x >> 5)] = u;
+}
+
 // The f32 stash of this thread's two rows (those before P) from an
 // accumulator of N / 2 columns: the epilogue's v at columns col0 + 8 j +
 // 2 q, straight from the registers (no shared memory is left to stage it),
@@ -690,16 +833,17 @@ __device__ __forceinline__ void epilogue_split(const float (&acc)[N], const floa
 // weights out of L2.
 template <int N>
 __device__ __forceinline__ void stash_split(const float (&acc)[N], const Args& a, int p0,
-                                            int col0, bool relu) {
+                                            int col0, bool relu, float2 up) {
   const Frag f;
 #pragma unroll
   for (int rr = 0; rr < 2; ++rr) {
     const int p = p0 + f.r0 + 8 * rr;
     if (p >= a.P) continue;
     float2* row = reinterpret_cast<float2*>(a.acts + (size_t)p * ACTS_LD + col0 + 2 * f.q);
+    const float u = (rr ? up.y : up.x) * (1.f / SPLIT_ACC);  // exact
 #pragma unroll
     for (int j = 0; j < N / 4; ++j) {
-      float x = acc[4 * j + 2 * rr] * (1.f / SPLIT_ACC), y = acc[4 * j + 2 * rr + 1] * (1.f / SPLIT_ACC);
+      float x = acc[4 * j + 2 * rr] * u, y = acc[4 * j + 2 * rr + 1] * u;
       if (relu) {
         x = fmaxf(x, 0.f);
         y = fmaxf(y, 0.f);
@@ -721,6 +865,10 @@ __device__ __forceinline__ void consumer_split(const Args& a) {
     long long t_tile = 0;
     if constexpr (PROF) t_tile = clock64();
     float alpha[2] = {0.f, 0.f};
+    // the row scales 2^-k of the layer's input activations (rows r0, r0 +
+    // 8), and whether any row of the warpgroup's has k > 0
+    float2 rs = make_float2(1.f, 1.f);
+    bool any = false;
 #pragma unroll 1
     for (int l = 0; l < 10; ++l) {
       const LayerS L = layer_split(l);
@@ -729,24 +877,31 @@ __device__ __forceinline__ void consumer_split(const Args& a) {
         mbar_wait(bar(S_PE_FULL), l == 9 ? 1 : 0);
         clk.end(ST_PE_WAIT);
       }
+      // the epilogue's 2^k of the accumulator's rows: 1 for layer 0 (the PE)
+      // and layer 5 (taken back before its PE chunk)
+      const float2 one = make_float2(1.f, 1.f);
+      float2 dn = one;
       if (l < 9) {
         float acc[128];
-        matmul_split<2>(acc, L, a.fp, ring, clk);
+        matmul_split<2>(acc, L, a.fp, ring, clk, rs, any);
+        const float2 up = l == 0 || l == 5 ? one : make_float2(1.f / rs.x, 1.f / rs.y);
         clk.begin();
         named_bar(BAR_WG + wg, 128);  // every warp of the warpgroup has read its A
         clk.end(ST_STASH_WAIT);
         clk.begin();
-        epilogue_split(acc, a.fp, l != 8, true, l == 7 ? 1 : 0, alpha);  // 8: feat, no relu
+        epilogue_split(acc, a.fp, l != 8, true, l == 7 ? 1 : 0, alpha, up, dn);  // 8: feat, no relu
         if (l == 7) row_sum(alpha);
         clk.end(ST_EPI);
         if (a.acts != nullptr) {
           clk.begin();
-          stash_split(acc, a, p0, l * W, l != 8);
+          stash_split(acc, a, p0, l * W, l != 8, up);
+          if (a.units != nullptr) put_units(a, p0, l, dn);
           clk.end(ST_STASH);
         }
       } else {
         float acc[64];
-        matmul_split<1>(acc, L, a.fp, ring, clk);
+        matmul_split<1>(acc, L, a.fp, ring, clk, rs, any);
+        const float2 up = make_float2(1.f / rs.x, 1.f / rs.y);
         while (ring.k % S_N_WST) {  // the tile's padding pieces
           ring.wait(ring.k);
           ring.release(ring.k);
@@ -754,7 +909,7 @@ __device__ __forceinline__ void consumer_split(const Args& a) {
         }
         clk.begin();
         float rgb[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-        epilogue_split(acc, a.fp, true, false, 2, rgb);  // hv: the stash reads the registers
+        epilogue_split(acc, a.fp, true, false, 2, rgb, up, dn);  // hv: the stash reads the registers
         row_sum(rgb);
         clk.end(ST_EPI);
         clk.begin();
@@ -762,13 +917,14 @@ __device__ __forceinline__ void consumer_split(const Args& a) {
         clk.end(ST_OUT);
         if (a.acts != nullptr) {
           clk.begin();
-          stash_split(acc, a, p0, 9 * W, true);
+          stash_split(acc, a, p0, 9 * W, true, up);
           clk.end(ST_STASH);
         }
       }
+      rs = dn;
       clk.begin();
       fence_proxy_async();  // the writes, for the next wgmma
-      named_bar(BAR_WG + wg, 128);
+      any = named_bar_any(BAR_WG + wg, 128, dn.x < 1.f || dn.y < 1.f);
       clk.end(ST_EPI);
     }
     if constexpr (PROF) {
@@ -1050,6 +1206,8 @@ inline int launch(Args a, void* acts, int n_blocks, cudaStream_t stream) {
   }
   a.stash = acts != nullptr;
   a.acts = MODE == MODE_F32 ? static_cast<float*>(acts) : nullptr;
+  if (MODE == MODE_F32 && (a.acts == nullptr) != (a.units == nullptr))
+    return (int)cudaErrorInvalidValue;  // the f32 stash comes with its scale units
   a.ntiles = (a.P + T - 1) / T;
   a.n_pieces = MODE == MODE_F32 ? n_pieces_split(a.kx, a.kd) : n_pieces(a.kx, a.kd);
   if (a.stamps != nullptr)

@@ -26,6 +26,7 @@ from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from lushnerf_torch.models.mlp import MLPConfig, NeRFMLP
 from lushnerf_torch.ops.compositing import raw2outputs
@@ -70,6 +71,10 @@ class RenderConfig:
     multires: int = 10
     multires_views: int = 4
     noise_sample_idx: int = 16
+    # points a chunk of the scene MLP's evaluation (0: all at once): the
+    # plain path runs chunks under a checkpoint, the fused path's backward
+    # sizes its scratch by it (eval_points)
+    point_chunk: int = 0
     mlp_backend: str = "torch"  # 'torch' | 'cuda'
     # matmul input precision inside the fused kernel ('float32' |
     # 'bfloat16'); accumulation is always f32.  The 'torch' backend is f32.
@@ -128,20 +133,40 @@ def eval_points(
 ) -> torch.Tensor:
     """The scene MLP at pts [R, S, 3] with per-ray viewdirs [R, 3].
 
-    Returns raw [R, S, out_ch].
+    With cfg.point_chunk > 0 and more points than that, the plain path
+    pads the flattened points with zeros to whole chunks and runs each
+    chunk on its own, under `torch.utils.checkpoint` where a gradient is
+    needed (its activations are recomputed in the backward), as the JAX
+    package's `eval_points` maps its chunks under `jax.checkpoint`; the
+    fused path's backward sizes its scratch by it.  Returns raw [R, S,
+    out_ch].
     """
     if cfg.mlp_backend == "cuda" and fused.supports(mlp_cfg, cfg) \
             and fused.kernel_covers(mlp_cfg, cfg):
         return fused.eval_points_fused(mlp, mlp_cfg, cfg, pts, viewdirs)
 
     R, S = pts.shape[0], pts.shape[1]
-    x = pts.reshape(R * S, 3)
-    d_pe = None
-    if viewdirs is not None:
-        d = viewdirs[:, None, :].expand(R, S, 3).reshape(R * S, 3)
-        d_pe = cfg.pe_d(d)
-    raw = mlp(cfg.pe_x(x), d_pe)
-    return raw.reshape(R, S, -1)
+    P = R * S
+    x = pts.reshape(P, 3)
+    d = None if viewdirs is None else viewdirs[:, None, :].expand(R, S, 3).reshape(P, 3)
+
+    def apply_flat(x_f, d_f):
+        return mlp(cfg.pe_x(x_f), None if d_f is None else cfg.pe_d(d_f))
+
+    chunk = cfg.point_chunk
+    if not chunk or P <= chunk:
+        return apply_flat(x, d).reshape(R, S, -1)
+    pad = -P % chunk
+    x = F.pad(x, (0, 0, 0, pad))
+    d = None if d is None else F.pad(d, (0, 0, 0, pad))
+    grad = torch.is_grad_enabled()
+    raws = []
+    for p0 in range(0, P + pad, chunk):
+        x_c = x[p0:p0 + chunk]
+        d_c = None if d is None else d[p0:p0 + chunk]
+        raws.append(torch.utils.checkpoint.checkpoint(apply_flat, x_c, d_c, use_reentrant=False)
+                    if grad else apply_flat(x_c, d_c))
+    return torch.cat(raws)[:P].reshape(R, S, -1)
 
 
 def render_rays_scene(

@@ -16,8 +16,11 @@ scratch first: a dgrad kernel (`csrc/nerf_mlp_dgrad.cu`, wgmma; in f32
 the split with a power-of-two scale per point), then the wgrad on wgmma
 over the work items of `wgrad_items` (bf16: TMA-loaded bf16 stages; f32:
 the split with a power-of-two scale per point split and d_z block, from
-the scale units the dgrad writes: `dz_scale_units`) and two fixed-order
-reductions (`csrc/nerf_mlp_bwd.cu`).
+the scale units the dgrad writes: `dz_scale_units`, and one per split and
+stash block for the activations, from those K1 f32 writes beside its
+stash: `stash_scale_units`) and two fixed-order reductions
+(`csrc/nerf_mlp_bwd.cu`).  The backward's scratch covers one point chunk
+at a time (`point_chunks`, render_cfg.point_chunk).
 
 `NerfMLPFn` is the gradient: on a CPU tensor it runs `nerf_mlp_fwd_plain`
 and `nerf_mlp_bwd_plain`; on a CUDA tensor it launches the kernels or
@@ -27,9 +30,9 @@ Launch counters (plain integers, set them to 0 to start counting; each
 wrapper adds to its own where it launches, and nowhere else):
 `launches` counts forward kernel launches (with or without the stash),
 `launches_bwd_stash` / `launches_bwd_remat` the backward's kernel launches
-(four per backward: dgrad, wgrad and two fixed-order reductions; remat adds
-the forward kernel that writes its stash).  `packs` counts parameter
-packings (each is cached per parameter version).
+(four per point chunk: dgrad, wgrad and two fixed-order reductions; remat
+adds the forward kernel that writes the chunk's stash).  `packs` counts
+parameter packings (each is cached per parameter version).
 
 The grads come in the order of `mlp.parameters()` of a `NeRFMLP`: (weight,
 bias) of pts_linears 0..7, feature, alpha, views, rgb -- 24 tensors.  The
@@ -39,10 +42,11 @@ split in two by input.
 compute_dtype:
   'float32'  -- f32-grade products and f32 sums: the plain versions in IEEE
                 f32 (no TF32); the forward kernel splits each operand in two
-                fp16 parts (`split_f16`; the weights' of w 2^SPLIT_SHIFT) and
-                takes each product as three fp16 products of the parts into
-                an f32 accumulator, as the TPU kernel's f32 mode runs the MXU
-                at Precision.HIGHEST.
+                fp16 parts (`split_f16`; the weights' of w 2^SPLIT_SHIFT, an
+                activation row's of its values 2^-k, `row_scale_exponents`,
+                so that no part overflows) and takes each product as three
+                fp16 products of the parts into an f32 accumulator, as the
+                TPU kernel's f32 mode runs the MXU at Precision.HIGHEST.
   'bfloat16' -- every matmul input (PE, activations, weights, and in the
                 backward the cotangents) rounded to bf16, f32 accumulation,
                 f32 bias and relu: the rounding points of the TPU kernel's
@@ -52,6 +56,7 @@ compute_dtype:
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import List, Optional, Tuple
 
 import torch
@@ -94,9 +99,19 @@ DGRAD_TILE = 128  # points a tile of the dgrad kernel, both modes
 # [tiles, ZS_BLOCKS, ZS_WARPS], the blocks d_z0..d_z7, d_feat, d_hv and the
 # dgrad's three PE warps (warp w stores the rows p % 3 == w of a tile)
 ZS_BLOCKS, ZS_WARPS = 10, 3
+# K1 f32's scale units of its f32 stash for the f32 wgrad
+# (`stash_scale_units`): [tiles, UNIT_BLOCKS, UNIT_WARPS], the blocks a0..a7
+# and feat, and the forward's eight consumer warps (warp w holds the rows
+# 16 w .. 16 w + 15 of a tile)
+UNIT_BLOCKS, UNIT_WARPS = 9, 8
 # The f32 wgrad's point splits (a partial of the weight grads each): at most
 # one per SM of an H100 (132), at least WGRAD_F32_SPLIT_POINTS points each
 WGRAD_F32_SPLITS, WGRAD_F32_SPLIT_POINTS = 132, 2048
+# In a backward of several point chunks the f32 wgrad's splits of a chunk
+# take at least WGRAD_F32_CHUNK_SPLIT_POINTS points each, as many as fill
+# whole waves of its grid (`chunk_wgrad_splits`)
+WGRAD_F32_CHUNK_SPLIT_POINTS = 4096
+WGRAD_TILES = 22  # the wgrads' output tiles a split (mirrors N_TILES in csrc/nerf_mlp_bwd.cu)
 # The bf16 wgrad's: at most WGRAD_BF16_SPLITS (its 22 x 12 units fall 4 a
 # cluster on the 132 SMs: 3 wide, 1 narrow), at least WGRAD_BF16_SPLIT_POINTS
 # points each.  Its partials' bytes cost more than spreading its units
@@ -126,9 +141,11 @@ FWD_TILE = 128  # points a tile of the forward kernel
 FWD_PIECE = 128 * 64  # elements of a weight piece of either weight blob
 SPLIT_RING = 4  # the f32 blob's pieces a tile: a multiple of the split's ring stages
 # the f32 kernel's fp16 parts of the weights are those of w 2^SPLIT_SHIFT
-# (the activations' are unscaled; mirrors SPLIT_SHIFT in
-# csrc/nerf_mlp_fwd_sm90.cuh)
+# (mirrors SPLIT_SHIFT in csrc/nerf_mlp_fwd_sm90.cuh); an activation row's
+# are those of its values times 2^-k, k the least k >= 0 that puts the
+# row's largest |value| below 2^ROW_SCALE_BITS (`row_scale_exponents`)
 SPLIT_SHIFT = 4
+ROW_SCALE_BITS = 15
 FP16_MAX = 65504.0
 
 COMPUTE_DTYPES = ("float32", "bfloat16")
@@ -335,7 +352,7 @@ def nerf_mlp_bwd_plain(mlp, xd: torch.Tensor, g: torch.Tensor, compute_dtype: st
         f = _plain_forward(mlp, xd, compute_dtype, num_freqs_x, num_freqs_d)
         a, feat, hv = f["acts"], f["feat"], f["hv"]
     else:
-        s = acts.float()
+        s = acts.to(torch.promote_types(acts.dtype, torch.float32))  # f32, or f64 for f64 stash
         a = [s[:, l * W:(l + 1) * W] for l in range(8)]
         feat, hv = s[:, 8 * W:9 * W], s[:, 9 * W:9 * W + W // 2]
     pts = [lin.weight for lin in mlp.pts_linears]
@@ -382,6 +399,21 @@ def wgrad_splits(P: int, compute_dtype: str) -> int:
     if compute_dtype != "bfloat16":
         return max(1, min(WGRAD_F32_SPLITS, -(-P // WGRAD_F32_SPLIT_POINTS)))
     return bf16_splits_of(P, max(1, min(WGRAD_BF16_SPLITS, -(-P // WGRAD_BF16_SPLIT_POINTS))))
+
+
+def chunk_wgrad_splits(n: int, compute_dtype: str, n_chunks: int, n_sm: int) -> int:
+    """The wgrad's point splits for a chunk of n points of a backward in
+    n_chunks chunks on n_sm SMs: `wgrad_splits(n)` in one chunk (an
+    unchunked backward's bits) and in bf16; in f32 over several chunks the
+    most splits of at least WGRAD_F32_CHUNK_SPLIT_POINTS points whose work
+    items (WGRAD_TILES a split, one block an SM) fill whole waves, where
+    any do, so that a chunk's items end together and its partials are few
+    (else `wgrad_splits(n)`)."""
+    if n_chunks == 1 or compute_dtype == "bfloat16":
+        return wgrad_splits(n, compute_dtype)
+    q = n_sm // math.gcd(WGRAD_TILES, n_sm)
+    splits = q * (n // (q * WGRAD_F32_CHUNK_SPLIT_POINTS))
+    return splits if splits > 0 else wgrad_splits(n, compute_dtype)
 
 
 def bf16_splits_of(P: int, n: int) -> int:
@@ -465,6 +497,41 @@ def dz_scale_units(dz: torch.Tensor) -> torch.Tensor:
     n_tiles = -(-P // DGRAD_TILE)
     unit = F.pad(unit, (0, 0, 0, n_tiles * DGRAD_TILE - P)).reshape(n_tiles, DGRAD_TILE, ZS_BLOCKS)
     return torch.stack([unit[:, w::ZS_WARPS].amax(1) for w in range(ZS_WARPS)], 2)
+
+
+def row_scale_exponents(m: torch.Tensor) -> torch.Tensor:
+    """k for rows whose largest |value| is m: the least k >= 0 that puts m
+    2^-k below 2^ROW_SCALE_BITS (m finite).  K1 f32 splits such a row into
+    fp16 parts of its values times 2^-k, so that no part overflows."""
+    return (torch.frexp(m.float()).exponent - ROW_SCALE_BITS).clamp_min(0)
+
+
+def stash_scale_units(acts: torch.Tensor) -> torch.Tensor:
+    """K1 f32's scale units of its f32 stash acts [P, ACTS_LD] (the plain
+    version of what it writes beside the stash for the f32 wgrad):
+    [ceil(P / FWD_TILE), UNIT_BLOCKS, UNIT_WARPS] float32, entry (t, b, w)
+    the largest 2^k over the rows 16 w .. 16 w + 15 of tile t before P, k
+    of the row's block b (a0..a7, feat at 8) by `row_scale_exponents`; 1
+    where no such row.  Every |value| of those rows is below 2^15 times
+    it."""
+    P = acts.shape[0]
+    m = torch.stack([acts[:, b * WIDTH:(b + 1) * WIDTH].float().abs().amax(1)
+                     for b in range(UNIT_BLOCKS)], 1)
+    unit = torch.exp2(row_scale_exponents(m).float())
+    n_tiles = -(-P // FWD_TILE)
+    unit = F.pad(unit, (0, 0, 0, n_tiles * FWD_TILE - P), value=1.0)
+    unit = unit.reshape(n_tiles, UNIT_WARPS, FWD_TILE // UNIT_WARPS, UNIT_BLOCKS).amax(2)
+    return unit.transpose(1, 2).contiguous()
+
+
+def point_chunks(P: int, point_chunk: int) -> List[Tuple[int, int]]:
+    """The backward's chunks of P points, (first point, points): point_chunk
+    points rounded up to whole DGRAD_TILE-point tiles each, the last the
+    rest; point_chunk 0, or one that covers P, gives one chunk."""
+    chunk = -(-point_chunk // DGRAD_TILE) * DGRAD_TILE
+    if chunk <= 0 or chunk >= P:
+        return [(0, P)]
+    return [(p0, min(chunk, P - p0)) for p0 in range(0, P, chunk)]
 
 
 # ---------------------------------------------------------------------------
@@ -660,7 +727,7 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("nerf_mlp_fwd")
     if not getattr(lib, "_lushnerf_typed", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.nerf_mlp_fwd.argtypes = [vp] * 6 + [ci] * 7 + [vp]
+        lib.nerf_mlp_fwd.argtypes = [vp] * 7 + [ci] * 7 + [vp]
         lib.nerf_mlp_fwd.restype = ci
         lib.nerf_mlp_fwd_w_numel.argtypes = [ci, ci, ci]
         lib.nerf_mlp_fwd_w_numel.restype = ctypes.c_longlong
@@ -672,13 +739,17 @@ def _lib() -> ctypes.CDLL:
         lib.nerf_mlp_fwd_acts_ld.restype = ctypes.c_longlong
         lib.nerf_mlp_fwd_n_stages.argtypes = []
         lib.nerf_mlp_fwd_n_stages.restype = ci
+        lib.nerf_mlp_fwd_units.argtypes = [ci]
+        lib.nerf_mlp_fwd_units.restype = ci
         lib.nerf_mlp_fwd_error_string.argtypes = [ci]
         lib.nerf_mlp_fwd_error_string.restype = ctypes.c_char_p
         if lib.nerf_mlp_fwd_fp_numel() != FP_NUMEL or lib.nerf_mlp_fwd_acts_ld() != ACTS_LD \
                 or lib.nerf_mlp_fwd_n_stages() != len(FWD_STAGES) + len(FWD_OFF_PATH) \
-                or lib.nerf_mlp_fwd_tile() != FWD_TILE:
-            raise RuntimeError("nerf_mlp_fwd: f32 blob, stash layout, stages or geometry differ "
-                               "from the CUDA source")
+                or lib.nerf_mlp_fwd_tile() != FWD_TILE \
+                or [lib.nerf_mlp_fwd_units(i) for i in range(3)] != [
+                    UNIT_BLOCKS, UNIT_WARPS, ROW_SCALE_BITS]:
+            raise RuntimeError("nerf_mlp_fwd: f32 blob, stash layout, stages, geometry or scale "
+                               "units differ from the CUDA source")
         lib._lushnerf_typed = True
     return lib
 
@@ -687,8 +758,10 @@ def _bwd_lib() -> ctypes.CDLL:
     lib = build.load("nerf_mlp_bwd")
     if not getattr(lib, "_lushnerf_typed", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.nerf_mlp_bwd.argtypes = [vp] * 9 + [ci] * 7 + [vp]
-        lib.nerf_mlp_bwd.restype = ci
+        lib.nerf_mlp_bwd_wgrad.argtypes = [vp] * 7 + [ci] * 6 + [vp]
+        lib.nerf_mlp_bwd_wgrad.restype = ci
+        lib.nerf_mlp_bwd_reduce_all.argtypes = [vp, ci, vp, ci, vp, vp, ci, ci, ci, vp]
+        lib.nerf_mlp_bwd_reduce_all.restype = ci
         lib.nerf_mlp_bwd_consts.argtypes = [ci]
         lib.nerf_mlp_bwd_consts.restype = ci
         lib.nerf_mlp_bwd_wgrad_items.argtypes = [ci, ci, ci, ci, vp]
@@ -707,9 +780,10 @@ def _bwd_lib() -> ctypes.CDLL:
             return [tuple(out[9 * i:9 * i + 9]) for i in range(max(n, 0))]
 
         if lib.nerf_mlp_bwd_fp_numel() != FP_NUMEL or lib.nerf_mlp_bwd_acts_ld() != ACTS_LD \
-                or [lib.nerf_mlp_bwd_consts(i) for i in range(7)] != [
+                or [lib.nerf_mlp_bwd_consts(i) for i in range(9)] != [
                     DGRAD_TILE, ZS_BLOCKS, ZS_WARPS, len(WGRAD_F32_CLOCKS),
-                    len(WGRAD_BF16_CLOCKS), WGRAD_STAGE["float32"], WGRAD_STAGE["bfloat16"]] \
+                    len(WGRAD_BF16_CLOCKS), WGRAD_STAGE["float32"], WGRAD_STAGE["bfloat16"],
+                    UNIT_BLOCKS, UNIT_WARPS] \
                 or any(items(d) != wgrad_items(3, 64, 32, d) for d in COMPUTE_DTYPES):
             raise RuntimeError("nerf_mlp_bwd: f32 blob, stash layout, scale units, clocks, stages "
                                "or wgrad items differ from the CUDA source")
@@ -767,11 +841,13 @@ def _check_aligned(name, *tensors):
 
 def _fwd_into(mlp, xd: torch.Tensor, compute_dtype: str, num_freqs_x: int,
               num_freqs_d: int, out: torch.Tensor, acts: Optional[torch.Tensor],
+              units: Optional[torch.Tensor] = None,
               stamps: Optional[torch.Tensor] = None) -> None:
     """Launches the forward kernel on contiguous CUDA xd [P, 8] (P > 0) into
-    out [P, 4] and, if not None, the stash acts [P, ACTS_LD]; with `stamps`
-    its instrumented instantiation, which writes its stage cycles there.
-    The caller counts the launch."""
+    out [P, 4] and, if not None, the stash acts [P, ACTS_LD] with (f32) its
+    scale units [ceil(P / FWD_TILE), UNIT_BLOCKS, UNIT_WARPS]; with
+    `stamps` its instrumented instantiation, which writes its stage cycles
+    there.  The caller counts the launch."""
     kx, kd = pe_widths(mlp.cfg)
     w, fp = pack_params(mlp, compute_dtype)
     if w.device != xd.device:
@@ -780,13 +856,17 @@ def _fwd_into(mlp, xd: torch.Tensor, compute_dtype: str, num_freqs_x: int,
     bf16 = compute_dtype == "bfloat16"
     if w.numel() != lib.nerf_mlp_fwd_w_numel(kx, kd, int(bf16)):
         raise RuntimeError("nerf_mlp_fwd: weight blob layout differs from the CUDA source")
-    _check_aligned("nerf_mlp_fwd", xd, w, fp, out, *([] if acts is None else [acts]))
+    if (units is None) != (bf16 or acts is None):
+        raise ValueError("nerf_mlp_fwd: the f32 stash needs its scale units, and only it")
+    _check_aligned("nerf_mlp_fwd", xd, w, fp, out,
+                   *[t for t in (acts, units) if t is not None])
     n_blocks = fwd_grid(xd.shape[0], sm_count(xd.device))
     stream = torch.cuda.current_stream(xd.device).cuda_stream
     with torch.cuda.device(xd.device):
         rc = lib.nerf_mlp_fwd(
             xd.data_ptr(), w.data_ptr(), fp.data_ptr(), out.data_ptr(),
             None if acts is None else acts.data_ptr(),
+            None if units is None else units.data_ptr(),
             None if stamps is None else stamps.data_ptr(), xd.shape[0], kx, kd,
             num_freqs_x, num_freqs_d, int(bf16), n_blocks, stream,
         )
@@ -796,21 +876,30 @@ def _fwd_into(mlp, xd: torch.Tensor, compute_dtype: str, num_freqs_x: int,
         )
 
 
+def _new_stash(P: int, compute_dtype: str, device):
+    """An empty stash [P, ACTS_LD] in the compute dtype and, in f32, its
+    scale units (else None)."""
+    acts = torch.empty((P, ACTS_LD), dtype=stash_dtype(compute_dtype), device=device)
+    units = None if compute_dtype == "bfloat16" else torch.empty(
+        (-(-P // FWD_TILE), UNIT_BLOCKS, UNIT_WARPS), dtype=torch.float32, device=device)
+    return acts, units
+
+
 def _launch_fwd(mlp, xd: torch.Tensor, compute_dtype: str, num_freqs_x: int,
                 num_freqs_d: int, stash: bool):
-    """The forward kernel on a CUDA tensor: (raw [P, 4], stash or None)."""
+    """The forward kernel on a CUDA tensor: (raw [P, 4], stash or None, the
+    f32 stash's scale units or None)."""
     _check_cuda_inputs("nerf_mlp_fwd", mlp, xd, compute_dtype, num_freqs_x, num_freqs_d)
     xd = xd.contiguous()
     P = xd.shape[0]
     out = torch.empty((P, OUT_CH), dtype=torch.float32, device=xd.device)
-    acts = (torch.empty((P, ACTS_LD), dtype=stash_dtype(compute_dtype), device=xd.device)
-            if stash else None)
+    acts, units = _new_stash(P, compute_dtype, xd.device) if stash else (None, None)
     if P == 0:
-        return out, acts
-    _fwd_into(mlp, xd, compute_dtype, num_freqs_x, num_freqs_d, out, acts)
+        return out, acts, units
+    _fwd_into(mlp, xd, compute_dtype, num_freqs_x, num_freqs_d, out, acts, units)
     global launches
     launches += 1
-    return out, acts
+    return out, acts, units
 
 
 def fwd_stage_cycles(mlp, xd: torch.Tensor, stash: bool,
@@ -826,9 +915,8 @@ def fwd_stage_cycles(mlp, xd: torch.Tensor, stash: bool,
     stamps = torch.zeros((len(fwd_tiles(P, n_blocks)[0]), len(FWD_STAGES + FWD_OFF_PATH)),
                          dtype=torch.int64, device=xd.device)
     out = torch.empty((P, OUT_CH), dtype=torch.float32, device=xd.device)
-    acts = (torch.empty((P, ACTS_LD), dtype=stash_dtype(compute_dtype), device=xd.device)
-            if stash else None)
-    _fwd_into(mlp, xd, compute_dtype, 10, 4, out, acts, stamps)
+    acts, units = _new_stash(P, compute_dtype, xd.device) if stash else (None, None)
+    _fwd_into(mlp, xd, compute_dtype, 10, 4, out, acts, units, stamps)
     return stamps
 
 
@@ -857,17 +945,29 @@ class BwdLaunch:
     (`run(DGRAD)`) and the wgrad with its reductions (`run(WGRAD)`, on the
     scratch of an earlier dgrad) apart, and reads the dgrad's stage stamps
     (`stage_stamps()`, labelled by `stages`) and the wgrad's cycles
-    (`wgrad_clocks()`, labelled by `wgrad_clock_names`).
+    (`wgrad_clocks()`, labelled by `wgrad_clock_names`); those need one
+    chunk.
 
     The dgrad is csrc/nerf_mlp_dgrad.cu in both modes; the wgrad and
     reductions are csrc/nerf_mlp_bwd.cu's.  Without a stash (remat, K3)
     the DGRAD part first runs the forward kernel into a scratch stash, so
     K3 is K1 with its stash followed by the stash backward, and gives K2's
-    bits."""
+    bits.
+
+    The points go in the chunks of `point_chunks(P, point_chunk)`, one
+    after another, through scratch of one chunk's size (the remat stash,
+    dz, the PE, the partials; in f32 the scale units), as the JAX
+    package's renderer maps its `point_chunk` chunks: each chunk runs [K1,]
+    the dgrad (its own rows of d(xd)), the wgrad, and the two reductions,
+    which add the chunk's partials to the grads of the chunks before (the
+    first chunk's store them).  Every sum keeps a fixed order, so the
+    backward repeats to the bit and the stash and remat modes agree to the
+    bit."""
 
     DGRAD, WGRAD, ALL = 1, 2, 3
 
-    def __init__(self, mlp, xd, g, compute_dtype, num_freqs_x, num_freqs_d, acts):
+    def __init__(self, mlp, xd, g, compute_dtype, num_freqs_x, num_freqs_d, acts,
+                 acts_units=None, point_chunk: int = 0):
         _check_cuda_inputs("nerf_mlp_bwd", mlp, xd, compute_dtype, num_freqs_x, num_freqs_d)
         P = xd.shape[0]
         if g.shape != (P, OUT_CH) or g.device != xd.device:
@@ -896,16 +996,27 @@ class BwdLaunch:
         self.dfp = new(FP_NUMEL, dtype=torch.float32, device=dev)
         if P == 0:
             return
-        self.acts = torch.empty((P, ACTS_LD), dtype=cdt, device=dev) if self.remat else acts
-        self.out = torch.empty((P, OUT_CH), dtype=torch.float32, device=dev) if self.remat else None
-        self.dz = torch.empty((P, ACTS_LD), dtype=cdt, device=dev)
-        self.pe = torch.empty((P, self.kx + self.kd), dtype=cdt, device=dev)
-        self.n_tiles = -(-P // DGRAD_TILE)
+        self.chunks = point_chunks(P, point_chunk)
+        Pc = self.chunks[0][1]  # the largest chunk
         self.n_sm = sm_count(dev)
+        self.n_tiles = -(-Pc // DGRAD_TILE)
         self.n_blocks = min(self.n_tiles, self.n_sm)
-        self.n_splits = wgrad_splits(P, compute_dtype)
+        # each chunk's dgrad blocks (its rows of fp_part) and wgrad splits
+        # (its rows of w_part)
+        self.chunk_blocks = [min(-(-n // DGRAD_TILE), self.n_sm) for _, n in self.chunks]
+        self.splits = [chunk_wgrad_splits(n, compute_dtype, len(self.chunks), self.n_sm)
+                       for _, n in self.chunks]
+        if self.remat:
+            self.acts, self.units = _new_stash(Pc, compute_dtype, dev)
+            self.out = torch.empty((Pc, OUT_CH), dtype=torch.float32, device=dev)
+        else:
+            self.acts, self.out = acts, None
+            self.units = None if self.bf16 else (
+                stash_scale_units(acts) if acts_units is None else acts_units.contiguous())
+        self.dz = torch.empty((Pc, ACTS_LD), dtype=cdt, device=dev)
+        self.pe = torch.empty((Pc, self.kx + self.kd), dtype=cdt, device=dev)
         self.fp_part = torch.empty((self.n_blocks, FP_NUMEL), dtype=torch.float32, device=dev)
-        self.w_part = torch.empty((self.n_splits, wn), dtype=torch.float32, device=dev)
+        self.w_part = torch.empty((max(self.splits), wn), dtype=torch.float32, device=dev)
         # f32: the dgrad's W5a partial of d_pe_x, per block, and its scale
         # units of dz, which the wgrad reads
         self.dpe5 = self.zs = None
@@ -914,9 +1025,17 @@ class BwdLaunch:
                                     device=dev)
             self.zs = torch.empty((self.n_tiles, ZS_BLOCKS, ZS_WARPS), dtype=torch.float32,
                                   device=dev)
+            if self.units.shape != (-(-(P if acts is not None else Pc) // FWD_TILE), UNIT_BLOCKS,
+                                    UNIT_WARPS):
+                raise ValueError("nerf_mlp_bwd: the stash's scale units have the wrong shape")
         _check_aligned("nerf_mlp_bwd", self.xd, self.g, self.wt, self.fp, self.acts, self.dz,
                        self.pe, self.dxd, self.fp_part, self.w_part, self.dw, self.dfp,
-                       *([] if self.bf16 else [self.dpe5, self.zs]))
+                       *([] if self.bf16 else [self.dpe5, self.zs, self.units]))
+
+    @property
+    def n_splits(self) -> int:
+        """The first chunk's wgrad splits."""
+        return self.splits[0]
 
     def _count(self, n: int) -> None:
         global launches_bwd_stash, launches_bwd_remat
@@ -925,51 +1044,77 @@ class BwdLaunch:
         else:
             launches_bwd_stash += n
 
-    def _wgrad(self, clk: Optional[torch.Tensor] = None) -> None:
+    @staticmethod
+    def _at(t: Optional[torch.Tensor], row: int) -> Optional[int]:
+        """The address of row `row` of t (None for None)."""
+        return None if t is None else t.data_ptr() + row * t.stride(0) * t.element_size()
+
+    def _stash_rows(self, p0: int):
+        """The chunk from point p0: (its stash rows, its scale units' rows)."""
+        if self.remat:
+            return self._at(self.acts, 0), self._at(self.units, 0)
+        return self._at(self.acts, p0), self._at(self.units, p0 // FWD_TILE)
+
+    def _check(self, lib, rc: int, name: str) -> None:
+        if rc != 0:
+            raise RuntimeError(f"{name}: CUDA error {rc} "
+                               f"({getattr(lib, name + '_error_string')(rc).decode()})")
+
+    def _wgrad(self, i: int = 0, clk: Optional[torch.Tensor] = None) -> None:
+        p0, n = self.chunks[i]
+        acts, units = self._stash_rows(p0)
         with torch.cuda.device(self.dev):
-            rc = self.lib.nerf_mlp_bwd(
-                self.acts.data_ptr(), self.dz.data_ptr(), self.pe.data_ptr(),
-                None if self.zs is None else self.zs.data_ptr(),
-                self.fp_part.data_ptr(), self.w_part.data_ptr(), self.dw.data_ptr(),
-                self.dfp.data_ptr(), None if clk is None else clk.data_ptr(), self.P, self.kx,
-                self.kd, int(self.bf16), self.n_blocks, self.n_splits, self.n_sm,
+            rc = self.lib.nerf_mlp_bwd_wgrad(
+                acts, self.dz.data_ptr(), self.pe.data_ptr(), self._at(self.zs, 0), units,
+                self.w_part.data_ptr(), None if clk is None else clk.data_ptr(), n, self.kx,
+                self.kd, int(self.bf16), self.splits[i], self.n_sm,
                 torch.cuda.current_stream(self.dev).cuda_stream,
             )
-        if rc != 0:
-            raise RuntimeError(
-                f"nerf_mlp_bwd: CUDA error {rc} ({self.lib.nerf_mlp_bwd_error_string(rc).decode()})"
-            )
+        self._check(self.lib, rc, "nerf_mlp_bwd")
 
-    def _dgrad(self, stamps: Optional[torch.Tensor]) -> None:
-        common = (self.xd.data_ptr(), self.g.data_ptr(), self.wt.data_ptr(), self.fp.data_ptr(),
-                  self.acts.data_ptr(), self.dz.data_ptr(), self.pe.data_ptr(), self.dxd.data_ptr(),
-                  self.fp_part.data_ptr())
-        tail = (None if stamps is None else stamps.data_ptr(), self.P, self.kx, self.kd, *self.nf,
-                self.n_blocks, torch.cuda.current_stream(self.dev).cuda_stream)
+    def _reduce(self, i: int = 0) -> None:
+        with torch.cuda.device(self.dev):
+            rc = self.lib.nerf_mlp_bwd_reduce_all(
+                self.fp_part.data_ptr(), self.chunk_blocks[i], self.w_part.data_ptr(),
+                self.splits[i], self.dw.data_ptr(), self.dfp.data_ptr(), self.kx, self.kd,
+                int(i > 0), torch.cuda.current_stream(self.dev).cuda_stream,
+            )
+        self._check(self.lib, rc, "nerf_mlp_bwd")
+
+    def _dgrad(self, i: int, stamps: Optional[torch.Tensor]) -> None:
+        p0, n = self.chunks[i]
+        acts = self._stash_rows(p0)[0]
+        common = (self._at(self.xd, p0), self._at(self.g, p0), self.wt.data_ptr(),
+                  self.fp.data_ptr(), acts, self.dz.data_ptr(), self.pe.data_ptr(),
+                  self._at(self.dxd, p0), self.fp_part.data_ptr())
+        tail = (None if stamps is None else stamps.data_ptr(), n, self.kx, self.kd, *self.nf,
+                self.chunk_blocks[i], torch.cuda.current_stream(self.dev).cuda_stream)
         with torch.cuda.device(self.dev):
             if self.bf16:
                 rc = self.dlib.nerf_mlp_dgrad_bf16(*common, *tail)
             else:
                 rc = self.dlib.nerf_mlp_dgrad_f32(*common, self.dpe5.data_ptr(), self.zs.data_ptr(),
                                                   *tail)
-        if rc != 0:
-            raise RuntimeError(
-                f"nerf_mlp_dgrad: CUDA error {rc} "
-                f"({self.dlib.nerf_mlp_dgrad_error_string(rc).decode()})"
-            )
+        self._check(self.dlib, rc, "nerf_mlp_dgrad")
 
     def run(self, parts: int = ALL, stamps: Optional[torch.Tensor] = None) -> None:
         if self.P == 0:
             return
-        if parts & self.DGRAD:
-            if self.remat:  # K1 writes the stash the dgrad reads
-                _fwd_into(self.mlp, self.xd, self.dtype, *self.nf, self.out, self.acts)
+        if parts != self.ALL and len(self.chunks) > 1:
+            raise ValueError("BwdLaunch: the dgrad and the wgrad run apart on one chunk only")
+        for i, (p0, n) in enumerate(self.chunks):
+            if parts & self.DGRAD:
+                if self.remat:  # K1 writes the stash the dgrad reads
+                    _fwd_into(self.mlp, self.xd[p0:p0 + n], self.dtype, *self.nf, self.out[:n],
+                              self.acts[:n], None if self.units is None else self.units[
+                                  :-(-n // FWD_TILE)])
+                    self._count(1)
+                self._dgrad(i, stamps)
                 self._count(1)
-            self._dgrad(stamps)
-            self._count(1)
-        if parts & self.WGRAD:
-            self._wgrad()
-            self._count(3)
+            if parts & self.WGRAD:
+                self._wgrad(i)
+                self._reduce(i)
+                self._count(3)
 
     def stage_stamps(self) -> torch.Tensor:
         """Runs the dgrad once with its stage stamps on: [block 0's tiles,
@@ -986,8 +1131,11 @@ class BwdLaunch:
         """Runs the wgrad's instrumented instantiation once, with its
         reductions, on the scratch of an earlier dgrad (not counted):
         [len(wgrad_clock_names)] int64 clock64() cycles of block 0."""
+        if len(self.chunks) > 1:
+            raise ValueError("BwdLaunch: the wgrad's cycles are read on one chunk only")
         clk = torch.zeros(len(self.wgrad_clock_names), dtype=torch.int64, device=self.dev)
-        self._wgrad(clk)
+        self._wgrad(0, clk)
+        self._reduce()
         return clk
 
     @property
@@ -1004,13 +1152,17 @@ class BwdLaunch:
 
 def nerf_mlp_bwd(mlp, xd: torch.Tensor, g: torch.Tensor, compute_dtype: str = "float32",
                  num_freqs_x: int = 10, num_freqs_d: int = 4,
-                 acts: Optional[torch.Tensor] = None):
+                 acts: Optional[torch.Tensor] = None, acts_units: Optional[torch.Tensor] = None,
+                 point_chunk: int = 0):
     """The backward kernels on CUDA tensors: (d_xd [P, 8], the grads of
     `mlp.parameters()`), as `nerf_mlp_bwd_plain` returns them.  acts: the
     forward's stash (K2, stash mode) or None (K3, remat mode: the forward
     kernel recomputes the stash into scratch allocated here and freed on
-    return)."""
-    run = BwdLaunch(mlp, xd, g, compute_dtype, num_freqs_x, num_freqs_d, acts)
+    return); acts_units: in f32 the stash's scale units as K1 wrote them
+    (None: `stash_scale_units(acts)`); point_chunk: the points a chunk of
+    the scratch (`point_chunks`; 0: one chunk)."""
+    run = BwdLaunch(mlp, xd, g, compute_dtype, num_freqs_x, num_freqs_d, acts, acts_units,
+                    point_chunk)
     run.run()
     return run.result()
 
@@ -1020,20 +1172,24 @@ class NerfMLPFn(torch.autograd.Function):
     parameter.
 
     apply(mlp, xd, compute_dtype, num_freqs_x, num_freqs_d, bwd_mode,
-    *mlp.parameters()): the 24 parameters in the order of the module's
-    parameters(), which is the order of the grads it returns.  bwd_mode
-    'stash': the forward also writes the activation stash (held until the
-    backward) and the backward reads it; 'remat': the backward recomputes
-    the activations.  CPU tensors take the plain versions; CUDA tensors the
-    kernels.  The parameters are saved for the backward, so a parameter
-    changed in place in between raises autograd's version error.
+    point_chunk, *mlp.parameters()): the 24 parameters in the order of the
+    module's parameters(), which is the order of the grads it returns.
+    bwd_mode 'stash': the forward also writes the activation stash (held
+    until the backward) and the backward reads it; 'remat': the backward
+    recomputes the activations.  The backward's scratch covers point_chunk
+    points at a time (`point_chunks`; 0: all).  CPU tensors take the plain
+    versions; CUDA tensors the kernels.  The parameters are saved for the
+    backward, so a parameter changed in place in between raises autograd's
+    version error.
     """
 
     @staticmethod
-    def forward(ctx, mlp, xd, compute_dtype, num_freqs_x, num_freqs_d, bwd_mode, *params):
+    def forward(ctx, mlp, xd, compute_dtype, num_freqs_x, num_freqs_d, bwd_mode, point_chunk,
+                *params):
         if bwd_mode not in BWD_MODES:
             raise ValueError(f"NerfMLPFn: bwd_mode {bwd_mode!r} not in {BWD_MODES}")
         stash = bwd_mode == "stash"
+        units = None
         if xd.device.type == "cpu":
             if stash:
                 out, acts = nerf_mlp_fwd_plain(mlp, xd, compute_dtype, num_freqs_x, num_freqs_d,
@@ -1042,21 +1198,26 @@ class NerfMLPFn(torch.autograd.Function):
                 out, acts = nerf_mlp_fwd_plain(mlp, xd, compute_dtype, num_freqs_x,
                                                num_freqs_d), None
         else:
-            out, acts = _launch_fwd(mlp, xd, compute_dtype, num_freqs_x, num_freqs_d, stash)
+            out, acts, units = _launch_fwd(mlp, xd, compute_dtype, num_freqs_x, num_freqs_d,
+                                           stash)
         ctx.mlp = mlp
         ctx.args = (compute_dtype, num_freqs_x, num_freqs_d)
-        ctx.acts = acts
+        ctx.point_chunk = point_chunk
+        ctx.acts = (acts, units)
         ctx.save_for_backward(xd, *params)
         return out
 
     @staticmethod
     def backward(ctx, g):
         xd = ctx.saved_tensors[0]  # reading them checks the params' versions
-        acts, ctx.acts = ctx.acts, None  # the stash is freed with the backward
+        (acts, units), ctx.acts = ctx.acts, None  # the stash is freed with the backward
         g = g.float().contiguous()
-        bwd = nerf_mlp_bwd_plain if xd.device.type == "cpu" else nerf_mlp_bwd
-        d_xd, grads = bwd(ctx.mlp, xd, g, *ctx.args, acts=acts)
-        return (None, d_xd, None, None, None, None, *grads)
+        if xd.device.type == "cpu":
+            d_xd, grads = nerf_mlp_bwd_plain(ctx.mlp, xd, g, *ctx.args, acts=acts)
+        else:
+            d_xd, grads = nerf_mlp_bwd(ctx.mlp, xd, g, *ctx.args, acts=acts, acts_units=units,
+                                       point_chunk=ctx.point_chunk)
+        return (None, d_xd, None, None, None, None, None, *grads)
 
 
 def eval_points_fused(mlp, mlp_cfg, render_cfg, pts: torch.Tensor,
@@ -1066,7 +1227,8 @@ def eval_points_fused(mlp, mlp_cfg, render_cfg, pts: torch.Tensor,
     pts: [R, S, 3]; viewdirs: [R, 3].  Returns raw [R, S, 4].  Only the
     packed [P, 8] (xyz, dir) array goes in; the PE happens in the kernel.
     Where a gradient is needed the call goes through `NerfMLPFn` with
-    render_cfg.mlp_bwd.
+    render_cfg.mlp_bwd, its backward's scratch sized by
+    render_cfg.point_chunk.
     """
     if not supports(mlp_cfg, render_cfg):
         raise NotImplementedError(
@@ -1080,7 +1242,8 @@ def eval_points_fused(mlp, mlp_cfg, render_cfg, pts: torch.Tensor,
     xd = torch.cat([x, d, x.new_zeros(P, XD_CH - 6)], dim=-1).float()
     args = (render_cfg.mlp_compute_dtype, render_cfg.multires, render_cfg.multires_views)
     if _needs_grad(mlp, xd):
-        raw = NerfMLPFn.apply(mlp, xd, *args, render_cfg.mlp_bwd, *mlp.parameters())
+        raw = NerfMLPFn.apply(mlp, xd, *args, render_cfg.mlp_bwd, render_cfg.point_chunk,
+                              *mlp.parameters())
     else:
         raw = nerf_mlp_fwd(mlp, xd, *args)
     return raw.reshape(R, S, OUT_CH)

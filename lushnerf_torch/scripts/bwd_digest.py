@@ -8,9 +8,10 @@ runs the forward kernel with its stash and the stash backward at P =
 65,573 (a ragged tile count), f32 and bf16, at g ~ N(0, 1) and at a
 cotangent shaped like the shipped configs' step (half the points 0, |g|
 log-uniform over 2^-28..2^-17), and prints one JSON line per case: the
-SHA-256 (16 hex digits) of d(xd), of the dz and PE scratch the dgrad
-writes, of the bias and head grads (the dgrad's partials, reduced) and of
-the weight grads.  Needs a card.
+SHA-256 (16 hex digits) of the forward's output and stash, of d(xd), of the
+dz and PE scratch the dgrad writes, of the bias and head grads (the
+dgrad's partials, reduced) and of the weight grads.  The backward runs its
+points in one chunk.  Needs a card.
 """
 
 from __future__ import annotations
@@ -52,12 +53,14 @@ def main(root: str) -> list:
     shipped = mag * sign * (torch.rand((P, 1), generator=gen, device="cuda") < 0.5)
     rows = []
     for dtype in ("float32", "bfloat16"):
-        acts = fused._launch_fwd(mlp, xd, dtype, 10, 4, stash=True)[1]
+        launched = fused._launch_fwd(mlp, xd, dtype, 10, 4, stash=True)
+        out, acts = launched[0], launched[1]
         for name, g in (("normal", normal), ("shipped", shipped)):
             run = fused.BwdLaunch(mlp, xd, g, dtype, 10, 4, acts)
             run.run()
             torch.cuda.synchronize()
-            row = {"root": root, "dtype": dtype, "g": name, "dxd": digest(run.dxd),
+            row = {"root": root, "dtype": dtype, "g": name, "out": digest(out),
+                   "stash": digest(acts), "dxd": digest(run.dxd),
                    "dz": digest(run.dz), "pe": digest(run.pe), "dfp": digest(run.dfp),
                    "dw": digest(run.dw)}
             print(json.dumps(row), flush=True)

@@ -93,7 +93,7 @@ def main(device: str = "cuda", P: int = 983040) -> dict:
             return fused.nerf_mlp_fwd(mlp, xd, cd)
 
     def fwd_bwd():
-        out = fused.NerfMLPFn.apply(mlp, xd, cd, 10, 4, "remat", *params)
+        out = fused.NerfMLPFn.apply(mlp, xd, cd, 10, 4, "remat", 0, *params)
         return torch.autograd.grad(torch.sum(out * out), params)
 
     res = {"device": name, "P": P}

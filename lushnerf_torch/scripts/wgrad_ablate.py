@@ -47,10 +47,18 @@ _SPLIT = """#pragma unroll
       const int q = u + NCONV * i;
       put_parts(base + S_ZH, base + S_ZL, q >> 4, (q & 15) * 8, zv[i], up);
     }
+    if (ea == 0) {  // (the warp group takes the branch as one: no multiply on ordinary input)
 #pragma unroll
-    for (int i = 0; i < NA; ++i) {
-      const int q = u + NCONV * i;
-      put_parts(base + S_AH, base + S_AL, q / (N / 8), (q % (N / 8)) * 8, av[i], 1.f);
+      for (int i = 0; i < NA; ++i) {
+        const int q = u + NCONV * i;
+        put_parts(base + S_AH, base + S_AL, q / (N / 8), (q % (N / 8)) * 8, av[i], 1.f);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < NA; ++i) {
+        const int q = u + NCONV * i;
+        put_parts(base + S_AH, base + S_AL, q / (N / 8), (q % (N / 8)) * 8, av[i], aup);
+      }
     }
 """
 # the bf16 wgrad's matmuls and its producer's loads of a stage
@@ -138,11 +146,13 @@ def main(P: int = 655_360, dtype: str = "float32") -> list:
     run = fused.BwdLaunch(mlp, xd, g, dtype, 10, 4, acts)
     run.run()
     full = run.dw.clone()
-    argtypes = run.lib.nerf_mlp_bwd.argtypes
+    entries = ("nerf_mlp_bwd_wgrad", "nerf_mlp_bwd_reduce_all", "nerf_mlp_bwd_error_string")
+    types = {e: (getattr(run.lib, e).argtypes, getattr(run.lib, e).restype) for e in entries}
     rows = []
     for name, (path, serialised) in libs.items():
         lib = ctypes.CDLL(path)
-        lib.nerf_mlp_bwd.argtypes, lib.nerf_mlp_bwd.restype = argtypes, ctypes.c_int
+        for e in entries:
+            getattr(lib, e).argtypes, getattr(lib, e).restype = types[e]
         run.lib = lib
         ms = _ms(lambda: run.run(run.WGRAD))
         c = dict(zip(run.wgrad_clock_names, run.wgrad_clocks().cpu().tolist()))

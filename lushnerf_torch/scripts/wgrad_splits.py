@@ -57,7 +57,7 @@ def main(points=(327_680, 655_360), most=(11, 22, 33, 66, 132)) -> list:
         run.run()
         ref = run.dw.clone()
         for m in most:
-            run.n_splits = fused.bf16_splits_of(P, m)
+            run.splits = [fused.bf16_splits_of(P, m)]
             run.w_part = torch.empty((run.n_splits, ref.numel()), dtype=torch.float32,
                                      device="cuda")
             ms = _ms(lambda: run.run(run.WGRAD))

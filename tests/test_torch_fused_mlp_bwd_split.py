@@ -31,7 +31,14 @@ JAX comparison:
     2^-28..2^-17, random signs);
   * it is equivariant at g 2^-20, bit for bit; the control, the same wgrad
     on unscaled fp16 parts of dz, misses the limit at the shipped-shaped
-    cotangent.
+    cotangent;
+  * its A scale (the activations split at 1 / U_A per point split and
+    stash block, U_A the largest of the units K1 f32 writes beside the
+    stash, `stash_scale_units`) gives the bits of the wgrad without it on
+    ordinary inputs; on the MLP of `large_activation_params` (activations
+    past fp16's 65504) the wgrad without it gives NaN (the control) where
+    the plain backward and the JAX kernel's f32 backward (interpret mode)
+    stay finite, and with it every grad is finite and within 1e-4 of both.
 """
 
 import jax
@@ -47,6 +54,7 @@ from lushnerf_torch.ops.fused import nerf_mlp as fused
 from tests.test_torch_fused_mlp import _xd
 from tests.test_torch_fused_mlp_bwd import setup  # noqa: F401  (the fixture)
 from tests.test_torch_fused_mlp_bwd import _jax_grads, _mlp, _rel_err, _weights, split_blocks
+from tests.test_torch_fused_mlp_f32split import large_activation_params
 from lushnerf_tpu.models.renderer import RenderConfig as JRenderConfig
 from lushnerf_tpu.ops.fused import nerf_mlp as jfused
 
@@ -84,9 +92,10 @@ def _plain_mm(mats):
 
 def emulate(mlp, xd, g, acts, mm, wgrad=None):
     """The dgrad chain on the stash `acts` with block products `mm`, then
-    the wgrad (plain f32 z^T A, or `wgrad(z, A, units)` with the scale
-    units of z's d_z block) and the bias and head sums, all on true f32
-    values: (d_xd, {d_z by name}, the grads of mlp.parameters())."""
+    the wgrad (plain f32 z^T A, or `wgrad(z, A, units, a_units)` with the
+    scale units of z's d_z block and those of A's stash block, None for the
+    PE) and the bias and head sums, all on true f32 values: (d_xd, {d_z by
+    name}, the grads of mlp.parameters())."""
     kx, kd = fused.pe_widths(mlp.cfg)
     fp = fused.pack_params(mlp, "float32")[1]
     s = acts.float()
@@ -109,19 +118,23 @@ def emulate(mlp, xd, g, acts, mm, wgrad=None):
                       xd.new_zeros(xd.shape[0], 2)], 1)
     pe = torch.cat([torch.nn.functional.pad(posenc(xd[:, 0:3], 10), (0, kx - mlp.cfg.input_ch)),
                     torch.nn.functional.pad(posenc(xd[:, 3:6], 4), (0, kd - mlp.cfg.input_ch_views))], 1)
-    # the f32 wgrad into the weight blob's layout: (dZ, A, block, column offset, row length)
+    # the f32 wgrad into the weight blob's layout: (dZ, A, block, column
+    # offset, row length, A's stash block or None for the PE)
     wsizes = [WD * kx] + [WD * WD] * 4 + [WD * (kx + WD)] + [WD * WD] * 3 + [WH * (WD + kd)]
     woff = np.concatenate([[0], np.cumsum(wsizes)])
     dw = torch.zeros(int(woff[-1]))
-    jobs = [(dz[0], pe[:, :kx], 0, 0, kx)] + [(dz[l], a[l - 1], l, 0, WD) for l in range(1, 5)] + [
-        (dz[5], pe[:, :kx], 5, 0, kx + WD), (dz[5], a[4], 5, kx, kx + WD), (dz[6], a[5], 6, 0, WD),
-        (dz[7], a[6], 7, 0, WD), (dz["feat"], a[7], 8, 0, WD), (dz["hv"], feat, 9, 0, WD + kd),
-        (dz["hv"], pe[:, kx:], 9, WD, WD + kd)]
+    jobs = [(dz[0], pe[:, :kx], 0, 0, kx, None)] + [
+        (dz[l], a[l - 1], l, 0, WD, l - 1) for l in range(1, 5)] + [
+        (dz[5], pe[:, :kx], 5, 0, kx + WD, None), (dz[5], a[4], 5, kx, kx + WD, 4),
+        (dz[6], a[5], 6, 0, WD, 5), (dz[7], a[6], 7, 0, WD, 6), (dz["feat"], a[7], 8, 0, WD, 7),
+        (dz["hv"], feat, 9, 0, WD + kd, 8), (dz["hv"], pe[:, kx:], 9, WD, WD + kd, None)]
     # the weight block's index is its d_z's block in dz (d_feat 8, d_hv 9)
     units = None if wgrad is None else fused.dz_scale_units(dz_matrix(dz))
-    for z, A, blk, col0, ldw in jobs:
+    a_units = None if wgrad is None else fused.stash_scale_units(acts)
+    for z, A, blk, col0, ldw, ab in jobs:
         view = dw[int(woff[blk]):int(woff[blk + 1])].reshape(-1, ldw)
-        view[:, col0:col0 + A.shape[1]] = z.T @ A if wgrad is None else wgrad(z, A, units[:, blk])
+        view[:, col0:col0 + A.shape[1]] = z.T @ A if wgrad is None else wgrad(
+            z, A, units[:, blk], None if ab is None else a_units[:, ab])
     dfp = torch.zeros(fused.FP_NUMEL)
     for l in range(8):
         dfp[l * WD:(l + 1) * WD] = dz[l].sum(0)
@@ -140,25 +153,31 @@ def dz_matrix(dz):
     return torch.cat([dz[l] for l in range(8)] + [dz["feat"], dz["hv"]], 1)
 
 
-def split_wgrad(n_splits, scaled=True):
+def split_wgrad(n_splits, scaled=True, a_scaled=True):
     """The f32 wgrad kernel's arithmetic on one weight block: z [P][O] (a
     d_z block) and A [P][I], over the kernel's point splits; each split's dz
     times 1 / U, U the largest of `units` [tiles, 3] over the 128-point
-    tiles the split touches (`scaled=False`: U = 1, the control), split in
-    fp16 parts, as are A's; hi.hi + lo.hi + hi.lo in f32 times U, summed in
-    split order."""
-    def wgrad(z, A, units):
+    tiles the split touches (`scaled=False`: U = 1, the control), and A
+    times 1 / U_A, U_A the largest of `a_units` [tiles, 8] over them (1 for
+    the PE, whose `a_units` is None; `a_scaled=False`: U_A = 1, the
+    control), split in fp16 parts; hi.hi + lo.hi + hi.lo in f32 times U
+    U_A, summed in split order."""
+    def wgrad(z, A, units, a_units=None):
         P = z.shape[0]
         per = fused.wgrad_pts_per_split(P, n_splits)
-        ah, al = (t.float() for t in fused.split_f16(A, 0))
         out = torch.zeros(z.shape[1], A.shape[1])
         for k0 in range(0, P, per):
             k1 = min(P, k0 + per)
             u = units[k0 // DT:(k1 - 1) // DT + 1].max()
             e = int(torch.frexp(u).exponent) - 1 if scaled and u > 0 else 0
+            ea = 0
+            if a_scaled and a_units is not None:
+                ua = a_units[k0 // fused.FWD_TILE:(k1 - 1) // fused.FWD_TILE + 1].max()
+                ea = int(torch.frexp(ua).exponent) - 1
             zh, zl = (t.float() for t in fused.split_f16(z[k0:k1], -e))
-            acc = zh.T @ ah[k0:k1] + zl.T @ ah[k0:k1] + zh.T @ al[k0:k1]
-            out = out + acc * 2.0 ** e
+            ah, al = (t.float() for t in fused.split_f16(A[k0:k1], -ea))
+            acc = zh.T @ ah + zl.T @ ah + zh.T @ al
+            out = out + acc * 2.0 ** e * 2.0 ** ea
         return out
     return wgrad
 
@@ -355,3 +374,36 @@ def test_wgrad_ablate_patches_match_the_source():
             assert src.count(old) == 1, part
     assert set(p for variants in wgrad_ablate.VARIANTS.values() for v in variants.values()
                for p in v) == set(wgrad_ablate.PATCHES)
+
+
+def test_split_wgrad_a_scale_keeps_the_bits_of_ordinary_inputs(setup):
+    mlp, xd, g, acts = _inputs_wide(setup, "normal")
+    assert bool((fused.stash_scale_units(acts) == 1).all())
+    _, _, grads = emulate(mlp, xd, g, acts, _split(mlp), wgrad=split_wgrad(5))
+    _, _, grads_u = emulate(mlp, xd, g, acts, _split(mlp), wgrad=split_wgrad(5, a_scaled=False))
+    assert all(torch.equal(a, b) for a, b in zip(grads, grads_u))
+
+
+def test_split_wgrad_keeps_large_activations_finite(setup):
+    jcfg, params, pts, dirs = setup
+    big = large_activation_params(params)
+    mlp = _mlp(big).requires_grad_(False)
+    xd = _xd(pts, dirs)
+    _, acts = fused.nerf_mlp_fwd_plain(mlp, xd, "float32", with_acts=True)
+    assert acts.abs().max() >= 65520
+    R, S = pts.shape[:2]
+    G = np.random.default_rng(13).standard_normal((R, S, 4)).astype(np.float32)
+    g = torch.from_numpy(G.reshape(R * S, 4))
+    _, want = fused.nerf_mlp_bwd_plain(mlp, xd, g, "float32", acts=acts)
+    jax_want = _jax_grads_at(big, jcfg, pts, dirs, G)
+    assert all(np.isfinite(t).all() for t in jax_want.values())
+    assert all(bool(torch.isfinite(t).all()) for t in want)
+    n_splits = fused.wgrad_splits(R * S, "float32")
+    # the control: A's fp16 parts overflow without its scale
+    _, _, bad = emulate(mlp, xd, g, acts, _split(mlp), wgrad=split_wgrad(n_splits, a_scaled=False))
+    assert any(bool(torch.isnan(t).any()) for t in bad)
+    _, _, grads = emulate(mlp, xd, g, acts, _split(mlp), wgrad=split_wgrad(n_splits))
+    assert all(bool(torch.isfinite(t).all()) for t in grads)
+    assert _worst(grads, want) <= LIMIT
+    for (n, _), t in zip(mlp.named_parameters(), grads):
+        assert _rel_err(t.numpy(), jax_want[n]) <= LIMIT, (n, _rel_err(t.numpy(), jax_want[n]))

@@ -14,12 +14,23 @@ compiled kernel does not cover.  Here:
     (rtol 1e-4, atol 1e-5, the kernel's limit on the card) and its stash
     within 1e-5 of each block's largest value (the card's STASH_TOL), and
     the JAX Pallas kernel's f32 mode in interpret mode at the same limit;
+  * the row scale (each activation row split at 2^-k, k the least that
+    puts its largest |value| below 2^15) gives the bits of the arithmetic
+    without it on ordinary inputs; on an MLP whose bias puts activations
+    past fp16's 65504 (`large_activation_params`, every |w| < 4094) the
+    arithmetic without it gives NaN (the control) where the plain f32
+    forward and the JAX kernel's f32 mode (interpret mode) stay finite,
+    and with it the output and stash are finite and within the limits
+    above of both; `stash_scale_units` (the units K1 f32 writes beside its
+    stash for the f32 wgrad) are, index by index, the largest 2^k of the
+    stash rows of each tile's warp;
   * a width-128 member of the fused family goes to the plain torch path by
     shape under the 'cuda' backend (no call into the fused path, no
     launch), equal to the torch backend, and the f32 kernel's PE geometry
     is part of the same predicate.
 """
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -42,6 +53,19 @@ from tests.test_torch_convert import params_like_init
 from tests.test_torch_fused_mlp import F32_TOL, _xd, sm90_pe_chunks, split_mats
 
 STASH_TOL = 1e-5  # chip_smoke.py's f32 stash limit: max error over the block's max value
+LARGE_BIAS = 1e5  # past fp16's largest value (65504)
+
+
+def large_activation_params(params):
+    """A copy of the JAX params with bias column 0 of layers 0, 4 and 7 and
+    of the feature layer at 1e5: a0, a4, a7 and feat each hold a column past
+    fp16's range on every point (so do the views layer's and layer 5's
+    inputs), while every weight stays as it was (|w| < 4094)."""
+    p = jax.tree.map(np.array, params)
+    for l in (0, 4, 7):
+        p["pts"][l][1][0] = LARGE_BIAS
+    p["feature"][1][0] = LARGE_BIAS
+    return p
 
 
 @pytest.fixture(scope="module")
@@ -78,28 +102,59 @@ def test_split_blob_gives_back_every_weight(setup):
     assert w[n:2 * n].abs().max() < w[:n].abs().max() * 2.0 ** -10
 
 
-def _emulate_split(w, fp, xd, kx, kd, nfx, nfd, drop_lo=False):
+def _emulate_split(w, fp, xd, kx, kd, nfx, nfd, drop_lo=False, scaled=True):
     """The f32 kernel's arithmetic read from its blob: each layer's K chunks
     in the kernel's order (W0: the pe_x chunk; W5: a4, then the pe_x chunk;
-    Wv: the pe_d chunk, then feat), every activation split in its fp16
-    parts (the blob holds those of W 2^4), acc = 2^4 bias + hi(A) hi(W) +
-    lo(A) hi(W) + hi(A) lo(W) in f32, relu(acc 2^-4) in f32, the heads on
-    the f32 activations.  Returns (raw out, stash).  `drop_lo`: the lo parts as
-    zeros (the control: fp16 products)."""
+    Wv: the pe_d chunk, then feat), every activation row split in the fp16
+    parts of its values times 2^-k (k of `fused.row_scale_exponents` of the
+    row's largest |value|; `scaled=False`: k = 0, the arithmetic without
+    the row scale) and the PE unscaled (the blob holds the parts of W 2^4),
+    acc = 2^4 2^-k bias + hi(A) hi(W) + lo(A) hi(W) + hi(A) lo(W) in f32,
+    relu(acc 2^k 2^-4) in f32; layer 5 takes its rows back by 2^k before its
+    PE chunk and the views layer scales them by 2^-k after its own, each
+    only where some row has k > 0; the heads on the f32 activations.
+    Returns (raw out, stash).  `drop_lo`: the lo parts as zeros (the
+    control: fp16 products)."""
     his, los = split_mats(w, kx, kd)
     nx, d0, nd = sm90_pe_chunks(kx, kd)
     Wd, Wh = 256, 128
+    acc_scale = 2.0 ** fused.SPLIT_SHIFT
 
     def split(t):
         hi, lo = fused.split_f16(t, 0)
         return hi.float(), lo.float() * (not drop_lo)
 
-    def layer(i, a, bias, relu=True):
+    def down(a, relu):  # the rows' 2^-k, [P, 1]
+        if not scaled:
+            return torch.ones(a.shape[0], 1)
+        m = (a if relu else a.abs()).amax(1)
+        return torch.exp2(-fused.row_scale_exponents(m).float())[:, None]
+
+    def products(a, wh, wl):
         ah, al = split(a)
+        return ah @ wh.T + al @ wh.T + ah @ wl.T
+
+    def layer(i, a, s, bias, relu=True, pe=None, pe_first=False):
+        """a: the input activations, whose rows were split times s; pe: the
+        layer's PE chunk, read after a (layer 5) or before it (pe_first)."""
         wh, wl = his[i], los[i] * (not drop_lo)
-        acc_scale = 2.0 ** fused.SPLIT_SHIFT
-        acc = (bias * acc_scale + ah @ wh.T + al @ wh.T + ah @ wl.T) / acc_scale
-        return torch.relu(acc) if relu else acc
+        rescale = pe is not None and bool((s < 1).any())
+        if pe is None or not rescale:  # one sum over the layer's chunks in order
+            x = a * s if pe is None else torch.cat([pe, a * s] if pe_first else [a * s, pe], 1)
+            b = bias * acc_scale * (1.0 if pe_first else s)
+            acc = (b + products(x, wh, wl)) * ((1.0 / s if pe is None or pe_first else 1.0)
+                                               / acc_scale)
+        else:
+            k_pe = pe.shape[1]
+            if pe_first:  # Wv: the PE chunk, then the rows times 2^-k, then feat
+                acc = (bias * acc_scale + products(pe, wh[:, :k_pe], wl[:, :k_pe])) * s
+                acc = (acc + products(a * s, wh[:, k_pe:], wl[:, k_pe:])) * (1.0 / s / acc_scale)
+            else:  # W5: a4, the rows times 2^k, then the PE chunk
+                k_a = a.shape[1]
+                acc = (bias * acc_scale * s + products(a * s, wh[:, :k_a], wl[:, :k_a])) / s
+                acc = (acc + products(pe, wh[:, k_a:], wl[:, k_a:])) / acc_scale
+        out = torch.relu(acc) if relu else acc
+        return out, down(out, relu)
 
     P = xd.shape[0]
     pe = torch.zeros((P, 128))
@@ -107,15 +162,20 @@ def _emulate_split(w, fp, xd, kx, kd, nfx, nfd, drop_lo=False):
     pe[:, kx:kx + 3 + 6 * nfd] = posenc(xd[:, 3:6], nfd)
     pe_x, pe_d = pe[:, :64 * nx], pe[:, 64 * d0:64 * (d0 + nd)]
     b = lambda i: fp[i * Wd:(i + 1) * Wd]  # noqa: E731
-    acts = [layer(0, pe_x, b(0))]
+    one = torch.ones(P, 1)
+    a, s = layer(0, pe_x, one, b(0))
+    acts = [a]
     for i in range(1, 5):
-        acts.append(layer(i, acts[-1], b(i)))
-    acts.append(layer(5, torch.cat([acts[-1], pe_x], 1), b(5)))
+        a, s = layer(i, a, s, b(i))
+        acts.append(a)
+    a, s = layer(5, a, s, b(5), pe=pe_x)
+    acts.append(a)
     for i in (6, 7):
-        acts.append(layer(i, acts[-1], b(i)))
+        a, s = layer(i, a, s, b(i))
+        acts.append(a)
     alpha = acts[7] @ fp[fused.FP_WA:fused.FP_WR] + fp[fused.FP_BA]
-    feat = layer(8, acts[7], fp[fused.FP_BF:fused.FP_BV], relu=False)
-    hv = layer(9, torch.cat([pe_d, feat], 1), fp[fused.FP_BV:fused.FP_BA])
+    feat, s = layer(8, a, s, fp[fused.FP_BF:fused.FP_BV], relu=False)
+    hv, _ = layer(9, feat, s, fp[fused.FP_BV:fused.FP_BA], pe=pe_d, pe_first=True)
     rgb = hv @ fp[fused.FP_WR:].reshape(3, Wh).T + fp[fused.FP_BR:fused.FP_BR + 3]
     return torch.cat([rgb, alpha[:, None]], 1), torch.cat(acts + [feat, hv], 1)
 
@@ -155,6 +215,80 @@ def test_split_reproduces_jax_kernel_f32(setup):
     w, fp = fused.pack_params(mlp, "float32")
     got, _ = _emulate_split(w, fp, _xd(pts, dirs), kx, kd, 10, 4)
     np.testing.assert_allclose(got.numpy().reshape(want.shape), np.asarray(want), **F32_TOL)
+
+
+def test_row_scale_keeps_the_bits_of_ordinary_inputs(setup):
+    _, _, mlp, pts, dirs = setup
+    xd = _xd(pts, dirs)
+    kx, kd = fused.pe_widths(mlp.cfg)
+    w, fp = fused.pack_params(mlp, "float32")
+    out, stash = _emulate_split(w, fp, xd, kx, kd, 10, 4)
+    out_u, stash_u = _emulate_split(w, fp, xd, kx, kd, 10, 4, scaled=False)
+    assert stash.abs().max() < 2.0 ** fused.ROW_SCALE_BITS
+    assert torch.equal(out, out_u) and torch.equal(stash, stash_u)
+
+
+def _jax_f32(params, jcfg, pts, dirs):
+    with pltpu.force_tpu_interpret_mode():
+        return np.asarray(jfused.eval_points_fused(
+            params, jcfg, JRenderConfig(mlp_compute_dtype="float32"),
+            jnp.asarray(pts), jnp.asarray(dirs), tile=16))
+
+
+def test_row_scale_keeps_large_activations_finite(setup):
+    jcfg, params, _, pts, dirs = setup
+    big = large_activation_params(params)
+    mlp = NeRFMLP(MLPConfig(depth=8, width=256, input_ch=63, input_ch_views=27),
+                  torch.Generator().manual_seed(0), torch.device("cpu"))
+    mlp.load_state_dict(mlp_state_from_jax(big))
+    mlp.requires_grad_(False)
+    xd = _xd(pts, dirs)
+    want, want_stash = fused.nerf_mlp_fwd_plain(mlp, xd, "float32", with_acts=True)
+    assert want_stash.abs().max() >= 65520 and bool(torch.isfinite(want).all())
+    kx, kd = fused.pe_widths(mlp.cfg)
+    w, fp = fused.pack_params(mlp, "float32")  # every weight in the parts' range
+    # the control: the arithmetic without the row scale overflows to NaN
+    bad, _ = _emulate_split(w, fp, xd, kx, kd, 10, 4, scaled=False)
+    assert bool(torch.isnan(bad).any())
+    jax_out = _jax_f32(big, jcfg, pts, dirs)
+    assert np.isfinite(jax_out).all()
+    got, stash = _emulate_split(w, fp, xd, kx, kd, 10, 4)
+    assert bool(torch.isfinite(got).all()) and bool(torch.isfinite(stash).all())
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **F32_TOL)
+    assert _stash_rel_err(stash, want_stash) <= STASH_TOL
+    np.testing.assert_allclose(got.numpy().reshape(jax_out.shape), jax_out, **F32_TOL)
+
+
+@pytest.mark.parametrize("big", [False, True], ids=["ordinary", "large"])
+def test_stash_scale_units_by_index(setup, big):
+    """Units over 300 points (three tiles, the last ragged): entry (t, b, w)
+    the largest 2^k over the rows 16 w .. 16 w + 15 of tile t of block b,
+    k of `row_scale_exponents`; 1 past P; every unit 1 on ordinary input."""
+    _, params, _, _, _ = setup
+    mlp = NeRFMLP(MLPConfig(depth=8, width=256, input_ch=63, input_ch_views=27),
+                  torch.Generator().manual_seed(0), torch.device("cpu"))
+    mlp.load_state_dict(mlp_state_from_jax(large_activation_params(params) if big else params))
+    rng = np.random.default_rng(17)
+    pts = rng.uniform(-1, 1, (3, 100, 3)).astype(np.float32)
+    dirs = rng.standard_normal((3, 3)).astype(np.float32)
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    with torch.no_grad():
+        _, stash = fused.nerf_mlp_fwd_plain(mlp, _xd(pts, dirs), "float32", with_acts=True)
+    units = fused.stash_scale_units(stash)
+    P, T = stash.shape[0], fused.FWD_TILE
+    assert units.shape == (-(-P // T), fused.UNIT_BLOCKS, fused.UNIT_WARPS)
+    assert units.dtype == torch.float32
+    for b in range(fused.UNIT_BLOCKS):
+        m = stash[:, 256 * b:256 * (b + 1)].abs().amax(1)
+        k = fused.row_scale_exponents(m)
+        for t in range(units.shape[0]):
+            for w in range(fused.UNIT_WARPS):
+                rows = range(t * T + 16 * w, min(P, t * T + 16 * (w + 1)))
+                want = max((2.0 ** int(k[p]) for p in rows), default=1.0)
+                assert units[t, b, w].item() == want, (b, t, w)
+    assert bool((units > 1).any()) == big
+    if big:  # the blocks of a0, a4, a7 and feat, and only those, carry a scale
+        assert set(torch.nonzero((units > 1).any(2).any(0)).flatten().tolist()) == {0, 4, 7, 8}
 
 
 def _width128_model():
@@ -207,3 +341,14 @@ def test_kernel_covers_follows_the_kernels_geometry():
                     for dt in ("bfloat16", "float32"))
         assert got == want, (nfx, nfd, got)
         assert (fused.kernel_gap(cfg, "float32", nfx, nfd) is None) == want[1]
+
+
+def test_fwd_ablate_patches_match_the_source():
+    """The f32 forward's ablation tool patches csrc/nerf_mlp_fwd_sm90.cuh by
+    text: every text it replaces is in the header, once."""
+    from lushnerf_torch.ops.fused import build
+    from lushnerf_torch.scripts import fwd_ablate
+    src = (build.CSRC / fwd_ablate.HEADER).read_text()
+    for variant, patches in fwd_ablate.PATCHES.items():
+        for old, _ in patches:
+            assert src.count(old) == 1, variant

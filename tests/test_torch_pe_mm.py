@@ -154,3 +154,14 @@ def test_tune_kernel_main_on_cpu():
     for key in ("fwd", "fwd_bwd", "pe_only", "mm_only"):
         med, lo, hi = res[key]
         assert 0 < lo <= med <= hi
+
+
+def test_pe_ablate_patches_match_both_kernels():
+    """The PE-only kernel's ablation tool patches csrc/nerf_pe_mm.cu by text:
+    each variant finds exactly one of its texts in this checkout's kernel,
+    and none of them twice."""
+    from lushnerf_torch.scripts import pe_ablate
+    src = (build.CSRC / "nerf_pe_mm.cu").read_text()
+    for variant, patches in pe_ablate.PATCHES.items():
+        assert sum(src.count(old) for old, _ in patches) == 1, variant
+        assert pe_ablate.patched(src, variant) != src

@@ -118,15 +118,22 @@ the final result line):
      `lushnerf_torch.scripts.probe_raymajor` at the JAX probe's shapes (any
      failure fails the phase, launches counted); then at the renderer's
      per-ray shapes (5120 rays x 64 and x 128 samples) each kernel against
-     its plain version, and the device times of the kernel, its plain
-     version and the one PyTorch call that computes the same function
-     (torch.cumsum, Tensor.clone, torch.searchsorted, torch.diff):
-     medians over 5 CUDA-event windows of back-to-back calls queued behind a
-     device sleep, so that the host's launch cost is not in them; the
+     its plain version (each call twice bit for bit), and the device times
+     of the kernel, its plain version and the one PyTorch call that
+     computes the same function (torch.cumsum, Tensor.clone,
+     torch.searchsorted, torch.diff): medians over 5 CUDA-event windows of
+     back-to-back calls queued behind a device sleep, so that the host's
+     launch cost is not in them; K6/K7, K8 and K10 against Tensor.clone of
+     the same bytes and the launch floor (Tensor.clone of 16 bytes) over
+     21 windows each, taken in turns, with their spread and each kernel's
+     median less the clone's ("retime" lines); K6/K7 at CUMSUM_CASES (S not
+     a multiple of 4, rays longer than a block's pass, c from 1 to 128 and
+     c 3) and K10 at DISTS_CASES (every n % 4) against the plain versions
+     and the PyTorch calls, twice bitwise, and their 64-bit index
+     arithmetic bitwise the 32-bit one ("cumsum" and "dists" lines); the
      searchsorted kernel also on unsorted rows with ties (exact, timed) and
-     on a ragged S and SI; K8 against Tensor.clone over 21 windows each,
-     taken in turns, with their median and spread, and bit for bit on
-     lengths with a tail and on one element.
+     on a ragged S and SI; K8 bit for bit on lengths with a tail and on
+     one element.
 Then a `{"kernels": [...]}` line (nine kernels, each with the path that
 launched it: main, tune_kernel or probe_raymajor) and, last, the
 `{"ok": true, ...}` line.
@@ -197,6 +204,16 @@ RAY_SHAPES = {"coarse": (5120, 64), "fine": (5120, 128)}  # the renderer's rays 
 # excl_cumsum vs its plain version: sums of up to 128 pdf values in [0, 1]
 # in another order (a warp's shuffle tree, then a carry)
 CUMSUM_TOL = 1e-5
+# (T, S, c) run through K6/K7 beside the renderer's shapes: S not a multiple
+# of 4 (a ray starts inside a float4), sample_pdf's 62 and 63 bins, rays of
+# one pass and of several (S * c > 1024), every class width of the vector
+# kernel (c 1, 2, 4, 8, 16, 32, 128) and the general kernel (c 3)
+CUMSUM_CASES = [(5, 1, 1), (7, 3, 1), (5, 37, 1), (9, 62, 1), (9, 63, 1), (4, 64, 1), (3, 128, 1),
+                (2, 256, 1), (2, 1000, 1), (5, 37, 3), (16, 64, 8), (3, 128, 8), (2, 3000, 1),
+                (2, 300, 8), (3, 50, 2), (3, 37, 4), (2, 70, 16), (2, 40, 32), (2, 20, 128)]
+# (T, S) through K10: the c = 1 cases above and the probe's; T * S % 4 takes
+# 0, 1, 2 and 3
+DISTS_CASES = sorted({(T, S) for T, S, c in CUMSUM_CASES if c == 1} | {(16, 64)})
 
 
 def card_line() -> str:
@@ -1527,6 +1544,102 @@ def pe_rows(pe_mm, xd_all) -> list:
     return rows
 
 
+RETIMED = ("raymajor_excl_cumsum", "raymajor_transpose", "raymajor_masked_dists")
+# the renderer's rays x samples and the JAX probe's T x S, with the cumsum's
+# channels (1 as sample_pdf runs it, 8 as probes P1 and P1b do)
+RETIME_SHAPES = {"coarse": (5120, 64, 1), "fine": (5120, 128, 1), "probe": (16, 64, 8)}
+
+
+def probe_retime(raymajor, gen):
+    """K6/K7, K8 and K10 against Tensor.clone of the same bytes and against
+    the launch floor (Tensor.clone of 16 bytes), with the plain versions and
+    the PyTorch calls of K6/K7 and K10, 21 windows each, taken in turns, at
+    RETIME_SHAPES.  Returns K8's rows in their earlier form and every
+    shape's: spreads, each kernel's median less the clone's of its bytes
+    and over it, and its bound."""
+    transpose, rows = [], []
+    for label, (R, S, c) in RETIME_SHAPES.items():
+        n = R * S
+        w = torch.rand((R, S, c), generator=gen, device="cuda") + 1e-3
+        x = (w / w.sum(1, keepdim=True)).reshape(n, c)  # a pdf over each ray's samples
+        v = torch.rand((n, 1), generator=gen, device="cuda")
+        z = torch.sort(torch.rand((R, S), generator=gen, device="cuda"), -1).values.reshape(n, 1)
+        tiny = torch.rand(4, generator=gen, device="cuda")
+        fns = {
+            "raymajor_excl_cumsum": lambda: raymajor.excl_cumsum(x, S),
+            "raymajor_transpose": lambda: raymajor.ray_transpose(v, S),
+            "raymajor_masked_dists": lambda: raymajor.masked_dists(z, S),
+            "excl_cumsum_plain": lambda: raymajor.excl_cumsum_plain(x, S),
+            "masked_dists_plain": lambda: raymajor.masked_dists_plain(z, S),
+            "torch_cumsum": lambda: torch.cumsum(x.view(R, S, c) if c > 1 else x.view(R, S), 1),
+            "torch_diff": lambda: torch.diff(z.view(R, S), dim=1, append=z.view(R, S)[:, -1:]),
+            "clone": lambda: v.clone(), "floor": lambda: tiny.clone()}
+        if c > 1:
+            fns["clone_cumsum_bytes"] = lambda: x.clone()
+        times = dict(zip(fns, device_windows(list(fns.values()), repeats=21)))
+        r = {"shape": label, "rays": R, "samples": S, "cumsum_channels": c,
+             **{name: spread(ms) for name, ms in times.items()}}
+        for name in RETIMED:
+            clone = r["clone_cumsum_bytes" if c > 1 and name == "raymajor_excl_cumsum"
+                      else "clone"]["median"]
+            nbytes = 2 * 4 * n * (c if name == "raymajor_excl_cumsum" else 1)
+            r[f"{name}_bound_ms"] = nbytes / PEAK_BYTES * 1e3
+            r[f"{name}_minus_clone_median_ms"] = r[name]["median"] - clone
+            r[f"{name}_over_clone"] = r[name]["median"] / clone
+        r["clone_minus_floor_median_ms"] = r["clone"]["median"] - r["floor"]["median"]
+        print("  retime " + json.dumps(r), flush=True)
+        rows.append(r)
+        if label in RAY_SHAPES:
+            k8 = {"shape": label, "rays": R, "samples": S, "kernel": r["raymajor_transpose"],
+                  "clone": r["clone"]}
+            k8["kernel_minus_clone_median_ms"] = k8["kernel"]["median"] - r["clone"]["median"]
+            k8["slower_than_clone_beyond_spread"] = k8["kernel"]["p25"] > k8["clone"]["p75"]
+            transpose.append(k8)
+    return transpose, rows
+
+
+def probe_cases(raymajor, gen):
+    """K6/K7 at CUMSUM_CASES on per-ray pdfs (each channel's over S sums to
+    1) and K10 at DISTS_CASES on sorted rays: against the plain versions
+    and the PyTorch calls (the cumsum within CUMSUM_TOL, its first samples
+    exactly 0; the dists bit for bit), each call twice bitwise, and the
+    64-bit index arithmetic bitwise the 32-bit one."""
+    cumsum, dists = [], []
+    for T, S, c in CUMSUM_CASES:
+        w = torch.rand((T, S, c), generator=gen, device="cuda") + 1e-3
+        x = (w / w.sum(1, keepdim=True)).reshape(T * S, c)
+        got = raymajor.excl_cumsum(x, S)
+        lib = torch.cumsum(x.view(T, S, c), 1) - x.view(T, S, c)
+        r = {"rays": T, "samples": S, "channels": c,
+             "plan": raymajor.cumsum_plan(S, c),
+             "max_abs_err": (got - raymajor.excl_cumsum_plain(x, S)).abs().max().item(),
+             "library_max_abs_err": (got.view(T, S, c) - lib).abs().max().item(),
+             "first_samples_zero": bool((got.view(T, S, c)[:, 0] == 0).all()),
+             "repeat_bitwise": torch.equal(got, raymajor.excl_cumsum(x, S)),
+             "index64_bitwise": torch.equal(got, raymajor.excl_cumsum(x, S, wide=True))}
+        print("  cumsum " + json.dumps(r), flush=True)
+        cumsum.append(r)
+        if not (max(r["max_abs_err"], r["library_max_abs_err"]) <= CUMSUM_TOL
+                and r["first_samples_zero"] and r["repeat_bitwise"] and r["index64_bitwise"]):
+            raise AssertionError(f"raymajor_excl_cumsum disagrees: {r}")
+    for T, S in DISTS_CASES:
+        z = torch.sort(torch.rand((T, S), generator=gen, device="cuda") * 5, -1).values
+        z = z.reshape(T * S, 1)
+        got = raymajor.masked_dists(z, S)
+        zz = z.view(T, S)
+        lib = torch.diff(zz, dim=1, append=zz[:, -1:]).reshape(-1, 1)
+        r = {"rays": T, "samples": S, "tail": T * S % 4,
+             "bitwise": torch.equal(got, raymajor.masked_dists_plain(z, S)),
+             "library_bitwise": torch.equal(got, lib),
+             "repeat_bitwise": torch.equal(got, raymajor.masked_dists(z, S)),
+             "index64_bitwise": torch.equal(got, raymajor.masked_dists(z, S, wide=True))}
+        print("  dists " + json.dumps(r), flush=True)
+        dists.append(r)
+        if not all(v for k, v in r.items() if k.endswith("bitwise")):
+            raise AssertionError(f"raymajor_masked_dists disagrees: {r}")
+    return cumsum, dists
+
+
 def probe_phase(raymajor, probe):
     """The five probes (launches counted), then each kernel at the
     renderer's per-ray shapes against its plain version, with device times
@@ -1571,7 +1684,9 @@ def probe_phase(raymajor, probe):
             torch.cuda.synchronize()
             err = (got - want).abs().max().item()
             row = {"kernel": name, "shape": label, "rays": R, "samples": S, "max_abs_err": err,
-                   "within_tol": err <= tol and bool(torch.isfinite(got).all())}
+                   "repeat_bitwise": torch.equal(got, kern())}
+            row["within_tol"] = (err <= tol and bool(torch.isfinite(got).all())
+                                 and row["repeat_bitwise"])
             if library is not None:  # the PyTorch call gives the same values
                 lib = library()
                 if name == "raymajor_excl_cumsum":  # inclusive: shift to exclusive
@@ -1590,18 +1705,8 @@ def probe_phase(raymajor, probe):
             if not row["within_tol"]:
                 raise AssertionError(f"{name} disagrees with its plain version: {row}")
     res["rows"] = rows
-    # K8 against Tensor.clone over 21 windows each, taken in turns: whether
-    # the kernel is slower than the copy by more than the windows' spread
-    res["transpose_retime"] = []
-    for label, (R, S) in RAY_SHAPES.items():
-        v = torch.rand((R * S, 1), generator=gen, device="cuda")
-        k8, clone = device_windows([lambda: raymajor.ray_transpose(v, S), lambda: v.clone()],
-                                   repeats=21)
-        r = {"shape": label, "rays": R, "samples": S, "kernel": spread(k8), "clone": spread(clone)}
-        r["kernel_minus_clone_median_ms"] = r["kernel"]["median"] - r["clone"]["median"]
-        r["slower_than_clone_beyond_spread"] = r["kernel"]["p25"] > r["clone"]["p75"]
-        print("  transpose retime " + json.dumps(r), flush=True)
-        res["transpose_retime"].append(r)
+    res["transpose_retime"], res["retime"] = probe_retime(raymajor, gen)
+    res["cumsum_cases"], res["dists_cases"] = probe_cases(raymajor, gen)
     # K8 exactly on lengths with a tail (n % 4 = 1, 3) and on one element
     res["transpose_cases"] = []
     for R, S in ((517, 37), (5, 7), (1, 1)):
@@ -1752,7 +1857,9 @@ PROBE_REPLACES = {  # kernel -> the JAX probe kernels it replaces
 
 def probe_entries(probe):
     """K6-K10 on the probe path: launches of the five probes, errors over
-    the renderer's shapes, times at 5120 x 64 (both shapes under `shapes`)."""
+    the renderer's shapes, times at 5120 x 64 (both shapes under `shapes`);
+    K6/K7, K8 and K10 also their 21-window medians beside Tensor.clone of
+    the same bytes and the launch floor (`retime`)."""
     if not probe:
         return []
     out = []
@@ -1769,6 +1876,13 @@ def probe_entries(probe):
             "also_replaces": replaces[1:],
             "shapes": [{k: x[k] for k in ("rays", "samples", "ms", "plain_ms", "library_ms",
                                          "bound_ms", "max_abs_err")} for x in rows]})
+        if name in RETIMED:  # the 21 windows beside Tensor.clone and the launch floor
+            out[-1]["retime"] = [
+                {"rays": t["rays"], "samples": t["samples"], "ms": t[name]["median"],
+                 "over_clone": t[f"{name}_over_clone"], "floor_ms": t["floor"]["median"],
+                 "bound_ms": t[f"{name}_bound_ms"]} for t in probe["retime"]]
+        if name == "raymajor_excl_cumsum":
+            out[-1]["cases_max_abs_err"] = max(x["max_abs_err"] for x in probe["cumsum_cases"])
     return out
 
 

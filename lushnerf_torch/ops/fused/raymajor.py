@@ -33,6 +33,15 @@ from lushnerf_torch.ops.fused import build
 # to 4 floats) in 48 KB of shared memory
 SMEM_ROW_MAX = 48 * 1024 // 4 // 8
 
+# The vector cumsum (the kernel for c a power of two up to 128): a thread
+# takes a float4, a block 8 warps; a group (a warp, or the block: one of
+# CS_GROUPS warps) takes whole rays, 128 floats a warp a pass.
+CS_GROUPS = (1, 8)
+VEC_CHANNELS = (1, 2, 4, 8, 16, 32, 64, 128)
+# The largest element count the kernels' 32-bit index arithmetic takes: a
+# block's last pass may index up to 1024 floats past the end.
+INDEX32_MAX = 2**31 - 1 - 2048
+
 # Kernel launches since they were last set to 0.
 launches_excl_cumsum = 0
 launches_transpose = 0
@@ -76,14 +85,49 @@ def masked_dists_plain(z: torch.Tensor, S: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def cumsum_plan(S: int, c: int) -> tuple:
+    """(warps a group, rays a group) of the vector cumsum: each warp alone
+    where its pass of 128 floats holds a whole ray (no barrier), else the
+    block of 8 warps; (0, 0) for a c the vector kernel does not take (the
+    general kernel: one warp per ray)."""
+    if c not in VEC_CHANNELS:
+        return 0, 0
+    L = S * c
+    group = 1 if L + (3 if L % 4 else 0) <= 128 else 8
+    return group, cumsum_rays_per_block(S, c, group)
+
+
+def cumsum_rays_per_block(S: int, c: int, group: int) -> int:
+    """Rays a group of `group` warps takes: as many as fit in one pass of
+    128 * group floats (the first float4 may hold up to 3 floats of the ray
+    before, when S * c is not a multiple of 4), at least 1 (a longer ray
+    takes several passes)."""
+    L = S * c
+    return max(1, (128 * group - (3 if L % 4 else 0)) // L)
+
+
+def divider(d: int) -> tuple:
+    """(m, s) with x // d == (x * m) >> s for every 0 <= x < 2**31, m < 2**32:
+    m = floor(2**s / d) + 1, s = 31 + ceil(log2 d) (then m * d - 2**s lies
+    in (0, d], within 2**(s - 31))."""
+    s = 31 + (d - 1).bit_length()
+    return (1 << s) // d + 1, s
+
+
+def index64(n: int) -> bool:
+    """Whether n elements need the kernels' 64-bit index arithmetic."""
+    return n > INDEX32_MAX
+
+
 def _lib() -> ctypes.CDLL:
     lib = build.load("raymajor_probe")
     if not getattr(lib, "_lushnerf_typed", False):
         vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.raymajor_excl_cumsum.argtypes = [vp, vp, ci, ci, ci, vp]
+        cu = ctypes.c_uint
+        lib.raymajor_excl_cumsum.argtypes = [vp, vp, ci, ci, ci, ci, ci, cu, ci, ci, vp]
         lib.raymajor_transpose.argtypes = [vp, vp, cl, vp]
         lib.raymajor_searchsorted.argtypes = [vp, vp, vp, ci, ci, ci, vp]
-        lib.raymajor_masked_dists.argtypes = [vp, vp, cl, ci, vp]
+        lib.raymajor_masked_dists.argtypes = [vp, vp, cl, ci, cu, ci, ci, vp]
         for fn in (lib.raymajor_excl_cumsum, lib.raymajor_transpose,
                    lib.raymajor_searchsorted, lib.raymajor_masked_dists):
             fn.restype = ci
@@ -115,16 +159,20 @@ def _launch(name: str, fn, *args, device) -> None:
         raise RuntimeError(f"{name}: CUDA error {rc} ({_lib().raymajor_error_string(rc).decode()})")
 
 
-def excl_cumsum(x: torch.Tensor, S: int) -> torch.Tensor:
-    """[T*S, c] -> the exclusive cumsum over each ray's S samples."""
+def excl_cumsum(x: torch.Tensor, S: int, wide: bool | None = None) -> torch.Tensor:
+    """[T*S, c] -> the exclusive cumsum over each ray's S samples.  `wide`
+    takes the 64-bit index arithmetic (default: where the size needs it)."""
     if x.device.type == "cpu":
         return excl_cumsum_plain(x, S)
     T = _rays(x, S)
     (x,) = _inputs("excl_cumsum", x)
     y = torch.empty_like(x)
     if x.numel():
+        c = x.shape[1]
+        wide = index64(x.numel()) if wide is None else wide
         _launch("excl_cumsum", _lib().raymajor_excl_cumsum, x.data_ptr(), y.data_ptr(), T, S,
-                x.shape[1], device=x.device)
+                c, *cumsum_plan(S, c), *((0, 0) if wide else divider(S * c)), int(wide),
+                device=x.device)
         global launches_excl_cumsum
         launches_excl_cumsum += 1
     return y
@@ -171,8 +219,9 @@ def searchsorted_count(cdf: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def masked_dists(z: torch.Tensor, S: int) -> torch.Tensor:
-    """z [T*S, 1] -> z[k+1] - z[k] within each ray, 0 at its last sample."""
+def masked_dists(z: torch.Tensor, S: int, wide: bool | None = None) -> torch.Tensor:
+    """z [T*S, 1] -> z[k+1] - z[k] within each ray, 0 at its last sample.
+    `wide` as for excl_cumsum."""
     if z.device.type == "cpu":
         return masked_dists_plain(z, S)
     _rays(z, S)
@@ -181,8 +230,9 @@ def masked_dists(z: torch.Tensor, S: int) -> torch.Tensor:
     (z,) = _inputs("masked_dists", z)
     d = torch.empty_like(z)
     if z.numel():
+        wide = index64(z.numel()) if wide is None else wide
         _launch("masked_dists", _lib().raymajor_masked_dists, z.data_ptr(), d.data_ptr(),
-                z.numel(), S, device=z.device)
+                z.numel(), S, *((0, 0) if wide else divider(S)), int(wide), device=z.device)
         global launches_masked_dists
         launches_masked_dists += 1
     return d

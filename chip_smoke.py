@@ -12,7 +12,9 @@ the final result line):
   3. kernel: the fused NeRF-MLP forward kernel against its plain PyTorch
      version at width 256 / depth 8, at the flagship point counts 5120x64
      and 5120x128 (forward_kernel), 4096x64 and 4096x128 (a render_image
-     chunk), at a ragged and an odd tile count and at one point, each launch
+     chunk), the trainer phase's 1024x64 and 1024x128 (a naive step) and
+     8192x128 (an eval chunk; its 8192x64 is the render chunk's 4096x128),
+     at a ragged and an odd tile count and at one point, each launch
      repeated and compared bit for bit; median kernel and plain times from
      CUDA events, and the share of the limit each row uses.  f32 (the split
      on the tensor cores; its bound is three bf16-rate passes, the f32 FMA
@@ -25,8 +27,9 @@ the final result line):
      products through torch.matmul in bf16 at 5120x128;
   4. kernel_bwd: the forward kernel with its activation stash (K1), the
      stash backward (K2) and the remat backward (K3) against
-     nerf_mlp_fwd_plain / nerf_mlp_bwd_plain at the flagship P, a ragged
-     P and one point, f32 and bf16: the stash launch's output as phase 3
+     nerf_mlp_fwd_plain / nerf_mlp_bwd_plain at the flagship P, the
+     trainer phase's naive P (1024x64, one point chunk, and 1024x128),
+     a ragged P and one point, f32 and bf16: the stash launch's output as phase 3
      holds it; its stash block by block within STASH_TOL (in bf16 also a
      mean error at most a tenth of the plain f32-vs-bf16 stash gap); d(xd)
      and the grads
@@ -42,7 +45,8 @@ the final result line):
      stash equal `stash_scale_units` of the stash bit for bit; in f32 also
      a row at the flagship coarse P with a cotangent shaped like the
      shipped step's (half the points 0, |g| log-uniform over
-     2^-28..2^-17); at the coarse P in both dtypes K2 and K3 at point_chunk
+     2^-28..2^-17); at the coarse and the naive fine P in both dtypes K2
+     and K3 at point_chunk
      POINT_CHUNK (scratch one chunk in size) against K2 in one chunk and
      against the plain backward within BWD_TOL, repeated and stash against
      remat bit for bit; last, K1 f32 (output only and with the stash), K2
@@ -95,6 +99,22 @@ the final result line):
      forward kernel, bf16 and f32 (packed before the steps), gives the bits
      of a freshly packed copy of the weights (no stale weight pack), bf16
      within the mean-gap control of its plain version, f32 within its limit;
+  7b. trainer: the trainer a user runs (lushnerf_torch.train.trainer.Trainer)
+     with the shipped configs/poster (f32 remat at point_chunk POINT_CHUNK,
+     full width) on an in-process scene of 29 views at 400x400 made in
+     numpy from a seed (`synthetic_scene`, passed as `data=`): 60
+     iterations through naive (1024 rays), kernel and allkernel (5120
+     sub-rays), each launching K1/K3 as step_launches reckons for its
+     stage's points; the loss finite at every i_print (10) and its mean
+     over iterations 51-60 below that of 1-10; eval at 60 (render_factor
+     4: 100x100) writing its PNGs with a finite PSNR and SSIM, timed a
+     view; checkpoints at 30 and 60; a second Trainer resuming from
+     000060.ckpt with the model and Adam state bit for bit and 5 more
+     steps; render_only's frames; then the loop's ms per iteration over
+     20 allkernel iterations (nothing at a cadence inside) against 20
+     bare train_step calls on batches of the same dataset, in turns, the
+     ratio below LOOP_OVER_STEP_MAX; the loop's peak device memory with
+     the dataset on the card;
   8. profile: a torch.profiler trace of forward_kernel, render_image and one
      train step each of cuda bf16 stash, cuda f32 remat (at point_chunk
      POINT_CHUNK and at 0) and torch f32: device time by kernel and the
@@ -150,8 +170,10 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -161,6 +183,10 @@ FOCAL = 320.0
 N_RAYS = 1024
 NUM_IMAGES = 29
 RAY_CHUNK = 4096
+# the trainer phase's shapes (configs/poster): N_rand, the rays of a naive
+# step, and ray_chunk_eval, the rays of an eval or render_only chunk
+TRAINER_N_RAND = 1024
+TRAINER_RAY_CHUNK_EVAL = 8192
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (data sheet)
 PEAK_F32_FLOPS = 67e12  # H100 SXM f32, outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
@@ -190,7 +216,9 @@ MLP_WIDTH = 256
 # branch moves most, as its grad is built from differences between the
 # sub-rays' colours, which the bf16 rounding perturbs by a like amount
 GRAD_COS_MIN = {"float32": 0.9999, "bfloat16": 0.9}
-SHAPES_BWD = {"coarse": 5120 * 64, "fine": 5120 * 128, "ragged": 4096 * 64 + 37, "tiny": 1}
+SHAPES_BWD = {"coarse": 5120 * 64, "fine": 5120 * 128, "naive_coarse": TRAINER_N_RAND * 64,
+              "naive_fine": TRAINER_N_RAND * 128, "ragged": 4096 * 64 + 37, "tiny": 1}
+CHUNKED_BWD = ("coarse", "naive_fine")  # the SHAPES_BWD rows also run at POINT_CHUNK
 POINT_CHUNK = 65_536  # the shipped scene configs' point_chunk (configs/*)
 # a bias that puts activation columns past fp16's 65504: bias column 0 of
 # layers 0, 4 and 7 and of the feature layer (`large_activation_mlp`)
@@ -375,11 +403,13 @@ def kernel_phase(fused, NeRFMLP, MLPConfig):
     mlp = NeRFMLP(MLPConfig(), torch.Generator().manual_seed(0), torch.device("cpu"))
     mlp = mlp.cuda().requires_grad_(False)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    # ragged: 2049 tiles, odd_tiles: 2561 (the bf16 grid's 132 blocks take
-    # unequal tile counts); tiny: one point
+    # naive / eval: the trainer phase's (render_fine is also its eval
+    # chunk's coarse P); ragged: 2049 tiles, odd_tiles: 2561 (the bf16
+    # grid's 132 blocks take unequal tile counts); tiny: one point
     shapes = {"coarse": 5120 * 64, "fine": 5120 * 128, "render_coarse": 4096 * 64,
-              "render_fine": 4096 * 128, "ragged": 4096 * 64 + 37, "odd_tiles": 2561 * 128 - 5,
-              "tiny": 1}
+              "render_fine": 4096 * 128, "naive_coarse": TRAINER_N_RAND * 64,
+              "naive_fine": TRAINER_N_RAND * 128, "eval_fine": TRAINER_RAY_CHUNK_EVAL * 128,
+              "ragged": 4096 * 64 + 37, "odd_tiles": 2561 * 128 - 5, "tiny": 1}
     timed = ("coarse", "fine", "render_coarse", "render_fine")
     rows = []
     for dtype in ("float32", "bfloat16"):
@@ -726,7 +756,7 @@ def kernel_bwd_phase(fused, NeRFMLP, MLPConfig):
             # on the plain forward's own stash
             want = flat_grads(fused.nerf_mlp_bwd_plain(mlp, xd, g, dtype, acts=acts_k))
             row.update(held_bwd(k2, want, f32, dtype, "bwd"))
-            if label == "coarse":
+            if label in CHUNKED_BWD:
                 row["chunked"] = chunked_bwd(fused, mlp, xd, g, dtype, acts_k, units_k, k2,
                                              want, f32)
             del want
@@ -1058,16 +1088,16 @@ VARIANT_CHUNK = {"remat_f32": POINT_CHUNK}  # the others run the flagship's 0
 STEP_POINTS = (N_RAYS * 5 * 64, N_RAYS * 5 * 128)  # the coarse and fine MLPs' points a step
 
 
-def step_launches(fused, variant: str, point_chunk: int) -> dict:
-    """Kernel launches per flagship train step (2 scene MLPs): one forward
-    each; a backward runs, for each of its point chunks (`point_chunks`),
-    the dgrad, the wgrad and two reductions (remat: first K1 writing the
-    chunk's stash)."""
+def step_launches(fused, variant: str, point_chunk: int, points=STEP_POINTS) -> dict:
+    """Kernel launches per flagship train step (2 scene MLPs, at `points`:
+    the coarse and fine MLPs' point counts): one forward each; a backward
+    runs, for each of its point chunks (`point_chunks`), the dgrad, the
+    wgrad and two reductions (remat: first K1 writing the chunk's stash)."""
     be, _, bwd = TRAIN_VARIANTS[variant]
     if be == "torch":
         return {"nerf_mlp_fwd": 0, "nerf_mlp_bwd_stash": 0, "nerf_mlp_bwd_remat": 0}
     per_chunk = 5 if bwd == "remat" else 4
-    n = sum(per_chunk * len(fused.point_chunks(P, point_chunk)) for P in STEP_POINTS)
+    n = sum(per_chunk * len(fused.point_chunks(P, point_chunk)) for P in points)
     return {"nerf_mlp_fwd": 2, "nerf_mlp_bwd_stash": n * (bwd == "stash"),
             "nerf_mlp_bwd_remat": n * (bwd == "remat")}
 STEP_PACKS = 4  # forward and backward blobs of both scene MLPs, once per step
@@ -1297,6 +1327,222 @@ def train_phase(fused, lush, cfg_mod, trainer):
             assert worst[0][1] >= GRAD_COS_MIN[dtype], (dtype, worst)
     del grads
     torch.cuda.empty_cache()
+    return res
+
+
+# the trainer phase: the shipped poster config (f32 remat at POINT_CHUNK,
+# full width) on an in-process scene of the flagship's 29 views at 400x400,
+# through the staged schedule in 60 iterations
+TRAINER_CONFIG = Path(__file__).resolve().parent / "configs" / "poster"
+TRAINER_OVERRIDES = dict(N_iters=60, kernel_start_iter=20, allkernel_start_iter=40,
+                         noisenerf_start_iter=10**9, i_print=10, i_weights=30, i_testset=60,
+                         render_factor=4)
+TRAINER_RENDER_POSES = 4
+# the loop's ms per iteration over bare train_step calls on batches of the
+# same dataset: the loop must add no per-step host work (a gather, a copy,
+# a sync) to a step the host already holds
+LOOP_OVER_STEP_MAX = 1.25
+
+
+def synthetic_scene(seed: int = 0) -> dict:
+    """A forward-facing scene made in numpy from a seed, as Trainer's `data=`:
+    NUM_IMAGES views at H x W of a smooth coloured pattern that shifts with
+    the camera, which stands on a grid of small offsets looking down -z."""
+    n, h, w = NUM_IMAGES, H, W
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32) / max(h, w)
+    freq = rng.uniform(3.0, 9.0, (3, 2)).astype(np.float32)
+    phase = rng.uniform(0.0, 2 * np.pi, 3).astype(np.float32)
+    images, poses = [], []
+    for i in range(n):
+        dx, dy = 0.04 * (i % 6 - 2.5), 0.04 * (i // 6 - 2.0)
+        img = np.stack([0.35 + 0.25 * np.sin(freq[c, 0] * (xx + 0.1 * dx) + phase[c])
+                        * np.cos(freq[c, 1] * (yy - 0.1 * dy)) for c in range(3)], -1)
+        img += 0.02 * rng.standard_normal(img.shape).astype(np.float32)
+        images.append(np.clip(img, 0.0, 1.0))
+        pose = np.eye(3, 4, dtype=np.float32)
+        pose[:, 3] = [dx, dy, 0.0]
+        poses.append(pose)
+    poses = np.stack(poses)
+    return dict(images=np.stack(images), poses=poses,
+                bds=np.tile(np.array([[1.0, 5.0]], np.float32), (n, 1)),
+                render_poses=poses[:TRAINER_RENDER_POSES], hwf=(h, w, FOCAL))
+
+
+def trainer_phase(fused, cfg_mod, trainer):
+    """The trainer a user runs, on the card: Trainer(cfg, data=scene) with
+    the shipped poster config through naive / kernel / allkernel, its eval,
+    checkpoints, a second Trainer resuming from them, render_only; then
+    the loop's ms per iteration against bare train_step calls."""
+    from lushnerf_torch.data.rays import FIELDS
+
+    res = {}
+    scene = synthetic_scene()
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_trainer_")
+
+    def make_cfg():
+        return cfg_mod.Config.from_file(TRAINER_CONFIG, basedir=f"{tmp.name}/logs",
+                                        tbdir=f"{tmp.name}/tb", **TRAINER_OVERRIDES)
+
+    steps = []  # (stage, loss on the device, launches) of each iteration
+    real_step = trainer.train_step
+
+    def counted_step(model, opt, sched, lc, h, w, focal, batch, stage, *args, **kwargs):
+        before = read_counts(fused)
+        loss, mse = real_step(model, opt, sched, lc, h, w, focal, batch, stage, *args, **kwargs)
+        steps.append((stage, loss, {k: v - before[k] for k, v in read_counts(fused).items()}))
+        return loss, mse
+
+    eval_s = []
+
+    def timed_eval(tr):
+        real_eval = tr.eval_testset
+
+        def run(i, save=True):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real_eval(i, save)
+            torch.cuda.synchronize()
+            eval_s.append(time.perf_counter() - t0)
+            return out
+
+        tr.eval_testset = run
+
+    try:
+        cfg = make_cfg()
+        lc = cfg.lush_config()
+        # the shapes at which phases 3 and 4 hold K1 and K3 against their
+        # plain versions are this config's
+        assert (lc.render.mlp_backend, lc.render.mlp_compute_dtype, lc.render.mlp_bwd,
+                lc.render.point_chunk, cfg.netwidth, lc.render.n_samples,
+                lc.render.n_importance, cfg.rbk_num_motion, cfg.N_rand,
+                cfg.ray_chunk_eval) == (
+            "cuda", "float32", "remat", POINT_CHUNK, 256, 64, 64, 4, TRAINER_N_RAND,
+            TRAINER_RAY_CHUNK_EVAL), lc
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tr = trainer.Trainer(cfg, data=scene, device="cuda")
+        tr.setup()
+        torch.cuda.synchronize()
+        res["setup_s"] = time.perf_counter() - t0
+        res["dataset_rays"] = len(tr.dataset)
+        res["dataset_gb"] = sum(getattr(tr.dataset, k).nbytes for k in FIELDS) / 1e9
+        timed_eval(tr)
+        trainer.train_step = counted_step
+        try:
+            t0 = time.perf_counter()
+            tr.train()
+            torch.cuda.synchronize()
+            res["train_60_s"] = time.perf_counter() - t0
+        finally:
+            trainer.train_step = real_step
+        res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+
+        # launches: each iteration as step_launches reckons its stage's points
+        naive_pts = (cfg.N_rand * 64, cfg.N_rand * 128)
+        kernel_pts = (cfg.N_rand * 5 * 64, cfg.N_rand * 5 * 128)
+        expect = {"naive": step_launches(fused, "remat_f32", POINT_CHUNK, naive_pts),
+                  "kernel": step_launches(fused, "remat_f32", POINT_CHUNK, kernel_pts),
+                  "allkernel": step_launches(fused, "remat_f32", POINT_CHUNK, kernel_pts)}
+        stages = [s for s, _, _ in steps]
+        assert stages == ["naive"] * 19 + ["kernel"] * 20 + ["allkernel"] * 21, stages
+        res["launches_per_stage"] = {st: steps[stages.index(st)][2] for st in expect}
+        wrong = [(i + 1, st, n) for i, (st, _, n) in enumerate(steps) if n != expect[st]]
+        assert not wrong, ("launches per iteration", wrong[:3], expect)
+        losses = [loss.item() for _, loss, _ in steps]
+        res["losses"] = losses
+        res["loss_mean_1_10"] = float(np.mean(losses[:10]))
+        res["loss_mean_51_60"] = float(np.mean(losses[50:]))
+        logged = [json.loads(line) for line in tr.log_file.read_text().splitlines()]
+        res["printed"] = [(r["step"], r["stage"], r["loss"]) for r in logged]
+        assert [r["step"] for r in logged] == [10, 20, 30, 40, 50, 60], logged
+        assert all(np.isfinite(r["loss"]) for r in logged) and all(np.isfinite(losses)), logged
+        assert res["loss_mean_51_60"] < res["loss_mean_1_10"], "the loss did not fall"
+
+        # eval at 60: its PNGs and a finite PSNR and SSIM
+        n_views = len(scene["poses"])
+        out = tr.exp_dir / "testset_000060"
+        assert sorted(p.name for p in out.iterdir()) == sorted(
+            f"{v:03d}{sfx}.png" for v in range(n_views) for sfx in ("", "_noise", "_blur"))
+        line = tr.metrics_file.read_text().strip().splitlines()[-1]
+        res["eval_line"] = line
+        vals = dict(kv.split(":") for kv in line.split(" ")[1:])
+        res["eval_psnr"], res["eval_ssim"] = float(vals["PSNR"]), float(vals["SSIM"])
+        assert np.isfinite(res["eval_psnr"]) and np.isfinite(res["eval_ssim"]), line
+        assert len(eval_s) == 1, eval_s
+        res["eval_views"] = n_views
+        res["eval_hw"] = [tr.H_eval, tr.W_eval]
+        res["eval_ms_per_view"] = eval_s[0] * 1e3 / n_views
+        assert [p.name for p in sorted(tr.exp_dir.glob("*.ckpt"))] == ["000030.ckpt",
+                                                                       "000060.ckpt"]
+
+        # a second Trainer resumes from 000060.ckpt, bit for bit, and trains on
+        tr2 = trainer.Trainer(make_cfg(), data=scene, device="cuda")
+        tr2.setup()
+        assert tr2.start_step == 60, tr2.start_step
+        sd2 = tr2.model.state_dict()
+        for k, v in tr.model.state_dict().items():
+            assert torch.equal(v, sd2[k]), k
+        st1, st2 = tr.optimizer.state_dict(), tr2.optimizer.state_dict()
+        assert st1["state"].keys() == st2["state"].keys()
+        for i, s1 in st1["state"].items():
+            for k, v in s1.items():
+                assert torch.equal(v.cpu(), st2["state"][i][k].cpu()), (i, k)
+        assert st1["param_groups"][0]["lr"] == st2["param_groups"][0]["lr"]
+        res["resume_bitwise"] = True
+        del tr
+        torch.cuda.empty_cache()
+        tr2.cfg.i_print = 5  # the 5th iteration's loss reaches the host
+        out5 = tr2.train(65)
+        assert tr2.step == 65 and np.isfinite(out5["loss"]), out5
+        res["resumed_loss_65"] = out5["loss"]
+
+        # render_only: the path's frames
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frames = tr2.render_only()
+        torch.cuda.synchronize()
+        res["render_only_ms_per_frame"] = (time.perf_counter() - t0) * 1e3 / TRAINER_RENDER_POSES
+        outdir = tr2.exp_dir / "renderonly_path_000060"
+        assert frames == {"frames": TRAINER_RENDER_POSES}
+        assert len(list(outdir.glob("path_*.png"))) == 2 * TRAINER_RENDER_POSES
+
+        # the loop against bare train_step calls, 20 allkernel iterations
+        # each, in turns, with nothing at a cadence inside the loop's window
+        for key in ("i_print", "i_tensorboard", "i_weights", "i_testset"):
+            setattr(tr2.cfg, key, 10**9)
+        n = 20
+        batches = [tr2.dataset.next_batch(tr2.cfg.N_rand, tr2.np_rng) for _ in range(n)]
+
+        def loop():
+            first = tr2.step + 1
+            tr2.train(tr2.step + n)
+            assert trainer.stage_for_iter(first, tr2.cfg.kernel_start_iter,
+                                          tr2.cfg.allkernel_start_iter) == "allkernel"
+
+        def bare():
+            for b in batches:
+                trainer.train_step(tr2.model, tr2.optimizer, tr2.scheduler, tr2.lush_cfg, tr2.H,
+                                   tr2.W, tr2.focal, b, "allkernel", tr2.generator,
+                                   grad_clip_norm=tr2.cfg.grad_clip_norm)
+
+        windows = {"loop": [], "train_step": []}
+        for name, fn in (("loop", loop), ("train_step", bare), ("train_step", bare),
+                         ("loop", loop)):
+            windows[name].append(window_ms(fn, 1)[0] / n)
+        res["loop_ms_per_iter"] = windows["loop"]
+        res["train_step_ms"] = windows["train_step"]
+        res["loop_over_train_step"] = float(np.mean(windows["loop"]) / np.mean(windows["train_step"]))
+    finally:
+        tmp.cleanup()
+    print("  trainer: " + json.dumps({k: v for k, v in res.items() if k != "losses"}), flush=True)
+    print(f"  trainer loop vs train_step (20 allkernel iterations each, f32 remat at point_chunk "
+          f"{POINT_CHUNK}): loop {res['loop_ms_per_iter']} ms/iter, train_step "
+          f"{res['train_step_ms']} ms, ratio {res['loop_over_train_step']:.4f}; eval "
+          f"{res['eval_ms_per_view']:.2f} ms/view at {res['eval_hw'][0]}x{res['eval_hw'][1]}; "
+          f"peak {res['peak_mem_gb']:.3f} GB ({res['dataset_gb']:.3f} GB dataset)", flush=True)
+    assert res["loop_over_train_step"] < LOOP_OVER_STEP_MAX, res["loop_over_train_step"]
     return res
 
 
@@ -1954,6 +2200,7 @@ def main(argv=None) -> int:
         "forward_kernel": lambda: forward_phase(fused, lush, cfg_mod),
         "render_image": lambda: render_phase(fused, lush, cfg_mod),
         "train_step": lambda: train_phase(fused, lush, cfg_mod, trainer),
+        "trainer": lambda: trainer_phase(fused, cfg_mod, trainer),
         "profile": lambda: profile_phase(lush, cfg_mod, trainer, untraced()),
         "tune_kernel": lambda: tune_phase(fused, pe_mm, tune_kernel, NeRFMLP, MLPConfig),
         "probe_raymajor": lambda: probe_phase(raymajor, probe_raymajor),

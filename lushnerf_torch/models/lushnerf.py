@@ -11,6 +11,8 @@ Mirrors the mode dispatch of the reference NeRFAll.forward
     mapping (:636-654); optional frequency-mask gradient gating (:641-643).
   * render_image   -- eval path (:868-896): full-image render returning
     tonemapped rgb, tonemapped 0.1*sigmoid(noise) image, and depth.
+  * render_warped_view -- each RBK sub-ray bundle of one training view
+    rendered as its own image (the trainer's save_warped_ray_img).
 
 `LushNeRF` holds the parameters under the reference's module names, so a
 reference state dict loads with load_state_dict(strict=True).  Randomness
@@ -401,3 +403,37 @@ def render_image(
         tm, NOISE_SCALE * torch.sigmoid(raw_noise), cfg.tonemap_eps
     ).reshape(H, W, 3)
     return rgb, noise_img, depth.reshape(H, W)
+
+
+@torch.no_grad()
+def render_warped_view(
+    model: LushNeRF,
+    cfg: LushConfig,
+    H: int,
+    W: int,
+    K,
+    c2w,
+    image_idx: int,
+    ray_chunk: int = 4096,
+):
+    """Render each RBK sub-ray bundle of one training view separately.
+
+    A working equivalent of the reference's dead render_warped_path
+    (models/lushnerf.py:898-947, signature-mismatched with RBK.forward), as
+    lushnerf_tpu's: returns (rgbs [M+1, H, W, 3] tonemapped, depths
+    [M+1, H, W], centre_sub_rays [M+1, 3, 2]) so the learned blur
+    decomposition can be inspected.
+    """
+    dev = model.device
+    M1 = cfg.rbk.num_rays_out
+    K = torch.as_tensor(K, dtype=torch.float32, device=dev)
+    c2w = torch.as_tensor(c2w, dtype=torch.float32, device=dev)
+    rays_o, rays_d = get_rays(H, W, K, c2w)
+    rays = torch.stack([rays_o, rays_d], dim=-1).reshape(-1, 3, 2)
+    idx = torch.full((rays.shape[0],), int(image_idx), dtype=torch.long, device=dev)
+    sub_rays, _ = apply_rbk(model.mlp_rbk, rays, idx)  # [HW, M1, 3, 2]
+    centre = sub_rays.reshape(H, W, M1, 3, 2)[H // 2, W // 2]
+    flat = sub_rays.transpose(0, 1).reshape(M1 * H * W, 3, 2)
+    rgb, _, depth = render_rays_chunked_eval(model, cfg, H, W, float(K[0, 0]), flat, ray_chunk)
+    rgb = apply_tonemap(cfg.tone_mapping_type, rgb, cfg.tonemap_eps).reshape(M1, H, W, 3)
+    return rgb, depth.reshape(M1, H, W), centre

@@ -6,10 +6,12 @@ Conventions match the reference exactly:
     directions rotated to world by c2w[:3,:3]; origin = c2w[:3,-1].
   * ndc_rays (utils/run_lushnerf_helpers.py:542-562): the original NeRF NDC
     projection for forward-facing scenes (near plane shift + projection).
+  * get_rays_np: get_rays on the host in numpy, for the data pipeline.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 HALF_PIX = 0.5
@@ -37,6 +39,29 @@ def get_rays(H: int, W: int, K: torch.Tensor, c2w: torch.Tensor):
     R = c2w[:3, :3]
     rays_d = dirs[..., 0:1] * R[:, 0] + dirs[..., 1:2] * R[:, 1] + dirs[..., 2:3] * R[:, 2]
     rays_o = c2w[:3, -1].expand(rays_d.shape)
+    return rays_o, rays_d
+
+
+def get_rays_np(H: int, W: int, K, c2w):
+    """get_rays in numpy on the host (reference get_rays_np,
+    utils/run_lushnerf_helpers.py:531-539), the same arithmetic as the JAX
+    package's: the data pipeline builds every training ray with it before
+    one upload to the device.  Returns (rays_o, rays_d), each [H, W, 3]."""
+    K = np.asarray(K)
+    c2w = np.asarray(c2w)
+    i, j = np.meshgrid(
+        np.arange(W, dtype=np.float32), np.arange(H, dtype=np.float32), indexing="xy"
+    )
+    dirs = np.stack(
+        [
+            (i + (HALF_PIX - K[0, 2])) / K[0, 0],
+            -(j + (HALF_PIX - K[1, 2])) / K[1, 1],
+            -np.ones_like(i),
+        ],
+        axis=-1,
+    )
+    rays_d = np.einsum("hwk,ck->hwc", dirs, c2w[:3, :3])
+    rays_o = np.broadcast_to(c2w[:3, -1], rays_d.shape)
     return rays_o, rays_d
 
 

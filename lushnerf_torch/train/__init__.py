@@ -1,1 +1,2 @@
-"""Training: losses, the stage schedule, and one optimizer step."""
+"""Training: losses, the stage schedule, one optimizer step, the `Trainer`
+loop and checkpoints."""

@@ -14,7 +14,9 @@ the final result line):
      and 5120x128 (forward_kernel), 4096x64 and 4096x128 (a render_image
      chunk), the trainer phase's 1024x64 and 1024x128 (a naive step) and
      8192x128 (an eval chunk; its 8192x64 is the render chunk's 4096x128),
-     at a ragged and an odd tile count and at one point, each launch
+     the cte phase's consist pass, 800x64 and 800x128 (CTE_RAYS: 32 pixels
+     in each of 25 train views), at a ragged and an odd tile count and at
+     one point, each launch
      repeated and compared bit for bit; median kernel and plain times from
      CUDA events, and the share of the limit each row uses.  f32 (the split
      on the tensor cores; its bound is three bf16-rate passes, the f32 FMA
@@ -29,6 +31,7 @@ the final result line):
      stash backward (K2) and the remat backward (K3) against
      nerf_mlp_fwd_plain / nerf_mlp_bwd_plain at the flagship P, the
      trainer phase's naive P (1024x64, one point chunk, and 1024x128),
+     the cte phase's consist P (800x64, one chunk, and 800x128, two),
      a ragged P and one point, f32 and bf16: the stash launch's output as phase 3
      holds it; its stash block by block within STASH_TOL (in bf16 also a
      mean error at most a tenth of the plain f32-vs-bf16 stash gap); d(xd)
@@ -45,8 +48,8 @@ the final result line):
      stash equal `stash_scale_units` of the stash bit for bit; in f32 also
      a row at the flagship coarse P with a cotangent shaped like the
      shipped step's (half the points 0, |g| log-uniform over
-     2^-28..2^-17); at the coarse and the naive fine P in both dtypes K2
-     and K3 at point_chunk
+     2^-28..2^-17); at the coarse, the naive fine and the consist fine P
+     in both dtypes K2 and K3 at point_chunk
      POINT_CHUNK (scratch one chunk in size) against K2 in one chunk and
      against the plain backward within BWD_TOL, repeated and stash against
      remat bit for bit; last, K1 f32 (output only and with the stash), K2
@@ -111,10 +114,32 @@ the final result line):
      view; checkpoints at 30 and 60; a second Trainer resuming from
      000060.ckpt with the model and Adam state bit for bit and 5 more
      steps; render_only's frames; then the loop's ms per iteration over
-     20 allkernel iterations (nothing at a cadence inside) against 20
+     10 allkernel iterations (nothing at a cadence inside) against 10
      bare train_step calls on batches of the same dataset, in turns, the
      ratio below LOOP_OVER_STEP_MAX; the loop's peak device memory with
      the dataset on the card;
+  7c. cte: the same Trainer and config cut to 40 iterations (kernel from
+     10, allkernel from 20, CTE from 30, rematch_interval 30) with the
+     stub matcher injected (certainty 0.9 >= the 0.8 threshold): each
+     iteration's launches as step_launches reckons them (a consist
+     iteration adds the aligned render of CTE_RAYS rays: K1 on its coarse
+     and fine points, K3 on its fine points only, the loss reading the fine
+     rgb alone: K1 4, K3 85 in all), the consist weight None before 30, 0 at 30 and 1e-2 after, the
+     losses finite; the rematch at 30 renders the 25 train views at the
+     eval size and saves match_tables_000030.npz (the stub's certainty
+     throughout, the keypoints at the full resolution); a second Trainer
+     resumes from 000040.ckpt with those tables bit for bit (its matcher,
+     dkm, has no weights: the fallback); the consist batch's host time;
+     ms per consist iteration against a plain allkernel one (6 each, in
+     turns); peak memory; renders 3 train views for the dkm phase;
+  7d. dkm: DKMMatcher at the published DKMv3 widths (70.3 M random
+     weights from seed 0) at the production 640x1120: match_many over the
+     9 ordered pairs of the 3 views (the first call apart), per-pair match
+     on 2 of them within DKM_PAIR_TOL, certainties finite in [0, 1],
+     keypoints within the image; ms per encoder pass and per ordered pair
+     (pair_batch 2), peak memory, the 625-pair rematch of 25 views
+     extrapolated from them; one pair at 64x96 on the card against the
+     CPU within DKM_CPU_TOL;
   8. profile: a torch.profiler trace of forward_kernel, render_image and one
      train step each of cuda bf16 stash, cuda f32 remat (at point_chunk
      POINT_CHUNK and at 0) and torch f32: device time by kernel and the
@@ -187,6 +212,11 @@ RAY_CHUNK = 4096
 # step, and ray_chunk_eval, the rays of an eval or render_only chunk
 TRAINER_N_RAND = 1024
 TRAINER_RAY_CHUNK_EVAL = 8192
+# the cte phase's consist pass: consist_num_pixels (32, every config) in
+# each of the scene's 25 train views (NUM_IMAGES less llffhold 8's 4)
+CONSIST_PIXELS = 32
+CTE_TRAIN_VIEWS = 25
+CTE_RAYS = CTE_TRAIN_VIEWS * CONSIST_PIXELS
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (data sheet)
 PEAK_F32_FLOPS = 67e12  # H100 SXM f32, outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
@@ -217,8 +247,10 @@ MLP_WIDTH = 256
 # sub-rays' colours, which the bf16 rounding perturbs by a like amount
 GRAD_COS_MIN = {"float32": 0.9999, "bfloat16": 0.9}
 SHAPES_BWD = {"coarse": 5120 * 64, "fine": 5120 * 128, "naive_coarse": TRAINER_N_RAND * 64,
-              "naive_fine": TRAINER_N_RAND * 128, "ragged": 4096 * 64 + 37, "tiny": 1}
-CHUNKED_BWD = ("coarse", "naive_fine")  # the SHAPES_BWD rows also run at POINT_CHUNK
+              "naive_fine": TRAINER_N_RAND * 128, "consist_coarse": CTE_RAYS * 64,
+              "consist_fine": CTE_RAYS * 128, "ragged": 4096 * 64 + 37, "tiny": 1}
+# the SHAPES_BWD rows that also run at POINT_CHUNK
+CHUNKED_BWD = ("coarse", "naive_fine", "consist_fine")
 POINT_CHUNK = 65_536  # the shipped scene configs' point_chunk (configs/*)
 # a bias that puts activation columns past fp16's 65504: bias column 0 of
 # layers 0, 4 and 7 and of the feature layer (`large_activation_mlp`)
@@ -377,6 +409,7 @@ class Smoke:
     def __init__(self):
         self.failed = []
         self.results = {}
+        self.seconds = {}  # each phase's wall time
 
     def phase(self, name, fn):
         print(f"== {name}", flush=True)
@@ -388,6 +421,7 @@ class Smoke:
             traceback.print_exc()
             self.failed.append(name)
             print(f"== {name}: FAILED", flush=True)
+        self.seconds[name] = time.perf_counter() - t0
 
 
 def sample_points(P: int, gen: torch.Generator) -> torch.Tensor:
@@ -404,11 +438,13 @@ def kernel_phase(fused, NeRFMLP, MLPConfig):
     mlp = mlp.cuda().requires_grad_(False)
     gen = torch.Generator(device="cuda").manual_seed(0)
     # naive / eval: the trainer phase's (render_fine is also its eval
-    # chunk's coarse P); ragged: 2049 tiles, odd_tiles: 2561 (the bf16
-    # grid's 132 blocks take unequal tile counts); tiny: one point
+    # chunk's coarse P); consist: the cte phase's aligned render; ragged:
+    # 2049 tiles, odd_tiles: 2561 (the bf16 grid's 132 blocks take unequal
+    # tile counts); tiny: one point
     shapes = {"coarse": 5120 * 64, "fine": 5120 * 128, "render_coarse": 4096 * 64,
               "render_fine": 4096 * 128, "naive_coarse": TRAINER_N_RAND * 64,
               "naive_fine": TRAINER_N_RAND * 128, "eval_fine": TRAINER_RAY_CHUNK_EVAL * 128,
+              "consist_coarse": CTE_RAYS * 64, "consist_fine": CTE_RAYS * 128,
               "ragged": 4096 * 64 + 37, "odd_tiles": 2561 * 128 - 5, "tiny": 1}
     timed = ("coarse", "fine", "render_coarse", "render_fine")
     rows = []
@@ -816,7 +852,49 @@ def kernel_bwd_phase(fused, NeRFMLP, MLPConfig):
     rows.append(row)
     if not row["ok"]:
         raise AssertionError(f"the f32 kernels disagree at large activations: {row}")
+    row = tiny_cotangent_row(fused, mlp, sample_points(SHAPES_BWD["coarse"], gen), gen)
+    rows.append(row)
+    if not row["ok"]:
+        raise AssertionError(f"the f32 backward fails on a tiny cotangent: {row}")
     return rows
+
+
+def tiny_cotangent_row(fused, mlp, xd, gen) -> dict:
+    """K2 and K3 f32 (in one chunk and at POINT_CHUNK) at the coarse P on a
+    cotangent far below the shipped one: half the points 0, the rest |g|
+    log-uniform over 2^-149 (f32's least denormal) .. 2^-60 with random
+    signs, where a d_z row's scale would pass 2^100 (the f32 dgrad keeps
+    it there): every value finite, d(xd) and the 24 grads within BWD_TOL of
+    the plain backward in f64 on the kernel's stash, K3 the bits of K2, the
+    dgrad's scale units of dz those of `dz_scale_units`.  (A trainer's
+    coarse MLP met such a cotangent, max |g| 5.8e-20, and its grads came
+    back NaN.)"""
+    P = xd.shape[0]
+    mag = torch.exp2(torch.rand((P, 4), generator=gen, device="cuda") * 89 - 149)
+    sign = torch.where(torch.rand((P, 4), generator=gen, device="cuda") < 0.5, -1.0, 1.0)
+    g = mag * sign * (torch.rand((P, 1), generator=gen, device="cuda") < 0.5)
+    _, acts_k, units_k = fused._launch_fwd(mlp, xd, "float32", 10, 4, stash=True)
+    k2 = flat_grads(fused.nerf_mlp_bwd(mlp, xd, g, "float32", acts=acts_k, acts_units=units_k))
+    k3 = flat_grads(fused.nerf_mlp_bwd(mlp, xd, g, "float32"))
+    k3c = flat_grads(fused.nerf_mlp_bwd(mlp, xd, g, "float32", point_chunk=POINT_CHUNK))
+    torch.cuda.synchronize()
+    m64 = copy.deepcopy(mlp).double()
+    want64 = flat_grads(fused.nerf_mlp_bwd_plain(m64, xd.double(), g.double(), "float32",
+                                                 acts=acts_k.double()))
+    r = {"shape": "tiny_cotangent", "dtype": "float32", "P": P,
+         "g_max": g.abs().max().item(), "g_denormal_share": ((g != 0) & (g.abs() < 2.0 ** -126))
+         .float().mean().item(),
+         **held_bwd(k2, want64, None, "float32", "bwd"),
+         **{f"chunked_{k}": v for k, v in held_bwd(k3c, want64, None, "float32", "bwd").items()},
+         "remat_bitwise": all(torch.equal(a, b) for a, b in zip(k2, k3)),
+         "zs_bitwise": zs_bitwise(fused, mlp, xd, g, acts_k)}
+    r["finite"] = all(bool(torch.isfinite(t).all()) for t in k2 + k3 + k3c)
+    r["ok"] = (r["finite"] and r["bwd_within_tol"] and r["chunked_bwd_within_tol"]
+               and r["remat_bitwise"] and r["zs_bitwise"])
+    print("  " + json.dumps(r), flush=True)
+    del acts_k, k2, k3, k3c, want64, m64
+    torch.cuda.empty_cache()
+    return r
 
 
 def chunked_bwd(fused, mlp, xd, g, dtype, acts, units, k2, want, f32) -> dict:
@@ -1088,17 +1166,22 @@ VARIANT_CHUNK = {"remat_f32": POINT_CHUNK}  # the others run the flagship's 0
 STEP_POINTS = (N_RAYS * 5 * 64, N_RAYS * 5 * 128)  # the coarse and fine MLPs' points a step
 
 
-def step_launches(fused, variant: str, point_chunk: int, points=STEP_POINTS) -> dict:
-    """Kernel launches per flagship train step (2 scene MLPs, at `points`:
-    the coarse and fine MLPs' point counts): one forward each; a backward
-    runs, for each of its point chunks (`point_chunks`), the dgrad, the
-    wgrad and two reductions (remat: first K1 writing the chunk's stash)."""
+def step_launches(fused, variant: str, point_chunk: int, points=STEP_POINTS,
+                  bwd_points=None) -> dict:
+    """Kernel launches per flagship train step (the scene MLPs' evaluations
+    at `points`: the coarse and fine MLPs' point counts, and with the CTE
+    pass its coarse and fine ones): one forward each; a backward, for those
+    whose output the loss reads (`bwd_points`, all of `points` when None;
+    the CTE pass reads only its fine MLP's), runs for each of its point
+    chunks (`point_chunks`) the dgrad, the wgrad and two reductions (remat:
+    first K1 writing the chunk's stash)."""
     be, _, bwd = TRAIN_VARIANTS[variant]
     if be == "torch":
         return {"nerf_mlp_fwd": 0, "nerf_mlp_bwd_stash": 0, "nerf_mlp_bwd_remat": 0}
     per_chunk = 5 if bwd == "remat" else 4
-    n = sum(per_chunk * len(fused.point_chunks(P, point_chunk)) for P in points)
-    return {"nerf_mlp_fwd": 2, "nerf_mlp_bwd_stash": n * (bwd == "stash"),
+    n = sum(per_chunk * len(fused.point_chunks(P, point_chunk))
+            for P in (points if bwd_points is None else bwd_points))
+    return {"nerf_mlp_fwd": len(points), "nerf_mlp_bwd_stash": n * (bwd == "stash"),
             "nerf_mlp_bwd_remat": n * (bwd == "remat")}
 STEP_PACKS = 4  # forward and backward blobs of both scene MLPs, once per step
 
@@ -1266,7 +1349,7 @@ def train_phase(fused, lush, cfg_mod, trainer):
         ms, (loss, _) = window_ms(step, n)
         counts = count()
         r = dict(point_chunk=chunk, ms_per_step=ms, rays_per_s=N_RAYS / ms * 1e3, steps=n,
-                 per_step_ms=per_call_ms(step, 5),
+                 per_step_ms=per_call_ms(step, 3),
                  peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                  launches_per_step={k: v / n for k, v in counts.items()}, loss=loss.item())
         if variant == "remat_f32" and own:  # one more step: what reaches the scene MLPs' backward
@@ -1508,11 +1591,11 @@ def trainer_phase(fused, cfg_mod, trainer):
         assert frames == {"frames": TRAINER_RENDER_POSES}
         assert len(list(outdir.glob("path_*.png"))) == 2 * TRAINER_RENDER_POSES
 
-        # the loop against bare train_step calls, 20 allkernel iterations
+        # the loop against bare train_step calls, 10 allkernel iterations
         # each, in turns, with nothing at a cadence inside the loop's window
         for key in ("i_print", "i_tensorboard", "i_weights", "i_testset"):
             setattr(tr2.cfg, key, 10**9)
-        n = 20
+        n = 10
         batches = [tr2.dataset.next_batch(tr2.cfg.N_rand, tr2.np_rng) for _ in range(n)]
 
         def loop():
@@ -1537,12 +1620,297 @@ def trainer_phase(fused, cfg_mod, trainer):
     finally:
         tmp.cleanup()
     print("  trainer: " + json.dumps({k: v for k, v in res.items() if k != "losses"}), flush=True)
-    print(f"  trainer loop vs train_step (20 allkernel iterations each, f32 remat at point_chunk "
+    print(f"  trainer loop vs train_step ({n} allkernel iterations each, f32 remat at point_chunk "
           f"{POINT_CHUNK}): loop {res['loop_ms_per_iter']} ms/iter, train_step "
           f"{res['train_step_ms']} ms, ratio {res['loop_over_train_step']:.4f}; eval "
           f"{res['eval_ms_per_view']:.2f} ms/view at {res['eval_hw'][0]}x{res['eval_hw'][1]}; "
           f"peak {res['peak_mem_gb']:.3f} GB ({res['dataset_gb']:.3f} GB dataset)", flush=True)
     assert res["loop_over_train_step"] < LOOP_OVER_STEP_MAX, res["loop_over_train_step"]
+    return res
+
+
+CTE_OVERRIDES = dict(N_iters=40, kernel_start_iter=10, allkernel_start_iter=20,
+                     noisenerf_start_iter=30, rematch_interval=30, i_print=10, i_weights=40,
+                     i_testset=10**9, render_factor=4)
+CTE_DKM_VIEWS = 3  # views the cte phase renders for the dkm phase
+
+
+def cte_phase(fused, cfg_mod, trainer):
+    """CTE on the card: Trainer(cfg, data=scene, matcher=GridStubMatcher())
+    with the shipped poster config (f32 remat at POINT_CHUNK, full width)
+    through naive, kernel, allkernel and, from iteration 30, the consist
+    pass (its weight 0 at 30, CONSIST_WEIGHT after); the rematch at 30
+    renders the 25 train views at the eval resolution and writes its
+    tables; a second Trainer resumes from 000040.ckpt with the tables bit
+    for bit (its cfg.matcher, dkm, finds no weights and falls back).  Then
+    ms per consist iteration against a plain allkernel one, in turns.
+    Returns its results, with the trained model's renders of CTE_DKM_VIEWS
+    train views under "views" (for the dkm phase)."""
+    from lushnerf_torch.matcher.api import GridStubMatcher
+    from lushnerf_torch.train.losses import CONSIST_WEIGHT
+
+    res = {}
+    scene = synthetic_scene()
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_cte_")
+
+    def make_cfg():
+        return cfg_mod.Config.from_file(TRAINER_CONFIG, basedir=f"{tmp.name}/logs", tbdir="",
+                                        **CTE_OVERRIDES)
+
+    steps = []  # (stage, consist weight or None, loss on the device, launches)
+    real_step = trainer.train_step
+
+    def counted_step(model, opt, sched, lc, h, w, focal, batch, stage, *args, **kwargs):
+        before = read_counts(fused)
+        loss, mse = real_step(model, opt, sched, lc, h, w, focal, batch, stage, *args, **kwargs)
+        consist = kwargs.get("consist")
+        steps.append((stage, None if consist is None else consist["weight"], loss,
+                      {k: v - before[k] for k, v in read_counts(fused).items()}))
+        return loss, mse
+
+    rematch_s = []
+    try:
+        cfg = make_cfg()
+        lc = cfg.lush_config()
+        assert (lc.render.mlp_backend, lc.render.mlp_compute_dtype, lc.render.mlp_bwd,
+                lc.render.point_chunk, cfg.netwidth, lc.render.n_samples, lc.render.n_importance,
+                cfg.consist_num_pixels, cfg.consist_threshold, cfg.matcher) == (
+            "cuda", "float32", "remat", POINT_CHUNK, 256, 64, 64, CONSIST_PIXELS, 0.8, "dkm"), lc
+        stub = GridStubMatcher()
+        assert stub.certainty >= cfg.consist_threshold  # the stub's tables feed the loss
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tr = trainer.Trainer(cfg, data=scene, matcher=stub, device="cuda")
+        tr.setup()
+        torch.cuda.synchronize()
+        res["setup_s"] = time.perf_counter() - t0
+        assert len(tr.i_train) == CTE_TRAIN_VIEWS, tr.i_train
+        real_rematch = tr.rematch
+
+        def timed_rematch(i):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            real_rematch(i)
+            rematch_s.append(time.perf_counter() - t0)
+
+        tr.rematch = timed_rematch
+        trainer.train_step = counted_step
+        zero_counts(fused)
+        try:
+            t0 = time.perf_counter()
+            tr.train()
+            torch.cuda.synchronize()
+            res["train_40_s"] = time.perf_counter() - t0
+        finally:
+            trainer.train_step = real_step
+        res["launches_total"] = read_counts(fused)
+        res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+
+        stages = [s for s, _, _, _ in steps]
+        assert stages == ["naive"] * 9 + ["kernel"] * 10 + ["allkernel"] * 21, stages
+        weights = [w for _, w, _, _ in steps]
+        assert weights == [None] * 29 + [0.0] + [CONSIST_WEIGHT] * 10, weights
+        naive_pts = (cfg.N_rand * 64, cfg.N_rand * 128)
+        kernel_pts = (cfg.N_rand * 5 * 64, cfg.N_rand * 5 * 128)
+        consist_pts = (CTE_RAYS * 64, CTE_RAYS * 128)
+        expect = {("naive", False): step_launches(fused, "remat_f32", POINT_CHUNK, naive_pts),
+                  ("kernel", False): step_launches(fused, "remat_f32", POINT_CHUNK, kernel_pts),
+                  ("allkernel", False): step_launches(fused, "remat_f32", POINT_CHUNK, kernel_pts),
+                  # the aligned render's loss reads its fine rgb only (the
+                  # importance samples are detached): no coarse backward
+                  ("allkernel", True): step_launches(fused, "remat_f32", POINT_CHUNK,
+                                                     kernel_pts + consist_pts,
+                                                     kernel_pts + consist_pts[1:])}
+        assert expect[("allkernel", True)]["nerf_mlp_fwd"] == 4
+        assert expect[("allkernel", True)]["nerf_mlp_bwd_remat"] == 85
+        got = [((st, w is not None), n) for st, w, _, n in steps]
+        wrong = [(i + 1, key, n) for i, (key, n) in enumerate(got) if n != expect[key]]
+        assert not wrong, ("launches per iteration", wrong[:3], expect)
+        res["launches_consist_iteration"] = steps[-1][3]
+        res["launches_allkernel_iteration"] = steps[28][3]
+        losses = [loss.item() for _, _, loss, _ in steps]
+        res["losses_30_40"] = losses[29:]
+        assert all(np.isfinite(losses)), losses
+
+        # the rematch at 30: the stub over every ordered pair of the renders,
+        # its keypoints brought from the eval resolution to the full one
+        assert len(rematch_s) == 1, rematch_s
+        res["rematch_s"] = rematch_s[0]
+        names = sorted(p.name for p in tr.exp_dir.glob("match_tables_*.npz"))
+        assert names == ["match_tables_000030.npz"], names
+        tables = tr.match_tables
+        assert tables.kpts.shape == (CTE_TRAIN_VIEWS, CTE_TRAIN_VIEWS, stub.n_points, 4)
+        assert (tables.certainty == np.float32(stub.certainty)).all()
+        assert tr.H_eval < tr.H and 0 < tables.kpts.min() and tables.kpts.max() < tr.W
+        res["tables_shape"] = list(tables.kpts.shape)
+
+        # a second Trainer resumes from 000040.ckpt with the tables bit for bit
+        t0 = time.perf_counter()
+        tr2 = trainer.Trainer(make_cfg(), data=scene, device="cuda")
+        tr2.setup()
+        res["resume_setup_s"] = time.perf_counter() - t0
+        assert tr2.start_step == 40 and tr2._matcher is None, (tr2.start_step, tr2._matcher)
+        assert np.array_equal(tr2.match_tables.kpts, tables.kpts)
+        assert np.array_equal(tr2.match_tables.certainty, tables.certainty)
+        res["resume_tables_bitwise"] = True
+        sd2 = tr2.model.state_dict()
+        assert all(torch.equal(v, sd2[k]) for k, v in tr.model.state_dict().items())
+        del tr
+        torch.cuda.empty_cache()
+
+        # the consist batch's host cost: the numpy gather and two uploads
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            tr2._sample_consist_batch(41)
+        res["consist_batch_host_us"] = (time.perf_counter() - t0) * 1e6 / 200
+        torch.cuda.synchronize()
+
+        # consist iterations against plain allkernel ones, in turns, 6 each
+        for key in ("i_print", "i_tensorboard", "i_weights", "i_testset"):
+            setattr(tr2.cfg, key, 10**9)
+        n = 6
+
+        def window(consist: bool):
+            tr2.cfg.noisenerf_start_iter = 0 if consist else 10**9
+            first = tr2.step + 1
+            ms = window_ms(lambda: tr2.train(tr2.step + n), 1)[0] / n
+            assert trainer.stage_for_iter(first, tr2.cfg.kernel_start_iter,
+                                          tr2.cfg.allkernel_start_iter) == "allkernel"
+            return ms
+
+        windows = {"consist": [], "allkernel": []}
+        for consist in (True, False, False, True):
+            windows["consist" if consist else "allkernel"].append(window(consist))
+        res["consist_ms_per_iter"] = windows["consist"]
+        res["allkernel_ms_per_iter"] = windows["allkernel"]
+        res["consist_over_allkernel"] = float(np.mean(windows["consist"])
+                                              / np.mean(windows["allkernel"]))
+        res["peak_mem_gb_all"] = torch.cuda.max_memory_allocated() / 1e9
+
+        # views for the dkm phase: the trained model's renders at the eval size
+        with torch.no_grad():
+            views = np.stack([tr2.render_pose(tr2.poses[v])[0].cpu().numpy()
+                              for v in tr2.i_train[:CTE_DKM_VIEWS]])
+        res["views_for_dkm"] = list(views.shape)
+    finally:
+        tmp.cleanup()
+    print("  cte: " + json.dumps(res), flush=True)
+    print(f"  cte: consist iteration {res['consist_ms_per_iter']} ms vs allkernel "
+          f"{res['allkernel_ms_per_iter']} ms (ratio {res['consist_over_allkernel']:.4f}; "
+          f"{CTE_RAYS} consist rays, launches {res['launches_consist_iteration']} vs "
+          f"{res['launches_allkernel_iteration']}); rematch of {CTE_TRAIN_VIEWS} views "
+          f"{res['rematch_s'] * 1e3:.1f} ms; consist batch {res['consist_batch_host_us']:.1f} us "
+          f"on the host; peak {res['peak_mem_gb']:.3f} GB", flush=True)
+    return dict(res, views=views)
+
+
+DKM_HS, DKM_WS = 640, 1120  # the reference's match resolution (run_lushnerf.py:349)
+# match_many against per-pair match on the card: the same decoder on a
+# batch of two other images (the symmetric pair), so sums may run in
+# another order; pixel keypoints of a 100-pixel view and certainties
+DKM_PAIR_TOL = {"kpts_px": 1e-2, "certainty": 1e-3}
+DKM_CPU_SHAPE = (64, 96)  # the card against the CPU, at a small hs x ws
+DKM_CPU_TOL = 2e-4  # tests/test_torch_dkm.py's rtol / atol
+DKM_REMATCH_VIEWS = CTE_TRAIN_VIEWS
+
+
+def dkm_phase(images=None):
+    """DKMv3 at the published widths (random weights from a seed) and the
+    production hs x ws, on the card: match_many over the 9 ordered pairs of
+    3 views the cte phase rendered (`images`; None: the scene's own),
+    against per-pair match on 2 of them;
+    certainties in [0, 1] and finite, keypoints within the image; one pair
+    on the card against the CPU at a small shape; ms per encoder pass and
+    per ordered pair, peak memory, and the 625-pair rematch of 25 views
+    extrapolated from them."""
+    from lushnerf_torch.matcher.dkm import PUBLISHED_DIMS, DKM, DKMMatcher, dkm_match
+    from lushnerf_torch.matcher.dkm import random_state_dict
+    from lushnerf_torch.matcher.dkm.matcher import dkm_match_from_pyramids
+    from lushnerf_torch.matcher.dkm.nn import full_f32
+
+    res = {"dims": dataclasses.asdict(PUBLISHED_DIMS), "hs_ws": [DKM_HS, DKM_WS]}
+    res["views_from"] = "cte phase renders" if images is not None else "the scene's images"
+    if images is None:
+        images = synthetic_scene()["images"][:CTE_DKM_VIEWS]
+    H, W = images.shape[1:3]
+    t0 = time.perf_counter()
+    sd = random_state_dict(PUBLISHED_DIMS, seed=0)
+    res["params_m"] = sum(v.numel() for v in sd.values()) / 1e6
+    model = DKM.from_state_dict(sd).cuda()
+    m = DKMMatcher(model, hs=DKM_HS, ws=DKM_WS)
+    torch.cuda.synchronize()
+    res["build_s"] = time.perf_counter() - t0
+    pairs = [(k, v) for k in range(CTE_DKM_VIEWS) for v in range(CTE_DKM_VIEWS)]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    m.match_many(images, pairs)  # the first call: cuDNN's plans
+    torch.cuda.synchronize()
+    res["match_many_first_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    kpts, cert = m.match_many(images, pairs)
+    res["match_many_s"] = time.perf_counter() - t0
+    res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    P = min(m.max_columns, DKM_HS * DKM_WS)
+    assert kpts.shape == (len(pairs), P, 4) and cert.shape == (len(pairs), P), kpts.shape
+    assert np.isfinite(kpts).all() and np.isfinite(cert).all()
+    assert cert.min() >= 0.0 and cert.max() <= 1.0, (cert.min(), cert.max())
+    assert (kpts[..., 0::2] >= 0).all() and (kpts[..., 0::2] <= W).all()
+    assert (kpts[..., 1::2] >= 0).all() and (kpts[..., 1::2] <= H).all()
+    res["certainty_mean"] = float(cert.mean())
+    res["certainty_zero_share"] = float((cert == 0).mean())
+
+    # per-pair (symmetric) match on 2 pairs against match_many's rows
+    res["vs_match"] = []
+    for pi in (1, 6):
+        k, v = pairs[pi]
+        k0, k1, c = m.match(images[k], images[v])
+        d = {"pair": [k, v], "kpts0_bitwise": bool(np.array_equal(kpts[pi, :, :2], k0)),
+             "kpts1_max_px": float(np.abs(kpts[pi, :, 2:] - k1).max()),
+             "certainty_max": float(np.abs(cert[pi] - c).max())}
+        res["vs_match"].append(d)
+        assert d["kpts1_max_px"] <= DKM_PAIR_TOL["kpts_px"], d
+        assert d["certainty_max"] <= DKM_PAIR_TOL["certainty"], d
+        assert np.abs(kpts[pi, :, :2] - k0).max() <= DKM_PAIR_TOL["kpts_px"], d
+
+    # the parts, host-timed with a sync at each end
+    with torch.inference_mode(), full_f32():
+        enc = [window_ms(lambda: m.encode(images, range(CTE_DKM_VIEWS)), 1)[0] / CTE_DKM_VIEWS
+               for _ in range(3)]
+        pyr = m.encode(images, range(CTE_DKM_VIEWS))
+        chunk = pairs[:m.pair_batch]
+        pyr_q = {s: torch.cat([pyr[a][s] for a, _ in chunk]) for s in pyr[0]}
+        pyr_s = {s: torch.cat([pyr[b][s] for _, b in chunk]) for s in pyr[0]}
+        dec = [window_ms(lambda: dkm_match_from_pyramids(m.model, pyr_q, pyr_s), 1)[0]
+               / len(chunk) for _ in range(3)]
+        del pyr, pyr_q, pyr_s
+    res["encoder_ms_per_view"] = enc
+    res["decoder_ms_per_ordered_pair"] = dec
+    res["pair_batch"] = m.pair_batch
+    res["match_many_ms_per_ordered_pair"] = res["match_many_s"] * 1e3 / len(pairs)
+    n = DKM_REMATCH_VIEWS
+    res["rematch_25_views_extrapolated_s"] = (n * np.median(enc) + n * n * np.median(dec)) / 1e3
+
+    # one pair on the card against the CPU at a small shape
+    hs, ws = DKM_CPU_SHAPE
+    cpu_model = DKM.from_state_dict(sd).eval()
+    a, b = (torch.from_numpy(np.ascontiguousarray(images[i].transpose(2, 0, 1))) for i in (0, 1))
+    with torch.inference_mode(), full_f32():
+        warp_c, cert_c = dkm_match(model, a.cuda(), b.cuda(), hs, ws)
+        warp_h, cert_h = dkm_match(cpu_model, a, b, hs, ws)
+    err = {"warp": (warp_c.cpu() - warp_h).abs().max().item(),
+           "certainty": (cert_c.cpu() - cert_h).abs().max().item()}
+    ok = all(torch.allclose(x.cpu(), y, rtol=DKM_CPU_TOL, atol=DKM_CPU_TOL)
+             for x, y in ((warp_c, warp_h), (cert_c, cert_h)))
+    res["card_vs_cpu"] = {"hs_ws": [hs, ws], "max_abs_err": err, "within_tol": ok}
+    print("  dkm: " + json.dumps(res), flush=True)
+    print(f"  dkm at {DKM_HS}x{DKM_WS}, {res['params_m']:.1f} M random weights: encoder "
+          f"{np.median(enc):.1f} ms a view, decoder {np.median(dec):.1f} ms an ordered pair "
+          f"(pair_batch {m.pair_batch}), match_many {res['match_many_ms_per_ordered_pair']:.1f} "
+          f"ms a pair; peak {res['peak_mem_gb']:.2f} GB; a rematch of {n} views ({n * n} pairs) "
+          f"extrapolated to {res['rematch_25_views_extrapolated_s']:.1f} s", flush=True)
+    assert ok, res["card_vs_cpu"]
     return res
 
 
@@ -1992,15 +2360,18 @@ def probe_phase(raymajor, probe):
 
 def kernel_entries(results):
     """The `kernels` line: each kernel with its main-path launches (the
-    forward_kernel, render_image and train_step phases), its largest error
-    against its plain version, and its times at the flagship fine P in bf16."""
+    forward_kernel, render_image, train_step and cte phases; the cte
+    phase's also apart), its largest error against its plain version, and
+    its times at the flagship fine P in bf16."""
     fwd_rows = results.get("kernel") or []
-    bwd_rows = [r for r in results.get("kernel_bwd") or [] if r["shape"] != "large_activation"]
+    bwd_rows = [r for r in results.get("kernel_bwd") or []
+                if r["shape"] not in ("large_activation", "tiny_cotangent")]
     fine = next((r for r in bwd_rows if r["dtype"] == "bfloat16" and r["shape"] == "fine"), None)
     if fine is None:
         return []
     train = results.get("train_step") or {}
-    counts = train.get("launches_total", {})
+    cte = (results.get("cte") or {}).get("launches_total", {})
+    counts = {k: v + cte.get(k, 0) for k, v in train.get("launches_total", {}).items()}
     fwd_launches = counts.get("nerf_mlp_fwd", 0) + sum(
         results.get(p, {}).get("launches", 0) for p in ("forward_kernel", "render_image"))
     timed = [r for r in bwd_rows if "stash_ms" in r]
@@ -2027,7 +2398,8 @@ def kernel_entries(results):
               "lushnerf_tpu/ops/fused/nerf_mlp.py:396", fwd_launches,
               max([r["max_abs_err"] for r in fwd_rows] + [r["fwd_out_max_abs_err"] for r in bwd_rows]),
               "fwd_stash",
-              {**at_tune_p("k1"), "shapes_stash": shapes("fwd_stash"),
+              {**at_tune_p("k1"), "launches_cte": cte.get("nerf_mlp_fwd", 0),
+               "shapes_stash": shapes("fwd_stash"),
                "shapes_output_only": [{k: r[k] for k in ("dtype", "P", "ms", "plain_ms", "bound_ms",
                                                          "max_abs_err") if k in r} for r in fwd_rows]}),
         entry("nerf_mlp_bwd_stash", "lushnerf_torch/csrc/nerf_mlp_dgrad.cu",
@@ -2039,6 +2411,7 @@ def kernel_entries(results):
         entry("nerf_mlp_bwd_remat", "lushnerf_torch/csrc/nerf_mlp_dgrad.cu",
               "lushnerf_tpu/ops/fused/nerf_mlp.py:589", counts.get("nerf_mlp_bwd_remat", 0),
               bwd_err, "remat", {"max_rel_err": bwd_rel, **at_tune_p("k3"), "shapes": shapes("remat"),
+                                 "launches_cte": cte.get("nerf_mlp_bwd_remat", 0),
                                  "also_source": "lushnerf_torch/csrc/nerf_mlp_fwd.cu, nerf_mlp_bwd.cu",
                                  "launches_are": "K1 with its stash + dgrad + wgrad + 2 "
                                                  "reductions per point chunk"}),
@@ -2201,6 +2574,8 @@ def main(argv=None) -> int:
         "render_image": lambda: render_phase(fused, lush, cfg_mod),
         "train_step": lambda: train_phase(fused, lush, cfg_mod, trainer),
         "trainer": lambda: trainer_phase(fused, cfg_mod, trainer),
+        "cte": lambda: cte_phase(fused, cfg_mod, trainer),
+        "dkm": lambda: dkm_phase((smoke.results.get("cte") or {}).pop("views", None)),
         "profile": lambda: profile_phase(lush, cfg_mod, trainer, untraced()),
         "tune_kernel": lambda: tune_phase(fused, pe_mm, tune_kernel, NeRFMLP, MLPConfig),
         "probe_raymajor": lambda: probe_phase(raymajor, probe_raymajor),
@@ -2209,11 +2584,14 @@ def main(argv=None) -> int:
     for name, run in runs.items():
         if "build" not in smoke.failed and (not only or name == "build" or name in only):
             smoke.phase(name, run)
+    (smoke.results.get("cte") or {}).pop("views", None)  # arrays, not results
+    print("phase seconds: " + json.dumps({k: round(v, 1) for k, v in smoke.seconds.items()})
+          + f", total {sum(smoke.seconds.values()):.1f}", flush=True)
     if only:
         if args.out:
             with open(args.out, "w") as f:
-                json.dump({"card": card, "failed": smoke.failed, "results": smoke.results}, f,
-                          indent=1, default=str)
+                json.dump({"card": card, "failed": smoke.failed, "seconds": smoke.seconds,
+                           "results": smoke.results}, f, indent=1, default=str)
         print(f"chip_smoke: partial run of {sorted(only)}; failed: {smoke.failed}", flush=True)
         return 1 if smoke.failed else 0
 
@@ -2227,7 +2605,8 @@ def main(argv=None) -> int:
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
-                       "failed": smoke.failed, "results": smoke.results, "kernels": kernels},
+                       "failed": smoke.failed, "seconds": smoke.seconds, "results": smoke.results,
+                       "kernels": kernels},
                       f, indent=1, default=str)
     if smoke.failed:
         print(f"chip_smoke: FAILED phases: {smoke.failed}", file=sys.stderr)

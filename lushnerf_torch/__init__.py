@@ -6,12 +6,14 @@ NeRF-MLP kernels and their gradient), `models/` (NeRF MLP, RBK, renderer,
 tone mapping, the composed LuSh-NeRF), `data/` (the LLFF loader, low-light
 preprocessing, frequency masks, the ray dataset on the device), `train/`
 (losses, the stage schedule, the train step, the `Trainer` loop with eval
-and render-only, checkpoints), `utils/` (metrics, TensorBoard and PNG
+and render-only, checkpoints, the CTE pass), `matcher/` (the CTE match
+tables, the stub, ground-truth and precomputed matchers, and the DKMv3
+dense matcher), `utils/` (metrics, TensorBoard and PNG
 writers), `config.py` (reference scene-config parser), `convert.py`
 (weights to and from the JAX params tree and reference `.tar` checkpoints)
 and `run.py` (the command line).
 
-CTE, its matchers, LPIPS and multi-GPU are not ported yet.  Its entry
+LPIPS and multi-GPU are not ported yet.  Its entry
 points run on the GPU unless the caller asks for the CPU (`device="cpu"`),
 which the tests do; with no card they raise.
 """

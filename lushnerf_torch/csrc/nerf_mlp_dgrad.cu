@@ -1045,12 +1045,19 @@ __device__ __forceinline__ int row_shift(float mx) {
 // threads (lanes xor 1, 2), and the scale that follows from it: rs is
 // updated, `up` (2^r per row) returned for the split store, 0 for a row
 // that is all zeros (its parts are zeros either way), which marks it.
+// A row's whole scale (rs.sc, 2^cur) stays within 2^+-100, the clamp of
+// row_shift and of the scale units (`dz_scale_units`): on a cotangent so
+// small that a row needs more (a denormal g, say), each layer's r would
+// add up past f32's range, sc reach inf and g * sc give inf or NaN; the
+// row is left under-scaled instead (its parts lose bits only below 2^-100
+// of the true values).
 __device__ __forceinline__ void rescale(float (&mx)[2], Rows& rs, float (&up)[2]) {
 #pragma unroll
   for (int rr = 0; rr < 2; ++rr) {
     mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 1));
     mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 2));
-    const int r = row_shift(mx[rr]);
+    const int cur = ((__float_as_int(rs.sc[rr]) >> 23) & 255) - 127;
+    const int r = min(max(row_shift(mx[rr]), -100 - cur), 100 - cur);
     const float f = pow2(r);
     up[rr] = mx[rr] > 0.f ? f : 0.f;
     rs.sc[rr] *= f;

@@ -1,15 +1,17 @@
 """The command line of the port, reference-compatible:
 
-    python -m lushnerf_torch.run --config configs/poster --N_iters 59999
+    python -m lushnerf_torch.run --config configs/poster
     python -m lushnerf_torch.run --config configs/poster --render_only [--render_test]
     python -m lushnerf_torch.run --config configs/poster --save_warped_ray_img
 
 Accepts the reference's flags and scene-config files verbatim
 (run_lushnerf.py:32-229), as lushnerf_tpu's run_lushnerf_tpu.py does.
 Trains on the GPU; it resumes from the latest checkpoint in
-<basedir>/<expname> unless --no_reload.  CTE is not ported yet, so a run
-whose iterations reach noisenerf_start_iter (60000 in the shipped scene
-configs) stops before training: pass --N_iters below it.
+<basedir>/<expname> unless --no_reload.  From noisenerf_start_iter on
+(60000 in the shipped scene configs) each iteration adds the CTE pass;
+the matcher is cfg.matcher (`dkm` reads its weights from --dkm_ckpt_path
+or $LUSHNERF_DKM_CKPT, and without them trains on match_table_path's
+tables, or on zero tables, which give zero CTE loss).
 """
 
 from __future__ import annotations

@@ -16,12 +16,22 @@ step of lushnerf_tpu's `Trainer._loss_fn` / `step_fn`):
 `batch` holds tensors on the model's device: rays [N, 3, 2], rgbs [N, 3],
 images_idx [N] or [N, 1] (int), fq_mask [N] (bool or uint8).
 
+From noisenerf_start_iter on, a step also takes a consist batch
+(`consist`: the train poses, each view's pixels matched to the anchor's
+sampled columns, their certainties, the CTE weight) and adds
+weight * consistency_loss(render_aligned_pixels(...)) to the stage's loss,
+in the same backward and Adam step (lushnerf_tpu's `_loss_fn_consist`).
+The match tables live on the host; every rematch_interval iterations the
+matcher (`cfg.matcher`: stub, gt, dkm; precomputed tables come from
+match_table_path) rebuilds them from renders of the train views, and they
+are saved beside the checkpoints and reloaded on resume.
+
 The loop adds no host work a step beyond Python: the ray dataset lives on
 the device (a batch is an index_select), randomness comes from a device
 `torch.Generator`, and the loss reaches the host only at the i_print /
-i_tensorboard cadence (every step under debug_nan_check).  CTE (the
-cross-view consistency loss) is not ported yet: a run whose iterations
-reach noisenerf_start_iter is refused with NotImplementedError.
+i_tensorboard cadence (every step under debug_nan_check).  A consist
+iteration adds a numpy gather of V x consist_num_pixels table entries and
+two small uploads from pinned memory, without a sync.
 """
 
 from __future__ import annotations
@@ -38,6 +48,13 @@ import torch
 from lushnerf_torch.config import Config
 from lushnerf_torch.data.freq_mask import get_masks_for_images
 from lushnerf_torch.data.rays import RayDataset, build_ray_dataset
+from lushnerf_torch.matcher.api import (
+    GridStubMatcher,
+    GroundTruthMatcher,
+    MatchTables,
+    build_match_tables,
+    load_gt_depths,
+)
 from lushnerf_torch.models.lushnerf import (
     LushConfig,
     LushNeRF,
@@ -48,8 +65,14 @@ from lushnerf_torch.models.lushnerf import (
     resolve_device,
 )
 from lushnerf_torch.train import checkpoint as ckpt_lib
-from lushnerf_torch.train.losses import mse2psnr, photometric_loss
-from lushnerf_torch.train.schedule import consist_active, stage_for_iter
+from lushnerf_torch.train.consistency import render_aligned_pixels
+from lushnerf_torch.train.losses import (
+    CONSIST_WEIGHT,
+    consistency_loss,
+    mse2psnr,
+    photometric_loss,
+)
+from lushnerf_torch.train.schedule import consist_active, consist_in_loss, stage_for_iter
 from lushnerf_torch.utils.images import write_png
 from lushnerf_torch.utils.metrics import compute_img_metric
 
@@ -90,10 +113,15 @@ def loss_fn(
     stage: str,
     generator: Optional[torch.Generator] = None,
     rand_override: Optional[Dict[str, Any]] = None,
+    consist: Optional[Dict[str, Any]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(loss, mse) of one stage's forward: the photometric loss, and outside
     the naive stage the optional terms rbk_anchor_reg * drift,
-    rbk_spread_l1 * spread and snd_l1 * mean(noise)."""
+    rbk_spread_l1 * spread and snd_l1 * mean(noise).  With a consist batch
+    (keys K [3, 3], poses [V, 3, 4], align_pix [V, n, 2], certainty [V, n],
+    weight, threshold: `Trainer._sample_consist_batch`) the CTE term
+    weight * consistency_loss(aligned render) is added (run_lushnerf.py:
+    646-659), weight 0 included."""
     cfg = lush_cfg
     if stage == "naive":
         out = forward_naive(model, cfg, H, W, focal, batch["rays"], generator, rand_override)
@@ -110,6 +138,11 @@ def loss_fn(
         loss = loss + cfg.rbk_spread_l1 * out["rbk_spread"]
     if stage != "naive" and cfg.snd_l1 > 0.0 and cfg.use_snd:
         loss = loss + cfg.snd_l1 * torch.mean(out["rgb_noise"])
+    if consist is not None:
+        rgb_align = render_aligned_pixels(model, cfg, H, W, consist["K"], consist["poses"],
+                                          consist["align_pix"])
+        closs = consistency_loss(rgb_align, consist["certainty"], consist["threshold"])
+        loss = loss + consist["weight"] * closs
     return loss, mse
 
 
@@ -126,15 +159,18 @@ def train_step(
     generator: Optional[torch.Generator] = None,
     rand_override: Optional[Dict[str, Any]] = None,
     grad_clip_norm: float = 0.0,
+    consist: Optional[Dict[str, Any]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One update for stage 'naive', 'kernel' or 'allkernel'.  Returns the
-    detached (loss, mse) on the device (no host sync).  A parameter that the
-    stage does not reach gets a zero grad, so Adam updates it as optax does
-    (its moments decay)."""
+    """One update for stage 'naive', 'kernel' or 'allkernel', with the CTE
+    term when a consist batch is given (`loss_fn`).  Returns the detached
+    (loss, mse) on the device (no host sync).  A parameter that the stage
+    does not reach gets a zero grad, so Adam updates it as optax does (its
+    moments decay)."""
     if stage not in STAGES:
         raise ValueError(f"stage {stage!r} not in {STAGES}")
     optimizer.zero_grad(set_to_none=True)
-    loss, mse = loss_fn(model, lush_cfg, H, W, focal, batch, stage, generator, rand_override)
+    loss, mse = loss_fn(model, lush_cfg, H, W, focal, batch, stage, generator, rand_override,
+                        consist)
     loss.backward()
     params = [p for group in optimizer.param_groups for p in group["params"]]
     for p in params:
@@ -186,15 +222,17 @@ def area_resize(images: torch.Tensor, h: int, w: int) -> torch.Tensor:
 
 class Trainer:
     def __init__(self, cfg: Config, data: Optional[Dict[str, Any]] = None,
-                 device: str | torch.device = "cuda"):
+                 matcher: Optional[Any] = None, device: str | torch.device = "cuda"):
         """cfg: full config.  data: optional injected dataset (tests,
         synthetic scenes): dict with images [N,H,W,3] float32, poses
         [N,3,4], bds [N,2], render_poses [P,3,4], hwf (H, W, focal); else
-        the LLFF scene at cfg.datadir is read.  device: where the model,
-        the ray dataset and every step run ('cuda' unless the caller asks
-        for the CPU)."""
+        the LLFF scene at cfg.datadir is read.  matcher: optional injected
+        matcher for the rematch (overrides cfg.matcher).  device: where the
+        model, the ray dataset and every step run ('cuda' unless the caller
+        asks for the CPU)."""
         self.cfg = cfg
         self._injected = data
+        self._matcher = matcher
         self.device = resolve_device(device)
         self._setup_done = False
 
@@ -305,6 +343,8 @@ class Trainer:
         )
         # the batches' permutations: the JAX trainer's numpy stream
         self.np_rng = np.random.default_rng(cfg.seed)
+        # the consist batches' anchors and columns: a stream of their own
+        self.consist_rng = np.random.default_rng([cfg.seed, 7919])
         self.dataset.shuffle(self.np_rng)
         # the steps' draws (stratified samples, density noise)
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
@@ -330,8 +370,7 @@ class Trainer:
                 )
             print(f"Resumed from {ckpt_path} at step {self.start_step}")
         self.step = self.start_step  # the last iteration trained
-        if not (cfg.render_only or cfg.save_warped_ray_img):
-            self._check_no_cte(cfg.N_iters)
+        self._setup_cte(n)
 
         self.exp_dir.mkdir(parents=True, exist_ok=True)
         self.metrics_file = self.exp_dir / "test_metrics.txt"
@@ -348,18 +387,57 @@ class Trainer:
         )
         self._setup_done = True
 
-    def _check_no_cte(self, last_iter: int):
-        """CTE is not ported: refuse a run whose iterations (self.step + 1
-        to last_iter) reach noisenerf_start_iter, rather than train them
-        without the consistency pass."""
-        start = self.cfg.noisenerf_start_iter
-        if self.step < last_iter and consist_active(last_iter, start):
-            raise NotImplementedError(
-                f"lushnerf_torch: iterations {self.step + 1}-{last_iter} reach "
-                f"noisenerf_start_iter = {start}, where CTE (the cross-view consistency "
-                f"loss) starts, and CTE is not ported yet (it is the port's next slice). "
-                f"Train to the iteration before it: --N_iters {start - 1}"
+    def _setup_cte(self, n: int):
+        """The CTE state: match tables (match_table_path, else zeros of 1024
+        columns; on resume the newest match_tables_NNNNNN.npz at or below
+        the step, which the reference never saves: it restarts with zero
+        tables, run_lushnerf.py:374-389), the consist batch's constant
+        tensors, and the matcher of cfg.matcher unless one was injected."""
+        cfg = self.cfg
+        if cfg.match_table_path:
+            self.match_tables = MatchTables.load(cfg.match_table_path)
+        else:
+            self.match_tables = MatchTables.zeros(len(self.i_train), 1024)
+            if self.start_step > 0:
+                persisted = [p for p in sorted(self.exp_dir.glob("match_tables_*.npz"))
+                             if int(p.stem.split("_")[-1]) <= self.start_step]
+                if persisted:
+                    self.match_tables = MatchTables.load(persisted[-1])
+                    print(f"Reloaded CTE match tables from {persisted[-1]}")
+        self._consist_K = torch.from_numpy(self.K).to(self.device)
+        self._consist_poses = torch.from_numpy(
+            np.ascontiguousarray(self.poses[self.i_train])).to(self.device)
+        if self._matcher is not None:
+            return
+        if cfg.matcher == "stub":
+            # identity grid at constant certainty: the whole CTE machinery
+            # live without weights (dry runs, scale tests)
+            self._matcher = GridStubMatcher()
+        elif cfg.matcher == "gt":
+            # geometry-exact matches from the scene's depth maps
+            # (scripts/make_synthetic_scene.py writes depth/)
+            from lushnerf_torch.data.llff import DEFAULT_BD_FACTOR
+
+            depths = load_gt_depths(cfg.datadir, n, self.H, self.W, DEFAULT_BD_FACTOR)
+            self._matcher = GroundTruthMatcher(
+                poses=self.poses[self.i_train], focal=self.focal, H=self.H, W=self.W,
+                depths=depths[self.i_train], n_points=1024,
             )
+        elif cfg.matcher == "dkm":
+            from lushnerf_torch.matcher.dkm import DKMMatcher
+
+            try:
+                self._matcher = DKMMatcher.from_pretrained(cfg.dkm_ckpt_path or None,
+                                                           device=self.device)
+            except FileNotFoundError as e:
+                # no weights: the CTE pass stays live but nothing rematches;
+                # precomputed tables still train, zero tables give zero loss
+                print(
+                    f"[CTE] DKM weights unavailable ({e}); "
+                    + ("using precomputed match tables"
+                       if cfg.match_table_path else
+                       "consistency loss inactive until tables are provided")
+                )
 
     # ------------------------------------------------------------------
     # training loop
@@ -371,7 +449,6 @@ class Trainer:
             self.setup()
         cfg = self.cfg
         last = num_iters if num_iters is not None else cfg.N_iters
-        self._check_no_cte(last)
         t0 = time.time()
         loss_v = psnr_v = float("nan")
         last_log_t, last_log_i = t0, self.step
@@ -380,11 +457,16 @@ class Trainer:
             stage = stage_for_iter(
                 i, cfg.kernel_start_iter, cfg.allkernel_start_iter, cfg.blur_model_type
             )
+            active = consist_active(i, cfg.noisenerf_start_iter)
             loss, mse = train_step(
                 self.model, self.optimizer, self.scheduler, self.lush_cfg, self.H, self.W,
                 self.focal, batch, stage, self.generator, grad_clip_norm=cfg.grad_clip_norm,
+                consist=self._sample_consist_batch(i) if active else None,
             )
             self.step = i
+
+            if active and i % cfg.rematch_interval == 0 and self._matcher is not None:
+                self.rematch(i)
 
             if i % cfg.i_weights == 0:
                 ckpt_lib.save_checkpoint(self.exp_dir, i, self.model, self.optimizer,
@@ -443,6 +525,46 @@ class Trainer:
             bad = int(torch.sum(~torch.isfinite(v)))
             if bad:
                 print(f"! [Numerical Error] output '{k}': {bad} non-finite values")
+
+    # ------------------------------------------------------------------
+    # consistency (CTE)
+    # ------------------------------------------------------------------
+
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        """A small host array on the device, from pinned memory without a
+        sync (the caching host allocator keeps the block until the copy is
+        done)."""
+        t = torch.from_numpy(np.ascontiguousarray(a, np.float32))
+        if self.device.type == "cuda":
+            t = t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
+    def _sample_consist_batch(self, i: int) -> Dict[str, Any]:
+        """The consist batch of iteration i: an anchor view and
+        consist_num_pixels columns drawn from consist_rng (a stream of its
+        own, as lushnerf_tpu's), each train view's matched pixels and
+        certainties there, and the CTE weight, which applies strictly after
+        noisenerf_start_iter (the pass runs at >=, the loss adds at >,
+        run_lushnerf.py:629 vs :658)."""
+        cfg = self.cfg
+        _, align_pix, cert = self.match_tables.sample_anchor(self.consist_rng,
+                                                             cfg.consist_num_pixels)
+        weight = CONSIST_WEIGHT if consist_in_loss(i, cfg.noisenerf_start_iter) else 0.0
+        return {"K": self._consist_K, "poses": self._consist_poses,
+                "align_pix": self._upload(align_pix), "certainty": self._upload(cert),
+                "weight": weight, "threshold": cfg.consist_threshold}
+
+    def rematch(self, i: int):
+        """Match every ordered pair of freshly rendered train views
+        (run_lushnerf.py:745-774, without its PNG round trip), at the eval
+        resolution, the keypoints then brought to the full resolution;
+        saved as match_tables_{i:06d}.npz."""
+        renders, _, _ = self._render_poses(self.poses[self.i_train])
+        self.match_tables = build_match_tables(self._matcher, renders.cpu().numpy())
+        if self.H_eval != self.H:
+            s = np.array([self.W / self.W_eval, self.H / self.H_eval] * 2, np.float32)
+            self.match_tables.kpts *= s
+        self.match_tables.save(self.exp_dir / f"match_tables_{i:06d}.npz")
 
     # ------------------------------------------------------------------
     # evaluation

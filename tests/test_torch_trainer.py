@@ -15,7 +15,8 @@ scene of tests/test_train_e2e.py:
     writer's bytes equal to its, render_warped_view within the render
     tests' 1e-4;
   * eval, render_only, save_warped_ray_img and the CLI write their files;
-    the refusal of CTE; the import boundary in a fresh interpreter.
+    ranges that reach noisenerf_start_iter train (CTE); the import
+    boundary in a fresh interpreter.
 """
 
 import json
@@ -56,6 +57,19 @@ LOOP_RTOL, LOOP_ATOL = 1e-4, 1e-6
 METRIC_TOL = 1e-6
 RENDER_TOL = 1e-4  # tests/test_torch_lushnerf.py's f32 render tolerance
 METRICS_LINE = re.compile(r"^iter(\d+): MSE:(\S+) PSNR:(\S+) SSIM:(\S+) LPIPS:(\S+)$")
+
+
+@pytest.fixture(autouse=True)
+def _restore_jax_kernel_mesh():
+    """lushnerf_tpu's Trainer registers its 8-device CPU mesh for the fused
+    Pallas kernels process-wide (`set_kernel_mesh`); left set, a later
+    interpret-mode kernel test in the same worker shards over it and hangs.
+    Each test here gives the previous mesh back."""
+    from lushnerf_tpu.parallel.mesh import get_kernel_mesh, set_kernel_mesh
+
+    mesh = get_kernel_mesh()
+    yield
+    set_kernel_mesh(mesh)
 
 
 def tiny_kwargs(tmp_path, **overrides):
@@ -334,8 +348,6 @@ def test_cli_trains_resumes_and_renders(tmp_path, capsys):
     cfg_file.write_text("\n".join(f"{k} = {v}" for k, v in kw.items() if k != "noisenerf_start_iter")
                         + "\nnoisenerf_start_iter = 5\n")
     argv = ["--config", str(cfg_file)]
-    with pytest.raises(NotImplementedError, match="--N_iters 4"):
-        run.main(argv + ["--N_iters", "6"], device="cpu")
     out = run.main(argv + ["--N_iters", "3"], device="cpu")
     assert np.isfinite(out["loss"])
     exp = tmp_path / "logs" / "test_exp"
@@ -347,16 +359,23 @@ def test_cli_trains_resumes_and_renders(tmp_path, capsys):
     res = run.main(argv + ["--render_only", "--render_test"], device="cpu")
     assert np.isfinite(res["psnr"])
     assert (run.main(argv + ["--save_warped_ray_img"], device="cpu") / "rays_warped.npy").exists()
+    # past noisenerf_start_iter = 5 (CTE on zero tables: matcher none)
+    out = run.main(argv + ["--N_iters", "6"], device="cpu")
+    assert np.isfinite(out["loss"]) and (exp / "000006.ckpt").exists()
 
 
 def test_cte_range_is_refused(tmp_path):
-    with pytest.raises(NotImplementedError, match="CTE"):
-        trainer(tmp_path, N_iters=10, noisenerf_start_iter=10)
-    tr = trainer(tmp_path, N_iters=9, noisenerf_start_iter=10)
-    with pytest.raises(NotImplementedError, match="--N_iters 9"):
-        tr.train(12)
-    assert tr.step == 0  # refused before the first iteration
-    tr.train(2)  # below it: trains
+    """The ranges the port refused while CTE was not ported now train: a
+    setup whose N_iters reaches noisenerf_start_iter, and iterations that
+    cross it (the consist pass from 10 on), from a resumed step too."""
+    tr = trainer(tmp_path, N_iters=10, noisenerf_start_iter=10, i_weights=9)
+    out = tr.train(12)
+    assert tr.step == 12 and np.isfinite(out["loss"])
+    assert [r["step"] for r in _scalars(tr.log_file)][-2:] == [10, 12]
+    resumed = trainer(tmp_path, N_iters=9, noisenerf_start_iter=10, i_weights=9)
+    assert resumed.start_step == 9
+    resumed.train(11)
+    assert resumed.step == 11
     # render-only needs no training range
     trainer(tmp_path, N_iters=10**6, noisenerf_start_iter=10, render_only=True).render_only()
 
@@ -365,7 +384,8 @@ def test_port_entry_points_import_no_jax():
     code = ("import sys; import lushnerf_torch.run, lushnerf_torch.train.trainer, "
             "lushnerf_torch.data.llff, lushnerf_torch.data.freq_mask, lushnerf_torch.data.rays, "
             "lushnerf_torch.utils.metrics, lushnerf_torch.utils.tb_writer, "
-            "lushnerf_torch.utils.images, lushnerf_torch.train.checkpoint; "
+            "lushnerf_torch.utils.images, lushnerf_torch.train.checkpoint, "
+            "lushnerf_torch.matcher, lushnerf_torch.matcher.dkm, lushnerf_torch.train.consistency; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'lushnerf_tpu')); print(bad); "
             "sys.exit(1 if bad else 0)")

@@ -87,7 +87,7 @@ the final result line):
      kernel (with fq_mask), allkernel and naive, one step each, with the
      launches and parameter packings per step counted; 20 kernel steps on a
      fixed batch and fixed draws, whose loss must fall; ms/step (a window
-     of 10), rays/s, launches per step (from the point chunks: a
+     of 6), rays/s, launches per step (from the point chunks: a
      backward's dgrad, wgrad and two reductions per chunk, remat's K1
      besides) and peak memory for cuda bf16 stash, cuda bf16 remat, cuda
      f32 remat (the shipped scene configs' step, at their point_chunk
@@ -140,6 +140,24 @@ the final result line):
      (pair_batch 2), peak memory, the 625-pair rematch of 25 views
      extrapolated from them; one pair at 64x96 on the card against the
      CPU within DKM_CPU_TOL;
+  7e. ddp: data-parallel training (lushnerf_torch.parallel) with the same
+     config: a world of 1 (NCCL in this process, 10 iterations) bit for bit
+     against no process group; then DDP_WORLD rank processes of this script
+     (started after the build; NCCL with a card each where the machine has
+     DDP_WORLD cards, else gloo, all on card 0): one step of their halves of
+     a fixed 1024-ray batch, bitwise across ranks and against this process
+     on the whole batch (the cosine of all grads and of each parameter
+     whose f32 grad carries a direction, the scene MLPs' always, at least
+     GRAD_COS_MIN; rank 0's params Adam's step of its all-reduced grads,
+     bit for bit); 10 iterations through Trainer (CTE from 7, a striped
+     rematch at 8 with a content-keyed stub, a striped eval and the
+     checkpoint at 10), each iteration's K1 / K3 launches as step_launches
+     reckons them for 512 rays a rank (K3 in 3 + 5 chunks), tables equal to
+     one process's, tables, metrics, losses and params the same on every
+     rank, files in rank 0's basedir only; a resume where the other ranks'
+     basedirs are empty; ms an iteration of a rank (2 windows of
+     DDP_WINDOW) beside the world of 1's, the flat all-reduce's ms, each
+     rank's peak memory;
   8. profile: a torch.profiler trace of forward_kernel, render_image and one
      train step each of cuda bf16 stash, cuda f32 remat (at point_chunk
      POINT_CHUNK and at 0) and torch f32: device time by kernel and the
@@ -180,7 +198,8 @@ the final result line):
      on a ragged S and SI; K8 bit for bit on lengths with a tail and on
      one element.
 Then a `{"kernels": [...]}` line (nine kernels, each with the path that
-launched it: main, tune_kernel or probe_raymajor) and, last, the
+launched it: main, tune_kernel or probe_raymajor; K1's and K3's launches
+in the cte and ddp phases also apart) and, last, the
 `{"ok": true, ...}` line.
 It needs the repository checkout: run alone it exits non-zero.
 """
@@ -192,6 +211,7 @@ import contextlib
 import copy
 import dataclasses
 import json
+import os
 import re
 import subprocess
 import sys
@@ -1345,7 +1365,7 @@ def train_phase(fused, lush, cfg_mod, trainer):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         zero_counts(fused)
-        n = 10
+        n = 6
         ms, (loss, _) = window_ms(step, n)
         counts = count()
         r = dict(point_chunk=chunk, ms_per_step=ms, rays_per_s=N_RAYS / ms * 1e3, steps=n,
@@ -1914,6 +1934,452 @@ def dkm_phase(images=None):
     return res
 
 
+# the ddp phase: the shipped poster config's f32 step, data-parallel.  The
+# Trainer runs: naive 1-2, kernel 3-4, allkernel from 5, the consist pass
+# from 7 (weight 0 at 7), a striped rematch at 8 and a striped eval, a
+# checkpoint at 10; a world of 1 runs the same 10 iterations without CTE
+DDP_ITERS = 10
+DDP_OVERRIDES = dict(N_iters=DDP_ITERS, kernel_start_iter=3, allkernel_start_iter=5,
+                     noisenerf_start_iter=7, rematch_interval=8, i_print=5, i_weights=DDP_ITERS,
+                     i_testset=DDP_ITERS, render_factor=4)
+DDP_WORLD1_OVERRIDES = dict(DDP_OVERRIDES, noisenerf_start_iter=10**9, i_weights=10**9,
+                            i_testset=10**9)
+DDP_WORLD = 2
+DDP_WINDOW = 5  # allkernel iterations a timing window
+DDP_WAIT_S = 300  # the longest a rank or the phase waits for the other side
+# The fixed-batch step of the ranks, each on its half of one global batch,
+# against one process on the whole of it, from the same weights, is held by
+# its grads: the cosine of all of them together, and of each parameter whose
+# f32 grad carries a direction on this batch, at least the f32 step's
+# GRAD_COS_MIN.  "Carries a direction": the one process's kernel grad is
+# within that cosine of plain torch's f32 grad on the same batch.  Some RBK
+# grads of the poster config (~1e-10, cancelling sums) are f32 rounding:
+# cosine 0.2-0.5 against float64 through plain torch on the CPU, 0.93-0.97
+# between the kernel and plain torch here; the kernels' own grads (the
+# scene MLPs') are always held.  The params after the step are held to be
+# Adam's step of the all-reduced grads, bit for bit: against the one
+# process's params they differ by up to lrate * |dg| / eps for a grad near
+# Adam's eps (an update is lrate * g / (|g| + eps)), and the shipped step's
+# scene-MLP grads lie near it.
+
+
+class ContentStub:
+    """A matcher keyed on the two images' content, not on the call order:
+    ranks that match different pairs agree only if the gather puts each
+    pair back in its place."""
+
+    def match(self, img0, img1):
+        n = 64
+        h, w = img0.shape[:2]
+        seed = int(abs(float(img0.sum()) * 1e4 + float(img1.sum()) * 7.0)) % (2 ** 31)
+        rng = np.random.default_rng(seed)
+        k0 = np.stack([rng.uniform(0, w - 1, n), rng.uniform(0, h - 1, n)], -1).astype(np.float32)
+        k1 = np.clip(k0 + rng.normal(0, 0.5, k0.shape), 0, w - 1).astype(np.float32)
+        return k0, k1, rng.uniform(0.85, 1.0, n).astype(np.float32)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def params_digest(model) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for k, v in model.state_dict().items():
+        h.update(k.encode())
+        h.update(v.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def tables_digest(tables) -> str:
+    import hashlib
+
+    return hashlib.sha256(tables.kpts.tobytes() + tables.certainty.tobytes()).hexdigest()
+
+
+def ddp_step_setup(cfg_mod, trainer, device):
+    """The fixed-batch step's config (poster, no random draws), its
+    LushConfig, a model from seed 0 and Adam: one step is then a function
+    of its batch."""
+    cfg = cfg_mod.Config.from_file(TRAINER_CONFIG)
+    cfg.num_images = NUM_IMAGES
+    lc = cfg.lush_config()
+    lc = dataclasses.replace(lc, render=dataclasses.replace(lc.render, perturb=False,
+                                                            raw_noise_std=0.0))
+    from lushnerf_torch.models.lushnerf import LushNeRF
+
+    model = LushNeRF(lc, seed=0, device=device)
+    opt, sched = trainer.make_optimizer(cfg, model)
+    return cfg, lc, model, opt, sched
+
+
+def ddp_window_ms(tr, trainer, n=DDP_WINDOW) -> float:
+    """Host ms an iteration over n allkernel iterations of tr, with nothing
+    at a cadence inside and without the consist pass."""
+    for key in ("i_print", "i_tensorboard", "i_weights", "i_testset"):
+        setattr(tr.cfg, key, 10**9)
+    tr.cfg.noisenerf_start_iter = 10**9
+    first = tr.step + 1
+    ms = window_ms(lambda: tr.train(tr.step + n), 1)[0] / n
+    assert trainer.stage_for_iter(first, tr.cfg.kernel_start_iter,
+                                  tr.cfg.allkernel_start_iter) == "allkernel"
+    return ms
+
+
+def ddp_expected_launches(fused, n_rand, consist: bool) -> dict:
+    """K1 / K3 launches of one allkernel iteration of a rank drawing n_rand
+    rays (5 sub-rays each), with the consist pass's CTE_RAYS if asked."""
+    pts = (n_rand * 5 * 64, n_rand * 5 * 128)
+    cpts = (CTE_RAYS * 64, CTE_RAYS * 128)
+    if consist:
+        return step_launches(fused, "remat_f32", POINT_CHUNK, pts + cpts, pts + cpts[1:])
+    return step_launches(fused, "remat_f32", POINT_CHUNK, pts)
+
+
+def wait_for(paths, what: str, alive=lambda: True) -> None:
+    """Polls until every path exists; raises after DDP_WAIT_S or once
+    alive() is false."""
+    t0 = time.time()
+    while not all(p.exists() for p in paths):
+        if time.time() - t0 > DDP_WAIT_S or not alive():
+            raise TimeoutError(f"gave up waiting for {what}")
+        time.sleep(0.02)
+
+
+class DdpRanks:
+    """The ddp phase's DDP_WORLD rank processes (this script with
+    --ddp_worker), started early: a fresh interpreter spends ~15 s on the
+    card's machine importing torch and what its optimizer pulls in, which
+    the phases before ddp then hide.  They wait, touching nothing on the
+    card, for the phase's spec.json in their directory.  close() ends them."""
+
+    def __init__(self):
+        self.dir = tempfile.TemporaryDirectory(prefix="chip_smoke_ddp_")
+        self.out = Path(self.dir.name)
+        self.logs = [open(self.out / f"rank{r}.log", "w") for r in range(DDP_WORLD)]
+        self.procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                                        "--ddp_worker", str(self.out), str(r)],
+                                       stdout=log, stderr=subprocess.STDOUT)
+                      for r, log in enumerate(self.logs)]
+
+    def alive(self) -> bool:
+        return all(p.poll() is None for p in self.procs)
+
+    def log(self, r: int) -> str:
+        self.logs[r].flush()
+        return (self.out / f"rank{r}.log").read_text()[-6000:]
+
+    def close(self):
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for log in self.logs:
+            log.close()
+        self.dir.cleanup()
+
+
+def ddp_worker(out: str, rank: int) -> int:
+    """One rank of the ddp phase (`chip_smoke.py --ddp_worker DIR RANK`):
+    imports, waits for DIR/spec.json, then the fixed-batch step on its
+    half, the Trainer with its striped rematch and eval, a resume from rank
+    0's state and timings; writes its results to DIR/rank<r>.json (rank 0
+    also the step's params and grads)."""
+    out = Path(out)
+    from lushnerf_torch import config as cfg_mod
+    from lushnerf_torch.matcher.api import build_match_tables
+    from lushnerf_torch.ops.fused import nerf_mlp as fused
+    from lushnerf_torch.parallel import distributed as dist
+    from lushnerf_torch.train import trainer
+
+    torch.optim.Adam([torch.zeros(1, requires_grad=True)])  # its lazy imports, off the card
+    scene = synthetic_scene()
+    parent = os.getppid()
+    wait_for([out / "spec.json"], "the ddp phase", lambda: os.getppid() == parent)
+    spec = json.loads((out / "spec.json").read_text())
+    clock = {"start": time.time()}
+    world = spec["world"]
+    assert dist.initialize(spec["coordinator"], world, rank, str(spec["devices"][rank]),
+                           backend=spec["backend"])
+    dev = torch.device("cuda", torch.cuda.current_device())
+    res = {"rank": rank, "device": str(dev), "backend": torch.distributed.get_backend(),
+           "world": dist.process_count()}
+
+    # 1. one step of the fixed global batch's stripe [rank::world]: this
+    # process's first launches, which load the kernels
+    cfg, lc, model, opt, sched = ddp_step_setup(cfg_mod, trainer, dev)
+    model.load_state_dict(torch.load(spec["init"], map_location=dev, weights_only=True))
+    batch = {k: v[rank::world] for k, v in train_batch().items()}
+    zero_counts(fused)
+    trainer.train_step(model, opt, sched, lc, H, W, FOCAL, batch, "kernel",
+                       torch.Generator(device=dev).manual_seed(rank))
+    torch.cuda.synchronize()
+    clock["step"] = time.time()
+    res["step_launches"] = read_counts(fused)
+    res["step_digest"] = params_digest(model)
+    if rank == 0:
+        torch.save({"params": {k: v.cpu() for k, v in model.state_dict().items()},
+                    "grads": {n: p.grad.cpu() for n, p in model.named_parameters()}},
+                   out / "step_rank0.pt")
+    grads = [p.grad.clone() for p in model.parameters()]
+    del model, opt
+    # what is timed from here on waits for the phase's own timed work
+    (out / f"ready{rank}").touch()
+    wait_for([out / "go"], "the phase's go", lambda: os.getppid() == parent)
+    clock["go"] = time.time()
+    res["allreduce_floats"] = sum(g.numel() for g in grads)
+    res["allreduce_ms"] = per_call_ms(lambda: dist.all_reduce_mean_(grads), 10)
+    del grads
+
+    # 2. the Trainer: stages, the consist pass, a striped rematch and eval
+    basedir = out / f"rank{rank}"
+
+    def make_cfg():
+        return cfg_mod.Config.from_file(TRAINER_CONFIG, basedir=str(basedir / "logs"), tbdir="",
+                                        **DDP_OVERRIDES)
+
+    steps, evals, rematched = [], [], []
+    real_step = trainer.train_step
+
+    def counted_step(*args, **kwargs):
+        before = read_counts(fused)
+        loss, mse = real_step(*args, **kwargs)
+        steps.append((args[8], kwargs.get("consist") is not None,
+                      {k: v - before[k] for k, v in read_counts(fused).items()}))
+        return loss, mse
+
+    torch.cuda.reset_peak_memory_stats()
+    tr = trainer.Trainer(make_cfg(), data=scene, matcher=ContentStub(), device="cuda")
+    tr.setup()
+    clock["setup"] = time.time()
+    res["dataset_rays"], res["local_n_rand"] = len(tr.dataset), tr.local_n_rand
+    real_eval, real_tables = tr.eval_testset, tr._build_tables_striped
+    tr.eval_testset = lambda i, save=True: evals.append(real_eval(i, save)) or evals[-1]
+
+    def tables_striped(renders):
+        got = real_tables(renders)
+        rematched.append(got)
+        single = build_match_tables(tr._matcher, renders)
+        res["tables_equal_single_process"] = bool(
+            np.array_equal(got.kpts, single.kpts) and np.array_equal(got.certainty, single.certainty))
+        return got
+
+    tr._build_tables_striped = tables_striped
+    trainer.train_step = counted_step
+    zero_counts(fused)
+    try:
+        out_train = tr.train()
+        torch.cuda.synchronize()
+    finally:
+        trainer.train_step = real_step
+    clock["train"] = time.time()
+    res["launches"] = read_counts(fused)
+    res["stages"] = [(st, c) for st, c, _ in steps]
+    expect = {(st, c): ddp_expected_launches(fused, tr.local_n_rand, c) for st, c, _ in steps
+              if st != "naive"}
+    expect[("naive", False)] = step_launches(fused, "remat_f32", POINT_CHUNK,
+                                             (tr.local_n_rand * 64, tr.local_n_rand * 128))
+    res["launches_per_iteration"] = {f"{st}{'+consist' if c else ''}": n for st, c, n in steps}
+    res["launches_wrong"] = [(i + 1, st, c, n) for i, (st, c, n) in enumerate(steps)
+                             if n != expect[(st, c)]]
+    res["loss"] = out_train["loss"]
+    res["evals"] = evals
+    res["rematches"] = len(rematched)
+    res["tables_digest"] = tables_digest(tr.match_tables)
+    res["tables_certainty_max"] = float(tr.match_tables.certainty.max())
+    res["params_digest"] = params_digest(tr.model)
+    res["files"] = sorted(str(p.relative_to(basedir)) for p in basedir.rglob("*") if p.is_file())
+
+    # 3. a resume from rank 0's state (rank 1's basedir is empty), then the
+    # timing windows
+    tr2 = trainer.Trainer(make_cfg(), data=scene, matcher=ContentStub(), device="cuda")
+    tr2.setup()
+    clock["resume"] = time.time()
+    res["resumed_step"] = tr2.start_step
+    res["resumed_params_digest"] = params_digest(tr2.model)
+    res["resumed_tables_digest"] = tables_digest(tr2.match_tables)
+    del tr
+    res["ms_per_iter"] = [ddp_window_ms(tr2, trainer) for _ in range(2)]
+    res["window_params_digest"] = params_digest(tr2.model)
+    res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    clock["windows"] = time.time()
+    res["clock_s"] = {k: round(v - clock["start"], 2) for k, v in clock.items()}
+    (out / f"rank{rank}.json").write_text(json.dumps(res, default=str))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def cosine(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.double().flatten(), b.double().flatten()
+    return (a @ b / (a.norm() * b.norm()).clamp_min(1e-300)).item()
+
+
+def ddp_phase(fused, cfg_mod, trainer, ranks: DdpRanks):
+    """Data-parallel training on the card (lushnerf_torch.parallel): a
+    world of 1 (NCCL in this process) against no process group, bit for
+    bit; then the DDP_WORLD `ranks` (NCCL, one card each, where the machine
+    has DDP_WORLD cards; else gloo, all on card 0): the fixed-batch step
+    against this process's step on the whole batch, the Trainer with its
+    striped rematch and eval, a resume from rank 0's state.  The ranks run
+    their first step beside this process's untimed work and time theirs
+    after this process's."""
+    from lushnerf_torch.parallel import distributed as dist
+
+    res = {}
+    out = ranks.out
+    scene = synthetic_scene()
+    dev = torch.device("cuda", 0)
+    cfg, lc, model, opt, sched = ddp_step_setup(cfg_mod, trainer, dev)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    torch.save(init, out / "init.pt")
+    n_cards = torch.cuda.device_count()
+    backend, devices = (("nccl", list(range(DDP_WORLD))) if n_cards >= DDP_WORLD
+                        else ("gloo", [0] * DDP_WORLD))
+    res.update(backend=backend, world=DDP_WORLD, devices=devices,
+               shared_card=len(set(devices)) < DDP_WORLD)
+    (out / "spec.json.tmp").write_text(json.dumps({
+        "coordinator": f"127.0.0.1:{free_port()}", "world": DDP_WORLD, "backend": backend,
+        "devices": devices, "init": str(out / "init.pt")}))
+    (out / "spec.json.tmp").rename(out / "spec.json")
+    t_ranks = time.perf_counter()
+
+    # a world of 1: the all-reduce and the striped paths give the bits of
+    # no process group
+    def world1_trainer(name):
+        cfg = cfg_mod.Config.from_file(TRAINER_CONFIG, basedir=str(out / name), tbdir="",
+                                       **DDP_WORLD1_OVERRIDES)
+        tr = trainer.Trainer(cfg, data=scene, device="cuda")
+        tr.setup()
+        return tr
+
+    t0 = time.perf_counter()
+    assert dist.initialize(f"127.0.0.1:{free_port()}", 1, 0, "0", device="cuda")
+    try:
+        assert torch.distributed.get_backend() == "nccl" and dist.process_count() == 1
+        zero_counts(fused)
+        grouped = world1_trainer("world1")
+        grouped.train()
+        torch.cuda.synchronize()
+        res["world1_launches"] = read_counts(fused)
+        grouped_digest = params_digest(grouped.model)
+        wait_for([out / f"ready{r}" for r in range(DDP_WORLD)], "the ranks' first step",
+                 ranks.alive)
+        res["ranks_ready_s"] = time.perf_counter() - t_ranks
+        res["world1_ms_per_iter"] = [ddp_window_ms(grouped, trainer) for _ in range(2)]
+    finally:
+        torch.distributed.destroy_process_group()
+    del grouped
+    alone = world1_trainer("alone")
+    alone.train()
+    res["world1_bitwise_no_group"] = params_digest(alone.model) == grouped_digest
+    del alone
+    res["world1_s"] = time.perf_counter() - t0
+
+    # the whole global batch in this process, from the weights the ranks
+    # load; beside it the control, plain torch's f32 grads of that batch
+    trainer.train_step(model, opt, sched, lc, H, W, FOCAL, train_batch(), "kernel",
+                       torch.Generator(device=dev).manual_seed(0))
+    whole = {"params": {k: v.cpu() for k, v in model.state_dict().items()},
+             "grads": {n: p.grad.cpu() for n, p in model.named_parameters()}}
+    plain = dataclasses.replace(lc, render=dataclasses.replace(lc.render, mlp_backend="torch"))
+    model.load_state_dict(init)
+    model.zero_grad(set_to_none=True)
+    trainer.loss_fn(model, plain, H, W, FOCAL, train_batch(), "kernel")[0].backward()
+    torch_grads = {n: p.grad.cpu() for n, p in model.named_parameters() if p.grad is not None}
+    torch.cuda.synchronize()
+
+    (out / "go").touch()
+    wait_for([out / f"rank{r}.json" for r in range(DDP_WORLD)], "the ranks' results",
+             lambda: all(p.poll() in (None, 0) for p in ranks.procs))
+    for r, p in enumerate(ranks.procs):
+        assert p.wait(timeout=DDP_WAIT_S) == 0, f"rank {r} failed:\n{ranks.log(r)}"
+    res["ranks_s"] = time.perf_counter() - t_ranks
+    got_ranks = [json.loads((out / f"rank{r}.json").read_text()) for r in range(DDP_WORLD)]
+    r0 = got_ranks[0]
+
+    # the step: bitwise across ranks, Adam's step of the all-reduced grads,
+    # and those grads within the f32 step's limits of the whole batch's
+    got = torch.load(out / "step_rank0.pt", weights_only=True)
+    model.load_state_dict(init)
+    opt, _ = trainer.make_optimizer(cfg, model)
+    for n, p in model.named_parameters():
+        p.grad = got["grads"][n].to(dev)
+    opt.step()
+    res["step_params_adam_of_grads"] = all(
+        torch.equal(v.cpu(), got["params"][k]) for k, v in model.state_dict().items())
+    del model, opt
+    names = [n for n, g in whole["grads"].items() if g.abs().max() > 0]
+    cos = {n: cosine(got["grads"][n], whole["grads"][n]) for n in names}
+    control = {n: cosine(whole["grads"][n], torch_grads[n]) if n in torch_grads else 0.0
+               for n in names}
+    held = [n for n in names if control[n] >= GRAD_COS_MIN["float32"]]
+    res["step_grad_cos_all"] = cosine(torch.cat([got["grads"][n].flatten() for n in names]),
+                                      torch.cat([whole["grads"][n].flatten() for n in names]))
+    res["step_grad_cos_min"] = min(cos[n] for n in held)
+    res["step_grads_held"] = f"{len(held)} of {len(names)}"
+    res["step_grad_cos_not_held"] = {n: [cos[n], control[n]] for n in names if n not in held}
+    res["step_grad_max_rel_err_scene_mlps"] = max(
+        ((got["grads"][n] - whole["grads"][n]).abs().max() / whole["grads"][n].abs().max()).item()
+        for n in names if n.startswith(("mlp_coarse.", "mlp_fine.")))
+    res["step_param_max_abs_err"] = max((v - whole["params"][k]).abs().max().item()
+                                        for k, v in got["params"].items())
+    res["step_launches_rank"] = r0["step_launches"]
+
+    # the Trainer on each rank
+    res["dataset_rays"] = [r["dataset_rays"] for r in got_ranks]
+    res["local_n_rand"] = r0["local_n_rand"]
+    res["launches"] = [r["launches"] for r in got_ranks]
+    res["launches_per_iteration"] = r0["launches_per_iteration"]
+    res["ms_per_iter_ranks"] = [r["ms_per_iter"] for r in got_ranks]
+    res["allreduce_ms"] = [r["allreduce_ms"] for r in got_ranks]
+    res["allreduce_mb"] = r0["allreduce_floats"] * 4 / 1e6
+    res["peak_mem_gb"] = [r["peak_mem_gb"] for r in got_ranks]
+    res["eval"] = r0["evals"]
+    res["ranks_clock_s"] = [r["clock_s"] for r in got_ranks]  # since each took the spec
+    print("  ddp: " + json.dumps(res), flush=True)
+    print(f"  ddp: {DDP_WORLD} ranks on {backend} (cards {devices}"
+          f"{', sharing one card' if res['shared_card'] else ''}): ms an iteration (allkernel, "
+          f"{res['local_n_rand']} rays a rank) {res['ms_per_iter_ranks']} against one rank's "
+          f"{res['world1_ms_per_iter']} ({TRAINER_N_RAND} rays, NCCL world of 1); all-reduce of "
+          f"{res['allreduce_mb']:.2f} MB {[a['median'] for a in res['allreduce_ms']]} ms; peak "
+          f"{res['peak_mem_gb']} GB a rank; the step against one process on the whole batch: "
+          f"grad cosine {res['step_grad_cos_all']:.7f} over all, >= {res['step_grad_cos_min']:.7f} "
+          f"on the {res['step_grads_held']} parameters held, params within "
+          f"{res['step_param_max_abs_err']:.3g}; ranks ready {res['ranks_ready_s']:.1f} s and "
+          f"done {res['ranks_s']:.1f} s after the spec", flush=True)
+
+    assert res["world1_bitwise_no_group"], "a world of 1 changed the params' bits"
+    assert all(v > 0 for k, v in res["world1_launches"].items() if k != "nerf_mlp_bwd_stash")
+    assert all(r["step_digest"] == r0["step_digest"] for r in got_ranks), "ranks' steps differ"
+    assert res["step_params_adam_of_grads"], "rank 0's params are not Adam's step of its grads"
+    assert res["step_grad_cos_all"] >= GRAD_COS_MIN["float32"], res["step_grad_cos_all"]
+    assert res["step_grad_cos_min"] >= GRAD_COS_MIN["float32"], res["step_grad_cos_min"]
+    assert not any(n.startswith(("mlp_coarse.", "mlp_fine.")) for n in
+                   res["step_grad_cos_not_held"]), res["step_grad_cos_not_held"]
+    for r in got_ranks:
+        assert not r["launches_wrong"], ("launches per iteration", r["launches_wrong"][:3])
+        assert r["launches"]["nerf_mlp_fwd"] > 0 and r["launches"]["nerf_mlp_bwd_remat"] > 0
+        assert r["tables_equal_single_process"] and r["rematches"] == 1
+        assert r["tables_certainty_max"] > 0
+        assert r["resumed_step"] == DDP_ITERS
+        assert r["resumed_params_digest"] == r0["params_digest"]
+        assert r["resumed_tables_digest"] == r0["tables_digest"]
+        for key in ("params_digest", "tables_digest", "evals", "window_params_digest", "loss"):
+            assert json.dumps(r[key]) == json.dumps(r0[key]), (r["rank"], key)
+    assert ddp_expected_launches(fused, r0["local_n_rand"], False)["nerf_mlp_bwd_remat"] == 40
+    assert r0["stages"][6][1] and not r0["stages"][5][1], r0["stages"]  # CTE from 7
+    assert "logs/poster_lushnerf/000010.ckpt" in r0["files"], r0["files"]
+    assert "logs/poster_lushnerf/match_tables_000008.npz" in r0["files"], r0["files"]
+    assert all(r["files"] == [] for r in got_ranks[1:]), [r["files"] for r in got_ranks[1:]]
+    assert len(r0["evals"]) == 1 and np.isfinite(r0["evals"][0]["psnr"]), r0["evals"]
+    return res
+
+
 def profile_phase(lush, cfg_mod, trainer, untraced_ms):
     """Device time by kernel and the device's busy share (the union of
     kernel intervals over the span of the traced region, and over the
@@ -2360,9 +2826,10 @@ def probe_phase(raymajor, probe):
 
 def kernel_entries(results):
     """The `kernels` line: each kernel with its main-path launches (the
-    forward_kernel, render_image, train_step and cte phases; the cte
-    phase's also apart), its largest error against its plain version, and
-    its times at the flagship fine P in bf16."""
+    forward_kernel, render_image, train_step, cte and ddp phases; the cte
+    and ddp phases' also apart, the ddp phase's by rank too), its largest
+    error against its plain version, and its times at the flagship fine P
+    in bf16."""
     fwd_rows = results.get("kernel") or []
     bwd_rows = [r for r in results.get("kernel_bwd") or []
                 if r["shape"] not in ("large_activation", "tiny_cotangent")]
@@ -2371,7 +2838,13 @@ def kernel_entries(results):
         return []
     train = results.get("train_step") or {}
     cte = (results.get("cte") or {}).get("launches_total", {})
-    counts = {k: v + cte.get(k, 0) for k, v in train.get("launches_total", {}).items()}
+    ddp = results.get("ddp") or {}
+    ddp_ranks = ddp.get("launches", [])  # each rank's Trainer run
+    ddp_counts = {k: ddp.get("world1_launches", {}).get(k, 0)
+                  + ddp.get("step_launches_rank", {}).get(k, 0) * len(ddp_ranks)
+                  + sum(r.get(k, 0) for r in ddp_ranks) for k in COUNTERS}
+    counts = {k: v + cte.get(k, 0) + ddp_counts[k]
+              for k, v in train.get("launches_total", {}).items()}
     fwd_launches = counts.get("nerf_mlp_fwd", 0) + sum(
         results.get(p, {}).get("launches", 0) for p in ("forward_kernel", "render_image"))
     timed = [r for r in bwd_rows if "stash_ms" in r]
@@ -2399,6 +2872,8 @@ def kernel_entries(results):
               max([r["max_abs_err"] for r in fwd_rows] + [r["fwd_out_max_abs_err"] for r in bwd_rows]),
               "fwd_stash",
               {**at_tune_p("k1"), "launches_cte": cte.get("nerf_mlp_fwd", 0),
+               "launches_ddp": ddp_counts["nerf_mlp_fwd"],
+               "launches_ddp_ranks": [r.get("nerf_mlp_fwd", 0) for r in ddp_ranks],
                "shapes_stash": shapes("fwd_stash"),
                "shapes_output_only": [{k: r[k] for k in ("dtype", "P", "ms", "plain_ms", "bound_ms",
                                                          "max_abs_err") if k in r} for r in fwd_rows]}),
@@ -2412,6 +2887,9 @@ def kernel_entries(results):
               "lushnerf_tpu/ops/fused/nerf_mlp.py:589", counts.get("nerf_mlp_bwd_remat", 0),
               bwd_err, "remat", {"max_rel_err": bwd_rel, **at_tune_p("k3"), "shapes": shapes("remat"),
                                  "launches_cte": cte.get("nerf_mlp_bwd_remat", 0),
+                                 "launches_ddp": ddp_counts["nerf_mlp_bwd_remat"],
+                                 "launches_ddp_ranks": [r.get("nerf_mlp_bwd_remat", 0)
+                                                        for r in ddp_ranks],
                                  "also_source": "lushnerf_torch/csrc/nerf_mlp_fwd.cu, nerf_mlp_bwd.cu",
                                  "launches_are": "K1 with its stash + dgrad + wgrad + 2 "
                                                  "reductions per point chunk"}),
@@ -2511,11 +2989,15 @@ def main(argv=None) -> int:
     ap.add_argument("--only", default="",
                     help="comma-separated phases to run after the build (a partial run: it "
                          "prints no kernels or result line)")
+    ap.add_argument("--ddp_worker", nargs=2, metavar=("DIR", "RANK"),
+                    help="run one rank of the ddp phase (the script starts them)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test needs a GPU",
               file=sys.stderr)
         return 2
+    if args.ddp_worker:
+        return ddp_worker(args.ddp_worker[0], int(args.ddp_worker[1]))
     try:
         from lushnerf_torch import config as cfg_mod
         from lushnerf_torch.models import lushnerf as lush
@@ -2576,14 +3058,22 @@ def main(argv=None) -> int:
         "trainer": lambda: trainer_phase(fused, cfg_mod, trainer),
         "cte": lambda: cte_phase(fused, cfg_mod, trainer),
         "dkm": lambda: dkm_phase((smoke.results.get("cte") or {}).pop("views", None)),
+        "ddp": lambda: ddp_phase(fused, cfg_mod, trainer, ranks),
         "profile": lambda: profile_phase(lush, cfg_mod, trainer, untraced()),
         "tune_kernel": lambda: tune_phase(fused, pe_mm, tune_kernel, NeRFMLP, MLPConfig),
         "probe_raymajor": lambda: probe_phase(raymajor, probe_raymajor),
     }
     only = set(filter(None, args.only.split(",")))
-    for name, run in runs.items():
-        if "build" not in smoke.failed and (not only or name == "build" or name in only):
-            smoke.phase(name, run)
+    ranks = None  # the ddp phase's processes, started once the kernels are built
+    try:
+        for name, run in runs.items():
+            if "build" not in smoke.failed and (not only or name == "build" or name in only):
+                smoke.phase(name, run)
+            if name == "build" and "build" not in smoke.failed and (not only or "ddp" in only):
+                ranks = DdpRanks()
+    finally:
+        if ranks is not None:
+            ranks.close()
     (smoke.results.get("cte") or {}).pop("views", None)  # arrays, not results
     print("phase seconds: " + json.dumps({k: round(v, 1) for k, v in smoke.seconds.items()})
           + f", total {sum(smoke.seconds.values()):.1f}", flush=True)

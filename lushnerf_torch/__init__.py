@@ -9,11 +9,12 @@ preprocessing, frequency masks, the ray dataset on the device), `train/`
 and render-only, checkpoints, the CTE pass), `matcher/` (the CTE match
 tables, the stub, ground-truth and precomputed matchers, and the DKMv3
 dense matcher), `utils/` (metrics, TensorBoard and PNG
-writers), `config.py` (reference scene-config parser), `convert.py`
-(weights to and from the JAX params tree and reference `.tar` checkpoints)
-and `run.py` (the command line).
+writers), `parallel/` (data-parallel training, one process per card, on
+torch.distributed), `config.py` (reference scene-config parser),
+`convert.py` (weights to and from the JAX params tree and reference `.tar`
+checkpoints) and `run.py` (the command line).
 
-LPIPS and multi-GPU are not ported yet.  Its entry
+LPIPS is not ported yet.  Its entry
 points run on the GPU unless the caller asks for the CPU (`device="cpu"`),
 which the tests do; with no card they raise.
 """

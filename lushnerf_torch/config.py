@@ -174,14 +174,16 @@ class Config:
     dkm_ckpt_path: str = ""  # gim_dkm_100h.ckpt (or LUSHNERF_DKM_CKPT env)
 
     # ---- runtime additions of the JAX package (accepted keys; the port
-    # reads point_chunk, mlp_backend, mlp_compute_dtype, ray_chunk_eval and
-    # seed) ----
-    mesh_shape: str = ""  # e.g. "8" or "4,2"; empty = all local devices, 1D
+    # reads point_chunk, mlp_backend, mlp_compute_dtype, ray_chunk_eval,
+    # seed and the multi-process keys below) ----
+    # one process per card: empty, or a shape whose product is the number of
+    # processes (lushnerf_torch/parallel/mesh.py)
+    mesh_shape: str = ""
     mesh_axes: str = "data"
-    coordinator_address: str = ""
+    coordinator_address: str = ""  # host:port of process 0 (or torchrun's env)
     num_processes: int = 0
     process_id: int = -1
-    local_device_ids: str = ""  # e.g. "0" to pin one local device/process
+    local_device_ids: str = ""  # the one card of this process, e.g. "1"
     point_chunk: int = 65536  # remat chunk for MLP point eval (0 = off)
     ray_chunk_eval: int = 4096
     # 'torch' (plain ops) | 'cuda' (the fused kernel); scene files may use

@@ -19,7 +19,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "lushnerf_torch"
@@ -31,6 +31,8 @@ NVCC_FLAGS = (
 )
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# the card this process's kernels launch on (`claim_device`)
+_DEVICE: Optional[int] = None
 
 
 def nvcc() -> str:
@@ -91,3 +93,17 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_target(name)[1]))
         _LIBS[name] = lib
     return lib
+
+
+def claim_device(index: int) -> None:
+    """Records the card of this process's first launch and refuses any
+    other: a library sets its kernels' shared-memory attributes once a
+    process (function-scope statics), for the device current at its first
+    launch, so a process drives one card (one process per card under
+    torchrun or the coordinator flags)."""
+    global _DEVICE
+    if _DEVICE is None:
+        _DEVICE = index
+    elif index != _DEVICE:
+        raise RuntimeError(f"lushnerf_torch kernels launch on one card a process (cuda:{_DEVICE}); "
+                           f"got cuda:{index}: start one process per card")

@@ -150,6 +150,9 @@ FP16_MAX = 65504.0
 
 COMPUTE_DTYPES = ("float32", "bfloat16")
 BWD_MODES = ("remat", "stash")
+# the csrc/ sources of the forward, the backward's wgrad and reductions, and
+# the dgrads (`build.load` names)
+SOURCES = ("nerf_mlp_fwd", "nerf_mlp_bwd", "nerf_mlp_dgrad")
 
 # Kernel launches since they were last set to 0.
 launches = 0
@@ -724,7 +727,7 @@ def _unpack_grads(mlp, dw: torch.Tensor, dfp: torch.Tensor) -> List[torch.Tensor
 
 
 def _lib() -> ctypes.CDLL:
-    lib = build.load("nerf_mlp_fwd")
+    lib = build.load(SOURCES[0])
     if not getattr(lib, "_lushnerf_typed", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.nerf_mlp_fwd.argtypes = [vp] * 7 + [ci] * 7 + [vp]
@@ -755,7 +758,7 @@ def _lib() -> ctypes.CDLL:
 
 
 def _bwd_lib() -> ctypes.CDLL:
-    lib = build.load("nerf_mlp_bwd")
+    lib = build.load(SOURCES[1])
     if not getattr(lib, "_lushnerf_typed", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.nerf_mlp_bwd_wgrad.argtypes = [vp] * 7 + [ci] * 6 + [vp]
@@ -792,7 +795,7 @@ def _bwd_lib() -> ctypes.CDLL:
 
 
 def _dgrad_lib() -> ctypes.CDLL:
-    lib = build.load("nerf_mlp_dgrad")
+    lib = build.load(SOURCES[2])
     if not getattr(lib, "_lushnerf_typed", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.nerf_mlp_dgrad_bf16.argtypes = [vp] * 10 + [ci] * 6 + [vp]
@@ -860,6 +863,7 @@ def _fwd_into(mlp, xd: torch.Tensor, compute_dtype: str, num_freqs_x: int,
         raise ValueError("nerf_mlp_fwd: the f32 stash needs its scale units, and only it")
     _check_aligned("nerf_mlp_fwd", xd, w, fp, out,
                    *[t for t in (acts, units) if t is not None])
+    build.claim_device(xd.device.index)
     n_blocks = fwd_grid(xd.shape[0], sm_count(xd.device))
     stream = torch.cuda.current_stream(xd.device).cuda_stream
     with torch.cuda.device(xd.device):
@@ -990,6 +994,7 @@ class BwdLaunch:
         if self.wt.numel() != wn * (1 if self.bf16 else 2):  # f32: hi and lo parts
             raise RuntimeError("nerf_mlp_bwd: weight blob layout differs from the CUDA source")
         dev = self.dev = xd.device
+        build.claim_device(dev.index)
         new = torch.empty if P else torch.zeros  # the kernels write every value
         self.dxd = new((P, XD_CH), dtype=torch.float32, device=dev)
         self.dw = new(wn, dtype=torch.float32, device=dev)

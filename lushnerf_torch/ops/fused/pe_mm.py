@@ -171,6 +171,7 @@ def pe_only(xd: torch.Tensor) -> torch.Tensor:
         return out
     lib = _lib()
     fused._check_aligned("pe_only", xd, out)
+    build.claim_device(xd.device.index)
     with torch.cuda.device(xd.device):
         rc = lib.nerf_pe_only(xd.data_ptr(), out.data_ptr(), P,
                               torch.cuda.current_stream(xd.device).cuda_stream)
@@ -209,6 +210,7 @@ def mm_only(mlp, pe: torch.Tensor) -> torch.Tensor:
         raise RuntimeError("mm_only: weight blob layout differs from the CUDA source")
     fused._check_aligned("mm_only", pe, w, fp, out)
     n_blocks = fused.fwd_grid(P, fused.sm_count(pe.device))
+    build.claim_device(pe.device.index)
     with torch.cuda.device(pe.device):
         rc = lib.nerf_mm_only(pe.data_ptr(), w.data_ptr(), fp.data_ptr(), out.data_ptr(), P,
                               kx, kd, n_blocks, torch.cuda.current_stream(pe.device).cuda_stream)

@@ -153,6 +153,7 @@ def _inputs(name: str, *tensors: torch.Tensor):
 
 
 def _launch(name: str, fn, *args, device) -> None:
+    build.claim_device(device.index)
     with torch.cuda.device(device):
         rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:

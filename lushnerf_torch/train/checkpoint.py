@@ -30,17 +30,33 @@ def save_checkpoint(exp_dir: str | Path, step: int, model: torch.nn.Module,
     while writing leaves no partial checkpoint for the next to resume)."""
     exp_dir = Path(exp_dir)
     exp_dir.mkdir(parents=True, exist_ok=True)
-    state = {
+    path = exp_dir / f"{step:06d}.ckpt"
+    tmp = path.with_suffix(".ckpt.tmp")
+    torch.save(state_of(step, model, optimizer, scheduler), tmp)
+    os.replace(tmp, path)
+    return path
+
+
+def state_of(step: int, model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+             scheduler) -> dict:
+    """What a checkpoint holds: the global step, the model's state dict, the
+    Adam and the scheduler state."""
+    return {
         "global_step": int(step),
         "model": model.state_dict(),
         "optimizer": optimizer.state_dict(),
         "scheduler": scheduler.state_dict(),
     }
-    path = exp_dir / f"{step:06d}.ckpt"
-    tmp = path.with_suffix(".ckpt.tmp")
-    torch.save(state, tmp)
-    os.replace(tmp, path)
-    return path
+
+
+def restore(state: dict, model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+            scheduler) -> int:
+    """Loads a `state_of` dict into the model, Adam and the scheduler (shapes
+    must match); returns its global step."""
+    model.load_state_dict(state["model"], strict=True)
+    optimizer.load_state_dict(state["optimizer"])
+    scheduler.load_state_dict(state["scheduler"])
+    return int(state["global_step"])
 
 
 def latest_checkpoint(exp_dir: str | Path) -> Optional[Path]:
@@ -58,7 +74,4 @@ def load_checkpoint(path: str | Path, model: torch.nn.Module, optimizer: torch.o
     optimizer put each tensor on its parameter's device (Adam keeps its
     step counts on the CPU)."""
     state = torch.load(str(path), map_location="cpu", weights_only=True)
-    model.load_state_dict(state["model"], strict=True)
-    optimizer.load_state_dict(state["optimizer"])
-    scheduler.load_state_dict(state["scheduler"])
-    return int(state["global_step"])
+    return restore(state, model, optimizer, scheduler)

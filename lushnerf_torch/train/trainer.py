@@ -32,10 +32,25 @@ the device (a batch is an index_select), randomness comes from a device
 i_tensorboard cadence (every step under debug_nan_check).  A consist
 iteration adds a numpy gather of V x consist_num_pixels table entries and
 two small uploads from pinned memory, without a sync.
+
+Under a process group (`lushnerf_torch.parallel.distributed`: torchrun, or
+the coordinator flags; one process per card) the trainer is data-parallel,
+line for line as lushnerf_tpu's `Trainer` across processes: each rank
+draws N_rand / world rays a step from its stripe of the ray dataset with a
+numpy stream seeded [seed, rank] and a torch stream of its own; the step
+all-reduces the grads (and the loss) once, before the clip, so that every
+rank takes the same Adam step; the consist batch is drawn from a stream
+every rank shares; eval renders and the rematch's ordered pairs are striped
+over the ranks and gathered, so the metrics and tables are the same on
+every rank; the primary's resumed state and tables go to every rank; only
+the primary writes checkpoints, logs, tables, images and TensorBoard
+events.  A single process without a process group keeps the one-card
+path, bit for bit.
 """
 
 from __future__ import annotations
 
+import io
 import json
 import math
 import time
@@ -54,6 +69,7 @@ from lushnerf_torch.matcher.api import (
     MatchTables,
     build_match_tables,
     load_gt_depths,
+    match_pairs,
 )
 from lushnerf_torch.models.lushnerf import (
     LushConfig,
@@ -64,6 +80,9 @@ from lushnerf_torch.models.lushnerf import (
     render_warped_view,
     resolve_device,
 )
+from lushnerf_torch.ops.fused import build, nerf_mlp
+from lushnerf_torch.parallel import distributed as dist
+from lushnerf_torch.parallel.mesh import check_mesh_shape
 from lushnerf_torch.train import checkpoint as ckpt_lib
 from lushnerf_torch.train.consistency import render_aligned_pixels
 from lushnerf_torch.train.losses import (
@@ -165,7 +184,10 @@ def train_step(
     term when a consist batch is given (`loss_fn`).  Returns the detached
     (loss, mse) on the device (no host sync).  A parameter that the stage
     does not reach gets a zero grad, so Adam updates it as optax does (its
-    moments decay)."""
+    moments decay).  Under a process group each rank passes its share of
+    the global batch: the grads, the loss and the mse are averaged over the
+    ranks in one all-reduce, before the clip (optax clips the global
+    gradient), so every rank takes the same step."""
     if stage not in STAGES:
         raise ValueError(f"stage {stage!r} not in {STAGES}")
     optimizer.zero_grad(set_to_none=True)
@@ -176,11 +198,15 @@ def train_step(
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
+    loss, mse = loss.detach(), mse.detach()
+    if dist.in_group():
+        loss, mse = loss.clone(), mse.clone()
+        dist.all_reduce_mean_([p.grad for p in params] + [loss, mse])
     if grad_clip_norm > 0.0:
         clip_by_global_norm_(params, grad_clip_norm)
     optimizer.step()
     scheduler.step()
-    return loss.detach(), mse.detach()
+    return loss, mse
 
 
 def to8(x: torch.Tensor) -> np.ndarray:
@@ -229,12 +255,20 @@ class Trainer:
         the LLFF scene at cfg.datadir is read.  matcher: optional injected
         matcher for the rematch (overrides cfg.matcher).  device: where the
         model, the ray dataset and every step run ('cuda' unless the caller
-        asks for the CPU)."""
+        asks for the CPU; under a process group, the rank's card).
+        cfg.mesh_shape must be empty or cover the world exactly."""
         self.cfg = cfg
         self._injected = data
         self._matcher = matcher
         self.device = resolve_device(device)
+        self.rank, self.world = dist.process_index(), dist.process_count()
+        check_mesh_shape(cfg.mesh_shape, self.world)
         self._setup_done = False
+
+    def _say(self, *args):
+        """print, on the primary only."""
+        if self.rank == 0:
+            print(*args)
 
     # ------------------------------------------------------------------
     # setup
@@ -333,21 +367,42 @@ class Trainer:
                 np.float32,
             )
 
-        self.dataset: RayDataset = build_ray_dataset(
+        # each rank keeps every world-th ray, sliced on the host before the
+        # rays reach the card, and draws N_rand / world of them a step; the
+        # global batch stays N_rand (lushnerf_tpu's trainer :180-193)
+        if cfg.N_rand % self.world:
+            raise ValueError(f"N_rand={cfg.N_rand} must divide by the world of {self.world} "
+                             "processes")
+        self.local_n_rand = cfg.N_rand // self.world
+        dataset = build_ray_dataset(
             images_train,
             self.poses[self.i_train],
             k_train,
             fq_train,
             np.arange(n)[self.i_train],
-            device=self.device,
+            device=self.device if self.world == 1 else "cpu",
         )
-        # the batches' permutations: the JAX trainer's numpy stream
-        self.np_rng = np.random.default_rng(cfg.seed)
-        # the consist batches' anchors and columns: a stream of their own
+        self.dataset: RayDataset = dist.shard_dataset(dataset, self.rank, self.world, self.device)
+        # the batches' permutations: the JAX trainer's numpy stream, one a
+        # rank ([seed, rank], as a JAX process's)
+        self.np_rng = np.random.default_rng([cfg.seed, self.rank] if self.world > 1 else cfg.seed)
+        # the consist batches' anchors and columns: a stream of their own,
+        # the same on every rank (the consist batch is every rank's)
         self.consist_rng = np.random.default_rng([cfg.seed, 7919])
         self.dataset.shuffle(self.np_rng)
-        # the steps' draws (stratified samples, density noise)
-        self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
+        # the steps' draws (stratified samples, density noise), one stream a
+        # rank; a world of 1 keeps cfg.seed
+        seed = cfg.seed if self.world == 1 else int(
+            np.random.SeedSequence([cfg.seed, self.rank]).generate_state(1)[0])
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        if self.world > 1 and self.device.type == "cuda" and \
+                self.lush_cfg.render.mlp_backend == "cuda":
+            # the primary runs nvcc on the kernels' sources while the other
+            # ranks wait, then each loads the libraries (a rank on a host
+            # without them builds its own)
+            if self.rank == 0:
+                build.build_all(nerf_mlp.SOURCES)
+            dist.barrier()
 
         self.model = LushNeRF(self.lush_cfg, seed=cfg.seed, device=self.device)
         self.optimizer, self.scheduler = make_optimizer(cfg, self.model)
@@ -368,24 +423,46 @@ class Trainer:
                 self.start_step = ckpt_lib.load_checkpoint(
                     ckpt_path, self.model, self.optimizer, self.scheduler
                 )
-            print(f"Resumed from {ckpt_path} at step {self.start_step}")
+            self._say(f"Resumed from {ckpt_path} at step {self.start_step}")
+        if self.world > 1:
+            self._sync_state()
         self.step = self.start_step  # the last iteration trained
         self._setup_cte(n)
 
-        self.exp_dir.mkdir(parents=True, exist_ok=True)
         self.metrics_file = self.exp_dir / "test_metrics.txt"
         self.log_file = self.exp_dir / "scalars.jsonl"
         # TensorBoard events at <tbdir>/<expname> (run_lushnerf.py:312);
-        # tbdir='' disables
+        # tbdir='' disables.  The primary writes every file.
         self.tb = None
-        if cfg.tbdir:
-            from lushnerf_torch.utils.tb_writer import SummaryWriter
+        if self.rank == 0:
+            self.exp_dir.mkdir(parents=True, exist_ok=True)
+            if cfg.tbdir:
+                from lushnerf_torch.utils.tb_writer import SummaryWriter
 
-            self.tb = SummaryWriter(Path(cfg.tbdir) / cfg.expname)
-        (self.exp_dir / "args.txt").write_text(
-            "\n".join(f"{k} = {getattr(cfg, k)}" for k in sorted(cfg.field_names()))
-        )
+                self.tb = SummaryWriter(Path(cfg.tbdir) / cfg.expname)
+            (self.exp_dir / "args.txt").write_text(
+                "\n".join(f"{k} = {getattr(cfg, k)}" for k in sorted(cfg.field_names()))
+            )
         self._setup_done = True
+
+    def _sync_state(self):
+        """Every rank takes the primary's step, model, Adam and scheduler
+        state (lushnerf_tpu's trainer :240-250): checkpoints are the
+        primary's, and another host may hold none.  The state goes as
+        torch.save bytes and is loaded with load_state_dict, whose writes
+        into the Parameters bump their versions, on which the kernels'
+        weight packs key; a rank that resumed nothing has no Adam state of
+        its own to write into."""
+        payload = None
+        if self.rank == 0:
+            buf = io.BytesIO()
+            torch.save(ckpt_lib.state_of(self.start_step, self.model, self.optimizer,
+                                         self.scheduler), buf)
+            payload = buf.getvalue()
+        payload = dist.broadcast_from_primary(payload)
+        if self.rank != 0:
+            state = torch.load(io.BytesIO(payload), map_location="cpu", weights_only=True)
+            self.start_step = ckpt_lib.restore(state, self.model, self.optimizer, self.scheduler)
 
     def _setup_cte(self, n: int):
         """The CTE state: match tables (match_table_path, else zeros of 1024
@@ -403,7 +480,14 @@ class Trainer:
                              if int(p.stem.split("_")[-1]) <= self.start_step]
                 if persisted:
                     self.match_tables = MatchTables.load(persisted[-1])
-                    print(f"Reloaded CTE match tables from {persisted[-1]}")
+                    self._say(f"Reloaded CTE match tables from {persisted[-1]}")
+        if self.world > 1:
+            # the primary's tables on every rank (lushnerf_tpu's trainer
+            # :274-290): only its basedir holds them; their shape travels in
+            # the pickle, ahead of the values
+            kpts, cert = dist.broadcast_from_primary((self.match_tables.kpts,
+                                                      self.match_tables.certainty))
+            self.match_tables = MatchTables(kpts, cert)
         self._consist_K = torch.from_numpy(self.K).to(self.device)
         self._consist_poses = torch.from_numpy(
             np.ascontiguousarray(self.poses[self.i_train])).to(self.device)
@@ -432,7 +516,7 @@ class Trainer:
             except FileNotFoundError as e:
                 # no weights: the CTE pass stays live but nothing rematches;
                 # precomputed tables still train, zero tables give zero loss
-                print(
+                self._say(
                     f"[CTE] DKM weights unavailable ({e}); "
                     + ("using precomputed match tables"
                        if cfg.match_table_path else
@@ -453,7 +537,7 @@ class Trainer:
         loss_v = psnr_v = float("nan")
         last_log_t, last_log_i = t0, self.step
         for i in range(self.step + 1, last + 1):
-            batch = self.dataset.next_batch(cfg.N_rand, self.np_rng)
+            batch = self.dataset.next_batch(self.local_n_rand, self.np_rng)
             stage = stage_for_iter(
                 i, cfg.kernel_start_iter, cfg.allkernel_start_iter, cfg.blur_model_type
             )
@@ -468,7 +552,7 @@ class Trainer:
             if active and i % cfg.rematch_interval == 0 and self._matcher is not None:
                 self.rematch(i)
 
-            if i % cfg.i_weights == 0:
+            if i % cfg.i_weights == 0 and self.rank == 0:
                 ckpt_lib.save_checkpoint(self.exp_dir, i, self.model, self.optimizer,
                                          self.scheduler)
 
@@ -478,9 +562,10 @@ class Trainer:
             if cfg.debug_nan_check:
                 self._guard_finite(i, loss)
 
-            if i % cfg.i_print == 0:
+            if i % cfg.i_print == 0:  # the loss is the global batch's on every rank
                 loss_v = float(loss)
                 psnr_v = float(mse2psnr(mse))
+            if i % cfg.i_print == 0 and self.rank == 0:
                 if not math.isfinite(loss_v):
                     self._report_nonfinite(i, batch, stage)
                 now = time.time()
@@ -558,13 +643,35 @@ class Trainer:
         """Match every ordered pair of freshly rendered train views
         (run_lushnerf.py:745-774, without its PNG round trip), at the eval
         resolution, the keypoints then brought to the full resolution;
-        saved as match_tables_{i:06d}.npz."""
+        saved as match_tables_{i:06d}.npz.  Renders and pairs are striped
+        over the ranks and gathered: the tables are the same on every rank,
+        each matching 1 / world of the pairs (lushnerf_tpu's trainer
+        :584-622)."""
         renders, _, _ = self._render_poses(self.poses[self.i_train])
-        self.match_tables = build_match_tables(self._matcher, renders.cpu().numpy())
+        self.match_tables = self._build_tables_striped(renders.cpu().numpy())
         if self.H_eval != self.H:
             s = np.array([self.W / self.W_eval, self.H / self.H_eval] * 2, np.float32)
             self.match_tables.kpts *= s
-        self.match_tables.save(self.exp_dir / f"match_tables_{i:06d}.npz")
+        if self.rank == 0:
+            self.match_tables.save(self.exp_dir / f"match_tables_{i:06d}.npz")
+
+    def _build_tables_striped(self, renders: np.ndarray) -> MatchTables:
+        """The V x V ordered pairs of renders [V, H, W, 3] matched, every
+        world-th pair on each rank and gathered in pair order; with fewer
+        pairs than ranks every rank matches them all."""
+        V = renders.shape[0]
+        pairs = [(k, v) for k in range(V) for v in range(V)]
+        if self.world == 1 or len(pairs) < self.world:
+            return build_match_tables(self._matcher, renders)
+        idxs = dist.stripe_indices(len(pairs), self.rank, self.world)
+        kpts, cert = match_pairs(self._matcher, renders, [pairs[j] for j in idxs])
+        pad = -(-len(pairs) // self.world) - len(idxs)  # one shape on every rank
+        kpts = np.concatenate([kpts, np.zeros((pad, *kpts.shape[1:]), kpts.dtype)])
+        cert = np.concatenate([cert, np.zeros((pad, *cert.shape[1:]), cert.dtype)])
+        kpts = dist.allgather_stack(kpts, len(pairs))
+        cert = dist.allgather_stack(cert, len(pairs))
+        P = kpts.shape[1]
+        return MatchTables(kpts.reshape(V, V, P, 4), cert.reshape(V, V, P))
 
     # ------------------------------------------------------------------
     # evaluation
@@ -577,17 +684,28 @@ class Trainer:
                             c2w, ray_chunk=self.cfg.ray_chunk_eval)
 
     def _render_poses(self, poses):
-        rgbs, noises, depths = zip(*(self.render_pose(p) for p in poses))
-        return torch.stack(rgbs), torch.stack(noises), torch.stack(depths)
+        """(rgb [N, h, w, 3], noise [N, h, w, 3], depth [N, h, w]) of the poses
+        at the eval resolution, the same on every rank: each rank renders
+        every world-th pose and the stripes are gathered in pose order."""
+        n = len(poses)
+        local = torch.zeros((-(-n // self.world), self.H_eval, self.W_eval, 7),
+                            device=self.device)
+        for j, vi in enumerate(dist.stripe_indices(n, self.rank, self.world)):
+            rgb, noise, depth = self.render_pose(poses[vi])
+            local[j] = torch.cat([rgb, noise, depth[..., None]], dim=-1)
+        out = dist.allgather_stack(local, n)
+        return out[..., :3], out[..., 3:6], out[..., 6]
 
     def eval_testset(self, i: int, save: bool = True):
         """Render all poses, save rgb/noise/blur triplets, compute metrics
         on the test split (run_lushnerf.py:696-743; SSIM computed here
-        rather than the reference's hardcoded 0; LPIPS not ported, so nan)."""
+        rather than the reference's hardcoded 0; LPIPS not ported, so nan).
+        The metrics are the same on every rank; the primary writes."""
         out_dir = self.exp_dir / f"testset_{i:06d}"
-        out_dir.mkdir(parents=True, exist_ok=True)
+        if self.rank == 0:
+            out_dir.mkdir(parents=True, exist_ok=True)
         rgbs, noises, _ = self._render_poses(self.poses)
-        if save:
+        if save and self.rank == 0:
             for vi, (rgb, noise, blur) in enumerate(zip(to8(rgbs), to8(noises), to8(rgbs + noises))):
                 write_png(out_dir / f"{vi:03d}.png", rgb)
                 write_png(out_dir / f"{vi:03d}_noise.png", noise)
@@ -599,12 +717,13 @@ class Trainer:
         test_psnr = compute_img_metric(test_rgbs, gt, "psnr")
         test_ssim = compute_img_metric(test_rgbs, gt, "ssim")
         test_lpips = float("nan")
-        print("[eval] LPIPS is not ported to lushnerf_torch; reported as nan")
         line = (f"iter{i}: MSE:{test_mse:.8f} PSNR:{test_psnr:.8f} "
                 f"SSIM:{test_ssim:.8f} LPIPS:{test_lpips:.8f}")
-        print("**[Evaluation]** " + line)
-        with open(self.metrics_file, "a") as f:
-            f.write(line + "\n")
+        if self.rank == 0:
+            print("[eval] LPIPS is not ported to lushnerf_torch; reported as nan")
+            print("**[Evaluation]** " + line)
+            with open(self.metrics_file, "a") as f:
+                f.write(line + "\n")
         if self.tb is not None:  # Test scalars (run_lushnerf.py:731-734)
             self.tb.add_scalar("Test/MSE", test_mse, i)
             self.tb.add_scalar("Test/PSNR", test_psnr, i)
@@ -623,8 +742,11 @@ class Trainer:
 
     def save_warped_ray_img(self):
         """Render each train view's RBK sub-ray bundle images
-        (run_lushnerf.py:426-478, via the working warped renderer)."""
+        (run_lushnerf.py:426-478, via the working warped renderer); on the
+        primary only."""
         out_dir = self.exp_dir / f"warped_ray_img_{self.start_step:06d}"
+        if self.rank != 0:
+            return out_dir
         out_dir.mkdir(parents=True, exist_ok=True)
         rays_save = []
         for vi in self.i_train:
@@ -644,12 +766,12 @@ class Trainer:
     def render_only(self, render_test: bool = False):
         """Render the spiral path (or all poses, with metrics on the test
         split) from the current weights as PNG frames (run_lushnerf.py:
-        482-533; the path's mp4 is not written)."""
+        482-533; the path's mp4 is not written).  The frames are striped
+        over the ranks; the primary writes."""
         poses = self.poses if render_test else self.render_poses
         out_dir = self.exp_dir / (
             f"renderonly_{'test' if render_test else 'path'}_{self.start_step:06d}"
         )
-        out_dir.mkdir(parents=True, exist_ok=True)
         rgbs, _, depths = self._render_poses(poses)
         # disparity images, reference convention (run_lushnerf.py:503-531):
         # disp = 1 - depth (NDC depth in [0,1]), normalized by the global
@@ -657,9 +779,11 @@ class Trainer:
         disps = 1.0 - depths
         disps = to8(disps / disps.max().clamp_min(1e-8))
         names = "{:03d}.png" if render_test else "path_{:03d}.png"
-        for vi, rgb in enumerate(to8(rgbs)):
-            write_png(out_dir / names.format(vi), rgb)
-            write_png(out_dir / names.format(vi).replace(".png", "_disp.png"), disps[vi])
+        if self.rank == 0:
+            out_dir.mkdir(parents=True, exist_ok=True)
+            for vi, rgb in enumerate(to8(rgbs)):
+                write_png(out_dir / names.format(vi), rgb)
+                write_png(out_dir / names.format(vi).replace(".png", "_disp.png"), disps[vi])
         if render_test:
             # renders are at the eval (render_factor) resolution; the GT too
             test_rgbs = rgbs[torch.as_tensor(self.i_test, device=rgbs.device)]
@@ -668,7 +792,9 @@ class Trainer:
                 "psnr": compute_img_metric(test_rgbs, gt, "psnr"),
                 "ssim": compute_img_metric(test_rgbs, gt, "ssim"),
             }
-            with open(self.metrics_file, "a") as f:
-                f.write(f"**[Evaluation]** : PSNR:{res['psnr']:.8f} SSIM:{res['ssim']:.8f}\n")
+            if self.rank == 0:
+                with open(self.metrics_file, "a") as f:
+                    f.write(f"**[Evaluation]** : PSNR:{res['psnr']:.8f} "
+                            f"SSIM:{res['ssim']:.8f}\n")
             return res
         return {"frames": len(rgbs)}

@@ -42,6 +42,7 @@ from lushnerf_torch.ops.encoding import posenc
 from lushnerf_torch.ops.fused import build
 from lushnerf_torch.ops.fused import nerf_mlp as fused
 from tests.test_torch_convert import params_like_init
+from tests.jax_kernel_mesh import no_jax_kernel_mesh  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 BF16_TOL = dict(rtol=1e-3, atol=2e-4)

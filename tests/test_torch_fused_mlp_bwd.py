@@ -45,6 +45,7 @@ from lushnerf_torch.ops.encoding import posenc
 from lushnerf_torch.ops.fused import build
 from lushnerf_torch.ops.fused import nerf_mlp as fused
 from tests.test_torch_convert import params_like_init
+from tests.jax_kernel_mesh import no_jax_kernel_mesh  # noqa: F401
 
 # max |error| / max |value| of each grad tensor
 MAX_REL = {"float32": 2e-5, "bfloat16": 3e-2}

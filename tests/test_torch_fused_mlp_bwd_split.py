@@ -57,6 +57,7 @@ from tests.test_torch_fused_mlp_bwd import _jax_grads, _mlp, _rel_err, _weights,
 from tests.test_torch_fused_mlp_f32split import large_activation_params
 from lushnerf_tpu.models.renderer import RenderConfig as JRenderConfig
 from lushnerf_tpu.ops.fused import nerf_mlp as jfused
+from tests.jax_kernel_mesh import no_jax_kernel_mesh  # noqa: F401
 
 LIMIT = 1e-4  # each tensor's max |error| over its max |value| (chip_smoke.py's BWD_TOL in f32)
 DT = fused.DGRAD_TILE  # points a tile of the dgrad, the scale units' granularity

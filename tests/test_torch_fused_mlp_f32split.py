@@ -51,6 +51,7 @@ from lushnerf_torch.ops.encoding import posenc
 from lushnerf_torch.ops.fused import nerf_mlp as fused
 from tests.test_torch_convert import params_like_init
 from tests.test_torch_fused_mlp import F32_TOL, _xd, sm90_pe_chunks, split_mats
+from tests.jax_kernel_mesh import no_jax_kernel_mesh  # noqa: F401
 
 STASH_TOL = 1e-5  # chip_smoke.py's f32 stash limit: max error over the block's max value
 LARGE_BIAS = 1e5  # past fp16's largest value (65504)

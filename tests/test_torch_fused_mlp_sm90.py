@@ -31,6 +31,7 @@ from lushnerf_torch.ops.encoding import posenc
 from lushnerf_torch.ops.fused import nerf_mlp as fused
 from tests.test_torch_convert import params_like_init
 from tests.test_torch_fused_mlp import BF16_TOL, _xd, sm90_mats, sm90_pe_chunks
+from tests.jax_kernel_mesh import no_jax_kernel_mesh  # noqa: F401
 
 # (input_ch, input_ch_views) -> (kx, kd): the flagship (64, 32), and (96, 32)
 # whose W0 and W5 read both PE chunks and whose pe_d starts mid-chunk

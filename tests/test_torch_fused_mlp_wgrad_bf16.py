@@ -46,6 +46,7 @@ from tests.test_torch_fused_mlp_bwd import (BF16_MEDIAN_MEAN_REL, _emulate_bwd_k
                                             _median_mean_rel, _mlp)
 from lushnerf_tpu.models.renderer import RenderConfig as JRenderConfig
 from lushnerf_tpu.ops.fused import nerf_mlp as jfused
+from tests.jax_kernel_mesh import no_jax_kernel_mesh  # noqa: F401
 
 BF16 = "bfloat16"
 KS = fused.WGRAD_STAGE[BF16]  # points a stage of the bf16 wgrad

@@ -29,6 +29,7 @@ from lushnerf_torch.convert import params_from_jax
 from lushnerf_torch.models import lushnerf as tl
 from lushnerf_torch.ops.fused import nerf_mlp as fused
 from tests.test_torch_convert import jax_params
+from tests.jax_kernel_mesh import no_jax_kernel_mesh  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 H, W, FOCAL = 16, 16, 12.0

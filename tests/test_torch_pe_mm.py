@@ -33,6 +33,7 @@ from lushnerf_torch.ops.fused import pe_mm
 from lushnerf_torch.scripts import tune_kernel
 from tests.test_torch_convert import params_like_init
 from tests.test_torch_fused_mlp import BF16_TOL
+from tests.jax_kernel_mesh import no_jax_kernel_mesh  # noqa: F401
 
 P, TILE = 96, 32
 

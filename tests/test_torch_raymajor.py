@@ -22,6 +22,7 @@ from jax.experimental.pallas import tpu as pltpu
 from lushnerf_torch.ops.fused import build
 from lushnerf_torch.ops.fused import raymajor
 from lushnerf_torch.scripts import probe_raymajor
+from tests.jax_kernel_mesh import no_jax_kernel_mesh  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 S = 64

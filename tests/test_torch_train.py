@@ -45,6 +45,7 @@ from lushnerf_torch.ops.fused import nerf_mlp as fused
 from lushnerf_torch.train import losses, schedule, trainer
 from tests.test_torch_convert import jax_params
 from tests.test_torch_lushnerf import FOCAL, H, NUM_IMG, W, _batch, _draws, _model
+from tests.jax_kernel_mesh import no_jax_kernel_mesh  # noqa: F401
 
 GRAD_REL = 1e-4
 PARAM_ATOL = 2e-6

@@ -87,7 +87,7 @@ the final result line):
      kernel (with fq_mask), allkernel and naive, one step each, with the
      launches and parameter packings per step counted; 20 kernel steps on a
      fixed batch and fixed draws, whose loss must fall; ms/step (a window
-     of 6), rays/s, launches per step (from the point chunks: a
+     of 3), rays/s, launches per step (from the point chunks: a
      backward's dgrad, wgrad and two reductions per chunk, remat's K1
      besides) and peak memory for cuda bf16 stash, cuda bf16 remat, cuda
      f32 remat (the shipped scene configs' step, at their point_chunk
@@ -102,19 +102,40 @@ the final result line):
      forward kernel, bf16 and f32 (packed before the steps), gives the bits
      of a freshly packed copy of the weights (no stale weight pack), bf16
      within the mean-gap control of its plain version, f32 within its limit;
+  7a. tonemap: the learned tone maps on the shipped step (configs/poster,
+     f32 remat at POINT_CHUNK, full width, 1024 rays): under 'learn' one
+     kernel step (K1 f32 2, K3 f32 75 launches), plain torch f32's grads
+     and the float64 step's (`trainer.float64_copy`) on the same draws;
+     each parameter whose torch f32 grad carries a direction (cosine
+     against float64 >= GRAD_COS_MIN; the scene MLPs and the tone map's 8
+     tensors among them) at GRAD_COS_MIN against torch f32, the RBK's by
+     RBK_F64_FACTOR against float64 (as the ddp phase); then one 100x100
+     render_image under 'split_linear' against its torch f32 render (rgb
+     1e-4, depth 1e-3, as phase 6's f32);
   7b. trainer: the trainer a user runs (lushnerf_torch.train.trainer.Trainer)
      with the shipped configs/poster (f32 remat at point_chunk POINT_CHUNK,
-     full width) on an in-process scene of 29 views at 400x400 made in
-     numpy from a seed (`synthetic_scene`, passed as `data=`): 60
-     iterations through naive (1024 rays), kernel and allkernel (5120
+     full width) on a scene of 29 views at 400x400 made in numpy from a
+     seed (`synthetic_scene`), written as an LLFF directory of PNGs
+     (`write_llff_scene`: images/ with every PNG row filter 0-4, the
+     preprocess cache images_preprocess/ with sub rows as OpenCV writes
+     it, poses_bounds.npy) and read back through `load_llff_data` (no
+     image package) twice, from the cache (read_png's row path) and from
+     images/ with preprocess off (its wavefront), the images bit for bit
+     the scene's uint8 values each time, the write and both loads' seconds
+     printed; the Trainer built on it from `Config.from_file` with that
+     datadir (which reads the cache): 60 iterations through naive (1024 rays), kernel and allkernel (5120
      sub-rays), each launching K1/K3 as step_launches reckons for its
      stage's points; the loss finite at every i_print (10) and its mean
      over iterations 51-60 below that of 1-10; eval at 60 (render_factor
      4: 100x100) writing its PNGs with a finite PSNR and SSIM, timed a
-     view; checkpoints at 30 and 60; a second Trainer resuming from
+     view; LPIPS (random weights from a numpy seed, written by torch.save
+     and read by `load_weights`) of 2 test views on the card against the
+     CPU within LPIPS_RTOL, and why the real metric is unavailable;
+     checkpoints at 30 and 60; a second Trainer resuming from
      000060.ckpt with the model and Adam state bit for bit and 5 more
-     steps; render_only's frames; then the loop's ms per iteration over
-     10 allkernel iterations (nothing at a cadence inside) against 10
+     steps; render_only's frames (the first 4 of the loader's spiral);
+     then the loop's ms per iteration over
+     6 allkernel iterations (nothing at a cadence inside) against 6
      bare train_step calls on batches of the same dataset, in turns, the
      ratio below LOOP_OVER_STEP_MAX; the loop's peak device memory with
      the dataset on the card;
@@ -130,7 +151,7 @@ the final result line):
      throughout, the keypoints at the full resolution); a second Trainer
      resumes from 000040.ckpt with those tables bit for bit (its matcher,
      dkm, has no weights: the fallback); the consist batch's host time;
-     ms per consist iteration against a plain allkernel one (6 each, in
+     ms per consist iteration against a plain allkernel one (4 each, in
      turns); peak memory; renders 3 train views for the dkm phase;
   7d. dkm: DKMMatcher at the published DKMv3 widths (70.3 M random
      weights from seed 0) at the production 640x1120: match_many over the
@@ -142,7 +163,12 @@ the final result line):
      CPU within DKM_CPU_TOL;
   7e. ddp: data-parallel training (lushnerf_torch.parallel) with the same
      config: a world of 1 (NCCL in this process, 10 iterations) bit for bit
-     against no process group; then DDP_WORLD rank processes of this script
+     against no process group; the fixed-batch step of the whole batch in
+     this process through the kernels, through plain torch f32 and in
+     float64 (`trainer.float64_copy`): each of the 83 parameters' cosine
+     and |g - g64| / |g64| for both f32 steps (the worst 5 of each and the
+     21 RBK rows printed), each RBK grad's kernel error within
+     RBK_F64_FACTOR of torch f32's; then DDP_WORLD rank processes of this script
      (started after the build; NCCL with a card each where the machine has
      DDP_WORLD cards, else gloo, all on card 0): one step of their halves of
      a fixed 1024-ray batch, bitwise across ranks and against this process
@@ -223,6 +249,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+T_IMPORTED = time.perf_counter()  # the script's seconds are counted from here
 H = W = 400
 FOCAL = 320.0
 N_RAYS = 1024
@@ -1365,7 +1392,7 @@ def train_phase(fused, lush, cfg_mod, trainer):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         zero_counts(fused)
-        n = 6
+        n = 3
         ms, (loss, _) = window_ms(step, n)
         counts = count()
         r = dict(point_chunk=chunk, ms_per_step=ms, rays_per_s=N_RAYS / ms * 1e3, steps=n,
@@ -1433,6 +1460,105 @@ def train_phase(fused, lush, cfg_mod, trainer):
     return res
 
 
+TONEMAP_RENDER = 4  # the split_linear render's factor: a 100 x 100 view, the eval's
+
+
+def tonemap_phase(fused, lush, cfg_mod, trainer):
+    """The learned tone maps on the shipped scene step (poster: f32 remat
+    at POINT_CHUNK, full width, N_RAYS rays): under 'learn', one kernel
+    step (launches counted), plain torch f32's grads and the float64
+    step's on the same draws; each parameter whose torch f32 grad carries a
+    direction (cosine against float64 >= GRAD_COS_MIN: the scene MLPs and
+    the tone map's 4 layers among them) held at GRAD_COS_MIN against torch
+    f32, the rest (the RBK's) by RBK_F64_FACTOR against float64.  Then one
+    render_image view under 'split_linear' against its torch f32 render."""
+    dev = torch.device("cuda")
+    res = {"launches_total": {k: 0 for k in COUNTERS}}
+    cfg = cfg_mod.Config.from_file(TRAINER_CONFIG, tone_mapping_type="learn")
+    cfg.num_images = NUM_IMAGES
+    lc = cfg.lush_config()
+    assert (lc.render.mlp_backend, lc.render.mlp_compute_dtype, lc.render.mlp_bwd,
+            lc.render.point_chunk, cfg.netwidth) == ("cuda", "float32", "remat", POINT_CHUNK, 256)
+    batch = train_batch()
+    rnd = lush._train_randomness(torch.Generator(device=dev).manual_seed(5), lc,
+                                 N_RAYS * lc.rbk.num_rays_out, dev)
+    model = lush.LushNeRF(lc, seed=0, device=dev)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    opt, sched = trainer.make_optimizer(cfg, model)
+    zero_counts(fused)
+    loss, _ = trainer.train_step(model, opt, sched, lc, H, W, FOCAL, batch, "kernel",
+                                 rand_override=rnd)
+    torch.cuda.synchronize()
+    res["launches_total"] = read_counts(fused)
+    res["loss"] = loss.item()
+    kernel = {n: p.grad.cpu() for n, p in model.named_parameters()}
+
+    model.load_state_dict(init)
+    model.zero_grad(set_to_none=True)
+    plain = dataclasses.replace(lc, render=dataclasses.replace(lc.render, mlp_backend="torch"))
+    trainer.loss_fn(model, plain, H, W, FOCAL, batch, "kernel", rand_override=rnd)[0].backward()
+    torch_f32 = {n: p.grad.cpu() for n, p in model.named_parameters() if p.grad is not None}
+    m64, lc64, b64 = trainer.float64_copy(model, lc, batch)
+    rnd64 = {k: None if v is None else v.double() for k, v in rnd.items()}
+    trainer.loss_fn(m64, lc64, H, W, FOCAL, b64, "kernel", rand_override=rnd64)[0].backward()
+    # the parameters the stage reaches (the kernel step's grad of the others
+    # is train_step's zero)
+    f64 = {n: p.grad.cpu() for n, p in m64.named_parameters() if p.grad is not None}
+    del m64, b64, opt, sched
+    assert set(f64) == set(torch_f32), set(f64) ^ set(torch_f32)
+    res["params_unreached"] = sorted(set(kernel) - set(f64))
+    assert all(not kernel[n].any() for n in res["params_unreached"]), res["params_unreached"]
+
+    res.update(f64_rows({"kernel": kernel, "torch_f32": torch_f32}, f64, "learn"))
+    carries = [n for n in f64 if cosine(torch_f32[n], f64[n]) >= GRAD_COS_MIN["float32"]]
+    cos = {n: cosine(kernel[n], torch_f32[n]) for n in carries}
+    res["grads_held"] = f"{len(carries)} of {len(f64)}"
+    res["grad_cos_min"] = min(cos.values())
+    res["grad_cos_worst"] = sorted(cos.items(), key=lambda kv: kv[1])[:5]
+    res["grad_cos_tonemap"] = {n: v for n, v in cos.items() if n.startswith("tonemapping.")}
+    tonemap_params = [n for n in f64 if n.startswith("tonemapping.")]
+    print(f"  tonemap 'learn': K1 / K3 launches {res['launches_total']}; grad cosines against "
+          f"torch f32 on the {res['grads_held']} parameters that carry a direction, worst 5: "
+          f"{json.dumps(res['grad_cos_worst'])}; the tone map's: "
+          f"{json.dumps(res['grad_cos_tonemap'])}", flush=True)
+    assert np.isfinite(res["loss"])
+    assert res["launches_total"] == step_launches(fused, "remat_f32", POINT_CHUNK), res
+    assert res["launches_total"]["nerf_mlp_bwd_remat"] == 75
+    assert len(tonemap_params) == 8 and set(tonemap_params) <= set(carries), tonemap_params
+    assert all(is_rbk(n) for n in f64 if n not in carries), res["grads_held"]
+    assert res["grad_cos_min"] >= GRAD_COS_MIN["float32"], res["grad_cos_worst"]
+    del model
+
+    # one view under split_linear, the kernel path against plain torch f32
+    lc = dataclasses.replace(lc, tone_mapping_type="split_linear")
+    model = lush.LushNeRF(lc, seed=1, device=dev)
+    hr, wr = H // TONEMAP_RENDER, W // TONEMAP_RENDER
+    K = np.array([[FOCAL, 0, W / 2], [0, FOCAL, H / 2], [0, 0, 1]], np.float32) / TONEMAP_RENDER
+    K[2, 2] = 1.0
+    c2w = np.eye(3, 4, dtype=np.float32)
+    zero_counts(fused)
+    got = lush.render_image(model, lc, hr, wr, K, c2w, TRAINER_RAY_CHUNK_EVAL)
+    torch.cuda.synchronize()
+    counts = read_counts(fused)
+    for k, v in counts.items():
+        res["launches_total"][k] += v
+    want = lush.render_image(model, dataclasses.replace(lc, render=dataclasses.replace(
+        lc.render, mlp_backend="torch")), hr, wr, K, c2w, TRAINER_RAY_CHUNK_EVAL)
+    for key, g, w in zip(("rgb", "noise", "depth"), got, want):
+        res[f"split_linear_{key}_err_vs_torch"] = max_err(g, w)
+    res["split_linear_render_launches"] = counts["nerf_mlp_fwd"]
+    print(f"  tonemap 'split_linear': render_image {hr}x{wr}, {counts['nerf_mlp_fwd']} K1 f32 "
+          f"launches, max abs err against torch f32: rgb "
+          f"{res['split_linear_rgb_err_vs_torch']:.3g}, noise "
+          f"{res['split_linear_noise_err_vs_torch']:.3g}, depth "
+          f"{res['split_linear_depth_err_vs_torch']:.3g}", flush=True)
+    assert all(bool(torch.isfinite(t).all()) for t in got)
+    assert counts["nerf_mlp_fwd"] == 2 * -(-hr * wr // TRAINER_RAY_CHUNK_EVAL)
+    assert res["split_linear_rgb_err_vs_torch"] < 1e-4, res
+    assert res["split_linear_depth_err_vs_torch"] < 1e-3, res
+    return res
+
+
 # the trainer phase: the shipped poster config (f32 remat at POINT_CHUNK,
 # full width) on an in-process scene of the flagship's 29 views at 400x400,
 # through the staged schedule in 60 iterations
@@ -1472,20 +1598,101 @@ def synthetic_scene(seed: int = 0) -> dict:
                 render_poses=poses[:TRAINER_RENDER_POSES], hwf=(h, w, FOCAL))
 
 
+LPIPS_VIEWS = 2
+LPIPS_RTOL = 1e-5  # the card against the CPU, TF32 off (utils/lpips.py)
+
+
+def lpips_weights(out: Path, seed: int = 0):
+    """(trunk path, heads path): random AlexNet `features.*` and v0.1 heads
+    `lin{i}.model.1.weight` drawn at init scales from a numpy seed and
+    written by torch.save, as the real files would be."""
+    from lushnerf_torch.utils import lpips
+
+    rng = np.random.default_rng(seed)
+    trunk, cin = {}, 3
+    for i, (oc, k, _, _) in zip(lpips._ALEX_CONV_IDS, lpips._ALEX_CONVS):
+        bound = 1.0 / np.sqrt(cin * k * k)
+        trunk[f"features.{i}.weight"] = torch.from_numpy(
+            rng.uniform(-bound, bound, (oc, cin, k, k)).astype(np.float32))
+        trunk[f"features.{i}.bias"] = torch.from_numpy(
+            rng.uniform(-bound, bound, oc).astype(np.float32))
+        cin = oc
+    heads = {f"lin{i}.model.1.weight": torch.from_numpy(
+        rng.uniform(0.0, 0.1, (1, c, 1, 1)).astype(np.float32))
+        for i, c in enumerate(lpips._STAGE_CHANNELS)}
+    torch.save(trunk, out / "alexnet.pth")
+    torch.save(heads, out / "alex_v01.pth")
+    return str(out / "alexnet.pth"), str(out / "alex_v01.pth")
+
+
+def lpips_card_vs_cpu(rgbs: torch.Tensor, gt: torch.Tensor, out: Path) -> dict:
+    """LPIPS of each render against its GT ([N, h, w, 3] in [0, 1]) on
+    random weights, on the card and on the CPU; and why the real metric is
+    unavailable (its pretrained weights are not in the repository)."""
+    from lushnerf_torch.utils import lpips
+
+    alex, lin = lpips_weights(out)
+    vals = {}
+    for dev in ("cuda", "cpu"):
+        params = lpips.load_weights(alex, lin, device=dev)
+        a, b = (torch.clamp(t.to(dev) * 2 - 1, -1, 1) for t in (rgbs, gt))
+        vals[dev] = [lpips.lpips_pair(params, x, y).item() for x, y in zip(a, b)]
+    res = {"lpips_card": vals["cuda"], "lpips_cpu": vals["cpu"],
+           "lpips_max_rel_err": max(abs(c - p) / abs(p) for c, p in zip(vals["cuda"], vals["cpu"])),
+           "lpips_unavailable_reason": lpips.unavailable_reason()}
+    print(f"  trainer: LPIPS on random weights, {len(rgbs)} views at {rgbs.shape[1]}x"
+          f"{rgbs.shape[2]}: card {res['lpips_card']} against the CPU's {res['lpips_cpu']} "
+          f"(max rel err {res['lpips_max_rel_err']:.3g}); the real metric: "
+          f"{res['lpips_unavailable_reason']}", flush=True)
+    assert all(np.isfinite(v) and v > 0 for v in vals["cuda"]), res
+    assert res["lpips_max_rel_err"] <= LPIPS_RTOL, res
+    return res
+
+
 def trainer_phase(fused, cfg_mod, trainer):
-    """The trainer a user runs, on the card: Trainer(cfg, data=scene) with
-    the shipped poster config through naive / kernel / allkernel, its eval,
+    """The trainer a user runs, on the card: Trainer(cfg) from
+    Config.from_file with the shipped poster config and the datadir of a
+    scene written as PNG files, through naive / kernel / allkernel, its eval,
     checkpoints, a second Trainer resuming from them, render_only; then
     the loop's ms per iteration against bare train_step calls."""
     from lushnerf_torch.data.rays import FIELDS
 
+    from lushnerf_torch.data.llff import load_llff_data, write_llff_scene
+
     res = {}
     scene = synthetic_scene()
     tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_trainer_")
+    # the scene as a user's LLFF directory of PNGs: images/ with every row
+    # filter 0-4 (as a writer that picks each row's filter may leave them),
+    # the preprocess cache images_preprocess/ with sub rows (as OpenCV's
+    # imwrite writes it); read back with no image package through both of
+    # read_png's paths, the cache (rows) as a run reads it and images/
+    # (wavefront) with preprocess off, each bit for bit the scene's uint8
+    # values; the Trainer then trains from the cache
+    datadir = Path(tmp.name) / "scene"
+    images_u8 = np.round(scene["images"] * 255).astype(np.uint8)
+    t0 = time.perf_counter()
+    write_llff_scene(datadir, images_u8, scene["poses"], scene["bds"], FOCAL,
+                     filters=np.arange(H) % 5, cache_filters=1)
+    res["scene_write_s"] = time.perf_counter() - t0
+    for key, preprocess in (("cache_sub_rows", True), ("images_filters_0_4", False)):
+        t0 = time.perf_counter()
+        loaded = load_llff_data(datadir, preprocess=preprocess)
+        res[f"scene_load_s_{key}"] = time.perf_counter() - t0
+        res[f"scene_bitwise_{key}"] = bool(np.array_equal(loaded.images,
+                                                          (images_u8 / 255.0).astype(np.float32)))
+        assert res[f"scene_bitwise_{key}"] and loaded.poses[0, :, 4].tolist() == [H, W, FOCAL], res
+    print(f"  trainer: scene of {len(images_u8)} PNG views at {H}x{W} written in "
+          f"{res['scene_write_s']:.3f} s; loaded in {res['scene_load_s_cache_sub_rows']:.3f} s "
+          f"from the cache (sub rows, read_png's row path) and in "
+          f"{res['scene_load_s_images_filters_0_4']:.3f} s from images/ (filters 0-4, its "
+          f"wavefront); both bitwise the scene's uint8 values", flush=True)
+    del loaded
 
     def make_cfg():
         return cfg_mod.Config.from_file(TRAINER_CONFIG, basedir=f"{tmp.name}/logs",
-                                        tbdir=f"{tmp.name}/tb", **TRAINER_OVERRIDES)
+                                        tbdir=f"{tmp.name}/tb", datadir=str(datadir),
+                                        **TRAINER_OVERRIDES)
 
     steps = []  # (stage, loss on the device, launches) of each iteration
     real_step = trainer.train_step
@@ -1525,7 +1732,7 @@ def trainer_phase(fused, cfg_mod, trainer):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        tr = trainer.Trainer(cfg, data=scene, device="cuda")
+        tr = trainer.Trainer(cfg, device="cuda")
         tr.setup()
         torch.cuda.synchronize()
         res["setup_s"] = time.perf_counter() - t0
@@ -1579,9 +1786,12 @@ def trainer_phase(fused, cfg_mod, trainer):
         res["eval_ms_per_view"] = eval_s[0] * 1e3 / n_views
         assert [p.name for p in sorted(tr.exp_dir.glob("*.ckpt"))] == ["000030.ckpt",
                                                                        "000060.ckpt"]
+        views = tr.i_test[:LPIPS_VIEWS]
+        res.update(lpips_card_vs_cpu(torch.stack([tr.render_pose(tr.poses[v])[0] for v in views]),
+                                     tr._gt_at_eval_res(views), Path(tmp.name)))
 
         # a second Trainer resumes from 000060.ckpt, bit for bit, and trains on
-        tr2 = trainer.Trainer(make_cfg(), data=scene, device="cuda")
+        tr2 = trainer.Trainer(make_cfg(), device="cuda")
         tr2.setup()
         assert tr2.start_step == 60, tr2.start_step
         sd2 = tr2.model.state_dict()
@@ -1601,7 +1811,9 @@ def trainer_phase(fused, cfg_mod, trainer):
         assert tr2.step == 65 and np.isfinite(out5["loss"]), out5
         res["resumed_loss_65"] = out5["loss"]
 
-        # render_only: the path's frames
+        # render_only: the path's frames (the loader's spiral has 120 poses:
+        # the first TRAINER_RENDER_POSES of them)
+        tr2.render_poses = tr2.render_poses[:TRAINER_RENDER_POSES]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         frames = tr2.render_only()
@@ -1611,11 +1823,11 @@ def trainer_phase(fused, cfg_mod, trainer):
         assert frames == {"frames": TRAINER_RENDER_POSES}
         assert len(list(outdir.glob("path_*.png"))) == 2 * TRAINER_RENDER_POSES
 
-        # the loop against bare train_step calls, 10 allkernel iterations
+        # the loop against bare train_step calls, 6 allkernel iterations
         # each, in turns, with nothing at a cadence inside the loop's window
         for key in ("i_print", "i_tensorboard", "i_weights", "i_testset"):
             setattr(tr2.cfg, key, 10**9)
-        n = 10
+        n = 6
         batches = [tr2.dataset.next_batch(tr2.cfg.N_rand, tr2.np_rng) for _ in range(n)]
 
         def loop():
@@ -1787,10 +1999,10 @@ def cte_phase(fused, cfg_mod, trainer):
         res["consist_batch_host_us"] = (time.perf_counter() - t0) * 1e6 / 200
         torch.cuda.synchronize()
 
-        # consist iterations against plain allkernel ones, in turns, 6 each
+        # consist iterations against plain allkernel ones, in turns, 4 each
         for key in ("i_print", "i_tensorboard", "i_weights", "i_testset"):
             setattr(tr2.cfg, key, 10**9)
-        n = 6
+        n = 4
 
         def window(consist: bool):
             tr2.cfg.noisenerf_start_iter = 0 if consist else 10**9
@@ -1945,19 +2157,34 @@ DDP_OVERRIDES = dict(N_iters=DDP_ITERS, kernel_start_iter=3, allkernel_start_ite
 DDP_WORLD1_OVERRIDES = dict(DDP_OVERRIDES, noisenerf_start_iter=10**9, i_weights=10**9,
                             i_testset=10**9)
 DDP_WORLD = 2
-DDP_WINDOW = 5  # allkernel iterations a timing window
+RBK_PREFIXES = ("mlp_rbk.", "dbk_view_embedding.")
+RBK_F64_FACTOR = 2.0  # see below; the largest ratio seen is 1.42
+DDP_WINDOW = 4  # allkernel iterations a timing window
 DDP_WAIT_S = 300  # the longest a rank or the phase waits for the other side
 # The fixed-batch step of the ranks, each on its half of one global batch,
 # against one process on the whole of it, from the same weights, is held by
 # its grads: the cosine of all of them together, and of each parameter whose
 # f32 grad carries a direction on this batch, at least the f32 step's
 # GRAD_COS_MIN.  "Carries a direction": the one process's kernel grad is
-# within that cosine of plain torch's f32 grad on the same batch.  Some RBK
-# grads of the poster config (~1e-10, cancelling sums) are f32 rounding:
-# cosine 0.2-0.5 against float64 through plain torch on the CPU, 0.93-0.97
-# between the kernel and plain torch here; the kernels' own grads (the
-# scene MLPs') are always held.  The params after the step are held to be
-# Adam's step of the all-reduced grads, bit for bit: against the one
+# within that cosine of plain torch's f32 grad on the same batch.  The RBK
+# grads of the poster config (1e-15-1e-6, cancelling sums over every
+# point) are f32 rounding, a known difference and not a fault: against the
+# same step in float64 through plain torch (`trainer.float64_copy`) on the
+# card, both f32 steps miss each of the 21 RBK grads by |g - g64| / |g64|
+# 0.34-9.5 (cosine -0.07-0.95), and the kernel step's error is 0.98-1.42
+# times torch f32's (an NVIDIA H100 80GB HBM3 at 700 W).  The two runs that
+# gave this gave the same bits, so they are one reading; the second is the
+# tonemap phase's step under 'learn' (other params, other draws), where the
+# ratio was 0.968-1.303.  So the phase holds each RBK grad's kernel error
+# within RBK_F64_FACTOR = 2 of torch f32's.  That hold is coarse: a fault in
+# d(xd), the path by which the RBK's grads leave the scene MLPs, shows here
+# only once it at least doubles an error that f32 rounding already makes
+# 0.34-9.5 times |g64|; a smaller one passes.  d(xd) itself is held at
+# K3's limits against its plain version in phase 4, at this step's shapes.
+# Between the kernel and plain torch the RBK grads agree to cosine
+# 0.93-0.97 only.  The kernels' own grads (the scene MLPs') are always held.  The params after
+# the step are held to be Adam's step of the all-reduced grads, bit for
+# bit: against the one
 # process's params they differ by up to lrate * |dg| / eps for a grad near
 # Adam's eps (an update is lrate * g / (|g| + eps)), and the shipped step's
 # scene-MLP grads lie near it.
@@ -2219,6 +2446,47 @@ def cosine(a: torch.Tensor, b: torch.Tensor) -> float:
     return (a @ b / (a.norm() * b.norm()).clamp_min(1e-300)).item()
 
 
+def is_rbk(name: str) -> bool:
+    return name.startswith(RBK_PREFIXES)
+
+
+def rel_l2(g: torch.Tensor, ref: torch.Tensor) -> float:
+    g, ref = g.double().flatten(), ref.double().flatten()
+    return ((g - ref).norm() / ref.norm().clamp_min(1e-300)).item()
+
+
+def f64_rows(sides: dict, f64: dict, tag: str) -> dict:
+    """Each f32 step's grads (`sides`: name -> grads) against the float64
+    step's: for every parameter the cosine, |g - g64| / |g64| and
+    max |g - g64|; printed,
+    the worst 5 of each side by that error and every RBK parameter's row;
+    held: each RBK grad's kernel error within RBK_F64_FACTOR of torch
+    f32's (the kernels change nothing on the RBK's path but the scene MLPs'
+    sums)."""
+    names = sorted(f64)
+    rows = {n: {side: [cosine(g[n], f64[n]), rel_l2(g[n], f64[n]),
+                       (g[n].double() - f64[n]).abs().max().item()]
+                for side, g in sides.items()} for n in names}
+    res = {"f64_rows": rows, "f64_params": len(names),
+           "f64_max_abs_g64": {n: f64[n].abs().max().item() for n in names if is_rbk(n)}}
+    for side in sides:
+        worst = sorted(names, key=lambda n: -rows[n][side][1])[:5]
+        print(f"  f64 step ({tag}): {side} f32 grads, worst 5 of {len(names)} by "
+              f"|g - g64| / |g64|: "
+              + json.dumps([[n, *rows[n][side]] for n in worst]), flush=True)
+    rbk = [n for n in names if is_rbk(n)]
+    ratio = {n: rows[n]["kernel"][1] / max(rows[n]["torch_f32"][1], 1e-300) for n in rbk}
+    res["f64_rbk_kernel_over_torch"] = ratio
+    res["f64_rbk_ratio_max"] = max(ratio.values())
+    print(f"  f64 step ({tag}): the {len(rbk)} RBK parameters [cosine, |g - g64| / |g64|, "
+          f"max |g - g64|] of the kernel step and of torch f32, and max |g64|:", flush=True)
+    for n in rbk:
+        print(f"    {n}: kernel {rows[n]['kernel']} torch_f32 {rows[n]['torch_f32']} ratio "
+              f"{ratio[n]:.4f} max|g64| {res['f64_max_abs_g64'][n]:.3e}", flush=True)
+    assert res["f64_rbk_ratio_max"] <= RBK_F64_FACTOR, ratio
+    return res
+
+
 def ddp_phase(fused, cfg_mod, trainer, ranks: DdpRanks):
     """Data-parallel training on the card (lushnerf_torch.parallel): a
     world of 1 (NCCL in this process) against no process group, bit for
@@ -2291,7 +2559,14 @@ def ddp_phase(fused, cfg_mod, trainer, ranks: DdpRanks):
     model.zero_grad(set_to_none=True)
     trainer.loss_fn(model, plain, H, W, FOCAL, train_batch(), "kernel")[0].backward()
     torch_grads = {n: p.grad.cpu() for n, p in model.named_parameters() if p.grad is not None}
+    # and the reference of both: the same step in float64 through plain torch
+    model.load_state_dict(init)
+    m64, lc64, b64 = trainer.float64_copy(model, lc, train_batch())
+    trainer.loss_fn(m64, lc64, H, W, FOCAL, b64, "kernel")[0].backward()
+    f64_grads = {n: p.grad.cpu() for n, p in m64.named_parameters() if p.grad is not None}
+    del m64, b64
     torch.cuda.synchronize()
+    res.update(f64_rows({"kernel": whole["grads"], "torch_f32": torch_grads}, f64_grads, "ddp"))
 
     (out / "go").touch()
     wait_for([out / f"rank{r}.json" for r in range(DDP_WORLD)], "the ranks' results",
@@ -2826,7 +3101,7 @@ def probe_phase(raymajor, probe):
 
 def kernel_entries(results):
     """The `kernels` line: each kernel with its main-path launches (the
-    forward_kernel, render_image, train_step, cte and ddp phases; the cte
+    forward_kernel, render_image, train_step, tonemap, cte and ddp phases; the cte
     and ddp phases' also apart, the ddp phase's by rank too), its largest
     error against its plain version, and its times at the flagship fine P
     in bf16."""
@@ -2838,12 +3113,13 @@ def kernel_entries(results):
         return []
     train = results.get("train_step") or {}
     cte = (results.get("cte") or {}).get("launches_total", {})
+    tonemap = (results.get("tonemap") or {}).get("launches_total", {})
     ddp = results.get("ddp") or {}
     ddp_ranks = ddp.get("launches", [])  # each rank's Trainer run
     ddp_counts = {k: ddp.get("world1_launches", {}).get(k, 0)
                   + ddp.get("step_launches_rank", {}).get(k, 0) * len(ddp_ranks)
                   + sum(r.get(k, 0) for r in ddp_ranks) for k in COUNTERS}
-    counts = {k: v + cte.get(k, 0) + ddp_counts[k]
+    counts = {k: v + cte.get(k, 0) + tonemap.get(k, 0) + ddp_counts[k]
               for k, v in train.get("launches_total", {}).items()}
     fwd_launches = counts.get("nerf_mlp_fwd", 0) + sum(
         results.get(p, {}).get("launches", 0) for p in ("forward_kernel", "render_image"))
@@ -2872,6 +3148,7 @@ def kernel_entries(results):
               max([r["max_abs_err"] for r in fwd_rows] + [r["fwd_out_max_abs_err"] for r in bwd_rows]),
               "fwd_stash",
               {**at_tune_p("k1"), "launches_cte": cte.get("nerf_mlp_fwd", 0),
+               "launches_tonemap": tonemap.get("nerf_mlp_fwd", 0),
                "launches_ddp": ddp_counts["nerf_mlp_fwd"],
                "launches_ddp_ranks": [r.get("nerf_mlp_fwd", 0) for r in ddp_ranks],
                "shapes_stash": shapes("fwd_stash"),
@@ -2887,6 +3164,7 @@ def kernel_entries(results):
               "lushnerf_tpu/ops/fused/nerf_mlp.py:589", counts.get("nerf_mlp_bwd_remat", 0),
               bwd_err, "remat", {"max_rel_err": bwd_rel, **at_tune_p("k3"), "shapes": shapes("remat"),
                                  "launches_cte": cte.get("nerf_mlp_bwd_remat", 0),
+                                 "launches_tonemap": tonemap.get("nerf_mlp_bwd_remat", 0),
                                  "launches_ddp": ddp_counts["nerf_mlp_bwd_remat"],
                                  "launches_ddp_ranks": [r.get("nerf_mlp_bwd_remat", 0)
                                                         for r in ddp_ranks],
@@ -3055,6 +3333,7 @@ def main(argv=None) -> int:
         "forward_kernel": lambda: forward_phase(fused, lush, cfg_mod),
         "render_image": lambda: render_phase(fused, lush, cfg_mod),
         "train_step": lambda: train_phase(fused, lush, cfg_mod, trainer),
+        "tonemap": lambda: tonemap_phase(fused, lush, cfg_mod, trainer),
         "trainer": lambda: trainer_phase(fused, cfg_mod, trainer),
         "cte": lambda: cte_phase(fused, cfg_mod, trainer),
         "dkm": lambda: dkm_phase((smoke.results.get("cte") or {}).pop("views", None)),
@@ -3076,7 +3355,8 @@ def main(argv=None) -> int:
             ranks.close()
     (smoke.results.get("cte") or {}).pop("views", None)  # arrays, not results
     print("phase seconds: " + json.dumps({k: round(v, 1) for k, v in smoke.seconds.items()})
-          + f", total {sum(smoke.seconds.values()):.1f}", flush=True)
+          + f", total {sum(smoke.seconds.values()):.1f}; the script "
+          f"{time.perf_counter() - T_IMPORTED:.1f} s after importing torch", flush=True)
     if only:
         if args.out:
             with open(args.out, "w") as f:

@@ -12,6 +12,10 @@ prefix).  Key map (reference module path -> JAX params tree):
   dbk_view_embedding.view_embed_layer.weight -> rbk["embed"]
   mlp_rbk.view_embed_linears.{i}             -> rbk["trunk"][i]
   mlp_rbk.{r,v,w}_branch.{i} / {r,v,w}_linear-> rbk["{r,v,w}_branch"][i] / "_out"
+  tonemapping.linear.{0,2,4,6} ('learn')     -> tonemap["layers"][0..3]
+  tonemapping.linear_{r,g,b}.{0,2,4}         -> tonemap["r" / "g" / "b"][0..2]
+    ('split_linear'; the JAX importer has no reference keys for it, and
+    these are the port's: an nn.Sequential per channel, as 'learn')
 The embedding and RBK are shared by further module paths
 (blur_kernel_net.*, mlp_rbk.view_embedding_layer.*), which appear in the
 state dict as aliases of the same tensors.
@@ -37,6 +41,8 @@ EMBED_KEYS = (
     "blur_kernel_net.RBK.view_embedding_layer.view_embed_layer.weight",
 )
 RBK_PREFIXES = ("mlp_rbk", "blur_kernel_net.RBK")
+LEARN_LINEARS = (0, 2, 4, 6)  # the Linears of the tone maps' nn.Sequential
+SPLIT_LINEARS = (0, 2, 4)
 
 
 def strip_module(sd: Dict[str, Any]) -> Dict[str, Any]:
@@ -75,10 +81,26 @@ def mlp_state_from_jax(p: Params) -> "OrderedDict[str, torch.Tensor]":
     return sd
 
 
+def _tonemap_out(sd, prefix: str, tonemap: Params) -> None:
+    if "layers" in tonemap:
+        for i, wb in zip(LEARN_LINEARS, tonemap["layers"]):
+            _linear_out(sd, f"{prefix}linear.{i}", wb)
+    elif tonemap:
+        for ch in "rgb":
+            for i, wb in zip(SPLIT_LINEARS, tonemap[ch]):
+                _linear_out(sd, f"{prefix}linear_{ch}.{i}", wb)
+
+
+def tonemap_state_from_jax(tonemap: Params) -> "OrderedDict[str, torch.Tensor]":
+    """A JAX tone-map params tree ('learn' or 'split_linear') -> `ToneMapping`
+    state dict."""
+    sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    _tonemap_out(sd, "", tonemap)
+    return sd
+
+
 def params_from_jax(params: Params) -> "OrderedDict[str, torch.Tensor]":
     """JAX params tree (numpy leaves) -> `LushNeRF` state dict (CPU tensors)."""
-    if params.get("tonemap"):
-        raise ValueError("learned tone mapping parameters are not ported yet")
     sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
     _mlp_out(sd, "mlp_coarse.", params["coarse"])
     _mlp_out(sd, "mlp_noise_coarse.", params["noise"])
@@ -96,6 +118,7 @@ def params_from_jax(params: Params) -> "OrderedDict[str, torch.Tensor]":
                 for i, wb in enumerate(rbk[f"{h}_branch"]):
                     _linear_out(sd, f"{base}.{h}_branch.{i}", wb)
                 _linear_out(sd, f"{base}.{h}_linear", rbk[f"{h}_out"])
+    _tonemap_out(sd, "tonemapping.", params.get("tonemap") or {})
     return sd
 
 
@@ -150,6 +173,12 @@ def params_to_jax(state_dict: Dict[str, torch.Tensor]) -> Params:
             rbk[f"{h}_branch"] = _seq_in(sd, f"mlp_rbk.{h}_branch")
             rbk[f"{h}_out"] = _linear_in(sd, f"mlp_rbk.{h}_linear")
         params["rbk"] = rbk
+    if "tonemapping.linear.0.weight" in sd:
+        params["tonemap"] = {"layers": [_linear_in(sd, f"tonemapping.linear.{i}")
+                                        for i in LEARN_LINEARS]}
+    elif "tonemapping.linear_r.0.weight" in sd:
+        params["tonemap"] = {ch: [_linear_in(sd, f"tonemapping.linear_{ch}.{i}")
+                                  for i in SPLIT_LINEARS] for ch in "rgb"}
     return params
 
 

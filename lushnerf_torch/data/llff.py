@@ -10,9 +10,12 @@ path (data_utils/load_llff.py):
   * spiral / epi render-path generation (:234-259)
   * holdout view selection (closest-to-average pose, :400-402)
 
-The pose math is numpy.  Reading images needs `imageio` (and `cv2` to
-minify or preprocess them); each is imported where it is used, so a scene
-given in memory needs neither.
+The pose math is numpy.  PNGs are read by the port's own reader
+(`utils/images.read_png`, zlib and numpy), so a scene whose images and
+`_preprocess` cache are PNGs loads without an image package; JPEGs need
+`imageio`, and minifying or preprocessing needs `cv2`, each imported where
+it is used.  `write_llff_scene` writes an in-memory scene as such a
+directory.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import numpy as np
 
 from lushnerf_torch.data import need
 from lushnerf_torch.data.preprocess import preprocessed_dir
+from lushnerf_torch.utils.images import png_bytes, read_png
 
 
 # ---------------------------------------------------------------------------
@@ -205,10 +209,40 @@ def _minify(basedir: Path, factor: int) -> Path:
 
 
 def _imread(path: str) -> np.ndarray:
-    imageio = need("imageio.v2")
-    if path.endswith("png"):
-        return imageio.imread(path, apply_gamma=False)
-    return imageio.imread(path)
+    if path.lower().endswith("png"):
+        return read_png(path)
+    return need("imageio.v2").imread(path)
+
+
+def write_llff_scene(basedir: str | Path, images: np.ndarray, c2w: np.ndarray, bds: np.ndarray,
+                     focal: float, filters=0, cache_filters=None) -> Path:
+    """An in-memory scene as an LLFF directory that `load_llff_data` reads
+    without an image package: images [N, H, W, 3] uint8 as
+    `images/NNN.png` with the PNG row filters `filters` (see
+    `utils.images.png_bytes`) and the same images in `images_preprocess/`
+    (the preprocess cache, so the images are taken as preprocessed) with
+    `cache_filters` (default `filters`), and `poses_bounds.npy` [N, 17]
+    from c2w [N, 3, 4] (columns right, up, back, position), bds [N, 2] and
+    the focal, in LLFF's column order [-up, right, back, position, hwf]
+    that the loader turns back."""
+    basedir = Path(basedir)
+    images = np.asarray(images)
+    if images.dtype != np.uint8 or images.ndim != 4:
+        raise ValueError(f"write_llff_scene: uint8 images [N, H, W, C] expected, "
+                         f"got {images.dtype} {images.shape}")
+    n, h, w = images.shape[:3]
+    c2w = np.asarray(c2w, np.float64)
+    hwf = np.broadcast_to(np.array([h, w, focal], np.float64)[:, None], (n, 3, 1))
+    poses = np.concatenate([-c2w[:, :, 1:2], c2w[:, :, 0:1], c2w[:, :, 2:4], hwf], axis=2)
+    basedir.mkdir(parents=True, exist_ok=True)
+    np.save(basedir / "poses_bounds.npy",
+            np.concatenate([poses.reshape(n, 15), np.asarray(bds, np.float64)], 1))
+    subs = {"images": filters, "images_preprocess": filters if cache_filters is None else cache_filters}
+    for sub, filt in subs.items():
+        (basedir / sub).mkdir(exist_ok=True)
+        for i, img in enumerate(images):
+            (basedir / sub / f"{i:03d}.png").write_bytes(png_bytes(img, filt))
+    return basedir
 
 
 class LLFFData(NamedTuple):

@@ -1,1 +1,1 @@
-"""Models: NeRF MLP, RBK blur kernel, renderer, tone mapping, LuSh-NeRF."""
+"""Models: NeRF MLP, RBK blur kernel, renderer, tone mapping, LuSh-NeRF, MAM."""

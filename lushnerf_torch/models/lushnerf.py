@@ -35,7 +35,7 @@ from lushnerf_torch.models.renderer import (
     render_rays_noise,
     render_rays_scene,
 )
-from lushnerf_torch.models.tonemap import apply_tonemap
+from lushnerf_torch.models.tonemap import LEARNED_TYPES, ToneMapping, apply_tonemap
 from lushnerf_torch.ops.rays import get_rays
 
 NOISE_SCALE = 0.1  # reference: rgb_noise = 0.1 * sigmoid(raw)
@@ -128,7 +128,7 @@ class BlurKernelNet(nn.Module):
 class LushNeRF(nn.Module):
     """All parameters of the LuSh-NeRF stack, under the reference's names:
     mlp_coarse, mlp_fine, mlp_noise_coarse, dbk_view_embedding, mlp_rbk,
-    blur_kernel_net.  Initialised on the CPU from `seed` (so one seed gives
+    blur_kernel_net and, for a learned tone map, tonemapping.  Initialised on the CPU from `seed` (so one seed gives
     the same weights on every device), then moved to `device`."""
 
     def __init__(self, cfg: LushConfig, seed: int = 0, device: str | torch.device = "cuda"):
@@ -151,6 +151,8 @@ class LushNeRF(nn.Module):
             self.dbk_view_embedding = ViewEmbedding(cfg.num_images, rbk_cfg.embed_ch, g, cpu)
             self.mlp_rbk = RBK(rbk_cfg, self.dbk_view_embedding, g, cpu)
             self.blur_kernel_net = BlurKernelNet(self.dbk_view_embedding, self.mlp_rbk)
+        self.tonemapping = (ToneMapping(cfg.tone_mapping_type, g, cpu)
+                            if cfg.tone_mapping_type in LEARNED_TYPES else None)
         self.to(dev)
 
     @property
@@ -228,7 +230,7 @@ def forward_naive(
     raw_noise = render_rays_noise(model.mlp_noise_coarse, cfg.noise_cfg, cfg.render, prepared)
 
     def tmap(v):
-        return apply_tonemap(cfg.tone_mapping_type, v, cfg.tonemap_eps)
+        return apply_tonemap(cfg.tone_mapping_type, v, cfg.tonemap_eps, model.tonemapping)
 
     return {
         "rgb_blur": tmap(out["rgb"]),
@@ -317,7 +319,7 @@ def forward_kernel(
     )
 
     def tmap(v):
-        return apply_tonemap(tm, v, cfg.tonemap_eps)
+        return apply_tonemap(tm, v, cfg.tonemap_eps, model.tonemapping)
 
     return {
         "rbk_drift": rbk_drift,
@@ -397,10 +399,10 @@ def render_image(
     rgb, raw_noise, depth = render_rays_chunked_eval(
         model, cfg, H, W, float(K[0, 0]), rays, ray_chunk
     )
-    tm = cfg.tone_mapping_type
-    rgb = apply_tonemap(tm, rgb, cfg.tonemap_eps).reshape(H, W, 3)
+    tm, eps = cfg.tone_mapping_type, cfg.tonemap_eps
+    rgb = apply_tonemap(tm, rgb, eps, model.tonemapping).reshape(H, W, 3)
     noise_img = apply_tonemap(
-        tm, NOISE_SCALE * torch.sigmoid(raw_noise), cfg.tonemap_eps
+        tm, NOISE_SCALE * torch.sigmoid(raw_noise), eps, model.tonemapping
     ).reshape(H, W, 3)
     return rgb, noise_img, depth.reshape(H, W)
 
@@ -435,5 +437,6 @@ def render_warped_view(
     centre = sub_rays.reshape(H, W, M1, 3, 2)[H // 2, W // 2]
     flat = sub_rays.transpose(0, 1).reshape(M1 * H * W, 3, 2)
     rgb, _, depth = render_rays_chunked_eval(model, cfg, H, W, float(K[0, 0]), flat, ray_chunk)
-    rgb = apply_tonemap(cfg.tone_mapping_type, rgb, cfg.tonemap_eps).reshape(M1, H, W, 3)
+    rgb = apply_tonemap(cfg.tone_mapping_type, rgb, cfg.tonemap_eps,
+                        model.tonemapping).reshape(M1, H, W, 3)
     return rgb, depth.reshape(M1, H, W), centre

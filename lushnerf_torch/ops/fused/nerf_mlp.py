@@ -1240,11 +1240,15 @@ def eval_points_fused(mlp, mlp_cfg, render_cfg, pts: torch.Tensor,
             "fused kernel supports the reference MLP family only "
             f"(depth={mlp_cfg.depth}, width={mlp_cfg.width}, skips={mlp_cfg.skips})"
         )
+    if pts.dtype != torch.float32 or viewdirs.dtype != torch.float32:
+        raise TypeError(f"fused kernel computes float32 only, got points in {pts.dtype} and "
+                        f"viewdirs in {viewdirs.dtype}; run other dtypes with "
+                        f"mlp_backend='torch'")
     R, S = pts.shape[0], pts.shape[1]
     P = R * S
     x = pts.reshape(P, 3)
     d = viewdirs[:, None, :].expand(R, S, 3).reshape(P, 3)
-    xd = torch.cat([x, d, x.new_zeros(P, XD_CH - 6)], dim=-1).float()
+    xd = torch.cat([x, d, x.new_zeros(P, XD_CH - 6)], dim=-1)
     args = (render_cfg.mlp_compute_dtype, render_cfg.multires, render_cfg.multires_views)
     if _needs_grad(mlp, xd):
         raw = NerfMLPFn.apply(mlp, xd, *args, render_cfg.mlp_bwd, render_cfg.point_chunk,

@@ -50,6 +50,8 @@ path, bit for bit.
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 import io
 import json
 import math
@@ -92,6 +94,7 @@ from lushnerf_torch.train.losses import (
     photometric_loss,
 )
 from lushnerf_torch.train.schedule import consist_active, consist_in_loss, stage_for_iter
+from lushnerf_torch.utils import lpips as lpips_lib
 from lushnerf_torch.utils.images import write_png
 from lushnerf_torch.utils.metrics import compute_img_metric
 
@@ -163,6 +166,21 @@ def loss_fn(
         closs = consistency_loss(rgb_align, consist["certainty"], consist["threshold"])
         loss = loss + consist["weight"] * closs
     return loss, mse
+
+
+def float64_copy(model: LushNeRF, lush_cfg: LushConfig, batch: Dict[str, torch.Tensor]
+                 ) -> Tuple[LushNeRF, LushConfig, Dict[str, torch.Tensor]]:
+    """A float64 reference of one step: a float64 copy of the model, the
+    config on the plain torch path (`mlp_backend="torch"`: the fused
+    kernels run f32 only and refuse f64) and the batch's floating tensors
+    in float64 (indices and masks as they are).  `loss_fn` on the three
+    gives the step's loss and grads in f64, against which an f32 step's
+    rounding is measured."""
+    model64 = copy.deepcopy(model).double()
+    model64.zero_grad(set_to_none=True)
+    render = dataclasses.replace(lush_cfg.render, mlp_backend="torch")
+    batch64 = {k: v.double() if v.is_floating_point() else v for k, v in batch.items()}
+    return model64, dataclasses.replace(lush_cfg, render=render), batch64
 
 
 def train_step(
@@ -699,8 +717,9 @@ class Trainer:
     def eval_testset(self, i: int, save: bool = True):
         """Render all poses, save rgb/noise/blur triplets, compute metrics
         on the test split (run_lushnerf.py:696-743; SSIM computed here
-        rather than the reference's hardcoded 0; LPIPS not ported, so nan).
-        The metrics are the same on every rank; the primary writes."""
+        rather than the reference's hardcoded 0; LPIPS nan, with the reason
+        printed, when its weights are not found).  The metrics are the same
+        on every rank; the primary writes."""
         out_dir = self.exp_dir / f"testset_{i:06d}"
         if self.rank == 0:
             out_dir.mkdir(parents=True, exist_ok=True)
@@ -716,11 +735,16 @@ class Trainer:
         test_mse = compute_img_metric(test_rgbs, gt, "mse")
         test_psnr = compute_img_metric(test_rgbs, gt, "psnr")
         test_ssim = compute_img_metric(test_rgbs, gt, "ssim")
-        test_lpips = float("nan")
+        lpips_note = lpips_lib.unavailable_reason()
+        if lpips_note is None and lpips_lib.available():
+            test_lpips = compute_img_metric(test_rgbs, gt, "lpips")
+        else:
+            test_lpips = float("nan")
+            if lpips_note:
+                self._say(f"[eval] {lpips_note}")
         line = (f"iter{i}: MSE:{test_mse:.8f} PSNR:{test_psnr:.8f} "
                 f"SSIM:{test_ssim:.8f} LPIPS:{test_lpips:.8f}")
         if self.rank == 0:
-            print("[eval] LPIPS is not ported to lushnerf_torch; reported as nan")
             print("**[Evaluation]** " + line)
             with open(self.metrics_file, "a") as f:
                 f.write(line + "\n")
@@ -728,6 +752,8 @@ class Trainer:
             self.tb.add_scalar("Test/MSE", test_mse, i)
             self.tb.add_scalar("Test/PSNR", test_psnr, i)
             self.tb.add_scalar("Test/SSIM", test_ssim, i)
+            if math.isfinite(test_lpips):
+                self.tb.add_scalar("Test/LPIPS", test_lpips, i)
             self.tb.flush()
         return dict(mse=test_mse, psnr=test_psnr, ssim=test_ssim, lpips=test_lpips)
 

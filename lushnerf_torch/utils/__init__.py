@@ -1,3 +1,3 @@
-"""Eval metrics (MSE, PSNR, SSIM), the TensorBoard scalar writer and a PNG
-writer, none of which needs a package beyond torch and the standard
-library."""
+"""Eval metrics (MSE, PSNR, SSIM, LPIPS), the extra losses, the TensorBoard
+scalar writer and a PNG reader and writer, none of which needs a package
+beyond torch, numpy and the standard library."""

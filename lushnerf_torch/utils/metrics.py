@@ -4,15 +4,18 @@ device.
 The metrics of lushnerf_tpu/utils/metrics.py: the reference evaluates via
 skimage on CPU after mapping images to [-1, 1] (utils/metrics.py:15-94):
 mse = mean squared error, psnr with data_range 2, ssim with skimage
-defaults (7x7 uniform window, K1=0.01, K2=0.03, multichannel).  LPIPS is
-not ported: the trainer reports it as nan, as the JAX trainer does when
-its LPIPS weights are unavailable.
+defaults (7x7 uniform window, K1=0.01, K2=0.03, multichannel), and LPIPS
+(`utils/lpips.py`: AlexNet with the v0.1 heads, which raises
+`LPIPSUnavailable`, a ValueError, without its weights; the trainer then
+reports it as nan, as the JAX trainer does).
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from lushnerf_torch.utils import lpips as lpips_lib
 
 
 def to_pm1(x):
@@ -63,7 +66,7 @@ def ssim(im1, im2, data_range: float = 2.0, win: int = 7, K1: float = 0.01, K2: 
     return torch.mean((A1 * A2) / (B1 * B2))
 
 
-METRICS = {"mse": mse, "psnr": psnr, "ssim": ssim}
+METRICS = {"mse": mse, "psnr": psnr, "ssim": ssim, "lpips": lpips_lib.lpips}
 
 
 def compute_img_metric(im1, im2, metric: str) -> float:
@@ -71,7 +74,7 @@ def compute_img_metric(im1, im2, metric: str) -> float:
     [N, H, W, C] (tensors, or arrays put on the CPU): the mean over the
     images, one host read."""
     if metric not in METRICS:
-        raise ValueError(f"metric {metric!r} not recognized (LPIPS is not ported)")
+        raise ValueError(f"metric {metric!r} not recognized (have {sorted(METRICS)})")
     im1 = torch.as_tensor(im1)
     im2 = torch.as_tensor(im2, device=im1.device)
     if im1.ndim == 3:

@@ -6,9 +6,13 @@
 Phases, in order (any failure makes the exit code non-zero and suppresses
 the final result line):
   1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
-  2. build: the five CUDA sources (nerf_mlp_fwd.cu, nerf_mlp_bwd.cu,
-     nerf_mlp_dgrad.cu, nerf_pe_mm.cu, raymajor_probe.cu) with nvcc for
-     sm_90a, side by side, printing registers and spills;
+  2. build: the CUDA sources with nvcc for sm_90a, printing registers and
+     spills: nerf_mlp_fwd.cu, nerf_mlp_bwd.cu and nerf_mlp_dgrad.cu at MLP
+     width 256, three processes side by side (this process takes the
+     first Adam's imports meanwhile); then, at the lowest CPU priority
+     beside phases 3 and 4, the same three at width 128, nerf_pe_mm.cu,
+     raymajor_probe.cu and the tune phase's three K4 variants
+     (`build_rest`, waited for after phase 4);
   3. kernel: the fused NeRF-MLP forward kernel against its plain PyTorch
      version at width 256 / depth 8, at the flagship point counts 5120x64
      and 5120x128 (forward_kernel), 4096x64 and 4096x128 (a render_image
@@ -76,10 +80,7 @@ the final result line):
      same random draws, and the time per call of both backends over a
      window of back-to-back calls with one synchronize at its end (as every
      host-clock metric here; the median, min and max of calls synchronised
-     one by one are printed beside it); then the flagship at width 128
-     under the 'cuda' backend: no launch (the renderer routes it to the
-     plain torch path by shape), the forward equal to the torch backend's,
-     and a direct kernel call raises;
+     one by one are printed beside it);
   6. render_image: one 400x400 view at ray_chunk 4096 (40 chunks, 80
      launches), bf16 and f32, compared with and timed against the same
      render through mlp_backend='torch';
@@ -94,7 +95,8 @@ the final result line):
      POINT_CHUNK, with the range of the cotangent reaching each scene MLP:
      max, median |g| and the share below fp16's smallest normal) and torch
      f32, each also at the other point_chunk (0 or POINT_CHUNK); the f32
-     remat step must peak below torch f32 at point_chunk 0; one step's grads through the
+     remat step must peak below torch f32 at point_chunk 0 (one warm-up
+     step before each window); one step's grads through the
      kernels in bf16 and in f32 against the torch f32 backend (cosine of
      each parameter's grad >=
      GRAD_COS_MIN), and the control that the bound rejects: the bf16 path
@@ -102,6 +104,31 @@ the final result line):
      forward kernel, bf16 and f32 (packed before the steps), gives the bits
      of a freshly packed copy of the weights (no stale weight pack), bf16
      within the mean-gap control of its plain version, f32 within its limit;
+  7w. width128: the f32 kernels' width-128 builds, on the fused family's
+     one width besides 256 at which the JAX package runs its kernels (the
+     views layer padded to 128 lanes): K1 f32 output only at
+     SHAPES_FWD_128 (the flagship's P, the render and eval chunks, ragged,
+     one point) as phase 3 holds it, and K1 with its stash, K2 and K3 f32
+     at SHAPES_BWD_128 as phase 4 holds them (stash within STASH_TOL,
+     grads within BWD_TOL, bitwise repeat, stash == remat, equivariance at
+     g 2^-20, both scale units bit for bit; the coarse and fine P also at
+     POINT_CHUNK; times against bounds of the width's 314,880 FLOP a point
+     a pass, the dgrad and wgrad apart and by stage); bf16 at width 128,
+     which the kernels do not cover: the flagship's forward under the
+     'cuda' backend with no launch, equal to the torch backend's (1e-6;
+     depth 1e-5), a direct kernel call raising, and the width-128 builds'
+     bf16 entry points (K1's, the dgrad's, the wgrad's) refusing a call;
+     then the shipped step (configs/poster's: f32 remat at POINT_CHUNK) at netwidth =
+     netwidth_fine = 128: K1 f32 2 and K3 f32 75 launches a step and no
+     call of a scene MLP's plain forward, ms a step, peak memory and the
+     traced device ms beside plain torch f32 at width 128 and width 256's
+     f32 step, every grad at cosine >= GRAD_COS_MIN against torch f32;
+     last a Trainer from configs/poster at width 128 (W128_ITERS
+     iterations from the kernel stage on `synthetic_scene` cut to
+     W128_VIEWS views): each
+     iteration's launches, a finite loss whose last 4 average below its
+     first 4, and one eval view through K1 f32 (2 launches a ray chunk,
+     finite PSNR);
   7a. tonemap: the learned tone maps on the shipped step (configs/poster,
      f32 remat at POINT_CHUNK, full width, 1024 rays): under 'learn' one
      kernel step (K1 f32 2, K3 f32 75 launches), plain torch f32's grads
@@ -135,7 +162,7 @@ the final result line):
      000060.ckpt with the model and Adam state bit for bit and 5 more
      steps; render_only's frames (the first 4 of the loader's spiral);
      then the loop's ms per iteration over
-     6 allkernel iterations (nothing at a cadence inside) against 6
+     4 allkernel iterations (nothing at a cadence inside) against 4
      bare train_step calls on batches of the same dataset, in turns, the
      ratio below LOOP_OVER_STEP_MAX; the loop's peak device memory with
      the dataset on the card;
@@ -184,10 +211,10 @@ the final result line):
      basedirs are empty; ms an iteration of a rank (2 windows of
      DDP_WINDOW) beside the world of 1's, the flat all-reduce's ms, each
      rank's peak memory;
-  8. profile: a torch.profiler trace of forward_kernel, render_image and one
-     train step each of cuda bf16 stash, cuda f32 remat (at point_chunk
-     POINT_CHUNK and at 0) and torch f32: device time by kernel and the
-     device's busy share;
+  8. profile: a torch.profiler trace (CUDA activity: the runtime calls and
+     the device's work) of forward_kernel, render_image and one train step
+     each of cuda bf16 stash, cuda f32 remat (at point_chunk POINT_CHUNK and
+     at 0) and torch f32: device time by kernel and the device's busy share;
   9. tune_kernel: the kernel-cost path, `lushnerf_torch.scripts.tune_kernel`
      at P = 983,040 (every time it prints is recorded, with the launches it
      made; its two-length differences of K1, K4 and K5 are the forward's
@@ -214,7 +241,7 @@ the final result line):
      back-to-back calls queued behind a device sleep, so that the host's
      launch cost is not in them; K6/K7, K8 and K10 against Tensor.clone of
      the same bytes and the launch floor (Tensor.clone of 16 bytes) over
-     21 windows each, taken in turns, with their spread and each kernel's
+     11 windows each, taken in turns, with their spread and each kernel's
      median less the clone's ("retime" lines); K6/K7 at CUMSUM_CASES (S not
      a multiple of 4, rays longer than a block's pass, c from 1 to 128 and
      c 3) and K10 at DISTS_CASES (every n % 4) against the plain versions
@@ -223,9 +250,9 @@ the final result line):
      searchsorted kernel also on unsorted rows with ties (exact, timed) and
      on a ragged S and SI; K8 bit for bit on lengths with a tail and on
      one element.
-Then a `{"kernels": [...]}` line (nine kernels, each with the path that
-launched it: main, tune_kernel or probe_raymajor; K1's and K3's launches
-in the cte and ddp phases also apart) and, last, the
+Then a `{"kernels": [...]}` line (eleven kernels, each with the path that
+launched it: main, main (width 128), tune_kernel or probe_raymajor; K1's
+and K3's launches in the cte and ddp phases also apart) and, last, the
 `{"ok": true, ...}` line.
 It needs the repository checkout: run alone it exits non-zero.
 """
@@ -267,7 +294,17 @@ CTE_RAYS = CTE_TRAIN_VIEWS * CONSIST_PIXELS
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (data sheet)
 PEAK_F32_FLOPS = 67e12  # H100 SXM f32, outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
-MLP_MACS = 593_408  # per point, unpadded scene MLP (PE excluded)
+MLP_MACS = 593_408  # per point, unpadded scene MLP (PE excluded), width 256
+
+
+def mlp_macs(width: int) -> int:
+    """Multiply-adds a point of the unpadded scene MLP at `width` (PE
+    excluded; 63 / 27 PE inputs, the views layer width / 2 wide):
+    MLP_MACS at 256, 157,440 at 128."""
+    w = width
+    return 63 * w + 7 * w * w + (63 + w) * w + w + (w + 27) * (w // 2) + 3 * (w // 2)
+
+
 KERNEL_TOL = {"float32": dict(rtol=1e-4, atol=1e-5), "bfloat16": dict(rtol=1e-3, atol=1e-3)}
 BF16_MEAN_ERR_SHARE = 0.1  # of the plain version's mean f32-vs-bf16 gap
 # backward kernels vs nerf_mlp_bwd_plain on the same stash: max |error| of
@@ -439,12 +476,13 @@ def read_counts(mod, counters=COUNTERS) -> dict:
 
 
 def bound_ms(P: int, w_bytes: int, bf16: bool, passes: int = 1, point_bytes: int = 48,
-             split_passes: int = 0) -> tuple:
-    """The least time for `passes` x 2 x MLP_MACS FLOP per point and
-    point_bytes per point + w_bytes of traffic (each input read once, each
-    output written once).  `split_passes` of the f32 passes are the f32
-    forward's split: three bf16 products each, at the bf16 tensor rate."""
-    flops = 2.0 * MLP_MACS * P
+             split_passes: int = 0, macs: int = MLP_MACS) -> tuple:
+    """The least time for `passes` x 2 x `macs` FLOP per point (the scene
+    MLP's at width 256 unless given) and point_bytes per point + w_bytes of
+    traffic (each input read once, each output written once).
+    `split_passes` of the f32 passes are the f32 forward's split: three
+    bf16 products each, at the bf16 tensor rate."""
+    flops = 2.0 * macs * P
     nbytes = P * point_bytes + w_bytes
     t_ops = (flops * (passes - split_passes) / (PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS)
              + 3 * flops * split_passes / PEAK_BF16_FLOPS) * 1e3
@@ -480,22 +518,33 @@ def sample_points(P: int, gen: torch.Generator) -> torch.Tensor:
     return xd
 
 
-def kernel_phase(fused, NeRFMLP, MLPConfig):
-    mlp = NeRFMLP(MLPConfig(), torch.Generator().manual_seed(0), torch.device("cpu"))
-    mlp = mlp.cuda().requires_grad_(False)
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    # naive / eval: the trainer phase's (render_fine is also its eval
-    # chunk's coarse P); consist: the cte phase's aligned render; ragged:
-    # 2049 tiles, odd_tiles: 2561 (the bf16 grid's 132 blocks take unequal
-    # tile counts); tiny: one point
-    shapes = {"coarse": 5120 * 64, "fine": 5120 * 128, "render_coarse": 4096 * 64,
+# naive / eval: the trainer phase's (render_fine is also its eval chunk's
+# coarse P); consist: the cte phase's aligned render; ragged: 2049 tiles,
+# odd_tiles: 2561 (the bf16 grid's 132 blocks take unequal tile counts);
+# tiny: one point
+SHAPES_FWD = {"coarse": 5120 * 64, "fine": 5120 * 128, "render_coarse": 4096 * 64,
               "render_fine": 4096 * 128, "naive_coarse": TRAINER_N_RAND * 64,
               "naive_fine": TRAINER_N_RAND * 128, "eval_fine": TRAINER_RAY_CHUNK_EVAL * 128,
               "consist_coarse": CTE_RAYS * 64, "consist_fine": CTE_RAYS * 128,
               "ragged": 4096 * 64 + 37, "odd_tiles": 2561 * 128 - 5, "tiny": 1}
-    timed = ("coarse", "fine", "render_coarse", "render_fine")
+TIMED_FWD = ("coarse", "fine", "render_coarse", "render_fine")
+
+
+def kernel_phase(fused, NeRFMLP, MLPConfig):
+    mlp = NeRFMLP(MLPConfig(), torch.Generator().manual_seed(0), torch.device("cpu"))
+    mlp = mlp.cuda().requires_grad_(False)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    return fwd_rows(fused, mlp, ("float32", "bfloat16"), SHAPES_FWD, gen)
+
+
+def fwd_rows(fused, mlp, dtypes, shapes, gen) -> list:
+    """K1 output only against its plain version on `mlp` (either width) in
+    each dtype at each of `shapes` (TIMED_FWD among them timed), as phase 3
+    holds it."""
+    timed = TIMED_FWD
+    macs = mlp_macs(mlp.cfg.width)
     rows = []
-    for dtype in ("float32", "bfloat16"):
+    for dtype in dtypes:
         w_bytes = sum(t.numel() * t.element_size() for t in fused.pack_params(mlp, dtype))
         for label, P in shapes.items():
             xd = sample_points(P, gen)
@@ -506,7 +555,8 @@ def kernel_phase(fused, NeRFMLP, MLPConfig):
             tol = KERNEL_TOL[dtype]
             bound = tol["atol"] + tol["rtol"] * want.abs()
             excess = (err - bound).max().item()
-            row = dict(dtype=dtype, shape=label, P=P, max_abs_err=err.max().item(),
+            row = dict(dtype=dtype, width=mlp.cfg.width, shape=label, P=P,
+                       max_abs_err=err.max().item(),
                        mean_abs_err=err.mean().item(), tol_share=(err / bound).max().item(),
                        finite=bool(torch.isfinite(got).all()), within_tol=excess <= 0,
                        repeat_bitwise=bool(torch.equal(got, fused.nerf_mlp_fwd(mlp, xd, dtype))))
@@ -521,10 +571,11 @@ def kernel_phase(fused, NeRFMLP, MLPConfig):
                 row["ms"] = time_ms(lambda: fused.nerf_mlp_fwd(mlp, xd, dtype), 10)
                 row["plain_ms"] = time_ms(lambda: fused.nerf_mlp_fwd_plain(mlp, xd, dtype), 3, 1)
                 row["bound_ms"], row["bound_by"] = bound_ms(P, w_bytes, dtype == "bfloat16",
-                                                            split_passes=int(dtype == "float32"))
+                                                            split_passes=int(dtype == "float32"),
+                                                            macs=macs)
                 if dtype == "float32":  # beside it, the same function on the f32 FMAs
-                    row["fma_bound_ms"] = bound_ms(P, w_bytes, False)[0]
-                row["tflops"] = 2.0 * MLP_MACS * P / row["ms"] / 1e9
+                    row["fma_bound_ms"] = bound_ms(P, w_bytes, False, macs=macs)[0]
+                row["tflops"] = 2.0 * macs * P / row["ms"] / 1e9
             if dtype == "bfloat16" and label == "fine":
                 row["torch_matmul_9_ms"] = torch_matmul_ms(P, gen)
             print("  " + json.dumps(row), flush=True)
@@ -561,8 +612,9 @@ def held_stash(acts_k, acts_p, acts_f, dtype) -> dict:
     STASH_TOL, and in bf16 the mean |error| at most BF16_MEAN_ERR_SHARE of
     the mean gap between the plain stash in f32 (acts_f) and in bf16, so
     that a store which skipped or truncated the bf16 rounding would fail."""
-    blocks = [(l * MLP_WIDTH, (l + 1) * MLP_WIDTH) for l in range(9)]
-    blocks.append((9 * MLP_WIDTH, acts_k.shape[1]))
+    w = (acts_k.shape[1] - 128) // 9  # the width of the stash's layout
+    blocks = [(l * w, (l + 1) * w) for l in range(9)]
+    blocks.append((9 * w, acts_k.shape[1]))
     rel, ratio = [], []
     for b0, b1 in blocks:
         k, p = acts_k[:, b0:b1].float(), acts_p[:, b0:b1].float()
@@ -656,9 +708,9 @@ def torch_matmul_ms(P: int, gen) -> float:
 
 
 # the wgrad's 12 weight blocks dW = dZ^T A: (dz column, rows O, A from the
-# PE scratch?, A column, columns I) with kx, kd the padded PE widths
-def wgrad_jobs(kx: int, kd: int) -> list:
-    W = MLP_WIDTH
+# PE scratch?, A column, columns I) with kx, kd the padded PE widths, at an
+# MLP width W (the views blocks' W / 2 rows, no padding)
+def wgrad_jobs(kx: int, kd: int, W: int = MLP_WIDTH) -> list:
     return ([(0, W, True, 0, kx)] + [(l * W, W, False, (l - 1) * W, W) for l in range(1, 5)]
             + [(5 * W, W, True, 0, kx), (5 * W, W, False, 4 * W, W)]
             + [(l * W, W, False, (l - 1) * W, W) for l in range(6, 9)]
@@ -671,7 +723,7 @@ def torch_wgrad_mm_ms(run) -> float:
     own dz, stash and PE scratch (f32 with TF32 off, or bf16), CUDA-event
     ms of the 12, median of 5."""
     def mm12():
-        for zc, o, from_pe, ac, i in wgrad_jobs(run.kx, run.kd):
+        for zc, o, from_pe, ac, i in wgrad_jobs(run.kx, run.kd, run.width):
             src = run.pe if from_pe else run.acts
             torch.mm(run.dz[:, zc:zc + o].T, src[:, ac:ac + i])
     return time_ms(mm12, 5)
@@ -724,33 +776,35 @@ def bwd_parts(fused, mlp, xd, g, dtype, acts, units, breakdown: bool) -> dict:
     run = fused.BwdLaunch(mlp, xd, g, dtype, 10, 4, acts, units)
     run.run()
     esz = 2 if bf16 else 4
-    stash_b, pe_b = fused.ACTS_LD * esz, (run.kx + run.kd) * esz
-    read_b = stash_b - fused.WIDTH * esz  # a0..a7 and hv: not feat
+    Wd = run.width
+    # the unpadded stash row (at width 128 the kernels' hv has 64 padding lanes)
+    stash_b, pe_b = (9 * Wd + Wd // 2) * esz, (run.kx + run.kd) * esz
+    read_b = stash_b - Wd * esz  # a0..a7 and hv: not feat
     r = {"dtype": dtype, "P": P, "dgrad_ms": time_ms(lambda: run.run(run.DGRAD), 5),
          "wgrad_ms": time_ms(lambda: run.run(run.WGRAD), 5),
          "wgrad_torch_mm_12_calls_ms": torch_wgrad_mm_ms(run), "wgrad_splits": run.n_splits}
-    flops = 2.0 * MLP_MACS * P
+    flops = 2.0 * mlp_macs(Wd) * P
     t_ops_d = flops * (1 if bf16 else 3) / PEAK_BF16_FLOPS * 1e3
     t_ops_w = t_ops_d
     dgrad_bytes = P * (read_b + 48 + stash_b + pe_b + 32)
-    wgrad_bytes = P * (stash_b + (stash_b - fused.WIDTH // 2 * esz) + pe_b) + run.dw.numel() * 4
+    wgrad_bytes = P * (stash_b + (stash_b - Wd // 2 * esz) + pe_b) + run.dw.numel() * 4
     r["wgrad_partials_bytes_ms"] = 2 * run.w_part.numel() * 4 / PEAK_BYTES * 1e3
     for part, t_ops, nbytes in (("dgrad", t_ops_d, dgrad_bytes), ("wgrad", t_ops_w, wgrad_bytes)):
         t_bytes = nbytes / PEAK_BYTES * 1e3
         r[f"{part}_bytes_bound_ms"], r[f"{part}_ops_bound_ms"] = t_bytes, t_ops
         r[f"{part}_bound_ms"] = max(t_ops, t_bytes)
         r[f"{part}_bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
-    print(f"  {dtype} dgrad / wgrad apart at P = {P}: "
+    print(f"  {dtype} dgrad / wgrad apart at P = {P}, width {Wd}: "
           + json.dumps({k: v for k, v in r.items() if k not in ("dtype", "P")}), flush=True)
     if breakdown:
         r["dgrad_stages"] = dgrad_breakdown(run.stages, run.stage_stamps(), r["dgrad_ms"],
                                             () if bf16 else fused.DGRAD_OFF_PATH_F32)
-        print(f"  dgrad stages at P = {P} ({dtype}, {r['dgrad_ms']:.3f} ms, "
+        print(f"  dgrad stages at P = {P} ({dtype}, width {Wd}, {r['dgrad_ms']:.3f} ms, "
               f"{r['dgrad_stages']['cycles_per_tile']:.0f} cycles a tile): "
               + json.dumps(r["dgrad_stages"]["group_share"]) + "; off the path: "
               + json.dumps(r["dgrad_stages"]["off_path_share_of_tile"]), flush=True)
         w = r["wgrad_stages"] = wgrad_clock_shares(run, r["wgrad_ms"])
-        print(f"  wgrad stages at P = {P} ({dtype}, {r['wgrad_ms']:.3f} ms, block 0: "
+        print(f"  wgrad stages at P = {P} ({dtype}, width {Wd}, {r['wgrad_ms']:.3f} ms, block 0: "
               f"consumers {w['cycles']['mm_all']} cycles, {w['loader']} {w['loader_cycles']}): "
               f"consumers " + json.dumps(w["consumer_share"]) + f"; {w['loader']} "
               + json.dumps(w[f"{w['loader']}_share"]), flush=True)
@@ -792,109 +846,9 @@ def kernel_bwd_phase(fused, NeRFMLP, MLPConfig):
     gen = torch.Generator(device="cuda").manual_seed(2)
     rows = []
     for dtype in ("float32", "bfloat16"):
-        bf16 = dtype == "bfloat16"
-        esz = 2 if bf16 else 4
-        w_bytes = sum(t.numel() * t.element_size() for t in fused.pack_params(mlp, dtype))
-        grad_bytes = 4 * sum(p.numel() for p in mlp.parameters())
-        stash_b = fused.ACTS_LD * esz
-        shapes = SHAPES_BWD if bf16 else {**SHAPES_BWD, "shipped": SHAPES_BWD["coarse"]}
-        for label, P in shapes.items():
-            xd = sample_points(P, gen)
-            g = (shipped_cotangent(P, gen) if label == "shipped"
-                 else torch.randn((P, 4), generator=gen, device="cuda"))
-            out_k, acts_k, units_k = fused._launch_fwd(mlp, xd, dtype, 10, 4, stash=True)
-            out_p, acts_p = fused.nerf_mlp_fwd_plain(mlp, xd, dtype, with_acts=True)
-            # the control for bf16: the plain version without the bf16 rounding
-            # (a mean over one point is no control: not at the tiny P)
-            control = bf16 and label != "tiny"
-            out_f, acts_f = (fused.nerf_mlp_fwd_plain(mlp, xd, "float32", with_acts=True)
-                             if control else (None, None))
-            row = dict(dtype=dtype, shape=label, P=P,
-                       **held_fwd(out_k, out_p, out_f, dtype),
-                       **held_stash(acts_k, acts_p, acts_f, dtype))
-            del out_f, acts_f
-            run = fused.BwdLaunch(mlp, xd, g, dtype, 10, 4, acts_k, units_k)
-            run.run()
-            k2 = flat_grads(run.result())
-            torch.cuda.synchronize()
-            if bf16:
-                row.update(wgrad_alone(fused, run))
-            del run
-            k2b = flat_grads(fused.nerf_mlp_bwd(mlp, xd, g, dtype, acts=acts_k, acts_units=units_k))
-            torch.cuda.synchronize()
-            k3 = flat_grads(fused.nerf_mlp_bwd(mlp, xd, g, dtype))
-            torch.cuda.synchronize()
-            row.update(repeat_bitwise=all(torch.equal(a, b) for a, b in zip(k2, k2b)),
-                       remat_bitwise=all(torch.equal(a, b) for a, b in zip(k2, k3)),
-                       finite=row["finite"] and all(bool(torch.isfinite(t).all())
-                                                    for t in k2 + k3))
-            del k2b, k3
-            if not bf16:
-                row["equivariant_bitwise"] = equivariant(fused, mlp, xd, g, dtype, acts_k, k2)
-                row["zs_bitwise"] = zs_bitwise(fused, mlp, xd, g, acts_k)
-                row["units_bitwise"] = torch.equal(units_k, fused.stash_scale_units(acts_k))
-            # the control for bf16: the plain backward in f32 (its own activations)
-            f32 = flat_grads(fused.nerf_mlp_bwd_plain(mlp, xd, g, "float32")) if control else None
-            # K2 against the plain backward on the kernel's stash, and once more
-            # on the plain forward's own stash
-            want = flat_grads(fused.nerf_mlp_bwd_plain(mlp, xd, g, dtype, acts=acts_k))
-            row.update(held_bwd(k2, want, f32, dtype, "bwd"))
-            if label in CHUNKED_BWD:
-                row["chunked"] = chunked_bwd(fused, mlp, xd, g, dtype, acts_k, units_k, k2,
-                                             want, f32)
-            del want
-            k2p = flat_grads(fused.nerf_mlp_bwd(mlp, xd, g, dtype, acts=acts_p))
-            torch.cuda.synchronize()
-            row.update(held_bwd(k2p, flat_grads(fused.nerf_mlp_bwd_plain(
-                mlp, xd, g, dtype, acts=acts_p)), f32, dtype, "bwd_on_plain_stash"))
-            del f32, k2p
-            row["within_tol"] = all(v for k, v in row.items() if k.endswith("_within_tol"))
-            if label in ("coarse", "fine"):
-                row["fwd_stash_ms"] = time_ms(
-                    lambda: fused._launch_fwd(mlp, xd, dtype, 10, 4, stash=True), 5)
-                row["fwd_stash_plain_ms"] = time_ms(
-                    lambda: fused.nerf_mlp_fwd_plain(mlp, xd, dtype, with_acts=True), 3, 1)
-                row["stash_ms"] = time_ms(
-                    lambda: fused.nerf_mlp_bwd(mlp, xd, g, dtype, acts=acts_k, acts_units=units_k),
-                    5)
-                row["stash_plain_ms"] = time_ms(
-                    lambda: fused.nerf_mlp_bwd_plain(mlp, xd, g, dtype, acts=acts_k), 3, 1)
-                row["remat_ms"] = time_ms(lambda: fused.nerf_mlp_bwd(mlp, xd, g, dtype), 5)
-                row["remat_plain_ms"] = time_ms(
-                    lambda: fused.nerf_mlp_bwd_plain(mlp, xd, g, dtype), 3, 1)
-                # the functions' own traffic: xd 32 B, g 16 B, d(xd) 32 B, raw out
-                # 16 B per point, the stash, the weights once and the grads once
-                # (f32: every pass is the split)
-                row["fwd_stash_bound_ms"], row["fwd_stash_bound_by"] = bound_ms(
-                    P, w_bytes, bf16, 1, 48 + stash_b, split_passes=int(not bf16))
-                row["stash_bound_ms"], row["stash_bound_by"] = bound_ms(
-                    P, w_bytes + grad_bytes, bf16, 2, 80 + stash_b, split_passes=2 * int(not bf16))
-                row["remat_bound_ms"], row["remat_bound_by"] = bound_ms(
-                    P, w_bytes + grad_bytes, bf16, 3, 80, split_passes=3 * int(not bf16))
-                # what this design moves besides: the dz scratch written and read
-                # again, the PE scratch, and in remat the activation scratch
-                pe_b = 96 * esz
-                row["design_scratch_bytes_per_point_stash"] = 2 * stash_b + 2 * pe_b
-                row["design_scratch_bytes_per_point_remat"] = 4 * stash_b + 2 * pe_b
-                row.update(bwd_parts(fused, mlp, xd, g, dtype, acts_k, units_k, label == "fine"))
-                if label == "fine":
-                    row["fwd_stages"] = {}
-                    for form, stash in (("output_only", False), ("stash", True)):
-                        ms = time_ms(lambda: fused._launch_fwd(mlp, xd, dtype, 10, 4, stash), 5)
-                        r = row["fwd_stages"][form] = fwd_breakdown(fused, mlp, xd, ms, stash, dtype)
-                        print(f"  fwd stages at P = {P} ({dtype}, {form}, {ms:.3f} ms, "
-                              f"{r['cycles_per_tile']:.0f} cycles a tile): "
-                              + json.dumps(r["stage_share"]) + "; off the path: "
-                              + json.dumps(r["off_path_share_of_tile"]), flush=True)
-            print("  " + json.dumps(row), flush=True)
-            rows.append(row)
-            del k2, acts_k, acts_p, units_k
-            torch.cuda.empty_cache()
-            if not (row["finite"] and row["within_tol"] and row["repeat_bitwise"]
-                    and row["remat_bitwise"] and row.get("equivariant_bitwise", True)
-                    and row.get("zs_bitwise", True) and row.get("units_bitwise", True)
-                    and row.get("chunked", {}).get("ok", True)):
-                raise AssertionError(f"backward kernels disagree with the plain version: {row}")
+        shapes = (SHAPES_BWD if dtype == "bfloat16"
+                  else {**SHAPES_BWD, "shipped": SHAPES_BWD["coarse"]})
+        rows += bwd_rows(fused, mlp, dtype, shapes, gen)
     row = large_activation_row(fused, mlp, sample_points(SHAPES_BWD["coarse"], gen), gen)
     rows.append(row)
     if not row["ok"]:
@@ -903,6 +857,126 @@ def kernel_bwd_phase(fused, NeRFMLP, MLPConfig):
     rows.append(row)
     if not row["ok"]:
         raise AssertionError(f"the f32 backward fails on a tiny cotangent: {row}")
+    return rows
+
+
+def bwd_rows(fused, mlp, dtype, shapes, gen, chunked=CHUNKED_BWD) -> list:
+    """Phase 4's rows for `mlp` (either width) in `dtype` at each of
+    `shapes`: K1 with its stash, K2 and K3 against the plain versions (the
+    `chunked` ones also at POINT_CHUNK), the coarse and fine P timed, the
+    fine one by stage; raises on the first row that fails."""
+    rows = []
+    bf16 = dtype == "bfloat16"
+    esz = 2 if bf16 else 4
+    Wd = mlp.cfg.width
+    macs = mlp_macs(Wd)
+    w_bytes = sum(t.numel() * t.element_size() for t in fused.pack_params(mlp, dtype))
+    grad_bytes = 4 * sum(p.numel() for p in mlp.parameters())
+    stash_b = (9 * Wd + Wd // 2) * esz  # the unpadded stash row
+    for label, P in shapes.items():
+        xd = sample_points(P, gen)
+        g = (shipped_cotangent(P, gen) if label == "shipped"
+             else torch.randn((P, 4), generator=gen, device="cuda"))
+        out_k, acts_k, units_k = fused._launch_fwd(mlp, xd, dtype, 10, 4, stash=True)
+        out_p, acts_p = fused.nerf_mlp_fwd_plain(mlp, xd, dtype, with_acts=True)
+        # the control for bf16: the plain version without the bf16 rounding
+        # (a mean over one point is no control: not at the tiny P)
+        control = bf16 and label != "tiny"
+        out_f, acts_f = (fused.nerf_mlp_fwd_plain(mlp, xd, "float32", with_acts=True)
+                         if control else (None, None))
+        row = dict(dtype=dtype, width=Wd, shape=label, P=P,
+                   **held_fwd(out_k, out_p, out_f, dtype),
+                   **held_stash(acts_k, acts_p, acts_f, dtype))
+        del out_f, acts_f
+        run = fused.BwdLaunch(mlp, xd, g, dtype, 10, 4, acts_k, units_k)
+        run.run()
+        k2 = flat_grads(run.result())
+        torch.cuda.synchronize()
+        if bf16:
+            row.update(wgrad_alone(fused, run))
+        del run
+        k2b = flat_grads(fused.nerf_mlp_bwd(mlp, xd, g, dtype, acts=acts_k, acts_units=units_k))
+        torch.cuda.synchronize()
+        k3 = flat_grads(fused.nerf_mlp_bwd(mlp, xd, g, dtype))
+        torch.cuda.synchronize()
+        row.update(repeat_bitwise=all(torch.equal(a, b) for a, b in zip(k2, k2b)),
+                   remat_bitwise=all(torch.equal(a, b) for a, b in zip(k2, k3)),
+                   finite=row["finite"] and all(bool(torch.isfinite(t).all())
+                                                for t in k2 + k3))
+        if not row["finite"]:  # which of d(xd) (0) and the 24 grads (1..24)
+            row["nonfinite_tensors"] = [i for i, t in enumerate(k2)
+                                        if not bool(torch.isfinite(t).all())]
+        del k2b, k3
+        if not bf16:
+            row["equivariant_bitwise"] = equivariant(fused, mlp, xd, g, dtype, acts_k, k2)
+            row["zs_bitwise"] = zs_bitwise(fused, mlp, xd, g, acts_k)
+            row["units_bitwise"] = torch.equal(units_k, fused.stash_scale_units(acts_k))
+        # the control for bf16: the plain backward in f32 (its own activations)
+        f32 = flat_grads(fused.nerf_mlp_bwd_plain(mlp, xd, g, "float32")) if control else None
+        # K2 against the plain backward on the kernel's stash, and once more
+        # on the plain forward's own stash
+        want = flat_grads(fused.nerf_mlp_bwd_plain(mlp, xd, g, dtype, acts=acts_k))
+        row.update(held_bwd(k2, want, f32, dtype, "bwd"))
+        if label in chunked:
+            row["chunked"] = chunked_bwd(fused, mlp, xd, g, dtype, acts_k, units_k, k2,
+                                         want, f32)
+        del want
+        k2p = flat_grads(fused.nerf_mlp_bwd(mlp, xd, g, dtype, acts=acts_p))
+        torch.cuda.synchronize()
+        row.update(held_bwd(k2p, flat_grads(fused.nerf_mlp_bwd_plain(
+            mlp, xd, g, dtype, acts=acts_p)), f32, dtype, "bwd_on_plain_stash"))
+        del f32, k2p
+        row["within_tol"] = all(v for k, v in row.items() if k.endswith("_within_tol"))
+        if label in ("coarse", "fine"):
+            row["fwd_stash_ms"] = time_ms(
+                lambda: fused._launch_fwd(mlp, xd, dtype, 10, 4, stash=True), 5)
+            # the plain versions (tens of ms, no launch cost to speak of):
+            # the median of 2 calls after 1
+            row["fwd_stash_plain_ms"] = time_ms(
+                lambda: fused.nerf_mlp_fwd_plain(mlp, xd, dtype, with_acts=True), 2, 1)
+            row["stash_ms"] = time_ms(
+                lambda: fused.nerf_mlp_bwd(mlp, xd, g, dtype, acts=acts_k, acts_units=units_k),
+                5)
+            row["stash_plain_ms"] = time_ms(
+                lambda: fused.nerf_mlp_bwd_plain(mlp, xd, g, dtype, acts=acts_k), 2, 1)
+            row["remat_ms"] = time_ms(lambda: fused.nerf_mlp_bwd(mlp, xd, g, dtype), 5)
+            row["remat_plain_ms"] = time_ms(
+                lambda: fused.nerf_mlp_bwd_plain(mlp, xd, g, dtype), 2, 1)
+            # the functions' own traffic: xd 32 B, g 16 B, d(xd) 32 B, raw out
+            # 16 B per point, the stash, the weights once and the grads once
+            # (f32: every pass is the split)
+            row["fwd_stash_bound_ms"], row["fwd_stash_bound_by"] = bound_ms(
+                P, w_bytes, bf16, 1, 48 + stash_b, split_passes=int(not bf16), macs=macs)
+            row["stash_bound_ms"], row["stash_bound_by"] = bound_ms(
+                P, w_bytes + grad_bytes, bf16, 2, 80 + stash_b, split_passes=2 * int(not bf16),
+                macs=macs)
+            row["remat_bound_ms"], row["remat_bound_by"] = bound_ms(
+                P, w_bytes + grad_bytes, bf16, 3, 80, split_passes=3 * int(not bf16),
+                macs=macs)
+            # what this design moves besides: the dz scratch written and read
+            # again, the PE scratch, and in remat the activation scratch
+            pe_b = 96 * esz
+            row["design_scratch_bytes_per_point_stash"] = 2 * stash_b + 2 * pe_b
+            row["design_scratch_bytes_per_point_remat"] = 4 * stash_b + 2 * pe_b
+            row.update(bwd_parts(fused, mlp, xd, g, dtype, acts_k, units_k, label == "fine"))
+            if label == "fine":
+                row["fwd_stages"] = {}
+                for form, stash in (("output_only", False), ("stash", True)):
+                    ms = time_ms(lambda: fused._launch_fwd(mlp, xd, dtype, 10, 4, stash), 5)
+                    r = row["fwd_stages"][form] = fwd_breakdown(fused, mlp, xd, ms, stash, dtype)
+                    print(f"  fwd stages at P = {P} ({dtype}, width {Wd}, {form}, {ms:.3f} ms, "
+                          f"{r['cycles_per_tile']:.0f} cycles a tile): "
+                          + json.dumps(r["stage_share"]) + "; off the path: "
+                          + json.dumps(r["off_path_share_of_tile"]), flush=True)
+        print("  " + json.dumps(row), flush=True)
+        rows.append(row)
+        del k2, acts_k, acts_p, units_k
+        torch.cuda.empty_cache()
+        if not (row["finite"] and row["within_tol"] and row["repeat_bitwise"]
+                and row["remat_bitwise"] and row.get("equivariant_bitwise", True)
+                and row.get("zs_bitwise", True) and row.get("units_bitwise", True)
+                and row.get("chunked", {}).get("ok", True)):
+            raise AssertionError(f"backward kernels disagree with the plain version: {row}")
     return rows
 
 
@@ -1109,7 +1183,6 @@ def forward_phase(fused, lush, cfg_mod):
         tcfg = flagship(cfg_mod, "torch", "float32")
         res["torch_f32_ms_per_call"] = window_ms(
             lambda: lush.forward_kernel(model, tcfg, H, W, FOCAL, rays, idx, gen), 5)[0]
-    res["width128"] = width128_forward(fused, lush, cfg_mod, rays, idx, rnd)
     res["calls"] = n_calls
     res["rays_per_s"] = N_RAYS / res["ms_per_call"] * 1e3
     res["finite"] = all(bool(torch.isfinite(v).all()) for v in out.values())
@@ -1121,41 +1194,6 @@ def forward_phase(fused, lush, cfg_mod):
         assert res[f"{key}_err_f32_vs_torch"] < 1e-4, key
         assert res[f"{key}_err_bf16_vs_torch"] < 1e-2, key
     assert res["depth_err_f32_vs_torch"] < 1e-3 and res["depth_err_bf16_vs_torch"] < 5e-2
-    return res
-
-
-def width128_forward(fused, lush, cfg_mod, rays, idx, rnd) -> dict:
-    """The flagship at width 128 (netwidth = netwidth_fine = 128), a member
-    of the fused family the compiled kernel does not cover: under the 'cuda'
-    backend the renderer routes both scene MLPs to the plain torch path by
-    shape (no launch), and the forward equals the torch backend's on the
-    same draws; a direct kernel call still raises."""
-    cfg = cfg_mod.flagship_cfg(num_images=NUM_IMAGES)
-    cfg.netwidth = cfg.netwidth_fine = 128
-    lc = cfg.lush_config()
-    model = lush.LushNeRF(lc, seed=0, device="cuda")
-    tlc = dataclasses.replace(lc, render=dataclasses.replace(lc.render, mlp_backend="torch",
-                                                             mlp_compute_dtype="float32"))
-    with torch.no_grad():
-        zero_counts(fused)
-        got = lush.forward_kernel(model, lc, H, W, FOCAL, rays, idx, None, rand_override=rnd)
-        torch.cuda.synchronize()
-        res = {"backend": lc.render.mlp_backend, "dtype": lc.render.mlp_compute_dtype,
-               "launches": read_counts(fused)}
-        want = lush.forward_kernel(model, tlc, H, W, FOCAL, rays, idx, None, rand_override=rnd)
-        res.update({f"{key}_err_vs_torch": max_err(got[key], want[key])
-                    for key in ("rgb_blur", "rgb0_blur", "depth", "acc")})
-        try:
-            fused.nerf_mlp_fwd(model.mlp_fine, torch.zeros((128, fused.XD_CH), device="cuda"),
-                               lc.render.mlp_compute_dtype)
-            res["direct_call_raises"] = False
-        except ValueError:
-            res["direct_call_raises"] = True
-    print("  width 128: " + json.dumps(res), flush=True)
-    assert all(v == 0 for v in res["launches"].values()), res
-    assert res["direct_call_raises"], res
-    assert all(res[f"{key}_err_vs_torch"] <= 1e-6 for key in ("rgb_blur", "rgb0_blur", "acc")) \
-        and res["depth_err_vs_torch"] <= 1e-5, res
     return res
 
 
@@ -1387,8 +1425,7 @@ def train_phase(fused, lush, cfg_mod, trainer):
         def step():
             return trainer.train_step(model, opt, sched, lc, H, W, FOCAL, batch, "kernel", gen)
 
-        step()
-        step()
+        step()  # the warm-up: the weight packs, the allocator's pools
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         zero_counts(fused)
@@ -1396,7 +1433,7 @@ def train_phase(fused, lush, cfg_mod, trainer):
         ms, (loss, _) = window_ms(step, n)
         counts = count()
         r = dict(point_chunk=chunk, ms_per_step=ms, rays_per_s=N_RAYS / ms * 1e3, steps=n,
-                 per_step_ms=per_call_ms(step, 3),
+                 per_step_ms=per_call_ms(step, 2),
                  peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                  launches_per_step={k: v / n for k, v in counts.items()}, loss=loss.item())
         if variant == "remat_f32" and own:  # one more step: what reaches the scene MLPs' backward
@@ -1430,16 +1467,11 @@ def train_phase(fused, lush, cfg_mod, trainer):
         with corrupted_stash(fused, variant.endswith("_corrupt")):
             loss, _ = trainer.loss_fn(model, lc, H, W, FOCAL, batch, "kernel", rand_override=rnd)
             loss.backward()  # a comparison: its launches are not counted
-        grads[variant] = {n: p.grad.detach().clone() for n, p in model.named_parameters()
-                          if p.grad is not None}
+        grads[variant] = grads_of(model)
         del model, opt, sched, loss
     for variant, dtype in (("stash", "bfloat16"), ("stash_f32", "float32"),
                            ("stash_corrupt", "bfloat16")):
-        assert set(grads[variant]) == set(grads["torch"])
-        cos = {}
-        for name, gt in grads["torch"].items():
-            gk = grads[variant][name]
-            cos[name] = (torch.sum(gk * gt) / (gk.norm() * gt.norm()).clamp_min(1e-30)).item()
+        cos = grad_cosines(grads[variant], grads["torch"])
         worst = sorted(cos.items(), key=lambda kv: kv[1])[:5]
         flat_k = torch.cat([grads[variant][n].flatten() for n in cos])
         flat_t = torch.cat([grads["torch"][n].flatten() for n in cos])
@@ -1458,6 +1490,272 @@ def train_phase(fused, lush, cfg_mod, trainer):
     del grads
     torch.cuda.empty_cache()
     return res
+
+
+# the width-128 phase: the shipped scene config (configs/poster: f32, remat,
+# POINT_CHUNK) at netwidth = netwidth_fine = 128, the one width besides 256
+# that the JAX package's kernels run
+W128 = 128
+SHAPES_FWD_128 = {k: SHAPES_FWD[k] for k in ("coarse", "fine", "render_coarse", "render_fine",
+                                             "eval_fine", "ragged", "tiny")}
+SHAPES_BWD_128 = {k: SHAPES_BWD[k] for k in ("coarse", "fine", "ragged", "tiny")}
+CHUNKED_BWD_128 = ("coarse", "fine")
+W128_ITERS = 12  # Trainer iterations, kernel from 1, allkernel from 9
+W128_VIEWS = 9  # the Trainer's scene: llffhold 8 holds out views 0 and 8
+W128_TRAINER_OVERRIDES = dict(N_iters=W128_ITERS, kernel_start_iter=1, allkernel_start_iter=9,
+                              noisenerf_start_iter=10**9, i_print=4, i_weights=10**9,
+                              i_testset=10**9, render_factor=4,
+                              netwidth=W128, netwidth_fine=W128)
+
+
+@contextlib.contextmanager
+def plain_scene_mlp_calls(NeRFMLP, model, out: list):
+    """While on, counts in out[0] the calls of the plain torch forward of
+    the model's two scene MLPs (the renderer's path for an MLP the fused
+    path does not take)."""
+    forward = NeRFMLP.forward
+    scene = {id(model.mlp_coarse), id(model.mlp_fine)}
+
+    def counted(self, *args, **kwargs):
+        out[0] += id(self) in scene
+        return forward(self, *args, **kwargs)
+
+    NeRFMLP.forward = counted
+    try:
+        yield
+    finally:
+        NeRFMLP.forward = forward
+
+
+def grads_of(model) -> dict:
+    return {n: p.grad.detach().clone() for n, p in model.named_parameters() if p.grad is not None}
+
+
+def grad_cosines(got: dict, want: dict) -> dict:
+    """Each parameter's grad cosine, `got` against `want` ({name: grad},
+    the same parameters)."""
+    assert set(got) == set(want), (sorted(set(want) ^ set(got)))
+    return {n: (torch.sum(g * want[n]) / (g.norm() * want[n].norm()).clamp_min(1e-30)).item()
+            for n, g in got.items()}
+
+
+def width128_bf16(fused, lush, cfg_mod) -> dict:
+    """The flagship (bf16 under the 'cuda' backend) at width 128, which the
+    kernels do not cover in bf16: the renderer routes both scene MLPs to
+    the plain torch path by shape (no launch), and the forward equals the
+    torch backend's on the same draws; a direct kernel call raises, and the
+    width-128 builds' bf16 entry points (K1's, the dgrad's, the wgrad's)
+    refuse a call with cudaErrorInvalidValue before they launch."""
+    cfg = cfg_mod.flagship_cfg(num_images=NUM_IMAGES)
+    cfg.netwidth = cfg.netwidth_fine = W128
+    cfg.mlp_backend, cfg.mlp_compute_dtype = "cuda", "bfloat16"
+    lc = cfg.lush_config()
+    model = lush.LushNeRF(lc, seed=0, device="cuda")
+    tlc = dataclasses.replace(lc, render=dataclasses.replace(lc.render, mlp_backend="torch",
+                                                             mlp_compute_dtype="float32"))
+    rays, idx = flagship_batch()
+    rnd = lush._train_randomness(torch.Generator(device="cuda").manual_seed(1), lc,
+                                 N_RAYS * lc.rbk.num_rays_out, rays.device)
+    with torch.no_grad():
+        zero_counts(fused)
+        got = lush.forward_kernel(model, lc, H, W, FOCAL, rays, idx, None, rand_override=rnd)
+        torch.cuda.synchronize()
+        res = {"backend": lc.render.mlp_backend, "dtype": lc.render.mlp_compute_dtype,
+               "launches": read_counts(fused)}
+        want = lush.forward_kernel(model, tlc, H, W, FOCAL, rays, idx, None, rand_override=rnd)
+        res.update({f"{key}_err_vs_torch": max_err(got[key], want[key])
+                    for key in ("rgb_blur", "rgb0_blur", "depth", "acc")})
+        try:
+            fused.nerf_mlp_fwd(model.mlp_fine, torch.zeros((128, fused.XD_CH), device="cuda"),
+                               "bfloat16")
+            res["direct_call_raises"] = False
+        except ValueError:
+            res["direct_call_raises"] = True
+    kx, kd = fused.pe_widths(model.mlp_fine.cfg)
+    stream = torch.cuda.current_stream().cuda_stream
+    null = [None]
+    res["bf16_entry_codes"] = {  # P 128, one block or split; no pointer is read
+        "nerf_mlp_fwd": fused._lib(W128).nerf_mlp_fwd(*null * 7, 128, kx, kd, 10, 4, 1, 1, stream),
+        "nerf_mlp_dgrad_bf16": fused._dgrad_lib(W128).nerf_mlp_dgrad_bf16(
+            *null * 10, 128, kx, kd, 10, 4, 1, stream),
+        "nerf_mlp_bwd_wgrad": fused._bwd_lib(W128).nerf_mlp_bwd_wgrad(
+            *null * 7, 128, kx, kd, 1, 1, 1, stream),
+    }
+    print("  width 128 in bf16: " + json.dumps(res), flush=True)
+    assert all(v == 0 for v in res["launches"].values()), res
+    assert res["direct_call_raises"], res
+    assert all(res[f"{key}_err_vs_torch"] <= 1e-6 for key in ("rgb_blur", "rgb0_blur", "acc")) \
+        and res["depth_err_vs_torch"] <= 1e-5, res
+    assert all(rc == 1 for rc in res["bf16_entry_codes"].values()), res  # cudaErrorInvalidValue
+    return res
+
+
+def width128_phase(fused, lush, cfg_mod, trainer, NeRFMLP, MLPConfig, results):
+    """The width-128 kernels (K1 f32, the f32 dgrad, the f32 wgrad; K3 f32)
+    against their plain versions as phases 3 and 4 hold width 256's; bf16
+    at width 128 on the plain torch path (`width128_bf16`); the shipped
+    step at width 128 (launches, no plain scene MLP, grads against torch
+    f32, ms, peak memory, traced device ms); a Trainer run from the kernel
+    stage and one eval view."""
+    res = {"launches_total": {k: 0 for k in COUNTERS}, "seconds": {}}
+    t_part = [time.perf_counter()]
+
+    def count(counts):
+        for k, v in counts.items():
+            res["launches_total"][k] += v
+        return counts
+
+    def part_done(name):
+        now = time.perf_counter()
+        res["seconds"][name] = now - t_part[0]
+        t_part[0] = now
+
+    # 1. the kernels at width 128, against their plain versions
+    mlp = NeRFMLP(MLPConfig(width=W128), torch.Generator().manual_seed(0), torch.device("cpu"))
+    mlp = mlp.cuda().requires_grad_(False)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    res["kernel"] = fwd_rows(fused, mlp, ("float32",), SHAPES_FWD_128, gen)
+    part_done("kernel")
+    res["kernel_bwd"] = bwd_rows(fused, mlp, "float32", SHAPES_BWD_128, gen, CHUNKED_BWD_128)
+    del mlp
+    torch.cuda.empty_cache()
+    part_done("kernel_bwd")
+    res["bf16"] = width128_bf16(fused, lush, cfg_mod)
+    part_done("bf16")
+
+    # 2. the shipped step at width 128: the kernels, and plain torch f32 as a
+    # user at width 128 ran it before (at the config's point_chunk)
+    def cfg128(variant):
+        cfg, _ = train_cfg(cfg_mod, variant, POINT_CHUNK)
+        cfg.netwidth = cfg.netwidth_fine = W128
+        return cfg, cfg.lush_config()
+
+    batch = train_batch()
+    step_res, models = {}, {}
+    for variant in ("remat_f32", "torch"):
+        cfg, lc = cfg128(variant)
+        model = lush.LushNeRF(lc, seed=0, device="cuda")
+        opt, sched = trainer.make_optimizer(cfg, model)
+        step_gen = torch.Generator(device="cuda").manual_seed(1)
+
+        def step():
+            return trainer.train_step(model, opt, sched, lc, H, W, FOCAL, batch, "kernel",
+                                      step_gen)
+
+        step()  # the warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(fused)
+        plain = [0]
+        n = 3
+        with plain_scene_mlp_calls(NeRFMLP, model, plain):
+            ms, (loss, _) = window_ms(step, n)
+        counts = count(read_counts(fused))
+        r = dict(point_chunk=lc.render.point_chunk, ms_per_step=ms, steps=n,
+                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                 launches_per_step={k: v / n for k, v in counts.items()},
+                 plain_scene_mlp_calls=plain[0], loss=loss.item())
+        if variant == "remat_f32":
+            r["traced"] = device_trace(step)
+        step_res[variant] = r
+        print(f"  width 128 step, {variant}: " + json.dumps(r), flush=True)
+        assert np.isfinite(r["loss"]), variant
+        if variant == "remat_f32":
+            assert r["launches_per_step"] == step_launches(fused, variant, POINT_CHUNK), r
+            assert r["launches_per_step"]["nerf_mlp_fwd"] == 2 \
+                and r["launches_per_step"]["nerf_mlp_bwd_remat"] == 75, r
+            assert r["plain_scene_mlp_calls"] == 0, r
+        else:
+            assert all(v == 0 for v in r["launches_per_step"].values()) \
+                and r["plain_scene_mlp_calls"] > 0, r
+        models[variant] = (model, lc)
+        del opt, sched
+    res["step"] = step_res
+    w256 = (results.get("train_step") or {}).get("remat_f32") or {}
+    res["step_width256"] = {k: w256.get(k) for k in ("ms_per_step", "peak_mem_gb")}
+    # one step's grads, the kernels against torch f32, on the same draws (a
+    # comparison: its launches are not counted)
+    rnd = lush._train_randomness(torch.Generator(device="cuda").manual_seed(3),
+                                 models["torch"][1], N_RAYS * models["torch"][1].rbk.num_rays_out,
+                                 torch.device("cuda"))
+    grads = {}
+    for variant, (_, lc) in models.items():
+        model = lush.LushNeRF(lc, seed=0, device="cuda")
+        loss, _ = trainer.loss_fn(model, lc, H, W, FOCAL, batch, "kernel", rand_override=rnd)
+        loss.backward()
+        grads[variant] = grads_of(model)
+        del model, loss
+    cos = grad_cosines(grads["remat_f32"], grads["torch"])
+    worst = sorted(cos.items(), key=lambda kv: kv[1])[:5]
+    res["grad_cos_min"], res["grad_cos_worst"], res["grad_params"] = worst[0][1], worst, len(cos)
+    print(f"  width 128 grad cosines vs torch f32, worst 5 of {len(cos)}: " + json.dumps(worst),
+          flush=True)
+    assert worst[0][1] >= GRAD_COS_MIN["float32"], worst
+    del models, grads
+    torch.cuda.empty_cache()
+    part_done("step")
+
+    # 3. the Trainer from the kernel stage, then one eval view through K1 f32
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_w128_")
+    try:
+        cfg = cfg_mod.Config.from_file(TRAINER_CONFIG, basedir=f"{tmp.name}/logs",
+                                       tbdir=f"{tmp.name}/tb", **W128_TRAINER_OVERRIDES)
+        lc = cfg.lush_config()
+        assert (lc.render.mlp_backend, lc.render.mlp_compute_dtype, lc.render.mlp_bwd,
+                lc.render.point_chunk, lc.mlp_cfg.width, lc.mlp_cfg_fine.width) == (
+            "cuda", "float32", "remat", POINT_CHUNK, W128, W128), lc
+        tr = trainer.Trainer(cfg, data=synthetic_scene(n=W128_VIEWS), device="cuda")
+        tr.setup()
+        steps = []
+        real_step = trainer.train_step
+
+        def counted_step(*args, **kwargs):
+            before = read_counts(fused)
+            loss, mse = real_step(*args, **kwargs)
+            steps.append((loss, {k: v - before[k] for k, v in read_counts(fused).items()}))
+            return loss, mse
+
+        zero_counts(fused)
+        trainer.train_step = counted_step
+        try:
+            t0 = time.perf_counter()
+            tr.train()
+            torch.cuda.synchronize()
+            res["trainer_s"] = time.perf_counter() - t0
+        finally:
+            trainer.train_step = real_step
+        count(read_counts(fused))
+        expect = step_launches(fused, "remat_f32", POINT_CHUNK,
+                               (cfg.N_rand * 5 * 64, cfg.N_rand * 5 * 128))
+        assert len(steps) == W128_ITERS and all(c == expect for _, c in steps), \
+            [c for _, c in steps][:3]
+        losses = [loss.item() for loss, _ in steps]
+        res["trainer_losses"] = losses
+        assert all(np.isfinite(losses)) and np.mean(losses[-4:]) < np.mean(losses[:4]), losses
+        view = int(tr.i_test[0])
+        zero_counts(fused)
+        with torch.no_grad():
+            rgb = tr.render_pose(tr.poses[view])[0]
+        torch.cuda.synchronize()
+        eval_counts = count(read_counts(fused))
+        from lushnerf_torch.utils.metrics import compute_img_metric
+        gt = tr._gt_at_eval_res([view])
+        res["eval_view"] = dict(view=view, hw=list(rgb.shape[:2]), launches=eval_counts,
+                                psnr=compute_img_metric(rgb[None], gt, "psnr"))
+        n_chunks = -(-tr.H_eval * tr.W_eval // cfg.ray_chunk_eval)
+        assert eval_counts == {"nerf_mlp_fwd": 2 * n_chunks, "nerf_mlp_bwd_stash": 0,
+                               "nerf_mlp_bwd_remat": 0}, eval_counts
+        assert np.isfinite(res["eval_view"]["psnr"]), res["eval_view"]
+    finally:
+        tmp.cleanup()
+    part_done("trainer")
+    print(f"  width 128 Trainer: {W128_ITERS} iterations in {res['trainer_s']:.2f} s, losses "
+          + json.dumps(losses) + "; eval view " + json.dumps(res["eval_view"]), flush=True)
+    print("  width 128 launches on its main path: " + json.dumps(res["launches_total"])
+          + "; seconds by part: " + json.dumps({k: round(v, 1) for k, v in res["seconds"].items()}),
+          flush=True)
+    return res
+
 
 
 TONEMAP_RENDER = 4  # the split_linear render's factor: a 100 x 100 view, the eval's
@@ -1573,11 +1871,11 @@ TRAINER_RENDER_POSES = 4
 LOOP_OVER_STEP_MAX = 1.25
 
 
-def synthetic_scene(seed: int = 0) -> dict:
+def synthetic_scene(seed: int = 0, n: int = NUM_IMAGES) -> dict:
     """A forward-facing scene made in numpy from a seed, as Trainer's `data=`:
-    NUM_IMAGES views at H x W of a smooth coloured pattern that shifts with
-    the camera, which stands on a grid of small offsets looking down -z."""
-    n, h, w = NUM_IMAGES, H, W
+    n views at H x W of a smooth coloured pattern that shifts with the
+    camera, which stands on a grid of small offsets looking down -z."""
+    h, w = H, W
     rng = np.random.default_rng(seed)
     yy, xx = np.mgrid[0:h, 0:w].astype(np.float32) / max(h, w)
     freq = rng.uniform(3.0, 9.0, (3, 2)).astype(np.float32)
@@ -1823,11 +2121,11 @@ def trainer_phase(fused, cfg_mod, trainer):
         assert frames == {"frames": TRAINER_RENDER_POSES}
         assert len(list(outdir.glob("path_*.png"))) == 2 * TRAINER_RENDER_POSES
 
-        # the loop against bare train_step calls, 6 allkernel iterations
+        # the loop against bare train_step calls, 4 allkernel iterations
         # each, in turns, with nothing at a cadence inside the loop's window
         for key in ("i_print", "i_tensorboard", "i_weights", "i_testset"):
             setattr(tr2.cfg, key, 10**9)
-        n = 6
+        n = 4
         batches = [tr2.dataset.next_batch(tr2.cfg.N_rand, tr2.np_rng) for _ in range(n)]
 
         def loop():
@@ -2280,9 +2578,9 @@ def wait_for(paths, what: str, alive=lambda: True) -> None:
 
 class DdpRanks:
     """The ddp phase's DDP_WORLD rank processes (this script with
-    --ddp_worker), started early: a fresh interpreter spends ~15 s on the
-    card's machine importing torch and what its optimizer pulls in, which
-    the phases before ddp then hide.  They wait, touching nothing on the
+    --ddp_worker), started before the build: a fresh interpreter spends
+    ~15 s on the card's machine importing torch and what its optimizer
+    pulls in, which the build's nvcc processes then hide.  They wait, touching nothing on the
     card, for the phase's spec.json in their directory.  close() ends them."""
 
     def __init__(self):
@@ -2355,13 +2653,6 @@ def ddp_worker(out: str, rank: int) -> int:
                    out / "step_rank0.pt")
     grads = [p.grad.clone() for p in model.parameters()]
     del model, opt
-    # what is timed from here on waits for the phase's own timed work
-    (out / f"ready{rank}").touch()
-    wait_for([out / "go"], "the phase's go", lambda: os.getppid() == parent)
-    clock["go"] = time.time()
-    res["allreduce_floats"] = sum(g.numel() for g in grads)
-    res["allreduce_ms"] = per_call_ms(lambda: dist.all_reduce_mean_(grads), 10)
-    del grads
 
     # 2. the Trainer: stages, the consist pass, a striped rematch and eval
     basedir = out / f"rank{rank}"
@@ -2431,6 +2722,14 @@ def ddp_worker(out: str, rank: int) -> int:
     res["resumed_params_digest"] = params_digest(tr2.model)
     res["resumed_tables_digest"] = tables_digest(tr2.match_tables)
     del tr
+    # what is timed from here on waits until the phase's own work is done
+    (out / f"untimed_done{rank}").touch()
+    wait_for([out / "go_timed"], "the phase's go for the timed part",
+             lambda: os.getppid() == parent)
+    clock["go_timed"] = time.time()
+    res["allreduce_floats"] = sum(g.numel() for g in grads)
+    res["allreduce_ms"] = per_call_ms(lambda: dist.all_reduce_mean_(grads), 10)
+    del grads
     res["ms_per_iter"] = [ddp_window_ms(tr2, trainer) for _ in range(2)]
     res["window_params_digest"] = params_digest(tr2.model)
     res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
@@ -2494,8 +2793,9 @@ def ddp_phase(fused, cfg_mod, trainer, ranks: DdpRanks):
     has DDP_WORLD cards; else gloo, all on card 0): the fixed-batch step
     against this process's step on the whole batch, the Trainer with its
     striped rematch and eval, a resume from rank 0's state.  The ranks run
-    their first step beside this process's untimed work and time theirs
-    after this process's."""
+    their step and Trainer beside this process's untimed work; then this
+    process times its world of 1, and after it the ranks time theirs (the
+    all-reduce, the windows), each while the other waits."""
     from lushnerf_torch.parallel import distributed as dist
 
     res = {}
@@ -2526,30 +2826,16 @@ def ddp_phase(fused, cfg_mod, trainer, ranks: DdpRanks):
         return tr
 
     t0 = time.perf_counter()
-    assert dist.initialize(f"127.0.0.1:{free_port()}", 1, 0, "0", device="cuda")
-    try:
-        assert torch.distributed.get_backend() == "nccl" and dist.process_count() == 1
-        zero_counts(fused)
-        grouped = world1_trainer("world1")
-        grouped.train()
-        torch.cuda.synchronize()
-        res["world1_launches"] = read_counts(fused)
-        grouped_digest = params_digest(grouped.model)
-        wait_for([out / f"ready{r}" for r in range(DDP_WORLD)], "the ranks' first step",
-                 ranks.alive)
-        res["ranks_ready_s"] = time.perf_counter() - t_ranks
-        res["world1_ms_per_iter"] = [ddp_window_ms(grouped, trainer) for _ in range(2)]
-    finally:
-        torch.distributed.destroy_process_group()
-    del grouped
+    ranks_ok = lambda: all(p.poll() in (None, 0) for p in ranks.procs)  # noqa: E731
+    # untimed, beside the ranks' step and Trainer: the world of 1 without a
+    # process group, then the whole global batch in this process from the
+    # weights the ranks load, beside it the control, plain torch's f32
+    # grads of that batch, and the reference of both, the same step in
+    # float64 through plain torch
     alone = world1_trainer("alone")
     alone.train()
-    res["world1_bitwise_no_group"] = params_digest(alone.model) == grouped_digest
+    alone_digest = params_digest(alone.model)
     del alone
-    res["world1_s"] = time.perf_counter() - t0
-
-    # the whole global batch in this process, from the weights the ranks
-    # load; beside it the control, plain torch's f32 grads of that batch
     trainer.train_step(model, opt, sched, lc, H, W, FOCAL, train_batch(), "kernel",
                        torch.Generator(device=dev).manual_seed(0))
     whole = {"params": {k: v.cpu() for k, v in model.state_dict().items()},
@@ -2559,7 +2845,6 @@ def ddp_phase(fused, cfg_mod, trainer, ranks: DdpRanks):
     model.zero_grad(set_to_none=True)
     trainer.loss_fn(model, plain, H, W, FOCAL, train_batch(), "kernel")[0].backward()
     torch_grads = {n: p.grad.cpu() for n, p in model.named_parameters() if p.grad is not None}
-    # and the reference of both: the same step in float64 through plain torch
     model.load_state_dict(init)
     m64, lc64, b64 = trainer.float64_copy(model, lc, train_batch())
     trainer.loss_fn(m64, lc64, H, W, FOCAL, b64, "kernel")[0].backward()
@@ -2568,9 +2853,29 @@ def ddp_phase(fused, cfg_mod, trainer, ranks: DdpRanks):
     torch.cuda.synchronize()
     res.update(f64_rows({"kernel": whole["grads"], "torch_f32": torch_grads}, f64_grads, "ddp"))
 
-    (out / "go").touch()
-    wait_for([out / f"rank{r}.json" for r in range(DDP_WORLD)], "the ranks' results",
-             lambda: all(p.poll() in (None, 0) for p in ranks.procs))
+    # the world of 1 in a process group: the all-reduce and the striped
+    # paths give the bits of no process group; its windows are timed once
+    # the ranks' untimed work is done
+    assert dist.initialize(f"127.0.0.1:{free_port()}", 1, 0, "0", device="cuda")
+    try:
+        assert torch.distributed.get_backend() == "nccl" and dist.process_count() == 1
+        zero_counts(fused)
+        grouped = world1_trainer("world1")
+        grouped.train()
+        torch.cuda.synchronize()
+        res["world1_launches"] = read_counts(fused)
+        res["world1_bitwise_no_group"] = params_digest(grouped.model) == alone_digest
+        wait_for([out / f"untimed_done{r}" for r in range(DDP_WORLD)], "the ranks' Trainer",
+                 ranks_ok)
+        res["ranks_ready_s"] = time.perf_counter() - t_ranks
+        res["world1_ms_per_iter"] = [ddp_window_ms(grouped, trainer) for _ in range(2)]
+    finally:
+        torch.distributed.destroy_process_group()
+    del grouped
+    res["world1_s"] = time.perf_counter() - t0
+
+    (out / "go_timed").touch()  # their all-reduce and windows: this process waits
+    wait_for([out / f"rank{r}.json" for r in range(DDP_WORLD)], "the ranks' results", ranks_ok)
     for r, p in enumerate(ranks.procs):
         assert p.wait(timeout=DDP_WAIT_S) == 0, f"rank {r} failed:\n{ranks.log(r)}"
     res["ranks_s"] = time.perf_counter() - t_ranks
@@ -2625,8 +2930,9 @@ def ddp_phase(fused, cfg_mod, trainer, ranks: DdpRanks):
           f"{res['peak_mem_gb']} GB a rank; the step against one process on the whole batch: "
           f"grad cosine {res['step_grad_cos_all']:.7f} over all, >= {res['step_grad_cos_min']:.7f} "
           f"on the {res['step_grads_held']} parameters held, params within "
-          f"{res['step_param_max_abs_err']:.3g}; ranks ready {res['ranks_ready_s']:.1f} s and "
-          f"done {res['ranks_s']:.1f} s after the spec", flush=True)
+          f"{res['step_param_max_abs_err']:.3g}; the ranks' untimed work done "
+          f"{res['ranks_ready_s']:.1f} s and the ranks done {res['ranks_s']:.1f} s after the "
+          f"spec", flush=True)
 
     assert res["world1_bitwise_no_group"], "a world of 1 changed the params' bits"
     assert all(v > 0 for k, v in res["world1_launches"].items() if k != "nerf_mlp_bwd_stash")
@@ -2655,6 +2961,56 @@ def ddp_phase(fused, cfg_mod, trainer, ranks: DdpRanks):
     return res
 
 
+def device_trace(fn, no_grad: bool = False):
+    """fn once more after a warm-up call, traced by torch.profiler (the CUDA
+    activity only: tracing the CPU ops slows a host-held step and takes
+    seconds to read, `scripts/trace_span.py`): its span (the first CUDA
+    runtime call to the last event's end), the device's busy ms (the union
+    of kernel intervals) and share of the span, and the device time by
+    kernel (the top 10); or a note where the profiler recorded no device
+    events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.set_grad_enabled(not no_grad):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    evs = prof.events()
+    # device work only: the optimizer's user annotations (Optimizer.step#...)
+    # also land on the device timeline and would count twice
+    dev = [e for e in evs if e.device_type == DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", False)
+           and not e.name.startswith("Optimizer.")]
+    if not dev:
+        return "not measured: the profiler recorded no device events"
+    span = max(e.time_range.end for e in evs) - min(e.time_range.start for e in evs)
+    busy, end = 0.0, -1.0
+    for e in sorted(dev, key=lambda e: e.time_range.start):
+        s, t = e.time_range.start, e.time_range.end
+        if t > end:
+            busy += t - max(s, end)
+            end = t
+    by_name = {}
+    for e in dev:
+        key = next((k for k in ("fwd_sm90_kernel", "nerf_mlp_dgrad_sm90",
+                                "nerf_mlp_bwd_dgrad_f32", "nerf_mlp_bwd_wgrad",
+                                "nerf_mlp_bwd_reduce") if k in e.name),
+                   e.name[:70])
+        ms, n = by_name.get(key, (0.0, 0))
+        by_name[key] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    return {
+        "span_ms": span / 1e3,
+        "device_busy_ms": busy / 1e3,
+        "device_busy_share": busy / span,
+        "kernel_ms_total": sum(ms for ms, _ in by_name.values()),
+        "top_kernels": [{"name": k, "ms": ms, "count": n} for k, (ms, n) in top],
+    }
+
+
 def profile_phase(lush, cfg_mod, trainer, untraced_ms):
     """Device time by kernel and the device's busy share (the union of
     kernel intervals over the span of the traced region, and over the
@@ -2662,9 +3018,6 @@ def profile_phase(lush, cfg_mod, trainer, untraced_ms):
     one render_image, one flagship train step (stash), and one step of the
     shipped scene configs (f32 remat, at their point_chunk and at 0) and of
     plain torch f32."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     lc = flagship(cfg_mod)
     model = lush.LushNeRF(lc, seed=0, device="cuda")
     rays, idx = flagship_batch()
@@ -2691,47 +3044,11 @@ def profile_phase(lush, cfg_mod, trainer, untraced_ms):
     }
     res = {}
     for name, (no_grad, fn) in runs.items():
-        with torch.set_grad_enabled(not no_grad):
-            fn()
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                fn()
-                torch.cuda.synchronize()
-        evs = prof.events()
-        # device work only: the optimizer's user annotations (Optimizer.step#...)
-        # also land on the device timeline and would count twice
-        dev = [e for e in evs if e.device_type == DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)
-               and not e.name.startswith("Optimizer.")]
-        if not dev:
-            res[name] = "not measured: the profiler recorded no device events"
-            continue
-        span = max(e.time_range.end for e in evs) - min(e.time_range.start for e in evs)
-        busy, end = 0.0, -1.0
-        for e in sorted(dev, key=lambda e: e.time_range.start):
-            s, t = e.time_range.start, e.time_range.end
-            if t > end:
-                busy += t - max(s, end)
-                end = t
-        by_name = {}
-        for e in dev:
-            key = next((k for k in ("fwd_sm90_kernel", "nerf_mlp_dgrad_sm90",
-                                    "nerf_mlp_bwd_dgrad_f32", "nerf_mlp_bwd_wgrad",
-                                    "nerf_mlp_bwd_reduce") if k in e.name),
-                       e.name[:70])
-            ms, n = by_name.get(key, (0.0, 0))
-            by_name[key] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
-        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
-        res[name] = {
-            "span_ms": span / 1e3,
-            "device_busy_ms": busy / 1e3,
-            "device_busy_share": busy / span,
-            "kernel_ms_total": sum(ms for ms, _ in by_name.values()),
-            "top_kernels": [{"name": k, "ms": ms, "count": n} for k, (ms, n) in top],
-        }
-        if untraced_ms.get(name):
+        res[name] = device_trace(fn, no_grad)
+        if isinstance(res[name], dict) and untraced_ms.get(name):
             res[name]["untraced_ms"] = untraced_ms[name]
-            res[name]["device_busy_share_of_untraced"] = busy / 1e3 / untraced_ms[name]
+            res[name]["device_busy_share_of_untraced"] = (res[name]["device_busy_ms"]
+                                                          / untraced_ms[name])
     print("  " + json.dumps(res), flush=True)
     return res
 
@@ -2900,6 +3217,7 @@ def pe_rows(pe_mm, xd_all) -> list:
 
 
 RETIMED = ("raymajor_excl_cumsum", "raymajor_transpose", "raymajor_masked_dists")
+RETIME_WINDOWS = 11  # device windows of each function at each retime shape
 # the renderer's rays x samples and the JAX probe's T x S, with the cumsum's
 # channels (1 as sample_pdf runs it, 8 as probes P1 and P1b do)
 RETIME_SHAPES = {"coarse": (5120, 64, 1), "fine": (5120, 128, 1), "probe": (16, 64, 8)}
@@ -2908,7 +3226,7 @@ RETIME_SHAPES = {"coarse": (5120, 64, 1), "fine": (5120, 128, 1), "probe": (16, 
 def probe_retime(raymajor, gen):
     """K6/K7, K8 and K10 against Tensor.clone of the same bytes and against
     the launch floor (Tensor.clone of 16 bytes), with the plain versions and
-    the PyTorch calls of K6/K7 and K10, 21 windows each, taken in turns, at
+    the PyTorch calls of K6/K7 and K10, RETIME_WINDOWS windows each, taken in turns, at
     RETIME_SHAPES.  Returns K8's rows in their earlier form and every
     shape's: spreads, each kernel's median less the clone's of its bytes
     and over it, and its bound."""
@@ -2931,7 +3249,7 @@ def probe_retime(raymajor, gen):
             "clone": lambda: v.clone(), "floor": lambda: tiny.clone()}
         if c > 1:
             fns["clone_cumsum_bytes"] = lambda: x.clone()
-        times = dict(zip(fns, device_windows(list(fns.values()), repeats=21)))
+        times = dict(zip(fns, device_windows(list(fns.values()), repeats=RETIME_WINDOWS)))
         r = {"shape": label, "rays": R, "samples": S, "cumsum_channels": c,
              **{name: spread(ms) for name, ms in times.items()}}
         for name in RETIMED:
@@ -3171,7 +3489,56 @@ def kernel_entries(results):
                                  "also_source": "lushnerf_torch/csrc/nerf_mlp_fwd.cu, nerf_mlp_bwd.cu",
                                  "launches_are": "K1 with its stash + dgrad + wgrad + 2 "
                                                  "reductions per point chunk"}),
-    ] + tune_entries(results.get("tune_kernel")) + probe_entries(results.get("probe_raymajor"))
+    ] + width128_entries(results.get("width128")) + tune_entries(results.get("tune_kernel")) \
+        + probe_entries(results.get("probe_raymajor"))
+
+
+def width128_entries(w128):
+    """The width-128 builds of K1 f32 and K3 f32 (its f32 dgrad and f32
+    wgrad inside it) on the width128 phase's main path (its train steps,
+    Trainer run and eval view): launches there, errors over the phase's
+    rows, times at the fine P."""
+    if not w128:
+        return []
+    fwd_rows, bwd = w128["kernel"], [r for r in w128["kernel_bwd"]]
+    fine = next(r for r in bwd if r["shape"] == "fine")
+    counts = w128["launches_total"]
+
+    def entry(name, source, replaces, launches, err, prefix, extra):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "path": "main (width 128)", "width": W128, "launches": launches,
+                "max_abs_err": err, "ms": fine[f"{prefix}_ms"],
+                "plain_ms": fine[f"{prefix}_plain_ms"], "bound_ms": fine[f"{prefix}_bound_ms"],
+                "bound_by": fine[f"{prefix}_bound_by"], "library_ms": None, "P": fine["P"],
+                **extra}
+
+    timed = [r for r in bwd if "stash_ms" in r]
+    return [
+        entry("nerf_mlp_fwd@w128", "lushnerf_torch/csrc/nerf_mlp_fwd.cu",
+              "lushnerf_tpu/ops/fused/nerf_mlp.py:396", counts["nerf_mlp_fwd"],
+              max([r["max_abs_err"] for r in fwd_rows] + [r["fwd_out_max_abs_err"] for r in bwd]),
+              "fwd_stash",
+              {"dtype": "float32", "stash_max_rel_err": max(r["stash_max_rel_err"] for r in bwd),
+               "shapes_stash": [{"P": r["P"], "ms": r["fwd_stash_ms"],
+                                 "plain_ms": r["fwd_stash_plain_ms"],
+                                 "bound_ms": r["fwd_stash_bound_ms"]} for r in timed],
+               "shapes_output_only": [{k: r[k] for k in ("P", "ms", "plain_ms", "bound_ms",
+                                                         "max_abs_err") if k in r}
+                                      for r in fwd_rows]}),
+        entry("nerf_mlp_bwd_remat@w128", "lushnerf_torch/csrc/nerf_mlp_dgrad.cu",
+              "lushnerf_tpu/ops/fused/nerf_mlp.py:589", counts["nerf_mlp_bwd_remat"],
+              max(r[f"{p}_max_abs_err"] for r in bwd for p in ("bwd", "bwd_on_plain_stash")),
+              "remat",
+              {"dtype": "float32",
+               "max_rel_err": max(r[f"{p}_max_rel_err"] for r in bwd
+                                  for p in ("bwd", "bwd_on_plain_stash")),
+               "also_source": "lushnerf_torch/csrc/nerf_mlp_fwd.cu, nerf_mlp_bwd.cu",
+               "launches_are": "K1 with its stash + dgrad + wgrad + 2 reductions per point chunk",
+               "shapes": [{"P": r["P"], "ms": r["remat_ms"], "plain_ms": r["remat_plain_ms"],
+                           "bound_ms": r["remat_bound_ms"], "stash_ms": r["stash_ms"],
+                           "stash_plain_ms": r["stash_plain_ms"]} for r in timed],
+               **bwd_split(bwd)}),
+    ]
 
 
 def bwd_split(bwd_rows) -> dict:
@@ -3233,7 +3600,7 @@ PROBE_REPLACES = {  # kernel -> the JAX probe kernels it replaces
 def probe_entries(probe):
     """K6-K10 on the probe path: launches of the five probes, errors over
     the renderer's shapes, times at 5120 x 64 (both shapes under `shapes`);
-    K6/K7, K8 and K10 also their 21-window medians beside Tensor.clone of
+    K6/K7, K8 and K10 also their RETIME_WINDOWS-window medians beside Tensor.clone of
     the same bytes and the launch floor (`retime`)."""
     if not probe:
         return []
@@ -3251,7 +3618,7 @@ def probe_entries(probe):
             "also_replaces": replaces[1:],
             "shapes": [{k: x[k] for k in ("rays", "samples", "ms", "plain_ms", "library_ms",
                                          "bound_ms", "max_abs_err")} for x in rows]})
-        if name in RETIMED:  # the 21 windows beside Tensor.clone and the launch floor
+        if name in RETIMED:  # the retime windows beside Tensor.clone and the launch floor
             out[-1]["retime"] = [
                 {"rays": t["rays"], "samples": t["samples"], "ms": t[name]["median"],
                  "over_clone": t[f"{name}_over_clone"], "floor_ms": t["floor"]["median"],
@@ -3259,6 +3626,65 @@ def probe_entries(probe):
         if name == "raymajor_excl_cumsum":
             out[-1]["cases_max_abs_err"] = max(x["max_abs_err"] for x in probe["cumsum_cases"])
     return out
+
+
+def print_build_logs(logs: dict) -> None:
+    """Each build's registers, spills, entries and wall time, and ptxas's
+    performance notes by code."""
+    for name, log in logs.items():
+        notes = {}  # ptxas performance notes (wgmma fences, serialisation) by code
+        for line in log.splitlines():
+            code = re.search(r"\((C7\d\d\d)\)", line)
+            if code:
+                if code.group(1) not in notes:
+                    print(f"  {name}: {line.strip()[:240]}")
+                notes[code.group(1)] = notes.get(code.group(1), 0) + 1
+            elif any(k in line for k in ("registers", "spill", "Compiling entry", "wall time")):
+                print(f"  {name}: {line.strip()}")
+        if notes:
+            print(f"  {name}: ptxas notes by code: {json.dumps(notes)}")
+
+
+class BuildRest:
+    """The builds that phases 3 and 4 do not launch (the MLP's sources at
+    width 128, the tune and probe paths' and the tune phase's K4 variants),
+    in two processes at the lowest CPU priority (nice 19, their nvcc
+    processes too), so that they take the cores this script's one busy
+    thread leaves idle while phases 3 and 4 time the width-256 kernels on
+    the card.  wait() returns their nvcc output, or raises with it."""
+
+    def __init__(self):
+        self.dir = tempfile.TemporaryDirectory(prefix="chip_smoke_build_")
+        self.procs = []
+
+    def start(self, items):
+        out = Path(self.dir.name)
+        cmds = {"build": ["-m", "lushnerf_torch.ops.fused.build", "--json",
+                          str(out / "logs.json"), *items],
+                "pe_ablate": ["-m", "lushnerf_torch.scripts.pe_ablate", "--build_only"]}
+        for name, args in cmds.items():
+            log = open(out / f"{name}.log", "w")
+            self.procs.append((name, log, subprocess.Popen(
+                [sys.executable, *args], stdout=log, stderr=subprocess.STDOUT,
+                cwd=Path(__file__).resolve().parent, preexec_fn=lambda: os.nice(19))))
+
+    def wait(self) -> dict:
+        out = Path(self.dir.name)
+        for name, log, proc in self.procs:
+            if proc.wait() != 0:
+                log.flush()
+                raise RuntimeError(f"{name} failed:\n{(out / f'{name}.log').read_text()[-6000:]}")
+        logs = json.loads((out / "logs.json").read_text())
+        logs["pe_ablate"] = (out / "pe_ablate.log").read_text()
+        return logs
+
+    def close(self):
+        for _, log, proc in self.procs:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+            log.close()
+        self.dir.cleanup()
 
 
 def main(argv=None) -> int:
@@ -3298,21 +3724,29 @@ def main(argv=None) -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
 
+    rest = BuildRest()
+
     def do_build():
-        logs = build.build_all(["nerf_mlp_fwd", "nerf_mlp_bwd", "nerf_mlp_dgrad", "nerf_pe_mm",
-                                "raymajor_probe"])
-        for name, log in logs.items():
-            notes = {}  # ptxas performance notes (wgmma fences, serialisation) by code
-            for line in log.splitlines():
-                code = re.search(r"\((C7\d\d\d)\)", line)
-                if code:
-                    if code.group(1) not in notes:
-                        print(f"  {name}: {line.strip()[:240]}")
-                    notes[code.group(1)] = notes.get(code.group(1), 0) + 1
-                elif any(k in line for k in ("registers", "spill", "Compiling entry", "wall time")):
-                    print(f"  {name}: {line.strip()}")
-            if notes:
-                print(f"  {name}: ptxas notes by code: {json.dumps(notes)}")
+        # the MLP's three sources at width 256, which phases 3 and 4 launch,
+        # one nvcc process each, while this thread takes the import that
+        # train_step would pay for; then the other builds start niced
+        # beside those phases (`BuildRest`)
+        from concurrent.futures import ThreadPoolExecutor
+
+        with ThreadPoolExecutor(1) as pool:
+            kernels = pool.submit(build.build_all, [(src, 256) for src in fused.SOURCES])
+            t0 = time.perf_counter()
+            torch.optim.Adam([torch.zeros(1, requires_grad=True)])  # imports torch._dynamo
+            print(f"  the first Adam, while nvcc runs: {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+            logs = kernels.result()
+        print_build_logs(logs)
+        rest.start([f"{src}@w{W128}" for src in fused.SOURCES] + ["nerf_pe_mm", "raymajor_probe"])
+        return logs
+
+    def do_build_rest():
+        logs = rest.wait()
+        print_build_logs(logs)
         return logs
 
     def untraced():
@@ -3330,9 +3764,12 @@ def main(argv=None) -> int:
         "build": do_build,
         "kernel": lambda: kernel_phase(fused, NeRFMLP, MLPConfig),
         "kernel_bwd": lambda: kernel_bwd_phase(fused, NeRFMLP, MLPConfig),
+        "build_rest": do_build_rest,
         "forward_kernel": lambda: forward_phase(fused, lush, cfg_mod),
         "render_image": lambda: render_phase(fused, lush, cfg_mod),
         "train_step": lambda: train_phase(fused, lush, cfg_mod, trainer),
+        "width128": lambda: width128_phase(fused, lush, cfg_mod, trainer, NeRFMLP, MLPConfig,
+                                           smoke.results),
         "tonemap": lambda: tonemap_phase(fused, lush, cfg_mod, trainer),
         "trainer": lambda: trainer_phase(fused, cfg_mod, trainer),
         "cte": lambda: cte_phase(fused, cfg_mod, trainer),
@@ -3343,14 +3780,15 @@ def main(argv=None) -> int:
         "probe_raymajor": lambda: probe_phase(raymajor, probe_raymajor),
     }
     only = set(filter(None, args.only.split(",")))
-    ranks = None  # the ddp phase's processes, started once the kernels are built
+    # the ddp phase's processes, started first: their imports overlap the build
+    ranks = DdpRanks() if not only or "ddp" in only else None
     try:
         for name, run in runs.items():
-            if "build" not in smoke.failed and (not only or name == "build" or name in only):
+            if not {"build", "build_rest"} & set(smoke.failed) \
+                    and (not only or name in ("build", "build_rest") or name in only):
                 smoke.phase(name, run)
-            if name == "build" and "build" not in smoke.failed and (not only or "ddp" in only):
-                ranks = DdpRanks()
     finally:
+        rest.close()
         if ranks is not None:
             ranks.close()
     (smoke.results.get("cte") or {}).pop("views", None)  # arrays, not results
@@ -3368,9 +3806,9 @@ def main(argv=None) -> int:
     kernels = kernel_entries(smoke.results)
     if not smoke.failed:
         idle = [k["name"] for k in kernels if k["launches"] <= 0]
-        if len(kernels) != 9 or idle:
+        if len(kernels) != 11 or idle:
             print(f"chip_smoke: kernels not launched on their path: {idle} "
-                  f"({len(kernels)} of 9 listed)", file=sys.stderr)
+                  f"({len(kernels)} of 11 listed)", file=sys.stderr)
             smoke.failed.append("kernels")
     if args.out:
         with open(args.out, "w") as f:

@@ -65,8 +65,11 @@ using namespace hopper;
 // ---------------------------------------------------------------------------
 //
 // Both modes share the output tiles: 128 rows o (a layer's outputs) by all
-// of a block's I <= 256 columns i (its inputs), the 17 tiles of width 256
-// first, then the 5 narrow ones (W0, W5a: I = kx, Wvd: I = kd).  A
+// of a block's I <= 256 columns i (its inputs), the N_WIDE tiles of width
+// W first (17 at width 256), then the narrow ones (W0, W5a: I = kx, Wvd:
+// I = kd; 5 at width 256).  At width 128 (the f32 wgrad only) the views
+// layer's rows are its 128 lanes (nerf_mlp_common.cuh), so each of the 12
+// blocks is one tile: 9 wide, 3 narrow.  A
 // persistent grid takes (tile, point split) work in split-major order, the
 // wide tiles of every split first: the f32 wgrad item by item (`item_of`),
 // block b taking items b, b + grid, ..., so that both o-halves of a
@@ -77,8 +80,8 @@ using namespace hopper;
 // partials in split order.
 
 constexpr int N_JOBS = 12;
-constexpr int N_TILES = 22;  // 17 of width 256, then 5 narrow
-constexpr int N_WIDE = 17;
+constexpr int N_WIDE = 8 * (W / 128) + 1;          // W1..W4, W5b, W6, W7, Wf; Wvf
+constexpr int N_TILES = N_WIDE + 2 * (W / 128) + 1;  // then W0, W5a; Wvd
 
 struct WJob {
   long long out_off;  // the block's first element in the weight blob
@@ -444,9 +447,10 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(NTHR, 1)
 //
 // Design: a persistent grid (one block an SM) over work items, each an
 // output tile of 128 rows o (a layer's outputs) by all of its I <= 256
-// columns i (its inputs) and one point split: the 17 tiles of width 256
-// for every split first, then the 5 narrow ones (W0, W5a: I = kx, Wvd: I
-// = kd; N = I rounded up to 64, zero columns past I).  A warpgroup of
+// columns i (its inputs) and one point split: the wide tiles (I = W: 17
+// at width 256, 9 at 128) for every split first, then the narrow ones
+// (W0, W5a: I = kx, Wvd: I = kd; 5 at 256, 3 at 128; N = I rounded up to
+// 64, zero columns past I).  A warpgroup of
 // converters reads each stage of 32 points of dz (128 columns) and of A
 // (N columns) in f32 from global memory, as whole 512-byte and 1 KB row
 // pieces, splits them and writes both parts into shared memory in the
@@ -821,6 +825,9 @@ int pts_per_split(int P, int n_splits, int ks) {
 int launch_wgrad_bf16(const void* acts, const void* dz, const void* pe, float* w_part,
                       long long* clk, int P, int kx, int kd, int n_splits, int n_wblocks,
                       cudaStream_t stream) {
+#if NERF_MLP_WIDTH != 256
+  return (int)cudaErrorInvalidValue;  // the bf16 wgrad: width 256 only
+#else
   using namespace bf16w;
   if (n_wblocks < CLUSTER || n_splits <= 0) return (int)cudaErrorInvalidValue;
   static int max_clusters = 0;  // clusters that fit on the card at once
@@ -862,6 +869,7 @@ int launch_wgrad_bf16(const void* acts, const void* dz, const void* pe, float* w
   else
     nerf_mlp_bwd_wgrad_bf16_sm90<false><<<grid, NTHR, SMEM, stream>>>(tm_dz, tm_acts, tm_pe, wa);
   return (int)cudaGetLastError();
+#endif
 }
 
 int launch_wgrad_f32(const void* acts, const void* dz, const void* pe, const float* zs,
@@ -908,6 +916,7 @@ int launch_wgrad_f32(const void* acts, const void* dz, const void* pe, const flo
 extern "C" {
 
 long long nerf_mlp_bwd_w_numel(int kx, int kd) { return w_numel(kx, kd); }
+int nerf_mlp_bwd_width() { return W; }
 long long nerf_mlp_bwd_fp_numel() { return FP_NUMEL; }
 long long nerf_mlp_bwd_acts_ld() { return ACTS_LD; }
 // The wgrads' constants: the f32 wgrad's scale units of dz (points a tile,
@@ -924,10 +933,10 @@ int nerf_mlp_bwd_consts(int i) {
 // out: tile, split, rows o, columns I, the offset of the entry's first row
 // in the weight grad, its row length, the dz column of that row, A from the
 // PE (1) or the stash (0), A's first column.  Returns the entry count, or
-// -1.
+// -1 (also for bf16 in a build of another width than 256).
 int nerf_mlp_bwd_wgrad_items(int bf16_mode, int n_splits, int kx, int kd, long long* out) {
   WTile tiles[N_TILES];
-  if (n_splits <= 0 || fill_tiles(tiles, kx, kd) < 0) return -1;
+  if (n_splits <= 0 || fill_tiles(tiles, kx, kd) < 0 || (bf16_mode && W != 256)) return -1;
   const struct { int n_splits, kx, kd; } a = {n_splits, kx, kd};
   const int per = bf16_mode ? bf16w::N_UNITS_WIDE + bf16w::N_UNITS_NARROW : N_TILES;
   const int ranks = bf16_mode ? bf16w::CLUSTER : 1;

@@ -3,17 +3,24 @@
 // bf16 rounding.
 // The forward's layer sequence (both modes) is nerf_mlp_fwd_sm90.cuh.
 //
+// The scene MLP's width W is a compile-time constant: 256 (the default),
+// or 128 with -DNERF_MLP_WIDTH=128 (the f32 kernels only; the bf16 entry
+// points refuse a launch there).  The views layer always has WH = 128
+// lanes: W / 2 at width 256; at width 128 its 64 columns padded with zero
+// columns (zero weights, bias and rgb-head rows), as the JAX package's
+// `pad_params` pads it to 128 lanes, so that its relu output there is 0.
+//
 // The weight grads' layout (row-major [out][in], K padded with zero
 // columns; kx = round_up(pe_x channels, 32), kd = round_up(pe_d channels,
-// 32)):  W0 [256][kx] | W1..W4 [256][256] | W5 [256][kx + 256] (pe_x part,
-// then a4 part) | W6, W7 [256][256] | Wf [256][256] | Wv [128][256 + kd]
-// (feat part, then pe_d part); w_numel() counts it.  The forward's weight
-// blobs are laid out for wgmma (nerf_mlp_fwd_sm90.cuh).  The f32 blob `fp`
-// holds biases and the two small heads at the FP_* offsets below (head
-// weights pre-rounded to bf16 in bf16 mode).
+// 32)):  W0 [W][kx] | W1..W4 [W][W] | W5 [W][kx + W] (pe_x part, then a4
+// part) | W6, W7 [W][W] | Wf [W][W] | Wv [WH][W + kd] (feat part, then
+// pe_d part); w_numel() counts it.  The forward's weight blobs are laid
+// out for wgmma (nerf_mlp_fwd_sm90.cuh).  The f32 blob `fp` holds biases
+// and the two small heads at the FP_* offsets below (head weights
+// pre-rounded to bf16 in bf16 mode).
 //
 // Activation stash ([P][ACTS_LD] in the compute dtype, one row per point):
-// a0..a7 at columns l * 256, feat at 8 * 256, hv (128 wide) at 9 * 256.
+// a0..a7 at columns l * W, feat at 8 * W, hv (WH wide) at 9 * W.
 // Beside the f32 stash K1 writes its scale units ([ceil(P / 128)]
 // [UNIT_BLOCKS][UNIT_WARPS] f32): per 128-point tile, block (a0..a7, feat)
 // and consumer warp (rows 16 w .. 16 w + 15 of the tile) the largest 2^k
@@ -29,8 +36,12 @@
 
 namespace nerf_mlp {
 
-constexpr int W = 256;         // scene MLP width
-constexpr int WH = 128;        // views layer width
+#ifndef NERF_MLP_WIDTH
+#define NERF_MLP_WIDTH 256
+#endif
+constexpr int W = NERF_MLP_WIDTH;  // scene MLP width
+static_assert(W == 256 || W == 128, "the kernels are written for widths 256 and 128");
+constexpr int WH = 128;        // views layer lanes
 constexpr int PE_MAX = 128;    // kx + kd
 constexpr int ACTS_LD = 9 * W + WH;  // stash row: a0..a7, feat, hv
 constexpr int UNIT_BLOCKS = 9;       // the f32 stash's scale units: a0..a7, feat

@@ -345,6 +345,7 @@ __device__ __forceinline__ void layer_end(const float* stage, float* facc, int b
   named_bar(BAR_CONS, NCONS);
   if (ready != nullptr && threadIdx.x == 0) mbar_arrive(ready);
   const int c = threadIdx.x;
+  if (W != NCONS && c >= W) return;  // (width 128: a thread a column, half the threads)
   float s = 0.f;
 #pragma unroll
   for (int w = 0; w < 8; ++w) s += stage[w * W + c];
@@ -901,11 +902,23 @@ __global__ void __launch_bounds__(NTHR, 1)
 // pass and add in that order.  The PE warps' work is most of a tile's time (their
 // cycle counts, DGRAD_OFF_PATH_F32): they, and the one-chunk ring, hold
 // the kernel.
+//
+// The f32 dgrad is compiled for the width W of nerf_mlp_common.cuh.  At
+// width 128 (the views layer padded to 128 lanes) every W-wide layer is one
+// m64n128k16 a step over a chunk of two pieces (hi, lo), two chunks deep;
+// the tile buffer, the ring and the mask slots keep their places and
+// sizes (half of the buffer and of each mask row idle), the column sums
+// and the bias sums take W columns; a PE warp reads a stash row of a
+// W-wide block as one float4 a lane and stores two d_z rows a step, 16
+// lanes each.  The bf16 dgrad above is compiled for width 256 only.
 
 constexpr int F_LO = 4 * CHUNK_B;               // the lo parts follow the hi parts
 constexpr int F_RING = 2 * F_LO;                // after the tile buffer (128 KB)
-constexpr int F_STAGE = F_RING + N_WST * WST_B;  // [2][8 warps][256] f32 column sums
-constexpr int F_MASK = F_STAGE + 2 * 8 * W * 4;  // [2][T][8] u32: relu mask bits
+constexpr int F_STAGE = F_RING + N_WST * WST_B;  // [2][8 warps][W] f32 column sums
+// the staging's bytes: the column sums, and dxd_views's [T][32] f32 (16 KB,
+// the column sums' size at width 256)
+constexpr int F_STAGE_B = 2 * 8 * W * 4 > T * 32 * 4 ? 2 * 8 * W * 4 : T * 32 * 4;
+constexpr int F_MASK = F_STAGE + F_STAGE_B;      // [2][T][8] u32: relu mask bits
 constexpr int F_FACC = F_MASK + 2 * T * 8 * 4;   // [FP_BV] f32: the bias sums
 constexpr int F_INV = F_FACC + FP_BV * 4;        // [T] f32: each row's 1 / 2^s
 constexpr int F_BARS = F_INV + T * 4;
@@ -926,6 +939,12 @@ constexpr int PE_THR = 96;                      // the PE warps: 9, 10 and 11
 constexpr int BAR_WG0 = 2;                      // named barriers 2, 3: consumer warpgroup 0, 1
 constexpr int BAR_PE = 4;                       // the PE warps
 constexpr int N_STAMPS_F32 = N_STAMPS + 1;      // and the W5a pass
+// at width W: a d_z is F_NA chunks of 64 columns, a W-wide layer's
+// accumulator F_ACC values a thread, a stash row of a W-wide block F_NQ
+// float4s a lane of a PE warp
+constexpr int F_NA = W / 64;
+constexpr int F_ACC = W / 2;
+constexpr int F_NQ = W / 128;
 // then, off the consumers' path, PE thread 0's cycles a tile: waiting for
 // a free mask slot, waiting for a d_z to store, making masks, storing d_z,
 // encoding the PE (nerf_mlp.DGRAD_OFF_PATH_F32)
@@ -973,6 +992,7 @@ __device__ __forceinline__ void mma_chunk(float (&acc)[R], const unsigned char* 
   for (int ks = 0; ks < 4; ++ks) {
     const uint64_t da = wgmma_desc(A + ks * 32), db = wgmma_desc(B + ks * 32);
     if constexpr (N == 256) wgmma_m64n256k16<R, true>(acc, da, db, 1);
+    else if constexpr (N == 128) wgmma_m64n128k16<R, true>(acc, da, db, 1);
     else if constexpr (N == 96) wgmma_m64n96k16<R, true>(acc, da, db, 1);
     else if constexpr (N == 64) wgmma_m64n64k16<R, true>(acc, da, db, 1);
     else wgmma_m64n32k16<R, true>(acc, da, db, 1);
@@ -1151,7 +1171,7 @@ __device__ __forceinline__ void d_hv_split(const DgradArgsF& a, int p0, const ui
 
 // d_z7's g_alpha term in its accumulator: acc += 2^(s + SHIFT) g_alpha Wa
 // (as exact as adding g_alpha 2^s Wa to acc 2^-SHIFT: a power-of-two scale).
-__device__ __forceinline__ void add_alpha(float (&acc)[128], const Rows& rs, const DgradArgsF& a,
+__device__ __forceinline__ void add_alpha(float (&acc)[F_ACC], const Rows& rs, const DgradArgsF& a,
                                           int p0) {
   const Frag f;
   float ga[2];
@@ -1161,7 +1181,7 @@ __device__ __forceinline__ void add_alpha(float (&acc)[128], const Rows& rs, con
     ga[rr] = p < a.P ? __ldg(a.g + (size_t)p * 4 + 3) * rs.sc[rr] * SPLIT_ACC : 0.f;
   }
 #pragma unroll
-  for (int j = 0; j < 32; ++j) {
+  for (int j = 0; j < W / 8; ++j) {
     const float2 wa = __ldg(reinterpret_cast<const float2*>(a.fp + FP_WA + 8 * j + 2 * f.q));
 #pragma unroll
     for (int rr = 0; rr < 2; ++rr) {
@@ -1177,12 +1197,12 @@ __device__ __forceinline__ void add_alpha(float (&acc)[128], const Rows& rs, con
 // mask), in place; the column sums of its true values (v / 2^s) into
 // `stage`; the rows' new scale (rs), and `up`, the factor that takes v to
 // it.  No branch on the layer, so that one copy serves all nine.
-__device__ __forceinline__ void epilogue_wide(float (&acc)[128], Rows& rs, const uint32_t* bits,
+__device__ __forceinline__ void epilogue_wide(float (&acc)[F_ACC], Rows& rs, const uint32_t* bits,
                                               uint32_t ones, float* stage, float (&up)[2]) {
   const Frag f;
   float mx[2] = {0.f, 0.f};
 #pragma unroll
-  for (int g = 0; g < 8; ++g) {  // 32 columns: one mask word a row
+  for (int g = 0; g < W / 32; ++g) {  // 32 columns: one mask word a row
     const uint32_t word[2] = {bits[f.r0 * 8 + g] | ones, bits[(f.r0 + 8) * 8 + g] | ones};
     float cs[8];
 #pragma unroll
@@ -1283,7 +1303,7 @@ __device__ __forceinline__ void consumer_f32(const DgradArgsF& a) {
     // d_pe_d = d_hv Wvd, and the view lanes of d(xd)
     {
       float acc_d[48];
-      matmul_split_narrow(acc_d, a.kd, 2, ring);
+      matmul_split_narrow(acc_d, a.kd, WH / 64, ring);
       st.mark();
       to_true(acc_d, rs);
       dxd_views(acc_d, a.kd, a.nfd, xs, stage, a.dxd, p0, P);
@@ -1296,8 +1316,8 @@ __device__ __forceinline__ void consumer_f32(const DgradArgsF& a) {
 #pragma unroll 1
     for (int l = 8; l >= 0; --l) {
       {
-        float acc[128];
-        matmul_split<256>(acc, l == 8 ? 2 : 4, ring);
+        float acc[F_ACC];
+        matmul_split<W>(acc, l == 8 ? WH / 64 : F_NA, ring);
         st.mark();
         named_bar(BAR_WG0 + wg, 128);  // every warp of the warpgroup has read its A
         // d_feat has no mask: any slot's bits, ORed with all ones
@@ -1324,7 +1344,7 @@ __device__ __forceinline__ void consumer_f32(const DgradArgsF& a) {
       st.mark();
       if (l == 5) {
         float acc5[48];
-        matmul_split_narrow(acc5, a.kx, 4, ring);
+        matmul_split_narrow(acc5, a.kx, F_NA, ring);
         to_true(acc5, rs);
         dpe5_io<false>(acc5, a.kx, a.dpe5);
         st.mark();
@@ -1334,7 +1354,7 @@ __device__ __forceinline__ void consumer_f32(const DgradArgsF& a) {
     // d_pe_x = d_z0 W0 + d_z5 W5a, then d(xd) through the buffer
     {
       float acc_x[48];
-      matmul_split_narrow(acc_x, a.kx, 4, ring);
+      matmul_split_narrow(acc_x, a.kx, F_NA, ring);
       to_true(acc_x, rs);
       dpe5_io<true>(acc_x, a.kx, a.dpe5);
       wait_dz_read();              // the PE warps have stored d_z0
@@ -1378,9 +1398,9 @@ __device__ __forceinline__ void pe_warps_f32(const DgradArgsF& a) {
     }
   };
   const int P = a.P;
-  float gbv[4] = {0.f, 0.f, 0.f, 0.f}, gw[3][4], gwa[8], gsum[4] = {0.f, 0.f, 0.f, 0.f};
+  float gbv[4] = {0.f, 0.f, 0.f, 0.f}, gw[3][4], gwa[4 * F_NQ], gsum[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-  for (int i = 0; i < 8; ++i) gwa[i] = 0.f;
+  for (int i = 0; i < 4 * F_NQ; ++i) gwa[i] = 0.f;
   float4 wr[3];
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
@@ -1456,11 +1476,11 @@ __device__ __forceinline__ void pe_warps_f32(const DgradArgsF& a) {
       mz = warp_max(mz);
       if (lane == 0)  // d_hv's rows carry no scale here: the unit of its largest value
         a.zs[((size_t)(p0 / T) * ZS_BLOCKS + 9) * 3 + warp] = mz > 0.f ? pow2(-row_shift(mz)) : 0.f;
-    } else {  // a_l, l = 8 - m: 256 columns, two float4 a lane, 8 rows in flight
+    } else {  // a_l, l = 8 - m: W columns, F_NQ float4 a lane, 8 rows in flight
       const int col = (8 - m) * W;
 #pragma unroll 1
       for (int i0 = warp; i0 < T; i0 += 24) {
-        float4 v[8][2];
+        float4 v[8][F_NQ];
         float ga[8];
 #pragma unroll
         for (int r = 0; r < 8; ++r) {
@@ -1469,7 +1489,7 @@ __device__ __forceinline__ void pe_warps_f32(const DgradArgsF& a) {
           const float4* row = reinterpret_cast<const float4*>(a.acts + (size_t)(p0 + p) * ACTS_LD + col);
           const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
           v[r][0] = ok ? __ldg(row + lane) : z;
-          v[r][1] = ok ? __ldg(row + 32 + lane) : z;
+          if constexpr (F_NQ == 2) v[r][F_NQ - 1] = ok ? __ldg(row + 32 + lane) : z;
           ga[r] = ok && m == 1 ? __ldg(a.g + (size_t)(p0 + p) * 4 + 3) : 0.f;
         }
 #pragma unroll
@@ -1478,7 +1498,7 @@ __device__ __forceinline__ void pe_warps_f32(const DgradArgsF& a) {
           if (p >= T) break;
           if (m == 1) {
 #pragma unroll
-            for (int h = 0; h < 2; ++h) {
+            for (int h = 0; h < F_NQ; ++h) {
               gwa[4 * h] = fmaf(ga[r], v[r][h].x, gwa[4 * h]);
               gwa[4 * h + 1] = fmaf(ga[r], v[r][h].y, gwa[4 * h + 1]);
               gwa[4 * h + 2] = fmaf(ga[r], v[r][h].z, gwa[4 * h + 2]);
@@ -1486,7 +1506,7 @@ __device__ __forceinline__ void pe_warps_f32(const DgradArgsF& a) {
             }
           }
 #pragma unroll
-          for (int h = 0; h < 2; ++h) {
+          for (int h = 0; h < F_NQ; ++h) {
             const uint32_t w = word_of(v[r][h]);
             if ((lane & 7) == 0) bits[p * 8 + 4 * h + (lane >> 3)] = w;
           }
@@ -1498,18 +1518,21 @@ __device__ __forceinline__ void pe_warps_f32(const DgradArgsF& a) {
     clk_end(PW_MASKS);
   };
   // the d_z in the tile buffer to dz at column col0, once the consumers have
-  // split it there: a warp a row, lane l the 8 columns of 16-byte piece
-  // l % 8 of chunk l / 8
+  // split it there: a warp a row (width 128: two rows, 16 lanes each, the
+  // rows p and p + 3), lane l the 8 columns of 16-byte piece l % 8 of
+  // chunk l / 8 of its row
   const float* inv_rows = reinterpret_cast<const float*>(dsmem + F_INV);
   auto store_dz = [&](int col0, int p0) {
     clk_begin();
     mbar_wait(fbar(FD_READY), dn & 1);
     clk_end(PW_READY);
     clk_begin();
-    const int c = lane >> 3, k = lane & 7;
+    constexpr int ROWS = 4 / F_NA;  // rows a warp step
+    const int c = F_NA == 4 ? lane >> 3 : (lane >> 3) & 1, k = lane & 7;
+    const int sub = F_NA == 4 ? 0 : lane >> 4;
     float um = 0.f;  // the largest 1 / 2^s of the warp's nonzero rows
 #pragma unroll 4
-    for (int p = warp; p < T; p += 3) {
+    for (int p = warp + 3 * sub; p < T; p += 3 * ROWS) {
       if (p0 + p >= P) break;
       const int off = c * CHUNK_B + p * 128 + ((k ^ (p & 7)) << 4);
       const uint4 h = *reinterpret_cast<const uint4*>(dsmem + off);
@@ -1569,7 +1592,7 @@ __device__ __forceinline__ void pe_warps_f32(const DgradArgsF& a) {
 #pragma unroll
     for (int k = 0; k < 3; ++k) mine[FP_WR + k * WH + 4 * lane + c] = gw[k][c];
     mine[FP_WA + 4 * lane + c] = gwa[c];
-    mine[FP_WA + 128 + 4 * lane + c] = gwa[4 + c];
+    if constexpr (F_NQ == 2) mine[FP_WA + 128 + 4 * lane + c] = gwa[4 * (F_NQ - 1) + c];
   }
   if (lane == 0) {
 #pragma unroll
@@ -1599,7 +1622,7 @@ __device__ __forceinline__ void producer_f32(const DgradArgsF& a) {
     for (int c = 0; c < nk; ++c)
       for (int part = 0; part < 2; ++part) {
         piece(blk, c, W, part, 0, HALF);
-        piece(blk, c, W, part, HALF, HALF);
+        if (W > HALF) piece(blk, c, W, part, HALF, HALF);
       }
   };
   auto narrow = [&](int blk, int nk, int N) {
@@ -1610,14 +1633,14 @@ __device__ __forceinline__ void producer_f32(const DgradArgsF& a) {
   };
 #pragma unroll 1
   for (int tile = blockIdx.x; tile < a.ntiles; tile += gridDim.x) {
-    narrow(T_WVD, 2, a.kd);
-    wide(T_WVF, 2);
+    narrow(T_WVD, WH / 64, a.kd);
+    wide(T_WVF, WH / 64);
 #pragma unroll 1
     for (int l = 7; l >= 0; --l) {  // d_z_l from the block after it: Wf, W7, W6, W5b, W4 .. W1
-      wide(l == 7 ? T_WF : l >= 4 ? T_W5B + (l - 4) : T_W1 + l, 4);
-      if (l == 5) narrow(T_W5A, 4, a.kx);
+      wide(l == 7 ? T_WF : l >= 4 ? T_W5B + (l - 4) : T_W1 + l, F_NA);
+      if (l == 5) narrow(T_W5A, F_NA, a.kx);
     }
-    narrow(T_W0, 4, a.kx);
+    narrow(T_W0, F_NA, a.kx);
   }
 }
 
@@ -1653,6 +1676,7 @@ extern "C" {
 // warps' N_PW cycle counts).
 int nerf_mlp_dgrad_n_stamps(int f32) { return f32 ? STAMP_ROW_F32 : N_STAMPS; }
 int nerf_mlp_dgrad_tile() { return T; }
+int nerf_mlp_dgrad_width() { return W; }
 
 // The bf16 dgrad on `stream`; returns 0 or the first CUDA error code.
 //   xd [P, 8], g [P, 4] f32; wt: the transposed blob, chunk-major and
@@ -1666,6 +1690,9 @@ int nerf_mlp_dgrad_bf16(const float* xd, const float* g, const void* wt, const f
                         void* acts, void* dz, void* pe, float* dxd, float* fp_part,
                         long long* stamps, int P, int kx, int kd, int nfx, int nfd, int n_blocks,
                         void* stream) {
+#if NERF_MLP_WIDTH != 256
+  return (int)cudaErrorInvalidValue;  // the bf16 dgrad: width 256 only
+#else
   if (!valid_pe_width(kx) || !valid_pe_width(kd) || kx + kd > PE_MAX || P <= 0)
     return (int)cudaErrorInvalidValue;
   static bool attr_set = false;
@@ -1713,6 +1740,7 @@ int nerf_mlp_dgrad_bf16(const float* xd, const float* g, const void* wt, const f
   else
     nerf_mlp_dgrad_sm90<false><<<n_blocks, NTHR, SMEM, s>>>(tm_acts, tm_dz, a);
   return (int)cudaGetLastError();
+#endif
 }
 
 // The f32 dgrad (the split) on `stream`; returns 0 or the first CUDA error

@@ -1,5 +1,6 @@
 // Fused NeRF-MLP forward for Hopper (sm_90a): positional encoding + the
-// 8x256 scene MLP with skip at layer 4 + alpha / feature / views / rgb heads.
+// 8xW scene MLP with skip at layer 4 + alpha / feature / views / rgb heads,
+// W the build's width (nerf_mlp_common.cuh: 256, or 128 in f32).
 //
 // Replaces the Pallas TPU kernel `_fwd_kernel` in
 // lushnerf_tpu/ops/fused/nerf_mlp.py (launched by `_fwd_call`, entry
@@ -66,6 +67,7 @@ long long nerf_mlp_fwd_w_numel(int kx, int kd, int bf16_mode) {
 long long nerf_mlp_fwd_fp_numel() { return nerf_mlp::FP_NUMEL; }
 long long nerf_mlp_fwd_acts_ld() { return nerf_mlp::ACTS_LD; }
 int nerf_mlp_fwd_tile() { return fwd90::T; }
+int nerf_mlp_fwd_width() { return nerf_mlp::W; }
 int nerf_mlp_fwd_n_stages() { return fwd90::N_ST; }
 // The f32 stash's scale units: blocks, entries a tile and block, and the
 // bits below which a row's fp16 parts hold its values (i = 0, 1, 2).
@@ -82,7 +84,8 @@ int nerf_mlp_fwd_units(int i) {
 // int64 for the stage cycles of the instrumented instantiation.
 // Requires P > 0, kx and kd multiples of 32 with kx + kd <= 128,
 // 3 + 6 * nfx <= kx and 3 + 6 * nfd <= kd (f32: kx <= 64 and pe_d within
-// one 64-column chunk); all pointers 16-byte aligned.
+// one 64-column chunk; bf16: a width-256 build); all pointers 16-byte
+// aligned.
 int nerf_mlp_fwd(const float* xd, const void* w, const float* fp, float* out, void* acts,
                  float* units, long long* stamps, int P, int kx, int kd, int nfx, int nfd,
                  int bf16_mode, int n_blocks, void* stream) {
@@ -100,8 +103,12 @@ int nerf_mlp_fwd(const float* xd, const void* w, const float* fp, float* out, vo
   a.kd = kd;
   a.nfx = nfx;
   a.nfd = nfd;
-  return bf16_mode ? fwd90::launch<fwd90::MODE_FWD>(a, acts, n_blocks, s)
-                   : fwd90::launch<fwd90::MODE_F32>(a, acts, n_blocks, s);
+#if NERF_MLP_WIDTH == 256
+  if (bf16_mode) return fwd90::launch<fwd90::MODE_FWD>(a, acts, n_blocks, s);
+#else
+  if (bf16_mode) return (int)cudaErrorInvalidValue;  // bf16: width 256 only
+#endif
+  return fwd90::launch<fwd90::MODE_F32>(a, acts, n_blocks, s);
 }
 
 const char* nerf_mlp_fwd_error_string(int code) {

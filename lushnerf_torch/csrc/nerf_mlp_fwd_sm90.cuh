@@ -69,6 +69,13 @@
 // stores the f32 stash from registers.  The f32 path supports pe_x within
 // chunk 0 and pe_d within one chunk (kx <= 64).
 //
+// The split is compiled for the width W of nerf_mlp_common.cuh: at width
+// 128 every layer's N is 128 (the views layer's 64 columns padded to 128),
+// so each layer takes the views layer's m64n128k16 path, a chunk is two
+// pieces (hi, lo), an activation two chunks; the buffers keep their places
+// (half of the activation buffer idles).  The bf16 modes are compiled for
+// width 256 only.
+//
 // Weight blob (bf16, pieces of 8192 elements in order, padded with a zero
 // piece to an even count so that a chunk's two pieces sit in neighbouring
 // ring stages): for each layer its
@@ -145,6 +152,12 @@ constexpr int S_SM_RING = S_SM_PE + 2 * CHUNK_B;
 constexpr int S_N_WST = 4;                 // one chunk of a 256-wide layer: hi and lo pieces
 constexpr int SPLIT_SHIFT = 4;             // the weights' parts are those of w 2^SPLIT_SHIFT
 constexpr float SPLIT_ACC = 1 << SPLIT_SHIFT;  // and so the accumulator's scale
+// The split at width W: a W-wide activation is S_NA chunks of 64 columns;
+// a chunk of a W-wide layer's weight is S_NP pieces of 128 rows a part
+// (one m64n256k16 over two neighbouring pieces at 256, one m64n128k16 over
+// one at 128, as the views layer's 128 lanes at both widths)
+constexpr int S_NA = W / 64;
+constexpr int S_NP = W / 128;
 static_assert(S_SM_RING + S_N_WST * PIECE_B == SM_BARS, "the split layout ends where the ring does");
 // mbarriers of the split: ring stages loaded / released as above; the PE
 // slot written (S_PE_FULL) and released by the 8 consumer warps (S_PE_FREE)
@@ -558,16 +571,16 @@ __device__ __forceinline__ void consumer(const Args& a, const CUtensorMap* tm) {
 // parts of one PE chunk, and the weight blob both parts of each weight: a
 // chunk of a 256-wide layer is four pieces (hi rows 0..127, hi rows
 // 128..255, lo, lo), which sit in the four stages of the ring; a chunk of
-// the views layer two (hi, lo).  Bias, relu, the heads and the stash are
-// f32: the epilogue splits relu(acc) again for the next layer and stores
-// the f32 value itself to the stash.
+// the views layer, and of every layer at width 128, two (hi, lo).  Bias,
+// relu, the heads and the stash are f32: the epilogue splits relu(acc)
+// again for the next layer and stores the f32 value itself to the stash.
 
 // A layer of the split: nk chunks of K, the PE slot at chunk pe_at (-1:
-// none) and the activation buffer's chunks in order around it; the PE slot
-// goes back to the PE warps once chunk pe_rel is read (-1: not in this
-// layer).  Layers 0 and 5 read pe_x (5 after a4), layer 9 pe_d before feat,
-// so that the slot is free for the next tile's pe_x while the views layer
-// runs.
+// none) and the activation buffer's S_NA chunks in order around it; the PE
+// slot goes back to the PE warps once chunk pe_rel is read (-1: not in
+// this layer).  Layers 0 and 5 read pe_x (5 after a4), layer 9 pe_d before
+// feat, so that the slot is free for the next tile's pe_x while the views
+// layer runs.
 // Where the accumulator's scale changes between the activation chunks and
 // the PE chunk (scale_at: the first chunk of the new scale; -1: nowhere).
 struct LayerS {
@@ -575,10 +588,10 @@ struct LayerS {
 };
 __device__ __forceinline__ LayerS layer_split(int l) {
   LayerS L;
-  L.nk = l == 0 ? 1 : l == 5 || l == 9 ? 5 : 4;
-  L.pe_at = l == 0 || l == 9 ? 0 : l == 5 ? 4 : -1;
-  L.pe_rel = l == 5 ? 4 : l == 9 ? 0 : -1;
-  L.scale_at = l == 5 ? 4 : l == 9 ? 1 : -1;
+  L.nk = l == 0 ? 1 : l == 5 || l == 9 ? S_NA + 1 : S_NA;
+  L.pe_at = l == 0 || l == 9 ? 0 : l == 5 ? S_NA : -1;
+  L.pe_rel = l == 5 ? S_NA : l == 9 ? 0 : -1;
+  L.scale_at = l == 5 ? S_NA : l == 9 ? 1 : -1;
   L.bias = l < 8 ? l * W : l == 8 ? FP_BF : FP_BV;
   return L;
 }
@@ -882,8 +895,8 @@ __device__ __forceinline__ void consumer_split(const Args& a) {
       const float2 one = make_float2(1.f, 1.f);
       float2 dn = one;
       if (l < 9) {
-        float acc[128];
-        matmul_split<2>(acc, L, a.fp, ring, clk, rs, any);
+        float acc[64 * S_NP];
+        matmul_split<S_NP>(acc, L, a.fp, ring, clk, rs, any);
         const float2 up = l == 0 || l == 5 ? one : make_float2(1.f / rs.x, 1.f / rs.y);
         clk.begin();
         named_bar(BAR_WG + wg, 128);  // every warp of the warpgroup has read its A
@@ -1160,13 +1173,15 @@ inline int n_pieces(int kx, int kd) {
   return n + (n & 1);  // a zero piece pads an odd count
 }
 inline long long blob_numel(int kx, int kd) { return (long long)n_pieces(kx, kd) * PIECE_ELEMS; }
-// The split's pieces a tile: four a chunk of the 256-wide layers, two a
-// chunk of Wv, padded with zero pieces to a whole number of ring rounds (so
-// that each tile's first chunk starts at stage 0); elements of its blob.
+// The split's pieces a tile: 2 S_NP a chunk of the W-wide layers (W0 nx
+// chunks, W1..W4 4 S_NA, W5 S_NA + nx, W6, W7, Wf 3 S_NA), two a chunk of
+// Wv (S_NA + nd), padded with zero pieces to a whole number of ring rounds
+// (so that each tile's first chunk starts at stage 0); elements of its
+// blob.
 inline int n_pieces_split(int kx, int kd) {
   int nx, d0, nd;
   pe_chunks(kx, kd, &nx, &d0, &nd);
-  const int n = 4 * (nx + 4 * 4 + 4 + nx + 3 * 4) + 2 * (4 + nd);
+  const int n = 2 * S_NP * (nx + 4 * S_NA + S_NA + nx + 3 * S_NA) + 2 * (S_NA + nd);
   return (n + S_N_WST - 1) / S_N_WST * S_N_WST;
 }
 inline long long blob_numel_split(int kx, int kd) {
@@ -1180,6 +1195,7 @@ inline long long blob_numel_split(int kx, int kd) {
 // in one chunk.
 template <int MODE>
 inline int launch(Args a, void* acts, int n_blocks, cudaStream_t stream) {
+  static_assert(MODE == MODE_F32 || W == 256, "the bf16 modes are compiled for width 256");
   if (a.P <= 0 || a.kx % 32 || a.kd % 32 || a.kx <= 0 || a.kd <= 0 || a.kx + a.kd > PE_MAX ||
       n_blocks <= 0)
     return (int)cudaErrorInvalidValue;

@@ -4,15 +4,27 @@ with ctypes.
 `csrc/<name>.cu` becomes `build/lushnerf_torch/lib<name>-<digest>.so` at
 the repository root, compiled for Hopper (`sm_90a`) at first use; the
 digest covers the source, the shared `csrc/*.cuh` headers and the flags, so
-an edited source is rebuilt.  `build_all` compiles several sources at once,
-one nvcc process each.
+an edited source is rebuilt.  The fused MLP's sources are built once for
+each width a launch asks for (`-DNERF_MLP_WIDTH=<width>`, in the digest
+and in the file name: `lib<name>-w<width>-<digest>.so`), and every build
+of a source can be loaded beside the others in one process.  `build_all`
+compiles several sources (or (source, width) pairs) at once, one nvcc
+process each.
 The sources have a plain C interface and include no PyTorch header, so a
-build takes seconds.  Nothing here runs at import time.
+build takes seconds.  Nothing here runs at import time, and this module
+imports no PyTorch: builds can run ahead of a run, in a process of their own,
+
+    python -m lushnerf_torch.ops.fused.build [--json OUT] NAME[@wWIDTH] ...
+
+(`nerf_mlp_dgrad@w128`), which compiles them side by side and writes each
+one's nvcc output to OUT as JSON.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
+import json
 import hashlib
 import os
 import shutil
@@ -24,13 +36,18 @@ from typing import Dict, Optional, Tuple
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "lushnerf_torch"
 # --split-compile=0: the device code's optimisation runs on all host cores,
-# as a source's kernel instantiations otherwise compile one by one
+# as a source's kernel instantiations otherwise compile one by one.
+# -fno-gnu-unique: C++ inline and template statics are otherwise GNU unique
+# symbols, which the dynamic linker shares between libraries, so that two
+# builds of one source in a process (widths 256 and 128) would share, say,
+# K1's once-a-process shared-memory attribute flag (host code only)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "--split-compile=0",
+    "-shared", "-Xcompiler", "-fPIC", "-Xcompiler", "-fno-gnu-unique", "-Xptxas", "-v",
+    "--split-compile=0",
 )
 
-_LIBS: Dict[str, ctypes.CDLL] = {}
+_LIBS: Dict[str, ctypes.CDLL] = {}  # by label: a name, or `<name>@w<width>`
 # the card this process's kernels launch on (`claim_device`)
 _DEVICE: Optional[int] = None
 
@@ -48,25 +65,31 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def _target(name: str) -> Tuple[Path, Path]:
+def _flags(width: Optional[int]) -> Tuple[str, ...]:
+    return NVCC_FLAGS if width is None else (*NVCC_FLAGS, f"-DNERF_MLP_WIDTH={int(width)}")
+
+
+def _target(name: str, width: Optional[int] = None) -> Tuple[Path, Path]:
     src = CSRC / f"{name}.cu"
-    h = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha1(src.read_bytes() + " ".join(_flags(width)).encode())
     for header in sorted(CSRC.glob("*.cuh")):  # the shared headers the sources include
         h.update(header.read_bytes())
-    return src, BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+    tag = "" if width is None else f"-w{int(width)}"
+    return src, BUILD_DIR / f"lib{name}{tag}-{h.hexdigest()[:12]}.so"
 
 
-def build(name: str) -> str:
-    """Compiles csrc/<name>.cu unless its current build exists.  Returns
-    nvcc's wall time and output (register and shared-memory use); raises
-    with the output if nvcc fails."""
-    src, out = _target(name)
+def build(name: str, width: Optional[int] = None) -> str:
+    """Compiles csrc/<name>.cu (for the MLP width `width`, or without the
+    flag) unless its current build exists.  Returns nvcc's wall time and
+    output (register and shared-memory use); raises with the output if
+    nvcc fails."""
+    src, out = _target(name, width)
     if out.exists():
         return "(up to date)"
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     t0 = time.perf_counter()
-    proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+    proc = subprocess.run([nvcc(), *_flags(width), "-o", str(tmp), str(src)],
                           capture_output=True, text=True)
     log = proc.stdout + proc.stderr
     if proc.returncode != 0:
@@ -75,23 +98,30 @@ def build(name: str) -> str:
     return f"nvcc wall time {time.perf_counter() - t0:.1f} s\n{log}"
 
 
-def build_all(names) -> Dict[str, str]:
-    """build() for each name, the nvcc processes run side by side.  Returns
-    {name: nvcc output}; raises with the first failure's output."""
+def label(name: str, width: Optional[int] = None) -> str:
+    return name if width is None else f"{name}@w{int(width)}"
+
+
+def build_all(items) -> Dict[str, str]:
+    """build() for each item (a name, or a (name, width) pair), the nvcc
+    processes run side by side.  Returns {label: nvcc output}, the label a
+    name or `<name>@w<width>`; raises with the first failure's output."""
     from concurrent.futures import ThreadPoolExecutor
 
-    names = list(names)
-    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
-        return dict(zip(names, pool.map(build, names)))
+    pairs = [(i, None) if isinstance(i, str) else (i[0], i[1]) for i in items]
+    labels = [label(n, w) for n, w in pairs]
+    with ThreadPoolExecutor(max_workers=max(1, len(pairs))) as pool:
+        return dict(zip(labels, pool.map(lambda nw: build(*nw), pairs)))
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for csrc/<name>.cu, built first if needed."""
-    lib = _LIBS.get(name)
+def load(name: str, width: Optional[int] = None) -> ctypes.CDLL:
+    """The loaded library for csrc/<name>.cu (at the MLP width `width`),
+    built first if needed."""
+    lib = _LIBS.get(label(name, width))
     if lib is None:
-        build(name)
-        lib = ctypes.CDLL(str(_target(name)[1]))
-        _LIBS[name] = lib
+        build(name, width)
+        lib = ctypes.CDLL(str(_target(name, width)[1]))
+        _LIBS[label(name, width)] = lib
     return lib
 
 
@@ -107,3 +137,21 @@ def claim_device(index: int) -> None:
     elif index != _DEVICE:
         raise RuntimeError(f"lushnerf_torch kernels launch on one card a process (cuda:{_DEVICE}); "
                            f"got cuda:{index}: start one process per card")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description="Builds csrc/ sources, side by side.")
+    ap.add_argument("--json", default="", help="write {label: nvcc output} to this file")
+    ap.add_argument("items", nargs="+", help="NAME or NAME@wWIDTH (an MLP source at a width)")
+    args = ap.parse_args(argv)
+    items = [(i.split("@w")[0], int(i.split("@w")[1])) if "@w" in i else i for i in args.items]
+    logs = build_all(items)
+    if args.json:
+        Path(args.json).write_text(json.dumps(logs))
+    for name, log in logs.items():
+        print(f"{name}: {log.splitlines()[0] if log else ''}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

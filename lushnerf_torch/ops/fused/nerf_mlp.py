@@ -2,13 +2,18 @@
 the autograd Function that joins them, and launch counters.
 
 The forward kernel (`lushnerf_torch/csrc/nerf_mlp_fwd.cu`) computes, per
-point, positional encoding + the 8x256 scene MLP (skip at layer 4) + alpha /
+point, positional encoding + the 8xW scene MLP (skip at layer 4) + alpha /
 feature / views / rgb heads, and writes raw [rgb, alpha]; for training it
 also writes the activation stash a0..a7, feat, hv.  It replaces the Pallas
 TPU kernel `_fwd_kernel` of `lushnerf_tpu/ops/fused/nerf_mlp.py`.  Both
 modes run `csrc/nerf_mlp_fwd_sm90.cuh` (wgmma, a persistent grid that
 streams the weights through a ring of bulk copies); `fwd_grid` and
-`fwd_tiles` are its geometry.  The
+`fwd_tiles` are its geometry.  Every kernel source is built for the MLP's
+width (`build.load(source, width)`): 256 in both compute dtypes, 128 in
+f32 (`KERNEL_WIDTHS`).  The kernels' views layer has VIEWS_LANES = 128
+lanes at both (W / 2 at 256; at 128 its 64 columns padded with zero
+weights, as the JAX package's `pad_params` pads them), so the stash, the
+blobs and the grads' layouts are functions of the width (`layout`).  The
 backward kernels compute d(xd) and the grads of every parameter from the
 stash (replacing `_bwd_stash_kernel`, mode 'stash') or, in mode 'remat'
 (replacing `_bwd_kernel`), from a stash the forward kernel writes into
@@ -57,7 +62,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import List, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -65,19 +70,48 @@ import torch.nn.functional as F
 from lushnerf_torch.ops.encoding import posenc, posenc_backward
 from lushnerf_torch.ops.fused import build
 
-WIDTH = 256  # the kernel's compiled width
+WIDTH = 256  # the flagship's width, whose layout the constants below give
+# the widths each compute dtype's kernels are built for
+KERNEL_WIDTHS = {"float32": (256, 128), "bfloat16": (256,)}
+VIEWS_LANES = 128  # the kernels' views layer: W / 2 at 256, zero-padded at 128
 PE_MAX = 128  # kx + kd
 XD_CH = 8  # packed input lanes: 0:3 xyz, 3:6 viewdir, 6:8 zero
 OUT_CH = 4  # output lanes: 0:3 rgb, 3 alpha
-ACTS_LD = 9 * WIDTH + WIDTH // 2  # stash row: a0..a7, feat, hv
+
+
+class Layout(NamedTuple):
+    """The kernels' layouts at one width (mirrors nerf_mlp_common.cuh): the
+    stash row (a0..a7, feat, hv) and the offsets into the f32 blob."""
+    width: int
+    acts_ld: int
+    fp_bf: int
+    fp_bv: int
+    fp_ba: int
+    fp_br: int
+    fp_wa: int
+    fp_wr: int
+    fp_numel: int
+
+
+def layout(width: int) -> Layout:
+    bf = 8 * width
+    bv = bf + width
+    ba = bv + VIEWS_LANES
+    br = ba + 4
+    wa = br + 4
+    wr = wa + width
+    return Layout(width, 9 * width + VIEWS_LANES, bf, bv, ba, br, wa, wr, wr + 3 * VIEWS_LANES)
+
+
+def width_of_ld(ld: int) -> int:
+    """The width whose stash (and dz) rows are `ld` long."""
+    return (ld - VIEWS_LANES) // 9
+
+
+_L256 = layout(WIDTH)
+ACTS_LD = _L256.acts_ld  # stash row: a0..a7, feat, hv
 # offsets into the f32 blob (mirrors FP_* in the CUDA source)
-FP_BF = 8 * WIDTH
-FP_BV = FP_BF + WIDTH
-FP_BA = FP_BV + WIDTH // 2
-FP_BR = FP_BA + 4
-FP_WA = FP_BR + 4
-FP_WR = FP_WA + WIDTH
-FP_NUMEL = FP_WR + 3 * (WIDTH // 2)
+FP_BF, FP_BV, FP_BA, FP_BR, FP_WA, FP_WR, FP_NUMEL = _L256[2:]
 
 # The dgrad kernel's stages, in order (its stage stamps mark the end of
 # each; mirrors the stamps in csrc/nerf_mlp_dgrad.cu): bf16, and f32, which
@@ -111,7 +145,15 @@ WGRAD_F32_SPLITS, WGRAD_F32_SPLIT_POINTS = 132, 2048
 # take at least WGRAD_F32_CHUNK_SPLIT_POINTS points each, as many as fill
 # whole waves of its grid (`chunk_wgrad_splits`)
 WGRAD_F32_CHUNK_SPLIT_POINTS = 4096
-WGRAD_TILES = 22  # the wgrads' output tiles a split (mirrors N_TILES in csrc/nerf_mlp_bwd.cu)
+
+
+def wgrad_tiles(width: int = WIDTH) -> int:
+    """The wgrads' output tiles a split (mirrors N_TILES in
+    csrc/nerf_mlp_bwd.cu): 128 rows of each of the 12 weight blocks."""
+    return 10 * (width // 128) + 2
+
+
+WGRAD_TILES = wgrad_tiles()
 # The bf16 wgrad's: at most WGRAD_BF16_SPLITS (its 22 x 12 units fall 4 a
 # cluster on the 132 SMs: 3 wide, 1 narrow), at least WGRAD_BF16_SPLIT_POINTS
 # points each.  Its partials' bytes cost more than spreading its units
@@ -208,16 +250,19 @@ def supports(mlp_cfg, render_cfg) -> bool:
 
 
 def kernel_gap(mlp_cfg, compute_dtype: str, num_freqs_x: int, num_freqs_d: int) -> Optional[str]:
-    """Why the compiled kernel does not cover this MLP, PE and compute dtype
-    (width 256, padded PEs within 128 channels), or None where it does."""
+    """Why the compiled kernels do not cover this MLP, PE and compute dtype
+    (a width of KERNEL_WIDTHS[compute_dtype], padded PEs within 128
+    channels), or None where they do."""
     kx, kd = pe_widths(mlp_cfg)
     if compute_dtype not in COMPUTE_DTYPES:
         return f"compute_dtype {compute_dtype!r} not in {COMPUTE_DTYPES}"
     if not (mlp_cfg.depth == 8 and tuple(mlp_cfg.skips) == (4,) and mlp_cfg.use_viewdirs
             and not mlp_cfg.rgb_only):
         return "the kernel covers depth 8, skip at 4, viewdirs on"
-    if mlp_cfg.width != WIDTH:
-        return f"the kernel is compiled for width {WIDTH}, not {mlp_cfg.width}"
+    widths = KERNEL_WIDTHS[compute_dtype]
+    if mlp_cfg.width not in widths:
+        return (f"the {compute_dtype} kernels are compiled for width "
+                f"{' and '.join(map(str, widths))}, not {mlp_cfg.width}")
     if kx + kd > PE_MAX or 3 + 6 * num_freqs_x != mlp_cfg.input_ch \
             or 3 + 6 * num_freqs_d != mlp_cfg.input_ch_views:
         return (f"PE of {num_freqs_x}/{num_freqs_d} frequencies into "
@@ -231,14 +276,23 @@ def kernel_gap(mlp_cfg, compute_dtype: str, num_freqs_x: int, num_freqs_d: int) 
 
 
 def kernel_covers(mlp_cfg, render_cfg) -> bool:
-    """Whether the compiled kernel covers this MLP at the render config's PE
+    """Whether the compiled kernels cover this MLP at the render config's PE
     and compute dtype.  Decided by shape alone, before any launch: the
     renderer sends an MLP to the fused path only where `supports` and this
-    hold, and any other (a width of 128, 384 or 512) takes the plain torch
-    path on the same device, as the JAX renderer does for MLPs outside its
-    family."""
+    hold, and any other (a width of 384 or 512, or 128 in bf16) takes the
+    plain torch path on the same device, as the JAX renderer does for MLPs
+    outside its family."""
     return kernel_gap(mlp_cfg, render_cfg.mlp_compute_dtype, render_cfg.multires,
                       render_cfg.multires_views) is None
+
+
+def kernel_builds(mlp_cfgs, render_cfg) -> List[Tuple[str, int]]:
+    """The (source, width) builds the fused path launches for these MLPs
+    under the render config (those `supports` and `kernel_covers` send to
+    it), for `build.build_all`."""
+    widths = sorted({c.width for c in mlp_cfgs
+                     if supports(c, render_cfg) and kernel_covers(c, render_cfg)})
+    return [(src, w) for w in widths for src in SOURCES]
 
 
 def check_kernel_family(mlp_cfg, compute_dtype: str, num_freqs_x: int,
@@ -312,14 +366,17 @@ def nerf_mlp_fwd_plain(mlp, xd: torch.Tensor, compute_dtype: str = "float32",
 
     mlp: a `NeRFMLP` of the supported family; xd: [P, 8] float32.
     Returns raw [P, 4] = [rgb, alpha]; with `with_acts`, also the stash
-    [P, 9 W + W/2] (a0..a7, feat, hv) in the compute dtype, as the kernel
-    writes it.  On CUDA set torch.backends.cuda.matmul.allow_tf32 = False,
-    or the f32 products lose precision.
+    [P, 9 W + VIEWS_LANES] (a0..a7, feat, hv; hv's W / 2 columns padded
+    with zeros to VIEWS_LANES, as the kernels' views layer) in the compute
+    dtype, as the kernel writes it.  On CUDA set
+    torch.backends.cuda.matmul.allow_tf32 = False, or the f32 products lose
+    precision.
     """
     f = _plain_forward(mlp, xd, compute_dtype, num_freqs_x, num_freqs_d)
     if not with_acts:
         return f["out"]
-    acts = torch.cat(f["acts"] + [f["feat"], f["hv"]], dim=1).to(stash_dtype(compute_dtype))
+    hv = F.pad(f["hv"], (0, VIEWS_LANES - f["hv"].shape[1]))
+    acts = torch.cat(f["acts"] + [f["feat"], hv], dim=1).to(stash_dtype(compute_dtype))
     return f["out"], acts
 
 
@@ -404,17 +461,18 @@ def wgrad_splits(P: int, compute_dtype: str) -> int:
     return bf16_splits_of(P, max(1, min(WGRAD_BF16_SPLITS, -(-P // WGRAD_BF16_SPLIT_POINTS))))
 
 
-def chunk_wgrad_splits(n: int, compute_dtype: str, n_chunks: int, n_sm: int) -> int:
+def chunk_wgrad_splits(n: int, compute_dtype: str, n_chunks: int, n_sm: int,
+                       width: int = WIDTH) -> int:
     """The wgrad's point splits for a chunk of n points of a backward in
     n_chunks chunks on n_sm SMs: `wgrad_splits(n)` in one chunk (an
     unchunked backward's bits) and in bf16; in f32 over several chunks the
     most splits of at least WGRAD_F32_CHUNK_SPLIT_POINTS points whose work
-    items (WGRAD_TILES a split, one block an SM) fill whole waves, where
-    any do, so that a chunk's items end together and its partials are few
-    (else `wgrad_splits(n)`)."""
+    items (`wgrad_tiles(width)` a split, one block an SM) fill whole
+    waves, where any do, so that a chunk's items end together and its
+    partials are few (else `wgrad_splits(n)`)."""
     if n_chunks == 1 or compute_dtype == "bfloat16":
         return wgrad_splits(n, compute_dtype)
-    q = n_sm // math.gcd(WGRAD_TILES, n_sm)
+    q = n_sm // math.gcd(wgrad_tiles(width), n_sm)
     splits = q * (n // (q * WGRAD_F32_CHUNK_SPLIT_POINTS))
     return splits if splits > 0 else wgrad_splits(n, compute_dtype)
 
@@ -434,8 +492,8 @@ def wgrad_pts_per_split(P: int, n_splits: int, compute_dtype: str = "float32") -
     return -(-(-(-P // n_splits)) // ks) * ks
 
 
-def wgrad_items(n_splits: int, kx: int, kd: int,
-                compute_dtype: str = "float32") -> List[Tuple[int, ...]]:
+def wgrad_items(n_splits: int, kx: int, kd: int, compute_dtype: str = "float32",
+                width: int = WIDTH) -> List[Tuple[int, ...]]:
     """A wgrad's work in the order of its persistent grid (mirrors
     `fill_tiles`, `item_of` and `bf16w::unit_of` in csrc/nerf_mlp_bwd.cu):
     (tile, split, rows o, columns I, offset of the entry's first row in the
@@ -443,7 +501,8 @@ def wgrad_items(n_splits: int, kx: int, kd: int,
     scratch (1) or the stash (0), A's first column).
 
     A tile is WGRAD_TILE_ROWS rows o of a weight block by all its I
-    columns, the 17 blocks' tiles of width 256 first.  f32: one entry an
+    columns (the views blocks' rows are their VIEWS_LANES lanes), the wide
+    tiles (I = width: 17 at 256, 9 at 128) first.  f32: one entry an
     item, block b taking items b, b + grid, ...: every split's wide tiles,
     split by split, then every split's narrow ones.  bf16: the unit that a
     cluster of two blocks takes at once, cluster c taking units c, c +
@@ -451,16 +510,16 @@ def wgrad_items(n_splits: int, kx: int, kd: int,
     256-row block (one tile each) or the two 64-row halves of a 128-row
     block's tile (Wvf, Wvd); every split's 9 wide units, then every split's
     3 narrow ones."""
-    W, T = WIDTH, WGRAD_TILE_ROWS
-    sizes = [W * kx] + [W * W] * 4 + [W * (kx + W)] + [W * W] * 3 + [W // 2 * (W + kd)]
+    W, Wv, T = width, VIEWS_LANES, WGRAD_TILE_ROWS
+    sizes = [W * kx] + [W * W] * 4 + [W * (kx + W)] + [W * W] * 3 + [Wv * (W + kd)]
     off = [sum(sizes[:i]) for i in range(10)]
     # the 12 blocks: (offset, rows O, columns I, dz column, A from PE, A column, row length)
     jobs = ([(off[0], W, kx, 0, 1, 0, kx)]
             + [(off[l], W, W, l * W, 0, (l - 1) * W, W) for l in range(1, 5)]
             + [(off[5], W, kx, 5 * W, 1, 0, kx + W), (off[5] + kx, W, W, 5 * W, 0, 4 * W, kx + W)]
             + [(off[l], W, W, l * W, 0, (l - 1) * W, W) for l in range(6, 9)]
-            + [(off[9], W // 2, W, 9 * W, 0, 8 * W, W + kd),
-               (off[9] + W, W // 2, kd, 9 * W, 1, kx, W + kd)])
+            + [(off[9], Wv, W, 9 * W, 0, 8 * W, W + kd),
+               (off[9] + W, Wv, kd, 9 * W, 1, kx, W + kd)])
     # tiles (I, offset of row o0, row length, dz column of row o0, A from PE, A
     # column), and each block's tiles (a unit of the bf16 wgrad), wide first
     tiles, units = [], [[], []]
@@ -485,16 +544,17 @@ def wgrad_items(n_splits: int, kx: int, kd: int,
 
 
 def dz_scale_units(dz: torch.Tensor) -> torch.Tensor:
-    """The f32 dgrad's scale units of its dz [P, ACTS_LD] (the plain version
-    of what it writes for the f32 wgrad): [ceil(P / DGRAD_TILE), ZS_BLOCKS,
-    ZS_WARPS] float32, entry (t, b, w) the largest 2^-r over the rows p of
-    tile t with p % 3 == w whose block b (d_z0..d_z7, d_feat at 8, d_hv at
-    9) is not all zero, r the power of two that puts the row's largest
-    |value| in [2^14, 2^15) (clamped to +-100, as the kernel's); 0 where no
-    such row.  Every |value| of those rows is below 2^15 times it."""
-    P = dz.shape[0]
+    """The f32 dgrad's scale units of its dz [P, acts_ld] (the plain version
+    of what it writes for the f32 wgrad; the width from the row length):
+    [ceil(P / DGRAD_TILE), ZS_BLOCKS, ZS_WARPS] float32, entry (t, b, w) the
+    largest 2^-r over the rows p of tile t with p % 3 == w whose block b
+    (d_z0..d_z7, d_feat at 8, d_hv at 9) is not all zero, r the power of
+    two that puts the row's largest |value| in [2^14, 2^15) (clamped to
+    +-100, as the kernel's); 0 where no such row.  Every |value| of those
+    rows is below 2^15 times it."""
+    P, W = dz.shape[0], width_of_ld(dz.shape[1])
     a = dz.float().abs()
-    m = torch.stack([a[:, b * WIDTH:(b + 1) * WIDTH].amax(1) for b in range(ZS_BLOCKS)], 1)
+    m = torch.stack([a[:, b * W:(b + 1) * W].amax(1) for b in range(ZS_BLOCKS)], 1)
     r = (15 - torch.frexp(m).exponent).clamp(-100, 100)
     unit = torch.where(m > 0, torch.exp2(-r.float()), torch.zeros_like(m))
     n_tiles = -(-P // DGRAD_TILE)
@@ -510,15 +570,16 @@ def row_scale_exponents(m: torch.Tensor) -> torch.Tensor:
 
 
 def stash_scale_units(acts: torch.Tensor) -> torch.Tensor:
-    """K1 f32's scale units of its f32 stash acts [P, ACTS_LD] (the plain
-    version of what it writes beside the stash for the f32 wgrad):
+    """K1 f32's scale units of its f32 stash acts [P, acts_ld] (the plain
+    version of what it writes beside the stash for the f32 wgrad; the width
+    from the row length):
     [ceil(P / FWD_TILE), UNIT_BLOCKS, UNIT_WARPS] float32, entry (t, b, w)
     the largest 2^k over the rows 16 w .. 16 w + 15 of tile t before P, k
     of the row's block b (a0..a7, feat at 8) by `row_scale_exponents`; 1
     where no such row.  Every |value| of those rows is below 2^15 times
     it."""
-    P = acts.shape[0]
-    m = torch.stack([acts[:, b * WIDTH:(b + 1) * WIDTH].float().abs().amax(1)
+    P, W = acts.shape[0], width_of_ld(acts.shape[1])
+    m = torch.stack([acts[:, b * W:(b + 1) * W].float().abs().amax(1)
                      for b in range(UNIT_BLOCKS)], 1)
     unit = torch.exp2(row_scale_exponents(m).float())
     n_tiles = -(-P // FWD_TILE)
@@ -572,7 +633,8 @@ def split_f16(m: torch.Tensor, shift: int) -> Tuple[torch.Tensor, torch.Tensor]:
 def pack_params(mlp, compute_dtype: str) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernels' parameter blobs: the forward kernel's weight blob, its
     pieces in the order its ring takes them (layout in
-    csrc/nerf_mlp_fwd_sm90.cuh), and the f32 blob of biases and heads.
+    csrc/nerf_mlp_fwd_sm90.cuh), and the f32 blob of biases and heads
+    (`layout(width)`; the views layer's padding lanes zero).
     bf16: `fwd_mats_sm90` laid out by `swizzle128`, padded with a zero piece
     to an even piece count.  f32: the same matrices (the views layer's
     pe_d chunk first) split by `split_f16` at SPLIT_SHIFT, each chunk of 64
@@ -602,14 +664,15 @@ def pack_params(mlp, compute_dtype: str) -> Tuple[torch.Tensor, torch.Tensor]:
     def head(t):
         return t.bfloat16().float() if bf16 else t
 
-    fp = torch.zeros(FP_NUMEL, dtype=torch.float32, device=w.device)
-    fp[0:FP_BF] = torch.cat([lin.bias for lin in mlp.pts_linears])
-    fp[FP_BF:FP_BV] = mlp.feature_linear.bias
-    fp[FP_BV:FP_BA] = mlp.views_linears[0].bias
-    fp[FP_BA] = mlp.alpha_linear.bias[0]
-    fp[FP_BR:FP_BR + 3] = mlp.rgb_linear.bias
-    fp[FP_WA:FP_WR] = head(mlp.alpha_linear.weight[0])
-    fp[FP_WR:] = head(mlp.rgb_linear.weight).reshape(-1)
+    L, wh = layout(mlp.cfg.width), mlp.cfg.width // 2
+    fp = torch.zeros(L.fp_numel, dtype=torch.float32, device=w.device)
+    fp[0:L.fp_bf] = torch.cat([lin.bias for lin in mlp.pts_linears])
+    fp[L.fp_bf:L.fp_bv] = mlp.feature_linear.bias
+    fp[L.fp_bv:L.fp_bv + wh] = mlp.views_linears[0].bias  # the padding lanes stay 0
+    fp[L.fp_ba] = mlp.alpha_linear.bias[0]
+    fp[L.fp_br:L.fp_br + 3] = mlp.rgb_linear.bias
+    fp[L.fp_wa:L.fp_wr] = head(mlp.alpha_linear.weight[0])
+    fp[L.fp_wr:].view(3, VIEWS_LANES)[:, :wh] = head(mlp.rgb_linear.weight)
     packed = (w, fp)
     mlp._nerf_mlp_fwd_pack = (key, packed)
     global packs
@@ -622,8 +685,9 @@ def fwd_mats_sm90(mlp, views_pe_first: bool = False) -> List[torch.Tensor]:
     layers read their chunks: W0 over the PE tile's first nx chunks; W1..W4;
     W5 over a4, then the PE tile's first nx chunks; W6, W7, Wf; Wv over
     feat, then the PE tile's nd chunks from chunk d0 (`fwd_pe_chunks`), or
-    with `views_pe_first` (the f32 kernel) the PE chunks first.  A PE column
-    a layer does not read gets a zero weight."""
+    with `views_pe_first` (the f32 kernel) the PE chunks first, its rows
+    padded with zeros to VIEWS_LANES.  A PE column a layer does not read
+    gets a zero weight."""
     cfg = mlp.cfg
     in_ch, W = cfg.input_ch, cfg.width
     kx, kd = pe_widths(cfg)
@@ -637,11 +701,12 @@ def fwd_mats_sm90(mlp, views_pe_first: bool = False) -> List[torch.Tensor]:
     pts = [lin.weight for lin in mlp.pts_linears]
     wv = mlp.views_linears[0].weight
     views = [wv[:, :W], place(wv[:, W:], nd, kx - 64 * d0)]
+    views = torch.cat(views[::-1] if views_pe_first else views, dim=1)
     return [
         place(pts[0], nx, 0), pts[1], pts[2], pts[3], pts[4],
         torch.cat([pts[5][:, in_ch:], place(pts[5][:, :in_ch], nx, 0)], dim=1),
         pts[6], pts[7], mlp.feature_linear.weight,
-        torch.cat(views[::-1] if views_pe_first else views, dim=1),
+        F.pad(views, (0, 0, 0, VIEWS_LANES - views.shape[0])),
     ]
 
 
@@ -661,9 +726,10 @@ def swizzle128(m: torch.Tensor) -> torch.Tensor:
 
 def bwd_mats(mlp) -> List[torch.Tensor]:
     """The backward's 12 transposed weight blocks in f32, [in][out] with the
-    PE rows past the encoding zero: W0^T [kx][256], W1^T..W4^T, W5a^T
-    [kx][256], W5b^T, W6^T, W7^T, Wf^T [256][256], Wvf^T [256][128], Wvd^T
-    [kd][128] (the order of the dgrad's ring, csrc/nerf_mlp_dgrad.cu)."""
+    PE rows past the encoding zero: W0^T [kx][W], W1^T..W4^T, W5a^T
+    [kx][W], W5b^T, W6^T, W7^T, Wf^T [W][W], Wvf^T [W][VIEWS_LANES], Wvd^T
+    [kd][VIEWS_LANES] (the views layer's padding lanes zero; the order of
+    the dgrad's ring, csrc/nerf_mlp_dgrad.cu)."""
     cfg = mlp.cfg
     in_ch, W = cfg.input_ch, cfg.width
     kx, kd = pe_widths(cfg)
@@ -672,7 +738,7 @@ def bwd_mats(mlp) -> List[torch.Tensor]:
         return F.pad(w, (0, k - w.shape[1])).T
 
     pts = [lin.weight for lin in mlp.pts_linears]
-    wv = mlp.views_linears[0].weight
+    wv = F.pad(mlp.views_linears[0].weight, (0, 0, 0, VIEWS_LANES - W // 2))
     return [padk_t(pts[0], kx)] + [pts[i].T for i in range(1, 5)] + [
         padk_t(pts[5][:, :in_ch], kx), pts[5][:, in_ch:].T, pts[6].T, pts[7].T,
         mlp.feature_linear.weight.T, wv[:, :W].T, padk_t(wv[:, W:], kd),
@@ -705,11 +771,13 @@ def pack_params_bwd(mlp, compute_dtype: str) -> torch.Tensor:
 
 def _unpack_grads(mlp, dw: torch.Tensor, dfp: torch.Tensor) -> List[torch.Tensor]:
     """The backward's weight-blob and f32-blob grads -> the grads of
-    `mlp.parameters()`; the padding columns' grads are dropped."""
+    `mlp.parameters()`; the padding columns' and the views layer's padding
+    lanes' grads are dropped."""
     cfg = mlp.cfg
     in_ch, in_d, W, Wh = cfg.input_ch, cfg.input_ch_views, cfg.width, cfg.width // 2
     kx, kd = pe_widths(cfg)
-    shapes = [(W, kx)] + [(W, W)] * 4 + [(W, kx + W)] + [(W, W)] * 3 + [(Wh, W + kd)]
+    L = layout(W)
+    shapes = [(W, kx)] + [(W, W)] * 4 + [(W, kx + W)] + [(W, W)] * 3 + [(VIEWS_LANES, W + kd)]
     mats, off = [], 0
     for o, i in shapes:
         mats.append(dw[off:off + o * i].reshape(o, i))
@@ -719,16 +787,18 @@ def _unpack_grads(mlp, dw: torch.Tensor, dfp: torch.Tensor) -> List[torch.Tensor
     grads = []
     for l in range(8):
         grads += [g_w[l], dfp[l * W:(l + 1) * W]]
-    grads += [mats[8], dfp[FP_BF:FP_BV]]
-    grads += [dfp[FP_WA:FP_WR].reshape(1, W), dfp[FP_BA:FP_BA + 1]]
-    grads += [torch.cat([mats[9][:, :W], mats[9][:, W:W + in_d]], dim=1), dfp[FP_BV:FP_BA]]
-    grads += [dfp[FP_WR:].reshape(3, Wh), dfp[FP_BR:FP_BR + 3]]
+    grads += [mats[8], dfp[L.fp_bf:L.fp_bv]]
+    grads += [dfp[L.fp_wa:L.fp_wr].reshape(1, W), dfp[L.fp_ba:L.fp_ba + 1]]
+    grads += [torch.cat([mats[9][:Wh, :W], mats[9][:Wh, W:W + in_d]], dim=1),
+              dfp[L.fp_bv:L.fp_bv + Wh]]
+    grads += [dfp[L.fp_wr:].reshape(3, VIEWS_LANES)[:, :Wh], dfp[L.fp_br:L.fp_br + 3]]
     return grads
 
 
-def _lib() -> ctypes.CDLL:
-    lib = build.load(SOURCES[0])
+def _lib(width: int = WIDTH) -> ctypes.CDLL:
+    lib = build.load(SOURCES[0], width)
     if not getattr(lib, "_lushnerf_typed", False):
+        L = layout(width)
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.nerf_mlp_fwd.argtypes = [vp] * 7 + [ci] * 7 + [vp]
         lib.nerf_mlp_fwd.restype = ci
@@ -736,6 +806,8 @@ def _lib() -> ctypes.CDLL:
         lib.nerf_mlp_fwd_w_numel.restype = ctypes.c_longlong
         lib.nerf_mlp_fwd_tile.argtypes = []
         lib.nerf_mlp_fwd_tile.restype = ci
+        lib.nerf_mlp_fwd_width.argtypes = []
+        lib.nerf_mlp_fwd_width.restype = ci
         lib.nerf_mlp_fwd_fp_numel.argtypes = []
         lib.nerf_mlp_fwd_fp_numel.restype = ctypes.c_longlong
         lib.nerf_mlp_fwd_acts_ld.argtypes = []
@@ -746,20 +818,22 @@ def _lib() -> ctypes.CDLL:
         lib.nerf_mlp_fwd_units.restype = ci
         lib.nerf_mlp_fwd_error_string.argtypes = [ci]
         lib.nerf_mlp_fwd_error_string.restype = ctypes.c_char_p
-        if lib.nerf_mlp_fwd_fp_numel() != FP_NUMEL or lib.nerf_mlp_fwd_acts_ld() != ACTS_LD \
+        if lib.nerf_mlp_fwd_width() != width or lib.nerf_mlp_fwd_fp_numel() != L.fp_numel \
+                or lib.nerf_mlp_fwd_acts_ld() != L.acts_ld \
                 or lib.nerf_mlp_fwd_n_stages() != len(FWD_STAGES) + len(FWD_OFF_PATH) \
                 or lib.nerf_mlp_fwd_tile() != FWD_TILE \
                 or [lib.nerf_mlp_fwd_units(i) for i in range(3)] != [
                     UNIT_BLOCKS, UNIT_WARPS, ROW_SCALE_BITS]:
-            raise RuntimeError("nerf_mlp_fwd: f32 blob, stash layout, stages, geometry or scale "
-                               "units differ from the CUDA source")
+            raise RuntimeError("nerf_mlp_fwd: width, f32 blob, stash layout, stages, geometry or "
+                               "scale units differ from the CUDA source")
         lib._lushnerf_typed = True
     return lib
 
 
-def _bwd_lib() -> ctypes.CDLL:
-    lib = build.load(SOURCES[1])
+def _bwd_lib(width: int = WIDTH) -> ctypes.CDLL:
+    lib = build.load(SOURCES[1], width)
     if not getattr(lib, "_lushnerf_typed", False):
+        L = layout(width)
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.nerf_mlp_bwd_wgrad.argtypes = [vp] * 7 + [ci] * 6 + [vp]
         lib.nerf_mlp_bwd_wgrad.restype = ci
@@ -775,6 +849,8 @@ def _bwd_lib() -> ctypes.CDLL:
         lib.nerf_mlp_bwd_fp_numel.restype = ctypes.c_longlong
         lib.nerf_mlp_bwd_acts_ld.argtypes = []
         lib.nerf_mlp_bwd_acts_ld.restype = ctypes.c_longlong
+        lib.nerf_mlp_bwd_width.argtypes = []
+        lib.nerf_mlp_bwd_width.restype = ci
         lib.nerf_mlp_bwd_error_string.argtypes = [ci]
         lib.nerf_mlp_bwd_error_string.restype = ctypes.c_char_p
         def items(dtype):  # the wgrad's work for a flagship-shaped MLP in 3 splits
@@ -782,20 +858,22 @@ def _bwd_lib() -> ctypes.CDLL:
             n = lib.nerf_mlp_bwd_wgrad_items(int(dtype == "bfloat16"), 3, 64, 32, out)
             return [tuple(out[9 * i:9 * i + 9]) for i in range(max(n, 0))]
 
-        if lib.nerf_mlp_bwd_fp_numel() != FP_NUMEL or lib.nerf_mlp_bwd_acts_ld() != ACTS_LD \
+        dtypes = [d for d in COMPUTE_DTYPES if width in KERNEL_WIDTHS[d]]
+        if lib.nerf_mlp_bwd_width() != width or lib.nerf_mlp_bwd_fp_numel() != L.fp_numel \
+                or lib.nerf_mlp_bwd_acts_ld() != L.acts_ld \
                 or [lib.nerf_mlp_bwd_consts(i) for i in range(9)] != [
                     DGRAD_TILE, ZS_BLOCKS, ZS_WARPS, len(WGRAD_F32_CLOCKS),
                     len(WGRAD_BF16_CLOCKS), WGRAD_STAGE["float32"], WGRAD_STAGE["bfloat16"],
                     UNIT_BLOCKS, UNIT_WARPS] \
-                or any(items(d) != wgrad_items(3, 64, 32, d) for d in COMPUTE_DTYPES):
-            raise RuntimeError("nerf_mlp_bwd: f32 blob, stash layout, scale units, clocks, stages "
-                               "or wgrad items differ from the CUDA source")
+                or any(items(d) != wgrad_items(3, 64, 32, d, width) for d in dtypes):
+            raise RuntimeError("nerf_mlp_bwd: width, f32 blob, stash layout, scale units, clocks, "
+                               "stages or wgrad items differ from the CUDA source")
         lib._lushnerf_typed = True
     return lib
 
 
-def _dgrad_lib() -> ctypes.CDLL:
-    lib = build.load(SOURCES[2])
+def _dgrad_lib(width: int = WIDTH) -> ctypes.CDLL:
+    lib = build.load(SOURCES[2], width)
     if not getattr(lib, "_lushnerf_typed", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.nerf_mlp_dgrad_bf16.argtypes = [vp] * 10 + [ci] * 6 + [vp]
@@ -806,13 +884,16 @@ def _dgrad_lib() -> ctypes.CDLL:
         lib.nerf_mlp_dgrad_n_stamps.restype = ci
         lib.nerf_mlp_dgrad_tile.argtypes = []
         lib.nerf_mlp_dgrad_tile.restype = ci
+        lib.nerf_mlp_dgrad_width.argtypes = []
+        lib.nerf_mlp_dgrad_width.restype = ci
         lib.nerf_mlp_dgrad_error_string.argtypes = [ci]
         lib.nerf_mlp_dgrad_error_string.restype = ctypes.c_char_p
-        if lib.nerf_mlp_dgrad_tile() != DGRAD_TILE \
+        if lib.nerf_mlp_dgrad_width() != width or lib.nerf_mlp_dgrad_tile() != DGRAD_TILE \
                 or lib.nerf_mlp_dgrad_n_stamps(0) != len(DGRAD_STAGES) + 1 \
                 or lib.nerf_mlp_dgrad_n_stamps(1) != len(DGRAD_STAGES_F32) + 1 \
                 + len(DGRAD_OFF_PATH_F32):
-            raise RuntimeError("nerf_mlp_dgrad: tile or stage stamps differ from the CUDA source")
+            raise RuntimeError("nerf_mlp_dgrad: width, tile or stage stamps differ from the CUDA "
+                               "source")
         lib._lushnerf_typed = True
     return lib
 
@@ -846,16 +927,16 @@ def _fwd_into(mlp, xd: torch.Tensor, compute_dtype: str, num_freqs_x: int,
               num_freqs_d: int, out: torch.Tensor, acts: Optional[torch.Tensor],
               units: Optional[torch.Tensor] = None,
               stamps: Optional[torch.Tensor] = None) -> None:
-    """Launches the forward kernel on contiguous CUDA xd [P, 8] (P > 0) into
-    out [P, 4] and, if not None, the stash acts [P, ACTS_LD] with (f32) its
-    scale units [ceil(P / FWD_TILE), UNIT_BLOCKS, UNIT_WARPS]; with
-    `stamps` its instrumented instantiation, which writes its stage cycles
-    there.  The caller counts the launch."""
+    """Launches the forward kernel (the build of the MLP's width) on
+    contiguous CUDA xd [P, 8] (P > 0) into out [P, 4] and, if not None, the
+    stash acts [P, acts_ld] with (f32) its scale units [ceil(P / FWD_TILE),
+    UNIT_BLOCKS, UNIT_WARPS]; with `stamps` its instrumented instantiation,
+    which writes its stage cycles there.  The caller counts the launch."""
     kx, kd = pe_widths(mlp.cfg)
     w, fp = pack_params(mlp, compute_dtype)
     if w.device != xd.device:
         raise ValueError(f"nerf_mlp_fwd: params on {w.device}, points on {xd.device}")
-    lib = _lib()
+    lib = _lib(mlp.cfg.width)
     bf16 = compute_dtype == "bfloat16"
     if w.numel() != lib.nerf_mlp_fwd_w_numel(kx, kd, int(bf16)):
         raise RuntimeError("nerf_mlp_fwd: weight blob layout differs from the CUDA source")
@@ -880,10 +961,10 @@ def _fwd_into(mlp, xd: torch.Tensor, compute_dtype: str, num_freqs_x: int,
         )
 
 
-def _new_stash(P: int, compute_dtype: str, device):
-    """An empty stash [P, ACTS_LD] in the compute dtype and, in f32, its
-    scale units (else None)."""
-    acts = torch.empty((P, ACTS_LD), dtype=stash_dtype(compute_dtype), device=device)
+def _new_stash(P: int, compute_dtype: str, device, width: int = WIDTH):
+    """An empty stash [P, acts_ld] (of the width's layout) in the compute
+    dtype and, in f32, its scale units (else None)."""
+    acts = torch.empty((P, layout(width).acts_ld), dtype=stash_dtype(compute_dtype), device=device)
     units = None if compute_dtype == "bfloat16" else torch.empty(
         (-(-P // FWD_TILE), UNIT_BLOCKS, UNIT_WARPS), dtype=torch.float32, device=device)
     return acts, units
@@ -897,7 +978,8 @@ def _launch_fwd(mlp, xd: torch.Tensor, compute_dtype: str, num_freqs_x: int,
     xd = xd.contiguous()
     P = xd.shape[0]
     out = torch.empty((P, OUT_CH), dtype=torch.float32, device=xd.device)
-    acts, units = _new_stash(P, compute_dtype, xd.device) if stash else (None, None)
+    acts, units = (_new_stash(P, compute_dtype, xd.device, mlp.cfg.width) if stash
+                   else (None, None))
     if P == 0:
         return out, acts, units
     _fwd_into(mlp, xd, compute_dtype, num_freqs_x, num_freqs_d, out, acts, units)
@@ -919,7 +1001,8 @@ def fwd_stage_cycles(mlp, xd: torch.Tensor, stash: bool,
     stamps = torch.zeros((len(fwd_tiles(P, n_blocks)[0]), len(FWD_STAGES + FWD_OFF_PATH)),
                          dtype=torch.int64, device=xd.device)
     out = torch.empty((P, OUT_CH), dtype=torch.float32, device=xd.device)
-    acts, units = _new_stash(P, compute_dtype, xd.device) if stash else (None, None)
+    acts, units = (_new_stash(P, compute_dtype, xd.device, mlp.cfg.width) if stash
+                   else (None, None))
     _fwd_into(mlp, xd, compute_dtype, 10, 4, out, acts, units, stamps)
     return stamps
 
@@ -977,8 +1060,10 @@ class BwdLaunch:
         if g.shape != (P, OUT_CH) or g.device != xd.device:
             raise ValueError(f"nerf_mlp_bwd: g must be [P, {OUT_CH}] on {xd.device}")
         cdt = stash_dtype(compute_dtype)
-        if acts is not None and (acts.shape != (P, ACTS_LD) or acts.dtype != cdt):
-            raise ValueError(f"nerf_mlp_bwd: stash must be {cdt} [P, {ACTS_LD}]")
+        self.width = W = mlp.cfg.width
+        L = layout(W)
+        if acts is not None and (acts.shape != (P, L.acts_ld) or acts.dtype != cdt):
+            raise ValueError(f"nerf_mlp_bwd: stash must be {cdt} [P, {L.acts_ld}]")
         self.mlp, self.P, self.remat = mlp, P, acts is None
         self.kx, self.kd = pe_widths(mlp.cfg)
         self.nf = (num_freqs_x, num_freqs_d)
@@ -988,8 +1073,8 @@ class BwdLaunch:
         self.g = g.float().contiguous()
         self.fp = pack_params(mlp, compute_dtype)[1]
         self.wt = pack_params_bwd(mlp, compute_dtype)
-        self.lib = _bwd_lib()
-        self.dlib = _dgrad_lib()
+        self.lib = _bwd_lib(W)
+        self.dlib = _dgrad_lib(W)
         wn = self.lib.nerf_mlp_bwd_w_numel(self.kx, self.kd)
         if self.wt.numel() != wn * (1 if self.bf16 else 2):  # f32: hi and lo parts
             raise RuntimeError("nerf_mlp_bwd: weight blob layout differs from the CUDA source")
@@ -998,7 +1083,7 @@ class BwdLaunch:
         new = torch.empty if P else torch.zeros  # the kernels write every value
         self.dxd = new((P, XD_CH), dtype=torch.float32, device=dev)
         self.dw = new(wn, dtype=torch.float32, device=dev)
-        self.dfp = new(FP_NUMEL, dtype=torch.float32, device=dev)
+        self.dfp = new(L.fp_numel, dtype=torch.float32, device=dev)
         if P == 0:
             return
         self.chunks = point_chunks(P, point_chunk)
@@ -1009,18 +1094,18 @@ class BwdLaunch:
         # each chunk's dgrad blocks (its rows of fp_part) and wgrad splits
         # (its rows of w_part)
         self.chunk_blocks = [min(-(-n // DGRAD_TILE), self.n_sm) for _, n in self.chunks]
-        self.splits = [chunk_wgrad_splits(n, compute_dtype, len(self.chunks), self.n_sm)
+        self.splits = [chunk_wgrad_splits(n, compute_dtype, len(self.chunks), self.n_sm, W)
                        for _, n in self.chunks]
         if self.remat:
-            self.acts, self.units = _new_stash(Pc, compute_dtype, dev)
+            self.acts, self.units = _new_stash(Pc, compute_dtype, dev, W)
             self.out = torch.empty((Pc, OUT_CH), dtype=torch.float32, device=dev)
         else:
             self.acts, self.out = acts, None
             self.units = None if self.bf16 else (
                 stash_scale_units(acts) if acts_units is None else acts_units.contiguous())
-        self.dz = torch.empty((Pc, ACTS_LD), dtype=cdt, device=dev)
+        self.dz = torch.empty((Pc, L.acts_ld), dtype=cdt, device=dev)
         self.pe = torch.empty((Pc, self.kx + self.kd), dtype=cdt, device=dev)
-        self.fp_part = torch.empty((self.n_blocks, FP_NUMEL), dtype=torch.float32, device=dev)
+        self.fp_part = torch.empty((self.n_blocks, L.fp_numel), dtype=torch.float32, device=dev)
         self.w_part = torch.empty((max(self.splits), wn), dtype=torch.float32, device=dev)
         # f32: the dgrad's W5a partial of d_pe_x, per block, and its scale
         # units of dz, which the wgrad reads

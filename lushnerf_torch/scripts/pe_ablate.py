@@ -2,7 +2,7 @@
 it built with parts of its work compiled out, each timed on the same
 points.
 
-    python -m lushnerf_torch.scripts.pe_ablate [--P 983040] [--root CHECKOUT]
+    python -m lushnerf_torch.scripts.pe_ablate [--P 983040] [--root CHECKOUT] [--build_only]
 
 Builds csrc/nerf_pe_mm.cu of this checkout (or of the checkout at
 `--root`) as it is ("full"), with every trig lane's sinf replaced by its
@@ -16,22 +16,22 @@ replaced it.  Prints the card and, for each variant, one JSON line:
 its median ms over 5 windows of 20 back-to-back calls between CUDA events,
 the byte bound (32 B read and 512 B written a point at 3.35 TB/s) and, for
 "full", its largest error against `pe_only_plain`.  Needs a card and nvcc;
-the builds go to build/lushnerf_torch/pe_ablate_*.so.
+the builds go to build/lushnerf_torch/pe_ablate_<variant>_<digest>.so and
+are reused while the patched source, the headers and the flags are the
+same (`build_variants` compiles them ahead of a run).
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
+import hashlib
 import json
+import os
 import subprocess
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-import numpy as np
-import torch
-
 from lushnerf_torch.ops.fused import build
-from lushnerf_torch.ops.fused import pe_mm
 
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 # variant -> its (text, replacement) alternatives: the one-warp-a-point
@@ -65,20 +65,40 @@ def patched(src: str, variant: str) -> str:
 
 
 def _build(csrc: Path, variant: str) -> str:
+    """The variant's library, compiled unless a build of the same patched
+    source, headers and flags exists."""
     src = patched((csrc / "nerf_pe_mm.cu").read_text(), variant)
+    h = hashlib.sha1(src.encode() + " ".join(build.NVCC_FLAGS).encode())
+    for header in sorted(csrc.glob("*.cuh")):
+        h.update(header.read_bytes())
+    tag = f"{variant}_{h.hexdigest()[:12]}"
+    out = build.BUILD_DIR / f"pe_ablate_{tag}.so"
+    if out.exists():
+        return str(out)
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tag = f"{abs(hash(str(csrc))) % 10**8}_{variant}"
     cu = build.BUILD_DIR / f"pe_ablate_{tag}.cu"
     cu.write_text(src)
-    out = build.BUILD_DIR / f"pe_ablate_{tag}.so"
-    proc = subprocess.run([build.nvcc(), *build.NVCC_FLAGS, f"-I{csrc}", "-o", str(out), str(cu)],
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run([build.nvcc(), *build.NVCC_FLAGS, f"-I{csrc}", "-o", str(tmp), str(cu)],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {variant}:\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)
     return str(out)
 
 
+def build_variants(root: str = "") -> dict:
+    """{variant: library path} for this checkout's csrc/nerf_pe_mm.cu (or
+    the one at `root`), the variants compiled side by side where needed."""
+    csrc = Path(root) / "lushnerf_torch" / "csrc" if root else build.CSRC
+    with ThreadPoolExecutor(len(VARIANTS)) as pool:
+        return dict(zip(VARIANTS, pool.map(lambda v: _build(csrc, v), VARIANTS)))
+
+
 def _ms(fn, n: int = 20, repeats: int = 5) -> float:
+    import numpy as np
+    import torch
+
     fn()
     times = []
     for _ in range(repeats):
@@ -93,11 +113,15 @@ def _ms(fn, n: int = 20, repeats: int = 5) -> float:
 
 
 def main(P: int = 983_040, root: str = "") -> list:
+    import numpy as np
+    import torch
+
+    from lushnerf_torch.ops.fused import pe_mm
+
     if not torch.cuda.is_available():
         raise RuntimeError("pe_ablate: needs a card")
     csrc = Path(root) / "lushnerf_torch" / "csrc" if root else build.CSRC
-    with ThreadPoolExecutor(len(VARIANTS)) as pool:
-        libs = dict(zip(VARIANTS, pool.map(lambda v: _build(csrc, v), VARIANTS)))
+    libs = build_variants(root)
     xd = torch.from_numpy(np.random.default_rng(0).standard_normal((P, 8)).astype(np.float32)).cuda()
     out = torch.empty((P, pe_mm.LANES), device="cuda")
     stream = torch.cuda.current_stream().cuda_stream
@@ -128,7 +152,12 @@ if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--P", type=int, default=983_040, help="points")
     ap.add_argument("--root", default="", help="the checkout whose kernel to build (default: this)")
+    ap.add_argument("--build_only", action="store_true",
+                    help="compile the variants (where needed) and time nothing: no card needed")
     a = ap.parse_args()
+    if a.build_only:
+        print(json.dumps(build_variants(a.root)), flush=True)
+        raise SystemExit(0)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip(), flush=True)
     main(a.P, a.root)

@@ -419,7 +419,8 @@ class Trainer:
             # ranks wait, then each loads the libraries (a rank on a host
             # without them builds its own)
             if self.rank == 0:
-                build.build_all(nerf_mlp.SOURCES)
+                lc = self.lush_cfg
+                build.build_all(nerf_mlp.kernel_builds([lc.mlp_cfg, lc.mlp_cfg_fine], lc.render))
             dist.barrier()
 
         self.model = LushNeRF(self.lush_cfg, seed=cfg.seed, device=self.device)

@@ -57,12 +57,9 @@ _REFERENCE_LINEAR_PATH = str(Path(__file__).resolve().parents[2]
                              / "lpips" / "weights" / "v0.1" / "alex.pth")
 
 
-class LPIPSUnavailable(RuntimeError, ValueError):
-    """The weights LPIPS needs are missing.  A RuntimeError as the JAX
-    package's; also a ValueError, which `compute_img_metric` raised for
-    "lpips" before the metric was ported and which
-    `tests/test_torch_trainer.py::test_compute_img_metric_matches_jax`
-    still expects where no weights are found."""
+class LPIPSUnavailable(RuntimeError):
+    """The weights LPIPS needs are missing.  A RuntimeError, as the JAX
+    package's."""
 
 
 _cache: Dict[str, Any] = {}

@@ -6,8 +6,8 @@ skimage on CPU after mapping images to [-1, 1] (utils/metrics.py:15-94):
 mse = mean squared error, psnr with data_range 2, ssim with skimage
 defaults (7x7 uniform window, K1=0.01, K2=0.03, multichannel), and LPIPS
 (`utils/lpips.py`: AlexNet with the v0.1 heads, which raises
-`LPIPSUnavailable`, a ValueError, without its weights; the trainer then
-reports it as nan, as the JAX trainer does).
+`LPIPSUnavailable` without its weights; the trainer then reports it as
+nan, as the JAX trainer does).
 """
 
 from __future__ import annotations

@@ -131,15 +131,16 @@ def sm90_row_major(mats, kx, kd):
         torch.cat([mats[9][:, :Wd], mats[9][:, Wd + c:Wd + c + kd]], 1)]
 
 
-def split_mats(w, kx, kd):
+def split_mats(w, kx, kd, width=256):
     """The f32 forward blob undone by a plain index model of its layout:
     the ten [N][K] matrices as lists of their hi and lo parts, K in the
-    kernel's order (as `sm90_mats`, but Wv's nd PE chunks before feat); each
+    kernel's order (as `sm90_mats`, but Wv's nd PE chunks before feat; N =
+    the width, Wv's 128: at width 128 its 64 rows and 64 zero rows); each
     chunk of 64 columns of a matrix is its [N][64] hi part in the layout of
     `sm90_mats`, then its lo part; then zero pieces up to a multiple of 4
     [128][64] pieces."""
     nx, _, nd = sm90_pe_chunks(kx, kd)
-    Wd, Wh, piece = 256, 128, 128 * 64
+    Wd, Wh, piece = width, 128, 128 * 64
     shapes = [(Wd, 64 * nx)] + [(Wd, Wd)] * 4 + [(Wd, Wd + 64 * nx)] + [(Wd, Wd)] * 3 + [
         (Wh, 64 * nd + Wd)]
     flat = w.float().numpy()
@@ -246,17 +247,21 @@ def test_supports():
 ], ids=["dtype", "w128", "w512", "pe-padded-over-128", "pe-mismatch"])
 def test_kernel_family_check_raises(case, dtype, nfx):
     """What the card's path checks before a launch: members of the routed
-    family that the compiled kernel does not cover raise, not fall back."""
+    family that the compiled kernels do not cover raise, not fall back
+    (width 128 in bf16, 512 in either dtype); width 256 in both dtypes and
+    width 128 in f32 pass."""
     cfg = MLPConfig(**case)
     nfd = (cfg.input_ch_views - 3) // 6
     with pytest.raises(ValueError):
         fused.check_kernel_family(cfg, dtype, nfx, nfd)
     fused.check_kernel_family(MLPConfig(), "bfloat16", 10, 4)
+    fused.check_kernel_family(MLPConfig(width=128), "float32", 10, 4)
 
 
 def test_width128_cuda_backend_on_cpu_takes_plain_version():
-    """A supported width the kernel is not compiled for: on CPU tensors the
-    fused path is the plain version, equal to the torch backend in f32."""
+    """Width 128 in f32 (the default dtype), which the kernels are built
+    for: on CPU tensors the fused path is the plain version, launches
+    nothing, and equals the torch backend in f32."""
     cfg = MLPConfig(width=128)
     mlp = NeRFMLP(cfg, torch.Generator().manual_seed(1), torch.device("cpu")).requires_grad_(False)
     rng = np.random.default_rng(3)

@@ -200,14 +200,15 @@ def _swizzled_index(N, K):
     return k // 64, n * 64 + (((k % 64) // 8) ^ (n % 8)) * 8 + k % 8
 
 
-def split_blocks(wt, kx, kd):
+def split_blocks(wt, kx, kd, width=256):
     """The f32 transposed blob undone by a plain index model of its layout:
-    the 12 blocks one after another, each chunk-major over its K (out)
-    columns in chunks of 64; chunk c of a block of N rows is its [N][64] hi
-    part, then its lo part, each swizzled as `_swizzled_index` says.
-    Returns the lists of hi and lo blocks, [N][K] in float."""
+    the 12 blocks one after another (at the MLP's `width`; the views
+    blocks' 128 lanes), each chunk-major over its K (out) columns in chunks
+    of 64; chunk c of a block of N rows is its [N][64] hi part, then its lo
+    part, each swizzled as `_swizzled_index` says.  Returns the lists of hi
+    and lo blocks, [N][K] in float."""
     flat = wt.float().numpy()
-    sizes = _bwd_sizes(kx, kd)
+    sizes = _bwd_sizes(kx, kd, width)
     offs = np.concatenate([[0], np.cumsum([2 * n * k for n, k in sizes])])
     assert offs[-1] == flat.size
     his, los = [], []

@@ -63,7 +63,7 @@ LIMIT = 1e-4  # each tensor's max |error| over its max |value| (chip_smoke.py's 
 DT = fused.DGRAD_TILE  # points a tile of the dgrad, the scale units' granularity
 SCALE_EXP = 15  # a d_z row's largest |value| is split at [2^14, 2^15) (mirrors the kernel)
 SHIFT = fused.SPLIT_SHIFT
-WD, WH = 256, 128
+WH = 128  # the views layer's lanes (W / 2 at width 256, padded at 128)
 
 
 def row_parts(t, scaled=True):
@@ -96,14 +96,17 @@ def emulate(mlp, xd, g, acts, mm, wgrad=None):
     the wgrad (plain f32 z^T A, or `wgrad(z, A, units, a_units)` with the
     scale units of z's d_z block and those of A's stash block, None for the
     PE) and the bias and head sums, all on true f32 values: (d_xd, {d_z by
-    name}, the grads of mlp.parameters())."""
+    name}, the grads of mlp.parameters()).  At the MLP's width WD (the views
+    layer's WH = 128 lanes, zero-padded at width 128, as the kernels')."""
     kx, kd = fused.pe_widths(mlp.cfg)
+    WD = mlp.cfg.width
+    L = fused.layout(WD)
     fp = fused.pack_params(mlp, "float32")[1]
     s = acts.float()
     a = [s[:, l * WD:(l + 1) * WD] for l in range(8)]
     feat, hv = s[:, 8 * WD:9 * WD], s[:, 9 * WD:]
-    wr = fp[fused.FP_WR:].reshape(3, WH)
-    wa = fp[fused.FP_WA:fused.FP_WR]
+    wr = fp[L.fp_wr:].reshape(3, WH)
+    wa = fp[L.fp_wa:L.fp_wr]
     dz = {"hv": (g[:, :3] @ wr) * (hv > 0)}
     d_pe_d = mm(dz["hv"], 11)
     dz["feat"] = mm(dz["hv"], 10)
@@ -136,21 +139,21 @@ def emulate(mlp, xd, g, acts, mm, wgrad=None):
         view = dw[int(woff[blk]):int(woff[blk + 1])].reshape(-1, ldw)
         view[:, col0:col0 + A.shape[1]] = z.T @ A if wgrad is None else wgrad(
             z, A, units[:, blk], None if ab is None else a_units[:, ab])
-    dfp = torch.zeros(fused.FP_NUMEL)
+    dfp = torch.zeros(L.fp_numel)
     for l in range(8):
         dfp[l * WD:(l + 1) * WD] = dz[l].sum(0)
-    dfp[fused.FP_BF:fused.FP_BV] = dz["feat"].sum(0)
-    dfp[fused.FP_BV:fused.FP_BA] = dz["hv"].sum(0)
-    dfp[fused.FP_BA] = g[:, 3].sum()
-    dfp[fused.FP_BR:fused.FP_BR + 3] = g[:, :3].sum(0)
-    dfp[fused.FP_WA:fused.FP_WR] = g[:, 3] @ a[7]
-    dfp[fused.FP_WR:] = (g[:, :3].T @ hv).reshape(-1)
+    dfp[L.fp_bf:L.fp_bv] = dz["feat"].sum(0)
+    dfp[L.fp_bv:L.fp_ba] = dz["hv"].sum(0)
+    dfp[L.fp_ba] = g[:, 3].sum()
+    dfp[L.fp_br:L.fp_br + 3] = g[:, :3].sum(0)
+    dfp[L.fp_wa:L.fp_wr] = g[:, 3] @ a[7]
+    dfp[L.fp_wr:] = (g[:, :3].T @ hv).reshape(-1)
     return d_xd, dz, fused._unpack_grads(mlp, dw, dfp)
 
 
 def dz_matrix(dz):
-    """The d_z of `emulate` laid out as the dgrad's dz scratch [P, ACTS_LD]:
-    d_z_l at columns 256 l, d_feat at 8 * 256, d_hv at 9 * 256."""
+    """The d_z of `emulate` laid out as the dgrad's dz scratch [P, acts_ld]:
+    d_z_l at columns W l, d_feat at 8 W, d_hv at 9 W (W the width)."""
     return torch.cat([dz[l] for l in range(8)] + [dz["feat"], dz["hv"]], 1)
 
 
@@ -194,7 +197,7 @@ def _inputs(setup, P):
 
 def _split(mlp, scaled=True):
     kx, kd = fused.pe_widths(mlp.cfg)
-    his, los = split_blocks(fused.pack_params_bwd(mlp, "float32"), kx, kd)
+    his, los = split_blocks(fused.pack_params_bwd(mlp, "float32"), kx, kd, mlp.cfg.width)
     return _split_mm(his, los, scaled)
 
 

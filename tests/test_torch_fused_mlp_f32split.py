@@ -1,7 +1,9 @@
 """The f32 forward kernel's split (lushnerf_torch/csrc/nerf_mlp_fwd_sm90.cuh,
 MODE_F32) on the CPU, where no kernel runs (chip_smoke.py holds the kernel
 against its plain version on the card), and the routing of MLPs the
-compiled kernel does not cover.  Here:
+compiled kernels do not cover.  The `setup` MLP runs at both widths the f32
+kernel is built for, 256 and 128 (the views layer padded to 128 lanes).
+Here:
   * the f32 weight blob that `pack_params` lays out as split pieces, undone
     by a plain index model of its layout (`split_mats`), gives back each
     weight's hi part as fp16(W 2^4) exactly and (hi + lo) 2^-4 within 2^-21
@@ -24,10 +26,11 @@ compiled kernel does not cover.  Here:
     above of both; `stash_scale_units` (the units K1 f32 writes beside its
     stash for the f32 wgrad) are, index by index, the largest 2^k of the
     stash rows of each tile's warp;
-  * a width-128 member of the fused family goes to the plain torch path by
-    shape under the 'cuda' backend (no call into the fused path, no
-    launch), equal to the torch backend, and the f32 kernel's PE geometry
-    is part of the same predicate.
+  * a width-128 member of the fused family goes, under the 'cuda' backend,
+    to the plain torch path by shape in bf16 (no call into the fused path,
+    no launch, equal to the torch backend), and to the fused path in f32
+    (on CPU tensors its plain version, equal to the torch backend at the
+    f32 limit); the f32 kernel's PE geometry is part of the same predicate.
 """
 
 import jax
@@ -69,11 +72,12 @@ def large_activation_params(params):
     return p
 
 
-@pytest.fixture(scope="module")
-def setup():
-    jcfg = JMLPConfig(depth=8, width=256, input_ch=63, input_ch_views=27)
+@pytest.fixture(scope="module", params=[256, 128], ids=["w256", "w128"])
+def setup(request):
+    width = request.param
+    jcfg = JMLPConfig(depth=8, width=width, input_ch=63, input_ch_views=27)
     params = params_like_init(lambda k: init_nerf_mlp(k, jcfg))
-    mlp = NeRFMLP(MLPConfig(depth=8, width=256, input_ch=63, input_ch_views=27),
+    mlp = NeRFMLP(MLPConfig(depth=8, width=width, input_ch=63, input_ch_views=27),
                   torch.Generator().manual_seed(0), torch.device("cpu"))
     mlp.load_state_dict(mlp_state_from_jax(params))
     mlp.requires_grad_(False)
@@ -90,7 +94,7 @@ def test_split_blob_gives_back_every_weight(setup):
     kx, kd = fused.pe_widths(mlp.cfg)
     w, _ = fused.pack_params(mlp, "float32")
     assert w.dtype == torch.float16 and (w.numel() // fused.FWD_PIECE) % fused.SPLIT_RING == 0
-    his, los = split_mats(w, kx, kd)
+    his, los = split_mats(w, kx, kd, mlp.cfg.width)
     scale = 2.0 ** fused.SPLIT_SHIFT
     # the ten f32 matrices in the f32 kernel's K order
     for want, hi, lo in zip(fused.fwd_mats_sm90(mlp, views_pe_first=True), his, los):
@@ -99,11 +103,11 @@ def test_split_blob_gives_back_every_weight(setup):
         assert (back - want.double()).abs().max() <= 2.0 ** -21 * want.abs().max()
         assert torch.equal(hi == 0, want == 0) and not lo[want == 0].any()
     # a chunk's lo pieces follow its hi pieces
-    n = 256 * 64
+    n = mlp.cfg.width * 64
     assert w[n:2 * n].abs().max() < w[:n].abs().max() * 2.0 ** -10
 
 
-def _emulate_split(w, fp, xd, kx, kd, nfx, nfd, drop_lo=False, scaled=True):
+def _emulate_split(w, fp, xd, kx, kd, nfx, nfd, drop_lo=False, scaled=True, width=256):
     """The f32 kernel's arithmetic read from its blob: each layer's K chunks
     in the kernel's order (W0: the pe_x chunk; W5: a4, then the pe_x chunk;
     Wv: the pe_d chunk, then feat), every activation row split in the fp16
@@ -115,10 +119,12 @@ def _emulate_split(w, fp, xd, kx, kd, nfx, nfd, drop_lo=False, scaled=True):
     PE chunk and the views layer scales them by 2^-k after its own, each
     only where some row has k > 0; the heads on the f32 activations.
     Returns (raw out, stash).  `drop_lo`: the lo parts as zeros (the
-    control: fp16 products)."""
-    his, los = split_mats(w, kx, kd)
+    control: fp16 products).  At the MLP's `width` (the views layer's 128
+    lanes at both: the f32 blob's layout, `fused.layout(width)`)."""
+    his, los = split_mats(w, kx, kd, width)
     nx, d0, nd = sm90_pe_chunks(kx, kd)
-    Wd, Wh = 256, 128
+    Wd, Wh = width, 128
+    L = fused.layout(width)
     acc_scale = 2.0 ** fused.SPLIT_SHIFT
 
     def split(t):
@@ -174,15 +180,16 @@ def _emulate_split(w, fp, xd, kx, kd, nfx, nfd, drop_lo=False, scaled=True):
     for i in (6, 7):
         a, s = layer(i, a, s, b(i))
         acts.append(a)
-    alpha = acts[7] @ fp[fused.FP_WA:fused.FP_WR] + fp[fused.FP_BA]
-    feat, s = layer(8, a, s, fp[fused.FP_BF:fused.FP_BV], relu=False)
-    hv, _ = layer(9, feat, s, fp[fused.FP_BV:fused.FP_BA], pe=pe_d, pe_first=True)
-    rgb = hv @ fp[fused.FP_WR:].reshape(3, Wh).T + fp[fused.FP_BR:fused.FP_BR + 3]
+    alpha = acts[7] @ fp[L.fp_wa:L.fp_wr] + fp[L.fp_ba]
+    feat, s = layer(8, a, s, fp[L.fp_bf:L.fp_bv], relu=False)
+    hv, _ = layer(9, feat, s, fp[L.fp_bv:L.fp_ba], pe=pe_d, pe_first=True)
+    rgb = hv @ fp[L.fp_wr:].reshape(3, Wh).T + fp[L.fp_br:L.fp_br + 3]
     return torch.cat([rgb, alpha[:, None]], 1), torch.cat(acts + [feat, hv], 1)
 
 
 def _stash_rel_err(got, want):
-    blocks = [(l * 256, (l + 1) * 256) for l in range(9)] + [(9 * 256, want.shape[1])]
+    w = fused.width_of_ld(want.shape[1])
+    blocks = [(l * w, (l + 1) * w) for l in range(9)] + [(9 * w, 9 * w + w // 2)]
     return max(((got[:, a:b] - want[:, a:b]).abs().max() / want[:, a:b].abs().max()).item()
                for a, b in blocks)
 
@@ -192,15 +199,18 @@ def test_split_reproduces_plain_f32(setup, S):
     _, _, mlp, pts, dirs = setup
     xd = _xd(pts[:, :S], dirs)
     kx, kd = fused.pe_widths(mlp.cfg)
+    width = mlp.cfg.width
     w, fp = fused.pack_params(mlp, "float32")
-    out, stash = _emulate_split(w, fp, xd, kx, kd, 10, 4)
+    out, stash = _emulate_split(w, fp, xd, kx, kd, 10, 4, width=width)
     want, want_stash = fused.nerf_mlp_fwd_plain(mlp, xd, "float32", with_acts=True)
     np.testing.assert_allclose(out.numpy(), want.numpy(), **F32_TOL)
-    assert stash.shape == want_stash.shape == (xd.shape[0], fused.ACTS_LD)
+    assert stash.shape == want_stash.shape == (xd.shape[0], fused.layout(width).acts_ld)
     assert _stash_rel_err(stash, want_stash) <= STASH_TOL
+    # the views layer's padding lanes: 0 in both
+    assert not stash[:, 9 * width + width // 2:].any() and not want_stash[:, 9 * width + width // 2:].any()
     # the control: without the lo parts (fp16 products) the stash fails its
     # limit tenfold and the output moves tenfold
-    out_f16, stash_f16 = _emulate_split(w, fp, xd, kx, kd, 10, 4, drop_lo=True)
+    out_f16, stash_f16 = _emulate_split(w, fp, xd, kx, kd, 10, 4, drop_lo=True, width=width)
     assert _stash_rel_err(stash_f16, want_stash) > 10 * STASH_TOL
     assert (out_f16 - want).abs().max() > 10 * (out - want).abs().max()
 
@@ -214,7 +224,7 @@ def test_split_reproduces_jax_kernel_f32(setup):
         )
     kx, kd = fused.pe_widths(mlp.cfg)
     w, fp = fused.pack_params(mlp, "float32")
-    got, _ = _emulate_split(w, fp, _xd(pts, dirs), kx, kd, 10, 4)
+    got, _ = _emulate_split(w, fp, _xd(pts, dirs), kx, kd, 10, 4, width=mlp.cfg.width)
     np.testing.assert_allclose(got.numpy().reshape(want.shape), np.asarray(want), **F32_TOL)
 
 
@@ -223,8 +233,8 @@ def test_row_scale_keeps_the_bits_of_ordinary_inputs(setup):
     xd = _xd(pts, dirs)
     kx, kd = fused.pe_widths(mlp.cfg)
     w, fp = fused.pack_params(mlp, "float32")
-    out, stash = _emulate_split(w, fp, xd, kx, kd, 10, 4)
-    out_u, stash_u = _emulate_split(w, fp, xd, kx, kd, 10, 4, scaled=False)
+    out, stash = _emulate_split(w, fp, xd, kx, kd, 10, 4, width=mlp.cfg.width)
+    out_u, stash_u = _emulate_split(w, fp, xd, kx, kd, 10, 4, scaled=False, width=mlp.cfg.width)
     assert stash.abs().max() < 2.0 ** fused.ROW_SCALE_BITS
     assert torch.equal(out, out_u) and torch.equal(stash, stash_u)
 
@@ -239,7 +249,8 @@ def _jax_f32(params, jcfg, pts, dirs):
 def test_row_scale_keeps_large_activations_finite(setup):
     jcfg, params, _, pts, dirs = setup
     big = large_activation_params(params)
-    mlp = NeRFMLP(MLPConfig(depth=8, width=256, input_ch=63, input_ch_views=27),
+    width = jcfg.width
+    mlp = NeRFMLP(MLPConfig(depth=8, width=width, input_ch=63, input_ch_views=27),
                   torch.Generator().manual_seed(0), torch.device("cpu"))
     mlp.load_state_dict(mlp_state_from_jax(big))
     mlp.requires_grad_(False)
@@ -249,11 +260,11 @@ def test_row_scale_keeps_large_activations_finite(setup):
     kx, kd = fused.pe_widths(mlp.cfg)
     w, fp = fused.pack_params(mlp, "float32")  # every weight in the parts' range
     # the control: the arithmetic without the row scale overflows to NaN
-    bad, _ = _emulate_split(w, fp, xd, kx, kd, 10, 4, scaled=False)
+    bad, _ = _emulate_split(w, fp, xd, kx, kd, 10, 4, scaled=False, width=width)
     assert bool(torch.isnan(bad).any())
     jax_out = _jax_f32(big, jcfg, pts, dirs)
     assert np.isfinite(jax_out).all()
-    got, stash = _emulate_split(w, fp, xd, kx, kd, 10, 4)
+    got, stash = _emulate_split(w, fp, xd, kx, kd, 10, 4, width=width)
     assert bool(torch.isfinite(got).all()) and bool(torch.isfinite(stash).all())
     np.testing.assert_allclose(got.numpy(), want.numpy(), **F32_TOL)
     assert _stash_rel_err(stash, want_stash) <= STASH_TOL
@@ -265,8 +276,9 @@ def test_stash_scale_units_by_index(setup, big):
     """Units over 300 points (three tiles, the last ragged): entry (t, b, w)
     the largest 2^k over the rows 16 w .. 16 w + 15 of tile t of block b,
     k of `row_scale_exponents`; 1 past P; every unit 1 on ordinary input."""
-    _, params, _, _, _ = setup
-    mlp = NeRFMLP(MLPConfig(depth=8, width=256, input_ch=63, input_ch_views=27),
+    jcfg, params, _, _, _ = setup
+    width = jcfg.width
+    mlp = NeRFMLP(MLPConfig(depth=8, width=width, input_ch=63, input_ch_views=27),
                   torch.Generator().manual_seed(0), torch.device("cpu"))
     mlp.load_state_dict(mlp_state_from_jax(large_activation_params(params) if big else params))
     rng = np.random.default_rng(17)
@@ -280,7 +292,7 @@ def test_stash_scale_units_by_index(setup, big):
     assert units.shape == (-(-P // T), fused.UNIT_BLOCKS, fused.UNIT_WARPS)
     assert units.dtype == torch.float32
     for b in range(fused.UNIT_BLOCKS):
-        m = stash[:, 256 * b:256 * (b + 1)].abs().amax(1)
+        m = stash[:, width * b:width * (b + 1)].abs().amax(1)
         k = fused.row_scale_exponents(m)
         for t in range(units.shape[0]):
             for w in range(fused.UNIT_WARPS):
@@ -306,15 +318,22 @@ def _width128_model():
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_width128_routes_to_plain_path(dtype, monkeypatch):
-    """flagship_cfg's shape at width 128 (in the fused family, outside the
-    compiled kernel) under the 'cuda' backend: routed by shape to the plain
-    torch path, never into the fused path, no launch, equal to the torch
-    backend; the kernel itself still refuses it."""
+    """flagship_cfg's shape at width 128 (in the fused family) under the
+    'cuda' backend.  bf16, which the kernels are not built for at 128:
+    routed by shape to the plain torch path, never into the fused path, no
+    launch, equal to the torch backend; the kernel itself refuses it.  f32:
+    routed into the fused path (its kernels are built for 128), which on
+    CPU tensors runs its plain version and launches nothing, equal to the
+    torch backend at the f32 limit."""
     lc, mlp_cfg, mlp = _width128_model()
     rc = RenderConfig(mlp_backend="cuda", mlp_compute_dtype=dtype)
-    assert mlp_cfg.width == 128 and fused.supports(mlp_cfg, rc) and not fused.kernel_covers(mlp_cfg, rc)
+    bf16 = dtype == "bfloat16"
+    assert mlp_cfg.width == 128 and fused.supports(mlp_cfg, rc)
+    assert fused.kernel_covers(mlp_cfg, rc) == (not bf16)
     calls = []
-    monkeypatch.setattr(fused, "eval_points_fused", lambda *a, **k: calls.append(a))
+    real = fused.eval_points_fused
+    monkeypatch.setattr(fused, "eval_points_fused",
+                        lambda *a, **k: calls.append(a) or real(*a, **k))
     rng = np.random.default_rng(5)
     pts = torch.from_numpy(rng.uniform(-1, 1, (3, 6, 3)).astype(np.float32))
     dirs = torch.nn.functional.normalize(torch.from_numpy(
@@ -322,25 +341,34 @@ def test_width128_routes_to_plain_path(dtype, monkeypatch):
     fused.launches = 0
     got = eval_points(mlp, mlp_cfg, rc, pts, dirs)
     want = eval_points(mlp, mlp_cfg, RenderConfig(mlp_backend="torch"), pts, dirs)
-    assert calls == [] and fused.launches == 0
-    assert torch.equal(got, want)
-    with pytest.raises(ValueError, match="width 256"):
+    assert len(calls) == (0 if bf16 else 1) and fused.launches == 0
+    if bf16:
+        assert torch.equal(got, want)
+        with pytest.raises(ValueError, match="width 256"):
+            fused.check_kernel_family(mlp_cfg, dtype, 10, 4)
+    else:
+        np.testing.assert_allclose(got.numpy(), want.numpy(), **F32_TOL)
         fused.check_kernel_family(mlp_cfg, dtype, 10, 4)
     assert renderer.fused is fused
 
 
 def test_kernel_covers_follows_the_kernels_geometry():
-    """What each mode's kernel covers at width 256: the flagship PE in both;
+    """What each mode's kernels cover.  Width 256: the flagship PE in both;
     a pe_x of 96 padded channels in bf16 only (the f32 kernel holds one PE
-    chunk at a time); pe_x of 32 with pe_d in the same chunk in both."""
-    cases = {(10, 4): (True, True), (15, 4): (True, False), (4, 4): (True, True),
-             (4, 9): (True, False)}
-    for (nfx, nfd), want in cases.items():
-        cfg = MLPConfig(input_ch=3 + 6 * nfx, input_ch_views=3 + 6 * nfd)
+    chunk at a time); pe_x of 32 with pe_d in the same chunk in both.
+    Width 128: bf16 nothing (its kernels are built for 256 only), f32 the
+    same PE geometry as at 256.  Widths 384 and 512: nothing."""
+    cases = {(256, 10, 4): (True, True), (256, 15, 4): (True, False),
+             (256, 4, 4): (True, True), (256, 4, 9): (True, False),
+             (128, 10, 4): (False, True), (128, 15, 4): (False, False),
+             (128, 4, 4): (False, True), (128, 4, 9): (False, False),
+             (384, 10, 4): (False, False), (512, 10, 4): (False, False)}
+    for (width, nfx, nfd), want in cases.items():
+        cfg = MLPConfig(width=width, input_ch=3 + 6 * nfx, input_ch_views=3 + 6 * nfd)
         got = tuple(fused.kernel_covers(cfg, RenderConfig(mlp_backend="cuda", mlp_compute_dtype=dt,
                                                           multires=nfx, multires_views=nfd))
                     for dt in ("bfloat16", "float32"))
-        assert got == want, (nfx, nfd, got)
+        assert got == want, (width, nfx, nfd, got)
         assert (fused.kernel_gap(cfg, "float32", nfx, nfd) is None) == want[1]
 
 

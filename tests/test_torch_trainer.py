@@ -248,7 +248,15 @@ def test_resume_from_a_reference_tar(tmp_path):
 
 
 @pytest.mark.parametrize("metric", ["mse", "psnr", "ssim"])
-def test_compute_img_metric_matches_jax(metric):
+def test_compute_img_metric_matches_jax(metric, tmp_path, monkeypatch):
+    """Each metric against the JAX package's; and "lpips": without its
+    weights `LPIPSUnavailable`, with LPIPS_ALEX_PATH and LPIPS_LINEAR_PATH
+    set (random weights written by torch.save) the metric, finite and
+    within 1e-5 of the JAX package's on the same files."""
+    from lushnerf_tpu.utils import lpips as jlpips
+    from lushnerf_torch.utils import lpips
+    from tests.test_torch_lpips import ENV, write_weights
+
     rng = np.random.default_rng(3)
     a = rng.random((3, 17, 13, 3), dtype=np.float32)
     b = np.clip(a + 0.1 * rng.standard_normal(a.shape).astype(np.float32), -0.05, 1.05)
@@ -256,8 +264,20 @@ def test_compute_img_metric_matches_jax(metric):
         got = metrics.compute_img_metric(torch.from_numpy(x), torch.from_numpy(y), metric)
         want = jmetrics.compute_img_metric(x, y, metric)
         assert got == pytest.approx(want, rel=METRIC_TOL, abs=METRIC_TOL)
-    with pytest.raises(ValueError):
+    for k in ENV:
+        monkeypatch.delenv(k, raising=False)
+    monkeypatch.setattr(lpips, "_cache", {})
+    monkeypatch.setattr(jlpips, "_cache", {})
+    with pytest.raises(lpips.LPIPSUnavailable):
         metrics.compute_img_metric(a, b, "lpips")
+    alex, lin = write_weights(tmp_path, seed=7)
+    monkeypatch.setenv("LPIPS_ALEX_PATH", alex)
+    monkeypatch.setenv("LPIPS_LINEAR_PATH", lin)
+    c = rng.random((2, 32, 36, 3), dtype=np.float32)  # AlexNet needs 31 pixels a side
+    d = np.clip(c + 0.1 * rng.standard_normal(c.shape).astype(np.float32), 0.0, 1.0)
+    got = metrics.compute_img_metric(torch.from_numpy(c), torch.from_numpy(d), "lpips")
+    want = jmetrics.compute_img_metric(c, d, "lpips")
+    assert np.isfinite(got) and got == pytest.approx(want, rel=1e-5)
 
 
 @pytest.mark.parametrize("H,W,rf", [(378, 504, 4), (12, 16, 2), (13, 10, 3)],

@@ -104,26 +104,29 @@ the final result line):
      forward kernel, bf16 and f32 (packed before the steps), gives the bits
      of a freshly packed copy of the weights (no stale weight pack), bf16
      within the mean-gap control of its plain version, f32 within its limit;
-  7w. width128: the f32 kernels' width-128 builds, on the fused family's
-     one width besides 256 at which the JAX package runs its kernels (the
-     views layer padded to 128 lanes): K1 f32 output only at
+  7w. width128: the kernels' width-128 builds, on the fused family's one
+     width besides 256 at which the JAX package runs its kernels (the views
+     layer padded to 128 lanes), in both dtypes: K1 output only at
      SHAPES_FWD_128 (the flagship's P, the render and eval chunks, ragged,
-     one point) as phase 3 holds it, and K1 with its stash, K2 and K3 f32
-     at SHAPES_BWD_128 as phase 4 holds them (stash within STASH_TOL,
-     grads within BWD_TOL, bitwise repeat, stash == remat, equivariance at
-     g 2^-20, both scale units bit for bit; the coarse and fine P also at
-     POINT_CHUNK; times against bounds of the width's 314,880 FLOP a point
-     a pass, the dgrad and wgrad apart and by stage); bf16 at width 128,
-     which the kernels do not cover: the flagship's forward under the
-     'cuda' backend with no launch, equal to the torch backend's (1e-6;
-     depth 1e-5), a direct kernel call raising, and the width-128 builds'
-     bf16 entry points (K1's, the dgrad's, the wgrad's) refusing a call;
-     then the shipped step (configs/poster's: f32 remat at POINT_CHUNK) at netwidth =
-     netwidth_fine = 128: K1 f32 2 and K3 f32 75 launches a step and no
-     call of a scene MLP's plain forward, ms a step, peak memory and the
-     traced device ms beside plain torch f32 at width 128 and width 256's
-     f32 step, every grad at cosine >= GRAD_COS_MIN against torch f32;
-     last a Trainer from configs/poster at width 128 (W128_ITERS
+     one point) as phase 3 holds it, and K1 with its stash, K2 and K3 at
+     SHAPES_BWD_128 as phase 4 holds them (stash within STASH_TOL, grads
+     within BWD_TOL, bitwise repeat, stash == remat; in f32 equivariance
+     at g 2^-20 and both scale units bit for bit; in bf16 the mean-gap
+     controls and the wgrad alone within WGRAD_ALONE_TOL; the coarse and
+     fine P also at POINT_CHUNK; times against bounds of the width's
+     314,880 FLOP a point a pass, the dgrad and wgrad apart, beside the
+     wgrad its 12 torch.mm, and by stage); then the steps W128_STEPS at
+     netwidth = netwidth_fine = 128, all at POINT_CHUNK: the shipped
+     configs' (f32 remat: K1 f32 2, K3 f32 75 launches a step), the
+     flagship's bf16 stash and the shipped configs' under
+     mlp_compute_dtype = bfloat16 (bf16 remat), each with the launches of
+     `step_launches` and no call of a scene MLP's plain forward, and plain
+     torch f32: ms a step, peak memory, the f32 step traced; the f32 and
+     the bf16 stash step's grads at cosine >= GRAD_COS_MIN against torch
+     f32, and the bf16 path fed a stash with a3 shifted by a column (the
+     control) rejected; one 400x400 render_image in bf16 at width 128
+     against the torch f32 render (80 launches, rgb 1e-2, depth 5e-2, as
+     phase 6); last a Trainer from configs/poster at width 128 (W128_ITERS
      iterations from the kernel stage on `synthetic_scene` cut to
      W128_VIEWS views): each
      iteration's launches, a finite loss whose last 4 average below its
@@ -250,8 +253,9 @@ the final result line):
      searchsorted kernel also on unsorted rows with ties (exact, timed) and
      on a ragged S and SI; K8 bit for bit on lengths with a tail and on
      one element.
-Then a `{"kernels": [...]}` line (eleven kernels, each with the path that
-launched it: main, main (width 128), tune_kernel or probe_raymajor; K1's
+Then a `{"kernels": [...]}` line (thirteen kernels, each with the path that
+launched it: main, main (width 128; f32 and bf16 apart), tune_kernel or
+probe_raymajor; K1's
 and K3's launches in the cte and ddp phases also apart) and, last, the
 `{"ok": true, ...}` line.
 It needs the repository checkout: run alone it exits non-zero.
@@ -577,7 +581,7 @@ def fwd_rows(fused, mlp, dtypes, shapes, gen) -> list:
                     row["fma_bound_ms"] = bound_ms(P, w_bytes, False, macs=macs)[0]
                 row["tflops"] = 2.0 * macs * P / row["ms"] / 1e9
             if dtype == "bfloat16" and label == "fine":
-                row["torch_matmul_9_ms"] = torch_matmul_ms(P, gen)
+                row["torch_matmul_9_ms"] = torch_matmul_ms(P, gen, mlp.cfg.width)
             print("  " + json.dumps(row), flush=True)
             rows.append(row)
             if not (row["finite"] and row["within_tol"] and row["repeat_bitwise"]):
@@ -697,13 +701,13 @@ def fwd_breakdown(fused, mlp, xd, ms: float, stash: bool, dtype: str) -> dict:
                                        for i, name in enumerate(fused.FWD_OFF_PATH)}}
 
 
-def torch_matmul_ms(P: int, gen) -> float:
+def torch_matmul_ms(P: int, gen, width: int = MLP_WIDTH) -> float:
     """A yardstick, not a library column (no one call computes K1): the
-    nine 256-wide products of K1's layers (K = 64, 256 x 4, 320, 256 x 3)
+    nine W-wide products of K1's layers (K = 64, W x 4, W + 64, W x 3)
     through torch.matmul in bf16 at P points, CUDA-event ms, median of 5."""
-    ks = [64] + [256] * 4 + [320] + [256] * 3
+    ks = [64] + [width] * 4 + [width + 64] + [width] * 3
     a = {k: torch.randn((P, k), generator=gen, device="cuda").bfloat16() for k in set(ks)}
-    w = [torch.randn((k, MLP_WIDTH), generator=gen, device="cuda").bfloat16() for k in ks]
+    w = [torch.randn((k, width), generator=gen, device="cuda").bfloat16() for k in ks]
     return time_ms(lambda: [torch.matmul(a[k], m) for k, m in zip(ks, w)], 5)
 
 
@@ -748,7 +752,8 @@ def wgrad_alone(fused, run) -> dict:
     of fused.wgrad_items: each tile's max |error| over its max |value|,
     within WGRAD_ALONE_TOL."""
     worst = 0.0
-    for _, _, rows, I, off, ldw, zc, from_pe, ac in fused.wgrad_items(1, run.kx, run.kd):
+    for _, _, rows, I, off, ldw, zc, from_pe, ac in fused.wgrad_items(1, run.kx, run.kd,
+                                                                      width=run.width):
         got = torch.as_strided(run.dw, (rows, I), (ldw, 1), off)
         src = run.pe if from_pe else run.acts
         want = run.dz[:, zc:zc + rows].float().T @ src[:, ac:ac + I].float()
@@ -1281,7 +1286,8 @@ def corrupted_stash(fused, on: bool, block: int = 3):
     def shifted(*args, **kwargs):
         out, acts, units = launch(*args, **kwargs)
         if acts is not None:
-            cols = acts[:, block * MLP_WIDTH:(block + 1) * MLP_WIDTH]
+            w = fused.width_of_ld(acts.shape[1])
+            cols = acts[:, block * w:(block + 1) * w]
             cols.copy_(cols.roll(1, dims=1))
         return out, acts, units
 
@@ -1500,9 +1506,9 @@ SHAPES_FWD_128 = {k: SHAPES_FWD[k] for k in ("coarse", "fine", "render_coarse", 
                                              "eval_fine", "ragged", "tiny")}
 SHAPES_BWD_128 = {k: SHAPES_BWD[k] for k in ("coarse", "fine", "ragged", "tiny")}
 CHUNKED_BWD_128 = ("coarse", "fine")
-W128_ITERS = 12  # Trainer iterations, kernel from 1, allkernel from 9
+W128_ITERS = 8  # Trainer iterations, kernel from 1, allkernel from 5
 W128_VIEWS = 9  # the Trainer's scene: llffhold 8 holds out views 0 and 8
-W128_TRAINER_OVERRIDES = dict(N_iters=W128_ITERS, kernel_start_iter=1, allkernel_start_iter=9,
+W128_TRAINER_OVERRIDES = dict(N_iters=W128_ITERS, kernel_start_iter=1, allkernel_start_iter=5,
                               noisenerf_start_iter=10**9, i_print=4, i_weights=10**9,
                               i_testset=10**9, render_factor=4,
                               netwidth=W128, netwidth_fine=W128)
@@ -1539,70 +1545,65 @@ def grad_cosines(got: dict, want: dict) -> dict:
             for n, g in got.items()}
 
 
-def width128_bf16(fused, lush, cfg_mod) -> dict:
-    """The flagship (bf16 under the 'cuda' backend) at width 128, which the
-    kernels do not cover in bf16: the renderer routes both scene MLPs to
-    the plain torch path by shape (no launch), and the forward equals the
-    torch backend's on the same draws; a direct kernel call raises, and the
-    width-128 builds' bf16 entry points (K1's, the dgrad's, the wgrad's)
-    refuse a call with cudaErrorInvalidValue before they launch."""
+def width128_render(fused, lush, cfg_mod) -> dict:
+    """One 400x400 render_image of the flagship config (bf16 under the
+    'cuda' backend) at width 128, its chunks through K1 bf16's width-128
+    build, against the same render through mlp_backend='torch' in f32, as
+    phase 6 holds width 256's: 80 launches, finite, rgb within 1e-2 and
+    depth within 5e-2."""
     cfg = cfg_mod.flagship_cfg(num_images=NUM_IMAGES)
     cfg.netwidth = cfg.netwidth_fine = W128
-    cfg.mlp_backend, cfg.mlp_compute_dtype = "cuda", "bfloat16"
     lc = cfg.lush_config()
-    model = lush.LushNeRF(lc, seed=0, device="cuda")
+    assert (lc.render.mlp_backend, lc.render.mlp_compute_dtype) == ("cuda", "bfloat16"), lc.render
     tlc = dataclasses.replace(lc, render=dataclasses.replace(lc.render, mlp_backend="torch",
                                                              mlp_compute_dtype="float32"))
-    rays, idx = flagship_batch()
-    rnd = lush._train_randomness(torch.Generator(device="cuda").manual_seed(1), lc,
-                                 N_RAYS * lc.rbk.num_rays_out, rays.device)
-    with torch.no_grad():
-        zero_counts(fused)
-        got = lush.forward_kernel(model, lc, H, W, FOCAL, rays, idx, None, rand_override=rnd)
-        torch.cuda.synchronize()
-        res = {"backend": lc.render.mlp_backend, "dtype": lc.render.mlp_compute_dtype,
-               "launches": read_counts(fused)}
-        want = lush.forward_kernel(model, tlc, H, W, FOCAL, rays, idx, None, rand_override=rnd)
-        res.update({f"{key}_err_vs_torch": max_err(got[key], want[key])
-                    for key in ("rgb_blur", "rgb0_blur", "depth", "acc")})
-        try:
-            fused.nerf_mlp_fwd(model.mlp_fine, torch.zeros((128, fused.XD_CH), device="cuda"),
-                               "bfloat16")
-            res["direct_call_raises"] = False
-        except ValueError:
-            res["direct_call_raises"] = True
-    kx, kd = fused.pe_widths(model.mlp_fine.cfg)
-    stream = torch.cuda.current_stream().cuda_stream
-    null = [None]
-    res["bf16_entry_codes"] = {  # P 128, one block or split; no pointer is read
-        "nerf_mlp_fwd": fused._lib(W128).nerf_mlp_fwd(*null * 7, 128, kx, kd, 10, 4, 1, 1, stream),
-        "nerf_mlp_dgrad_bf16": fused._dgrad_lib(W128).nerf_mlp_dgrad_bf16(
-            *null * 10, 128, kx, kd, 10, 4, 1, stream),
-        "nerf_mlp_bwd_wgrad": fused._bwd_lib(W128).nerf_mlp_bwd_wgrad(
-            *null * 7, 128, kx, kd, 1, 1, 1, stream),
-    }
-    print("  width 128 in bf16: " + json.dumps(res), flush=True)
-    assert all(v == 0 for v in res["launches"].values()), res
-    assert res["direct_call_raises"], res
-    assert all(res[f"{key}_err_vs_torch"] <= 1e-6 for key in ("rgb_blur", "rgb0_blur", "acc")) \
-        and res["depth_err_vs_torch"] <= 1e-5, res
-    assert all(rc == 1 for rc in res["bf16_entry_codes"].values()), res  # cudaErrorInvalidValue
+    model = lush.LushNeRF(lc, seed=0, device="cuda")
+    K = np.array([[FOCAL, 0, W / 2], [0, FOCAL, H / 2], [0, 0, 1]], np.float32)
+    c2w = np.eye(3, 4, dtype=np.float32)
+    lush.render_image(model, lc, H, W, K, c2w, RAY_CHUNK)  # warm-up (the packs)
+    torch.cuda.synchronize()
+    zero_counts(fused)
+    t0 = time.perf_counter()
+    got = lush.render_image(model, lc, H, W, K, c2w, RAY_CHUNK)
+    torch.cuda.synchronize()
+    res = {"ms_per_image": (time.perf_counter() - t0) * 1e3, "launches": read_counts(fused)}
+    t0 = time.perf_counter()
+    ref = lush.render_image(model, tlc, H, W, K, c2w, RAY_CHUNK)
+    torch.cuda.synchronize()
+    res["torch_f32_ms_per_image"] = (time.perf_counter() - t0) * 1e3
+    for i, key in enumerate(("rgb", "noise", "depth")):
+        res[f"{key}_err_bf16_vs_torch"] = max_err(got[i], ref[i])
+    res["finite"] = all(bool(torch.isfinite(t).all()) for t in got)
+    res["shape"] = list(got[0].shape)
+    print("  width 128 render_image, bf16: " + json.dumps(res), flush=True)
+    assert res["launches"] == {"nerf_mlp_fwd": 80, "nerf_mlp_bwd_stash": 0,
+                               "nerf_mlp_bwd_remat": 0}, res["launches"]
+    assert res["finite"] and res["shape"] == [H, W, 3]
+    assert res["rgb_err_bf16_vs_torch"] < 1e-2 and res["depth_err_bf16_vs_torch"] < 5e-2, res
     return res
 
 
+# the width-128 phase's steps: the shipped configs' (f32 remat), the
+# flagship's (bf16 stash), the shipped configs' under mlp_compute_dtype =
+# bfloat16 (bf16 remat) and plain torch f32, all at POINT_CHUNK
+W128_STEPS = ("remat_f32", "stash", "remat", "torch")
+
+
 def width128_phase(fused, lush, cfg_mod, trainer, NeRFMLP, MLPConfig, results):
-    """The width-128 kernels (K1 f32, the f32 dgrad, the f32 wgrad; K3 f32)
-    against their plain versions as phases 3 and 4 hold width 256's; bf16
-    at width 128 on the plain torch path (`width128_bf16`); the shipped
-    step at width 128 (launches, no plain scene MLP, grads against torch
-    f32, ms, peak memory, traced device ms); a Trainer run from the kernel
-    stage and one eval view."""
-    res = {"launches_total": {k: 0 for k in COUNTERS}, "seconds": {}}
+    """The width-128 kernels (K1, the dgrad, the wgrad; K3 from them) in
+    both dtypes against their plain versions as phases 3 and 4 hold width
+    256's; the steps of W128_STEPS (launches, no plain scene MLP, ms, peak
+    memory; the f32 one traced), the f32 and bf16 stash steps' grads
+    against torch f32 with the shifted-stash control; a bf16 render
+    (`width128_render`); a Trainer run from the kernel stage and one eval
+    view.  The main path's launches are counted by dtype."""
+    res = {"launches": {d: {k: 0 for k in COUNTERS} for d in ("float32", "bfloat16")},
+           "seconds": {}}
     t_part = [time.perf_counter()]
 
-    def count(counts):
+    def count(counts, dtype):
         for k, v in counts.items():
-            res["launches_total"][k] += v
+            res["launches"][dtype][k] += v
         return counts
 
     def part_done(name):
@@ -1614,17 +1615,16 @@ def width128_phase(fused, lush, cfg_mod, trainer, NeRFMLP, MLPConfig, results):
     mlp = NeRFMLP(MLPConfig(width=W128), torch.Generator().manual_seed(0), torch.device("cpu"))
     mlp = mlp.cuda().requires_grad_(False)
     gen = torch.Generator(device="cuda").manual_seed(5)
-    res["kernel"] = fwd_rows(fused, mlp, ("float32",), SHAPES_FWD_128, gen)
+    res["kernel"] = fwd_rows(fused, mlp, ("float32", "bfloat16"), SHAPES_FWD_128, gen)
     part_done("kernel")
-    res["kernel_bwd"] = bwd_rows(fused, mlp, "float32", SHAPES_BWD_128, gen, CHUNKED_BWD_128)
+    res["kernel_bwd"] = [r for dtype in ("float32", "bfloat16")
+                         for r in bwd_rows(fused, mlp, dtype, SHAPES_BWD_128, gen, CHUNKED_BWD_128)]
     del mlp
     torch.cuda.empty_cache()
     part_done("kernel_bwd")
-    res["bf16"] = width128_bf16(fused, lush, cfg_mod)
-    part_done("bf16")
 
-    # 2. the shipped step at width 128: the kernels, and plain torch f32 as a
-    # user at width 128 ran it before (at the config's point_chunk)
+    # 2. the steps at width 128: the kernels, and plain torch f32 as a user
+    # at width 128 ran it before (at the config's point_chunk)
     def cfg128(variant):
         cfg, _ = train_cfg(cfg_mod, variant, POINT_CHUNK)
         cfg.netwidth = cfg.netwidth_fine = W128
@@ -1632,7 +1632,7 @@ def width128_phase(fused, lush, cfg_mod, trainer, NeRFMLP, MLPConfig, results):
 
     batch = train_batch()
     step_res, models = {}, {}
-    for variant in ("remat_f32", "torch"):
+    for variant in W128_STEPS:
         cfg, lc = cfg128(variant)
         model = lush.LushNeRF(lc, seed=0, device="cuda")
         opt, sched = trainer.make_optimizer(cfg, model)
@@ -1650,8 +1650,9 @@ def width128_phase(fused, lush, cfg_mod, trainer, NeRFMLP, MLPConfig, results):
         n = 3
         with plain_scene_mlp_calls(NeRFMLP, model, plain):
             ms, (loss, _) = window_ms(step, n)
-        counts = count(read_counts(fused))
-        r = dict(point_chunk=lc.render.point_chunk, ms_per_step=ms, steps=n,
+        counts = count(read_counts(fused), lc.render.mlp_compute_dtype)
+        r = dict(dtype=lc.render.mlp_compute_dtype, bwd=lc.render.mlp_bwd,
+                 point_chunk=lc.render.point_chunk, ms_per_step=ms, steps=n,
                  peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                  launches_per_step={k: v / n for k, v in counts.items()},
                  plain_scene_mlp_calls=plain[0], loss=loss.item())
@@ -1660,40 +1661,53 @@ def width128_phase(fused, lush, cfg_mod, trainer, NeRFMLP, MLPConfig, results):
         step_res[variant] = r
         print(f"  width 128 step, {variant}: " + json.dumps(r), flush=True)
         assert np.isfinite(r["loss"]), variant
-        if variant == "remat_f32":
+        if variant != "torch":
             assert r["launches_per_step"] == step_launches(fused, variant, POINT_CHUNK), r
-            assert r["launches_per_step"]["nerf_mlp_fwd"] == 2 \
-                and r["launches_per_step"]["nerf_mlp_bwd_remat"] == 75, r
             assert r["plain_scene_mlp_calls"] == 0, r
         else:
             assert all(v == 0 for v in r["launches_per_step"].values()) \
                 and r["plain_scene_mlp_calls"] > 0, r
-        models[variant] = (model, lc)
-        del opt, sched
+        if variant in ("remat_f32", "stash", "torch"):
+            models[variant] = lc
+        del model, opt, sched
+    assert step_res["remat_f32"]["launches_per_step"]["nerf_mlp_fwd"] == 2 \
+        and step_res["remat_f32"]["launches_per_step"]["nerf_mlp_bwd_remat"] == 75, step_res
     res["step"] = step_res
     w256 = (results.get("train_step") or {}).get("remat_f32") or {}
     res["step_width256"] = {k: w256.get(k) for k in ("ms_per_step", "peak_mem_gb")}
-    # one step's grads, the kernels against torch f32, on the same draws (a
-    # comparison: its launches are not counted)
-    rnd = lush._train_randomness(torch.Generator(device="cuda").manual_seed(3),
-                                 models["torch"][1], N_RAYS * models["torch"][1].rbk.num_rays_out,
-                                 torch.device("cuda"))
+    # one step's grads, the kernels (f32 remat, bf16 stash, and the bf16
+    # stash with its a3 block shifted by a column, the control) against
+    # torch f32, on the same draws (a comparison: its launches are not
+    # counted)
+    rnd = lush._train_randomness(torch.Generator(device="cuda").manual_seed(3), models["torch"],
+                                 N_RAYS * models["torch"].rbk.num_rays_out, torch.device("cuda"))
     grads = {}
-    for variant, (_, lc) in models.items():
+    for variant in ("remat_f32", "stash", "torch", "stash_corrupt"):
+        lc = models[variant.replace("_corrupt", "")]
         model = lush.LushNeRF(lc, seed=0, device="cuda")
-        loss, _ = trainer.loss_fn(model, lc, H, W, FOCAL, batch, "kernel", rand_override=rnd)
-        loss.backward()
+        with corrupted_stash(fused, variant.endswith("_corrupt")):
+            loss, _ = trainer.loss_fn(model, lc, H, W, FOCAL, batch, "kernel", rand_override=rnd)
+            loss.backward()
         grads[variant] = grads_of(model)
         del model, loss
-    cos = grad_cosines(grads["remat_f32"], grads["torch"])
-    worst = sorted(cos.items(), key=lambda kv: kv[1])[:5]
-    res["grad_cos_min"], res["grad_cos_worst"], res["grad_params"] = worst[0][1], worst, len(cos)
-    print(f"  width 128 grad cosines vs torch f32, worst 5 of {len(cos)}: " + json.dumps(worst),
-          flush=True)
-    assert worst[0][1] >= GRAD_COS_MIN["float32"], worst
+    res["grad_cos"] = {}
+    for variant, dtype in (("remat_f32", "float32"), ("stash", "bfloat16"),
+                           ("stash_corrupt", "bfloat16")):
+        cos = grad_cosines(grads[variant], grads["torch"])
+        worst = sorted(cos.items(), key=lambda kv: kv[1])[:5]
+        res["grad_cos"][variant] = {"min": worst[0][1], "worst": worst, "params": len(cos)}
+        print(f"  width 128 grad cosines vs torch f32, {variant} ({dtype}), worst 5 of "
+              f"{len(cos)}: " + json.dumps(worst), flush=True)
+        if variant == "stash_corrupt":
+            assert worst[0][1] < GRAD_COS_MIN[dtype], ("the control passed the bound", worst)
+        else:
+            assert worst[0][1] >= GRAD_COS_MIN[dtype], (variant, worst)
     del models, grads
     torch.cuda.empty_cache()
     part_done("step")
+    res["render_bf16"] = width128_render(fused, lush, cfg_mod)
+    count(res["render_bf16"]["launches"], "bfloat16")
+    part_done("render")
 
     # 3. the Trainer from the kernel stage, then one eval view through K1 f32
     tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_w128_")
@@ -1724,7 +1738,7 @@ def width128_phase(fused, lush, cfg_mod, trainer, NeRFMLP, MLPConfig, results):
             res["trainer_s"] = time.perf_counter() - t0
         finally:
             trainer.train_step = real_step
-        count(read_counts(fused))
+        count(read_counts(fused), "float32")
         expect = step_launches(fused, "remat_f32", POINT_CHUNK,
                                (cfg.N_rand * 5 * 64, cfg.N_rand * 5 * 128))
         assert len(steps) == W128_ITERS and all(c == expect for _, c in steps), \
@@ -1737,7 +1751,7 @@ def width128_phase(fused, lush, cfg_mod, trainer, NeRFMLP, MLPConfig, results):
         with torch.no_grad():
             rgb = tr.render_pose(tr.poses[view])[0]
         torch.cuda.synchronize()
-        eval_counts = count(read_counts(fused))
+        eval_counts = count(read_counts(fused), "float32")
         from lushnerf_torch.utils.metrics import compute_img_metric
         gt = tr._gt_at_eval_res([view])
         res["eval_view"] = dict(view=view, hw=list(rgb.shape[:2]), launches=eval_counts,
@@ -1751,7 +1765,7 @@ def width128_phase(fused, lush, cfg_mod, trainer, NeRFMLP, MLPConfig, results):
     part_done("trainer")
     print(f"  width 128 Trainer: {W128_ITERS} iterations in {res['trainer_s']:.2f} s, losses "
           + json.dumps(losses) + "; eval view " + json.dumps(res["eval_view"]), flush=True)
-    print("  width 128 launches on its main path: " + json.dumps(res["launches_total"])
+    print("  width 128 launches on its main path, by dtype: " + json.dumps(res["launches"])
           + "; seconds by part: " + json.dumps({k: round(v, 1) for k, v in res["seconds"].items()}),
           flush=True)
     return res
@@ -3494,51 +3508,70 @@ def kernel_entries(results):
 
 
 def width128_entries(w128):
-    """The width-128 builds of K1 f32 and K3 f32 (its f32 dgrad and f32
-    wgrad inside it) on the width128 phase's main path (its train steps,
-    Trainer run and eval view): launches there, errors over the phase's
-    rows, times at the fine P."""
+    """The width-128 builds of K1 and of the backward (its dgrad and wgrad;
+    K3 is K1 with its stash and them), in f32 and in bf16, on the width128
+    phase's main path (f32: its f32 step, Trainer run and eval view; bf16:
+    its two bf16 steps and its render): launches there by dtype, errors
+    over the phase's rows of the dtype, times at the fine P."""
     if not w128:
         return []
-    fwd_rows, bwd = w128["kernel"], [r for r in w128["kernel_bwd"]]
-    fine = next(r for r in bwd if r["shape"] == "fine")
-    counts = w128["launches_total"]
+    out = []
+    for dtype, names in (("float32", ("nerf_mlp_fwd@w128", "nerf_mlp_bwd_remat@w128")),
+                         ("bfloat16", ("nerf_mlp_fwd_bf16@w128", "nerf_mlp_bwd_bf16@w128"))):
+        fwd_rows = [r for r in w128["kernel"] if r["dtype"] == dtype]
+        bwd = [r for r in w128["kernel_bwd"] if r["dtype"] == dtype]
+        fine = next(r for r in bwd if r["shape"] == "fine")
+        counts = w128["launches"][dtype]
+        timed = [r for r in bwd if "stash_ms" in r]
 
-    def entry(name, source, replaces, launches, err, prefix, extra):
-        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "path": "main (width 128)", "width": W128, "launches": launches,
-                "max_abs_err": err, "ms": fine[f"{prefix}_ms"],
-                "plain_ms": fine[f"{prefix}_plain_ms"], "bound_ms": fine[f"{prefix}_bound_ms"],
-                "bound_by": fine[f"{prefix}_bound_by"], "library_ms": None, "P": fine["P"],
-                **extra}
+        def entry(name, source, replaces, launches, err, prefix, extra):
+            return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                    "path": "main (width 128)", "width": W128, "dtype": dtype,
+                    "launches": launches, "max_abs_err": err, "ms": fine[f"{prefix}_ms"],
+                    "plain_ms": fine[f"{prefix}_plain_ms"], "bound_ms": fine[f"{prefix}_bound_ms"],
+                    "bound_by": fine[f"{prefix}_bound_by"], "library_ms": None, "P": fine["P"],
+                    **extra}
 
-    timed = [r for r in bwd if "stash_ms" in r]
-    return [
-        entry("nerf_mlp_fwd@w128", "lushnerf_torch/csrc/nerf_mlp_fwd.cu",
-              "lushnerf_tpu/ops/fused/nerf_mlp.py:396", counts["nerf_mlp_fwd"],
-              max([r["max_abs_err"] for r in fwd_rows] + [r["fwd_out_max_abs_err"] for r in bwd]),
-              "fwd_stash",
-              {"dtype": "float32", "stash_max_rel_err": max(r["stash_max_rel_err"] for r in bwd),
-               "shapes_stash": [{"P": r["P"], "ms": r["fwd_stash_ms"],
-                                 "plain_ms": r["fwd_stash_plain_ms"],
-                                 "bound_ms": r["fwd_stash_bound_ms"]} for r in timed],
-               "shapes_output_only": [{k: r[k] for k in ("P", "ms", "plain_ms", "bound_ms",
-                                                         "max_abs_err") if k in r}
-                                      for r in fwd_rows]}),
-        entry("nerf_mlp_bwd_remat@w128", "lushnerf_torch/csrc/nerf_mlp_dgrad.cu",
-              "lushnerf_tpu/ops/fused/nerf_mlp.py:589", counts["nerf_mlp_bwd_remat"],
-              max(r[f"{p}_max_abs_err"] for r in bwd for p in ("bwd", "bwd_on_plain_stash")),
-              "remat",
-              {"dtype": "float32",
-               "max_rel_err": max(r[f"{p}_max_rel_err"] for r in bwd
-                                  for p in ("bwd", "bwd_on_plain_stash")),
-               "also_source": "lushnerf_torch/csrc/nerf_mlp_fwd.cu, nerf_mlp_bwd.cu",
-               "launches_are": "K1 with its stash + dgrad + wgrad + 2 reductions per point chunk",
-               "shapes": [{"P": r["P"], "ms": r["remat_ms"], "plain_ms": r["remat_plain_ms"],
-                           "bound_ms": r["remat_bound_ms"], "stash_ms": r["stash_ms"],
-                           "stash_plain_ms": r["stash_plain_ms"]} for r in timed],
-               **bwd_split(bwd)}),
-    ]
+        bwd_extra = {
+            "max_rel_err": max(r[f"{p}_max_rel_err"] for r in bwd
+                               for p in ("bwd", "bwd_on_plain_stash")),
+            "also_source": "lushnerf_torch/csrc/nerf_mlp_fwd.cu, nerf_mlp_bwd.cu",
+            "shapes": [{"P": r["P"], "ms": r["remat_ms"], "plain_ms": r["remat_plain_ms"],
+                        "bound_ms": r["remat_bound_ms"], "stash_ms": r["stash_ms"],
+                        "stash_plain_ms": r["stash_plain_ms"],
+                        "stash_bound_ms": r["stash_bound_ms"]} for r in timed],
+            **bwd_split(bwd)}
+        bwd_err = max(r[f"{p}_max_abs_err"] for r in bwd for p in ("bwd", "bwd_on_plain_stash"))
+        if dtype == "float32":  # the shipped configs' remat: K3 f32
+            bwd_entry = entry(names[1], "lushnerf_torch/csrc/nerf_mlp_dgrad.cu",
+                              "lushnerf_tpu/ops/fused/nerf_mlp.py:589",
+                              counts["nerf_mlp_bwd_remat"], bwd_err, "remat",
+                              {**bwd_extra, "launches_are": "K1 with its stash + dgrad + wgrad + "
+                                                            "2 reductions per point chunk"})
+        else:  # the flagship's stash (K2) and the shipped configs' remat (K3) in bf16
+            bwd_entry = entry(names[1], "lushnerf_torch/csrc/nerf_mlp_dgrad.cu",
+                              "lushnerf_tpu/ops/fused/nerf_mlp.py:608",
+                              counts["nerf_mlp_bwd_stash"] + counts["nerf_mlp_bwd_remat"],
+                              bwd_err, "stash",
+                              {**bwd_extra, "also_replaces": "lushnerf_tpu/ops/fused/nerf_mlp.py:589",
+                               "launches_stash": counts["nerf_mlp_bwd_stash"],
+                               "launches_remat": counts["nerf_mlp_bwd_remat"],
+                               "launches_are": "dgrad + wgrad + 2 reductions per point chunk "
+                                               "(remat: K1 with its stash first)"})
+        out += [
+            entry(names[0], "lushnerf_torch/csrc/nerf_mlp_fwd.cu",
+                  "lushnerf_tpu/ops/fused/nerf_mlp.py:396", counts["nerf_mlp_fwd"],
+                  max([r["max_abs_err"] for r in fwd_rows] + [r["fwd_out_max_abs_err"] for r in bwd]),
+                  "fwd_stash",
+                  {"stash_max_rel_err": max(r["stash_max_rel_err"] for r in bwd),
+                   "shapes_stash": [{"P": r["P"], "ms": r["fwd_stash_ms"],
+                                     "plain_ms": r["fwd_stash_plain_ms"],
+                                     "bound_ms": r["fwd_stash_bound_ms"]} for r in timed],
+                   "shapes_output_only": [{k: r[k] for k in ("P", "ms", "plain_ms", "bound_ms",
+                                                             "max_abs_err") if k in r}
+                                          for r in fwd_rows]}),
+            bwd_entry]
+    return out
 
 
 def bwd_split(bwd_rows) -> dict:
@@ -3806,9 +3839,9 @@ def main(argv=None) -> int:
     kernels = kernel_entries(smoke.results)
     if not smoke.failed:
         idle = [k["name"] for k in kernels if k["launches"] <= 0]
-        if len(kernels) != 11 or idle:
+        if len(kernels) != 13 or idle:
             print(f"chip_smoke: kernels not launched on their path: {idle} "
-                  f"({len(kernels)} of 11 listed)", file=sys.stderr)
+                  f"({len(kernels)} of 13 listed)", file=sys.stderr)
             smoke.failed.append("kernels")
     if args.out:
         with open(args.out, "w") as f:

@@ -67,15 +67,16 @@ using namespace hopper;
 // Both modes share the output tiles: 128 rows o (a layer's outputs) by all
 // of a block's I <= 256 columns i (its inputs), the N_WIDE tiles of width
 // W first (17 at width 256), then the narrow ones (W0, W5a: I = kx, Wvd:
-// I = kd; 5 at width 256).  At width 128 (the f32 wgrad only) the views
-// layer's rows are its 128 lanes (nerf_mlp_common.cuh), so each of the 12
-// blocks is one tile: 9 wide, 3 narrow.  A
+// I = kd; 5 at width 256).  At width 128 the views layer's rows are its
+// 128 lanes (nerf_mlp_common.cuh), so each of the 12 blocks is one tile: 9
+// wide, 3 narrow.  A
 // persistent grid takes (tile, point split) work in split-major order, the
 // wide tiles of every split first: the f32 wgrad item by item (`item_of`),
 // block b taking items b, b + grid, ..., so that both o-halves of a
 // weight block's A columns are read close in time; the bf16 wgrad a
 // weight block's two halves at once on the two blocks of a cluster
-// (`bf16w::unit_of`).  Each tile sums its split's points in one fixed
+// (`bf16w::unit_of`; at width 128 every block's one tile in two 64-row
+// halves).  Each tile sums its split's points in one fixed
 // order into f32 registers and stores its partial; the reductions sum the
 // partials in split order.
 
@@ -192,10 +193,16 @@ __device__ __forceinline__ void store_partial(float* part, const WTile& t, int I
 // both blocks' stages (each producer issues half of them), so that A leaves
 // device memory once: two blocks that each loaded A drifted apart and read
 // much of it twice (PERF.md).  A stage is free when the consumers of both
-// blocks have read it.  Units go split by split, the 9 wide ones (I = 256)
+// blocks have read it.  Units go split by split, the 9 wide ones (I = W)
 // of every split first, then the 3 narrow ones (W0, W5a: I = kx; Wvd: I =
 // kd).  Every split but the last is a whole number of stages, so a box
 // never reaches into the next split.
+// At width 128 every weight block is one 128-row tile, so no two tiles
+// share their A and a pair of tiles would have nothing to multicast: each
+// unit is one tile in the two 64-row halves (one warpgroup of each block
+// idle), as Wvf and Wvd are at width 256, so that A is still read once a
+// unit.  (One block a tile without the cluster, as the f32 wgrad runs,
+// would read A twice as often per tile row.)
 
 namespace bf16w {
 constexpr int KS = 64;                    // points a stage: one box deep
@@ -228,7 +235,8 @@ struct Args {
 // Unit `u` of a cluster's loop, as block `rank` of the cluster takes it:
 // its tile, the split, and whether the two blocks share the tile's 128
 // rows (half = 1: block r takes rows 64 r.., with its first warpgroup)
-// rather than each take a tile of the pair.  Returns the tile's columns I.
+// rather than each take a tile of the pair (width 256 only).  Returns the
+// tile's columns I.
 template <typename A>
 __host__ __device__ __forceinline__ int unit_of(const A& a, int u, int rank, int& tile,
                                                 int& split, int& half) {
@@ -241,9 +249,15 @@ __host__ __device__ __forceinline__ int unit_of(const A& a, int u, int rank, int
     split = u / N_UNITS_NARROW;
     pair = N_UNITS_WIDE + u % N_UNITS_NARROW;  // W0, W5a; then Wvd (tile 21)
   }
-  half = pair == N_UNITS_WIDE - 1 || pair == N_UNITS_WIDE + N_UNITS_NARROW - 1;
-  tile = 2 * pair - (pair < N_UNITS_WIDE ? 0 : 1) + (half ? 0 : rank);
-  return pair < N_UNITS_WIDE ? W : half ? a.kd : a.kx;
+  if constexpr (W == 256) {
+    half = pair == N_UNITS_WIDE - 1 || pair == N_UNITS_WIDE + N_UNITS_NARROW - 1;
+    tile = 2 * pair - (pair < N_UNITS_WIDE ? 0 : 1) + (half ? 0 : rank);
+    return pair < N_UNITS_WIDE ? W : half ? a.kd : a.kx;
+  } else {  // width 128: each block one tile, taken in halves
+    half = 1;
+    tile = pair;
+    return pair < N_UNITS_WIDE ? W : pair == N_UNITS_WIDE + N_UNITS_NARROW - 1 ? a.kd : a.kx;
+  }
 }
 
 __device__ __forceinline__ uint64_t* wbar(int i) {
@@ -825,9 +839,6 @@ int pts_per_split(int P, int n_splits, int ks) {
 int launch_wgrad_bf16(const void* acts, const void* dz, const void* pe, float* w_part,
                       long long* clk, int P, int kx, int kd, int n_splits, int n_wblocks,
                       cudaStream_t stream) {
-#if NERF_MLP_WIDTH != 256
-  return (int)cudaErrorInvalidValue;  // the bf16 wgrad: width 256 only
-#else
   using namespace bf16w;
   if (n_wblocks < CLUSTER || n_splits <= 0) return (int)cudaErrorInvalidValue;
   static int max_clusters = 0;  // clusters that fit on the card at once
@@ -869,7 +880,6 @@ int launch_wgrad_bf16(const void* acts, const void* dz, const void* pe, float* w
   else
     nerf_mlp_bwd_wgrad_bf16_sm90<false><<<grid, NTHR, SMEM, stream>>>(tm_dz, tm_acts, tm_pe, wa);
   return (int)cudaGetLastError();
-#endif
 }
 
 int launch_wgrad_f32(const void* acts, const void* dz, const void* pe, const float* zs,
@@ -933,10 +943,10 @@ int nerf_mlp_bwd_consts(int i) {
 // out: tile, split, rows o, columns I, the offset of the entry's first row
 // in the weight grad, its row length, the dz column of that row, A from the
 // PE (1) or the stash (0), A's first column.  Returns the entry count, or
-// -1 (also for bf16 in a build of another width than 256).
+// -1.
 int nerf_mlp_bwd_wgrad_items(int bf16_mode, int n_splits, int kx, int kd, long long* out) {
   WTile tiles[N_TILES];
-  if (n_splits <= 0 || fill_tiles(tiles, kx, kd) < 0 || (bf16_mode && W != 256)) return -1;
+  if (n_splits <= 0 || fill_tiles(tiles, kx, kd) < 0) return -1;
   const struct { int n_splits, kx, kd; } a = {n_splits, kx, kd};
   const int per = bf16_mode ? bf16w::N_UNITS_WIDE + bf16w::N_UNITS_NARROW : N_TILES;
   const int ranks = bf16_mode ? bf16w::CLUSTER : 1;

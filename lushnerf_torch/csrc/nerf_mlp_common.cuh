@@ -4,8 +4,8 @@
 // The forward's layer sequence (both modes) is nerf_mlp_fwd_sm90.cuh.
 //
 // The scene MLP's width W is a compile-time constant: 256 (the default),
-// or 128 with -DNERF_MLP_WIDTH=128 (the f32 kernels only; the bf16 entry
-// points refuse a launch there).  The views layer always has WH = 128
+// or 128 with -DNERF_MLP_WIDTH=128 (every kernel of the MLP but K5, the
+// matmul-only kernel of nerf_pe_mm.cu).  The views layer always has WH = 128
 // lanes: W / 2 at width 256; at width 128 its 64 columns padded with zero
 // columns (zero weights, bias and rgb-head rows), as the JAX package's
 // `pad_params` pads it to 128 lanes, so that its relu output there is 0.

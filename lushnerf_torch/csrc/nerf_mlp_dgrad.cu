@@ -59,6 +59,13 @@
 //     thread's two rows, then the warp's 8 row groups by shuffles, then
 //     the 8 warps in order, per tile in tile order, per block into its own
 //     partial; nerf_mlp_bwd.cu sums the partials in block order.
+// Both dgrads are compiled for the width W of nerf_mlp_common.cuh.  At
+// width 128 (the views layer padded to 128 lanes) a W-wide layer's chunk
+// is one weight piece and its d_z one 64-register accumulator and one
+// epilogue half (`matmul_chunks`), two chunks deep; the tile buffers, the
+// ring and the staging keep their places and sizes (half of each buffer
+// idle), each stage of the producer's stores is two chunks, and half the
+// consumer threads sum a7's columns and the bias columns.
 
 #include "hopper.cuh"
 #include "nerf_mlp_common.cuh"
@@ -83,12 +90,16 @@ constexpr int HALF = 128;             // output columns of one weight piece of a
 constexpr int WST_B = HALF * 128;     // a weight piece: up to [128 rows][64 bf16], 16 KB
 constexpr int N_WST = 4;              // weight ring stages: two 64-deep chunks of a 256-wide layer
 constexpr int BAR_CONS = 1;           // named barrier of the 256 consumer threads
+constexpr int NCH = W / 64;           // chunks of a W-wide d_z in a tile buffer
+// the staging's bytes: two layers' column sums [2][8 warps][W] f32, and
+// dxd_views's [T][32] f32 (16 KB, the column sums' size at width 256)
+constexpr int STAGE_B = 2 * 8 * W * 4 > T * 32 * 4 ? 2 * 8 * W * 4 : T * 32 * 4;
 
 // shared memory (byte offsets; the tile buffers and the ring are 1024-aligned)
 constexpr int SM_BUF = 0;
 constexpr int SM_RING = SM_BUF + 2 * BUF_B;
-constexpr int SM_STAGE = SM_RING + N_WST * WST_B;      // [2][8 warps][256] f32 column sums
-constexpr int SM_FACC = SM_STAGE + 2 * 8 * W * 4;      // [FP_NUMEL] f32
+constexpr int SM_STAGE = SM_RING + N_WST * WST_B;      // [2][8 warps][W] f32 column sums
+constexpr int SM_FACC = SM_STAGE + STAGE_B;            // [FP_NUMEL] f32
 constexpr int SM_XS = SM_FACC + FP_NUMEL * 4;          // [T][8] f32
 constexpr int SM_GS = SM_XS + T * 8 * 4;               // [T][4] f32
 constexpr int SM_BARS = SM_GS + T * 4 * 4;             // [N_BARS] mbarriers
@@ -166,13 +177,18 @@ static_assert(W_FULL == 0 && W_EMPTY == N_WST, "the ring's barriers");
 using Ring = RingT<SM_BARS, SM_RING>;
 
 // The producer, before chunk c of a tile buffer is loaded again: its store
-// of that chunk, bulk group c of the last four it committed (one a chunk,
+// of that chunk, bulk group c of the last NCH it committed (one a chunk,
 // in chunk order), has read it.
 __device__ __forceinline__ void wait_store_read(int c) {
-  if (c == 0) bulk_wait_read<3>();
-  else if (c == 1) bulk_wait_read<2>();
-  else if (c == 2) bulk_wait_read<1>();
-  else bulk_wait_read<0>();
+  if constexpr (NCH == 4) {
+    if (c == 0) bulk_wait_read<3>();
+    else if (c == 1) bulk_wait_read<2>();
+    else if (c == 2) bulk_wait_read<1>();
+    else bulk_wait_read<0>();
+  } else {
+    if (c == 0) bulk_wait_read<1>();
+    else bulk_wait_read<0>();
+  }
 }
 
 // a0 | a1 = A[wg rows, 0 : 64 nk] . B^T over a 256-wide block's next 2 nk
@@ -217,6 +233,39 @@ __device__ __forceinline__ void matmul_wide(float (&a0)[HALF / 2], float (&a1)[H
   free_chunk(nk - 1);
   wgmma_fence_regs(a0);
   wgmma_fence_regs(a1);
+}
+
+// acc = A[wg rows, 0 : 64 nk] . B^T over a 128-wide block's next nk weight
+// pieces, one a chunk (width 128), as matmul_wide with one accumulator.
+__device__ __forceinline__ void matmul_chunks(float (&acc)[HALF / 2], const unsigned char* A,
+                                              int nk, Ring& ring, int free_b) {
+  const int wg = threadIdx.x >> 7;
+#pragma unroll
+  for (int i = 0; i < HALF / 2; ++i) acc[i] = 0.f;
+  auto free_chunk = [&](int c) {
+    if (free_b >= 0 && (threadIdx.x & 127) == 0) mbar_arrive(bar(B_FREE + 4 * free_b + c));
+  };
+#pragma unroll 1
+  for (int c = 0; c < nk; ++c) {
+    const unsigned char* B = ring.wait(ring.k);
+    wgmma_fence();
+    wgmma_fence_regs(acc);
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      wgmma_m64n128k16(acc, wgmma_desc(A + c * CHUNK_B + wg * 64 * 128 + ks * 32),
+                       wgmma_desc(B + ks * 32), 1);
+    wgmma_commit();
+    if (c > 0) {
+      wgmma_wait<1>();
+      ring.release(ring.k - 1);
+      free_chunk(c - 1);
+    }
+    ++ring.k;
+  }
+  wgmma_wait<0>();
+  ring.release(ring.k - 1);
+  free_chunk(nk - 1);
+  wgmma_fence_regs(acc);
 }
 
 // acc += A[wg rows, 0 : 64 nk] . B^T over the next nk weight pieces of N
@@ -552,14 +601,16 @@ __device__ __forceinline__ void heads(unsigned char* X, const unsigned char* Y, 
     pp[2 * WH + j] = gw1;
     pp[3 * WH + j] = gw2;
   }
-  float gwa = 0.f;  // one a7 column a thread
-  const unsigned char* col = Y + (t >> 6) * CHUNK_B;
+  if (W == NCONS || t < W) {  // one a7 column a thread (width 128: half the threads)
+    float gwa = 0.f;
+    const unsigned char* col = Y + (t >> 6) * CHUNK_B;
 #pragma unroll 4
-  for (int p = 0; p < T; ++p) {
-    const float a7 = __bfloat162float(*reinterpret_cast<const bf16*>(col + swz128(p, t & 63)));
-    gwa = fmaf(rnd<true>(gs[p * 4 + 3]), a7, gwa);
+    for (int p = 0; p < T; ++p) {
+      const float a7 = __bfloat162float(*reinterpret_cast<const bf16*>(col + swz128(p, t & 63)));
+      gwa = fmaf(rnd<true>(gs[p * 4 + 3]), a7, gwa);
+    }
+    facc[FP_WA + t] += gwa;
   }
-  facc[FP_WA + t] += gwa;
   named_bar(BAR_CONS, NCONS);
   if (t < WH) {
     facc[FP_BV + t] += part[t] + part[4 * WH + t];
@@ -623,7 +674,7 @@ __device__ __forceinline__ void consumer(const DgradArgs& a) {
     const int p0 = tile * T;
     Stamper<PROF> st{PROF && blockIdx.x == 0 && tid == 0
                          ? a.stamps + (size_t)(tile / gridDim.x) * N_STAMPS : nullptr, 0};
-    // A 256-wide layer: d_z from tile buffer `in` (nk chunks, each given
+    // A W-wide layer: d_z from tile buffer `in` (nk chunks, each given
     // back to the producer as soon as it is read if give_back) into tile
     // buffer `out`, whose stash columns, the relu mask, the producer loaded
     // while the previous layer ran (waited here if wait_mask); with
@@ -633,14 +684,15 @@ __device__ __forceinline__ void consumer(const DgradArgs& a) {
     auto wide = [&](int in, int nk, bool give_back, int out, bool wait_mask, bool mask,
                     bool alpha, bool wait_x, int bias_off) {
       float a0[HALF / 2], a1[HALF / 2];
-      matmul_wide(a0, a1, buf(in), nk, ring, give_back ? in : -1);
+      if constexpr (W == 256) matmul_wide(a0, a1, buf(in), nk, ring, give_back ? in : -1);
+      else matmul_chunks(a0, buf(in), nk, ring, give_back ? in : -1);
       st.mark();
-      if (wait_mask) wait_chunks(out, 4);
+      if (wait_mask) wait_chunks(out, NCH);
       if (wait_x) wait_x_read();
       st.mark();
       unsigned char* o = buf(out);
       epilogue_half(a0, 0, o, mask, alpha, a.fp, gs, stage + sb * 8 * W);
-      epilogue_half(a1, 1, o, mask, alpha, a.fp, gs, stage + sb * 8 * W);
+      if constexpr (W == 256) epilogue_half(a1, 1, o, mask, alpha, a.fp, gs, stage + sb * 8 * W);
       layer_end(stage + sb * 8 * W, facc, bias_off, bar(D_READY + out));
       sb ^= 1;
       st.mark();
@@ -654,7 +706,7 @@ __device__ __forceinline__ void consumer(const DgradArgs& a) {
     st.mark();
 
     // heads: hv in X (chunks 0, 1), a7 in Y; then d_hv goes to the producer
-    wait_chunks(1, 4);
+    wait_chunks(1, NCH);
     wait_chunks(0, 2);
     heads(X, Y, gs, a.fp, facc, stage);
     fence_proxy_async();
@@ -673,7 +725,7 @@ __device__ __forceinline__ void consumer(const DgradArgs& a) {
     }
     st.mark();
 
-    // The nine 256-wide layers through one copy of the code (a copy per
+    // The nine W-wide layers through one copy of the code (a copy per
     // layer missed the instruction cache every tile): l = 8 is d_feat =
     // d_hv Wvf (no mask), in place over d_hv in X once its store has read
     // it; l = 7 d_z7 (mask a7, in Y since the heads; plus g_alpha Wa); then
@@ -683,7 +735,7 @@ __device__ __forceinline__ void consumer(const DgradArgs& a) {
 #pragma unroll 1
     for (int l = 8; l >= 0; --l) {
       const int in = (l & 1) || l == 8 ? 0 : 1;
-      wide(in, l == 8 ? 2 : 4, l < 8, l == 8 ? 0 : in ^ 1, l < 7, l < 8, l == 7, l == 8, l * W);
+      wide(in, l == 8 ? 2 : NCH, l < 8, l == 8 ? 0 : in ^ 1, l < 7, l < 8, l == 7, l == 8, l * W);
     }
 
     if (tile + (int)gridDim.x < a.ntiles) fetch(p0 + (int)gridDim.x * T);
@@ -696,10 +748,10 @@ __device__ __forceinline__ void consumer(const DgradArgs& a) {
       for (int i = 0; i < 48; ++i) acc_x[i] = 0.f;
 #pragma unroll 1
       for (int b = 0; b < 2; ++b) {
-        if (b == 1) wait_chunks(1, 4);
-        matmul_narrow(acc_x, a.kx, buf(b), 4, ring);
+        if (b == 1) wait_chunks(1, NCH);
+        matmul_narrow(acc_x, a.kx, buf(b), NCH, ring);
       }
-      free_chunks(1, 4);
+      free_chunks(1, NCH);
       wait_x_read();  // the producer's store of d_z0 from X
       dpe_to_smem(acc_x, a.kx, reinterpret_cast<float*>(X));
     }
@@ -740,7 +792,7 @@ __device__ __forceinline__ void producer(const CUtensorMap* tm_acts, const CUten
   };
   // chunk c of columns from `col` of the stash (or, with reload, of the dz
   // scratch) into chunk c of tile buffer b, once the consumers give it back
-  // and, with after_store, the buffer's store (the last four groups) has
+  // and, with after_store, the buffer's store (the last NCH groups) has
   // read it
   auto load = [&](int b, int c, int col, int p0, bool after_store, bool reload) {
     const int i = 4 * b + c;
@@ -769,7 +821,7 @@ __device__ __forceinline__ void producer(const CUtensorMap* tm_acts, const CUten
     bulk_wait_read<0>();
     mbar_arrive(bar(X_READ));
   };
-  // A 256-wide layer that reads tile buffer `in`: its first two chunks'
+  // A W-wide layer that reads tile buffer `in`: its first two chunks'
   // pieces, then the store of the previous layer's d_z (in `in`, nch chunks
   // at column prev_col; x_read signalled after it with signal), then the
   // other pieces; with give_back, then the next layer's mask (stash
@@ -779,13 +831,13 @@ __device__ __forceinline__ void producer(const CUtensorMap* tm_acts, const CUten
                   int col, bool reload, int p0) {
     for (int c = 0; c < 2; ++c) {
       piece(blk, c, W, 0, HALF);
-      piece(blk, c, W, HALF, HALF);
+      if constexpr (W == 256) piece(blk, c, W, HALF, HALF);
     }
     store(in, prev_col, nch, p0);
     if (signal) signal_x_read();
     for (int c = 2; c < nk; ++c) {
       piece(blk, c, W, 0, HALF);
-      piece(blk, c, W, HALF, HALF);
+      if constexpr (W == 256) piece(blk, c, W, HALF, HALF);
     }
     if (give_back)
       for (int c = 0; c < nk; ++c) load(in, c, col, p0, true, reload);
@@ -798,21 +850,21 @@ __device__ __forceinline__ void producer(const CUtensorMap* tm_acts, const CUten
     // a7 into Y (stored from last as d_z1, complete since the reload); the
     // previous tile's d_z0 store from X read, then hv into X
     narrow(T_WVD, 2, a.kd);
-    for (int c = 0; c < 4; ++c) load(1, c, 7 * W, p0, false, false);
+    for (int c = 0; c < NCH; ++c) load(1, c, 7 * W, p0, false, false);
     if (tile != (int)blockIdx.x) signal_x_read();
     for (int c = 0; c < 2; ++c) load(0, c, 9 * W, p0, false, false);
-    // the consumers' nine 256-wide layers: l = 8 reads d_hv (Wvf; its
+    // the consumers' nine W-wide layers: l = 8 reads d_hv (Wvf; its
     // store signalled), l = 7 d_feat (Wf; a6 into X), l = 6 d_z7 (W7; a5
     // into Y), .. l = 0 d_z1 (W1; d_z5 back into Y)
 #pragma unroll 1
     for (int l = 8; l >= 0; --l) {
       const int in = (l & 1) || l == 8 ? 0 : 1, blk = l + (l >= 4 ? T_W5B - 4 : T_W1);
-      wide(blk, l == 8 ? 2 : 4, in, (l + 1) * W, l == 8 ? 2 : 4, l == 8, l < 8,
+      wide(blk, l == 8 ? 2 : NCH, in, (l + 1) * W, l == 8 ? 2 : NCH, l == 8, l < 8,
            l > 0 ? (l - 1) * W : 5 * W, l == 0, p0);
     }
-    narrow(T_W0, 4, a.kx);
-    store(0, 0, 4, p0);  // d_z0
-    narrow(T_W5A, 4, a.kx);
+    narrow(T_W0, NCH, a.kx);
+    store(0, 0, NCH, p0);  // d_z0
+    narrow(T_W5A, NCH, a.kx);
   }
   signal_x_read();  // the last tile's d_z0
   bulk_wait<0>();
@@ -910,7 +962,7 @@ __global__ void __launch_bounds__(NTHR, 1)
 // sizes (half of the buffer and of each mask row idle), the column sums
 // and the bias sums take W columns; a PE warp reads a stash row of a
 // W-wide block as one float4 a lane and stores two d_z rows a step, 16
-// lanes each.  The bf16 dgrad above is compiled for width 256 only.
+// lanes each.
 
 constexpr int F_LO = 4 * CHUNK_B;               // the lo parts follow the hi parts
 constexpr int F_RING = 2 * F_LO;                // after the tile buffer (128 KB)
@@ -1690,9 +1742,6 @@ int nerf_mlp_dgrad_bf16(const float* xd, const float* g, const void* wt, const f
                         void* acts, void* dz, void* pe, float* dxd, float* fp_part,
                         long long* stamps, int P, int kx, int kd, int nfx, int nfd, int n_blocks,
                         void* stream) {
-#if NERF_MLP_WIDTH != 256
-  return (int)cudaErrorInvalidValue;  // the bf16 dgrad: width 256 only
-#else
   if (!valid_pe_width(kx) || !valid_pe_width(kd) || kx + kd > PE_MAX || P <= 0)
     return (int)cudaErrorInvalidValue;
   static bool attr_set = false;
@@ -1740,7 +1789,6 @@ int nerf_mlp_dgrad_bf16(const float* xd, const float* g, const void* wt, const f
   else
     nerf_mlp_dgrad_sm90<false><<<n_blocks, NTHR, SMEM, s>>>(tm_acts, tm_dz, a);
   return (int)cudaGetLastError();
-#endif
 }
 
 // The f32 dgrad (the split) on `stream`; returns 0 or the first CUDA error

@@ -1,6 +1,6 @@
 // Fused NeRF-MLP forward for Hopper (sm_90a): positional encoding + the
 // 8xW scene MLP with skip at layer 4 + alpha / feature / views / rgb heads,
-// W the build's width (nerf_mlp_common.cuh: 256, or 128 in f32).
+// W the build's width (nerf_mlp_common.cuh: 256 or 128).
 //
 // Replaces the Pallas TPU kernel `_fwd_kernel` in
 // lushnerf_tpu/ops/fused/nerf_mlp.py (launched by `_fwd_call`, entry
@@ -46,7 +46,9 @@
 // against 48 bytes of input and output, far above the card's ~295
 // FLOP/byte ridge (in f32 three fp16 passes of it, at the bf16 rate).  With the stash it
 // writes 4,864 more bytes per point in bf16, which puts the bound on the
-// bytes; 9,728 in f32, which does not.  The TPU kernel kept all weights
+// bytes; 9,728 in f32, which does not.  At width 128: 314,880 FLOP and
+// 2,560 (bf16) or 5,120 (f32) stash bytes a point, so that the stash puts
+// both modes' bound on the bytes.  The TPU kernel kept all weights
 // resident in VMEM; an SM has 227 KB of shared memory, so here every tile
 // streams them from L2 (nerf_mlp_fwd_sm90.cuh).
 //
@@ -84,8 +86,7 @@ int nerf_mlp_fwd_units(int i) {
 // int64 for the stage cycles of the instrumented instantiation.
 // Requires P > 0, kx and kd multiples of 32 with kx + kd <= 128,
 // 3 + 6 * nfx <= kx and 3 + 6 * nfd <= kd (f32: kx <= 64 and pe_d within
-// one 64-column chunk; bf16: a width-256 build); all pointers 16-byte
-// aligned.
+// one 64-column chunk); all pointers 16-byte aligned.
 int nerf_mlp_fwd(const float* xd, const void* w, const float* fp, float* out, void* acts,
                  float* units, long long* stamps, int P, int kx, int kd, int nfx, int nfd,
                  int bf16_mode, int n_blocks, void* stream) {
@@ -103,11 +104,7 @@ int nerf_mlp_fwd(const float* xd, const void* w, const float* fp, float* out, vo
   a.kd = kd;
   a.nfx = nfx;
   a.nfd = nfd;
-#if NERF_MLP_WIDTH == 256
   if (bf16_mode) return fwd90::launch<fwd90::MODE_FWD>(a, acts, n_blocks, s);
-#else
-  if (bf16_mode) return (int)cudaErrorInvalidValue;  // bf16: width 256 only
-#endif
   return fwd90::launch<fwd90::MODE_F32>(a, acts, n_blocks, s);
 }
 

@@ -69,19 +69,20 @@
 // stores the f32 stash from registers.  The f32 path supports pe_x within
 // chunk 0 and pe_d within one chunk (kx <= 64).
 //
-// The split is compiled for the width W of nerf_mlp_common.cuh: at width
-// 128 every layer's N is 128 (the views layer's 64 columns padded to 128),
-// so each layer takes the views layer's m64n128k16 path, a chunk is two
-// pieces (hi, lo), an activation two chunks; the buffers keep their places
-// (half of the activation buffer idles).  The bf16 modes are compiled for
-// width 256 only.
+// Both K1 modes are compiled for the width W of nerf_mlp_common.cuh.  At
+// width 128 every layer's N is 128 (the views layer's 64 columns padded to
+// 128), so each layer takes the views layer's m64n128k16 path: in bf16 a
+// chunk is one piece (`matmul_layer`), in the split two (hi, lo); an
+// activation is two chunks, and the buffers keep their places (half of the
+// activation buffer idles).  K5 (MODE_MM) is compiled for width 256 only.
 //
 // Weight blob (bf16, pieces of 8192 elements in order, padded with a zero
 // piece to an even count so that a chunk's two pieces sit in neighbouring
 // ring stages): for each layer its
-// matrix [N][K] (N = 256, or 128 for the views layer), K chunk-major in
+// matrix [N][K] (N = W, or 128 for the views layer), K chunk-major in
 // chunks of 64 columns, each chunk [N][64] in the 128-byte swizzle (a chunk
-// of a 256-wide layer is two pieces: rows 0..127, then 128..255).  K
+// of a 256-wide layer is two pieces: rows 0..127, then 128..255; at width
+// 128 every chunk is one piece).  K
 // columns: W0 over the PE tile's first nx chunks; W1..W4; W5 over a4, then
 // the PE tile's first nx chunks; W6, W7, Wf; Wv over feat, then the PE
 // tile's nd chunks from chunk d0 (nx = ceil(kx / 64), d0 = kx / 64, nd =
@@ -193,7 +194,7 @@ struct Layer {
 };
 __device__ __forceinline__ Layer layer(int l, const Args& a) {
   Layer L;
-  L.n_act = l == 0 ? 0 : 4;
+  L.n_act = l == 0 ? 0 : W / 64;
   L.n_pe = l == 0 || l == 5 ? a.nx : l == 9 ? a.nd : 0;
   L.pe_c0 = l == 9 ? a.d0 : 0;
   L.bias = l < 8 ? l * W : l == 8 ? FP_BF : FP_BV;
@@ -404,6 +405,16 @@ __device__ __forceinline__ void epilogue(const float (&acc)[N], const float* fp,
   }
 }
 
+// A W-wide layer's matmul (layers 0..8): matmul_wide at width 256; at
+// width 128 a chunk is one piece, as the views layer's, and so is its
+// matmul.
+template <int R, bool PROF>
+__device__ __forceinline__ void matmul_layer(float (&acc)[R], const Layer& L, const float* fp,
+                                             Ring& ring, Clock<PROF>& clk) {
+  if constexpr (R == 128) matmul_wide(acc, L, fp, ring, clk);
+  else matmul_narrow(acc, L, fp, ring, clk);
+}
+
 // A head's sums over the 4 threads of each row (lanes xor 1, then xor 2):
 // each of them ends with the row's whole sum, in a fixed order.
 template <int NH> __device__ __forceinline__ void row_sum(float (&hs)[NH]) {
@@ -453,7 +464,7 @@ __device__ __forceinline__ void consumer(const Args& a, const CUtensorMap* tm) {
     long long t_tile = 0;
     if constexpr (PROF) t_tile = clock64();
     float alpha[2] = {0.f, 0.f};
-    // The ten layers through one copy of the code: 0..8 are 256 wide (8 is
+    // The ten layers through one copy of the code: 0..8 are W wide (8 is
     // the feature layer, no relu), 9 is the views layer (128 wide).
 #pragma unroll 1
     for (int l = 0; l < 10; ++l) {
@@ -479,8 +490,8 @@ __device__ __forceinline__ void consumer(const Args& a, const CUtensorMap* tm) {
         clk.begin();
       };
       if (l < 9) {
-        float acc[128];
-        matmul_wide(acc, L, a.fp, ring, clk);
+        float acc[W / 2];
+        matmul_layer(acc, L, a.fp, ring, clk);
         epilogue_begin();
         if (l == 8) {  // the feature layer: no relu
           epilogue<false>(acc, a.fp, true, 0, alpha);
@@ -511,7 +522,7 @@ __device__ __forceinline__ void consumer(const Args& a, const CUtensorMap* tm) {
       clk.end(ST_EPI);
       if (stash && t == 0) {
         clk.begin();
-        const int nch = l < 9 ? 4 : 2;
+        const int nch = l < 9 ? W / 64 : 2;
         for (int c = 0; c < nch; ++c)
           tma_store_2d(tm, fsm + SM_ACT + c * CHUNK_B + wg * 64 * 128, l * W + 64 * c, p0 + 64 * wg);
         bulk_commit();
@@ -1158,9 +1169,9 @@ __global__ void __launch_bounds__(NTHR, 1)
 // ---------------------------------------------------------------------------
 
 // PE chunks of W0 / W5 (from chunk 0), the first PE chunk of Wv and their
-// number; weight pieces a tile (two a chunk of the nine 256-wide layers --
-// W0 nx chunks, W1..W4 16, W5 4 + nx, W6, W7, Wf 12 -- and one a chunk of
-// Wv, 4 + nd); elements of the weight blob.
+// number; weight pieces a tile (W / 128 a chunk of the nine W-wide layers
+// -- W0 nx chunks, W1..W4 4 W / 64, W5 W / 64 + nx, W6, W7, Wf 3 W / 64 --
+// and one a chunk of Wv, W / 64 + nd); elements of the weight blob.
 inline void pe_chunks(int kx, int kd, int* nx, int* d0, int* nd) {
   *nx = (kx + 63) / 64;
   *d0 = kx / 64;
@@ -1169,7 +1180,8 @@ inline void pe_chunks(int kx, int kd, int* nx, int* d0, int* nd) {
 inline int n_pieces(int kx, int kd) {
   int nx, d0, nd;
   pe_chunks(kx, kd, &nx, &d0, &nd);
-  const int n = 2 * (nx + 4 * 4 + 4 + nx + 3 * 4) + 4 + nd;
+  constexpr int NA = W / 64, NP = W / 128;  // chunks of an activation, pieces of a chunk
+  const int n = NP * (nx + 4 * NA + NA + nx + 3 * NA) + NA + nd;
   return n + (n & 1);  // a zero piece pads an odd count
 }
 inline long long blob_numel(int kx, int kd) { return (long long)n_pieces(kx, kd) * PIECE_ELEMS; }
@@ -1195,7 +1207,7 @@ inline long long blob_numel_split(int kx, int kd) {
 // in one chunk.
 template <int MODE>
 inline int launch(Args a, void* acts, int n_blocks, cudaStream_t stream) {
-  static_assert(MODE == MODE_F32 || W == 256, "the bf16 modes are compiled for width 256");
+  static_assert(MODE != MODE_MM || W == 256, "K5 is compiled for width 256");
   if (a.P <= 0 || a.kx % 32 || a.kd % 32 || a.kx <= 0 || a.kd <= 0 || a.kx + a.kd > PE_MAX ||
       n_blocks <= 0)
     return (int)cudaErrorInvalidValue;

@@ -9,8 +9,8 @@ TPU kernel `_fwd_kernel` of `lushnerf_tpu/ops/fused/nerf_mlp.py`.  Both
 modes run `csrc/nerf_mlp_fwd_sm90.cuh` (wgmma, a persistent grid that
 streams the weights through a ring of bulk copies); `fwd_grid` and
 `fwd_tiles` are its geometry.  Every kernel source is built for the MLP's
-width (`build.load(source, width)`): 256 in both compute dtypes, 128 in
-f32 (`KERNEL_WIDTHS`).  The kernels' views layer has VIEWS_LANES = 128
+width (`build.load(source, width)`): 256 and 128, in both compute dtypes
+(`KERNEL_WIDTHS`).  The kernels' views layer has VIEWS_LANES = 128
 lanes at both (W / 2 at 256; at 128 its 64 columns padded with zero
 weights, as the JAX package's `pad_params` pads them), so the stash, the
 blobs and the grads' layouts are functions of the width (`layout`).  The
@@ -72,7 +72,7 @@ from lushnerf_torch.ops.fused import build
 
 WIDTH = 256  # the flagship's width, whose layout the constants below give
 # the widths each compute dtype's kernels are built for
-KERNEL_WIDTHS = {"float32": (256, 128), "bfloat16": (256,)}
+KERNEL_WIDTHS = {"float32": (256, 128), "bfloat16": (256, 128)}
 VIEWS_LANES = 128  # the kernels' views layer: W / 2 at 256, zero-padded at 128
 PE_MAX = 128  # kx + kd
 XD_CH = 8  # packed input lanes: 0:3 xyz, 3:6 viewdir, 6:8 zero
@@ -279,9 +279,9 @@ def kernel_covers(mlp_cfg, render_cfg) -> bool:
     """Whether the compiled kernels cover this MLP at the render config's PE
     and compute dtype.  Decided by shape alone, before any launch: the
     renderer sends an MLP to the fused path only where `supports` and this
-    hold, and any other (a width of 384 or 512, or 128 in bf16) takes the
-    plain torch path on the same device, as the JAX renderer does for MLPs
-    outside its family."""
+    hold, and any other (a width of 384 or 512) takes the plain torch path
+    on the same device, as the JAX renderer does for MLPs outside its
+    family."""
     return kernel_gap(mlp_cfg, render_cfg.mlp_compute_dtype, render_cfg.multires,
                       render_cfg.multires_views) is None
 
@@ -508,8 +508,8 @@ def wgrad_items(n_splits: int, kx: int, kd: int, compute_dtype: str = "float32",
     cluster of two blocks takes at once, cluster c taking units c, c +
     clusters, ..., as block 0 then block 1 take it: the two o-halves of a
     256-row block (one tile each) or the two 64-row halves of a 128-row
-    block's tile (Wvf, Wvd); every split's 9 wide units, then every split's
-    3 narrow ones."""
+    block's tile (Wvf and Wvd at width 256, every block at 128); every
+    split's 9 wide units, then every split's 3 narrow ones."""
     W, Wv, T = width, VIEWS_LANES, WGRAD_TILE_ROWS
     sizes = [W * kx] + [W * W] * 4 + [W * (kx + W)] + [W * W] * 3 + [Wv * (W + kd)]
     off = [sum(sizes[:i]) for i in range(10)]

@@ -96,16 +96,16 @@ def sm90_pe_chunks(kx, kd):
     return -(-kx // 64), kx // 64, -(-(kx + kd) // 64) - kx // 64
 
 
-def sm90_mats(w, kx, kd):
+def sm90_mats(w, kx, kd, width=256):
     """The bf16 forward blob undone by a plain index model of its layout:
-    ten [N][K] matrices one after another (N = 256, the last 128), each
-    chunk-major over K in chunks of 64 columns, element (n, k) of a chunk at
-    row n, 16-byte piece (k % 64) // 8 moved to piece position
-    ((k % 64) // 8) ^ (n % 8).  K of each: W0 [nx PE chunks], W1..W4 [256],
-    W5 [256 (a4) + nx PE chunks], W6, W7, Wf [256], Wv [256 (feat) + nd PE
+    ten [N][K] matrices one after another (N = the width, the last 128),
+    each chunk-major over K in chunks of 64 columns, element (n, k) of a
+    chunk at row n, 16-byte piece (k % 64) // 8 moved to piece position
+    ((k % 64) // 8) ^ (n % 8).  K of each: W0 [nx PE chunks], W1..W4 [W],
+    W5 [W (a4) + nx PE chunks], W6, W7, Wf [W], Wv [W (feat) + nd PE
     chunks]; then, if the count of [128][64] pieces is odd, a zero piece."""
     nx, _, nd = sm90_pe_chunks(kx, kd)
-    Wd, Wh = 256, 128
+    Wd, Wh = width, 128
     shapes = [(Wd, 64 * nx)] + [(Wd, Wd)] * 4 + [(Wd, Wd + 64 * nx)] + [(Wd, Wd)] * 3 + [
         (Wh, Wd + 64 * nd)]
     flat = w.float().numpy()
@@ -242,20 +242,21 @@ def test_supports():
 
 
 @pytest.mark.parametrize("case,dtype,nfx", [
-    (dict(), "float16", 10), (dict(width=128), "bfloat16", 10), (dict(width=512), "float32", 10),
+    (dict(), "float16", 10), (dict(width=384), "bfloat16", 10), (dict(width=512), "float32", 10),
     (dict(input_ch=99, input_ch_views=9), "bfloat16", 16), (dict(), "float32", 9),
 ], ids=["dtype", "w128", "w512", "pe-padded-over-128", "pe-mismatch"])
 def test_kernel_family_check_raises(case, dtype, nfx):
     """What the card's path checks before a launch: members of the routed
     family that the compiled kernels do not cover raise, not fall back
-    (width 128 in bf16, 512 in either dtype); width 256 in both dtypes and
-    width 128 in f32 pass."""
+    (width 384 in bf16 under the id "w128", 512 in either dtype); widths
+    256 and 128 pass in both dtypes."""
     cfg = MLPConfig(**case)
     nfd = (cfg.input_ch_views - 3) // 6
     with pytest.raises(ValueError):
         fused.check_kernel_family(cfg, dtype, nfx, nfd)
-    fused.check_kernel_family(MLPConfig(), "bfloat16", 10, 4)
-    fused.check_kernel_family(MLPConfig(width=128), "float32", 10, 4)
+    for width in (256, 128):
+        for dt in ("bfloat16", "float32"):
+            fused.check_kernel_family(MLPConfig(width=width), dt, 10, 4)
 
 
 def test_width128_cuda_backend_on_cpu_takes_plain_version():

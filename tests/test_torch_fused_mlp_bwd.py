@@ -232,7 +232,7 @@ def _bwd_blocks(mlp, dtype):
         his, los = split_blocks(wt, kx, kd)
         return [(h + lo) / 2.0 ** fused.SPLIT_SHIFT for h, lo in zip(his, los)]
     flat = wt.float().numpy()
-    sizes = _bwd_sizes(kx, kd)
+    sizes = _bwd_sizes(kx, kd, mlp.cfg.width)
     offs = np.concatenate([[0], np.cumsum([a * b for a, b in sizes])])
     assert offs[-1] == flat.size
     blocks = []
@@ -249,11 +249,13 @@ def _emulate_bwd_kernels(mlp, xd, g, acts, dtype, wgrad=None):
     blocks (the same job table) written into a weight-blob-shaped grad, the
     bias and head grads into an f32-blob-shaped grad; then _unpack_grads.
     `wgrad(dz, stash, pe)`, if given, makes the weight-blob-shaped grad
-    from the dgrad's dz scratch [P, ACTS_LD] (each d_z rounded as the
-    kernel stores it), the stash and the PE, all in float."""
+    from the dgrad's dz scratch [P, acts_ld] (each d_z rounded as the
+    kernel stores it), the stash and the PE, all in float.  At the MLP's
+    width Wd (the views layer's Wh = 128 lanes, zero-padded at width 128)."""
     r = (lambda t: t.bfloat16().float()) if dtype == "bfloat16" else (lambda t: t)
     kx, kd = fused.pe_widths(mlp.cfg)
-    Wd, Wh = 256, 128
+    Wd, Wh = mlp.cfg.width, 128
+    L = fused.layout(Wd)
     fp = fused.pack_params(mlp, dtype)[1]
     T = _bwd_blocks(mlp, dtype)
     s = acts.float()
@@ -262,11 +264,11 @@ def _emulate_bwd_kernels(mlp, xd, g, acts, dtype, wgrad=None):
     pe = r(torch.cat([torch.nn.functional.pad(posenc(xd[:, 0:3], 10), (0, kx - 63)),
                       torch.nn.functional.pad(posenc(xd[:, 3:6], 4), (0, kd - 27))], 1))
     gr = r(g)
-    wr = fp[fused.FP_WR:].reshape(3, Wh)
+    wr = fp[L.fp_wr:].reshape(3, Wh)
     d_hv = (gr[:, :3] @ wr) * (hv > 0)
     dz = {"hv": d_hv}
     dz["feat"] = r(d_hv) @ T[10].T
-    d7 = (r(dz["feat"]) @ T[9].T + gr[:, 3:4] * fp[fused.FP_WA:fused.FP_WR]) * (a[7] > 0)
+    d7 = (r(dz["feat"]) @ T[9].T + gr[:, 3:4] * fp[L.fp_wa:L.fp_wr]) * (a[7] > 0)
     dz[7] = d7
     dz[6] = (r(dz[7]) @ T[8].T) * (a[6] > 0)
     dz[5] = (r(dz[6]) @ T[7].T) * (a[5] > 0)
@@ -289,15 +291,15 @@ def _emulate_bwd_kernels(mlp, xd, g, acts, dtype, wgrad=None):
         view[:, col0:col0 + A.shape[1]] = blockgrad
     if wgrad is not None:
         dw = wgrad(r(torch.cat([dz[l] for l in range(8)] + [dz["feat"], d_hv], 1)), s, pe)
-    dfp = torch.zeros(fused.FP_NUMEL)
+    dfp = torch.zeros(L.fp_numel)
     for l in range(8):
         dfp[l * Wd:(l + 1) * Wd] = dz[l].sum(0)
-    dfp[fused.FP_BF:fused.FP_BV] = dz["feat"].sum(0)
-    dfp[fused.FP_BV:fused.FP_BA] = d_hv.sum(0)
-    dfp[fused.FP_BA] = g[:, 3].sum()
-    dfp[fused.FP_BR:fused.FP_BR + 3] = g[:, :3].sum(0)
-    dfp[fused.FP_WA:fused.FP_WR] = gr[:, 3] @ r(a[7])
-    dfp[fused.FP_WR:] = (gr[:, :3].T @ r(hv)).reshape(-1)
+    dfp[L.fp_bf:L.fp_bv] = dz["feat"].sum(0)
+    dfp[L.fp_bv:L.fp_ba] = d_hv.sum(0)
+    dfp[L.fp_ba] = g[:, 3].sum()
+    dfp[L.fp_br:L.fp_br + 3] = g[:, :3].sum(0)
+    dfp[L.fp_wa:L.fp_wr] = gr[:, 3] @ r(a[7])
+    dfp[L.fp_wr:] = (gr[:, :3].T @ r(hv)).reshape(-1)
     return d_pe_x[:, :63], d_pe_d[:, :27], fused._unpack_grads(mlp, dw, dfp)
 
 

@@ -27,10 +27,10 @@ Here:
     stash for the f32 wgrad) are, index by index, the largest 2^k of the
     stash rows of each tile's warp;
   * a width-128 member of the fused family goes, under the 'cuda' backend,
-    to the plain torch path by shape in bf16 (no call into the fused path,
-    no launch, equal to the torch backend), and to the fused path in f32
-    (on CPU tensors its plain version, equal to the torch backend at the
-    f32 limit); the f32 kernel's PE geometry is part of the same predicate.
+    to the fused path in both dtypes (the kernels are built for 128 in
+    both; on CPU tensors its plain version, no launch: in f32 equal to the
+    torch backend at the f32 limit, in bf16 to the plain bf16 forward bit
+    for bit); the f32 kernel's PE geometry is part of the same predicate.
 """
 
 import jax
@@ -319,17 +319,16 @@ def _width128_model():
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_width128_routes_to_plain_path(dtype, monkeypatch):
     """flagship_cfg's shape at width 128 (in the fused family) under the
-    'cuda' backend.  bf16, which the kernels are not built for at 128:
-    routed by shape to the plain torch path, never into the fused path, no
-    launch, equal to the torch backend; the kernel itself refuses it.  f32:
-    routed into the fused path (its kernels are built for 128), which on
-    CPU tensors runs its plain version and launches nothing, equal to the
-    torch backend at the f32 limit."""
+    'cuda' backend, in both dtypes routed into the fused path (the kernels
+    are built for 128 in both), which on CPU tensors runs its plain version
+    and launches nothing.  f32: equal to the torch backend at the f32
+    limit.  bf16: the plain bf16 forward of the packed points bit for bit,
+    not the torch backend's f32 MLP (the bf16 rounding is on)."""
     lc, mlp_cfg, mlp = _width128_model()
     rc = RenderConfig(mlp_backend="cuda", mlp_compute_dtype=dtype)
     bf16 = dtype == "bfloat16"
     assert mlp_cfg.width == 128 and fused.supports(mlp_cfg, rc)
-    assert fused.kernel_covers(mlp_cfg, rc) == (not bf16)
+    assert fused.kernel_covers(mlp_cfg, rc)
     calls = []
     real = fused.eval_points_fused
     monkeypatch.setattr(fused, "eval_points_fused",
@@ -341,14 +340,14 @@ def test_width128_routes_to_plain_path(dtype, monkeypatch):
     fused.launches = 0
     got = eval_points(mlp, mlp_cfg, rc, pts, dirs)
     want = eval_points(mlp, mlp_cfg, RenderConfig(mlp_backend="torch"), pts, dirs)
-    assert len(calls) == (0 if bf16 else 1) and fused.launches == 0
+    assert len(calls) == 1 and fused.launches == 0
+    fused.check_kernel_family(mlp_cfg, dtype, 10, 4)
     if bf16:
-        assert torch.equal(got, want)
-        with pytest.raises(ValueError, match="width 256"):
-            fused.check_kernel_family(mlp_cfg, dtype, 10, 4)
+        xd = _xd(pts.numpy(), dirs.numpy())
+        assert torch.equal(got.reshape(-1, 4), fused.nerf_mlp_fwd_plain(mlp, xd, dtype))
+        assert not torch.equal(got, want)
     else:
         np.testing.assert_allclose(got.numpy(), want.numpy(), **F32_TOL)
-        fused.check_kernel_family(mlp_cfg, dtype, 10, 4)
     assert renderer.fused is fused
 
 
@@ -356,12 +355,13 @@ def test_kernel_covers_follows_the_kernels_geometry():
     """What each mode's kernels cover.  Width 256: the flagship PE in both;
     a pe_x of 96 padded channels in bf16 only (the f32 kernel holds one PE
     chunk at a time); pe_x of 32 with pe_d in the same chunk in both.
-    Width 128: bf16 nothing (its kernels are built for 256 only), f32 the
-    same PE geometry as at 256.  Widths 384 and 512: nothing."""
+    Width 128: each dtype the PE geometry it has at 256 (the PE tile and
+    the dgrad's PE passes do not depend on the width).  Widths 384 and 512:
+    nothing."""
     cases = {(256, 10, 4): (True, True), (256, 15, 4): (True, False),
              (256, 4, 4): (True, True), (256, 4, 9): (True, False),
-             (128, 10, 4): (False, True), (128, 15, 4): (False, False),
-             (128, 4, 4): (False, True), (128, 4, 9): (False, False),
+             (128, 10, 4): (True, True), (128, 15, 4): (True, False),
+             (128, 4, 4): (True, True), (128, 4, 9): (True, False),
              (384, 10, 4): (False, False), (512, 10, 4): (False, False)}
     for (width, nfx, nfd), want in cases.items():
         cfg = MLPConfig(width=width, input_ch=3 + 6 * nfx, input_ch_views=3 + 6 * nfd)

@@ -95,31 +95,34 @@ def _emulate_sm90(mlp, xd, nfx, nfd):
     (pe_x at [0, kx), pe_d at [kx, kx + kd)); each layer one accumulation
     over its K chunks (activation chunks, then PE chunks from pe_c0) with
     f32 bias and relu, its output rounded to bf16 over the activation
-    buffer; alpha on the rounded a7, rgb on the rounded hv."""
+    buffer; alpha on the rounded a7, rgb on the rounded hv.  At the MLP's
+    width W (the views layer's 128 lanes, zero-padded at width 128)."""
     r = lambda t: t.bfloat16().float()  # noqa: E731
     kx, kd = fused.pe_widths(mlp.cfg)
     nx, d0, nd = fused.fwd_pe_chunks(kx, kd)
+    Wd = mlp.cfg.width
+    L = fused.layout(Wd)
     w, fp = fused.pack_params(mlp, "bfloat16")
-    mats = sm90_mats(w, kx, kd)
+    mats = sm90_mats(w, kx, kd, Wd)
     P = xd.shape[0]
     pe = torch.zeros(P, 128)
     pe[:, :3 + 6 * nfx] = posenc(xd[:, 0:3], nfx)
     pe[:, kx:kx + 3 + 6 * nfd] = posenc(xd[:, 3:6], nfd)
     pe = r(pe)
-    act = torch.zeros(P, 256)
-    biases = [fp[l * 256:(l + 1) * 256] for l in range(8)] + [
-        fp[fused.FP_BF:fused.FP_BV], fp[fused.FP_BV:fused.FP_BA]]
+    act = torch.zeros(P, Wd)
+    biases = [fp[l * Wd:(l + 1) * Wd] for l in range(8)] + [
+        fp[L.fp_bf:L.fp_bv], fp[L.fp_bv:L.fp_ba]]
     for l in range(10):
-        n_act = 0 if l == 0 else 4
+        n_act = 0 if l == 0 else Wd // 64
         n_pe = nx if l in (0, 5) else nd if l == 9 else 0
         pe_c0 = d0 if l == 9 else 0
         A = torch.cat([act[:, :64 * n_act], pe[:, 64 * pe_c0:64 * (pe_c0 + n_pe)]], 1)
         v = A @ mats[l].T + biases[l]
         v = v if l == 8 else torch.relu(v)
         if l == 7:
-            alpha = r(v) @ fp[fused.FP_WA:fused.FP_WR] + fp[fused.FP_BA]
+            alpha = r(v) @ fp[L.fp_wa:L.fp_wr] + fp[L.fp_ba]
         act[:, :v.shape[1]] = r(v)
-    rgb = act[:, :128] @ fp[fused.FP_WR:].reshape(3, 128).T + fp[fused.FP_BR:fused.FP_BR + 3]
+    rgb = act[:, :128] @ fp[L.fp_wr:].reshape(3, 128).T + fp[L.fp_br:L.fp_br + 3]
     return torch.cat([rgb, alpha[:, None]], 1)
 
 

@@ -53,8 +53,8 @@ KS = fused.WGRAD_STAGE[BF16]  # points a stage of the bf16 wgrad
 WD, WH = 256, 128
 
 
-def _w_numel(kx, kd):
-    return WD * kx + 7 * WD * WD + WD * (kx + WD) + WH * (WD + kd)
+def _w_numel(kx, kd, wd=WD):
+    return wd * kx + 7 * wd * wd + wd * (kx + wd) + WH * (wd + kd)
 
 
 def _splits(P, n, dtype):
@@ -116,18 +116,20 @@ def test_tiles_cover_chip_smoke_wgrad_jobs(kx, kd):
         assert sorted(rows) == list(range(zc, zc + O))
 
 
-def staged_wgrad(n_splits, kx, kd):
-    """The bf16 wgrad kernel's sums on the dgrad's dz [P, ACTS_LD], the stash
-    and the PE (bf16 values, in float): for each work entry, its split's
-    points in stages of 64 (zero rows past P), each stage's dZ^T A added to
-    an f32 accumulator; then the partials summed in split order."""
+def staged_wgrad(n_splits, kx, kd, width=WD):
+    """The bf16 wgrad kernel's sums on the dgrad's dz [P, acts_ld], the stash
+    and the PE (bf16 values, in float) at the MLP width `width`: for each
+    work entry, its split's points in stages of 64 (zero rows past P), each
+    stage's dZ^T A added to an f32 accumulator; then the partials summed in
+    split order."""
     def wgrad(dz, acts, pe):
-        P, numel = dz.shape[0], _w_numel(kx, kd)
+        P, numel = dz.shape[0], _w_numel(kx, kd, width)
         per = fused.wgrad_pts_per_split(P, n_splits, BF16)
         pad = lambda t: torch.cat([t, t.new_zeros(KS, t.shape[1])])  # noqa: E731
         dz, acts, pe = pad(dz), pad(acts), pad(pe)
         part = torch.zeros(n_splits * numel)
-        for _, s, rows, I, off, ldw, zc, from_pe, ac in fused.wgrad_items(n_splits, kx, kd, BF16):
+        for _, s, rows, I, off, ldw, zc, from_pe, ac in fused.wgrad_items(n_splits, kx, kd, BF16,
+                                                                          width):
             src = pe if from_pe else acts
             acc = torch.zeros(rows, I)
             for p0 in range(s * per, min(P, (s + 1) * per), KS):

@@ -10,9 +10,11 @@ the final result line):
      spills: nerf_mlp_fwd.cu, nerf_mlp_bwd.cu and nerf_mlp_dgrad.cu at MLP
      width 256, three processes side by side (this process takes the
      first Adam's imports meanwhile); then, at the lowest CPU priority
-     beside phases 3 and 4, the same three at width 128, nerf_pe_mm.cu,
-     raymajor_probe.cu and the tune phase's three K4 variants
-     (`build_rest`, waited for after phase 4);
+     beside phases 3 to 7, the same three at width 128, the dgrads' build
+     for a PE part of 128 channels (nerf_mlp_dgrad_wide.cu) at both widths,
+     nerf_pe_mm.cu, raymajor_probe.cu and the tune phase's three K4
+     variants (`build_rest`, waited for after phase 7, before the first
+     phase that launches one of them);
   3. kernel: the fused NeRF-MLP forward kernel against its plain PyTorch
      version at width 256 / depth 8, at the flagship point counts 5120x64
      and 5120x128 (forward_kernel), 4096x64 and 4096x128 (a render_image
@@ -88,7 +90,7 @@ the final result line):
      kernel (with fq_mask), allkernel and naive, one step each, with the
      launches and parameter packings per step counted; 20 kernel steps on a
      fixed batch and fixed draws, whose loss must fall; ms/step (a window
-     of 3), rays/s, launches per step (from the point chunks: a
+     of 2), rays/s, launches per step (from the point chunks: a
      backward's dgrad, wgrad and two reductions per chunk, remat's K1
      besides) and peak memory for cuda bf16 stash, cuda bf16 remat, cuda
      f32 remat (the shipped scene configs' step, at their point_chunk
@@ -132,6 +134,25 @@ the final result line):
      iteration's launches, a finite loss whose last 4 average below its
      first 4, and one eval view through K1 f32 (2 launches a ray chunk,
      finite PSNR);
+  7p. pe: every PE of PE_GEOS (pe_x over two 64-column chunks: 12/4; pe_d
+     over two: 4/9, 4/12; padded widths past 128, which the forward packs
+     tightly: 12/8, 16/4, 4/16), which the kernels did not run before, in
+     both dtypes at widths 256 and 128 at PE_CHECK_P (two or three tiles a
+     block of the persistent grids, a ragged tail): K1 output only and with
+     its stash, K2 and K3 as phases 3 and 4 hold the shipped PE's (the
+     limits of this header, bitwise repeat, stash == remat, in f32
+     equivariance at g 2^-20 and K1's scale units); K1, K2 and K3 timed at
+     PE_TIMED (width 256, the coarse and fine P) against bounds of the
+     PE's own multiply-adds, with K1's PE warps' share of a tile at the
+     fine P; then a user's path at PE_PATH: configs/poster through
+     `Config.from_args([... "--multires", "12", "--multires_views",
+     "8"])` (f32 remat at POINT_CHUNK), a Trainer of PE_TRAINER_ITERS
+     iterations on `synthetic_scene` from the kernel stage (K1 f32 2 and
+     K3 f32 75 launches each, no call of a scene MLP's plain forward) and
+     one eval view, one step's grads at cosine >= GRAD_COS_MIN against
+     torch f32, and one 400x400 bf16 render_image (80 K1 launches, rgb
+     within PE_RENDER_RGB_TOL of the same render through K1's plain
+     version);
   7a. tonemap: the learned tone maps on the shipped step (configs/poster,
      f32 remat at POINT_CHUNK, full width, 1024 rays): under 'learn' one
      kernel step (K1 f32 2, K3 f32 75 launches), plain torch f32's grads
@@ -163,9 +184,9 @@ the final result line):
      CPU within LPIPS_RTOL, and why the real metric is unavailable;
      checkpoints at 30 and 60; a second Trainer resuming from
      000060.ckpt with the model and Adam state bit for bit and 5 more
-     steps; render_only's frames (the first 4 of the loader's spiral);
+     steps; render_only's frames (the first 2 of the loader's spiral);
      then the loop's ms per iteration over
-     4 allkernel iterations (nothing at a cadence inside) against 4
+     2 allkernel iterations (nothing at a cadence inside) against 2
      bare train_step calls on batches of the same dataset, in turns, the
      ratio below LOOP_OVER_STEP_MAX; the loop's peak device memory with
      the dataset on the card;
@@ -181,7 +202,7 @@ the final result line):
      throughout, the keypoints at the full resolution); a second Trainer
      resumes from 000040.ckpt with those tables bit for bit (its matcher,
      dkm, has no weights: the fallback); the consist batch's host time;
-     ms per consist iteration against a plain allkernel one (4 each, in
+     ms per consist iteration against a plain allkernel one (2 each, in
      turns); peak memory; renders 3 train views for the dkm phase;
   7d. dkm: DKMMatcher at the published DKMv3 widths (70.3 M random
      weights from seed 0) at the production 640x1120: match_many over the
@@ -244,7 +265,7 @@ the final result line):
      back-to-back calls queued behind a device sleep, so that the host's
      launch cost is not in them; K6/K7, K8 and K10 against Tensor.clone of
      the same bytes and the launch floor (Tensor.clone of 16 bytes) over
-     11 windows each, taken in turns, with their spread and each kernel's
+     RETIME_WINDOWS (7) windows each, taken in turns, with their spread and each kernel's
      median less the clone's ("retime" lines); K6/K7 at CUMSUM_CASES (S not
      a multiple of 4, rays longer than a block's pass, c from 1 to 128 and
      c 3) and K10 at DISTS_CASES (every n % 4) against the plain versions
@@ -256,8 +277,9 @@ the final result line):
 Then a `{"kernels": [...]}` line (thirteen kernels, each with the path that
 launched it: main, main (width 128; f32 and bf16 apart), tune_kernel or
 probe_raymajor; K1's
-and K3's launches in the cte and ddp phases also apart) and, last, the
-`{"ok": true, ...}` line.
+and K3's launches in the cte, ddp and pe phases also apart; each MLP
+kernel with the PEs of the pe phase it ran at, `new_pe_geometries`) and,
+last, the `{"ok": true, ...}` line.
 It needs the repository checkout: run alone it exits non-zero.
 """
 
@@ -301,12 +323,13 @@ PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 MLP_MACS = 593_408  # per point, unpadded scene MLP (PE excluded), width 256
 
 
-def mlp_macs(width: int) -> int:
+def mlp_macs(width: int, in_ch: int = 63, d_ch: int = 27) -> int:
     """Multiply-adds a point of the unpadded scene MLP at `width` (PE
-    excluded; 63 / 27 PE inputs, the views layer width / 2 wide):
-    MLP_MACS at 256, 157,440 at 128."""
+    excluded; in_ch / d_ch PE inputs, the shipped 63 / 27 by default; the
+    views layer width / 2 wide): MLP_MACS at 256, 157,440 at 128."""
     w = width
-    return 63 * w + 7 * w * w + (63 + w) * w + w + (w + 27) * (w // 2) + 3 * (w // 2)
+    return (in_ch * w + 7 * w * w + (in_ch + w) * w + w + (w + d_ch) * (w // 2)
+            + 3 * (w // 2))
 
 
 KERNEL_TOL = {"float32": dict(rtol=1e-4, atol=1e-5), "bfloat16": dict(rtol=1e-3, atol=1e-3)}
@@ -572,8 +595,8 @@ def fwd_rows(fused, mlp, dtypes, shapes, gen) -> list:
                 row["within_tol"] &= (row["mean_abs_err"]
                                       <= BF16_MEAN_ERR_SHARE * row["plain_f32_vs_bf16_mean_gap"])
             if label in timed:
-                row["ms"] = time_ms(lambda: fused.nerf_mlp_fwd(mlp, xd, dtype), 10)
-                row["plain_ms"] = time_ms(lambda: fused.nerf_mlp_fwd_plain(mlp, xd, dtype), 3, 1)
+                row["ms"] = time_ms(lambda: fused.nerf_mlp_fwd(mlp, xd, dtype), 5)
+                row["plain_ms"] = time_ms(lambda: fused.nerf_mlp_fwd_plain(mlp, xd, dtype), 2, 1)
                 row["bound_ms"], row["bound_by"] = bound_ms(P, w_bytes, dtype == "bfloat16",
                                                             split_passes=int(dtype == "float32"),
                                                             macs=macs)
@@ -684,13 +707,13 @@ def dgrad_breakdown(stages, stamps, dgrad_ms, off_path=()) -> dict:
                                        for i, name in enumerate(off_path)}}
 
 
-def fwd_breakdown(fused, mlp, xd, ms: float, stash: bool, dtype: str) -> dict:
+def fwd_breakdown(fused, mlp, xd, ms: float, stash: bool, dtype: str, nf=(10, 4)) -> dict:
     """The forward kernel's time by stage from its instrumented
     instantiation in `dtype`: consumer thread 0's cycles by stage over block 0's
     tiles, each stage's share of them and that share of the kernel's
     measured ms; beside them, the PE warps' work a tile (off that path) as a
     share of the tile's cycles."""
-    st = fused.fwd_stage_cycles(mlp, xd, stash, dtype).cpu().numpy().astype(np.float64)
+    st = fused.fwd_stage_cycles(mlp, xd, stash, dtype, *nf).cpu().numpy().astype(np.float64)
     n = len(fused.FWD_STAGES)
     on_path, off_path = st[:, :n], st[:, n:]
     total = on_path.sum()
@@ -835,10 +858,10 @@ def shipped_cotangent(P: int, gen) -> torch.Tensor:
     return mag * sign * live
 
 
-def equivariant(fused, mlp, xd, g, dtype, acts, got, k: int = -20) -> bool:
+def equivariant(fused, mlp, xd, g, dtype, acts, got, k: int = -20, nf=(10, 4)) -> bool:
     """The backward at g 2^k against 2^k times its output at g (`got`), bit
     for bit: every scale inside it is a power of two."""
-    small = flat_grads(fused.nerf_mlp_bwd(mlp, xd, g * 2.0 ** k, dtype, acts=acts))
+    small = flat_grads(fused.nerf_mlp_bwd(mlp, xd, g * 2.0 ** k, dtype, *nf, acts=acts))
     torch.cuda.synchronize()
     return all(torch.equal(a * 2.0 ** k, b) for a, b in zip(got, small))
 
@@ -936,17 +959,17 @@ def bwd_rows(fused, mlp, dtype, shapes, gen, chunked=CHUNKED_BWD) -> list:
             row["fwd_stash_ms"] = time_ms(
                 lambda: fused._launch_fwd(mlp, xd, dtype, 10, 4, stash=True), 5)
             # the plain versions (tens of ms, no launch cost to speak of):
-            # the median of 2 calls after 1
+            # one call after 1
             row["fwd_stash_plain_ms"] = time_ms(
-                lambda: fused.nerf_mlp_fwd_plain(mlp, xd, dtype, with_acts=True), 2, 1)
+                lambda: fused.nerf_mlp_fwd_plain(mlp, xd, dtype, with_acts=True), 1, 1)
             row["stash_ms"] = time_ms(
                 lambda: fused.nerf_mlp_bwd(mlp, xd, g, dtype, acts=acts_k, acts_units=units_k),
                 5)
             row["stash_plain_ms"] = time_ms(
-                lambda: fused.nerf_mlp_bwd_plain(mlp, xd, g, dtype, acts=acts_k), 2, 1)
+                lambda: fused.nerf_mlp_bwd_plain(mlp, xd, g, dtype, acts=acts_k), 1, 1)
             row["remat_ms"] = time_ms(lambda: fused.nerf_mlp_bwd(mlp, xd, g, dtype), 5)
             row["remat_plain_ms"] = time_ms(
-                lambda: fused.nerf_mlp_bwd_plain(mlp, xd, g, dtype), 2, 1)
+                lambda: fused.nerf_mlp_bwd_plain(mlp, xd, g, dtype), 1, 1)
             # the functions' own traffic: xd 32 B, g 16 B, d(xd) 32 B, raw out
             # 16 B per point, the stash, the weights once and the grads once
             # (f32: every pass is the split)
@@ -1435,7 +1458,7 @@ def train_phase(fused, lush, cfg_mod, trainer):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         zero_counts(fused)
-        n = 3
+        n = 2
         ms, (loss, _) = window_ms(step, n)
         counts = count()
         r = dict(point_chunk=chunk, ms_per_step=ms, rays_per_s=N_RAYS / ms * 1e3, steps=n,
@@ -1647,7 +1670,7 @@ def width128_phase(fused, lush, cfg_mod, trainer, NeRFMLP, MLPConfig, results):
         torch.cuda.reset_peak_memory_stats()
         zero_counts(fused)
         plain = [0]
-        n = 3
+        n = 2
         with plain_scene_mlp_calls(NeRFMLP, model, plain):
             ms, (loss, _) = window_ms(step, n)
         counts = count(read_counts(fused), lc.render.mlp_compute_dtype)
@@ -1772,6 +1795,314 @@ def width128_phase(fused, lush, cfg_mod, trainer, NeRFMLP, MLPConfig, results):
 
 
 
+# the pe phase: every PE the JAX kernels run that the port's kernels did
+# not before (pe_x over two 64-column chunks; pe_d over two;
+# padded widths past 128, packed tightly in the forward), by (multires,
+# multires_views)
+PE_GEOS = {"12/4": (12, 4), "4/9": (4, 9), "4/12": (4, 12), "12/8": (12, 8), "16/4": (16, 4),
+           "4/16": (4, 16)}
+PE_TIMED = ("12/4", "12/8")  # timed at width 256 at SHAPES_BWD's coarse and fine P
+# the checks' P: two or three tiles a block of the persistent grids (the
+# forward's PE slot refilled across tiles), a ragged last tile
+PE_CHECK_P = 2 * 132 * 128 + 3 * 128 + 37
+PE_PATH = "12/8"  # the phase's main path: configs/poster with --multires 12 --multires_views 8
+PE_TRAINER_ITERS = 4  # kernel from 1, allkernel from 3
+PE_TRAINER_VIEWS = 9
+PE_RENDER_RGB_TOL = 1e-3  # the bf16 render against the same render through the plain forward
+WIDE_PE_CSRC = "nerf_mlp_dgrad_wide.cu"  # the dgrads for a PE part of 128 channels
+
+
+def nf_of(cfg) -> tuple:
+    """(num_freqs_x, num_freqs_d) of an MLP config's PE inputs."""
+    return (cfg.input_ch - 3) // 6, (cfg.input_ch_views - 3) // 6
+
+
+def pe_check_row(fused, mlp, dtype, xd, g) -> dict:
+    """K1 (output only and with its stash), K2 and K3 at the MLP's PE
+    against their plain versions, as phases 3 and 4 hold the shipped PE's:
+    KERNEL_TOL and STASH_TOL (bf16: the mean-gap controls), BWD_TOL, a
+    second K1 and K2 bit for bit, K3 the bits of K2; in f32 the backward at
+    g 2^-20 bit for bit 2^-20 times the one at g and K1's scale units those
+    of `stash_scale_units`."""
+    nf = nf_of(mlp.cfg)
+    bf16 = dtype == "bfloat16"
+    out = fused.nerf_mlp_fwd(mlp, xd, dtype, *nf)
+    out_k, acts_k, units_k = fused._launch_fwd(mlp, xd, dtype, *nf, stash=True)
+    out_p, acts_p = fused.nerf_mlp_fwd_plain(mlp, xd, dtype, *nf, with_acts=True)
+    out_f, acts_f = (fused.nerf_mlp_fwd_plain(mlp, xd, "float32", *nf, with_acts=True)
+                     if bf16 else (None, None))
+    row = dict(dtype=dtype, width=mlp.cfg.width, pe=f"{nf[0]}/{nf[1]}", P=xd.shape[0],
+               geometry=fused.pe_geometry(mlp.cfg)._asdict(),
+               **held_fwd(out, out_p, out_f, dtype), **held_stash(acts_k, acts_p, acts_f, dtype))
+    row["fwd_repeat_bitwise"] = bool(torch.equal(out, fused.nerf_mlp_fwd(mlp, xd, dtype, *nf))
+                                     and torch.equal(out, out_k))
+    del acts_f
+    k2 = flat_grads(fused.nerf_mlp_bwd(mlp, xd, g, dtype, *nf, acts=acts_k, acts_units=units_k))
+    k2b = flat_grads(fused.nerf_mlp_bwd(mlp, xd, g, dtype, *nf, acts=acts_k, acts_units=units_k))
+    k3 = flat_grads(fused.nerf_mlp_bwd(mlp, xd, g, dtype, *nf))
+    f32 = flat_grads(fused.nerf_mlp_bwd_plain(mlp, xd, g, "float32", *nf)) if bf16 else None
+    want = flat_grads(fused.nerf_mlp_bwd_plain(mlp, xd, g, dtype, *nf, acts=acts_k))
+    torch.cuda.synchronize()
+    row.update(held_bwd(k2, want, f32, dtype, "bwd"),
+               repeat_bitwise=all(torch.equal(a, b) for a, b in zip(k2, k2b)),
+               remat_bitwise=all(torch.equal(a, b) for a, b in zip(k2, k3)))
+    row["finite"] &= all(bool(torch.isfinite(t).all()) for t in k2 + k3)
+    if not bf16:
+        row["equivariant_bitwise"] = equivariant(fused, mlp, xd, g, dtype, acts_k, k2, nf=nf)
+        row["units_bitwise"] = torch.equal(units_k, fused.stash_scale_units(acts_k))
+    row["ok"] = (row["finite"] and row["fwd_out_within_tol"] and row["stash_within_tol"]
+                 and row["bwd_within_tol"] and row["fwd_repeat_bitwise"] and row["repeat_bitwise"]
+                 and row["remat_bitwise"] and row.get("equivariant_bitwise", True)
+                 and row.get("units_bitwise", True))
+    return row
+
+
+def pe_timed_row(fused, mlp, dtype, P, gen, breakdown: bool) -> dict:
+    """K1 (output only, with its stash), K2 and K3 at the MLP's PE at P
+    points: median CUDA-event ms of 3 calls after 2 (the plain versions,
+    tens of ms, 1 after 1), with the bounds of this PE's multiply-adds
+    (`mlp_macs` at its input widths) and its unpadded stash row; K1's output
+    against its plain version; with `breakdown` K1's stages (the PE warps'
+    share of a tile among them) output only."""
+    nf = nf_of(mlp.cfg)
+    bf16 = dtype == "bfloat16"
+    W = mlp.cfg.width
+    macs = mlp_macs(W, mlp.cfg.input_ch, mlp.cfg.input_ch_views)
+    w_bytes = sum(t.numel() * t.element_size() for t in fused.pack_params(mlp, dtype))
+    grad_bytes = 4 * sum(p.numel() for p in mlp.parameters())
+    stash_b = (9 * W + W // 2) * (2 if bf16 else 4)
+    xd = sample_points(P, gen)
+    g = torch.randn((P, 4), generator=gen, device="cuda")
+    _, acts, units = fused._launch_fwd(mlp, xd, dtype, *nf, stash=True)
+    split = 0 if bf16 else 1
+    r = dict(dtype=dtype, width=W, pe=f"{nf[0]}/{nf[1]}", P=P,
+             fwd_ms=time_ms(lambda: fused.nerf_mlp_fwd(mlp, xd, dtype, *nf), 3),
+             fwd_stash_ms=time_ms(lambda: fused._launch_fwd(mlp, xd, dtype, *nf, stash=True), 3),
+             stash_ms=time_ms(lambda: fused.nerf_mlp_bwd(mlp, xd, g, dtype, *nf, acts=acts,
+                                                         acts_units=units), 3),
+             remat_ms=time_ms(lambda: fused.nerf_mlp_bwd(mlp, xd, g, dtype, *nf), 3))
+    for key, passes, point_b, extra in (("fwd", 1, 48, 0), ("fwd_stash", 1, 48 + stash_b, 0),
+                                        ("stash", 2, 80 + stash_b, grad_bytes),
+                                        ("remat", 3, 80, grad_bytes)):
+        r[f"{key}_bound_ms"], r[f"{key}_bound_by"] = bound_ms(
+            P, w_bytes + extra, bf16, passes, point_b, split_passes=split * passes, macs=macs)
+    if P == SHAPES_BWD["fine"]:
+        want = fused.nerf_mlp_fwd_plain(mlp, xd, dtype, *nf)
+        got = fused.nerf_mlp_fwd(mlp, xd, dtype, *nf)
+        torch.cuda.synchronize()
+        tol = KERNEL_TOL[dtype]
+        r["fwd_tol_share"] = ((got - want).abs() / (tol["atol"] + tol["rtol"] * want.abs())
+                              ).max().item()
+        r["fwd_max_abs_err"] = (got - want).abs().max().item()
+        r["fwd_plain_ms"] = time_ms(lambda: fused.nerf_mlp_fwd_plain(mlp, xd, dtype, *nf), 1, 1)
+        r["remat_plain_ms"] = time_ms(
+            lambda: fused.nerf_mlp_bwd_plain(mlp, xd, g, dtype, *nf), 1, 1)
+        del want, got
+        assert r["fwd_tol_share"] <= 1, r
+    if breakdown:
+        b = fwd_breakdown(fused, mlp, xd, r["fwd_ms"], False, dtype, nf)
+        r["fwd_stage_share"] = b["stage_share"]
+        r["fwd_pe_work_share_of_tile"] = b["off_path_share_of_tile"]["pe_work"]
+    del acts, units, xd, g
+    torch.cuda.empty_cache()
+    return r
+
+
+def pe_render(fused, lush, cfg_mod) -> dict:
+    """One 400x400 render_image of the flagship config (bf16 under the
+    'cuda' backend) at PE_PATH's PE, its chunks through K1 bf16, against
+    the same render through K1's plain version: 80 launches, finite, rgb
+    within PE_RENDER_RGB_TOL."""
+    cfg = cfg_mod.flagship_cfg(num_images=NUM_IMAGES)
+    cfg.multires, cfg.multires_views = PE_GEOS[PE_PATH]
+    lc = cfg.lush_config()
+    assert (lc.render.mlp_backend, lc.render.mlp_compute_dtype) == ("cuda", "bfloat16"), lc.render
+    model = lush.LushNeRF(lc, seed=0, device="cuda")
+    K = np.array([[FOCAL, 0, W / 2], [0, FOCAL, H / 2], [0, 0, 1]], np.float32)
+    c2w = np.eye(3, 4, dtype=np.float32)
+    zero_counts(fused)
+    got = lush.render_image(model, lc, H, W, K, c2w, RAY_CHUNK)
+    torch.cuda.synchronize()
+    res = {"launches": read_counts(fused)}
+    kernel = fused.nerf_mlp_fwd
+    fused.nerf_mlp_fwd = lambda mlp, xd, *args: fused.nerf_mlp_fwd_plain(mlp, xd, *args)
+    try:
+        ref = lush.render_image(model, lc, H, W, K, c2w, RAY_CHUNK)
+    finally:
+        fused.nerf_mlp_fwd = kernel
+    torch.cuda.synchronize()
+    for i, key in enumerate(("rgb", "noise", "depth")):
+        res[f"{key}_err_vs_plain"] = max_err(got[i], ref[i])
+    res["finite"] = all(bool(torch.isfinite(t).all()) for t in got)
+    print(f"  pe render_image at {PE_PATH}, bf16: " + json.dumps(res), flush=True)
+    assert res["launches"] == {"nerf_mlp_fwd": 80, "nerf_mlp_bwd_stash": 0,
+                               "nerf_mlp_bwd_remat": 0}, res["launches"]
+    assert res["finite"] and res["rgb_err_vs_plain"] <= PE_RENDER_RGB_TOL, res
+    return res
+
+
+def pe_phase(fused, lush, cfg_mod, trainer, NeRFMLP, MLPConfig):
+    """Every PE of PE_GEOS through the kernels in both dtypes at widths 256
+    and 128 (`pe_check_row` at PE_CHECK_P); K1, K2 and K3 timed at PE_TIMED
+    (`pe_timed_row`); then the main path at PE_PATH: the poster config
+    through `Config.from_args`, a Trainer of PE_TRAINER_ITERS iterations
+    (launches as `step_launches` reckons them, no plain scene MLP) and one
+    eval view, one step's grads against torch f32, and a bf16 render
+    (`pe_render`).  The path's launches are counted."""
+    res = {"checks": [], "timed": [], "launches": {k: 0 for k in COUNTERS}, "seconds": {}}
+    t_part = [time.perf_counter()]
+
+    def part_done(name):
+        now = time.perf_counter()
+        res["seconds"][name] = now - t_part[0]
+        t_part[0] = now
+
+    def count(counts):
+        for k, v in counts.items():
+            res["launches"][k] += v
+        return counts
+
+    # 1. the kernels at each PE against their plain versions
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for width in (256, W128):
+        for geo, (nfx, nfd) in PE_GEOS.items():
+            cfg = MLPConfig(width=width, input_ch=3 + 6 * nfx, input_ch_views=3 + 6 * nfd)
+            mlp = NeRFMLP(cfg, torch.Generator().manual_seed(0), torch.device("cpu"))
+            mlp = mlp.cuda().requires_grad_(False)
+            xd = sample_points(PE_CHECK_P, gen)
+            g = torch.randn((PE_CHECK_P, 4), generator=gen, device="cuda")
+            for dtype in ("float32", "bfloat16"):
+                row = pe_check_row(fused, mlp, dtype, xd, g)
+                res["checks"].append(row)
+                print("  pe check: " + json.dumps(row), flush=True)
+                if not row["ok"]:
+                    raise AssertionError(f"the kernels disagree at PE {geo}: {row}")
+            del mlp
+    part_done("checks")
+
+    # 2. the times at PE_TIMED, width 256
+    for geo in PE_TIMED:
+        nfx, nfd = PE_GEOS[geo]
+        cfg = MLPConfig(input_ch=3 + 6 * nfx, input_ch_views=3 + 6 * nfd)
+        mlp = NeRFMLP(cfg, torch.Generator().manual_seed(0), torch.device("cpu"))
+        mlp = mlp.cuda().requires_grad_(False)
+        for dtype in ("float32", "bfloat16"):
+            for label in ("coarse", "fine"):
+                r = pe_timed_row(fused, mlp, dtype, SHAPES_BWD[label], gen, label == "fine")
+                res["timed"].append(r)
+                print("  pe timed: " + json.dumps(r), flush=True)
+        del mlp
+    torch.cuda.empty_cache()
+    part_done("timed")
+
+    # 3. the main path: the poster config at PE_PATH, as a user runs it
+    nfx, nfd = PE_GEOS[PE_PATH]
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_pe_")
+    try:
+        argv = ["--config", str(TRAINER_CONFIG), "--multires", str(nfx), "--multires_views",
+                str(nfd), "--basedir", f"{tmp.name}/logs", "--tbdir", f"{tmp.name}/tb"]
+        for k, v in dict(N_iters=PE_TRAINER_ITERS, kernel_start_iter=1, allkernel_start_iter=3,
+                         noisenerf_start_iter=10**9, i_print=2, i_weights=10**9, i_testset=10**9,
+                         render_factor=4).items():
+            argv += [f"--{k}", str(v)]
+        cfg = cfg_mod.Config.from_args(argv)
+        lc = cfg.lush_config()
+        assert (lc.render.mlp_backend, lc.render.mlp_compute_dtype, lc.render.mlp_bwd,
+                lc.render.point_chunk, lc.render.multires, lc.render.multires_views,
+                lc.mlp_cfg.width, lc.mlp_cfg_fine.width) == (
+            "cuda", "float32", "remat", POINT_CHUNK, nfx, nfd, 256, 256), lc
+        assert fused.kernel_covers(lc.mlp_cfg, lc.render) \
+            and fused.kernel_covers(lc.mlp_cfg_fine, lc.render)
+        tr = trainer.Trainer(cfg, data=synthetic_scene(n=PE_TRAINER_VIEWS), device="cuda")
+        tr.setup()
+        steps, plain = [], [0]
+        real_step = trainer.train_step
+
+        def counted_step(*args, **kwargs):
+            before = read_counts(fused)
+            loss, mse = real_step(*args, **kwargs)
+            steps.append((loss, {k: v - before[k] for k, v in read_counts(fused).items()}))
+            return loss, mse
+
+        zero_counts(fused)
+        trainer.train_step = counted_step
+        try:
+            with plain_scene_mlp_calls(NeRFMLP, tr.model, plain):
+                t0 = time.perf_counter()
+                tr.train()
+                torch.cuda.synchronize()
+                res["trainer_s"] = time.perf_counter() - t0
+        finally:
+            trainer.train_step = real_step
+        count(read_counts(fused))
+        expect = step_launches(fused, "remat_f32", POINT_CHUNK,
+                               (cfg.N_rand * 5 * 64, cfg.N_rand * 5 * 128))
+        res["trainer_launches_per_iteration"] = [c for _, c in steps]
+        res["trainer_plain_scene_mlp_calls"] = plain[0]
+        losses = [loss.item() for loss, _ in steps]
+        res["trainer_losses"] = losses
+        assert len(steps) == PE_TRAINER_ITERS and all(c == expect for _, c in steps), \
+            ([c for _, c in steps], expect)
+        assert plain[0] == 0 and all(np.isfinite(losses)), (plain, losses)
+        view = int(tr.i_test[0])
+        zero_counts(fused)
+        with plain_scene_mlp_calls(NeRFMLP, tr.model, plain), torch.no_grad():
+            rgb = tr.render_pose(tr.poses[view])[0]
+        torch.cuda.synchronize()
+        eval_counts = count(read_counts(fused))
+        from lushnerf_torch.utils.metrics import compute_img_metric
+        gt = tr._gt_at_eval_res([view])
+        res["eval_view"] = dict(view=view, hw=list(rgb.shape[:2]), launches=eval_counts,
+                                psnr=compute_img_metric(rgb[None], gt, "psnr"))
+        n_chunks = -(-tr.H_eval * tr.W_eval // cfg.ray_chunk_eval)
+        assert eval_counts == {"nerf_mlp_fwd": 2 * n_chunks, "nerf_mlp_bwd_stash": 0,
+                               "nerf_mlp_bwd_remat": 0}, eval_counts
+        assert plain[0] == 0 and np.isfinite(res["eval_view"]["psnr"]), res["eval_view"]
+        del tr
+    finally:
+        tmp.cleanup()
+    print(f"  pe Trainer at {PE_PATH}: {PE_TRAINER_ITERS} iterations in {res['trainer_s']:.2f} s, "
+          f"launches each " + json.dumps(res["trainer_launches_per_iteration"][0])
+          + ", losses " + json.dumps(losses) + "; eval view " + json.dumps(res["eval_view"]),
+          flush=True)
+    part_done("trainer")
+
+    # one step's grads at PE_PATH, the kernels (f32 remat at POINT_CHUNK)
+    # against torch f32 on the same draws (a comparison: not counted)
+    batch = train_batch()
+    lcs = {}
+    for variant in ("remat_f32", "torch"):
+        cfg, _ = train_cfg(cfg_mod, variant, POINT_CHUNK)
+        cfg.multires, cfg.multires_views = nfx, nfd
+        lcs[variant] = cfg.lush_config()
+    rnd = lush._train_randomness(torch.Generator(device="cuda").manual_seed(3), lcs["torch"],
+                                 N_RAYS * lcs["torch"].rbk.num_rays_out, torch.device("cuda"))
+    grads = {}
+    for variant, lc in lcs.items():
+        model = lush.LushNeRF(lc, seed=0, device="cuda")
+        loss, _ = trainer.loss_fn(model, lc, H, W, FOCAL, batch, "kernel", rand_override=rnd)
+        loss.backward()
+        grads[variant] = grads_of(model)
+        del model, loss
+    cos = grad_cosines(grads["remat_f32"], grads["torch"])
+    worst = sorted(cos.items(), key=lambda kv: kv[1])[:5]
+    res["grad_cos"] = {"min": worst[0][1], "worst": worst, "params": len(cos)}
+    print(f"  pe grad cosines vs torch f32 at {PE_PATH} (float32 remat), worst 5 of {len(cos)}: "
+          + json.dumps(worst), flush=True)
+    assert worst[0][1] >= GRAD_COS_MIN["float32"], worst
+    del grads
+    torch.cuda.empty_cache()
+    part_done("grads")
+    res["render_bf16"] = pe_render(fused, lush, cfg_mod)
+    count(res["render_bf16"]["launches"])
+    part_done("render")
+    res["launches_bf16"] = res["render_bf16"]["launches"]["nerf_mlp_fwd"]
+    print("  pe launches on its path: " + json.dumps(res["launches"]) + " (K1 bf16 "
+          + str(res["launches_bf16"]) + " of them); seconds by part: "
+          + json.dumps({k: round(v, 1) for k, v in res["seconds"].items()}), flush=True)
+    return res
+
+
 TONEMAP_RENDER = 4  # the split_linear render's factor: a 100 x 100 view, the eval's
 
 
@@ -1878,7 +2209,7 @@ TRAINER_CONFIG = Path(__file__).resolve().parent / "configs" / "poster"
 TRAINER_OVERRIDES = dict(N_iters=60, kernel_start_iter=20, allkernel_start_iter=40,
                          noisenerf_start_iter=10**9, i_print=10, i_weights=30, i_testset=60,
                          render_factor=4)
-TRAINER_RENDER_POSES = 4
+TRAINER_RENDER_POSES = 2
 # the loop's ms per iteration over bare train_step calls on batches of the
 # same dataset: the loop must add no per-step host work (a gather, a copy,
 # a sync) to a step the host already holds
@@ -2135,11 +2466,11 @@ def trainer_phase(fused, cfg_mod, trainer):
         assert frames == {"frames": TRAINER_RENDER_POSES}
         assert len(list(outdir.glob("path_*.png"))) == 2 * TRAINER_RENDER_POSES
 
-        # the loop against bare train_step calls, 4 allkernel iterations
+        # the loop against bare train_step calls, 2 allkernel iterations
         # each, in turns, with nothing at a cadence inside the loop's window
         for key in ("i_print", "i_tensorboard", "i_weights", "i_testset"):
             setattr(tr2.cfg, key, 10**9)
-        n = 4
+        n = 2
         batches = [tr2.dataset.next_batch(tr2.cfg.N_rand, tr2.np_rng) for _ in range(n)]
 
         def loop():
@@ -2311,10 +2642,10 @@ def cte_phase(fused, cfg_mod, trainer):
         res["consist_batch_host_us"] = (time.perf_counter() - t0) * 1e6 / 200
         torch.cuda.synchronize()
 
-        # consist iterations against plain allkernel ones, in turns, 4 each
+        # consist iterations against plain allkernel ones, in turns, 2 each
         for key in ("i_print", "i_tensorboard", "i_weights", "i_testset"):
             setattr(tr2.cfg, key, 10**9)
-        n = 4
+        n = 2
 
         def window(consist: bool):
             tr2.cfg.noisenerf_start_iter = 0 if consist else 10**9
@@ -2471,7 +2802,7 @@ DDP_WORLD1_OVERRIDES = dict(DDP_OVERRIDES, noisenerf_start_iter=10**9, i_weights
 DDP_WORLD = 2
 RBK_PREFIXES = ("mlp_rbk.", "dbk_view_embedding.")
 RBK_F64_FACTOR = 2.0  # see below; the largest ratio seen is 1.42
-DDP_WINDOW = 4  # allkernel iterations a timing window
+DDP_WINDOW = 2  # allkernel iterations a timing window
 DDP_WAIT_S = 300  # the longest a rank or the phase waits for the other side
 # The fixed-batch step of the ranks, each on its half of one global batch,
 # against one process on the whole of it, from the same weights, is held by
@@ -3231,7 +3562,7 @@ def pe_rows(pe_mm, xd_all) -> list:
 
 
 RETIMED = ("raymajor_excl_cumsum", "raymajor_transpose", "raymajor_masked_dists")
-RETIME_WINDOWS = 11  # device windows of each function at each retime shape
+RETIME_WINDOWS = 7  # device windows of each function at each retime shape
 # the renderer's rays x samples and the JAX probe's T x S, with the cumsum's
 # channels (1 as sample_pdf runs it, 8 as probes P1 and P1b do)
 RETIME_SHAPES = {"coarse": (5120, 64, 1), "fine": (5120, 128, 1), "probe": (16, 64, 8)}
@@ -3433,10 +3764,10 @@ def probe_phase(raymajor, probe):
 
 def kernel_entries(results):
     """The `kernels` line: each kernel with its main-path launches (the
-    forward_kernel, render_image, train_step, tonemap, cte and ddp phases; the cte
-    and ddp phases' also apart, the ddp phase's by rank too), its largest
-    error against its plain version, and its times at the flagship fine P
-    in bf16."""
+    forward_kernel, render_image, train_step, pe, tonemap, cte and ddp
+    phases; the cte and ddp phases' also apart, the ddp phase's by rank too;
+    the pe phase's path in `pe_entry`), its largest error against its plain
+    version, and its times at the flagship fine P in bf16."""
     fwd_rows = results.get("kernel") or []
     bwd_rows = [r for r in results.get("kernel_bwd") or []
                 if r["shape"] not in ("large_activation", "tiny_cotangent")]
@@ -3451,7 +3782,9 @@ def kernel_entries(results):
     ddp_counts = {k: ddp.get("world1_launches", {}).get(k, 0)
                   + ddp.get("step_launches_rank", {}).get(k, 0) * len(ddp_ranks)
                   + sum(r.get(k, 0) for r in ddp_ranks) for k in COUNTERS}
-    counts = {k: v + cte.get(k, 0) + tonemap.get(k, 0) + ddp_counts[k]
+    pe = results.get("pe") or {}
+    pe_counts = pe.get("launches", {})
+    counts = {k: v + cte.get(k, 0) + tonemap.get(k, 0) + ddp_counts[k] + pe_counts.get(k, 0)
               for k, v in train.get("launches_total", {}).items()}
     fwd_launches = counts.get("nerf_mlp_fwd", 0) + sum(
         results.get(p, {}).get("launches", 0) for p in ("forward_kernel", "render_image"))
@@ -3479,7 +3812,8 @@ def kernel_entries(results):
               "lushnerf_tpu/ops/fused/nerf_mlp.py:396", fwd_launches,
               max([r["max_abs_err"] for r in fwd_rows] + [r["fwd_out_max_abs_err"] for r in bwd_rows]),
               "fwd_stash",
-              {**at_tune_p("k1"), "launches_cte": cte.get("nerf_mlp_fwd", 0),
+              {**at_tune_p("k1"), **pe_entry(pe, 256, ("float32", "bfloat16"), "fwd"),
+               "launches_cte": cte.get("nerf_mlp_fwd", 0),
                "launches_tonemap": tonemap.get("nerf_mlp_fwd", 0),
                "launches_ddp": ddp_counts["nerf_mlp_fwd"],
                "launches_ddp_ranks": [r.get("nerf_mlp_fwd", 0) for r in ddp_ranks],
@@ -3489,12 +3823,14 @@ def kernel_entries(results):
         entry("nerf_mlp_bwd_stash", "lushnerf_torch/csrc/nerf_mlp_dgrad.cu",
               "lushnerf_tpu/ops/fused/nerf_mlp.py:608", counts.get("nerf_mlp_bwd_stash", 0),
               bwd_err, "stash", {"max_rel_err": bwd_rel, "shapes": shapes("stash"),
+                                 **pe_entry(pe, 256, ("float32", "bfloat16"), "stash"),
                                  "also_source": "lushnerf_torch/csrc/nerf_mlp_bwd.cu",
                                  "launches_are": "dgrad + wgrad + 2 reductions per point chunk",
                                  **bwd_split(bwd_rows)}),
         entry("nerf_mlp_bwd_remat", "lushnerf_torch/csrc/nerf_mlp_dgrad.cu",
               "lushnerf_tpu/ops/fused/nerf_mlp.py:589", counts.get("nerf_mlp_bwd_remat", 0),
               bwd_err, "remat", {"max_rel_err": bwd_rel, **at_tune_p("k3"), "shapes": shapes("remat"),
+                                 **pe_entry(pe, 256, ("float32", "bfloat16"), "remat"),
                                  "launches_cte": cte.get("nerf_mlp_bwd_remat", 0),
                                  "launches_tonemap": tonemap.get("nerf_mlp_bwd_remat", 0),
                                  "launches_ddp": ddp_counts["nerf_mlp_bwd_remat"],
@@ -3503,11 +3839,37 @@ def kernel_entries(results):
                                  "also_source": "lushnerf_torch/csrc/nerf_mlp_fwd.cu, nerf_mlp_bwd.cu",
                                  "launches_are": "K1 with its stash + dgrad + wgrad + 2 "
                                                  "reductions per point chunk"}),
-    ] + width128_entries(results.get("width128")) + tune_entries(results.get("tune_kernel")) \
+    ] + width128_entries(results.get("width128"), pe) + tune_entries(results.get("tune_kernel")) \
         + probe_entries(results.get("probe_raymajor"))
 
 
-def width128_entries(w128):
+def pe_entry(pe, width: int, dtypes, kernel: str) -> dict:
+    """What a kernel's entry says of the pe phase: the PEs of PE_GEOS it
+    ran at this width in these dtypes (each held against its plain version
+    there), its largest error over them, its launches on the pe phase's
+    path (width 256: the Trainer, its eval view, the bf16 render), and at
+    width 256 its times at PE_TIMED (`kernel`: fwd, stash or remat)."""
+    rows = [r for r in pe.get("checks", []) if r["width"] == width and r["dtype"] in dtypes]
+    if not rows:
+        return {}
+    err = "fwd_out_max_abs_err" if kernel == "fwd" else "bwd_max_abs_err"
+    out = {"new_pe_geometries": sorted({r["pe"] for r in rows}),
+           "new_pe_max_abs_err": max(r[err] for r in rows)}
+    if kernel != "fwd":  # the PEs with a part of 128 channels: the dgrads' own build
+        out["new_pe_max_rel_err"] = max(r["bwd_max_rel_err"] for r in rows)
+        out["new_pe_also_source"] = f"lushnerf_torch/csrc/{WIDE_PE_CSRC}"
+    if width == 256:
+        name = {"fwd": "nerf_mlp_fwd", "stash": "nerf_mlp_bwd_stash",
+                "remat": "nerf_mlp_bwd_remat"}[kernel]
+        out["launches_pe_path"] = pe.get("launches", {}).get(name, 0)
+        out["new_pe_timed"] = [{k: r[k] for k in ("pe", "dtype", "P", f"{kernel}_ms",
+                                                  f"{kernel}_bound_ms") + (
+            ("fwd_stash_ms", "fwd_pe_work_share_of_tile") if kernel == "fwd" else ()) if k in r}
+            for r in pe.get("timed", []) if r["dtype"] in dtypes]
+    return out
+
+
+def width128_entries(w128, pe=None):
     """The width-128 builds of K1 and of the backward (its dgrad and wgrad;
     K3 is K1 with its stash and them), in f32 and in bf16, on the width128
     phase's main path (f32: its f32 step, Trainer run and eval view; bf16:
@@ -3542,6 +3904,7 @@ def width128_entries(w128):
                         "stash_bound_ms": r["stash_bound_ms"]} for r in timed],
             **bwd_split(bwd)}
         bwd_err = max(r[f"{p}_max_abs_err"] for r in bwd for p in ("bwd", "bwd_on_plain_stash"))
+        bwd_extra.update(pe_entry(pe or {}, W128, (dtype,), "remat"))
         if dtype == "float32":  # the shipped configs' remat: K3 f32
             bwd_entry = entry(names[1], "lushnerf_torch/csrc/nerf_mlp_dgrad.cu",
                               "lushnerf_tpu/ops/fused/nerf_mlp.py:589",
@@ -3563,7 +3926,8 @@ def width128_entries(w128):
                   "lushnerf_tpu/ops/fused/nerf_mlp.py:396", counts["nerf_mlp_fwd"],
                   max([r["max_abs_err"] for r in fwd_rows] + [r["fwd_out_max_abs_err"] for r in bwd]),
                   "fwd_stash",
-                  {"stash_max_rel_err": max(r["stash_max_rel_err"] for r in bwd),
+                  {**pe_entry(pe or {}, W128, (dtype,), "fwd"),
+                   "stash_max_rel_err": max(r["stash_max_rel_err"] for r in bwd),
                    "shapes_stash": [{"P": r["P"], "ms": r["fwd_stash_ms"],
                                      "plain_ms": r["fwd_stash_plain_ms"],
                                      "bound_ms": r["fwd_stash_bound_ms"]} for r in timed],
@@ -3679,12 +4043,13 @@ def print_build_logs(logs: dict) -> None:
 
 
 class BuildRest:
-    """The builds that phases 3 and 4 do not launch (the MLP's sources at
-    width 128, the tune and probe paths' and the tune phase's K4 variants),
-    in two processes at the lowest CPU priority (nice 19, their nvcc
-    processes too), so that they take the cores this script's one busy
-    thread leaves idle while phases 3 and 4 time the width-256 kernels on
-    the card.  wait() returns their nvcc output, or raises with it."""
+    """The builds that phases 3 to 7 do not launch (the MLP's sources at
+    width 128, the dgrads for a PE part of 128 channels, the tune and probe
+    paths' and the tune phase's K4 variants), in two processes at the
+    lowest CPU priority (nice 19, their nvcc processes too), so that they
+    take the cores this script's one busy thread leaves idle while phases 3
+    to 7 run the width-256 kernels on the card.  wait() returns their nvcc
+    output, or raises with it."""
 
     def __init__(self):
         self.dir = tempfile.TemporaryDirectory(prefix="chip_smoke_build_")
@@ -3760,7 +4125,7 @@ def main(argv=None) -> int:
     rest = BuildRest()
 
     def do_build():
-        # the MLP's three sources at width 256, which phases 3 and 4 launch,
+        # the MLP's three sources at width 256, which phases 3 to 7 launch,
         # one nvcc process each, while this thread takes the import that
         # train_step would pay for; then the other builds start niced
         # beside those phases (`BuildRest`)
@@ -3774,7 +4139,9 @@ def main(argv=None) -> int:
                   flush=True)
             logs = kernels.result()
         print_build_logs(logs)
-        rest.start([f"{src}@w{W128}" for src in fused.SOURCES] + ["nerf_pe_mm", "raymajor_probe"])
+        rest.start([f"{src}@w{W128}" for src in fused.SOURCES]
+                   + [f"{fused.WIDE_PE_SOURCE}@w{w}" for w in (256, W128)]
+                   + ["nerf_pe_mm", "raymajor_probe"])
         return logs
 
     def do_build_rest():
@@ -3797,12 +4164,13 @@ def main(argv=None) -> int:
         "build": do_build,
         "kernel": lambda: kernel_phase(fused, NeRFMLP, MLPConfig),
         "kernel_bwd": lambda: kernel_bwd_phase(fused, NeRFMLP, MLPConfig),
-        "build_rest": do_build_rest,
         "forward_kernel": lambda: forward_phase(fused, lush, cfg_mod),
         "render_image": lambda: render_phase(fused, lush, cfg_mod),
         "train_step": lambda: train_phase(fused, lush, cfg_mod, trainer),
+        "build_rest": do_build_rest,
         "width128": lambda: width128_phase(fused, lush, cfg_mod, trainer, NeRFMLP, MLPConfig,
                                            smoke.results),
+        "pe": lambda: pe_phase(fused, lush, cfg_mod, trainer, NeRFMLP, MLPConfig),
         "tonemap": lambda: tonemap_phase(fused, lush, cfg_mod, trainer),
         "trainer": lambda: trainer_phase(fused, cfg_mod, trainer),
         "cte": lambda: cte_phase(fused, cfg_mod, trainer),

@@ -808,14 +808,15 @@ void make_jobs(WJob (&jobs)[N_JOBS], int kx, int kd) {
 }
 
 // The wgrad's tiles (both modes): 128 rows of a block by all of its
-// columns, the blocks of width 256 first.
+// columns, the wide blocks first (those whose A is the stash, I = W; the
+// narrow ones read the PE, whose kx or kd may equal W at width 128).
 int fill_tiles(WTile (&tiles)[N_TILES], int kx, int kd) {
   WJob jobs[N_JOBS];
   make_jobs(jobs, kx, kd);
   int n = 0;
   for (int wide = 1; wide >= 0; --wide)
     for (int j = 0; j < N_JOBS; ++j) {
-      if ((jobs[j].I == W) != (wide == 1)) continue;
+      if ((jobs[j].a_pe == 0) != (wide == 1)) continue;
       for (int o0 = 0; o0 < jobs[j].O; o0 += 128) {
         if (n >= N_TILES) return -1;
         WTile& t = tiles[n++];
@@ -975,7 +976,9 @@ int nerf_mlp_bwd_wgrad_items(int bf16_mode, int n_splits, int kx, int kd, long l
 //   [ceil(P / 128)][9][8]; w_part [n_splits, w_numel] f32 scratch; clk null
 //   or [N_CLK] int64 of the mode (the instrumented wgrad).
 // n_splits: point splits of the wgrad; n_wblocks: its persistent grid (at
-// most one block an SM).  Requires what nerf_mlp_fwd requires.
+// most one block an SM).  Requires the PE that the dgrad requires (kx, kd
+// in {32, 64, 96, 128}, kx + kd <= PE_PAD_MAX: a narrow tile's N = I
+// rounded up to 64, at most 128) and P > 0.
 int nerf_mlp_bwd_wgrad(const void* acts, const void* dz, const void* pe, const float* zs,
                        const float* au, float* w_part, long long* clk, int P, int kx, int kd,
                        int bf16_mode, int n_splits, int n_wblocks, void* stream) {

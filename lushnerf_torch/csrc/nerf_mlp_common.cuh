@@ -10,9 +10,14 @@
 // columns (zero weights, bias and rgb-head rows), as the JAX package's
 // `pad_params` pads it to 128 lanes, so that its relu output there is 0.
 //
+// The PE: pe_x of in_ch = 3 + 6 nfx channels and pe_d of d_ch = 3 + 6 nfd,
+// in_ch + d_ch <= PE_LANES (the JAX kernels' one 128-lane PE register);
+// padded each to kx = round_up(in_ch, 32) and kd = round_up(d_ch, 32) in
+// the backward (kx, kd in {32 .. 128}, kx + kd <= PE_PAD_MAX); the
+// forward's PE tile: nerf_mlp_fwd_sm90.cuh.
+//
 // The weight grads' layout (row-major [out][in], K padded with zero
-// columns; kx = round_up(pe_x channels, 32), kd = round_up(pe_d channels,
-// 32)):  W0 [W][kx] | W1..W4 [W][W] | W5 [W][kx + W] (pe_x part, then a4
+// columns):  W0 [W][kx] | W1..W4 [W][W] | W5 [W][kx + W] (pe_x part, then a4
 // part) | W6, W7 [W][W] | Wf [W][W] | Wv [WH][W + kd] (feat part, then
 // pe_d part); w_numel() counts it.  The forward's weight blobs are laid
 // out for wgmma (nerf_mlp_fwd_sm90.cuh).  The f32 blob `fp` holds biases
@@ -42,7 +47,8 @@ namespace nerf_mlp {
 constexpr int W = NERF_MLP_WIDTH;  // scene MLP width
 static_assert(W == 256 || W == 128, "the kernels are written for widths 256 and 128");
 constexpr int WH = 128;        // views layer lanes
-constexpr int PE_MAX = 128;    // kx + kd
+constexpr int PE_LANES = 128;    // in_ch + d_ch, and the forward's PE tile columns
+constexpr int PE_PAD_MAX = 160;  // kx + kd
 constexpr int ACTS_LD = 9 * W + WH;  // stash row: a0..a7, feat, hv
 constexpr int UNIT_BLOCKS = 9;       // the f32 stash's scale units: a0..a7, feat
 constexpr int UNIT_WARPS = 8;        // and K1's consumer warps

@@ -74,6 +74,15 @@
 // constant and costs the consumers no registers.
 extern __shared__ __align__(1024) unsigned char dsmem[];
 
+// A PE part of 128 channels (kx or kd = 128) takes d_pe passes of 64
+// accumulators a thread (WIDE_PE): both dgrads built as
+// nerf_mlp_dgrad_wide.cu (NERF_MLP_WIDE_PE 1, no stage stamps), and only
+// then, so that the others keep their code and their build time.
+#ifndef NERF_MLP_WIDE_PE
+#define NERF_MLP_WIDE_PE 0
+#endif
+constexpr bool WIDE_PE = NERF_MLP_WIDE_PE != 0;
+
 namespace {
 
 using namespace nerf_mlp;
@@ -269,9 +278,10 @@ __device__ __forceinline__ void matmul_chunks(float (&acc)[HALF / 2], const unsi
 }
 
 // acc += A[wg rows, 0 : 64 nk] . B^T over the next nk weight pieces of N
-// rows (a d_pe pass: N = kx or kd).
-template <int N>
-__device__ __forceinline__ void matmul_n(float (&acc)[48], const unsigned char* A, int nk,
+// rows (a d_pe pass: N = kx or kd; R = 48 accumulators a thread up to N =
+// 96, 64 at N = 128).
+template <int N, int R>
+__device__ __forceinline__ void matmul_n(float (&acc)[R], const unsigned char* A, int nk,
                                          Ring& ring) {
   const int wg = threadIdx.x >> 7;
 #pragma unroll 1
@@ -285,7 +295,8 @@ __device__ __forceinline__ void matmul_n(float (&acc)[48], const unsigned char* 
       const uint64_t db = wgmma_desc(B + ks * 32);
       if constexpr (N == 32) wgmma_m64n32k16(acc, da, db, 1);
       else if constexpr (N == 64) wgmma_m64n64k16(acc, da, db, 1);
-      else wgmma_m64n96k16(acc, da, db, 1);
+      else if constexpr (N == 96) wgmma_m64n96k16(acc, da, db, 1);
+      else wgmma_m64n128k16(acc, da, db, 1);
     }
     wgmma_commit();
     if (c > 0) {
@@ -305,6 +316,17 @@ __device__ __forceinline__ void matmul_narrow(float (&acc)[48], int N, const uns
   else if (N == 64) matmul_n<64>(acc, A, nk, ring);
   else matmul_n<96>(acc, A, nk, ring);
 }
+__device__ __forceinline__ void matmul_narrow(float (&acc)[64], int, const unsigned char* A,
+                                              int nk, Ring& ring) {
+  matmul_n<128>(acc, A, nk, ring);
+}
+
+// A d_pe pass's accumulators a thread for its N = kx or kd columns: 48 up
+// to 96, 64 at 128 (a pass of its own, so that the narrower PEs keep their
+// code).
+template <int R> struct PeAcc {
+  static constexpr int value = R;
+};
 
 // This thread's rows of the tile in the accumulator fragment: r0 and r0 + 8;
 // its columns: 8 j + 2 q and 8 j + 2 q + 1.
@@ -454,32 +476,38 @@ __device__ __forceinline__ void dxd_views(const float (&acc)[R], int N, int L, c
   }
 }
 
-constexpr int DPE_LD = 100;  // row of the f32 d_pe_x tile: kx <= 96, plus 4
+// The row of the f32 d_pe_x tile [T][ld] in shared memory: kx plus 4 up
+// to kx = 96; at kx = 128 the row itself, so that the tile fits the bf16
+// dgrad's 64 KB tile buffer (its rows then share their banks: slower, and
+// only at kx = 128).
+constexpr int DPE_LD = 100;
+__device__ __forceinline__ int dpe_ld(int kx) { return kx <= 96 ? DPE_LD : 128; }
 
-// This warpgroup's rows of a d_pe fragment of N columns into dpe [T][DPE_LD].
+// This warpgroup's rows of a d_pe fragment of N columns into dpe [T][ld].
 template <int R>
-__device__ __forceinline__ void dpe_to_smem(const float (&acc)[R], int N, float* dpe) {
+__device__ __forceinline__ void dpe_to_smem(const float (&acc)[R], int N, float* dpe,
+                                            int ld = DPE_LD) {
   const Frag f;
 #pragma unroll
   for (int j = 0; j < R / 4; ++j) {
     if (8 * j < N) {
       const int col = 8 * j + 2 * f.q;
-      *reinterpret_cast<float2*>(dpe + f.r0 * DPE_LD + col) = make_float2(acc[4 * j], acc[4 * j + 1]);
-      *reinterpret_cast<float2*>(dpe + (f.r0 + 8) * DPE_LD + col) =
+      *reinterpret_cast<float2*>(dpe + f.r0 * ld + col) = make_float2(acc[4 * j], acc[4 * j + 1]);
+      *reinterpret_cast<float2*>(dpe + (f.r0 + 8) * ld + col) =
           make_float2(acc[4 * j + 2], acc[4 * j + 3]);
     }
   }
 }
 
-// d(xd) lanes 0..2 and the padding lanes 6, 7 from d_pe_x in dpe: one
+// d(xd) lanes 0..2 and the padding lanes 6, 7 from d_pe_x in dpe ([T][ld]): one
 // thread per (point, coordinate), the bands in order, as nerf_mlp_bwd.cu's
 // f32 kernel sums them.
-__device__ __forceinline__ void dxd_from_smem(const float* dpe, int kx, int L, const float* xs,
+__device__ __forceinline__ void dxd_from_smem(const float* dpe, int ld, int L, const float* xs,
                                               float* dxd, int p0, int P) {
   for (int idx = threadIdx.x; idx < T * 3; idx += NCONS) {
     const int p = idx / 3, k = idx - 3 * p;
     if (p0 + p >= P) continue;
-    const float* dp = dpe + p * DPE_LD;
+    const float* dp = dpe + p * ld;
     const float v = xs[p * 8 + k];
     float acc = dp[k];
     for (int j = 0; j < L; ++j) {
@@ -715,14 +743,16 @@ __device__ __forceinline__ void consumer(const DgradArgs& a) {
     st.mark();
 
     // d_pe_d = d_hv Wvd, and the view lanes of d(xd)
-    {
-      float acc_d[48];
+    auto pe_d_pass = [&](auto r) {
+      float acc_d[decltype(r)::value];
 #pragma unroll
-      for (int i = 0; i < 48; ++i) acc_d[i] = 0.f;
+      for (int i = 0; i < decltype(r)::value; ++i) acc_d[i] = 0.f;
       matmul_narrow(acc_d, a.kd, X, 2, ring);
       st.mark();
       dxd_views(acc_d, a.kd, a.nfd, xs, stage, a.dxd, p0, P);
-    }
+    };
+    if (!WIDE_PE || a.kd <= 96) pe_d_pass(PeAcc<48>{});
+    else if constexpr (WIDE_PE) pe_d_pass(PeAcc<64>{});
     st.mark();
 
     // The nine W-wide layers through one copy of the code (a copy per
@@ -742,10 +772,10 @@ __device__ __forceinline__ void consumer(const DgradArgs& a) {
 
     // d_pe_x = d_z0 W0 + d_z5 W5a (d_z0 in X, d_z5 in Y); Y then goes to the
     // next tile's a7, and X holds d_pe_x in f32 for d(xd), then the next hv
-    {
-      float acc_x[48];
+    auto pe_x_pass = [&](auto r) {
+      float acc_x[decltype(r)::value];
 #pragma unroll
-      for (int i = 0; i < 48; ++i) acc_x[i] = 0.f;
+      for (int i = 0; i < decltype(r)::value; ++i) acc_x[i] = 0.f;
 #pragma unroll 1
       for (int b = 0; b < 2; ++b) {
         if (b == 1) wait_chunks(1, NCH);
@@ -753,11 +783,14 @@ __device__ __forceinline__ void consumer(const DgradArgs& a) {
       }
       free_chunks(1, NCH);
       wait_x_read();  // the producer's store of d_z0 from X
-      dpe_to_smem(acc_x, a.kx, reinterpret_cast<float*>(X));
-    }
+      dpe_to_smem(acc_x, a.kx, reinterpret_cast<float*>(X), WIDE_PE ? dpe_ld(a.kx) : DPE_LD);
+    };
+    if (!WIDE_PE || a.kx <= 96) pe_x_pass(PeAcc<48>{});
+    else if constexpr (WIDE_PE) pe_x_pass(PeAcc<64>{});
     named_bar(BAR_CONS, NCONS);
     st.mark();
-    dxd_from_smem(reinterpret_cast<const float*>(X), a.kx, a.nfx, xs, a.dxd, p0, P);
+    dxd_from_smem(reinterpret_cast<const float*>(X), WIDE_PE ? dpe_ld(a.kx) : DPE_LD, a.nfx, xs,
+                  a.dxd, p0, P);
     fence_proxy_async();  // before the next TMA load into X
     named_bar(BAR_CONS, NCONS);
     free_chunks(0, 2);
@@ -1092,11 +1125,15 @@ __device__ __forceinline__ void matmul_split(float (&acc)[R], int nk, RingF& rin
   wgmma_fence_regs(acc);
 }
 
-// A d_pe pass of N = kx or kd columns over nk chunks: acc[48].
+// A d_pe pass of N = kx or kd columns over nk chunks: acc[48] up to N =
+// 96, acc[64] at 128.
 __device__ __forceinline__ void matmul_split_narrow(float (&acc)[48], int N, int nk, RingF& ring) {
   if (N == 32) matmul_split<32>(acc, nk, ring);
   else if (N == 64) matmul_split<64>(acc, nk, ring);
   else matmul_split<96>(acc, nk, ring);
+}
+__device__ __forceinline__ void matmul_split_narrow(float (&acc)[64], int, int nk, RingF& ring) {
+  matmul_split<128>(acc, nk, ring);
 }
 
 // This thread's two rows (r0, r0 + 8): the tile buffer holds each row's d_z
@@ -1282,20 +1319,20 @@ __device__ __forceinline__ void epilogue_wide(float (&acc)[F_ACC], Rows& rs, con
 }
 
 // A d_pe pass's fragment to true values: acc 2^-(s + SHIFT) per row.
-__device__ __forceinline__ void to_true(float (&acc)[48], const Rows& rs) {
+template <int R> __device__ __forceinline__ void to_true(float (&acc)[R], const Rows& rs) {
 #pragma unroll
-  for (int i = 0; i < 48; ++i) acc[i] *= rs.inv[(i >> 1) & 1] * (1.f / SPLIT_ACC);
+  for (int i = 0; i < R; ++i) acc[i] *= rs.inv[(i >> 1) & 1] * (1.f / SPLIT_ACC);
 }
 
 // This thread's W5a partial of d_pe_x (N columns) to or from the block's
 // scratch rows, at its fragment positions: the same thread reads back what
 // it wrote.
-template <bool LOAD>
-__device__ __forceinline__ void dpe5_io(float (&acc)[48], int N, float* dpe5) {
+template <bool LOAD, int R>
+__device__ __forceinline__ void dpe5_io(float (&acc)[R], int N, float* dpe5) {
   const Frag f;
   float* base = dpe5 + (size_t)blockIdx.x * T * N;
 #pragma unroll
-  for (int j = 0; j < 12; ++j) {
+  for (int j = 0; j < R / 4; ++j) {
     if (8 * j >= N) break;
 #pragma unroll
     for (int rr = 0; rr < 2; ++rr) {
@@ -1353,13 +1390,15 @@ __device__ __forceinline__ void consumer_f32(const DgradArgsF& a) {
     st.mark();
 
     // d_pe_d = d_hv Wvd, and the view lanes of d(xd)
-    {
-      float acc_d[48];
+    auto pe_d_pass = [&](auto r) {
+      float acc_d[decltype(r)::value];
       matmul_split_narrow(acc_d, a.kd, WH / 64, ring);
       st.mark();
       to_true(acc_d, rs);
       dxd_views(acc_d, a.kd, a.nfd, xs, stage, a.dxd, p0, P);
-    }
+    };
+    if (!WIDE_PE || a.kd <= 96) pe_d_pass(PeAcc<48>{});
+    else if constexpr (WIDE_PE) pe_d_pass(PeAcc<64>{});
     st.mark();
 
     // the nine 256-wide layers through one copy of the code: l = 8 is d_feat
@@ -1395,27 +1434,35 @@ __device__ __forceinline__ void consumer_f32(const DgradArgsF& a) {
       sb ^= 1;
       st.mark();
       if (l == 5) {
-        float acc5[48];
-        matmul_split_narrow(acc5, a.kx, F_NA, ring);
-        to_true(acc5, rs);
-        dpe5_io<false>(acc5, a.kx, a.dpe5);
+        auto w5a_pass = [&](auto r) {
+          float acc5[decltype(r)::value];
+          matmul_split_narrow(acc5, a.kx, F_NA, ring);
+          to_true(acc5, rs);
+          dpe5_io<false>(acc5, a.kx, a.dpe5);
+        };
+        if (!WIDE_PE || a.kx <= 96) w5a_pass(PeAcc<48>{});
+        else if constexpr (WIDE_PE) w5a_pass(PeAcc<64>{});
         st.mark();
       }
     }
 
     // d_pe_x = d_z0 W0 + d_z5 W5a, then d(xd) through the buffer
-    {
-      float acc_x[48];
+    auto pe_x_pass = [&](auto r) {
+      float acc_x[decltype(r)::value];
       matmul_split_narrow(acc_x, a.kx, F_NA, ring);
       to_true(acc_x, rs);
       dpe5_io<true>(acc_x, a.kx, a.dpe5);
       wait_dz_read();              // the PE warps have stored d_z0
       named_bar(BAR_CONS, NCONS);  // both warpgroups' wgmmas have read the buffer
-      dpe_to_smem(acc_x, a.kx, reinterpret_cast<float*>(dsmem));
-    }
+      dpe_to_smem(acc_x, a.kx, reinterpret_cast<float*>(dsmem),
+                  WIDE_PE ? dpe_ld(a.kx) : DPE_LD);
+    };
+    if (!WIDE_PE || a.kx <= 96) pe_x_pass(PeAcc<48>{});
+    else if constexpr (WIDE_PE) pe_x_pass(PeAcc<64>{});
     named_bar(BAR_CONS, NCONS);
     st.mark();
-    dxd_from_smem(reinterpret_cast<const float*>(dsmem), a.kx, a.nfx, xs, a.dxd, p0, P);
+    dxd_from_smem(reinterpret_cast<const float*>(dsmem), WIDE_PE ? dpe_ld(a.kx) : DPE_LD,
+                  a.nfx, xs, a.dxd, p0, P);
     st.mark();
   }
   __syncthreads();  // every thread of the block: the PE warps' sums may use the buffer
@@ -1718,7 +1765,17 @@ __global__ void __launch_bounds__(NTHR, 1)
   }
 }
 
-bool valid_pe_width(int k) { return k == 32 || k == 64 || k == 96; }
+// The backward's PE: each part padded to 32 channels, at most 128, both
+// within PE_PAD_MAX, and the frequencies' channels within them; this build
+// takes the PEs with a part of 128 channels (WIDE_PE, without stage
+// stamps) or the others.
+bool valid_pe(int kx, int kd, int nfx, int nfd, const long long* stamps) {
+  auto width = [](int k) { return k == 32 || k == 64 || k == 96 || k == 128; };
+  const bool wide = kx == 128 || kd == 128;
+  return width(kx) && width(kd) && kx + kd <= PE_PAD_MAX && nfx >= 0 && nfd >= 0 &&
+         3 + 6 * nfx <= kx && 3 + 6 * nfd <= kd && wide == WIDE_PE &&
+         !(wide && stamps != nullptr);
+}
 
 }  // namespace
 
@@ -1736,21 +1793,24 @@ int nerf_mlp_dgrad_width() { return W; }
 //   the stash; dz [P, ACTS_LD] and pe [P, kx + kd] scratch (bf16); dxd
 //   [P, 8] out; fp_part [n_blocks, FP_NUMEL] f32; stamps null or
 //   [ceil(ntiles / n_blocks)][N_STAMPS] int64.
-// Requires kx, kd in {32, 64, 96}, kx + kd <= 128, 3 + 6 nfx <= kx,
-// 3 + 6 nfd <= kd, P > 0, all pointers 16-byte aligned.
+// Requires kx, kd in {32, 64, 96, 128}, kx + kd <= PE_PAD_MAX (160),
+// 3 + 6 nfx <= kx, 3 + 6 nfd <= kd, P > 0, all pointers 16-byte aligned;
+// kx or kd 128 in the nerf_mlp_dgrad_wide build (and no stamps), neither
+// in this one.
 int nerf_mlp_dgrad_bf16(const float* xd, const float* g, const void* wt, const float* fp,
                         void* acts, void* dz, void* pe, float* dxd, float* fp_part,
                         long long* stamps, int P, int kx, int kd, int nfx, int nfd, int n_blocks,
                         void* stream) {
-  if (!valid_pe_width(kx) || !valid_pe_width(kd) || kx + kd > PE_MAX || P <= 0)
-    return (int)cudaErrorInvalidValue;
+  if (!valid_pe(kx, kd, nfx, nfd, stamps) || P <= 0) return (int)cudaErrorInvalidValue;
   static bool attr_set = false;
   if (!attr_set) {
     cudaError_t e = cudaFuncSetAttribute(nerf_mlp_dgrad_sm90<false>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(nerf_mlp_dgrad_sm90<true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+    if constexpr (!WIDE_PE) {  // (the WIDE_PE build has no instrumented instantiation)
+      if (e == cudaSuccess)
+        e = cudaFuncSetAttribute(nerf_mlp_dgrad_sm90<true>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+    }
     if (e != cudaSuccess) return (int)e;
     attr_set = true;
   }
@@ -1784,10 +1844,13 @@ int nerf_mlp_dgrad_bf16(const float* xd, const float* g, const void* wt, const f
   a.nfd = nfd;
   a.ntiles = (P + T - 1) / T;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (stamps != nullptr)
-    nerf_mlp_dgrad_sm90<true><<<n_blocks, NTHR, SMEM, s>>>(tm_acts, tm_dz, a);
-  else
-    nerf_mlp_dgrad_sm90<false><<<n_blocks, NTHR, SMEM, s>>>(tm_acts, tm_dz, a);
+  if constexpr (!WIDE_PE) {
+    if (stamps != nullptr) {
+      nerf_mlp_dgrad_sm90<true><<<n_blocks, NTHR, SMEM, s>>>(tm_acts, tm_dz, a);
+      return (int)cudaGetLastError();
+    }
+  }
+  nerf_mlp_dgrad_sm90<false><<<n_blocks, NTHR, SMEM, s>>>(tm_acts, tm_dz, a);
   return (int)cudaGetLastError();
 }
 
@@ -1804,15 +1867,16 @@ int nerf_mlp_dgrad_f32(const float* xd, const float* g, const void* wt, const fl
                        const float* acts, float* dz, float* pe, float* dxd, float* fp_part,
                        float* dpe5, float* zs, long long* stamps, int P, int kx, int kd, int nfx,
                        int nfd, int n_blocks, void* stream) {
-  if (!valid_pe_width(kx) || !valid_pe_width(kd) || kx + kd > PE_MAX || P <= 0)
-    return (int)cudaErrorInvalidValue;
+  if (!valid_pe(kx, kd, nfx, nfd, stamps) || P <= 0) return (int)cudaErrorInvalidValue;
   static bool attr_set = false;
   if (!attr_set) {
     cudaError_t e = cudaFuncSetAttribute(nerf_mlp_dgrad_f32_sm90<false>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_F32);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(nerf_mlp_dgrad_f32_sm90<true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_F32);
+    if constexpr (!WIDE_PE) {  // (the WIDE_PE build has no instrumented instantiation)
+      if (e == cudaSuccess)
+        e = cudaFuncSetAttribute(nerf_mlp_dgrad_f32_sm90<true>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_F32);
+    }
     if (e != cudaSuccess) return (int)e;
     attr_set = true;
   }
@@ -1846,10 +1910,13 @@ int nerf_mlp_dgrad_f32(const float* xd, const float* g, const void* wt, const fl
   a.nfd = nfd;
   a.ntiles = (P + T - 1) / T;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (stamps != nullptr)
-    nerf_mlp_dgrad_f32_sm90<true><<<n_blocks, NTHR, SMEM_F32, s>>>(a);
-  else
-    nerf_mlp_dgrad_f32_sm90<false><<<n_blocks, NTHR, SMEM_F32, s>>>(a);
+  if constexpr (!WIDE_PE) {
+    if (stamps != nullptr) {
+      nerf_mlp_dgrad_f32_sm90<true><<<n_blocks, NTHR, SMEM_F32, s>>>(a);
+      return (int)cudaGetLastError();
+    }
+  }
+  nerf_mlp_dgrad_f32_sm90<false><<<n_blocks, NTHR, SMEM_F32, s>>>(a);
   return (int)cudaGetLastError();
 }
 

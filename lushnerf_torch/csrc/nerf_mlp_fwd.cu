@@ -43,8 +43,9 @@
 //         mlp_compute_dtype left at float32).
 //
 // What bounds it: compute without the stash, 1,186,816 FLOP per point
-// against 48 bytes of input and output, far above the card's ~295
-// FLOP/byte ridge (in f32 three fp16 passes of it, at the bf16 rate).  With the stash it
+// (the shipped PE, 63 / 27 channels) against 48 bytes of input and output,
+// far above the card's ~295 FLOP/byte ridge (in f32 three fp16 passes of
+// it, at the bf16 rate).  With the stash it
 // writes 4,864 more bytes per point in bf16, which puts the bound on the
 // bytes; 9,728 in f32, which does not.  At width 128: 314,880 FLOP and
 // 2,560 (bf16) or 5,120 (f32) stash bytes a point, so that the stash puts
@@ -59,18 +60,20 @@
 
 extern "C" {
 
-// Number of bf16 elements of the weight blob for (kx, kd) in the mode's
-// layout, of the f32 blob, the stash's row length, the kernel's points a
-// tile and the stage stamps' columns; the Python side checks its layouts
+// Number of elements of the weight blob in the mode's layout for the PE
+// of nfx / nfd frequencies with pe_d from column dx, of the f32 blob, the
+// stash's row length, the kernel's points a tile, the stage stamps'
+// columns and the PE tile's columns; the Python side checks its layouts
 // and geometry against these.
-long long nerf_mlp_fwd_w_numel(int kx, int kd, int bf16_mode) {
-  return bf16_mode ? fwd90::blob_numel(kx, kd) : fwd90::blob_numel_split(kx, kd);
+long long nerf_mlp_fwd_w_numel(int dx, int nfx, int nfd, int bf16_mode) {
+  return fwd90::blob_numel(3 + 6 * nfx, 3 + 6 * nfd, dx, !bf16_mode);
 }
 long long nerf_mlp_fwd_fp_numel() { return nerf_mlp::FP_NUMEL; }
 long long nerf_mlp_fwd_acts_ld() { return nerf_mlp::ACTS_LD; }
 int nerf_mlp_fwd_tile() { return fwd90::T; }
 int nerf_mlp_fwd_width() { return nerf_mlp::W; }
 int nerf_mlp_fwd_n_stages() { return fwd90::N_ST; }
+int nerf_mlp_fwd_pe_lanes() { return nerf_mlp::PE_LANES; }
 // The f32 stash's scale units: blocks, entries a tile and block, and the
 // bits below which a row's fp16 parts hold its values (i = 0, 1, 2).
 int nerf_mlp_fwd_units(int i) {
@@ -84,11 +87,11 @@ int nerf_mlp_fwd_units(int i) {
 // [UNIT_BLOCKS][UNIT_WARPS] f32 (nerf_mlp_common.cuh); `n_blocks`
 // blocks (1 .. the SM count), `stamps` null or [tiles of block 0][n_stages]
 // int64 for the stage cycles of the instrumented instantiation.
-// Requires P > 0, kx and kd multiples of 32 with kx + kd <= 128,
-// 3 + 6 * nfx <= kx and 3 + 6 * nfd <= kd (f32: kx <= 64 and pe_d within
-// one 64-column chunk); all pointers 16-byte aligned.
+// The PE: nfx / nfd frequencies, pe_x at column 0 and pe_d from column dx
+// of the PE tile (nerf_mlp.pe_geometry), 3 + 6 nfx <= dx and dx + 3 + 6 nfd
+// <= PE_LANES.  Requires P > 0; all pointers 16-byte aligned.
 int nerf_mlp_fwd(const float* xd, const void* w, const float* fp, float* out, void* acts,
-                 float* units, long long* stamps, int P, int kx, int kd, int nfx, int nfd,
+                 float* units, long long* stamps, int P, int dx, int nfx, int nfd,
                  int bf16_mode, int n_blocks, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   fwd90::Args a;
@@ -100,8 +103,7 @@ int nerf_mlp_fwd(const float* xd, const void* w, const float* fp, float* out, vo
   a.units = bf16_mode ? nullptr : units;
   a.stamps = stamps;
   a.P = P;
-  a.kx = kx;
-  a.kd = kd;
+  a.dx = dx;
   a.nfx = nfx;
   a.nfd = nfd;
   if (bf16_mode) return fwd90::launch<fwd90::MODE_FWD>(a, acts, n_blocks, s);

@@ -42,10 +42,12 @@
 //     but not the time: at this tile time L2's bandwidth does not hold the
 //     ring (PERF.md);
 //   * three warps write the PE tile ([128][128] bf16: pe_x at columns [0,
-//     kx), pe_d at [kx, kx + kd), zeros after; sincosf with full range
+//     in_ch), pe_d at [dx, dx + d_ch), zeros elsewhere; dx = kx, pe_x
+//     padded to 32 channels, where kx + kd <= 128, else dx = in_ch, the JAX
+//     kernels' tight packing: nerf_mlp.pe_geometry; sincosf with full range
 //     reduction, never the fast intrinsics) chunk by chunk: a chunk of the
 //     next tile as soon as this tile's last layer reading it is done (the
-//     pe_x chunk after layer 5, the pe_d chunk after the views layer), so
+//     pe_x chunks after layer 5, the pe_d chunks after the views layer), so
 //     the PE overlaps the matmuls and one PE tile suffices.  K5's warps
 //     load the pre-encoded rows instead;
 //   * the stash: after each layer's epilogue the warpgroup's 64 rows go out
@@ -59,15 +61,20 @@
 //
 // The split differs in its shared memory and its blob: the activation
 // buffer holds both parts (128 KB), one PE slot of one chunk in both parts
-// (32 KB) takes the tile's pe_x chunk for layers 0 and 5 and then its pe_d
-// chunk for the views layer (which reads it first, so that the next tile's
-// pe_x can be written while the views layer's feat chunks run), and the
-// ring has 4 stages, one chunk of a 256-wide layer: 224.2 KB again.  Its
+// (32 KB), and the ring has 4 stages, one chunk of a 256-wide layer: 224.2
+// KB again, no room for a second slot.  Where pe_x and pe_d each lie in
+// one chunk (nx = nd = 1, the shipped PE) the slot takes the tile's pe_x
+// chunk for layers 0 and 5 and then its pe_d chunk for the views layer
+// (which reads it first, so that the next tile's pe_x can be written
+// while the views layer's feat chunks run).  Any other PE runs the MULTI
+// instantiation: the slot is filled once for each PE chunk a layer reads
+// (W0's nx, W5's nx again, the views layer's nd; pe_x once for both
+// where nx = 1), and a layer that reads two PE chunks in a row drains its
+// wgmma groups and waits for the slot's next fill between them.  Its
 // blob (fp16, `pack_params` in f32) holds the same matrices, the views
 // layer's PE chunks first, each chunk of 64 columns as its hi pieces, then
 // its lo pieces, padded with zero pieces to a multiple of 4; the epilogue
-// stores the f32 stash from registers.  The f32 path supports pe_x within
-// chunk 0 and pe_d within one chunk (kx <= 64).
+// stores the f32 stash from registers.
 //
 // Both K1 modes are compiled for the width W of nerf_mlp_common.cuh.  At
 // width 128 every layer's N is 128 (the views layer's 64 columns padded to
@@ -85,8 +92,8 @@
 // 128 every chunk is one piece).  K
 // columns: W0 over the PE tile's first nx chunks; W1..W4; W5 over a4, then
 // the PE tile's first nx chunks; W6, W7, Wf; Wv over feat, then the PE
-// tile's nd chunks from chunk d0 (nx = ceil(kx / 64), d0 = kx / 64, nd =
-// ceil((kx + kd) / 64) - d0; a column of the PE tile that the layer does
+// tile's nd chunks from chunk d0 (nx = ceil(in_ch / 64), d0 = dx / 64, nd =
+// ceil((dx + d_ch) / 64) - d0; a column of the PE tile that the layer does
 // not read has a zero weight).
 
 #pragma once
@@ -177,7 +184,7 @@ struct Args {
   float* acts;        // MODE_F32: the f32 stash [P][ACTS_LD] or null
   float* units;       // MODE_F32 with the stash: its scale units [ntiles][UNIT_BLOCKS][UNIT_WARPS]
   long long* stamps;  // [tiles of block 0][N_ST] or null
-  int P, kx, kd, nfx, nfd;  // MODE_MM: nfx / nfd are the packed PE's lanes of pe_x / pe_d
+  int P, dx, nfx, nfd;  // pe_d's first column; MODE_MM: nfx / nfd are the packed PE's lanes
   int ntiles, n_pieces, nx, d0, nd;
   int stash;          // 1: write the stash through the tensor map
 };
@@ -607,6 +614,47 @@ __device__ __forceinline__ LayerS layer_split(int l) {
   return L;
 }
 
+// A layer of the MULTI instantiation (any PE but nx = nd = 1): nk chunks
+// of K, n_pe PE chunks from chunk pe_at and the activation buffer's S_NA
+// chunks in order around them (layers 0 and 5 read pe_x's nx chunks, 5
+// after a4; layer 9 pe_d's nd chunks before feat; the others none); each
+// PE chunk waits for a new fill of the slot (fill) and goes back to the PE
+// warps once read (rel), but where nx = 1 layers 0 and 5 share one fill of
+// pe_x (layer 0 keeps it, layer 5 takes it without a fill).  scale_at as
+// LayerS's.
+struct LayerM {
+  int nk, pe_at, n_pe, scale_at, bias;
+  bool fill, rel;
+  __device__ __forceinline__ bool is_pe(int c) const { return c >= pe_at && c < pe_at + n_pe; }
+};
+__device__ __forceinline__ LayerM layer_multi(int l, const Args& a) {
+  LayerM L;
+  const bool share = a.nx == 1;
+  L.n_pe = l == 0 || l == 5 ? a.nx : l == 9 ? a.nd : 0;
+  L.nk = (l == 0 ? 0 : S_NA) + L.n_pe;
+  L.pe_at = l == 5 ? S_NA : 0;
+  L.scale_at = l == 5 ? S_NA : l == 9 ? a.nd : -1;
+  L.fill = !(share && l == 5);
+  L.rel = !(share && l == 0);
+  L.bias = l < 8 ? l * W : l == 8 ? FP_BF : FP_BV;
+  return L;
+}
+template <bool MULTI> __device__ __forceinline__ auto layer_of(int l, const Args& a) {
+  if constexpr (MULTI) return layer_multi(l, a);
+  else return layer_split(l);
+}
+// What matmul_split asks of either kind of layer: whether its first chunk
+// is a PE chunk, whether chunk c is one, whether reading chunk c gives the
+// slot back.
+__device__ __forceinline__ bool pe_first(const LayerS& L) { return L.pe_at == 0; }
+__device__ __forceinline__ bool pe_first(const LayerM& L) { return L.n_pe > 0 && L.pe_at == 0; }
+__device__ __forceinline__ bool is_pe_chunk(const LayerS& L, int c) { return c == L.pe_at; }
+__device__ __forceinline__ bool is_pe_chunk(const LayerM& L, int c) { return L.is_pe(c); }
+__device__ __forceinline__ bool gives_pe_back(const LayerS& L, int c) { return c == L.pe_rel; }
+__device__ __forceinline__ bool gives_pe_back(const LayerM& L, int c) {
+  return L.rel && L.is_pe(c);
+}
+
 // The accumulator's rows r0 (entries 4 j, 4 j + 1) and r0 + 8 (4 j + 2, 4 j
 // + 3) times f.x and f.y.
 template <int R>
@@ -641,6 +689,10 @@ __device__ __forceinline__ const unsigned char* a_chunk_split(const LayerS& L, i
   if (c == L.pe_at) return fsm + S_SM_PE;
   return fsm + SM_ACT + (L.pe_at == 0 ? c - 1 : c) * CHUNK_B;
 }
+__device__ __forceinline__ const unsigned char* a_chunk_split(const LayerM& L, int c) {
+  if (L.is_pe(c)) return fsm + S_SM_PE;
+  return fsm + SM_ACT + (L.pe_at == 0 ? c - L.n_pe : c) * CHUNK_B;
+}
 
 // One 16-deep fp16 step: m64n256k16 over a chunk's two neighbouring
 // pieces (NP = 2) or m64n128k16 over one (NP = 1).
@@ -664,25 +716,43 @@ __device__ __forceinline__ void pe_release() {
 // SPLIT_ACC times the bias, times rs where the layer's first chunk is an
 // activation chunk; with `rescale`, before chunk L.scale_at, once the
 // groups before are done, they are multiplied by 1 / rs (layer 5, before
-// its PE chunk) or rs (the views layer, after its own).
-template <int NP, int R, bool PROF>
-__device__ __forceinline__ void matmul_split(float (&acc)[R], const LayerS& L, const float* fp,
+// its PE chunk) or rs (the views layer, after its PE chunks).  MULTI
+// (LayerM): before a PE chunk that takes a new fill of the slot, the
+// groups of a PE chunk just before it are drained and the slot given back,
+// then the fill is waited for (`fills`: the fills this thread has taken).
+template <int NP, bool MULTI = false, int R, bool PROF, typename Lay>
+__device__ __forceinline__ void matmul_split(float (&acc)[R], const Lay& L, const float* fp,
                                              RingT<S_N_WST>& ring, Clock<PROF>& clk, float2 rs,
-                                             bool rescale) {
+                                             bool rescale, int& fills) {
   static_assert(R == 64 * NP, "an accumulator of 64 NP columns a thread");
   const int wg_off = (threadIdx.x >> 7) * 64 * 128;
   init_bias(acc, fp, L.bias);
-  scale_rows(acc, L.pe_at == 0 ? make_float2(SPLIT_ACC, SPLIT_ACC)
-                               : make_float2(SPLIT_ACC * rs.x, SPLIT_ACC * rs.y));
+  scale_rows(acc, pe_first(L) ? make_float2(SPLIT_ACC, SPLIT_ACC)
+                              : make_float2(SPLIT_ACC * rs.x, SPLIT_ACC * rs.y));
 #pragma unroll 1
   for (int c = 0; c < L.nk; ++c) {
     if (rescale && c == L.scale_at) {  // (a warpgroup takes the branch as one)
       wgmma_wait<0>();
       wgmma_fence_regs(acc);
-      scale_rows(acc, L.pe_at == 0 ? rs : make_float2(1.f / rs.x, 1.f / rs.y));
+      scale_rows(acc, pe_first(L) ? rs : make_float2(1.f / rs.x, 1.f / rs.y));
+    }
+    bool drained = false;
+    if constexpr (MULTI) {
+      if (L.fill && L.is_pe(c)) {
+        if (c > 0 && L.is_pe(c - 1)) {  // the slot holds the chunk before: drain, give it back
+          wgmma_wait<0>();
+          for (int i = 0; i < NP; ++i) ring.release(ring.k - NP + i);
+          pe_release();
+          drained = true;
+        }
+        clk.begin();
+        mbar_wait(bar(S_PE_FULL), fills & 1);
+        ++fills;
+        clk.end(ST_PE_WAIT);
+      }
     }
     const unsigned char* Ah = a_chunk_split(L, c) + wg_off;
-    const unsigned char* Al = Ah + (c == L.pe_at ? S_PE_LO : S_ACT_LO);
+    const unsigned char* Al = Ah + (is_pe_chunk(L, c) ? S_PE_LO : S_ACT_LO);
     clk.begin();
     const unsigned char* Bh = ring.wait(ring.k);
     if (NP == 2) ring.wait(ring.k + 1);
@@ -694,10 +764,10 @@ __device__ __forceinline__ void matmul_split(float (&acc)[R], const LayerS& L, c
 #pragma unroll
     for (int ks = 0; ks < 4; ++ks) mma_step<NP>(acc, Al + ks * 32, Bh + ks * 32);
     wgmma_commit();
-    if (c > 0) {  // the chunk before: its lo group is done
+    if (c > 0 && !drained) {  // the chunk before: its lo group is done
       wgmma_wait<1>();
       for (int i = 0; i < NP; ++i) ring.release(ring.k - NP + i);
-      if (c - 1 == L.pe_rel) pe_release();
+      if (gives_pe_back(L, c - 1)) pe_release();
     }
     clk.begin();
     const unsigned char* Bl = ring.wait(ring.k + NP);
@@ -714,7 +784,7 @@ __device__ __forceinline__ void matmul_split(float (&acc)[R], const LayerS& L, c
   }
   wgmma_wait<0>();
   for (int i = 0; i < NP; ++i) ring.release(ring.k - NP + i);
-  if (L.nk - 1 == L.pe_rel) pe_release();
+  if (gives_pe_back(L, L.nk - 1)) pe_release();
   wgmma_fence_regs(acc);
 }
 
@@ -877,12 +947,13 @@ __device__ __forceinline__ void stash_split(const float (&acc)[N], const Args& a
   }
 }
 
-template <bool PROF>
+template <bool PROF, bool MULTI>
 __device__ __forceinline__ void consumer_split(const Args& a) {
   const int wg = threadIdx.x >> 7;
   RingT<S_N_WST> ring{0};
   Clock<PROF> clk{PROF && blockIdx.x == 0 && threadIdx.x == 0, 0};
   int it = 0;
+  int fills = 0;  // MULTI: the PE slot's fills taken (the parity of the next S_PE_FULL wait)
 #pragma unroll 1
   for (Sched s(a); s.more(); s.next(), ++it) {
     const int p0 = s.p0();
@@ -895,8 +966,8 @@ __device__ __forceinline__ void consumer_split(const Args& a) {
     bool any = false;
 #pragma unroll 1
     for (int l = 0; l < 10; ++l) {
-      const LayerS L = layer_split(l);
-      if (l == 0 || l == 9) {  // the slot's pe_x (phase 0), then its pe_d (phase 1)
+      const auto L = layer_of<MULTI>(l, a);
+      if (!MULTI && (l == 0 || l == 9)) {  // the slot's pe_x (phase 0), then its pe_d (phase 1)
         clk.begin();
         mbar_wait(bar(S_PE_FULL), l == 9 ? 1 : 0);
         clk.end(ST_PE_WAIT);
@@ -907,7 +978,7 @@ __device__ __forceinline__ void consumer_split(const Args& a) {
       float2 dn = one;
       if (l < 9) {
         float acc[64 * S_NP];
-        matmul_split<S_NP>(acc, L, a.fp, ring, clk, rs, any);
+        matmul_split<S_NP, MULTI>(acc, L, a.fp, ring, clk, rs, any, fills);
         const float2 up = l == 0 || l == 5 ? one : make_float2(1.f / rs.x, 1.f / rs.y);
         clk.begin();
         named_bar(BAR_WG + wg, 128);  // every warp of the warpgroup has read its A
@@ -924,7 +995,7 @@ __device__ __forceinline__ void consumer_split(const Args& a) {
         }
       } else {
         float acc[64];
-        matmul_split<1>(acc, L, a.fp, ring, clk, rs, any);
+        matmul_split<1, MULTI>(acc, L, a.fp, ring, clk, rs, any, fills);
         const float2 up = make_float2(1.f / rs.x, 1.f / rs.y);
         while (ring.k % S_N_WST) {  // the tile's padding pieces
           ring.wait(ring.k);
@@ -989,8 +1060,8 @@ __device__ __forceinline__ void producer(const Args& a) {
 }
 
 // Chunk c of the PE tile for the points from p0 (zeros past P): pe_x at
-// columns [0, kx), pe_d at [kx, kx + kd), zeros after; MODE_F32 writes it
-// to the PE slot in two fp16 parts (those of the activations).
+// columns [0, in_ch), pe_d at [dx, dx + d_ch), zeros elsewhere; MODE_F32
+// writes it to the PE slot in two fp16 parts (those of the activations).
 // MODE_FWD and MODE_F32 compute it from xd: PE thread t < 64 owns points 2 t and 2 t + 1, loads their
 // coordinates at once and gives each (point, band, coordinate) of the chunk
 // one sincosf for its sin and its cos column, and the identity columns; all
@@ -1010,7 +1081,6 @@ __device__ __forceinline__ void pe_chunk(const Args& a, int c, int p0) {
       *reinterpret_cast<bf16*>(dst + o) = __float2bfloat16_rn(v);
     }
   };
-  const int ncol = a.kx + a.kd;
   if constexpr (MODE != MODE_MM) {
     static_assert(2 * 64 == T, "two points a PE thread");
     if (t < 64) {
@@ -1026,7 +1096,7 @@ __device__ __forceinline__ void pe_chunk(const Args& a, int c, int p0) {
         const int p = 2 * t + i;
 #pragma unroll
         for (int k = 0; k < 6; ++k) {  // the identity columns
-          const int col = (k < 3 ? 0 : a.kx) + k % 3;
+          const int col = (k < 3 ? 0 : a.dx) + k % 3;
           if ((col >> 6) == c) put(p, col, x[i][k]);
         }
       }
@@ -1035,7 +1105,7 @@ __device__ __forceinline__ void pe_chunk(const Args& a, int c, int p0) {
       for (int s = 0; s < ns; ++s) {
         const bool is_x = s < 3 * a.nfx;
         const int ss = is_x ? s : s - 3 * a.nfx, j = ss / 3, k = ss - 3 * j;
-        const int c_sin = (is_x ? 0 : a.kx) + 3 + 6 * j + k, c_cos = c_sin + 3;
+        const int c_sin = (is_x ? 0 : a.dx) + 3 + 6 * j + k, c_cos = c_sin + 3;
         const bool w_sin = (c_sin >> 6) == c, w_cos = (c_cos >> 6) == c;
         if (!w_sin && !w_cos) continue;
         const float f = (float)(1 << j);  // an exact power-of-two scale
@@ -1055,9 +1125,9 @@ __device__ __forceinline__ void pe_chunk(const Args& a, int c, int p0) {
 #pragma unroll 4
     for (int idx = t; idx < T * 64; idx += PE_THREADS) {  // the zero columns
       const int p = idx >> 6, col = 64 * c + (idx & 63);
-      const bool is_x = col < a.kx;
-      const int local = is_x ? col : col - a.kx;
-      if (col >= ncol || local >= 3 + 6 * (is_x ? a.nfx : a.nfd)) put(p, col, 0.f);
+      const bool is_x = col < a.dx;
+      const int local = is_x ? col : col - a.dx;
+      if (local >= 3 + 6 * (is_x ? a.nfx : a.nfd)) put(p, col, 0.f);
     }
   } else {
     constexpr int BATCH = 16;  // loads in flight a thread
@@ -1067,10 +1137,10 @@ __device__ __forceinline__ void pe_chunk(const Args& a, int c, int p0) {
 #pragma unroll
       for (int u = 0; u < BATCH; ++u) {
         const int idx = base + u * PE_THREADS, p = idx >> 6, col = 64 * c + (idx & 63);
-        const bool is_x = col < a.kx;
-        const int local = is_x ? col : col - a.kx;
+        const bool is_x = col < a.dx;
+        const int local = is_x ? col : col - a.dx;
         v[u] = 0.f;
-        if (idx < T * 64 && col < ncol && local < (is_x ? a.nfx : a.nfd) && p0 + p < a.P)
+        if (idx < T * 64 && local < (is_x ? a.nfx : a.nfd) && p0 + p < a.P)
           v[u] = __ldg(a.in + (size_t)(p0 + p) * 128 + (is_x ? 0 : a.nfx) + local);
       }
 #pragma unroll
@@ -1111,20 +1181,27 @@ __device__ __forceinline__ void pe_writer(const Args& a) {
 // the PE tile, for layers 0 and 5), then the pe_d chunk (chunk d0, for the
 // views layer), each once the consumers have released the slot's contents
 // before it.  The slot's barriers complete twice a tile, so phase 0 of
-// each pair is pe_x's and phase 1 pe_d's.
-template <bool PROF>
+// each pair is pe_x's and phase 1 pe_d's.  MULTI: the fills of LayerM's
+// order, W0's nx chunks, W5's nx (one fill of chunk 0 for both where nx =
+// 1), then the views layer's nd from chunk d0; fill n waits for the slot's
+// release n - 1 (phase parity n & 1).
+template <bool PROF, bool MULTI>
 __device__ __forceinline__ void pe_writer_split(const Args& a) {
   const int t = threadIdx.x - PE0;
   const bool on = PROF && blockIdx.x == 0 && t == 0;
+  const int n_x = MULTI && a.nx > 1 ? 2 * a.nx : 1;  // pe_x's fills a tile
+  const int n_fill = MULTI ? n_x + a.nd : 2;
   int it = 0;
 #pragma unroll 1
   for (Sched s(a); s.more(); s.next(), ++it) {
     long long work = 0;
 #pragma unroll 1
-    for (int ph = 0; ph < 2; ++ph) {
-      mbar_wait(bar(S_PE_FREE), ph ^ 1);  // the slot's last contents have been read
+    for (int ph = 0; ph < n_fill; ++ph) {
+      // the slot's last contents have been read (MULTI: n_fill fills a tile)
+      mbar_wait(bar(S_PE_FREE), (MULTI ? (it * n_fill + ph) & 1 : ph) ^ 1);
       const long long t0 = on ? clock64() : 0;
-      pe_chunk<MODE_F32>(a, ph == 0 ? 0 : a.d0, s.p0());
+      pe_chunk<MODE_F32>(a, MULTI ? (ph < n_x ? ph % a.nx : a.d0 + ph - n_x) : ph == 0 ? 0 : a.d0,
+                         s.p0());
       fence_proxy_async();  // for the consumers' wgmma reads
       named_bar(BAR_PE, PE_THREADS);
       if (t == 0) mbar_arrive(bar(S_PE_FULL));
@@ -1136,9 +1213,8 @@ __device__ __forceinline__ void pe_writer_split(const Args& a) {
   }
 }
 
-template <int MODE, bool PROF>
-__global__ void __launch_bounds__(NTHR, 1)
-    fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_acts, const __grid_constant__ Args a) {
+template <int MODE, bool PROF, bool MULTI>
+__device__ __forceinline__ void fwd_block(const CUtensorMap* tm_acts, const Args& a) {
   if (smem_u32(fsm) & 1023) __trap();  // the swizzled operands need 1024-byte alignment
   constexpr bool SPLIT = MODE == MODE_F32;
   if (threadIdx.x == 0) {
@@ -1154,14 +1230,29 @@ __global__ void __launch_bounds__(NTHR, 1)
   }
   __syncthreads();
   if constexpr (SPLIT) {
-    if (threadIdx.x < NCONS) consumer_split<PROF>(a);
+    if (threadIdx.x < NCONS) consumer_split<PROF, MULTI>(a);
     else if (threadIdx.x == PRODUCER) producer<S_N_WST>(a);
-    else if (threadIdx.x >= PE0) pe_writer_split<PROF>(a);
+    else if (threadIdx.x >= PE0) pe_writer_split<PROF, MULTI>(a);
   } else {
-    if (threadIdx.x < NCONS) consumer<MODE, PROF>(a, &tm_acts);
+    if (threadIdx.x < NCONS) consumer<MODE, PROF>(a, tm_acts);
     else if (threadIdx.x == PRODUCER) producer<N_WST>(a);
     else if (threadIdx.x >= PE0) pe_writer<MODE, PROF>(a);
   }
+}
+
+template <int MODE, bool PROF>
+__global__ void __launch_bounds__(NTHR, 1)
+    fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_acts, const __grid_constant__ Args a) {
+  fwd_block<MODE, PROF, false>(&tm_acts, a);
+}
+
+// K1 f32 for a PE of more than one 64-column chunk a part (the split's
+// MULTI consumers and PE warps).
+template <bool PROF>
+__global__ void __launch_bounds__(NTHR, 1)
+    fwd_split_multi_kernel(const __grid_constant__ CUtensorMap tm_acts,
+                           const __grid_constant__ Args a) {
+  fwd_block<MODE_F32, PROF, true>(&tm_acts, a);
 }
 
 // ---------------------------------------------------------------------------
@@ -1169,63 +1260,91 @@ __global__ void __launch_bounds__(NTHR, 1)
 // ---------------------------------------------------------------------------
 
 // PE chunks of W0 / W5 (from chunk 0), the first PE chunk of Wv and their
-// number; weight pieces a tile (W / 128 a chunk of the nine W-wide layers
-// -- W0 nx chunks, W1..W4 4 W / 64, W5 W / 64 + nx, W6, W7, Wf 3 W / 64 --
-// and one a chunk of Wv, W / 64 + nd); elements of the weight blob.
-inline void pe_chunks(int kx, int kd, int* nx, int* d0, int* nd) {
-  *nx = (kx + 63) / 64;
-  *d0 = kx / 64;
-  *nd = (kx + kd + 63) / 64 - *d0;
+// number, for pe_x of in_ch channels at column 0 and pe_d of d_ch from
+// column dx (nerf_mlp.pe_geometry).
+inline void pe_chunks(int in_ch, int d_ch, int dx, int* nx, int* d0, int* nd) {
+  *nx = (in_ch + 63) / 64;
+  *d0 = dx / 64;
+  *nd = (dx + d_ch + 63) / 64 - *d0;
 }
-inline int n_pieces(int kx, int kd) {
-  int nx, d0, nd;
-  pe_chunks(kx, kd, &nx, &d0, &nd);
+// Weight pieces a tile (W / 128 a chunk of the nine W-wide layers -- W0 nx
+// chunks, W1..W4 4 W / 64, W5 W / 64 + nx, W6, W7, Wf 3 W / 64 -- and one a
+// chunk of Wv, W / 64 + nd); elements of the weight blob.
+inline int n_pieces(int nx, int nd) {
   constexpr int NA = W / 64, NP = W / 128;  // chunks of an activation, pieces of a chunk
   const int n = NP * (nx + 4 * NA + NA + nx + 3 * NA) + NA + nd;
   return n + (n & 1);  // a zero piece pads an odd count
 }
-inline long long blob_numel(int kx, int kd) { return (long long)n_pieces(kx, kd) * PIECE_ELEMS; }
 // The split's pieces a tile: 2 S_NP a chunk of the W-wide layers (W0 nx
 // chunks, W1..W4 4 S_NA, W5 S_NA + nx, W6, W7, Wf 3 S_NA), two a chunk of
 // Wv (S_NA + nd), padded with zero pieces to a whole number of ring rounds
-// (so that each tile's first chunk starts at stage 0); elements of its
-// blob.
-inline int n_pieces_split(int kx, int kd) {
-  int nx, d0, nd;
-  pe_chunks(kx, kd, &nx, &d0, &nd);
+// (so that each tile's first chunk starts at stage 0).
+inline int n_pieces_split(int nx, int nd) {
   const int n = 2 * S_NP * (nx + 4 * S_NA + S_NA + nx + 3 * S_NA) + 2 * (S_NA + nd);
   return (n + S_N_WST - 1) / S_N_WST * S_N_WST;
 }
-inline long long blob_numel_split(int kx, int kd) {
-  return (long long)n_pieces_split(kx, kd) * PIECE_ELEMS;
+// Elements of the weight blob of either mode (MODE_F32: the split's).
+inline long long blob_numel(int in_ch, int d_ch, int dx, bool split) {
+  int nx, d0, nd;
+  pe_chunks(in_ch, d_ch, dx, &nx, &d0, &nd);
+  return (long long)(split ? n_pieces_split(nx, nd) : n_pieces(nx, nd)) * PIECE_ELEMS;
+}
+
+template <int MODE, bool MULTI>
+inline cudaError_t set_smem(cudaError_t e) {
+  constexpr bool HAS_PROF = MODE != MODE_MM;  // the instrumented instantiation is K1's only
+  auto set = [&](const void* k) {
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  };
+  if constexpr (MULTI) {
+    set((const void*)fwd_split_multi_kernel<false>);
+    set((const void*)fwd_split_multi_kernel<true>);
+  } else {
+    set((const void*)fwd_sm90_kernel<MODE, false>);
+    set((const void*)fwd_sm90_kernel<MODE, HAS_PROF>);
+  }
+  return e;
+}
+
+template <int MODE, bool MULTI>
+inline void launch_grid(const CUtensorMap& tm, const Args& a, int n_blocks, cudaStream_t stream) {
+  if constexpr (MULTI) {
+    if (a.stamps != nullptr)
+      fwd_split_multi_kernel<true><<<n_blocks, NTHR, SMEM, stream>>>(tm, a);
+    else
+      fwd_split_multi_kernel<false><<<n_blocks, NTHR, SMEM, stream>>>(tm, a);
+  } else if (a.stamps != nullptr) {
+    fwd_sm90_kernel<MODE, MODE != MODE_MM><<<n_blocks, NTHR, SMEM, stream>>>(tm, a);
+  } else {
+    fwd_sm90_kernel<MODE, false><<<n_blocks, NTHR, SMEM, stream>>>(tm, a);
+  }
 }
 
 // Launches the kernel on n_blocks blocks (at most one an SM: n_blocks <=
 // the SM count); returns 0 or a CUDA error code.  `acts` null or the
-// [P, ACTS_LD] stash: bf16 (MODE_FWD) or f32 (MODE_F32).  MODE_F32 holds
-// one PE chunk at a time, so it takes pe_x in chunk 0 (kx <= 64) and pe_d
-// in one chunk.
+// [P, ACTS_LD] stash: bf16 (MODE_FWD) or f32 (MODE_F32).  The PE: pe_x of
+// in_ch = 3 + 6 nfx channels at column 0, pe_d of d_ch = 3 + 6 nfd from
+// column dx (MODE_MM: nfx and nfd lanes), in_ch <= dx and dx + d_ch <=
+// PE_LANES.  MODE_F32 holds one PE chunk at a time: a PE of more than one
+// chunk a part runs its MULTI instantiation.
 template <int MODE>
 inline int launch(Args a, void* acts, int n_blocks, cudaStream_t stream) {
   static_assert(MODE != MODE_MM || W == 256, "K5 is compiled for width 256");
-  if (a.P <= 0 || a.kx % 32 || a.kd % 32 || a.kx <= 0 || a.kd <= 0 || a.kx + a.kd > PE_MAX ||
+  const int in_ch = MODE == MODE_MM ? a.nfx : 3 + 6 * a.nfx;
+  const int d_ch = MODE == MODE_MM ? a.nfd : 3 + 6 * a.nfd;
+  if (a.P <= 0 || a.nfx < 0 || a.nfd < 0 || a.dx < in_ch || a.dx + d_ch > PE_LANES ||
       n_blocks <= 0)
     return (int)cudaErrorInvalidValue;
-  // the instrumented instantiation is K1's only (MODE_MM: PROF = false twice)
-  constexpr bool HAS_PROF = MODE != MODE_MM;
   static int attr_rc = -1;
   if (attr_rc < 0) {
-    cudaError_t e = cudaFuncSetAttribute(fwd_sm90_kernel<MODE, false>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(fwd_sm90_kernel<MODE, HAS_PROF>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+    cudaError_t e = set_smem<MODE, false>(cudaSuccess);
+    if constexpr (MODE == MODE_F32) e = set_smem<MODE, true>(e);
     attr_rc = (int)e;
   }
   if (attr_rc != 0) return attr_rc;
-  if (a.stamps != nullptr && !HAS_PROF) return (int)cudaErrorInvalidValue;
-  pe_chunks(a.kx, a.kd, &a.nx, &a.d0, &a.nd);
-  if (MODE == MODE_F32 && (a.nx != 1 || a.nd != 1)) return (int)cudaErrorInvalidValue;
+  if (a.stamps != nullptr && MODE == MODE_MM) return (int)cudaErrorInvalidValue;
+  pe_chunks(in_ch, d_ch, a.dx, &a.nx, &a.d0, &a.nd);
   CUtensorMap tm;
   memset(&tm, 0, sizeof(tm));
   if (acts != nullptr && MODE == MODE_FWD) {
@@ -1237,11 +1356,11 @@ inline int launch(Args a, void* acts, int n_blocks, cudaStream_t stream) {
   if (MODE == MODE_F32 && (a.acts == nullptr) != (a.units == nullptr))
     return (int)cudaErrorInvalidValue;  // the f32 stash comes with its scale units
   a.ntiles = (a.P + T - 1) / T;
-  a.n_pieces = MODE == MODE_F32 ? n_pieces_split(a.kx, a.kd) : n_pieces(a.kx, a.kd);
-  if (a.stamps != nullptr)
-    fwd_sm90_kernel<MODE, HAS_PROF><<<n_blocks, NTHR, SMEM, stream>>>(tm, a);
+  a.n_pieces = MODE == MODE_F32 ? n_pieces_split(a.nx, a.nd) : n_pieces(a.nx, a.nd);
+  if (MODE == MODE_F32 && (a.nx != 1 || a.nd != 1))
+    launch_grid<MODE, MODE == MODE_F32>(tm, a, n_blocks, stream);
   else
-    fwd_sm90_kernel<MODE, false><<<n_blocks, NTHR, SMEM, stream>>>(tm, a);
+    launch_grid<MODE, false>(tm, a, n_blocks, stream);
   return (int)cudaGetLastError();
 }
 

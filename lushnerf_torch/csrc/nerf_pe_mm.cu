@@ -161,14 +161,13 @@ int nerf_mm_only(const float* pe, const void* w, const float* fp, float* out, in
   a.w = static_cast<const bf16*>(w);
   a.out = out;
   a.P = P;
-  a.kx = kx;
-  a.kd = kd;
+  a.dx = kx;  // the port's separately padded layout: pe_d from column kx
   a.nfx = NX;
   a.nfd = ND;
   return fwd90::launch<fwd90::MODE_MM>(a, nullptr, n_blocks, static_cast<cudaStream_t>(stream));
 }
 
-long long nerf_pe_mm_w_numel(int kx, int kd) { return fwd90::blob_numel(kx, kd); }
+long long nerf_pe_mm_w_numel(int kx, int kd) { return fwd90::blob_numel(NX, ND, kx, false); }
 long long nerf_pe_mm_fp_numel() { return FP_NUMEL; }
 
 const char* nerf_pe_mm_error_string(int code) {

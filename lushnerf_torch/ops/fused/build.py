@@ -4,7 +4,9 @@ with ctypes.
 `csrc/<name>.cu` becomes `build/lushnerf_torch/lib<name>-<digest>.so` at
 the repository root, compiled for Hopper (`sm_90a`) at first use; the
 digest covers the source, the shared `csrc/*.cuh` headers and the flags, so
-an edited source is rebuilt.  The fused MLP's sources are built once for
+an edited source is rebuilt (and a source that includes another `.cu`
+file, as `nerf_mlp_dgrad_wide.cu` builds the dgrads again for the PEs with
+a part of 128 channels, when either changes).  The fused MLP's sources are built once for
 each width a launch asks for (`-DNERF_MLP_WIDTH=<width>`, in the digest
 and in the file name: `lib<name>-w<width>-<digest>.so`), and every build
 of a source can be loaded beside the others in one process.  `build_all`
@@ -27,6 +29,7 @@ import ctypes
 import json
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -74,6 +77,9 @@ def _target(name: str, width: Optional[int] = None) -> Tuple[Path, Path]:
     h = hashlib.sha1(src.read_bytes() + " ".join(_flags(width)).encode())
     for header in sorted(CSRC.glob("*.cuh")):  # the shared headers the sources include
         h.update(header.read_bytes())
+    # a source built again with other defines (nerf_mlp_dgrad_wide.cu)
+    for inc in re.findall(r'^#include "(\w+\.cu)"', src.read_text(), re.M):
+        h.update((CSRC / inc).read_bytes())
     tag = "" if width is None else f"-w{int(width)}"
     return src, BUILD_DIR / f"lib{name}{tag}-{h.hexdigest()[:12]}.so"
 

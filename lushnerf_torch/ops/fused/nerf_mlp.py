@@ -74,7 +74,12 @@ WIDTH = 256  # the flagship's width, whose layout the constants below give
 # the widths each compute dtype's kernels are built for
 KERNEL_WIDTHS = {"float32": (256, 128), "bfloat16": (256, 128)}
 VIEWS_LANES = 128  # the kernels' views layer: W / 2 at 256, zero-padded at 128
-PE_MAX = 128  # kx + kd
+# The PE domain: the JAX kernels pack pe_x and pe_d tightly into one
+# 128-lane register (in_ch + d_ch <= PE_LANES); the port's backward pads each
+# to 32 channels (kx + kd <= PE_PAD_MAX), its forward's PE tile holds
+# PE_LANES columns (`pe_geometry`)
+PE_LANES = 128
+PE_PAD_MAX = 160
 XD_CH = 8  # packed input lanes: 0:3 xyz, 3:6 viewdir, 6:8 zero
 OUT_CH = 4  # output lanes: 0:3 rgb, 3 alpha
 
@@ -193,8 +198,10 @@ FP16_MAX = 65504.0
 COMPUTE_DTYPES = ("float32", "bfloat16")
 BWD_MODES = ("remat", "stash")
 # the csrc/ sources of the forward, the backward's wgrad and reductions, and
-# the dgrads (`build.load` names)
+# the dgrads (`build.load` names); the dgrads' build for a PE with a part of
+# 128 channels (kx or kd: their d_pe passes take 64 accumulators a thread)
 SOURCES = ("nerf_mlp_fwd", "nerf_mlp_bwd", "nerf_mlp_dgrad")
+WIDE_PE_SOURCE = "nerf_mlp_dgrad_wide"
 
 # Kernel launches since they were last set to 0.
 launches = 0
@@ -207,18 +214,31 @@ def _round32(n: int) -> int:
     return -(-n // 32) * 32
 
 
-def pe_widths(mlp_cfg) -> Tuple[int, int]:
-    """(kx, kd): the PE channel counts padded to the kernel's K-chunk."""
-    return _round32(mlp_cfg.input_ch), _round32(mlp_cfg.input_ch_views)
+class PEGeometry(NamedTuple):
+    """Where the kernels keep an MLP's PE.  The backward's PE scratch is
+    [P, kx + kd]: pe_x and pe_d each padded to 32 channels.  The forward's
+    PE tile is [P][PE_LANES]: pe_x at columns [0, in_ch), pe_d at [dx, dx +
+    d_ch), zeros elsewhere, in chunks of 64 columns; W0 and W5's pe_x part
+    read its first nx chunks, Wv's pe_d part its nd chunks from chunk d0."""
+    kx: int
+    kd: int
+    dx: int
+    nx: int
+    d0: int
+    nd: int
 
 
-def fwd_pe_chunks(kx: int, kd: int) -> Tuple[int, int, int]:
-    """(nx, d0, nd): the bf16 forward's PE tile is [P][128] with pe_x at
-    columns [0, kx) and pe_d at [kx, kx + kd), in chunks of 64 columns; W0
-    and W5's pe_x part read its first nx chunks, Wv's pe_d part its nd
-    chunks from chunk d0."""
-    d0 = kx // 64
-    return -(-kx // 64), d0, -(-(kx + kd) // 64) - d0
+def pe_geometry(mlp_cfg) -> PEGeometry:
+    """The one place that decides the PE geometry of an MLP (`PEGeometry`):
+    dx = kx (each part padded to 32 channels) where kx + kd <= PE_LANES, so
+    that those PEs keep their blobs and their bits, else dx = in_ch (the
+    JAX kernels' tight packing, which keeps every PE with in_ch + d_ch <=
+    PE_LANES in the tile)."""
+    in_ch, d_ch = mlp_cfg.input_ch, mlp_cfg.input_ch_views
+    kx, kd = _round32(in_ch), _round32(d_ch)
+    dx = kx if kx + kd <= PE_LANES else in_ch
+    d0 = dx // 64
+    return PEGeometry(kx, kd, dx, -(-in_ch // 64), d0, -(-(dx + d_ch) // 64) - d0)
 
 
 def fwd_grid(P: int, n_sm: int) -> int:
@@ -236,8 +256,8 @@ def fwd_tiles(P: int, n_blocks: int) -> List[List[int]]:
 def supports(mlp_cfg, render_cfg) -> bool:
     """The fused MLP family, the same as the JAX package's: depth 8, width a
     multiple of 128, skip at layer 4, viewdirs on, both PEs within 128
-    channels.  The 'cuda' backend sends a member to the fused path only
-    where `kernel_covers` holds too."""
+    channels together.  The 'cuda' backend sends a member to the fused path
+    only where `kernel_covers` holds too."""
     return (
         mlp_cfg.depth == 8
         and mlp_cfg.width % 128 == 0
@@ -245,15 +265,15 @@ def supports(mlp_cfg, render_cfg) -> bool:
         and tuple(mlp_cfg.skips) == (4,)
         and mlp_cfg.use_viewdirs
         and not mlp_cfg.rgb_only
-        and mlp_cfg.input_ch + mlp_cfg.input_ch_views <= PE_MAX
+        and mlp_cfg.input_ch + mlp_cfg.input_ch_views <= PE_LANES
     )
 
 
 def kernel_gap(mlp_cfg, compute_dtype: str, num_freqs_x: int, num_freqs_d: int) -> Optional[str]:
     """Why the compiled kernels do not cover this MLP, PE and compute dtype
-    (a width of KERNEL_WIDTHS[compute_dtype], padded PEs within 128
-    channels), or None where they do."""
-    kx, kd = pe_widths(mlp_cfg)
+    (a width of KERNEL_WIDTHS[compute_dtype]; PEs of num_freqs_x /
+    num_freqs_d frequencies with in_ch + d_ch <= PE_LANES, every one the
+    JAX kernels take, in both dtypes), or None where they do."""
     if compute_dtype not in COMPUTE_DTYPES:
         return f"compute_dtype {compute_dtype!r} not in {COMPUTE_DTYPES}"
     if not (mlp_cfg.depth == 8 and tuple(mlp_cfg.skips) == (4,) and mlp_cfg.use_viewdirs
@@ -263,15 +283,12 @@ def kernel_gap(mlp_cfg, compute_dtype: str, num_freqs_x: int, num_freqs_d: int) 
     if mlp_cfg.width not in widths:
         return (f"the {compute_dtype} kernels are compiled for width "
                 f"{' and '.join(map(str, widths))}, not {mlp_cfg.width}")
-    if kx + kd > PE_MAX or 3 + 6 * num_freqs_x != mlp_cfg.input_ch \
-            or 3 + 6 * num_freqs_d != mlp_cfg.input_ch_views:
-        return (f"PE of {num_freqs_x}/{num_freqs_d} frequencies into "
-                f"{mlp_cfg.input_ch}/{mlp_cfg.input_ch_views} MLP inputs is outside the "
-                f"kernel's {PE_MAX} padded channels")
-    nx, _, nd = fwd_pe_chunks(kx, kd)
-    if compute_dtype == "float32" and (nx != 1 or nd != 1):
-        return (f"the f32 kernel holds one 64-column PE chunk at a time: pe_x ({kx} padded "
-                f"channels) and pe_d (columns {kx}..{kx + kd}) must each lie in one")
+    if 3 + 6 * num_freqs_x != mlp_cfg.input_ch or 3 + 6 * num_freqs_d != mlp_cfg.input_ch_views:
+        return (f"PE of {num_freqs_x}/{num_freqs_d} frequencies does not give the MLP's "
+                f"{mlp_cfg.input_ch}/{mlp_cfg.input_ch_views} inputs")
+    if mlp_cfg.input_ch + mlp_cfg.input_ch_views > PE_LANES:
+        return (f"PE of {mlp_cfg.input_ch} + {mlp_cfg.input_ch_views} channels is past the "
+                f"kernels' {PE_LANES} PE lanes")
     return None
 
 
@@ -290,9 +307,10 @@ def kernel_builds(mlp_cfgs, render_cfg) -> List[Tuple[str, int]]:
     """The (source, width) builds the fused path launches for these MLPs
     under the render config (those `supports` and `kernel_covers` send to
     it), for `build.build_all`."""
-    widths = sorted({c.width for c in mlp_cfgs
-                     if supports(c, render_cfg) and kernel_covers(c, render_cfg)})
-    return [(src, w) for w in widths for src in SOURCES]
+    fused = [c for c in mlp_cfgs if supports(c, render_cfg) and kernel_covers(c, render_cfg)]
+    widths = sorted({c.width for c in fused})
+    wide = sorted({c.width for c in fused if 128 in pe_geometry(c)[:2]})
+    return [(src, w) for w in widths for src in SOURCES] + [(WIDE_PE_SOURCE, w) for w in wide]
 
 
 def check_kernel_family(mlp_cfg, compute_dtype: str, num_freqs_x: int,
@@ -502,7 +520,9 @@ def wgrad_items(n_splits: int, kx: int, kd: int, compute_dtype: str = "float32",
 
     A tile is WGRAD_TILE_ROWS rows o of a weight block by all its I
     columns (the views blocks' rows are their VIEWS_LANES lanes), the wide
-    tiles (I = width: 17 at 256, 9 at 128) first.  f32: one entry an
+    tiles (A from the stash, I = width: 17 at 256, 9 at 128) first, then
+    the narrow ones (A from the PE, I = kx or kd, which may equal the width
+    at 128).  f32: one entry an
     item, block b taking items b, b + grid, ...: every split's wide tiles,
     split by split, then every split's narrow ones.  bf16: the unit that a
     cluster of two blocks takes at once, cluster c taking units c, c +
@@ -525,7 +545,7 @@ def wgrad_items(n_splits: int, kx: int, kd: int, compute_dtype: str = "float32",
     tiles, units = [], [[], []]
     for wide in (True, False):
         for o, O, I, zc, pe, ac, ldw in jobs:
-            if (I == W) == wide:
+            if (not pe) == wide:
                 units[not wide].append(list(range(len(tiles), len(tiles) + O // T)))
                 tiles += [(I, o + o0 * ldw, ldw, zc + o0, pe, ac) for o0 in range(0, O, T)]
 
@@ -684,14 +704,13 @@ def fwd_mats_sm90(mlp, views_pe_first: bool = False) -> List[torch.Tensor]:
     """The ten [out][K] matrices of the forward kernel, K in the order its
     layers read their chunks: W0 over the PE tile's first nx chunks; W1..W4;
     W5 over a4, then the PE tile's first nx chunks; W6, W7, Wf; Wv over
-    feat, then the PE tile's nd chunks from chunk d0 (`fwd_pe_chunks`), or
+    feat, then the PE tile's nd chunks from chunk d0 (`pe_geometry`), or
     with `views_pe_first` (the f32 kernel) the PE chunks first, its rows
     padded with zeros to VIEWS_LANES.  A PE column a layer does not read
     gets a zero weight."""
     cfg = mlp.cfg
     in_ch, W = cfg.input_ch, cfg.width
-    kx, kd = pe_widths(cfg)
-    nx, d0, nd = fwd_pe_chunks(kx, kd)
+    _, _, dx, nx, d0, nd = pe_geometry(cfg)
 
     def place(w, n_chunks, col0):  # w's columns at [col0, ..) of n_chunks chunks
         m = w.new_zeros((w.shape[0], 64 * n_chunks))
@@ -700,7 +719,7 @@ def fwd_mats_sm90(mlp, views_pe_first: bool = False) -> List[torch.Tensor]:
 
     pts = [lin.weight for lin in mlp.pts_linears]
     wv = mlp.views_linears[0].weight
-    views = [wv[:, :W], place(wv[:, W:], nd, kx - 64 * d0)]
+    views = [wv[:, :W], place(wv[:, W:], nd, dx - 64 * d0)]
     views = torch.cat(views[::-1] if views_pe_first else views, dim=1)
     return [
         place(pts[0], nx, 0), pts[1], pts[2], pts[3], pts[4],
@@ -732,7 +751,7 @@ def bwd_mats(mlp) -> List[torch.Tensor]:
     the dgrad's ring, csrc/nerf_mlp_dgrad.cu)."""
     cfg = mlp.cfg
     in_ch, W = cfg.input_ch, cfg.width
-    kx, kd = pe_widths(cfg)
+    kx, kd = pe_geometry(cfg)[:2]
 
     def padk_t(w, k):  # [out][in] -> [k][out], rows past `in` zero
         return F.pad(w, (0, k - w.shape[1])).T
@@ -775,7 +794,7 @@ def _unpack_grads(mlp, dw: torch.Tensor, dfp: torch.Tensor) -> List[torch.Tensor
     lanes' grads are dropped."""
     cfg = mlp.cfg
     in_ch, in_d, W, Wh = cfg.input_ch, cfg.input_ch_views, cfg.width, cfg.width // 2
-    kx, kd = pe_widths(cfg)
+    kx, kd = pe_geometry(cfg)[:2]
     L = layout(W)
     shapes = [(W, kx)] + [(W, W)] * 4 + [(W, kx + W)] + [(W, W)] * 3 + [(VIEWS_LANES, W + kd)]
     mats, off = [], 0
@@ -800,9 +819,9 @@ def _lib(width: int = WIDTH) -> ctypes.CDLL:
     if not getattr(lib, "_lushnerf_typed", False):
         L = layout(width)
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.nerf_mlp_fwd.argtypes = [vp] * 7 + [ci] * 7 + [vp]
+        lib.nerf_mlp_fwd.argtypes = [vp] * 7 + [ci] * 6 + [vp]
         lib.nerf_mlp_fwd.restype = ci
-        lib.nerf_mlp_fwd_w_numel.argtypes = [ci, ci, ci]
+        lib.nerf_mlp_fwd_w_numel.argtypes = [ci] * 4
         lib.nerf_mlp_fwd_w_numel.restype = ctypes.c_longlong
         lib.nerf_mlp_fwd_tile.argtypes = []
         lib.nerf_mlp_fwd_tile.restype = ci
@@ -816,16 +835,18 @@ def _lib(width: int = WIDTH) -> ctypes.CDLL:
         lib.nerf_mlp_fwd_n_stages.restype = ci
         lib.nerf_mlp_fwd_units.argtypes = [ci]
         lib.nerf_mlp_fwd_units.restype = ci
+        lib.nerf_mlp_fwd_pe_lanes.argtypes = []
+        lib.nerf_mlp_fwd_pe_lanes.restype = ci
         lib.nerf_mlp_fwd_error_string.argtypes = [ci]
         lib.nerf_mlp_fwd_error_string.restype = ctypes.c_char_p
         if lib.nerf_mlp_fwd_width() != width or lib.nerf_mlp_fwd_fp_numel() != L.fp_numel \
                 or lib.nerf_mlp_fwd_acts_ld() != L.acts_ld \
                 or lib.nerf_mlp_fwd_n_stages() != len(FWD_STAGES) + len(FWD_OFF_PATH) \
-                or lib.nerf_mlp_fwd_tile() != FWD_TILE \
+                or lib.nerf_mlp_fwd_tile() != FWD_TILE or lib.nerf_mlp_fwd_pe_lanes() != PE_LANES \
                 or [lib.nerf_mlp_fwd_units(i) for i in range(3)] != [
                     UNIT_BLOCKS, UNIT_WARPS, ROW_SCALE_BITS]:
-            raise RuntimeError("nerf_mlp_fwd: width, f32 blob, stash layout, stages, geometry or "
-                               "scale units differ from the CUDA source")
+            raise RuntimeError("nerf_mlp_fwd: width, f32 blob, stash layout, stages, geometry, PE "
+                               "lanes or scale units differ from the CUDA source")
         lib._lushnerf_typed = True
     return lib
 
@@ -853,9 +874,9 @@ def _bwd_lib(width: int = WIDTH) -> ctypes.CDLL:
         lib.nerf_mlp_bwd_width.restype = ci
         lib.nerf_mlp_bwd_error_string.argtypes = [ci]
         lib.nerf_mlp_bwd_error_string.restype = ctypes.c_char_p
-        def items(dtype):  # the wgrad's work for a flagship-shaped MLP in 3 splits
+        def items(dtype, kx, kd):  # the wgrad's work for a PE of kx / kd in 3 splits
             out = (ctypes.c_longlong * (9 * 24 * 3))()
-            n = lib.nerf_mlp_bwd_wgrad_items(int(dtype == "bfloat16"), 3, 64, 32, out)
+            n = lib.nerf_mlp_bwd_wgrad_items(int(dtype == "bfloat16"), 3, kx, kd, out)
             return [tuple(out[9 * i:9 * i + 9]) for i in range(max(n, 0))]
 
         dtypes = [d for d in COMPUTE_DTYPES if width in KERNEL_WIDTHS[d]]
@@ -865,15 +886,18 @@ def _bwd_lib(width: int = WIDTH) -> ctypes.CDLL:
                     DGRAD_TILE, ZS_BLOCKS, ZS_WARPS, len(WGRAD_F32_CLOCKS),
                     len(WGRAD_BF16_CLOCKS), WGRAD_STAGE["float32"], WGRAD_STAGE["bfloat16"],
                     UNIT_BLOCKS, UNIT_WARPS] \
-                or any(items(d) != wgrad_items(3, 64, 32, d, width) for d in dtypes):
+                or any(items(d, kx, kd) != wgrad_items(3, kx, kd, d, width) for d in dtypes
+                       for kx, kd in ((64, 32), (32, 128), (128, 32))):
             raise RuntimeError("nerf_mlp_bwd: width, f32 blob, stash layout, scale units, clocks, "
                                "stages or wgrad items differ from the CUDA source")
         lib._lushnerf_typed = True
     return lib
 
 
-def _dgrad_lib(width: int = WIDTH) -> ctypes.CDLL:
-    lib = build.load(SOURCES[2], width)
+def _dgrad_lib(width: int = WIDTH, wide_pe: bool = False) -> ctypes.CDLL:
+    """The dgrads' build of the width; `wide_pe`: the one for a PE with a
+    part of 128 channels (WIDE_PE_SOURCE)."""
+    lib = build.load(WIDE_PE_SOURCE if wide_pe else SOURCES[2], width)
     if not getattr(lib, "_lushnerf_typed", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.nerf_mlp_dgrad_bf16.argtypes = [vp] * 10 + [ci] * 6 + [vp]
@@ -932,13 +956,13 @@ def _fwd_into(mlp, xd: torch.Tensor, compute_dtype: str, num_freqs_x: int,
     stash acts [P, acts_ld] with (f32) its scale units [ceil(P / FWD_TILE),
     UNIT_BLOCKS, UNIT_WARPS]; with `stamps` its instrumented instantiation,
     which writes its stage cycles there.  The caller counts the launch."""
-    kx, kd = pe_widths(mlp.cfg)
+    dx = pe_geometry(mlp.cfg).dx
     w, fp = pack_params(mlp, compute_dtype)
     if w.device != xd.device:
         raise ValueError(f"nerf_mlp_fwd: params on {w.device}, points on {xd.device}")
     lib = _lib(mlp.cfg.width)
     bf16 = compute_dtype == "bfloat16"
-    if w.numel() != lib.nerf_mlp_fwd_w_numel(kx, kd, int(bf16)):
+    if w.numel() != lib.nerf_mlp_fwd_w_numel(dx, num_freqs_x, num_freqs_d, int(bf16)):
         raise RuntimeError("nerf_mlp_fwd: weight blob layout differs from the CUDA source")
     if (units is None) != (bf16 or acts is None):
         raise ValueError("nerf_mlp_fwd: the f32 stash needs its scale units, and only it")
@@ -952,8 +976,8 @@ def _fwd_into(mlp, xd: torch.Tensor, compute_dtype: str, num_freqs_x: int,
             xd.data_ptr(), w.data_ptr(), fp.data_ptr(), out.data_ptr(),
             None if acts is None else acts.data_ptr(),
             None if units is None else units.data_ptr(),
-            None if stamps is None else stamps.data_ptr(), xd.shape[0], kx, kd,
-            num_freqs_x, num_freqs_d, int(bf16), n_blocks, stream,
+            None if stamps is None else stamps.data_ptr(), xd.shape[0], dx, num_freqs_x,
+            num_freqs_d, int(bf16), n_blocks, stream,
         )
     if rc != 0:
         raise RuntimeError(
@@ -988,13 +1012,13 @@ def _launch_fwd(mlp, xd: torch.Tensor, compute_dtype: str, num_freqs_x: int,
     return out, acts, units
 
 
-def fwd_stage_cycles(mlp, xd: torch.Tensor, stash: bool,
-                     compute_dtype: str = "bfloat16") -> torch.Tensor:
+def fwd_stage_cycles(mlp, xd: torch.Tensor, stash: bool, compute_dtype: str = "bfloat16",
+                     num_freqs_x: int = 10, num_freqs_d: int = 4) -> torch.Tensor:
     """Runs the forward kernel's instrumented instantiation once on CUDA xd
     (P > 0): [tiles of block 0, len(FWD_STAGES + FWD_OFF_PATH)] int64, the
     clock64() cycles of each stage in each tile (not a launch of the main
     path: not counted)."""
-    _check_cuda_inputs("nerf_mlp_fwd", mlp, xd, compute_dtype, 10, 4)
+    _check_cuda_inputs("nerf_mlp_fwd", mlp, xd, compute_dtype, num_freqs_x, num_freqs_d)
     xd = xd.contiguous()
     P = xd.shape[0]
     n_blocks = fwd_grid(P, sm_count(xd.device))
@@ -1003,7 +1027,7 @@ def fwd_stage_cycles(mlp, xd: torch.Tensor, stash: bool,
     out = torch.empty((P, OUT_CH), dtype=torch.float32, device=xd.device)
     acts, units = (_new_stash(P, compute_dtype, xd.device, mlp.cfg.width) if stash
                    else (None, None))
-    _fwd_into(mlp, xd, compute_dtype, 10, 4, out, acts, units, stamps)
+    _fwd_into(mlp, xd, compute_dtype, num_freqs_x, num_freqs_d, out, acts, units, stamps)
     return stamps
 
 
@@ -1065,7 +1089,7 @@ class BwdLaunch:
         if acts is not None and (acts.shape != (P, L.acts_ld) or acts.dtype != cdt):
             raise ValueError(f"nerf_mlp_bwd: stash must be {cdt} [P, {L.acts_ld}]")
         self.mlp, self.P, self.remat = mlp, P, acts is None
-        self.kx, self.kd = pe_widths(mlp.cfg)
+        self.kx, self.kd = pe_geometry(mlp.cfg)[:2]
         self.nf = (num_freqs_x, num_freqs_d)
         self.dtype = compute_dtype
         self.bf16 = compute_dtype == "bfloat16"
@@ -1074,7 +1098,7 @@ class BwdLaunch:
         self.fp = pack_params(mlp, compute_dtype)[1]
         self.wt = pack_params_bwd(mlp, compute_dtype)
         self.lib = _bwd_lib(W)
-        self.dlib = _dgrad_lib(W)
+        self.dlib = _dgrad_lib(W, 128 in (self.kx, self.kd))
         wn = self.lib.nerf_mlp_bwd_w_numel(self.kx, self.kd)
         if self.wt.numel() != wn * (1 if self.bf16 else 2):  # f32: hi and lo parts
             raise RuntimeError("nerf_mlp_bwd: weight blob layout differs from the CUDA source")

@@ -196,7 +196,7 @@ def mm_only(mlp, pe: torch.Tensor) -> torch.Tensor:
     if pe.dtype != torch.float32 or pe.dim() != 2 or pe.shape[1] != LANES:
         raise ValueError(f"mm_only: pe must be float32 [P, {LANES}], got "
                          f"{pe.dtype} {tuple(pe.shape)}")
-    kx, kd = fused.pe_widths(cfg)
+    kx, kd = fused.pe_geometry(cfg)[:2]
     pe = pe.contiguous()
     w, fp = fused.pack_params(mlp, "bfloat16")
     if w.device != pe.device:

@@ -5,7 +5,8 @@ checkouts against each other bit for bit.
 
 Imports lushnerf_torch from CHECKOUT (default: the checkout this file is in),
 runs the forward kernel with its stash and the stash backward at P =
-65,573 (a ragged tile count), f32 and bf16, at g ~ N(0, 1) and at a
+65,573 (a ragged tile count), f32 and bf16, on the seed-0 MLP at widths
+256 and 128 (the shipped PE, 10 / 4 frequencies), at g ~ N(0, 1) and at a
 cotangent shaped like the shipped configs' step (half the points 0, |g|
 log-uniform over 2^-28..2^-17), and prints one JSON line per case: the
 SHA-256 (16 hex digits) of the forward's output and stash, of d(xd), of the
@@ -40,8 +41,6 @@ def main(root: str) -> list:
         raw = t.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes()
         return hashlib.sha256(raw).hexdigest()[:16]
 
-    mlp = NeRFMLP(MLPConfig(), torch.Generator().manual_seed(0), torch.device("cpu"))
-    mlp = mlp.cuda().requires_grad_(False)
     gen = torch.Generator(device="cuda").manual_seed(7)
     xd = torch.zeros((P, 8), device="cuda")
     xd[:, :3] = torch.rand((P, 3), generator=gen, device="cuda") * 2 - 1
@@ -52,19 +51,23 @@ def main(root: str) -> list:
     sign = torch.where(torch.rand((P, 4), generator=gen, device="cuda") < 0.5, -1.0, 1.0)
     shipped = mag * sign * (torch.rand((P, 1), generator=gen, device="cuda") < 0.5)
     rows = []
-    for dtype in ("float32", "bfloat16"):
-        launched = fused._launch_fwd(mlp, xd, dtype, 10, 4, stash=True)
-        out, acts = launched[0], launched[1]
-        for name, g in (("normal", normal), ("shipped", shipped)):
-            run = fused.BwdLaunch(mlp, xd, g, dtype, 10, 4, acts)
-            run.run()
-            torch.cuda.synchronize()
-            row = {"root": root, "dtype": dtype, "g": name, "out": digest(out),
-                   "stash": digest(acts), "dxd": digest(run.dxd),
-                   "dz": digest(run.dz), "pe": digest(run.pe), "dfp": digest(run.dfp),
-                   "dw": digest(run.dw)}
-            print(json.dumps(row), flush=True)
-            rows.append(row)
+    for width in (256, 128):
+        mlp = NeRFMLP(MLPConfig(width=width), torch.Generator().manual_seed(0),
+                      torch.device("cpu"))
+        mlp = mlp.cuda().requires_grad_(False)
+        for dtype in ("float32", "bfloat16"):
+            launched = fused._launch_fwd(mlp, xd, dtype, 10, 4, stash=True)
+            out, acts = launched[0], launched[1]
+            for name, g in (("normal", normal), ("shipped", shipped)):
+                run = fused.BwdLaunch(mlp, xd, g, dtype, 10, 4, acts)
+                run.run()
+                torch.cuda.synchronize()
+                row = {"root": root, "width": width, "dtype": dtype, "g": name,
+                       "out": digest(out), "stash": digest(acts), "dxd": digest(run.dxd),
+                       "dz": digest(run.dz), "pe": digest(run.pe), "dfp": digest(run.dfp),
+                       "dw": digest(run.dw)}
+                print(json.dumps(row), flush=True)
+                rows.append(row)
     return rows
 
 

@@ -92,7 +92,7 @@ def main(P: int = 655_360, root: str = "") -> list:
     d = torch.randn((P, 3), generator=gen, device="cuda")
     xd[:, 3:6] = d / d.norm(dim=-1, keepdim=True)
     w, fp = fused.pack_params(mlp, "float32")
-    kx, kd = fused.pe_widths(mlp.cfg)
+    geo = fused.pe_geometry(mlp.cfg)
     n_blocks = fused.fwd_grid(P, fused.sm_count(xd.device))
     stream = torch.cuda.current_stream().cuda_stream
     out = torch.empty((P, fused.OUT_CH), device="cuda")
@@ -102,10 +102,13 @@ def main(P: int = 655_360, root: str = "") -> list:
     rows, ref = [], None
     for variant, path in libs.items():
         lib = ctypes.CDLL(path)
-        with_units = hasattr(lib, "nerf_mlp_fwd_units")  # the checkout's own entry
+        # the checkout's own entry: scale units since one version, the PE
+        # geometry as (dx) rather than (kx, kd) since a later one
+        with_units = hasattr(lib, "nerf_mlp_fwd_units")
+        pe_args = [geo.dx] if hasattr(lib, "nerf_mlp_fwd_pe_lanes") else [geo.kx, geo.kd]
         n_ptr = 7 if with_units else 6
-        lib.nerf_mlp_fwd.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 7 + [
-            ctypes.c_void_p]
+        lib.nerf_mlp_fwd.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * (
+            5 + len(pe_args)) + [ctypes.c_void_p]
         lib.nerf_mlp_fwd.restype = ctypes.c_int
 
         def call(stash: bool):
@@ -113,7 +116,7 @@ def main(P: int = 655_360, root: str = "") -> list:
                     acts.data_ptr() if stash else None]
             if with_units:
                 ptrs.append(units.data_ptr() if stash else None)
-            rc = lib.nerf_mlp_fwd(*ptrs, None, P, kx, kd, 10, 4, 0, n_blocks, stream)
+            rc = lib.nerf_mlp_fwd(*ptrs, None, P, *pe_args, 10, 4, 0, n_blocks, stream)
             if rc != 0:
                 raise RuntimeError(f"fwd_ablate: {variant}: CUDA error {rc}")
 

@@ -1,4 +1,4 @@
-"""Times the width-256 f32 kernels of one or more checkouts in turns on one
+"""Times the width-256 kernels of one or more checkouts in turns on one
 card, beside `bwd_digest.py`'s digests of each, to hold a change against
 its parent: same bits, times within the spread of the rounds.
 
@@ -8,17 +8,20 @@ Each root in the list runs in a process of its own, in the order given
 (parent, change, change, parent puts each side's two runs around the
 other's), importing lushnerf_torch from that checkout (its kernels built
 into its own build directory).  A run times, at P = 327,680 and 655,360
-(the flagship step's coarse and fine MLPs) on the seed-0 flagship MLP: K1
-f32 output only and with its stash, the f32 dgrad and the f32 wgrad with
-its reductions apart (`BwdLaunch.run` with DGRAD / WGRAD on one chunk),
-each the median of CUDA-event times of 10 calls after 3; then prints
-`bwd_digest.py`'s rows.  Prints one JSON line a run and, last, each
-kernel's times by root.  Needs a card.
+(the flagship step's coarse and fine MLPs) on the seed-0 flagship MLP, in
+both compute dtypes: K1 output only and with its stash,
+the dgrad and the wgrad with its reductions apart (`BwdLaunch.run` with
+DGRAD / WGRAD on one chunk), K2 (the stash backward) and K3 (the remat
+backward) whole, each the median of CUDA-event times of 10 calls after 3;
+then prints the digests of this checkout's `bwd_digest.py` run on that
+checkout's package (both widths, both dtypes).  Prints one JSON line a
+run and, last, each kernel's times by root.  Needs a card.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import subprocess
 import sys
@@ -63,19 +66,29 @@ def one(root: str) -> dict:
         d = torch.randn((P, 3), generator=gen, device="cuda")
         xd[:, 3:6] = d / d.norm(dim=-1, keepdim=True)
         g = torch.randn((P, 4), generator=gen, device="cuda")
-        _, acts, units = fused._launch_fwd(mlp, xd, "float32", 10, 4, stash=True)
-        run = fused.BwdLaunch(mlp, xd, g, "float32", 10, 4, acts, units)
-        run.run()
-        times[P] = {
-            "k1_f32_ms": ms(lambda: fused._launch_fwd(mlp, xd, "float32", 10, 4, stash=False)),
-            "k1_f32_stash_ms": ms(lambda: fused._launch_fwd(mlp, xd, "float32", 10, 4, stash=True)),
-            "dgrad_f32_ms": ms(lambda: run.run(run.DGRAD)),
-            "wgrad_f32_ms": ms(lambda: run.run(run.WGRAD)),
-        }
-        del run, acts, units
-        torch.cuda.empty_cache()
-    from lushnerf_torch.scripts import bwd_digest
-
+        times[P] = {}
+        for dt in ("float32", "bfloat16"):
+            tag = "f32" if dt == "float32" else "bf16"
+            _, acts, units = fused._launch_fwd(mlp, xd, dt, 10, 4, stash=True)
+            run = fused.BwdLaunch(mlp, xd, g, dt, 10, 4, acts, units)
+            run.run()
+            times[P].update({
+                f"k1_{tag}_ms": ms(lambda: fused._launch_fwd(mlp, xd, dt, 10, 4, stash=False)),
+                f"k1_{tag}_stash_ms": ms(lambda: fused._launch_fwd(mlp, xd, dt, 10, 4,
+                                                                   stash=True)),
+                f"dgrad_{tag}_ms": ms(lambda: run.run(run.DGRAD)),
+                f"wgrad_{tag}_ms": ms(lambda: run.run(run.WGRAD)),
+                f"k2_{tag}_ms": ms(lambda: fused.nerf_mlp_bwd(mlp, xd, g, dt, 10, 4, acts=acts,
+                                                              acts_units=units)),
+                f"k3_{tag}_ms": ms(lambda: fused.nerf_mlp_bwd(mlp, xd, g, dt, 10, 4)),
+            })
+            del run, acts, units
+            torch.cuda.empty_cache()
+    # this checkout's digests (both widths) on the root's package
+    spec = importlib.util.spec_from_file_location("bwd_digest",
+                                                  Path(__file__).with_name("bwd_digest.py"))
+    bwd_digest = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bwd_digest)
     return {"root": root, "times": times, "digests": bwd_digest.main(root)}
 
 

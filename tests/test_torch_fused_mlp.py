@@ -89,22 +89,24 @@ def test_plain_matches_jax_kernel(setup, dtype, S):
     np.testing.assert_allclose(got.numpy().reshape(want.shape), np.asarray(want), **tol)
 
 
-def sm90_pe_chunks(kx, kd):
+def sm90_pe_chunks(kx, kd, dx=None, d_ch=None):
     """(nx, d0, nd): the PE tile's chunks of 64 columns (pe_x at [0, kx),
-    pe_d at [kx, kx + kd)) that W0 / W5 read (the first nx) and Wv reads
-    (nd from d0)."""
-    return -(-kx // 64), kx // 64, -(-(kx + kd) // 64) - kx // 64
+    pe_d at [dx, dx + d_ch); by default dx = kx, d_ch = kd) that W0 / W5
+    read (the first nx) and Wv reads (nd from d0)."""
+    dx, d_ch = (kx if dx is None else dx), (kd if d_ch is None else d_ch)
+    return -(-kx // 64), dx // 64, -(-(dx + d_ch) // 64) - dx // 64
 
 
-def sm90_mats(w, kx, kd, width=256):
+def sm90_mats(w, kx, kd, width=256, dx=None, d_ch=None):
     """The bf16 forward blob undone by a plain index model of its layout:
     ten [N][K] matrices one after another (N = the width, the last 128),
     each chunk-major over K in chunks of 64 columns, element (n, k) of a
     chunk at row n, 16-byte piece (k % 64) // 8 moved to piece position
     ((k % 64) // 8) ^ (n % 8).  K of each: W0 [nx PE chunks], W1..W4 [W],
     W5 [W (a4) + nx PE chunks], W6, W7, Wf [W], Wv [W (feat) + nd PE
-    chunks]; then, if the count of [128][64] pieces is odd, a zero piece."""
-    nx, _, nd = sm90_pe_chunks(kx, kd)
+    chunks]; then, if the count of [128][64] pieces is odd, a zero piece.
+    The PE chunks as `sm90_pe_chunks(kx, kd, dx, d_ch)` counts them."""
+    nx, _, nd = sm90_pe_chunks(kx, kd, dx, d_ch)
     Wd, Wh = width, 128
     shapes = [(Wd, 64 * nx)] + [(Wd, Wd)] * 4 + [(Wd, Wd + 64 * nx)] + [(Wd, Wd)] * 3 + [
         (Wh, Wd + 64 * nd)]
@@ -131,15 +133,16 @@ def sm90_row_major(mats, kx, kd):
         torch.cat([mats[9][:, :Wd], mats[9][:, Wd + c:Wd + c + kd]], 1)]
 
 
-def split_mats(w, kx, kd, width=256):
+def split_mats(w, kx, kd, width=256, dx=None, d_ch=None):
     """The f32 forward blob undone by a plain index model of its layout:
     the ten [N][K] matrices as lists of their hi and lo parts, K in the
     kernel's order (as `sm90_mats`, but Wv's nd PE chunks before feat; N =
     the width, Wv's 128: at width 128 its 64 rows and 64 zero rows); each
     chunk of 64 columns of a matrix is its [N][64] hi part in the layout of
     `sm90_mats`, then its lo part; then zero pieces up to a multiple of 4
-    [128][64] pieces."""
-    nx, _, nd = sm90_pe_chunks(kx, kd)
+    [128][64] pieces.  The PE chunks as `sm90_pe_chunks(kx, kd, dx, d_ch)`
+    counts them."""
+    nx, _, nd = sm90_pe_chunks(kx, kd, dx, d_ch)
     Wd, Wh, piece = width, 128, 128 * 64
     shapes = [(Wd, 64 * nx)] + [(Wd, Wd)] * 4 + [(Wd, Wd + 64 * nx)] + [(Wd, Wd)] * 3 + [
         (Wh, 64 * nd + Wd)]
@@ -198,7 +201,7 @@ def test_packed_blobs_reproduce_plain(setup, dtype):
     w, fp = fused.pack_params(mlp, dtype)
     assert w.dtype == (torch.bfloat16 if dtype == "bfloat16" else torch.float16)  # f32: two parts
     assert fp.numel() == fused.FP_NUMEL
-    kx, kd = fused.pe_widths(mlp.cfg)
+    kx, kd = fused.pe_geometry(mlp.cfg)[:2]
     assert (kx, kd) == (64, 32)
     got = _emulate_kernel(w, fp, xd, kx, kd, 10, 4, dtype == "bfloat16")
     want = fused.nerf_mlp_fwd_plain(mlp, xd, dtype)
@@ -243,12 +246,13 @@ def test_supports():
 
 @pytest.mark.parametrize("case,dtype,nfx", [
     (dict(), "float16", 10), (dict(width=384), "bfloat16", 10), (dict(width=512), "float32", 10),
-    (dict(input_ch=99, input_ch_views=9), "bfloat16", 16), (dict(), "float32", 9),
+    (dict(input_ch=99, input_ch_views=33), "bfloat16", 16), (dict(), "float32", 9),
 ], ids=["dtype", "w128", "w512", "pe-padded-over-128", "pe-mismatch"])
 def test_kernel_family_check_raises(case, dtype, nfx):
     """What the card's path checks before a launch: members of the routed
     family that the compiled kernels do not cover raise, not fall back
-    (width 384 in bf16 under the id "w128", 512 in either dtype); widths
+    (width 384 in bf16 under the id "w128", 512 in either dtype; a PE of 99
+    + 33 channels, past the 128 lanes, under "pe-padded-over-128"); widths
     256 and 128 pass in both dtypes."""
     cfg = MLPConfig(**case)
     nfd = (cfg.input_ch_views - 3) // 6

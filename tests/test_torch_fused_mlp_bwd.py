@@ -226,7 +226,7 @@ def _bwd_blocks(mlp, dtype):
     model of it: in bf16 each block chunk-major and swizzled
     (`_swizzled_index`); in f32 each chunk's fp16 hi and lo parts
     (`split_blocks`), given back as (hi + lo) 2^-SPLIT_SHIFT."""
-    kx, kd = fused.pe_widths(mlp.cfg)
+    kx, kd = fused.pe_geometry(mlp.cfg)[:2]
     wt = fused.pack_params_bwd(mlp, dtype)
     if dtype == "float32":
         his, los = split_blocks(wt, kx, kd)
@@ -253,7 +253,7 @@ def _emulate_bwd_kernels(mlp, xd, g, acts, dtype, wgrad=None):
     kernel stores it), the stash and the PE, all in float.  At the MLP's
     width Wd (the views layer's Wh = 128 lanes, zero-padded at width 128)."""
     r = (lambda t: t.bfloat16().float()) if dtype == "bfloat16" else (lambda t: t)
-    kx, kd = fused.pe_widths(mlp.cfg)
+    kx, kd = fused.pe_geometry(mlp.cfg)[:2]
     Wd, Wh = mlp.cfg.width, 128
     L = fused.layout(Wd)
     fp = fused.pack_params(mlp, dtype)[1]
@@ -333,7 +333,7 @@ def test_bwd_blob_layout_gives_back_the_transposed_weights(setup, dtype):
     _, params, _, _ = setup
     mlp = _mlp(params).requires_grad_(False)
     r = (lambda t: t.bfloat16().float()) if dtype == "bfloat16" else (lambda t: t)
-    kx, kd = fused.pe_widths(mlp.cfg)
+    kx, kd = fused.pe_geometry(mlp.cfg)[:2]
     in_ch, in_d, Wd = mlp.cfg.input_ch, mlp.cfg.input_ch_views, 256
     pts = [lin.weight for lin in mlp.pts_linears]
     wv = mlp.views_linears[0].weight

@@ -98,7 +98,7 @@ def emulate(mlp, xd, g, acts, mm, wgrad=None):
     PE) and the bias and head sums, all on true f32 values: (d_xd, {d_z by
     name}, the grads of mlp.parameters()).  At the MLP's width WD (the views
     layer's WH = 128 lanes, zero-padded at width 128, as the kernels')."""
-    kx, kd = fused.pe_widths(mlp.cfg)
+    kx, kd = fused.pe_geometry(mlp.cfg)[:2]
     WD = mlp.cfg.width
     L = fused.layout(WD)
     fp = fused.pack_params(mlp, "float32")[1]
@@ -196,7 +196,7 @@ def _inputs(setup, P):
 
 
 def _split(mlp, scaled=True):
-    kx, kd = fused.pe_widths(mlp.cfg)
+    kx, kd = fused.pe_geometry(mlp.cfg)[:2]
     his, los = split_blocks(fused.pack_params_bwd(mlp, "float32"), kx, kd, mlp.cfg.width)
     return _split_mm(his, los, scaled)
 
@@ -208,7 +208,7 @@ def _worst(got, want):
 
 def test_split_blob_gives_back_every_block(setup):
     mlp, _, _, _ = _inputs(setup, 8)
-    kx, kd = fused.pe_widths(mlp.cfg)
+    kx, kd = fused.pe_geometry(mlp.cfg)[:2]
     wt = fused.pack_params_bwd(mlp, "float32")
     assert wt.dtype == torch.float16
     his, los = split_blocks(wt, kx, kd)

@@ -91,7 +91,7 @@ def setup(request):
 
 def test_split_blob_gives_back_every_weight(setup):
     _, _, mlp, _, _ = setup
-    kx, kd = fused.pe_widths(mlp.cfg)
+    kx, kd = fused.pe_geometry(mlp.cfg)[:2]
     w, _ = fused.pack_params(mlp, "float32")
     assert w.dtype == torch.float16 and (w.numel() // fused.FWD_PIECE) % fused.SPLIT_RING == 0
     his, los = split_mats(w, kx, kd, mlp.cfg.width)
@@ -107,11 +107,15 @@ def test_split_blob_gives_back_every_weight(setup):
     assert w[n:2 * n].abs().max() < w[:n].abs().max() * 2.0 ** -10
 
 
-def _emulate_split(w, fp, xd, kx, kd, nfx, nfd, drop_lo=False, scaled=True, width=256):
+def _emulate_split(w, fp, xd, kx, kd, nfx, nfd, drop_lo=False, scaled=True, width=256,
+                   dx=None):
     """The f32 kernel's arithmetic read from its blob: each layer's K chunks
-    in the kernel's order (W0: the pe_x chunk; W5: a4, then the pe_x chunk;
-    Wv: the pe_d chunk, then feat), every activation row split in the fp16
-    parts of its values times 2^-k (k of `fused.row_scale_exponents` of the
+    in the kernel's order (W0: the pe_x chunks; W5: a4, then the pe_x
+    chunks; Wv: the pe_d chunks, then feat; one or two of each: the PE tile
+    holds pe_x at [0, in_ch), pe_d at [dx, dx + d_ch), dx = kx by default,
+    and a layer's PE chunks are one sum, as the MULTI instantiation takes
+    them one fill of its slot after another), every activation row split
+    in the fp16 parts of its values times 2^-k (k of `fused.row_scale_exponents` of the
     row's largest |value|; `scaled=False`: k = 0, the arithmetic without
     the row scale) and the PE unscaled (the blob holds the parts of W 2^4),
     acc = 2^4 2^-k bias + hi(A) hi(W) + lo(A) hi(W) + hi(A) lo(W) in f32,
@@ -121,8 +125,9 @@ def _emulate_split(w, fp, xd, kx, kd, nfx, nfd, drop_lo=False, scaled=True, widt
     Returns (raw out, stash).  `drop_lo`: the lo parts as zeros (the
     control: fp16 products).  At the MLP's `width` (the views layer's 128
     lanes at both: the f32 blob's layout, `fused.layout(width)`)."""
-    his, los = split_mats(w, kx, kd, width)
-    nx, d0, nd = sm90_pe_chunks(kx, kd)
+    dx, d_ch = (kx if dx is None else dx), 3 + 6 * nfd
+    his, los = split_mats(w, kx, kd, width, dx, d_ch)
+    nx, d0, nd = sm90_pe_chunks(kx, kd, dx, d_ch)
     Wd, Wh = width, 128
     L = fused.layout(width)
     acc_scale = 2.0 ** fused.SPLIT_SHIFT
@@ -166,7 +171,7 @@ def _emulate_split(w, fp, xd, kx, kd, nfx, nfd, drop_lo=False, scaled=True, widt
     P = xd.shape[0]
     pe = torch.zeros((P, 128))
     pe[:, :3 + 6 * nfx] = posenc(xd[:, 0:3], nfx)
-    pe[:, kx:kx + 3 + 6 * nfd] = posenc(xd[:, 3:6], nfd)
+    pe[:, dx:dx + d_ch] = posenc(xd[:, 3:6], nfd)
     pe_x, pe_d = pe[:, :64 * nx], pe[:, 64 * d0:64 * (d0 + nd)]
     b = lambda i: fp[i * Wd:(i + 1) * Wd]  # noqa: E731
     one = torch.ones(P, 1)
@@ -198,7 +203,7 @@ def _stash_rel_err(got, want):
 def test_split_reproduces_plain_f32(setup, S):
     _, _, mlp, pts, dirs = setup
     xd = _xd(pts[:, :S], dirs)
-    kx, kd = fused.pe_widths(mlp.cfg)
+    kx, kd = fused.pe_geometry(mlp.cfg)[:2]
     width = mlp.cfg.width
     w, fp = fused.pack_params(mlp, "float32")
     out, stash = _emulate_split(w, fp, xd, kx, kd, 10, 4, width=width)
@@ -222,7 +227,7 @@ def test_split_reproduces_jax_kernel_f32(setup):
             params, jcfg, JRenderConfig(mlp_compute_dtype="float32"),
             jnp.asarray(pts), jnp.asarray(dirs), tile=16,
         )
-    kx, kd = fused.pe_widths(mlp.cfg)
+    kx, kd = fused.pe_geometry(mlp.cfg)[:2]
     w, fp = fused.pack_params(mlp, "float32")
     got, _ = _emulate_split(w, fp, _xd(pts, dirs), kx, kd, 10, 4, width=mlp.cfg.width)
     np.testing.assert_allclose(got.numpy().reshape(want.shape), np.asarray(want), **F32_TOL)
@@ -231,7 +236,7 @@ def test_split_reproduces_jax_kernel_f32(setup):
 def test_row_scale_keeps_the_bits_of_ordinary_inputs(setup):
     _, _, mlp, pts, dirs = setup
     xd = _xd(pts, dirs)
-    kx, kd = fused.pe_widths(mlp.cfg)
+    kx, kd = fused.pe_geometry(mlp.cfg)[:2]
     w, fp = fused.pack_params(mlp, "float32")
     out, stash = _emulate_split(w, fp, xd, kx, kd, 10, 4, width=mlp.cfg.width)
     out_u, stash_u = _emulate_split(w, fp, xd, kx, kd, 10, 4, scaled=False, width=mlp.cfg.width)
@@ -257,7 +262,7 @@ def test_row_scale_keeps_large_activations_finite(setup):
     xd = _xd(pts, dirs)
     want, want_stash = fused.nerf_mlp_fwd_plain(mlp, xd, "float32", with_acts=True)
     assert want_stash.abs().max() >= 65520 and bool(torch.isfinite(want).all())
-    kx, kd = fused.pe_widths(mlp.cfg)
+    kx, kd = fused.pe_geometry(mlp.cfg)[:2]
     w, fp = fused.pack_params(mlp, "float32")  # every weight in the parts' range
     # the control: the arithmetic without the row scale overflows to NaN
     bad, _ = _emulate_split(w, fp, xd, kx, kd, 10, 4, scaled=False, width=width)
@@ -353,16 +358,20 @@ def test_width128_routes_to_plain_path(dtype, monkeypatch):
 
 def test_kernel_covers_follows_the_kernels_geometry():
     """What each mode's kernels cover.  Width 256: the flagship PE in both;
-    a pe_x of 96 padded channels in bf16 only (the f32 kernel holds one PE
-    chunk at a time); pe_x of 32 with pe_d in the same chunk in both.
+    a pe_x of 96 padded channels in both (the f32 kernel fills its one PE
+    slot once a chunk); pe_x of 32 with pe_d in the same chunk in both, and
+    with pe_d over two chunks; PEs whose padded widths pass 128 (12/8, 16/4,
+    4/16: the forward packs them tightly, as the JAX kernels do) in both.
     Width 128: each dtype the PE geometry it has at 256 (the PE tile and
     the dgrad's PE passes do not depend on the width).  Widths 384 and 512:
     nothing."""
-    cases = {(256, 10, 4): (True, True), (256, 15, 4): (True, False),
-             (256, 4, 4): (True, True), (256, 4, 9): (True, False),
-             (128, 10, 4): (True, True), (128, 15, 4): (True, False),
-             (128, 4, 4): (True, True), (128, 4, 9): (True, False),
-             (384, 10, 4): (False, False), (512, 10, 4): (False, False)}
+    cases = {(256, 10, 4): (True, True), (256, 15, 4): (True, True),
+             (256, 4, 4): (True, True), (256, 4, 9): (True, True),
+             (128, 10, 4): (True, True), (128, 15, 4): (True, True),
+             (128, 4, 4): (True, True), (128, 4, 9): (True, True),
+             (384, 10, 4): (False, False), (512, 10, 4): (False, False),
+             (256, 12, 8): (True, True), (256, 16, 4): (True, True),
+             (256, 4, 16): (True, True)}
     for (width, nfx, nfd), want in cases.items():
         cfg = MLPConfig(width=width, input_ch=3 + 6 * nfx, input_ch_views=3 + 6 * nfd)
         got = tuple(fused.kernel_covers(cfg, RenderConfig(mlp_backend="cuda", mlp_compute_dtype=dt,

@@ -60,9 +60,9 @@ def test_sm90_blob_gives_back_every_weight(config):
     skipped it would fail)."""
     in_ch, in_d = CONFIGS[config]
     mlp = _mlp(in_ch, in_d)
-    kx, kd = fused.pe_widths(mlp.cfg)
+    kx, kd = fused.pe_geometry(mlp.cfg)[:2]
     nx, d0, nd = sm90_pe_chunks(kx, kd)
-    assert (nx, d0, nd) == fused.fwd_pe_chunks(kx, kd)
+    assert (nx, d0, nd) == fused.pe_geometry(mlp.cfg)[3:]
     w, _ = fused.pack_params(mlp, "bfloat16")
     assert w.dtype == torch.bfloat16 and w.numel() % (128 * 64) == 0
     n = 68 + 4 * nx + nd  # the kernel's pieces a tile, padded to an even count
@@ -92,22 +92,22 @@ def test_sm90_blob_gives_back_every_weight(config):
 
 def _emulate_sm90(mlp, xd, nfx, nfd):
     """The kernel's arithmetic on its own blob: the PE tile [P][128] in bf16
-    (pe_x at [0, kx), pe_d at [kx, kx + kd)); each layer one accumulation
+    (pe_x at [0, in_ch), pe_d at [dx, dx + d_ch): `fused.pe_geometry`);
+    each layer one accumulation
     over its K chunks (activation chunks, then PE chunks from pe_c0) with
     f32 bias and relu, its output rounded to bf16 over the activation
     buffer; alpha on the rounded a7, rgb on the rounded hv.  At the MLP's
     width W (the views layer's 128 lanes, zero-padded at width 128)."""
     r = lambda t: t.bfloat16().float()  # noqa: E731
-    kx, kd = fused.pe_widths(mlp.cfg)
-    nx, d0, nd = fused.fwd_pe_chunks(kx, kd)
+    kx, kd, dx, nx, d0, nd = fused.pe_geometry(mlp.cfg)
     Wd = mlp.cfg.width
     L = fused.layout(Wd)
     w, fp = fused.pack_params(mlp, "bfloat16")
-    mats = sm90_mats(w, kx, kd, Wd)
+    mats = sm90_mats(w, kx, kd, Wd, dx, 3 + 6 * nfd)
     P = xd.shape[0]
     pe = torch.zeros(P, 128)
     pe[:, :3 + 6 * nfx] = posenc(xd[:, 0:3], nfx)
-    pe[:, kx:kx + 3 + 6 * nfd] = posenc(xd[:, 3:6], nfd)
+    pe[:, dx:dx + 3 + 6 * nfd] = posenc(xd[:, 3:6], nfd)
     pe = r(pe)
     act = torch.zeros(P, Wd)
     biases = [fp[l * Wd:(l + 1) * Wd] for l in range(8)] + [

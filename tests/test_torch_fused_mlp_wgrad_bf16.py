@@ -164,7 +164,7 @@ def _inputs(setup, P):
 def test_staged_wgrad_reproduces_plain_bf16(setup, P, n_splits):
     mlp, xd, g, acts = _inputs(setup, P)
     n = n_splits or fused.wgrad_splits(P, BF16)
-    kx, kd = fused.pe_widths(mlp.cfg)
+    kx, kd = fused.pe_geometry(mlp.cfg)[:2]
     _, _, got = _emulate_bwd_kernels(mlp, xd, g, acts, BF16, wgrad=staged_wgrad(n, kx, kd))
     _, want = fused.nerf_mlp_bwd_plain(mlp, xd, g, BF16, acts=acts)
     assert [t.shape for t in got] == [p.shape for p in mlp.parameters()]
@@ -193,7 +193,7 @@ def test_staged_wgrad_reproduces_jax_kernel_bf16(setup, P):
     xd = _xd(pts, dirs)
     g = torch.from_numpy(G.reshape(R * S, 4))
     _, acts = fused.nerf_mlp_fwd_plain(mlp, xd, BF16, with_acts=True)
-    kx, kd = fused.pe_widths(mlp.cfg)
+    kx, kd = fused.pe_geometry(mlp.cfg)[:2]
     wgrad = staged_wgrad(fused.wgrad_splits(R * S, BF16), kx, kd)
     names = [n for n, _ in mlp.named_parameters()]
     got = dict(zip(names, (t.numpy() for t in _emulate_bwd_kernels(

@@ -181,8 +181,8 @@ def test_bf16_blob_gives_back_every_weight_at_128(config):
     [128][64] piece a chunk, padded to an even count."""
     mlp = _torch_mlp(config, 0)
     in_ch, in_d = CONFIGS[config]
-    kx, kd = fused.pe_widths(mlp.cfg)
-    nx, d0, nd = fused.fwd_pe_chunks(kx, kd)
+    kx, kd = fused.pe_geometry(mlp.cfg)[:2]
+    nx, d0, nd = fused.pe_geometry(mlp.cfg)[3:]
     w, _ = fused.pack_params(mlp, BF16)
     n = 2 * nx + 16 + 2 + nd  # the kernel's pieces a tile: W0 nx, W1..W4 8, W5 2 + nx, 6, Wv 2 + nd
     assert w.dtype == torch.bfloat16 and w.numel() // (128 * 64) == n + n % 2
@@ -233,7 +233,7 @@ def test_bf16_bwd_blob_gives_back_the_transposed_weights_at_128(setup):
     blocks' 64 padding lanes zero) in bf16, exactly."""
     _, params, _, _ = setup
     mlp = _mlp(params).requires_grad_(False)
-    kx, kd = fused.pe_widths(mlp.cfg)
+    kx, kd = fused.pe_geometry(mlp.cfg)[:2]
     in_ch = mlp.cfg.input_ch
     pts = [lin.weight for lin in mlp.pts_linears]
     wv = torch.nn.functional.pad(mlp.views_linears[0].weight, (0, 0, 0, 64))  # 128 lanes
@@ -273,7 +273,7 @@ def test_staged_wgrad_reproduces_plain_bf16_at_128(setup, P, n_splits):
     mlp, xd, g, acts = _bwd_inputs(setup, P)
     assert acts.shape == (P, fused.layout(WIDTH).acts_ld) and acts.dtype == torch.bfloat16
     n = n_splits or fused.wgrad_splits(P, BF16)
-    kx, kd = fused.pe_widths(mlp.cfg)
+    kx, kd = fused.pe_geometry(mlp.cfg)[:2]
     _, _, got = _emulate_bwd_kernels(mlp, xd, g, acts, BF16,
                                      wgrad=staged_wgrad(n, kx, kd, WIDTH))
     _, want = fused.nerf_mlp_bwd_plain(mlp, xd, g, BF16, acts=acts)

@@ -490,12 +490,9 @@ RAYMAJOR_COUNTERS = {"raymajor_excl_cumsum": "launches_excl_cumsum",
 
 
 def zero_counts(mod, counters=COUNTERS) -> None:
-    """Sets a module's launch counters to 0, and its weight-pack count where
-    it keeps one (nerf_mlp's `packs`)."""
+    """Sets a module's launch counters to 0."""
     for attr in counters.values():
         setattr(mod, attr, 0)
-    if hasattr(mod, "packs"):
-        mod.packs = 0
 
 
 def read_counts(mod, counters=COUNTERS) -> dict:
@@ -1357,6 +1354,8 @@ def train_cfg(cfg_mod, variant, point_chunk=None):
 
 
 def train_phase(fused, lush, cfg_mod, trainer):
+    from lushnerf_torch.utils import trace
+
     batch = train_batch()
     res = {"launches_total": {k: 0 for k in COUNTERS}}
 
@@ -1379,9 +1378,11 @@ def train_phase(fused, lush, cfg_mod, trainer):
     gen = torch.Generator(device="cuda").manual_seed(1)
     for stage in ("kernel", "allkernel", "naive"):
         zero_counts(fused)
-        loss, mse = trainer.train_step(model, opt, sched, lc, H, W, FOCAL, batch, stage, gen)
-        torch.cuda.synchronize()
-        packs = fused.packs
+        since = time.perf_counter_ns()
+        with trace.recording():
+            loss, mse = trainer.train_step(model, opt, sched, lc, H, W, FOCAL, batch, stage, gen)
+            torch.cuda.synchronize()
+        packs = sum(r.name == "mlp.pack" for r in trace.spans(since))
         r = dict(loss=loss.item(), mse=mse.item(), launches=count(), packs=packs)
         res[f"stage_{stage}"] = r
         print(f"  {stage}: " + json.dumps(r), flush=True)

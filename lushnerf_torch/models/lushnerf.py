@@ -37,6 +37,7 @@ from lushnerf_torch.models.renderer import (
 )
 from lushnerf_torch.models.tonemap import LEARNED_TYPES, ToneMapping, apply_tonemap
 from lushnerf_torch.ops.rays import get_rays
+from lushnerf_torch.utils.trace import span
 
 NOISE_SCALE = 0.1  # reference: rgb_noise = 0.1 * sigmoid(raw)
 
@@ -362,16 +363,18 @@ def render_rays_chunked_eval(
     rays_p = torch.cat([rays, rays.new_zeros((R_pad - R, 3, 2))], dim=0)
     rgbs, noises, depths = [], [], []
     for chunk in rays_p.split(ray_chunk):
-        prepared = prepare_rays(
-            cfg.render, H, W, focal, chunk[..., 0], chunk[..., 1], cfg.near, cfg.far
-        )
-        out = render_rays_scene(
-            model.mlp_coarse, model.mlp_fine, cfg.mlp_cfg, cfg.render, prepared,
-            inference=True,
-        )
-        rgbs.append(out["rgb"])
-        noises.append(render_rays_noise(model.mlp_noise_coarse, cfg.noise_cfg, cfg.render, prepared))
-        depths.append(out["depth"])
+        with span("render.chunk"):
+            prepared = prepare_rays(
+                cfg.render, H, W, focal, chunk[..., 0], chunk[..., 1], cfg.near, cfg.far
+            )
+            out = render_rays_scene(
+                model.mlp_coarse, model.mlp_fine, cfg.mlp_cfg, cfg.render, prepared,
+                inference=True,
+            )
+            rgbs.append(out["rgb"])
+            noises.append(render_rays_noise(model.mlp_noise_coarse, cfg.noise_cfg, cfg.render,
+                                            prepared))
+            depths.append(out["depth"])
     return torch.cat(rgbs)[:R], torch.cat(noises)[:R], torch.cat(depths)[:R]
 
 
@@ -384,26 +387,31 @@ def render_image(
     K,
     c2w,
     ray_chunk: int = 4096,
+    view: Optional[int] = None,
 ):
     """Render one full image from a camera pose (reference render_path).
 
-    K: [3, 3], c2w: [3, 4] (tensors or arrays).  Returns (rgb [H,W,3]
-    tonemapped, noise_img [H,W,3] tonemapped 0.1*sigmoid, depth [H,W]),
-    as NeRFAll's eval outputs (:671-677).
+    K: [3, 3], c2w: [3, 4] (tensors or arrays); view: the pose's index, the
+    key of its `render.view` span.  Returns (rgb [H,W,3] tonemapped,
+    noise_img [H,W,3] tonemapped 0.1*sigmoid, depth [H,W]), as NeRFAll's
+    eval outputs (:671-677).
     """
-    dev = model.device
-    K = torch.as_tensor(K, dtype=torch.float32, device=dev)
-    c2w = torch.as_tensor(c2w, dtype=torch.float32, device=dev)
-    rays_o, rays_d = get_rays(H, W, K, c2w)
-    rays = torch.stack([rays_o, rays_d], dim=-1).reshape(-1, 3, 2)
-    rgb, raw_noise, depth = render_rays_chunked_eval(
-        model, cfg, H, W, float(K[0, 0]), rays, ray_chunk
-    )
-    tm, eps = cfg.tone_mapping_type, cfg.tonemap_eps
-    rgb = apply_tonemap(tm, rgb, eps, model.tonemapping).reshape(H, W, 3)
-    noise_img = apply_tonemap(
-        tm, NOISE_SCALE * torch.sigmoid(raw_noise), eps, model.tonemapping
-    ).reshape(H, W, 3)
+    with span("render.view", view):
+        dev = model.device
+        with span("sync.render_k"):  # a host array's upload waits for the queue
+            K = torch.as_tensor(K, dtype=torch.float32, device=dev)
+        with span("sync.render_c2w"):
+            c2w = torch.as_tensor(c2w, dtype=torch.float32, device=dev)
+        rays_o, rays_d = get_rays(H, W, K, c2w)
+        rays = torch.stack([rays_o, rays_d], dim=-1).reshape(-1, 3, 2)
+        with span("sync.render_focal"):
+            focal = float(K[0, 0])
+        rgb, raw_noise, depth = render_rays_chunked_eval(model, cfg, H, W, focal, rays, ray_chunk)
+        tm, eps = cfg.tone_mapping_type, cfg.tonemap_eps
+        rgb = apply_tonemap(tm, rgb, eps, model.tonemapping).reshape(H, W, 3)
+        noise_img = apply_tonemap(
+            tm, NOISE_SCALE * torch.sigmoid(raw_noise), eps, model.tonemapping
+        ).reshape(H, W, 3)
     return rgb, noise_img, depth.reshape(H, W)
 
 

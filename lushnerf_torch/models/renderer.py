@@ -40,6 +40,7 @@ from lushnerf_torch.ops.sampling import (
     sample_pdf,
     stratify_z_vals,
 )
+from lushnerf_torch.utils.trace import span
 
 ACTIVATIONS = {
     "relu": torch.relu,
@@ -141,10 +142,18 @@ def eval_points(
     fused path's backward sizes its scratch by it.  Returns raw [R, S,
     out_ch].
     """
-    if cfg.mlp_backend == "cuda" and fused.supports(mlp_cfg, cfg) \
-            and fused.kernel_covers(mlp_cfg, cfg):
-        return fused.eval_points_fused(mlp, mlp_cfg, cfg, pts, viewdirs)
+    if cfg.mlp_backend != "cuda":
+        return _eval_points_plain(mlp, cfg, pts, viewdirs)
+    if fused.supports(mlp_cfg, cfg) and fused.kernel_covers(mlp_cfg, cfg):
+        with span("mlp.fwd"):
+            return fused.eval_points_fused(mlp, mlp_cfg, cfg, pts, viewdirs)
+    with span("mlp.plain"):  # an MLP the kernels do not cover
+        return _eval_points_plain(mlp, cfg, pts, viewdirs)
 
+
+def _eval_points_plain(mlp: NeRFMLP, cfg: RenderConfig, pts: torch.Tensor,
+                       viewdirs: Optional[torch.Tensor]) -> torch.Tensor:
+    """`eval_points` in plain torch."""
     R, S = pts.shape[0], pts.shape[1]
     P = R * S
     x = pts.reshape(P, 3)

@@ -19,6 +19,8 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from lushnerf_torch.utils.trace import span_backward
+
 
 class CompositeOut(NamedTuple):
     rgb: torch.Tensor  # [..., 3]
@@ -59,7 +61,10 @@ def raw2outputs(
     trans = torch.cumprod(
         torch.cat([torch.ones_like(alpha[..., :1]), 1.0 - alpha + 1e-10], dim=-1),
         dim=-1,
-    )[..., :-1]
+    )
+    # torch's cumprod backward asks the host whether the input holds a zero
+    span_backward(trans, "sync.cumprod_backward")
+    trans = trans[..., :-1]
     weights = alpha * trans  # [..., N]
 
     rgb_map = torch.sum(weights[..., None] * rgb, dim=-2)

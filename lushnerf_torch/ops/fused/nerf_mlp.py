@@ -36,8 +36,10 @@ wrapper adds to its own where it launches, and nowhere else):
 `launches` counts forward kernel launches (with or without the stash),
 `launches_bwd_stash` / `launches_bwd_remat` the backward's kernel launches
 (four per point chunk: dgrad, wgrad and two fixed-order reductions; remat
-adds the forward kernel that writes the chunk's stash).  `packs` counts
-parameter packings (each is cached per parameter version).
+adds the forward kernel that writes the chunk's stash).  A parameter
+packing (cached per parameter version) records an `mlp.pack` span
+(`lushnerf_torch.utils.trace`), the f32 packs' range checks `sync.pack_range`
+spans: host syncs.
 
 The grads come in the order of `mlp.parameters()` of a `NeRFMLP`: (weight,
 bias) of pts_linears 0..7, feature, alpha, views, rgb -- 24 tensors.  The
@@ -69,6 +71,7 @@ import torch.nn.functional as F
 
 from lushnerf_torch.ops.encoding import posenc, posenc_backward
 from lushnerf_torch.ops.fused import build
+from lushnerf_torch.utils.trace import span
 
 WIDTH = 256  # the flagship's width, whose layout the constants below give
 # the widths each compute dtype's kernels are built for
@@ -207,7 +210,6 @@ WIDE_PE_SOURCE = "nerf_mlp_dgrad_wide"
 launches = 0
 launches_bwd_stash = 0
 launches_bwd_remat = 0
-packs = 0  # parameter packings built (forward and backward blobs)
 
 
 def _round32(n: int) -> int:
@@ -632,7 +634,9 @@ def split_pieces(m: torch.Tensor, who: str) -> torch.Tensor:
     K in chunks of 64 columns, each chunk as the `swizzle128` layout of its
     fp16 hi part, then its lo part, of m 2^SPLIT_SHIFT (`split_f16`).
     Raises for a value beyond the parts' range."""
-    if not bool((m.abs() * 2.0 ** SPLIT_SHIFT < FP16_MAX).all()):
+    with span("sync.pack_range"):
+        in_range = bool((m.abs() * 2.0 ** SPLIT_SHIFT < FP16_MAX).all())
+    if not in_range:
         raise ValueError(f"{who}: a weight outside the f32 kernel's fp16 parts' "
                          f"range (|w| < {FP16_MAX / 2 ** SPLIT_SHIFT:g})")
     n_chunks = m.shape[1] // 64
@@ -669,6 +673,14 @@ def pack_params(mlp, compute_dtype: str) -> Tuple[torch.Tensor, torch.Tensor]:
     cached = getattr(mlp, "_nerf_mlp_fwd_pack", None)
     if cached is not None and cached[0] == key:
         return cached[1]
+    with span("mlp.pack"):
+        packed = _pack_fwd(mlp, compute_dtype)
+    mlp._nerf_mlp_fwd_pack = (key, packed)
+    return packed
+
+
+def _pack_fwd(mlp, compute_dtype: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The blobs of `pack_params`, built."""
     bf16 = compute_dtype == "bfloat16"
     if bf16:
         w = torch.cat([swizzle128(m.bfloat16()) for m in fwd_mats_sm90(mlp)])
@@ -693,11 +705,7 @@ def pack_params(mlp, compute_dtype: str) -> Tuple[torch.Tensor, torch.Tensor]:
     fp[L.fp_br:L.fp_br + 3] = mlp.rgb_linear.bias
     fp[L.fp_wa:L.fp_wr] = head(mlp.alpha_linear.weight[0])
     fp[L.fp_wr:].view(3, VIEWS_LANES)[:, :wh] = head(mlp.rgb_linear.weight)
-    packed = (w, fp)
-    mlp._nerf_mlp_fwd_pack = (key, packed)
-    global packs
-    packs += 1
-    return packed
+    return w, fp
 
 
 def fwd_mats_sm90(mlp, views_pe_first: bool = False) -> List[torch.Tensor]:
@@ -777,14 +785,13 @@ def pack_params_bwd(mlp, compute_dtype: str) -> torch.Tensor:
     cached = getattr(mlp, "_nerf_mlp_bwd_pack", None)
     if cached is not None and cached[0] == key:
         return cached[1]
-    if compute_dtype == "bfloat16":
-        wt = torch.cat([swizzle128(m.bfloat16()) for m in bwd_mats(mlp)])
-    else:
-        wt = torch.cat([split_pieces(m, "pack_params_bwd") for m in bwd_mats(mlp)])
-    wt = wt.contiguous()
+    with span("mlp.pack"):
+        if compute_dtype == "bfloat16":
+            wt = torch.cat([swizzle128(m.bfloat16()) for m in bwd_mats(mlp)])
+        else:
+            wt = torch.cat([split_pieces(m, "pack_params_bwd") for m in bwd_mats(mlp)])
+        wt = wt.contiguous()
     mlp._nerf_mlp_bwd_pack = (key, wt)
-    global packs
-    packs += 1
     return wt
 
 
@@ -1325,12 +1332,13 @@ class NerfMLPFn(torch.autograd.Function):
     def backward(ctx, g):
         xd = ctx.saved_tensors[0]  # reading them checks the params' versions
         (acts, units), ctx.acts = ctx.acts, None  # the stash is freed with the backward
-        g = g.float().contiguous()
-        if xd.device.type == "cpu":
-            d_xd, grads = nerf_mlp_bwd_plain(ctx.mlp, xd, g, *ctx.args, acts=acts)
-        else:
-            d_xd, grads = nerf_mlp_bwd(ctx.mlp, xd, g, *ctx.args, acts=acts, acts_units=units,
-                                       point_chunk=ctx.point_chunk)
+        with span("mlp.bwd"):
+            g = g.float().contiguous()
+            if xd.device.type == "cpu":
+                d_xd, grads = nerf_mlp_bwd_plain(ctx.mlp, xd, g, *ctx.args, acts=acts)
+            else:
+                d_xd, grads = nerf_mlp_bwd(ctx.mlp, xd, g, *ctx.args, acts=acts,
+                                           acts_units=units, point_chunk=ctx.point_chunk)
         return (None, d_xd, None, None, None, None, None, *grads)
 
 

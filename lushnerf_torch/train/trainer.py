@@ -97,6 +97,7 @@ from lushnerf_torch.train.schedule import consist_active, consist_in_loss, stage
 from lushnerf_torch.utils import lpips as lpips_lib
 from lushnerf_torch.utils.images import write_png
 from lushnerf_torch.utils.metrics import compute_img_metric
+from lushnerf_torch.utils.trace import span
 
 STAGES = ("naive", "kernel", "allkernel")
 
@@ -208,22 +209,26 @@ def train_step(
     gradient), so every rank takes the same step."""
     if stage not in STAGES:
         raise ValueError(f"stage {stage!r} not in {STAGES}")
-    optimizer.zero_grad(set_to_none=True)
-    loss, mse = loss_fn(model, lush_cfg, H, W, focal, batch, stage, generator, rand_override,
-                        consist)
-    loss.backward()
-    params = [p for group in optimizer.param_groups for p in group["params"]]
-    for p in params:
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
-    loss, mse = loss.detach(), mse.detach()
-    if dist.in_group():
-        loss, mse = loss.clone(), mse.clone()
-        dist.all_reduce_mean_([p.grad for p in params] + [loss, mse])
-    if grad_clip_norm > 0.0:
-        clip_by_global_norm_(params, grad_clip_norm)
-    optimizer.step()
-    scheduler.step()
+    with span("train.step"):
+        optimizer.zero_grad(set_to_none=True)
+        with span("train.forward"):
+            loss, mse = loss_fn(model, lush_cfg, H, W, focal, batch, stage, generator,
+                                rand_override, consist)
+        with span("train.backward"):
+            loss.backward()
+        with span("train.optimizer"):
+            params = [p for group in optimizer.param_groups for p in group["params"]]
+            for p in params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            loss, mse = loss.detach(), mse.detach()
+            if dist.in_group():
+                loss, mse = loss.clone(), mse.clone()
+                dist.all_reduce_mean_([p.grad for p in params] + [loss, mse])
+            if grad_clip_norm > 0.0:
+                clip_by_global_norm_(params, grad_clip_norm)
+            optimizer.step()
+            scheduler.step()
     return loss, mse
 
 
@@ -556,51 +561,70 @@ class Trainer:
         loss_v = psnr_v = float("nan")
         last_log_t, last_log_i = t0, self.step
         for i in range(self.step + 1, last + 1):
-            batch = self.dataset.next_batch(self.local_n_rand, self.np_rng)
-            stage = stage_for_iter(
-                i, cfg.kernel_start_iter, cfg.allkernel_start_iter, cfg.blur_model_type
-            )
-            active = consist_active(i, cfg.noisenerf_start_iter)
-            loss, mse = train_step(
-                self.model, self.optimizer, self.scheduler, self.lush_cfg, self.H, self.W,
-                self.focal, batch, stage, self.generator, grad_clip_norm=cfg.grad_clip_norm,
-                consist=self._sample_consist_batch(i) if active else None,
-            )
-            self.step = i
+            with span("train.iteration", i):
+                with span("train.next_batch"):
+                    batch = self.dataset.next_batch(self.local_n_rand, self.np_rng)
+                stage = stage_for_iter(
+                    i, cfg.kernel_start_iter, cfg.allkernel_start_iter, cfg.blur_model_type
+                )
+                active = consist_active(i, cfg.noisenerf_start_iter)
+                consist = None
+                if active:
+                    with span("train.consist_batch"):
+                        consist = self._sample_consist_batch(i)
+                loss, mse = train_step(
+                    self.model, self.optimizer, self.scheduler, self.lush_cfg, self.H, self.W,
+                    self.focal, batch, stage, self.generator, grad_clip_norm=cfg.grad_clip_norm,
+                    consist=consist,
+                )
+                self.step = i
 
-            if active and i % cfg.rematch_interval == 0 and self._matcher is not None:
-                self.rematch(i)
+                if active and i % cfg.rematch_interval == 0 and self._matcher is not None:
+                    with span("train.rematch"):
+                        self.rematch(i)
 
-            if i % cfg.i_weights == 0 and self.rank == 0:
-                ckpt_lib.save_checkpoint(self.exp_dir, i, self.model, self.optimizer,
-                                         self.scheduler)
+                if i % cfg.i_weights == 0 and self.rank == 0:
+                    with span("train.checkpoint"):
+                        ckpt_lib.save_checkpoint(self.exp_dir, i, self.model, self.optimizer,
+                                                 self.scheduler)
 
-            if i % cfg.i_testset == 0 and i > 0:
-                self.eval_testset(i)
+                if i % cfg.i_testset == 0 and i > 0:
+                    with span("train.eval"):
+                        self.eval_testset(i)
 
-            if cfg.debug_nan_check:
-                self._guard_finite(i, loss)
+                if cfg.debug_nan_check:
+                    self._guard_finite(i, loss)
 
-            if i % cfg.i_print == 0:  # the loss is the global batch's on every rank
-                loss_v = float(loss)
-                psnr_v = float(mse2psnr(mse))
-            if i % cfg.i_print == 0 and self.rank == 0:
-                if not math.isfinite(loss_v):
-                    self._report_nonfinite(i, batch, stage)
-                now = time.time()
-                dt = now - t0
-                rays_s = cfg.N_rand * (i - last_log_i) / max(now - last_log_t, 1e-9)
-                last_log_t, last_log_i = now, i
-                print(f"[TRAIN] Iter: {i} Loss: {loss_v:.5f} PSNR: {psnr_v:.3f} "
-                      f"stage: {stage} rays/s: {rays_s:.0f} TIME: {dt:.1f}s")
-                with open(self.log_file, "a") as f:
-                    f.write(json.dumps({"step": i, "loss": loss_v, "psnr": psnr_v,
-                                        "stage": stage, "rays_per_s": rays_s,
-                                        "wall_s": dt}) + "\n")
-            if self.tb is not None and i % cfg.i_tensorboard == 0:
-                self.tb.add_scalar("Train/Loss", float(loss), i)
-                self.tb.add_scalar("Train/PSNR", float(mse2psnr(mse)), i)
-                self.tb.flush()
+                printed = i % cfg.i_print == 0
+                scalars = self.tb is not None and i % cfg.i_tensorboard == 0
+                if printed or scalars:
+                    with span("train.log"):
+                        if printed:  # the loss is the global batch's on every rank
+                            with span("sync.print_loss"):
+                                loss_v = float(loss)
+                            with span("sync.print_psnr"):
+                                psnr_v = float(mse2psnr(mse))
+                        if printed and self.rank == 0:
+                            if not math.isfinite(loss_v):
+                                self._report_nonfinite(i, batch, stage)
+                            now = time.time()
+                            dt = now - t0
+                            rays_s = cfg.N_rand * (i - last_log_i) / max(now - last_log_t, 1e-9)
+                            last_log_t, last_log_i = now, i
+                            print(f"[TRAIN] Iter: {i} Loss: {loss_v:.5f} PSNR: {psnr_v:.3f} "
+                                  f"stage: {stage} rays/s: {rays_s:.0f} TIME: {dt:.1f}s")
+                            with open(self.log_file, "a") as f:
+                                f.write(json.dumps({"step": i, "loss": loss_v, "psnr": psnr_v,
+                                                    "stage": stage, "rays_per_s": rays_s,
+                                                    "wall_s": dt}) + "\n")
+                        if scalars:
+                            with span("sync.tb_loss"):
+                                tb_loss = float(loss)
+                            with span("sync.tb_psnr"):
+                                tb_psnr = float(mse2psnr(mse))
+                            self.tb.add_scalar("Train/Loss", tb_loss, i)
+                            self.tb.add_scalar("Train/PSNR", tb_psnr, i)
+                            self.tb.flush()
         return dict(loss=loss_v, psnr=psnr_v)
 
     # ------------------------------------------------------------------
@@ -696,11 +720,11 @@ class Trainer:
     # evaluation
     # ------------------------------------------------------------------
 
-    def render_pose(self, c2w):
-        """(rgb, noise image, depth) of one pose at the render_factor eval
-        resolution, on the device."""
+    def render_pose(self, c2w, view: Optional[int] = None):
+        """(rgb, noise image, depth) of one pose (the view-th) at the
+        render_factor eval resolution, on the device."""
         return render_image(self.model, self.lush_cfg, self.H_eval, self.W_eval, self.K_eval,
-                            c2w, ray_chunk=self.cfg.ray_chunk_eval)
+                            c2w, ray_chunk=self.cfg.ray_chunk_eval, view=view)
 
     def _render_poses(self, poses):
         """(rgb [N, h, w, 3], noise [N, h, w, 3], depth [N, h, w]) of the poses
@@ -710,7 +734,7 @@ class Trainer:
         local = torch.zeros((-(-n // self.world), self.H_eval, self.W_eval, 7),
                             device=self.device)
         for j, vi in enumerate(dist.stripe_indices(n, self.rank, self.world)):
-            rgb, noise, depth = self.render_pose(poses[vi])
+            rgb, noise, depth = self.render_pose(poses[vi], vi)
             local[j] = torch.cat([rgb, noise, depth[..., None]], dim=-1)
         out = dist.allgather_stack(local, n)
         return out[..., :3], out[..., 3:6], out[..., 6]

@@ -106,6 +106,16 @@ the final result line):
      forward kernel, bf16 and f32 (packed before the steps), gives the bits
      of a freshly packed copy of the weights (no stale weight pack), bf16
      within the mean-gap control of its plain version, f32 within its limit;
+  7k. pack: the weight packs' kernel (csrc/nerf_mlp_pack.cu, built with
+     phase 2's three sources): its blobs bit for bit the torch ops' at
+     widths 256 and 128, PE 10/4, 12/4 and 12/8, f32 and bf16, one launch a
+     pack; a weight of 5000, nan or inf in a CUDA module raising the torch
+     ops' ValueError at that module's next call of the pack; the kernel
+     (with its range flag's copy) in device us against the torch ops' host
+     ms a call; configs/poster's Trainer for PACK_ITERS iterations from its
+     kernel stage under torch.cuda.set_sync_debug_mode("warn"): the syncs by
+     site, none inside a pack, PACK_SYNCS `sync.*` spans and 4 pack
+     launches an iteration;
   7w. width128: the kernels' width-128 builds, on the fused family's one
      width besides 256 at which the JAX package runs its kernels (the views
      layer padded to 128 lanes), in both dtypes: K1 output only at
@@ -297,6 +307,7 @@ import sys
 import tempfile
 import time
 import traceback
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -1536,6 +1547,150 @@ W128_TRAINER_OVERRIDES = dict(N_iters=W128_ITERS, kernel_start_iter=1, allkernel
                               noisenerf_start_iter=10**9, i_print=4, i_weights=10**9,
                               i_testset=10**9, render_factor=4,
                               netwidth=W128, netwidth_fine=W128)
+
+
+PACK_GEOS = [(w, pe) for w in (256, W128) for pe in ((10, 4), (12, 4), (12, 8))]
+PACK_START = 1200  # the pack phase's Trainer from configs/poster's kernel_start_iter
+PACK_ITERS = 20  # its iterations under the sync debug mode
+PACK_VIEWS = 9
+PACK_SYNCS = 2  # the syncs left an iteration: cumprod's backward, coarse and fine
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    view = {2: torch.int16, 4: torch.int32}[a.element_size()]
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a.view(view), b.view(view))
+
+
+def pack_phase(fused, cfg_mod, trainer, NeRFMLP, MLPConfig):
+    """The weight packs on the card: csrc/nerf_mlp_pack.cu's blobs bit for
+    bit the torch ops' at every geometry the kernels run, one launch a
+    pack; an out-of-range weight raising at the module's next pack call;
+    the kernel timed against the torch pack; and configs/poster's Trainer
+    under torch.cuda.set_sync_debug_mode("warn"): only cumprod's syncs,
+    none inside a pack, and 4 pack launches an iteration."""
+    from lushnerf_torch.utils import trace
+
+    res = {"blobs": {}}
+    gen = torch.Generator(device="cuda").manual_seed(23)
+
+    def cuda_mlp(width=256, pe=(10, 4)):
+        cfg = MLPConfig(width=width, input_ch=3 + 6 * pe[0], input_ch_views=3 + 6 * pe[1])
+        return NeRFMLP(cfg, gen, torch.device("cuda"))
+
+    # 1. every geometry in both dtypes: the kernel's blobs against the torch ops'
+    for width, pe in PACK_GEOS:
+        for dtype in ("float32", "bfloat16"):
+            mlp = cuda_mlp(width, pe)
+            before = fused.launches_pack
+            got, got_bwd = fused.pack_params(mlp, dtype), fused.pack_params_bwd(mlp, dtype)
+            launched = fused.launches_pack - before
+            want, want_bwd = fused._pack_fwd(mlp, dtype), fused._pack_bwd(mlp, dtype)
+            ok = all(same_bits(a, b) for a, b in zip((*got, got_bwd), (*want, want_bwd)))
+            res["blobs"][f"w{width}_pe{pe[0]}_{pe[1]}_{dtype}"] = ok
+            assert ok and launched == 2, (width, pe, dtype, ok, launched)
+    print(f"  blobs bitwise the torch ops' at {len(res['blobs'])} geometries and dtypes, "
+          f"one launch a pack", flush=True)
+
+    # 2. an out-of-range weight: the module's next call of that pack raises
+    for forward, who in ((True, "pack_params"), (False, "pack_params_bwd")):
+        pack = fused.pack_params if forward else fused.pack_params_bwd
+        for value in (5000.0, float("nan"), float("inf")):
+            mlp = cuda_mlp()
+            pack(mlp, "float32")
+            with torch.no_grad():
+                mlp.pts_linears[3].weight[7, 9] = value
+            pack(mlp, "float32")  # packs the weight; its flag is read by the next call
+            try:
+                pack(mlp, "float32")
+                raised = ""
+            except ValueError as e:
+                raised = str(e)
+            try:
+                fused._pack_fwd(mlp, "float32") if forward else fused._pack_bwd(mlp, "float32")
+                want = ""
+            except ValueError as e:
+                want = str(e)  # the torch ops' message
+            res[f"raised_{who}_{value}"] = raised
+            assert raised and raised == want, (who, value, raised, want)
+    print(f"  an out-of-range weight (5000, nan, inf) raises at the next call: "
+          f"{res['raised_pack_params_5000.0']!r}", flush=True)
+
+    # 3. the kernel against the torch ops, the shipped MLP (f32, and bf16,
+    # which sends no range flag: the kernel alone)
+    mlp = cuda_mlp()
+    for forward, name in ((True, "fwd"), (False, "bwd")):
+        for dtype in ("float32", "bfloat16"):
+            res[f"kernel_us_{name}_{dtype}"] = 1e3 * device_ms(
+                lambda: fused._pack_cuda(mlp, dtype, forward=forward))
+        res[f"torch_ms_{name}"] = per_call_ms(
+            (lambda: fused._pack_fwd(mlp, "float32")) if forward
+            else (lambda: fused._pack_bwd(mlp, "float32")), 10)["median"]
+    print("  packs of the shipped MLP, forward / backward: f32 kernel + flag copy "
+          f"{res['kernel_us_fwd_float32']:.2f} / {res['kernel_us_bwd_float32']:.2f} us on the "
+          f"device, bf16 kernel {res['kernel_us_fwd_bfloat16']:.2f} / "
+          f"{res['kernel_us_bwd_bfloat16']:.2f} us; f32 torch ops {res['torch_ms_fwd']:.3f} / "
+          f"{res['torch_ms_bwd']:.3f} ms a call", flush=True)
+    del mlp
+
+    # 4. configs/poster's Trainer at the kernel stage: the syncs of PACK_ITERS
+    # iterations by where they were made, after one warm-up iteration
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_pack_")
+    try:
+        cfg = cfg_mod.Config.from_file(TRAINER_CONFIG, basedir=f"{tmp.name}/logs",
+                                       tbdir=f"{tmp.name}/tb", i_testset=10**9, i_weights=10**9)
+        assert cfg.kernel_start_iter == PACK_START and cfg.i_print == 200, cfg
+        tr = trainer.Trainer(cfg, data=synthetic_scene(n=PACK_VIEWS), device="cuda")
+        tr.setup()
+        tr.step = PACK_START
+        tr.train(PACK_START + 1)
+        torch.cuda.synchronize()
+        syncs = []
+
+        def record(message, category, filename, lineno, file=None, line=None):
+            stack = traceback.extract_stack()[:-1]
+            ours = [f for f in stack if "lushnerf_torch" in f.filename]
+            syncs.append({"message": str(message)[:80], "ours": bool(ours),
+                          "in_pack": any(f.name in ("pack_params", "pack_params_bwd")
+                                         for f in stack),
+                          "site": f"{Path(ours[-1].filename).name}:{ours[-1].lineno} "
+                                  f"{ours[-1].name}" if ours else f"{filename}:{lineno}"})
+
+        before = fused.launches_pack
+        since = time.perf_counter_ns()
+        with warnings.catch_warnings(), trace.recording():
+            warnings.simplefilter("always")
+            warnings.showwarning = record
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                t0 = time.perf_counter()
+                tr.train(PACK_START + 1 + PACK_ITERS)
+                torch.cuda.synchronize()
+                res["ms_per_iteration"] = (time.perf_counter() - t0) * 1e3 / PACK_ITERS
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        spans = trace.spans(since)
+        res["launches_pack_per_iteration"] = (fused.launches_pack - before) / PACK_ITERS
+        res["sync_spans_per_iteration"] = sum(r.name.startswith("sync.") for r in spans) / PACK_ITERS
+        res["pack_spans_per_iteration"] = sum(r.name == "mlp.pack" for r in spans) / PACK_ITERS
+        # the program's syncs (the mode may add a notice of its own)
+        sync_warnings = [s for s in syncs if s["ours"] and "synchroniz" in s["message"]]
+        res["sync_warnings"] = len(sync_warnings)
+        res["sync_sites"] = {}
+        for s in sync_warnings:
+            res["sync_sites"][s["site"]] = res["sync_sites"].get(s["site"], 0) + 1
+        res["sync_warnings_in_pack"] = sum(s["in_pack"] for s in syncs)
+        print(f"  {PACK_ITERS} Trainer iterations (configs/poster, from {PACK_START + 1}): "
+              + json.dumps({k: res[k] for k in (
+                  "ms_per_iteration", "launches_pack_per_iteration", "pack_spans_per_iteration",
+                  "sync_spans_per_iteration", "sync_warnings", "sync_warnings_in_pack",
+                  "sync_sites")}), flush=True)
+        assert res["launches_pack_per_iteration"] == STEP_PACKS, res
+        assert res["sync_warnings_in_pack"] == 0, syncs
+        assert res["sync_warnings"] <= PACK_SYNCS * PACK_ITERS, syncs
+        assert res["sync_spans_per_iteration"] == PACK_SYNCS, res
+    finally:
+        tmp.cleanup()
+    return res
 
 
 @contextlib.contextmanager
@@ -4133,7 +4288,8 @@ def main(argv=None) -> int:
         from concurrent.futures import ThreadPoolExecutor
 
         with ThreadPoolExecutor(1) as pool:
-            kernels = pool.submit(build.build_all, [(src, 256) for src in fused.SOURCES])
+            kernels = pool.submit(build.build_all, [(src, 256) for src in fused.SOURCES]
+                                  + [fused.PACK_SOURCE])
             t0 = time.perf_counter()
             torch.optim.Adam([torch.zeros(1, requires_grad=True)])  # imports torch._dynamo
             print(f"  the first Adam, while nvcc runs: {time.perf_counter() - t0:.1f} s",
@@ -4168,6 +4324,7 @@ def main(argv=None) -> int:
         "forward_kernel": lambda: forward_phase(fused, lush, cfg_mod),
         "render_image": lambda: render_phase(fused, lush, cfg_mod),
         "train_step": lambda: train_phase(fused, lush, cfg_mod, trainer),
+        "pack": lambda: pack_phase(fused, cfg_mod, trainer, NeRFMLP, MLPConfig),
         "build_rest": do_build_rest,
         "width128": lambda: width128_phase(fused, lush, cfg_mod, trainer, NeRFMLP, MLPConfig,
                                            smoke.results),

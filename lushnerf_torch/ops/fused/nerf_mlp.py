@@ -36,10 +36,21 @@ wrapper adds to its own where it launches, and nowhere else):
 `launches` counts forward kernel launches (with or without the stash),
 `launches_bwd_stash` / `launches_bwd_remat` the backward's kernel launches
 (four per point chunk: dgrad, wgrad and two fixed-order reductions; remat
-adds the forward kernel that writes the chunk's stash).  A parameter
-packing (cached per parameter version) records an `mlp.pack` span
-(`lushnerf_torch.utils.trace`), the f32 packs' range checks `sync.pack_range`
-spans: host syncs.
+adds the forward kernel that writes the chunk's stash), `launches_pack`
+the weight packs' (below), which `launches` and the backward's counters
+leave out.  A parameter packing (cached per parameter version) records an
+`mlp.pack` span (`lushnerf_torch.utils.trace`).
+
+The weight packs (`pack_params`, `pack_params_bwd`): on the CPU torch ops,
+the plain version, whose f32 range checks read the device (`sync.pack_range`
+spans) and raise at once.  On the card each pack is one launch of
+`csrc/nerf_mlp_pack.cu`, which gathers the blobs from the parameters in
+place by maps that the torch ops' layout code makes once per geometry
+(`pack_maps`; its plain version `pack_gather`), bit for bit the torch
+blobs.  Its f32 range flag comes to the host behind an event and is read
+at the module's next call of the same pack, which raises the same
+ValueError; it waits, in a `sync.pack_range` span, only if the device has
+not passed the event.
 
 The grads come in the order of `mlp.parameters()` of a `NeRFMLP`: (weight,
 bias) of pts_linears 0..7, feature, alpha, views, rgb -- 24 tensors.  The
@@ -62,9 +73,11 @@ compute_dtype:
 
 from __future__ import annotations
 
+import copy
 import ctypes
 import math
-from typing import List, NamedTuple, Optional, Tuple
+import weakref
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -205,11 +218,17 @@ BWD_MODES = ("remat", "stash")
 # 128 channels (kx or kd: their d_pe passes take 64 accumulators a thread)
 SOURCES = ("nerf_mlp_fwd", "nerf_mlp_bwd", "nerf_mlp_dgrad")
 WIDE_PE_SOURCE = "nerf_mlp_dgrad_wide"
+# the weight packs' source (one build for every width and dtype), and its
+# codes: parameter a >> PACK_OFF_BITS, at most PACK_MAX_PARAMS of them, at
+# offset a & (2^PACK_OFF_BITS - 1) (mirrors csrc/nerf_mlp_pack.cu; `pack_maps`)
+PACK_SOURCE = "nerf_mlp_pack"
+PACK_MAX_PARAMS, PACK_OFF_BITS = 32, 17
 
 # Kernel launches since they were last set to 0.
 launches = 0
 launches_bwd_stash = 0
 launches_bwd_remat = 0
+launches_pack = 0
 
 
 def _round32(n: int) -> int:
@@ -305,14 +324,15 @@ def kernel_covers(mlp_cfg, render_cfg) -> bool:
                       render_cfg.multires_views) is None
 
 
-def kernel_builds(mlp_cfgs, render_cfg) -> List[Tuple[str, int]]:
+def kernel_builds(mlp_cfgs, render_cfg) -> List[Tuple[str, Optional[int]]]:
     """The (source, width) builds the fused path launches for these MLPs
     under the render config (those `supports` and `kernel_covers` send to
-    it), for `build.build_all`."""
+    it), for `build.build_all`; the weight packs' source takes no width."""
     fused = [c for c in mlp_cfgs if supports(c, render_cfg) and kernel_covers(c, render_cfg)]
     widths = sorted({c.width for c in fused})
     wide = sorted({c.width for c in fused if 128 in pe_geometry(c)[:2]})
-    return [(src, w) for w in widths for src in SOURCES] + [(WIDE_PE_SOURCE, w) for w in wide]
+    return ([(PACK_SOURCE, None)] if fused else []) + [
+        (src, w) for w in widths for src in SOURCES] + [(WIDE_PE_SOURCE, w) for w in wide]
 
 
 def check_kernel_family(mlp_cfg, compute_dtype: str, num_freqs_x: int,
@@ -629,6 +649,11 @@ def _pack_key(mlp, compute_dtype: str):
     return (compute_dtype, tuple((p.data_ptr(), p._version) for p in mlp.parameters()))
 
 
+def _range_error(who: str) -> ValueError:
+    return ValueError(f"{who}: a weight outside the f32 kernel's fp16 parts' "
+                      f"range (|w| < {FP16_MAX / 2 ** SPLIT_SHIFT:g})")
+
+
 def split_pieces(m: torch.Tensor, who: str) -> torch.Tensor:
     """A [N][K] block as the f32 kernels' rings stream it: chunk-major over
     K in chunks of 64 columns, each chunk as the `swizzle128` layout of its
@@ -637,11 +662,15 @@ def split_pieces(m: torch.Tensor, who: str) -> torch.Tensor:
     with span("sync.pack_range"):
         in_range = bool((m.abs() * 2.0 ** SPLIT_SHIFT < FP16_MAX).all())
     if not in_range:
-        raise ValueError(f"{who}: a weight outside the f32 kernel's fp16 parts' "
-                         f"range (|w| < {FP16_MAX / 2 ** SPLIT_SHIFT:g})")
-    n_chunks = m.shape[1] // 64
-    hi, lo = (swizzle128(t).reshape(n_chunks, -1) for t in split_f16(m, SPLIT_SHIFT))
-    return torch.stack([hi, lo], 1).reshape(-1)  # per chunk: hi, then lo
+        raise _range_error(who)
+    hi, lo = (swizzle128(t) for t in split_f16(m, SPLIT_SHIFT))
+    return hi_lo_chunks(hi, lo, m.shape[1] // 64)
+
+
+def hi_lo_chunks(hi: torch.Tensor, lo: torch.Tensor, n_chunks: int) -> torch.Tensor:
+    """Two flat chunk-major layouts of n_chunks chunks each, chunk by chunk:
+    a chunk of hi, then the same chunk of lo."""
+    return torch.stack([hi.reshape(n_chunks, -1), lo.reshape(n_chunks, -1)], 1).reshape(-1)
 
 
 def split_f16(m: torch.Tensor, shift: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -667,34 +696,48 @@ def pack_params(mlp, compute_dtype: str) -> Tuple[torch.Tensor, torch.Tensor]:
     range).
 
     Packed once per parameter version: the result is cached on the module
-    and rebuilt when a parameter is replaced or changed in place.
+    and rebuilt when a parameter is replaced or changed in place.  CPU
+    parameters take torch ops (`_pack_fwd`, the plain version), whose f32
+    range check reads each matrix's check on the host and raises at once.
+    CUDA parameters take one launch of csrc/nerf_mlp_pack.cu (`_pack_cuda`,
+    counted in `launches_pack`): the same bits and no host read.  Its f32
+    range flag comes to the host behind an event and is read at this
+    module's next `pack_params` call, cache hit or not, which raises the
+    same ValueError there (and drops the cached blobs).
     """
     key = _pack_key(mlp, compute_dtype)
+    _take_range_flag(mlp, "pack_params", "_nerf_mlp_fwd_pack")
     cached = getattr(mlp, "_nerf_mlp_fwd_pack", None)
     if cached is not None and cached[0] == key:
         return cached[1]
     with span("mlp.pack"):
-        packed = _pack_fwd(mlp, compute_dtype)
+        if next(mlp.parameters()).is_cuda:
+            packed = _pack_cuda(mlp, compute_dtype, forward=True)
+        else:
+            packed = _pack_fwd(mlp, compute_dtype)
     mlp._nerf_mlp_fwd_pack = (key, packed)
     return packed
 
 
 def _pack_fwd(mlp, compute_dtype: str) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The blobs of `pack_params`, built."""
-    bf16 = compute_dtype == "bfloat16"
-    if bf16:
-        w = torch.cat([swizzle128(m.bfloat16()) for m in fwd_mats_sm90(mlp)])
-        if (w.numel() // FWD_PIECE) % 2:  # a zero piece pads an odd piece count
-            w = torch.cat([w, w.new_zeros(FWD_PIECE)])
-    else:
-        w = torch.cat([split_pieces(m, "pack_params")
-                       for m in fwd_mats_sm90(mlp, views_pe_first=True)])
-        pad = -(w.numel() // FWD_PIECE) % SPLIT_RING
-        w = torch.cat([w, w.new_zeros(pad * FWD_PIECE)])
-    w = w.contiguous()
+    """The blobs of `pack_params`, built by torch ops."""
+    if compute_dtype == "bfloat16":
+        return _fwd_layout(mlp, True, lambda m: swizzle128(m.bfloat16()),
+                           lambda t: t.bfloat16().float())
+    return _fwd_layout(mlp, False, lambda m: split_pieces(m, "pack_params"), lambda t: t)
 
-    def head(t):
-        return t.bfloat16().float() if bf16 else t
+
+def _fwd_layout(mlp, bf16: bool, pieces, head) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The layout of `pack_params`' blobs, for the torch ops and the pack
+    kernel's maps alike: the weight blob of `fwd_mats_sm90`'s matrices (in
+    f32 the views layer's PE chunk first), each laid out by pieces(m),
+    padded with zero pieces; the f32 blob of biases and heads, the heads
+    through head(t)."""
+    w = torch.cat([pieces(m) for m in fwd_mats_sm90(mlp, views_pe_first=not bf16)])
+    n_pieces = w.numel() // FWD_PIECE
+    pad = n_pieces % 2 if bf16 else -n_pieces % SPLIT_RING
+    if pad:
+        w = torch.cat([w, w.new_zeros(pad * FWD_PIECE)])
 
     L, wh = layout(mlp.cfg.width), mlp.cfg.width // 2
     fp = torch.zeros(L.fp_numel, dtype=torch.float32, device=w.device)
@@ -780,19 +823,222 @@ def pack_params_bwd(mlp, compute_dtype: str) -> torch.Tensor:
     blocks rounded to bf16.  f32: each chunk of 64 columns as the fp16 hi
     part, then the lo part, of W^T 2^SPLIT_SHIFT (`split_f16`; raises for a
     weight beyond the parts' range; `split_pieces`), the pieces the f32
-    dgrad's ring streams.  Cached as pack_params."""
+    dgrad's ring streams.  Cached as pack_params, and built as it is: torch
+    ops on the CPU (`_pack_bwd`, the plain version, raising at once), one
+    launch of csrc/nerf_mlp_pack.cu on the card, whose range flag this
+    module's next `pack_params_bwd` call reads."""
     key = _pack_key(mlp, compute_dtype)
+    _take_range_flag(mlp, "pack_params_bwd", "_nerf_mlp_bwd_pack")
     cached = getattr(mlp, "_nerf_mlp_bwd_pack", None)
     if cached is not None and cached[0] == key:
         return cached[1]
     with span("mlp.pack"):
-        if compute_dtype == "bfloat16":
-            wt = torch.cat([swizzle128(m.bfloat16()) for m in bwd_mats(mlp)])
+        if next(mlp.parameters()).is_cuda:
+            wt = _pack_cuda(mlp, compute_dtype, forward=False)
         else:
-            wt = torch.cat([split_pieces(m, "pack_params_bwd") for m in bwd_mats(mlp)])
-        wt = wt.contiguous()
+            wt = _pack_bwd(mlp, compute_dtype)
     mlp._nerf_mlp_bwd_pack = (key, wt)
     return wt
+
+
+def _pack_bwd(mlp, compute_dtype: str) -> torch.Tensor:
+    """The blob of `pack_params_bwd`, built by torch ops."""
+    if compute_dtype == "bfloat16":
+        return torch.cat([swizzle128(m.bfloat16()) for m in bwd_mats(mlp)])
+    return torch.cat([split_pieces(m, "pack_params_bwd") for m in bwd_mats(mlp)])
+
+
+# The pack kernel's maps, by (MLP class, config, compute dtype, device,
+# forward): the coarse and fine MLPs of a model share them
+_PACK_MAPS: Dict[tuple, Tuple[torch.Tensor, ...]] = {}
+
+
+@torch.no_grad()
+def pack_maps(mlp, compute_dtype: str, forward: bool) -> Tuple[torch.Tensor, ...]:
+    """The pack kernel's maps on the MLP's device: int32 codes, one a blob
+    element (csrc/nerf_mlp_pack.cu), of the forward pack's weight blob and
+    f32 blob, or (`forward` False) of the backward pack's blob.  A code c
+    is 0 for a zero fill; else |c| - 1 = j 2^PACK_OFF_BITS + i names
+    element i (flat) of parameter j of `mlp.parameters()`, and c < 0 picks
+    the second form (the lo part of an f32 split, a head rounded to bf16 in
+    the f32 blob).
+
+    Made once per MLP class, config, compute dtype and device by the torch
+    ops' own layout code (`_fwd_layout`, `bwd_mats`, `swizzle128`,
+    `hi_lo_chunks`) on a copy of the module tree whose parameters hold
+    their codes (below 2^22: exact in f32), so that the layout has one
+    source.  On a CUDA device nothing here reads the device."""
+    p0 = next(mlp.parameters())
+    key = (type(mlp), mlp.cfg, compute_dtype, p0.device, forward)
+    maps = _PACK_MAPS.get(key)
+    if maps is not None:
+        return maps
+    params = list(mlp.parameters())
+    if len(params) > PACK_MAX_PARAMS or max(p.numel() for p in params) > 1 << PACK_OFF_BITS:
+        raise ValueError(f"pack_maps: the pack kernel takes at most {PACK_MAX_PARAMS} "
+                         f"parameters of at most 2^{PACK_OFF_BITS} elements")
+    codes = _with_params(mlp, {id(p): (torch.arange(
+        p.numel(), dtype=torch.float32, device=p.device) + float((j << PACK_OFF_BITS) + 1)
+    ).view(p.shape) for j, p in enumerate(params)})
+
+    bf16 = compute_dtype == "bfloat16"
+
+    def pieces(m):  # the layout of a block; an f32 split's lo part negated
+        s = swizzle128(m)
+        return s if bf16 else hi_lo_chunks(s, -s, m.shape[1] // 64)
+
+    if forward:
+        blobs = _fwd_layout(codes, bf16, pieces, (lambda t: -t) if bf16 else (lambda t: t))
+    else:
+        blobs = (torch.cat([pieces(m) for m in bwd_mats(codes)]),)
+    maps = _PACK_MAPS[key] = tuple(b.to(torch.int32) for b in blobs)
+    return maps
+
+
+def _with_params(module, params: dict):
+    """A copy of the module tree (its own parameter and submodule tables,
+    the rest shared) whose parameter p is params[id(p)]."""
+    new = copy.copy(module)
+    new.__dict__["_parameters"] = {k: params[id(p)] for k, p in module._parameters.items()}
+    new.__dict__["_modules"] = {k: _with_params(m, params) for k, m in module._modules.items()}
+    return new
+
+
+def pack_gather(params, maps, compute_dtype: str) -> Tuple[Tuple[torch.Tensor, ...], bool]:
+    """The pack kernel's plain version: the blobs that `pack_maps`' codes
+    gather from `params` (the MLP's parameters in the order of
+    `parameters()`), and whether the kernel raises its range flag: an f32
+    weight w with |w| 2^SPLIT_SHIFT not below FP16_MAX, NaN or inf (never
+    in bf16).  The weight blob in the compute dtype's forms (f32: fp16
+    parts of w 2^SPLIT_SHIFT, hi or lo by the code's sign, `split_f16`;
+    bf16: w in bf16); the f32 blob w, or w rounded to bf16 for a negative
+    code."""
+    size = 1 << PACK_OFF_BITS
+    flat = torch.cat([F.pad(p.detach().float().reshape(-1), (0, size - p.numel()))
+                      for p in params])
+
+    def gather(c):
+        return torch.where(c != 0, flat[(c.long().abs() - 1).clamp_min(0)], 0.0)
+
+    c = maps[0]
+    w = gather(c)
+    if compute_dtype == "bfloat16":
+        blobs, bad = [w.bfloat16()], False
+    else:
+        x = w * 2.0 ** SPLIT_SHIFT
+        hi = x.half()
+        blobs = [torch.where(c >= 0, hi, (x - hi.float()).half())]
+        bad = bool((~(x.abs() < FP16_MAX)).any())
+    for c in maps[1:]:
+        w = gather(c)
+        blobs.append(torch.where(c < 0, w.bfloat16().float(), w))
+    return tuple(blobs), bad
+
+
+class _RangeFlag:
+    """An f32 CUDA pack's range flag on its way to the host: the device word
+    the pack kernel raises to the pack's generation `gen` (1, 2, ... a pack
+    of the module and kind; the word keeps the largest raised), copied to
+    pinned memory behind `event` after the launch (`send`) and read at the
+    module's next pack call of the same kind (`take`)."""
+
+    def __init__(self, device: torch.device):
+        self.word = torch.zeros(1, dtype=torch.int32, device=device)
+        self.host = torch.zeros(1, dtype=torch.int32, pin_memory=True)
+        self.event = torch.cuda.Event()
+        self.gen = 0
+        self.pending = False
+
+    def send(self, stream) -> None:
+        self.host.copy_(self.word, non_blocking=True)
+        self.event.record(stream)
+        self.pending = True
+
+    def take(self) -> bool:
+        """Whether the pack last sent found a weight out of range.  Waits
+        (a `sync.pack_range` span) only if the device has not passed the
+        copy yet."""
+        if not self.pending:
+            return False
+        self.pending = False
+        if not self.event.query():
+            with span("sync.pack_range"):
+                self.event.synchronize()
+        return int(self.host[0]) == self.gen
+
+
+# each module's range flags, by pack (`who`); weak, and off the module, so
+# that a module is copied and freed as before
+_RANGE_FLAGS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def _take_range_flag(mlp, who: str, cache_attr: str) -> None:
+    """Raises the range error that the module's last CUDA pack `who` found,
+    dropping its cached blobs so that the next call packs (and checks)
+    again."""
+    flag = _RANGE_FLAGS.get(mlp, {}).get(who)
+    if flag is not None and flag.take():
+        setattr(mlp, cache_attr, None)
+        raise _range_error(who)
+
+
+def _pack_lib() -> ctypes.CDLL:
+    lib = build.load(PACK_SOURCE)
+    if not getattr(lib, "_lushnerf_typed", False):
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.nerf_mlp_pack.argtypes = [vp, ci, vp, ci, vp, vp, ci, vp, ci, vp, ci, vp]
+        lib.nerf_mlp_pack.restype = ci
+        lib.nerf_mlp_pack_consts.argtypes = [ci]
+        lib.nerf_mlp_pack_consts.restype = ci
+        lib.nerf_mlp_pack_error_string.argtypes = [ci]
+        lib.nerf_mlp_pack_error_string.restype = ctypes.c_char_p
+        if [lib.nerf_mlp_pack_consts(i) for i in range(3)] != [
+                PACK_MAX_PARAMS, PACK_OFF_BITS, SPLIT_SHIFT]:
+            raise RuntimeError("nerf_mlp_pack: its codes or split differ from the CUDA source")
+        lib._lushnerf_typed = True
+    return lib
+
+
+def _pack_cuda(mlp, compute_dtype: str, forward: bool):
+    """One launch of csrc/nerf_mlp_pack.cu on the current stream: the blobs
+    of `pack_params` (`forward`) or `pack_params_bwd` from the module's
+    CUDA parameters in place, by `pack_maps`.  In f32 its range flag is
+    sent to the host (`_RangeFlag`); nothing here waits for the device."""
+    who = "pack_params" if forward else "pack_params_bwd"
+    params = list(mlp.parameters())
+    dev = params[0].device
+    if any(p.dtype != torch.float32 or p.device != dev or not p.is_contiguous() for p in params):
+        raise ValueError(f"{who}: the pack kernel reads contiguous float32 parameters on one "
+                         f"device")
+    bf16 = compute_dtype == "bfloat16"
+    maps = pack_maps(mlp, compute_dtype, forward)
+    w = torch.empty(maps[0].numel(), dtype=torch.bfloat16 if bf16 else torch.float16, device=dev)
+    fp = torch.empty(maps[1].numel(), dtype=torch.float32, device=dev) if forward else None
+    flag = None
+    if not bf16:
+        flags = _RANGE_FLAGS.setdefault(mlp, {})
+        flag = flags[who] = flags.get(who) or _RangeFlag(dev)
+        flag.gen += 1
+    lib = _pack_lib()
+    build.claim_device(dev.index)
+    stream = torch.cuda.current_stream(dev)
+    ptrs = (ctypes.c_void_p * len(params))(*[p.data_ptr() for p in params])
+    with torch.cuda.device(dev):
+        rc = lib.nerf_mlp_pack(
+            ptrs, len(params), maps[0].data_ptr(), maps[0].numel(), w.data_ptr(),
+            maps[1].data_ptr() if forward else None, maps[1].numel() if forward else 0,
+            fp.data_ptr() if forward else None, int(bf16),
+            None if flag is None else flag.word.data_ptr(), 1 if flag is None else flag.gen,
+            stream.cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"nerf_mlp_pack: CUDA error {rc} "
+                           f"({lib.nerf_mlp_pack_error_string(rc).decode()})")
+    global launches_pack
+    launches_pack += 1
+    if flag is not None:
+        flag.send(stream)
+    return (w, fp) if forward else w
 
 
 def _unpack_grads(mlp, dw: torch.Tensor, dfp: torch.Tensor) -> List[torch.Tensor]:

@@ -9,10 +9,13 @@ benchmark's weights into its model and sets its step to the traffic's
 `warm_iters` more.  The window calls `Trainer.train` `chunk_iters`
 iterations at a time until `--seconds` have passed, then synchronises:
 train_rays_per_s is N_rand x the iterations completed over that time.
+The program's spans record over the window (`trace.recording()`), and
+its `train.iteration` and `train.step` give the loop's and the step's host
+time of an untraced iteration.
 
 The benchmark's own host spans wrap `trainer.train_step` (as chip_smoke.py
-wraps it), `trainer.loss_fn` (the forward) and the optimizer's step; the
-rest of a train_step is the backward.
+wraps it), `trainer.loss_fn` (the forward) and the optimizer's step: the
+traced slice's idle gaps are labelled by them.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from perfbench import program, work
+from perfbench import program, program_spans, work
 from perfbench.harness import Check, Context, sync
 from perfbench.reference import train as ref_train
 from perfbench.reference.nerf import lower_precision
@@ -151,6 +154,8 @@ class Driver:
 
     # -- the window ------------------------------------------------------------
     def window(self, seconds: float) -> dict:
+        from lushnerf_torch.utils import trace
+
         trainer, dev = self.trainer, self.ctx.device
         chunk = self.tr["chunk_iters"]
         del self.losses[:]
@@ -160,11 +165,13 @@ class Driver:
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
         first = trainer.step
+        since = time.perf_counter_ns()
         t0 = time.perf_counter()
-        while time.perf_counter() - t0 < seconds:
-            a = time.perf_counter_ns()
-            trainer.train(trainer.step + chunk)
-            self.spans.append(("loop", a, time.perf_counter_ns()))
+        with trace.recording():
+            while time.perf_counter() - t0 < seconds:
+                a = time.perf_counter_ns()
+                trainer.train(trainer.step + chunk)
+                self.spans.append(("loop", a, time.perf_counter_ns()))
         sync(dev)
         elapsed = time.perf_counter() - t0
         units = trainer.step - first
@@ -172,7 +179,8 @@ class Driver:
         spans_s: Dict[str, float] = {}
         for name, a, b in self.spans:
             spans_s[name] = spans_s.get(name, 0.0) + (b - a) / 1e9
-        spans_s["trainer_loop"] = spans_s.pop("loop") - spans_s["train_step"]
+        spans_s.update(program_spans.by_unit(trace.spans(since, time.perf_counter_ns()),
+                                             ("train.iteration", "train.step"), units))
         parts = [(b - a) / 1e6 / chunk for n, a, b in self.spans if n == "loop"]
         return {"units": units, "seconds": elapsed, "failed": failed, "spans_s": spans_s,
                 "parts_ms": parts,

@@ -9,7 +9,10 @@ configuration (`configs/<name>.json`) and a traffic mix
 each per-layer metric is a reader (`metrics/<metric name>.py`); the
 kernel-name maps are `kernels/*.json`, each naming a layer role; the
 correctness limits of a cell are `limits/<cell>.json`.  Adding a cell, a
-mix, a metric or a kernel name adds files and edits none.
+mix, a metric or a kernel name adds files and edits none.  A driver's
+`setup()` may return (or leave as its `setup_readings` attribute) what its
+set-up did, host seconds by span name and counts by counter name, and the
+readers find it as `Readings.setup`.
 
 The last stdout line is one JSON object: correct, attempted, failed,
 metrics, device, with --trace 1 breakdown, and last `checks`, each number
@@ -69,13 +72,17 @@ class Readings:
     """What a per-layer metric reads (`metrics/<name>.py`'s `read`)."""
     units: int  # iterations or views completed in the window
     window_s: float
-    spans_s: Dict[str, float]  # host seconds in the window by the benchmark's own spans
+    spans_s: Dict[str, float]  # host seconds in the window by span: the benchmark's, the program's
     launches: Dict[str, int]  # the program's launch counters over the window
     peak_window_bytes: int
     work: Dict[str, float]  # FLOP and bytes a unit: fwd_flop, bwd_flop, fwd_bytes, bwd_bytes, model_flop
     dtype: str  # the configuration's compute dtype, which picks the peak
     trace: Optional[Any]  # devtrace.DeviceTrace of the traced slice
     roles: Dict[str, List[str]]  # kernel-name patterns by role
+    # what the driver's set-up did: {"spans_s": {span: host seconds},
+    # "counts": {counter: count}}, both empty where it says nothing
+    setup: Dict[str, Dict[str, float]] = dataclasses.field(
+        default_factory=lambda: {"spans_s": {}, "counts": {}})
 
 
 def load_json(path: Path) -> dict:
@@ -116,6 +123,13 @@ def context(spec: dict, cell: str, seed: int, device, root: Path = PKG) -> Conte
 def make_driver(ctx: Context, root: Path = PKG):
     name = ctx.traffic["driver"]
     return load_module(root / "drivers" / f"{name}.py", f"perfbench_driver_{name}").Driver(ctx)
+
+
+def setup_readings(driver, returned) -> Dict[str, Dict[str, float]]:
+    """What the driver's set-up did: the dict its setup() returned, else its
+    `setup_readings` attribute, else nothing; as {"spans_s", "counts"}."""
+    got = returned if returned is not None else getattr(driver, "setup_readings", None) or {}
+    return {"spans_s": dict(got.get("spans_s", {})), "counts": dict(got.get("counts", {}))}
 
 
 def forbidden_modules() -> List[str]:
@@ -198,7 +212,7 @@ def drive(spec: dict, cell: str, seed: int, seconds: float, traced: bool, device
     ctx = context(spec, cell, seed, device, root)
     driver = make_driver(ctx, root)
     cuda = device.type == "cuda"
-    driver.setup()
+    did = setup_readings(driver, driver.setup())
     sync(device)
     setup_s = time.perf_counter() - t_start
     with HostWatch() as host:
@@ -214,7 +228,9 @@ def drive(spec: dict, cell: str, seed: int, seconds: float, traced: bool, device
           f"{win['units']} {driver.unit}s, check {time.perf_counter() - t_check:.3f} s; "
           f"ms a {driver.unit} in the window's parts: min {parts[0]:.2f}, median "
           f"{parts[len(parts) // 2]:.2f}, max {parts[-1]:.2f}; host in the window: "
-          f"{host.describe()}", file=sys.stderr)
+          f"{host.describe()}; host s by span: "
+          f"{', '.join(f'{k} {v:.4f}' for k, v in sorted(win['spans_s'].items()))}",
+          file=sys.stderr)
     if tr is not None and tr.units and win["units"]:
         traced_ms, window_ms = tr.span_us / 1e3 / tr.units, 1e3 * win["seconds"] / win["units"]
         ops = len(tr.ops) / tr.units
@@ -231,7 +247,7 @@ def drive(spec: dict, cell: str, seed: int, seconds: float, traced: bool, device
         readings = Readings(units=win["units"], window_s=win["seconds"], spans_s=win["spans_s"],
                             launches=win["launches"], peak_window_bytes=win["peak_bytes"],
                             work=driver.work(), dtype=ctx.config["config"]["mlp_compute_dtype"],
-                            trace=tr, roles=kernel_roles(root))
+                            trace=tr, roles=kernel_roles(root), setup=did)
         result["metrics"] = per_layer(spec, cell, readings, root)
         if tr is not None:
             device_info["busy_s"] = tr.busy_us / 1e6

@@ -1,7 +1,8 @@
 """Shared arithmetic of the per-layer metrics that read the program's own
 spans (`lushnerf_torch.utils.trace`): those recorded inside the traced
 slice's host window, put on the device trace's clock through the slice's
-marker (`DeviceTrace.offset_us`), a unit at a time.
+marker (`DeviceTrace.offset_us`), a unit at a time; and (`by_unit`) those
+a driver records over its untraced window under `trace.recording()`.
 
 A name ending in "." selects every span under it ("sync." is each host
 sync).  Each function returns None where the slice holds no program span
@@ -13,7 +14,7 @@ from __future__ import annotations
 
 import bisect
 import math
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 
 def slice_records(tr) -> Optional[list]:
@@ -29,6 +30,25 @@ def slice_records(tr) -> Optional[list]:
     since = math.floor(1e3 * (tr.start_us - tr.offset_us))
     until = math.ceil(1e3 * (tr.end_us - tr.offset_us))
     return trace.spans(since, until) or None
+
+
+def by_unit(records, names, units: int) -> Dict[str, float]:
+    """Host seconds over a window's `units` in the spans of each of `names`,
+    from the program's records of that window.  A span carries its unit's
+    key (the iteration under `train.iteration`); only the units that hold a
+    span of every name count, and their sums are scaled to all `units`: the
+    program's ring keeps the newest records, so a window longer than it
+    holds loses its first units whole or in part.  Empty where no unit
+    holds them all."""
+    ns: Dict[str, Dict[object, int]] = {n: {} for n in names}
+    for r in records:
+        if r.name in ns and r.key is not None:
+            ns[r.name][r.key] = ns[r.name].get(r.key, 0) + r.end_ns - r.start_ns
+    keys = set.intersection(*(set(d) for d in ns.values()))
+    if not keys:
+        return {}
+    scale = units / len(keys)
+    return {n: scale * sum(d[k] for k in keys) / 1e9 for n, d in ns.items()}
 
 
 def _named(recs, name: str) -> list:

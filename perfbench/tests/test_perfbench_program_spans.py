@@ -107,3 +107,53 @@ def test_each_reader(recorded, name, value):
                  work={}, dtype="float32", trace=make(), roles={})
     assert reader.read(r) == pytest.approx(value)
     assert reader.read(Readings(**dict(r.__dict__, trace=None))) is None
+
+
+def keyed(name, key, a_us, b_us):
+    return trace.Record(name, int(a_us * 1e3), int(b_us * 1e3), 1, None, key,
+                        int((b_us - a_us) * 1e3))
+
+
+# three iterations of a window: each a train.iteration span keyed by its
+# iteration, a train.step inside it (the key inherited), and other spans
+WINDOW = [
+    keyed("train.next_batch", 1, 0, 1), keyed("train.step", 1, 2, 10),
+    keyed("train.iteration", 1, 0, 11),
+    keyed("train.next_batch", 2, 11, 12), keyed("train.step", 2, 13, 23),
+    keyed("train.iteration", 2, 11, 25),
+    keyed("train.step", 3, 26, 38), keyed("train.iteration", 3, 25, 40),
+    keyed("mlp.bwd", None, 30, 31),
+]
+NAMES = ("train.iteration", "train.step")
+
+
+def test_by_unit_sums_each_name_over_the_units():
+    got = program_spans.by_unit(WINDOW, NAMES, 3)
+    assert got == pytest.approx({"train.iteration": 40e-6, "train.step": 30e-6})
+
+
+def test_by_unit_scales_what_the_ring_kept_to_every_unit():
+    # the ring lost the window's first records: iteration 1 whole, and
+    # iteration 2's step, whose iteration span (ending later) it kept
+    kept = WINDOW[4:]
+    got = program_spans.by_unit(kept[1:], NAMES, 3)
+    assert got == pytest.approx({"train.iteration": 3 * 15e-6, "train.step": 3 * 12e-6})
+    assert program_spans.by_unit([], NAMES, 3) == {}
+    assert program_spans.by_unit(WINDOW[:2], NAMES, 3) == {}
+
+
+@pytest.mark.parametrize("name,value", [
+    ("loop_host_ms.train", (40 - 30) * 1e-3 / 3),
+    ("step_host_ms.train", 30 * 1e-3 / 3),
+])
+def test_the_window_readers(name, value):
+    from perfbench.harness import Readings
+
+    reader = load_module(PKG / "metrics" / f"{name}.py", "perfbench_metric_test")
+    spans_s = dict(program_spans.by_unit(WINDOW, NAMES, 3), train_step=1.0, loop=1.0)
+    r = Readings(units=3, window_s=1.0, spans_s=spans_s, launches={}, peak_window_bytes=0,
+                 work={}, dtype="float32", trace=None, roles={})
+    assert reader.read(r) == pytest.approx(value)
+    # the benchmark's own spans alone are not the program's
+    assert reader.read(Readings(**dict(r.__dict__, spans_s={"train_step": 1.0,
+                                                           "loop": 1.0}))) is None

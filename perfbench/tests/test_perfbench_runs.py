@@ -168,3 +168,65 @@ def test_the_control_at_the_cells_size(card, cell):
         got = control.readings(spec, cell, seed, card)
         assert all(v <= limits[k] for k, v in got["program"].items()), got
         assert any(v > limits[k] for k, v in got["control"].items()), got
+
+
+PROBE_DRIVER = '''"""The render driver, saying what its set-up did."""
+
+import time
+from pathlib import Path
+
+from perfbench.harness import load_module
+
+Base = load_module(Path(__file__).with_name("render.py"), "perfbench_driver_render_base").Driver
+
+
+class Driver(Base):
+    def setup(self):
+        t0 = time.perf_counter()
+        super().setup()
+        did = {"spans_s": {"render.first_view": time.perf_counter() - t0},
+               "counts": {"views": 1}}
+        if self.tr["says"] == "returns":
+            return did
+        self.setup_readings = did
+'''
+
+
+def add_a_setup_reader(root, spec, cells):
+    """A reader of the set-up's readings, listed for `cells`."""
+    (root / "metrics" / "setup_views.render.py").write_text(
+        '"""Views the set-up rendered, and whether it timed them."""\n\n\ndef read(r):\n'
+        '    return r.setup["counts"].get("views", 0) + len(r.setup["spans_s"])\n')
+    spec["per_layer"].append({"name": "setup_views.render", "unit": "views", "better": "lower",
+                              "source": "program_counter", "layer": "device",
+                              "moves": "render_rays_per_s", "workloads": cells})
+
+
+@pytest.mark.parametrize("says", ["returns", "attribute"])
+def test_a_drivers_set_up_readings_reach_a_reader(tiny, says):
+    root, spec = tiny
+    (root / "drivers" / "render_probe.py").write_text(PROBE_DRIVER)
+    (root / "traffic" / "render_probe.json").write_text(json.dumps(
+        dict(harness.load_json(root / "traffic" / "render.json"), driver="render_probe",
+             says=says)))
+    (root / "limits" / "poster.render_probe.json").write_text(
+        (root / "limits" / "poster.render.json").read_text())
+    cell = "poster.render_probe"
+    spec["workloads"].append({"name": cell, "config": "poster", "traffic": "render_probe",
+                              "chips": 1, "why": "w"})
+    next(m for m in spec["end_to_end"] if m["name"] == "render_rays_per_s")["workloads"].append(
+        cell)
+    add_a_setup_reader(root, spec, [cell, "poster.render"])
+    res = drive(root, spec, cell, traced=True)
+    assert res["correct"] and res["metrics"]["setup_views.render"]["value"] == 2
+    # a driver that says nothing gives the readers empty readings
+    res = drive(root, spec, "poster.render", traced=True)
+    assert res["metrics"]["setup_views.render"]["value"] == 0
+
+
+def test_the_train_window_reads_the_programs_spans(tiny):
+    root, spec = tiny
+    res = drive(root, spec, "poster.train", traced=True)
+    step, loop = (res["metrics"][m]["value"] for m in ("step_host_ms.train",
+                                                        "loop_host_ms.train"))
+    assert step > 0 and loop > 0

@@ -11,9 +11,9 @@ The tables live on the host as numpy, as lushnerf_tpu keeps them: each
 consist iteration draws one anchor view and 32 columns with a numpy
 `Generator` (so the draws are the JAX package's bits) and uploads only the
 [V, 32, 2] + [V, 32] slice it gathered.  Pure numpy, a copy of
-lushnerf_tpu/matcher/api.py (the port imports nothing of that package),
-plus `nearest_resize` and `load_gt_depths` for `matcher = gt`.  The
-matchers:
+lushnerf_tpu/matcher/api.py (the port imports nothing of that package)
+whose `save` writes its .npz uncompressed, plus `nearest_resize` and
+`load_gt_depths` for `matcher = gt`.  The matchers:
 
   * `GridStubMatcher` -- identity grid at constant certainty (`stub`)
   * `GroundTruthMatcher` -- geometry-exact matches from depth maps (`gt`)
@@ -63,7 +63,10 @@ class MatchTables:
         return anchor, kp[..., 2:4], cert
 
     def save(self, path):
-        np.savez_compressed(path, kpts=self.kpts, certainty=self.certainty)
+        """An uncompressed .npz (np.load reads it as it reads a compressed
+        one): the tables of 25 views at 65,536 columns are 0.82 GB, which
+        zlib took ~90 s to write on an H100 host, inside every rematch."""
+        np.savez(path, kpts=self.kpts, certainty=self.certainty)
 
     @classmethod
     def load(cls, path) -> "MatchTables":

@@ -39,6 +39,7 @@ from lushnerf_torch.matcher.dkm.nn import (
     meshgrid_coords,
 )
 from lushnerf_torch.matcher.dkm.resnet import BLOCKS, Encoder
+from lushnerf_torch.utils.trace import span
 
 DFN_DIM = 384
 COARSE_SCALES = (32, 16)
@@ -376,22 +377,34 @@ class DKMMatcher:
         images: [V, H, W, 3] f32.  Returns numpy (kpts [n_pairs, P, 4],
         certainty [n_pairs, P]): what per-pair match() gives for the query
         direction, from one encoder pass a view (cached on the device) and
-        single-direction decoder calls of pair_batch pairs."""
+        single-direction decoder calls of pair_batch pairs.
+
+        Spans: one `dkm.encode` over the views' encoder passes, ending on
+        its one sync (`sync.dkm_encode`), and a `dkm.decode` a pair batch
+        (its decoder call and its tables' copy to the host, which waits on
+        the device)."""
         pairs = list(pairs)
         H, W = images.shape[1:3]
         with torch.inference_mode(), full_f32():
-            pyr = self.encode(images, sorted({k for k, _ in pairs} | {v for _, v in pairs}))
+            with span("dkm.encode"):
+                pyr = self.encode(images, sorted({k for k, _ in pairs} | {v for _, v in pairs}))
+                with span("sync.dkm_encode"):
+                    if self.device.type == "cuda":
+                        torch.cuda.synchronize(self.device)
             coords = meshgrid_coords(self.hs, self.ws, self.device)
             kpts_l, cert_l = [], []
             pb = max(1, self.pair_batch)
             for lo in range(0, len(pairs), pb):
                 chunk = pairs[lo: lo + pb]
-                pyr_q = {s: torch.cat([pyr[k][s] for k, _ in chunk]) for s in pyr[chunk[0][0]]}
-                pyr_s = {s: torch.cat([pyr[v][s] for _, v in chunk]) for s in pyr[chunk[0][0]]}
-                flow, cert = dkm_match_from_pyramids(self.model, pyr_q, pyr_s)
-                for bi in range(len(chunk)):
-                    matches = torch.cat([coords, flow[bi]], dim=-1).reshape(-1, 4)
-                    k0, k1, c = self._to_kpts(matches, cert[bi].reshape(-1), H, W)
-                    kpts_l.append(np.concatenate([k0, k1], -1))
-                    cert_l.append(c)
+                with span("dkm.decode"):
+                    pyr_q = {s: torch.cat([pyr[k][s] for k, _ in chunk])
+                             for s in pyr[chunk[0][0]]}
+                    pyr_s = {s: torch.cat([pyr[v][s] for _, v in chunk])
+                             for s in pyr[chunk[0][0]]}
+                    flow, cert = dkm_match_from_pyramids(self.model, pyr_q, pyr_s)
+                    for bi in range(len(chunk)):
+                        matches = torch.cat([coords, flow[bi]], dim=-1).reshape(-1, 4)
+                        k0, k1, c = self._to_kpts(matches, cert[bi].reshape(-1), H, W)
+                        kpts_l.append(np.concatenate([k0, k1], -1))
+                        cert_l.append(c)
         return np.stack(kpts_l), np.stack(cert_l)

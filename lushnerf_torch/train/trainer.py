@@ -162,10 +162,11 @@ def loss_fn(
     if stage != "naive" and cfg.snd_l1 > 0.0 and cfg.use_snd:
         loss = loss + cfg.snd_l1 * torch.mean(out["rgb_noise"])
     if consist is not None:
-        rgb_align = render_aligned_pixels(model, cfg, H, W, consist["K"], consist["poses"],
-                                          consist["align_pix"])
-        closs = consistency_loss(rgb_align, consist["certainty"], consist["threshold"])
-        loss = loss + consist["weight"] * closs
+        with span("train.consist"):
+            rgb_align = render_aligned_pixels(model, cfg, H, W, consist["K"], consist["poses"],
+                                              consist["align_pix"])
+            closs = consistency_loss(rgb_align, consist["certainty"], consist["threshold"])
+            loss = loss + consist["weight"] * closs
     return loss, mse
 
 
@@ -689,14 +690,19 @@ class Trainer:
         saved as match_tables_{i:06d}.npz.  Renders and pairs are striped
         over the ranks and gathered: the tables are the same on every rank,
         each matching 1 / world of the pairs (lushnerf_tpu's trainer
-        :584-622)."""
-        renders, _, _ = self._render_poses(self.poses[self.i_train])
-        self.match_tables = self._build_tables_striped(renders.cpu().numpy())
-        if self.H_eval != self.H:
-            s = np.array([self.W / self.W_eval, self.H / self.H_eval] * 2, np.float32)
-            self.match_tables.kpts *= s
+        :584-622).  Spans: `rematch.render` (the renders, gathered to the
+        host), `rematch.match` (the tables) and `rematch.save`."""
+        with span("rematch.render"):
+            renders, _, _ = self._render_poses(self.poses[self.i_train])
+            renders = renders.cpu().numpy()
+        with span("rematch.match"):
+            self.match_tables = self._build_tables_striped(renders)
+            if self.H_eval != self.H:
+                s = np.array([self.W / self.W_eval, self.H / self.H_eval] * 2, np.float32)
+                self.match_tables.kpts *= s
         if self.rank == 0:
-            self.match_tables.save(self.exp_dir / f"match_tables_{i:06d}.npz")
+            with span("rematch.save"):
+                self.match_tables.save(self.exp_dir / f"match_tables_{i:06d}.npz")
 
     def _build_tables_striped(self, renders: np.ndarray) -> MatchTables:
         """The V x V ordered pairs of renders [V, H, W, 3] matched, every
